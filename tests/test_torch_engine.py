@@ -1,0 +1,195 @@
+"""The port's round engines against the JAX scalar engine, on the CPU.
+
+Same data, same config, same seeds: per round, ``bytes_total`` and
+``active`` exactly equal and accuracy within 5e-3; ``messages_sent`` exactly
+equal; final weights within 1e-4 (float32 GEMM sums in other orders, the
+bound the reference's own engines are held to). Also: configurations outside
+this slice raise, the default device is CUDA and raises without one, and
+nothing in the port imports JAX or the reference package. The reference is
+imported only where it is run, so the cuda-marked test also runs on a GPU
+host without JAX.
+"""
+import ast
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.data import iid_split, synth_mnist  # bitwise the reference's
+from repro_torch.fl import IPLSSimulation, SimConfig, make_simulation
+from repro_torch.fl.local_trainer import LocalTrainer
+from repro_torch.kernels.ipls_aggregate import ops
+from repro_torch.p2p.network import LOSSY
+
+REPO = Path(__file__).resolve().parent.parent
+PERFECT_CONFIGS = [
+    dict(num_agents=5, num_partitions=8, pi=2, rho=2),
+    dict(num_agents=4, num_partitions=6, pi=2, rho=1),
+    # more agents than partition slots: some agents own nothing
+    dict(num_agents=10, num_partitions=6, pi=2, rho=2, eval_agents=3),
+    dict(num_agents=6, num_partitions=5, pi=2, rho=3),
+]
+CHURN = {1: [(2, "offline")], 2: [(4, "leave"), (2, "online")], 3: [(5, "join"), (1, "crash")]}
+
+
+@pytest.fixture(scope="module")
+def data():
+    return synth_mnist(num_train=1500, num_test=300, seed=0)
+
+
+_JAX_RUNS = {}
+
+
+def _jax_run(data, kw):
+    """The JAX scalar engine on one config, run once per module."""
+    from repro.fl import IPLSSimulation as JaxScalar
+    from repro.fl import SimConfig as JaxConfig
+    from repro.p2p.network import LOSSY as JAX_LOSSY
+
+    key = repr(sorted(kw.items()))
+    if key not in _JAX_RUNS:
+        x_tr, y_tr, x_te, y_te = data
+        if kw.get("conditions") is LOSSY:  # the reference's own LOSSY object
+            kw = dict(kw, conditions=JAX_LOSSY)
+        cfg = JaxConfig(**kw)
+        shards = iid_split(x_tr, y_tr, cfg.num_agents, seed=0)
+        sim = JaxScalar(cfg, shards, x_te, y_te)
+        sim.run()
+        _JAX_RUNS[key] = sim
+    return _JAX_RUNS[key]
+
+
+def _port_run(data, kw, engine):
+    x_tr, y_tr, x_te, y_te = data
+    cfg = SimConfig(engine=engine, **kw)
+    shards = iid_split(x_tr, y_tr, cfg.num_agents, seed=0)
+    sim = make_simulation(cfg, shards, x_te, y_te, device="cpu")
+    sim.run()
+    return sim
+
+
+def _weights(sim):
+    if hasattr(sim, "agent_weights"):
+        return sim.agent_weights()
+    live = [a for a, ag in sim.agents.items() if ag.live]
+    return np.stack([sim.agents[a].load_model() for a in live])
+
+
+def _messages(sim):
+    return sim.messages_sent if hasattr(sim, "agent_weights") else sim.net.pubsub.messages_sent
+
+
+def _assert_matches_jax(jsim, psim):
+    for mj, mp in zip(jsim.history, psim.history, strict=True):
+        assert mj["round"] == mp["round"] and mj["active"] == mp["active"]
+        assert mj["bytes_total"] == mp["bytes_total"]
+        np.testing.assert_allclose(mp["acc_mean"], mj["acc_mean"], atol=5e-3)
+    assert _messages(psim) == jsim.net.pubsub.messages_sent
+    np.testing.assert_allclose(_weights(psim), _weights(jsim), atol=1e-4)
+
+
+@pytest.mark.parametrize("engine", ["scalar", "vectorized"])
+@pytest.mark.parametrize("kw", PERFECT_CONFIGS)
+def test_engines_match_jax_scalar_under_perfect(data, kw, engine):
+    kw = dict(kw, rounds=4, local_iters=3)
+    _assert_matches_jax(_jax_run(data, kw), _port_run(data, kw, engine))
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(conditions=LOSSY),
+        dict(wire_dtype="int8"),
+        dict(conditions=LOSSY, churn=CHURN),
+    ],
+)
+def test_scalar_engine_matches_jax_beyond_perfect(data, kw):
+    """The scalar engine is the reference's numpy protocol, so lossy
+    networks, the int8 wire and churn already run on it."""
+    kw = dict(num_agents=5, num_partitions=6, pi=2, rho=2, rounds=4, local_iters=2, **kw)
+    jsim = _jax_run(data, kw)
+    psim = _port_run(data, kw, "scalar")
+    _assert_matches_jax(jsim, psim)
+    assert psim.net.pubsub.messages_dropped == jsim.net.pubsub.messages_dropped
+
+
+def test_vectorized_runs_no_kernel_on_cpu(data):
+    """On the CPU the aggregation takes the plain version: no launch."""
+    before = ops.aggregate_batched.LAUNCHES
+    kw = dict(PERFECT_CONFIGS[0], rounds=1, local_iters=1)
+    sim = _port_run(data, kw, "vectorized")
+    assert ops.aggregate_batched.LAUNCHES == before
+    assert sim.device_dispatches == 1
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(conditions=LOSSY),
+        dict(wire_dtype="int8"),
+        dict(churn={1: [(3, "offline")]}),
+        dict(scan_rounds=2),
+        dict(telemetry=True),
+    ],
+)
+def test_out_of_slice_configs_raise(data, kw):
+    x_tr, y_tr, x_te, y_te = data
+    cfg = SimConfig(num_agents=4, rounds=2, engine="vectorized", **kw)
+    shards = iid_split(x_tr, y_tr, 4, seed=0)
+    with pytest.raises(NotImplementedError):
+        make_simulation(cfg, shards, x_te, y_te, device="cpu")
+    if kw.get("telemetry"):
+        with pytest.raises(NotImplementedError):
+            IPLSSimulation(dataclasses.replace(cfg, engine="scalar"), shards, x_te, y_te, "cpu")
+    with pytest.raises(ValueError):
+        make_simulation(dataclasses.replace(cfg, engine="nope"), shards, x_te, y_te, "cpu")
+
+
+def test_default_device_is_cuda_and_raises_without_it(data):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    x_tr, y_tr, x_te, y_te = data
+    shards = iid_split(x_tr, y_tr, 4, seed=0)
+    for engine in ("scalar", "vectorized"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_simulation(SimConfig(num_agents=4, engine=engine), shards, x_te, y_te)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LocalTrainer(0, x_tr, y_tr)
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [
+        (str(f.relative_to(REPO)), mod)
+        for f in files
+        for mod in _imports(f)
+        if mod.split(".")[0] in {"jax", "jaxlib", "repro"}
+    ]
+    assert bad == []
+
+
+@pytest.mark.cuda
+def test_vectorized_on_cuda_matches_scalar_on_cpu(data):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m cuda on a GPU host)")
+    kw = dict(PERFECT_CONFIGS[0], rounds=3, local_iters=3)
+    x_tr, y_tr, x_te, y_te = data
+    shards = iid_split(x_tr, y_tr, kw["num_agents"], seed=0)
+    before = ops.aggregate_batched.LAUNCHES
+    vsim = make_simulation(SimConfig(engine="vectorized", **kw), shards, x_te, y_te)
+    vsim.run()
+    assert ops.aggregate_batched.LAUNCHES == before + kw["rounds"]
+    _assert_matches_jax(_port_run(data, kw, "scalar"), vsim)
