@@ -1,8 +1,8 @@
 """Wire codecs: how partition payloads travel the simulated network.
 
-Counterpart of ``repro.core.wire`` (the numpy codec, bit for bit). The row
-helpers that quantize whole device planes come with the int8 slice of the
-batched engine.
+Counterpart of ``repro.core.wire``: the numpy codec, bit for bit, and the
+row helpers that quantize whole device planes of the batched engine through
+the codec kernels (``kernels/quantize``).
 
 Two formats, selected by ``SimConfig.wire_dtype``:
 
@@ -37,6 +37,9 @@ from __future__ import annotations
 from typing import Tuple, Union
 
 import numpy as np
+import torch
+
+from repro_torch.kernels.quantize.ops import dequantize, quantize
 
 BLOCK = 1024  # must match repro.core.wire.BLOCK (asserted in tests)
 
@@ -138,3 +141,39 @@ def make_wire(wire_dtype: str):
     if wire_dtype == "int8":
         return Int8Wire()
     raise ValueError(f"unknown wire_dtype {wire_dtype!r} (expected 'f32' or 'int8')")
+
+
+# ---------------------------------------------------------------------------
+# Row helpers for the batched engine: quantize whole (..., M) planes, M a
+# multiple of BLOCK (partition tails padded with zeros quantize to zero
+# blocks, matching the scalar codec's per-slice padding exactly). Each row is
+# whole blocks, so the flattened plane goes through the codec kernels in ONE
+# launch and quantizes exactly as its rows would one by one.
+# ---------------------------------------------------------------------------
+
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    if t.shape[-1] % BLOCK:
+        raise ValueError(f"rows of {t.shape[-1]} values are not whole {BLOCK}-blocks")
+    return t.contiguous().reshape(-1)
+
+
+def quantize_rows(x: torch.Tensor, err: torch.Tensor):
+    """x, err: (..., M) float32, M % BLOCK == 0. Returns (q int8 (..., M),
+    scales float32 (..., M//BLOCK), new_err float32 (..., M))."""
+    shp = x.shape
+    q, scales, new_err = quantize(_flat(x), _flat(err))
+    return q.reshape(shp), scales.reshape(*shp[:-1], shp[-1] // BLOCK), new_err.reshape(shp)
+
+
+def dequantize_rows(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """q: (..., M) int8, scales: (..., M//BLOCK) float32. Returns float32
+    (..., M)."""
+    return dequantize(_flat(q), scales.contiguous().reshape(-1)).reshape(q.shape)
+
+
+def qdq_rows(x: torch.Tensor) -> torch.Tensor:
+    """Stateless quantize->dequantize: what a value payload looks like after
+    one trip over the int8 wire."""
+    q, scales, _ = quantize_rows(x, torch.zeros_like(x))
+    return dequantize_rows(q, scales)

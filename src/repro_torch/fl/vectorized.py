@@ -1,9 +1,12 @@
 """Vectorized IPLS round engine on PyTorch: whole-round batching across agents.
 
-Counterpart of ``repro.fl.vectorized`` for PERFECT network conditions, the
-f32 wire and a fixed membership. The scalar engine (`fl/rounds.py`) trains
-one agent at a time and reduces one partition at a time in numpy; this
-engine runs the same per-round dataflow as a few batched device phases:
+Counterpart of ``repro.fl.vectorized`` for a fixed membership and one round
+per device program (``scan_rounds=0``). The scalar engine (`fl/rounds.py`)
+trains one agent at a time and reduces one partition at a time in numpy;
+this engine runs the same per-round dataflow as a few batched device phases,
+on one of two paths.
+
+PERFECT network, f32 wire (the phase-table path):
 
   1. ``build_W``: every agent's flat weights, assembled as one (A, N) matrix
      from the per-instance value tables;
@@ -15,22 +18,42 @@ engine runs the same per-round dataflow as a few batched device phases:
      then replica consensus;
   4. ``eval_rows``: evaluation of the (sub-sampled) agents in one batch.
 
-Only the small per-instance value tables (V_pre, V_merged, eps) persist
-between rounds; the (A, N) matrices live and die inside the round.
-
-Exactness: under PERFECT conditions with a fixed membership the scalar
-engine is deterministic — every agent sends each non-owned partition's delta
-to holder `H(k)[(round + agent) % rho_k]`, holders aggregate
+Under PERFECT conditions with a fixed membership the scalar engine is
+deterministic — every agent sends each non-owned partition's delta to
+holder `H(k)[(round + agent) % rho_k]`, holders aggregate
 `w -= eps * sum(deltas)` with the eps recursion, replicas mean-merge AFTER
 replies are served (so caches hold pre-merge per-replica values), and agents
-assemble owned->merged / cached->pre-merge views. This engine replicates
-exactly that, including the per-agent batch RNG streams, so the two engines
-agree to float tolerance round by round (tests/test_torch_engine.py).
-Traffic is computed in closed form and matches the scalar pubsub counters
-exactly.
+assemble owned->merged / cached->pre-merge views. This path replicates
+exactly that, with traffic in closed form.
 
-Lossy networks, the int8 wire, churn and multi-round windows are later
-slices of the port; such configurations raise NotImplementedError.
+LOSSY networks (loss, delays of any length) and the int8 wire (the
+event-driven path, the reference's kernel path): per-message fates come
+from the keyed counter-based stream (`fl/rounds.MessageFates`) that the
+scalar engine's pubsub reads one message at a time, so both engines see
+identical loss/delay decisions. A host control plane (`_control_round`,
+integer/boolean numpy over (A, K)) draws each round's fates, drains
+bounded-depth event rings (serves, arrivals, replica merges, cache writes)
+in the scalar inbox order, replays the eps recursion in float64, and counts
+traffic exactly as the pubsub would. The device holds the value plane, an
+explicit (A, K, S) cache plane, the in-flight delta ring (depth = max
+delay in rounds) and the value-history rings late messages read from. Each
+round: ``_pre`` (cache writes drained before LoadModel, weight assembly),
+SGD, ``_core`` (aggregation through the CUDA kernel, version-filtered
+replica consensus, reply-driven cache writes, evaluation). On the int8 wire
+the delta plane is quantized with error feedback (`kernels/quantize`), the
+ring carries codes and scales, and the quantized aggregation kernel
+dequantizes inside its sum; every value that crossed the wire is stored as
+its quantize->dequantize image. int8 runs this path under PERFECT
+conditions too: quantized replica consensus gives each holder its own
+merged value, which the phase tables cannot represent.
+
+On the CPU both paths run the same dataflow with the kernels' plain
+versions, so the CPU tests test what the card runs. Both engines agree to
+float tolerance round by round, traffic counters exactly
+(tests/test_torch_engine.py, test_torch_lossy.py, test_torch_int8.py).
+
+Churn and multi-round windows are later slices of the port; such
+configurations raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -41,28 +64,38 @@ import numpy as np
 import torch
 
 from repro_torch.core.partition import unflatten_params
-from repro_torch.core.wire import wire_size
+from repro_torch.core.wire import BLOCK, qdq_rows, quantize_rows, wire_size
 from repro_torch.device import resolve_device
-from repro_torch.fl.rounds import IPLSSimulation, eval_subset
-from repro_torch.kernels.ipls_aggregate.ops import aggregate_batched
+from repro_torch.fl.rounds import (
+    CH_FETCH,
+    CH_FETCH_REPLY,
+    CH_REPLICA,
+    CH_UPDATE,
+    CH_UPDATE_REPLY,
+    TICKS_PER_ROUND,
+    IPLSSimulation,
+    MessageFates,
+    eval_subset,
+)
+from repro_torch.kernels.ipls_aggregate.ops import aggregate_batched, aggregate_batched_q
 from repro_torch.models import mlp_mnist
 from repro_torch.telemetry import NULL_TIMER
+
+# cache-event value sources (see _control_round)
+_KIND_START = 0  # holder value at the start of the serve round (fetch reply)
+_KIND_AGG = 1  # holder value after aggregation, pre-merge (UpdateModel reply)
 
 
 def _check_in_slice(cfg) -> None:
     later = []
-    if cfg.conditions.loss_prob > 0 or cfg.conditions.delay_prob > 0:
-        later.append("lossy or delayed network conditions (the LOSSY slice)")
-    if cfg.wire_dtype != "f32":
-        later.append(f"wire_dtype={cfg.wire_dtype!r} (the int8 slice)")
     if cfg.scan_rounds:
         later.append("scan_rounds > 0 (the multi-round window slice)")
     if cfg.churn:
         later.append("churn (the churn re-snapshot slice)")
     if later:
         raise NotImplementedError(
-            "the port's vectorized engine runs PERFECT conditions on the f32 wire "
-            "with a fixed membership; not yet ported: " + "; ".join(later)
+            "the port's vectorized engine runs a fixed membership one round at a "
+            "time; not yet ported: " + "; ".join(later)
         )
 
 
@@ -79,8 +112,8 @@ class VectorizedIPLSSimulation:
         _check_in_slice(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
-        # round programs run on the device: one per round (the reference
-        # counts its jitted calls the same way)
+        # device programs per round (the reference counts its jitted calls
+        # the same way): one on the PERFECT path, 2 + buckets on the event path
         self.device_dispatches = 0
         # phase timer: assign a telemetry.PhaseTimer to time the round phases
         self.timer = NULL_TIMER
@@ -91,6 +124,10 @@ class VectorizedIPLSSimulation:
         self.table = seed_sim.table
         self.layout = seed_sim.layout
         self.history: List[dict] = []
+        self._int8 = cfg.wire_dtype == "int8"
+        self._lossy = (
+            cfg.conditions.loss_prob > 0 or cfg.conditions.delay_prob > 0 or self._int8
+        )
 
         A = cfg.num_agents
         K = self.spec.num_partitions
@@ -112,28 +149,33 @@ class VectorizedIPLSSimulation:
         self._inst_k = np.asarray(inst_k, np.int64)
         self._inst_owner = np.asarray(inst_owner, np.int64)
         rho = np.asarray([len(h) for h in holders], np.int64)
+        self._rho = rho
+        # (K, max_rho) instance id per (partition, replica slot); -1 pad
+        self._slot_inst = np.full((K, int(rho.max())), -1, np.int64)
+        for (k, j), i in inst_id.items():
+            self._slot_inst[k, j] = i
+        # instance rows are k-major: partition k's instances are one row range
+        self._inst_rows = [
+            (int(np.searchsorted(self._inst_k, k)), int(np.searchsorted(self._inst_k, k, "right")))
+            for k in range(K)
+        ]
 
-        # padded instance size: tail zeros flow through the kernel untouched
-        # (0 - eps*0), so one shared width serves all partitions
+        # padded instance size: tail zeros flow through the kernels untouched
+        # (0 - eps*0), so one shared width serves all partitions. int8 wire:
+        # whole quantization blocks, so each (agent, partition) row of the
+        # (A, K, S) planes is an integral number of scale blocks; the zero
+        # tail quantizes to zero blocks, as the scalar codec's padding does
         self.S = int(sizes.max())
+        if self._int8:
+            self.S = -(-self.S // BLOCK) * BLOCK
         self._sizes = sizes
         self._offsets = offsets
         # per-partition wire payload bytes: every closed-form byte count
         # below derives from these
         self._wsizes = np.asarray([wire_size(int(s), cfg.wire_dtype) for s in sizes], np.int64)
-
-        # ---- snapshot values / eps from the scalar init -------------------
-        V_pre = np.zeros((self.K_inst, self.S), np.float32)
-        eps = np.ones((self.K_inst,), np.float32)
-        for k in range(K):
-            for j, h in enumerate(holders[k]):
-                st = seed_sim.agents[h].owned[k]
-                V_pre[inst_id[(k, j)], : sizes[k]] = st.value
-                eps[inst_id[(k, j)]] = st.eps
         owner_col = np.zeros((A, K), bool)
-        for k in range(K):
-            for h in holders[k]:
-                owner_col[h, k] = True
+        owner_col[self._inst_owner, self._inst_k] = True
+        self._owner_col = owner_col
         self._bytes_total = self.net.pubsub.total_bytes()
         # message counters mirroring the scalar pubsub (init-phase membership
         # traffic included via the snapshot)
@@ -155,6 +197,10 @@ class VectorizedIPLSSimulation:
                 start = a
 
         self._eval_idx = np.asarray(eval_subset(list(range(A)), cfg.eval_agents), np.int64)
+        self._x_te, self._y_te = seed_sim._x_te, seed_sim._y_te
+        if self._lossy:
+            self._init_lossy(seed_sim)
+            return
 
         # round-0 warm-up traffic (agents fetch partitions absent from both
         # their owned set and the donor caches left behind by joins)
@@ -175,6 +221,15 @@ class VectorizedIPLSSimulation:
         replica = int(np.sum(np.where(rho > 1, rho * self._wsizes, 0)))
         self._round_bytes = 2 * upd + replica
         self._round_msgs = 2 * int(np.sum(A - rho)) + int(np.sum(np.where(rho > 1, rho, 0)))
+
+        # ---- snapshot values / eps from the scalar init -------------------
+        V_pre = np.zeros((self.K_inst, self.S), np.float32)
+        eps = np.ones((self.K_inst,), np.float32)
+        for k in range(K):
+            for j, h in enumerate(holders[k]):
+                st = seed_sim.agents[h].owned[k]
+                V_pre[inst_id[(k, j)], : sizes[k]] = st.value
+                eps[inst_id[(k, j)]] = st.eps
 
         # ---- per-phase routing tables (period = lcm of replication) -------
         # non-owner a targets H(k)[(round + a) % rho_k]; the pattern repeats
@@ -243,15 +298,9 @@ class VectorizedIPLSSimulation:
                     for a in (idx, msk, t_insts[p], t_insts[p][self._eval_idx])
                 )
             )
-        # instance rows are k-major: partition k's instances are one row range
-        self._inst_rows = [
-            (int(np.searchsorted(self._inst_k, k)), int(np.searchsorted(self._inst_k, k, "right")))
-            for k in range(K)
-        ]
         self._morder = torch.as_tensor(morder, device=dev)
         self._mmask = torch.as_tensor(mmask, device=dev)
         self._rho_inst = torch.as_tensor(rho[self._inst_k].astype(np.float32), device=dev)
-        self._x_te, self._y_te = seed_sim._x_te, seed_sim._y_te
 
     # -- batched phases ------------------------------------------------------
     @contextmanager
@@ -301,13 +350,7 @@ class VectorizedIPLSSimulation:
         r = contrib_mask.sum(dim=1)
         refreshed = alpha * eps + torch.full_like(eps, 1.0 - alpha) / torch.clamp(r, min=1.0)
         eps_new = torch.where(r > 0, refreshed, eps)
-        D = W - W2
-        G = torch.empty((self.K_inst, self.R_cap, self.S), dtype=D.dtype, device=D.device)
-        for k, (lo, hi) in enumerate(self._inst_rows):
-            o, sz = int(self._offsets[k]), int(self._sizes[k])
-            G[lo:hi, :, :sz] = D[:, o : o + sz][contrib_idx[lo:hi]]
-            G[lo:hi, :, sz:] = 0.0
-        V_pre = aggregate_batched(V_merged, G, contrib_mask, eps_new)
+        V_pre = aggregate_batched(V_merged, self._gather_deltas(W - W2, contrib_idx), contrib_mask, eps_new)
         # replica consensus: each instance averages [self] + the other
         # replicas in arrival (holder agent ascending) order, then a true
         # divide by rho — the scalar engine's np.mean associates this way
@@ -316,6 +359,19 @@ class VectorizedIPLSSimulation:
             acc = torch.where(self._mmask[:, j, None], acc + V_pre[self._morder[:, j]], acc)
         return V_pre, acc / self._rho_inst[:, None], eps_new
 
+    def _gather_deltas(self, D, contrib_idx) -> torch.Tensor:
+        """The (K_inst, R, S) plane of contributor delta slices, zero tails:
+        instance i's slot r holds row ``contrib_idx[i, r]`` of D, restricted
+        to partition k(i)'s columns."""
+        G = torch.empty(
+            (self.K_inst, contrib_idx.shape[1], self.S), dtype=D.dtype, device=D.device
+        )
+        for k, (lo, hi) in enumerate(self._inst_rows):
+            o, sz = int(self._offsets[k]), int(self._sizes[k])
+            G[lo:hi, :, :sz] = D[:, o : o + sz][contrib_idx[lo:hi]]
+            G[lo:hi, :, sz:] = 0.0
+        return G
+
     def eval_rows(self, V_pre, V_merged, t_eval) -> torch.Tensor:
         """Accuracy of the sub-sampled agents: their assembled rows only, so
         the full (A, N) matrix is never evaluated."""
@@ -323,20 +379,24 @@ class VectorizedIPLSSimulation:
         return mlp_mnist.evaluate(unflatten_params(W_eval, self.layout), self._x_te, self._y_te)
 
     # -- one round ----------------------------------------------------------
-    def _draw_batches(self):
+    def _batches(self):
+        """Every agent's batch for this round, drawn through its trainer's
+        RNG stream and stacked per bucket on the device."""
         xs, ys = [], []
         for tr in self._trainers:
             xb, yb = tr.draw_batch()
             xs.append(xb)
             ys.append(yb)
-        return xs, ys
+        dev = self.device
+        Xs = [torch.as_tensor(np.stack(xs[lo:hi]), device=dev) for lo, hi in self._buckets]
+        Ys = [torch.as_tensor(np.stack(ys[lo:hi]), device=dev) for lo, hi in self._buckets]
+        return Xs, Ys
 
     def run_round(self, rnd: int) -> dict:
-        dev = self.device
+        if self._lossy:
+            return self._run_round_lossy(rnd)
         with self._phase("batches"):
-            xs, ys = self._draw_batches()
-            Xs = [torch.as_tensor(np.stack(xs[lo:hi]), device=dev) for lo, hi in self._buckets]
-            Ys = [torch.as_tensor(np.stack(ys[lo:hi]), device=dev) for lo, hi in self._buckets]
+            Xs, Ys = self._batches()
         p = rnd % self._period
         idx, mask, _, t_eval = self._phase_tables[p]
         t_prev = self._phase_tables[self._last_phase][2]
@@ -383,11 +443,484 @@ class VectorizedIPLSSimulation:
             self.run_round(rnd)
         return self.history
 
+    # ===================== event-driven path (LOSSY / int8) ================
+    def _init_lossy(self, seed_sim) -> None:
+        """State for the event-driven path: the fate stream, the event-ring
+        depth, and the dense snapshot of the scalar init state."""
+        cfg = self.cfg
+        cond = cfg.conditions
+        # delays are in tick units; a message delayed d ticks lands
+        # ceil(d / TICKS) rounds late at its drain point
+        self._Lu = -(-cond.max_delay_rounds // TICKS_PER_ROUND) if cond.delay_prob > 0 else 0
+        # depth of the value-history rings (value ages 0..Lu) and of the
+        # in-flight event rings, indexed by (consuming round) mod depth:
+        # nothing stays in flight longer than Lu rounds (delays are capped),
+        # and every slot drains once per depth
+        self._HD = self._Lu + 1
+        # int8 under PERFECT conditions runs this path too; the scalar engine
+        # installed no fate stream there, so build one — every draw then
+        # degenerates to (delivered, delay 0), i.e. default delivery
+        self._fates = seed_sim.fates or MessageFates(cond, cfg.seed)
+        # the constructor's membership broadcasts are still in flight; the
+        # scalar ticks would deliver them during round 0, so deliver them
+        # inert now (rounds of this path never touch the pubsub)
+        ps = seed_sim.net.pubsub
+        for _i, msg in sorted(enumerate(ps._inflight), key=lambda e: (e[1].deliver_round, e[0])):
+            ps._inbox[msg.recipient].append(msg)
+            ps.bytes_recv[msg.recipient] += msg.nbytes
+        ps._inflight = []
+        self._snapshot_from_scalar(seed_sim)
+
+    def _snapshot_from_scalar(self, sim) -> None:
+        """Build the dense state of the event-driven path from the scalar
+        state before round 0: value/eps/version/cache/residual
+        planes, closed-form send masks, replica pair tables, empty rings.
+
+        Membership is fixed, so every agent is live and online and rows are
+        agent ids (the reference's row maps, harvest of in-flight messages
+        and active-row subset belong to the churn slice)."""
+        ps = sim.net.pubsub
+        A, K, K_inst, S, N = self.A, self.K, self.K_inst, self.S, self.N
+        sizes, owner_col, rho = self._sizes, self._owner_col, self._rho
+        assert all(sim.agents[a].live and not ps.is_offline(a) for a in range(A))
+        assert len(sim.agents) == A and (rho > 0).all()
+
+        # sequential-reduction capacities: each other replica of a partition
+        # has at most one value in flight per send round (ages 0..Lu); each
+        # non-owner at most one delta per in-flight send round. The quantized
+        # kernel takes the owner's raw delta through its own input, so its
+        # contributor table holds only the remote (wire) rows; the f32 table
+        # holds the owner first
+        HD = self._HD
+        self._mw = max(1, (int(rho.max()) - 1) * HD)
+        self.R_cap = max(1, (A - 1) * HD) if self._int8 else 1 + (A - 1) * HD
+
+        # per-round UpdateModel sends are closed-form: loss only affects
+        # delivery, never whether a message is sent
+        self._upd_send_mask = ~owner_col
+        self._upd_msgs = int(self._upd_send_mask.sum())
+        self._upd_bytes = int((self._upd_send_mask * self._wsizes[None, :]).sum())
+        # ordered (source -> destination) instance pairs for replica sync:
+        # each holder publishes once, the pubsub fans it out with a fate each
+        src, dst = [], []
+        for lo, hi in self._inst_rows:
+            for i in range(lo, hi):
+                for j in range(lo, hi):
+                    if i != j:
+                        src.append(i)
+                        dst.append(j)
+        self._rep_src = np.asarray(src, np.int64)
+        self._rep_dst = np.asarray(dst, np.int64)
+        self._rep_k = self._inst_k[self._rep_src]
+        pub_inst = sorted(set(src))
+        self._pub_msgs = len(pub_inst)
+        self._pub_bytes = int(np.sum(self._wsizes[self._inst_k[pub_inst]])) if pub_inst else 0
+
+        # ---- value / eps / version / cache / residual planes --------------
+        V = np.zeros((K_inst, S), np.float32)
+        # eps lives on the HOST in float64: the scalar engine's eps is a
+        # python float, and its recursion must be replayed in the same
+        # precision (an f32 replay drifts by an ULP, which the int8 codec
+        # amplifies to a full quantization step)
+        eps64 = np.ones(K_inst, np.float64)
+        ver = np.zeros(K_inst, np.int64)
+        for i in range(K_inst):
+            st = sim.agents[int(self._inst_owner[i])].owned[int(self._inst_k[i])]
+            V[i, : sizes[self._inst_k[i]]] = st.value
+            eps64[i] = st.eps
+            ver[i] = st.version
+        self._eps64, self._ver = eps64, ver
+        # explicit cache plane + fetch warm-up state: a slot stays at its
+        # last successfully delivered value (the scalar cache staleness)
+        C = np.zeros((A, K, S), np.float32)
+        has = np.zeros((A, K), bool)
+        for a in range(A):
+            for k, val in sim.agents[a].cache.items():
+                C[a, k, : sizes[k]] = val
+                has[a, k] = True
+        self._has_cache = has
+        dev = self.device
+        self._V = torch.as_tensor(V, device=dev)
+        self._C = torch.as_tensor(C, device=dev)
+        Lu = self._Lu
+        if self._int8:
+            # error-feedback residuals, one per (sender, partition) wire slice
+            E = np.zeros((A, K, S), np.float32)
+            for a in range(A):
+                for k, err in sim.agents[a]._delta_err.items():
+                    if err is not None:
+                        E[a, k, : len(err)] = err
+            self._E = torch.as_tensor(E, device=dev)
+            # delta ring of in-flight windows, one entry per delay age: the
+            # int8 codes and per-block scales, dequantized inside the kernel
+            self._ring = (
+                torch.zeros((Lu, A, K, S), dtype=torch.int8, device=dev),
+                torch.zeros((Lu, A, K, S // BLOCK), dtype=torch.float32, device=dev),
+            )
+        else:
+            self._ring = torch.zeros((Lu, A, N), dtype=torch.float32, device=dev)
+        self._Vagg_hist = torch.zeros((HD, K_inst, S), dtype=torch.float32, device=dev)
+        self._Vstart_hist = torch.zeros((HD, K_inst, S), dtype=torch.float32, device=dev)
+        self._serve_ring: List[list] = [[] for _ in range(HD)]
+        self._arr_ring: List[list] = [[] for _ in range(HD)]
+        self._cache_ring: List[list] = [[] for _ in range(HD)]
+        self._merge_ring: List[list] = [[] for _ in range(HD)]
+        self._seq = 0
+        self._t = 0  # the next round the control plane runs
+
+        # ---- device constants ---------------------------------------------
+        self._own_a = torch.as_tensor(self._inst_owner, device=dev)
+        self._own_k = torch.as_tensor(self._inst_k, device=dev)
+        self._own_k_col = self._own_k[:, None]
+        self._ones_inst = torch.ones(K_inst, dtype=torch.float32, device=dev)
+        # weight assembly: owners read their instance value, everyone else
+        # their cache row; per partition, (positions of its owners among the
+        # assembled rows, their instance ids)
+        self._fill_all = self._owner_fill(np.arange(A))
+        self._eval_rows = torch.as_tensor(self._eval_idx, device=dev)
+        self._fill_eval = self._owner_fill(self._eval_idx)
+        self.messages_sent = ps.messages_sent
+        self.messages_dropped = ps.messages_dropped
+        self._bytes_total = ps.total_bytes()
+
+    def _owner_fill(self, rows: np.ndarray) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        pos_of = {int(a): p for p, a in enumerate(rows)}
+        fill = []
+        for lo, hi in self._inst_rows:
+            pairs = [(pos_of[int(self._inst_owner[i])], i) for i in range(lo, hi)
+                     if int(self._inst_owner[i]) in pos_of]
+            pos = torch.as_tensor([p for p, _ in pairs], dtype=torch.int64, device=self.device)
+            inst = torch.as_tensor([i for _, i in pairs], dtype=torch.int64, device=self.device)
+            fill.append((pos, inst))
+        return fill
+
+    def _assemble(self, V, C, fill, rows=None) -> torch.Tensor:
+        """Flat weights of ``rows`` agents (all when None) from the value
+        and cache planes."""
+        Cr = C if rows is None else C[rows]
+        W = torch.cat([Cr[:, k, : int(s)] for k, s in enumerate(self._sizes)], dim=1)
+        for k, (pos, inst) in enumerate(fill):
+            if len(pos):
+                o, sz = int(self._offsets[k]), int(self._sizes[k])
+                W[pos, o : o + sz] = V[inst, :sz]
+        return W
+
+    def _write_cache(self, updates, table_parts) -> None:
+        """Cache-plane writes of one drain point, in place (the previous
+        plane is never read again): (agent, partition) <- row of the
+        concatenated value table."""
+        a, k, src = updates
+        if len(a):
+            T = torch.cat([t.reshape(-1, self.S) for t in table_parts], dim=0)
+            self._C[a, k] = T[src]
+
+    def _pre(self, ctl):
+        """Roll the start-of-round value ring, apply the cache writes the
+        scalar engine drains before LoadModel, assemble all agents' flat
+        weights. The value rings store WIRE values — every consumer (fetch
+        and UpdateModel-reply cache writes, replica merges) saw the payload
+        after one trip over the wire — so under int8 the authoritative V
+        stays raw while the ring entry is its quantize->dequantize image."""
+        V = self._V
+        V0 = qdq_rows(V) if self._int8 else V
+        Vstart_new = torch.cat([V0[None], self._Vstart_hist[:-1]], dim=0)
+        self._write_cache(ctl["c0"], (Vstart_new, self._Vagg_hist))
+        return Vstart_new, self._assemble(V, self._C, self._fill_all)
+
+    def _aggregate_lossy(self, D, ctl) -> torch.Tensor:
+        """Aggregate every instance from this round's and the in-flight
+        delta windows, in the control plane's delivery order (kidx), through
+        one kernel launch; roll the delta ring."""
+        A, K, S, Lu, HD = self.A, self.K, self.S, self._Lu, self._HD
+        dev = self.device
+        eps = torch.as_tensor(ctl["eps"], device=dev)
+        kidx = torch.as_tensor(ctl["kidx"], device=dev)
+        kmask = torch.as_tensor(ctl["kmask"], device=dev)
+        if not self._int8:
+            D_all = torch.cat([D[None], self._ring], dim=0)
+            self._ring = D_all[:Lu]
+            G = self._gather_deltas(D_all.reshape(HD * A, self.N), kidx)
+            return aggregate_batched(self._V, G, kmask, eps)
+        # int8: every (agent, partition) slice is quantized with its error-
+        # feedback residual, updated at send time (loss-independent, like the
+        # scalar encode); owner slices never transit, so their residuals stay
+        Dplane = torch.zeros((A, K, S), dtype=torch.float32, device=dev)
+        for k, s in enumerate(self._sizes):
+            o = int(self._offsets[k])
+            Dplane[:, k, :s] = D[:, o : o + s]
+        qn, scn, E_new = quantize_rows(Dplane, self._E)
+        E_new[self._own_a, self._own_k] = self._E[self._own_a, self._own_k]
+        self._E = E_new
+        # gather the contributor CODES + SCALES per instance (the owner is not
+        # in kidx: its raw delta enters through the kernel's own input)
+        Q_all = torch.cat([qn[None], self._ring[0]], dim=0)
+        S_all = torch.cat([scn[None], self._ring[1]], dim=0)
+        self._ring = (Q_all[:Lu], S_all[:Lu])
+        G_q = Q_all.reshape(HD * A, K, S)[kidx, self._own_k_col]
+        G_s = S_all.reshape(HD * A, K, S // BLOCK)[kidx, self._own_k_col]
+        d_own = Dplane[self._own_a, self._own_k]
+        return aggregate_batched_q(self._V, d_own, G_q, G_s, kmask, self._ones_inst, eps)
+
+    def _core(self, D, Vstart_new, ctl) -> torch.Tensor:
+        """Aggregation, version-filtered replica consensus, reply-driven
+        cache writes, history rings, evaluation. Returns the accuracies."""
+        dev = self.device
+        V_agg = self._aggregate_lossy(D, ctl)
+        # everything a post-aggregate value feeds (UpdateModel-reply cache
+        # writes, replica publishes) crossed the wire: ring and table the wire
+        # image, keep the authoritative V_agg raw. (The reference pins ONE
+        # materialization of V_agg with an optimization barrier before this
+        # read; eager PyTorch materializes it once by construction.)
+        V_aggw = qdq_rows(V_agg) if self._int8 else V_agg
+        # replica consensus: mean of self + version-kept arrived values (late
+        # values read the post-aggregate ring at their send age), added in
+        # the control plane's landing-tick order so the association matches
+        # the scalar np.mean over [self] + arrivals; columns fill left to
+        # right, so those past the largest count are all empty
+        Vm_flat = torch.cat([V_aggw[None], self._Vagg_hist[: self._HD - 1]], dim=0)
+        Vm_flat = Vm_flat.reshape(-1, self.S)
+        msrc = torch.as_tensor(ctl["msrc"], device=dev)
+        mmask = torch.as_tensor(ctl["mmask"], device=dev)
+        cnt = torch.as_tensor(ctl["cnt"], device=dev)
+        acc = V_agg
+        for j in range(int(ctl["cnt"].max())):
+            acc = torch.where(mmask[:, j, None], acc + Vm_flat[msrc[:, j]], acc)
+        self._V = acc / (1.0 + cnt)[:, None]
+        # phase-2 cache writes (may read this round's post-aggregate table)
+        self._write_cache(ctl["c2"], (Vstart_new, self._Vagg_hist, V_aggw))
+        self._Vagg_hist = torch.cat([V_aggw[None], self._Vagg_hist[:-1]], dim=0)
+        self._Vstart_hist = Vstart_new
+        # evaluate the sub-sampled agents on end-of-round state
+        W_eval = self._assemble(self._V, self._C, self._fill_eval, self._eval_rows)
+        return mlp_mnist.evaluate(unflatten_params(W_eval, self.layout), self._x_te, self._y_te)
+
+    def _push_cache_event(self, deliver_ctr, send_ctr, a, k, kind, src_round, inst):
+        """Schedule a cache write for the round whose drain sees the message.
+        The sort key (deliver_ctr, send_ctr, serving holder id, seq)
+        reproduces the scalar inbox order — messages delivered at the same
+        tick sit in send order, and within one send phase the scalar engine
+        loops holders in agent-id order — so when several replies race for
+        one (agent, partition) cache slot the same one wins in both engines.
+        (Replies from the SAME holder in the same phase carry identical
+        values, so their relative order is immaterial.)"""
+        holder = int(self._inst_owner[inst])
+        self._cache_ring[(deliver_ctr // TICKS_PER_ROUND) % self._HD].append(
+            (deliver_ctr, send_ctr, holder, self._seq, a, k, kind, src_round, inst)
+        )
+        self._seq += 1
+
+    def _control_round(self, rnd: int) -> dict:
+        """One round of the host-side control plane: fate draws, queue-ring
+        drains, the fetch warm-up state machine, traffic counters. Pure
+        integer/boolean numpy over the fixed-shape event space — no device
+        data. Returns the round's control tensors plus (msgs, drops,
+        nbytes), which are exactly the scalar pubsub's counters for the
+        round by construction."""
+        t = self._t
+        TICKS = TICKS_PER_ROUND
+        qd = HD = self._HD
+        f = self._fates
+        A, K, K_inst = self.A, self.K, self.K_inst
+        owner = self._owner_col
+        msgs = drops = nbytes = 0
+        a_col = np.arange(A)[:, None]
+        k_row = np.arange(K)[None, :]
+        # routing: non-owner a targets replica slot (rnd + a) % rho_k
+        slot = (rnd + a_col) % self._rho[None, :]
+        tgt_inst = self._slot_inst[np.broadcast_to(k_row, (A, K)), slot]
+
+        def lat_rounds(d):
+            return -(-d // TICKS)
+
+        # ---- phase 0: fetch requests for partitions never yet cached ------
+        need = ~owner & ~self._has_cache
+        n_need = int(need.sum())
+        if n_need:
+            de, dl = f.draw(CH_FETCH, t, a_col, k_row)
+            msgs += n_need
+            nbytes += 16 * n_need
+            drops += int((need & ~de).sum())
+            lat = lat_rounds(dl)
+            for a, k in np.argwhere(need & de):
+                self._serve_ring[(t + int(lat[a, k])) % qd].append(
+                    (t, int(a), int(k), int(tgt_inst[a, k]))
+                )
+
+        # ---- phase 1: holders serve the fetches that arrived --------------
+        # (one batched draw: a fate is a pure hash of its coordinates, so it
+        # equals the scalar pubsub's one-message draws)
+        serves, self._serve_ring[t % qd] = self._serve_ring[t % qd], []
+        if serves:
+            sv = np.asarray(serves, np.int64)  # (send round, agent, partition, instance)
+            de1, d1 = f.draw(CH_FETCH_REPLY, t, sv[:, 1], sv[:, 2], self._inst_owner[sv[:, 3]])
+            msgs += len(serves)
+            nbytes += int(np.sum(self._wsizes[sv[:, 2]]))
+            drops += int((~de1).sum())
+            for j in np.nonzero(de1)[0]:
+                self._push_cache_event(
+                    TICKS * t + 1 + int(d1[j]), TICKS * t + 1,
+                    int(sv[j, 1]), int(sv[j, 2]), _KIND_START, t, int(sv[j, 3]),
+                )
+
+        # ---- phase 2: UpdateModel sends -----------------------------------
+        de_u, dl_u = f.draw(CH_UPDATE, t, a_col, k_row)
+        send_u = self._upd_send_mask
+        msgs += self._upd_msgs
+        nbytes += self._upd_bytes
+        drops += int((send_u & ~de_u).sum())
+        lat_u = lat_rounds(dl_u)
+        # ring appends must mirror the scalar inbox, which fills in delivery-
+        # TICK order: a message delayed d ticks lands at tick TICKS*t+2+d, so
+        # same-send-round arrivals drain delay-ascending first, then publish
+        # (a, k) order. np.unique gives the delays sorted ascending.
+        live_u = send_u & de_u
+        for d in np.unique(dl_u[live_u]):
+            for a, k in np.argwhere(live_u & (dl_u == d)):
+                self._arr_ring[(t + int(lat_u[a, k])) % qd].append(
+                    (t, int(a), int(k), int(tgt_inst[a, k]))
+                )
+
+        # ---- arrivals => contributor tables + UpdateModel replies ---------
+        arrivals, self._arr_ring[t % qd] = self._arr_ring[t % qd], []
+        # per-instance contributor columns of the (age, agent) delta table,
+        # in scalar DELIVERY order: the ring drains in append order = (send
+        # round ascending, then tick-delay ascending, then (a, k) send
+        # order), exactly the scalar pubsub's FIFO inbox — the order the
+        # sequential-sum kernels must reduce in
+        contrib_cols: List[List[int]] = [[] for _ in range(K_inst)]
+        for send_r, a, _k, inst in arrivals:
+            contrib_cols[inst].append((t - send_r) * A + a)
+        # every owner is online and pushes its own delta: r = 1 + arrivals
+        r_vec = 1.0 + np.asarray([len(c) for c in contrib_cols], np.float64)
+        # eps recursion in float64 on the host — bit-identical to the scalar
+        # engine's python-float `eps = alpha*eps + (1-alpha)/r`; the device
+        # consumes only the f32 image of the post-recursion value
+        alpha = self.cfg.alpha
+        self._eps64 = alpha * self._eps64 + (1.0 - alpha) / r_vec
+        if arrivals:
+            arr = np.asarray([(a, k, i) for (_, a, k, i) in arrivals], np.int64)
+            de_r, d_r = f.draw(
+                CH_UPDATE_REPLY, t, arr[:, 0], arr[:, 1], self._inst_owner[arr[:, 2]]
+            )
+            msgs += len(arrivals)
+            nbytes += int(np.sum(self._wsizes[arr[:, 1]]))
+            drops += int((~de_r).sum())
+            for j in np.nonzero(de_r)[0]:
+                self._push_cache_event(
+                    TICKS * t + 3 + int(d_r[j]), TICKS * t + 3,
+                    int(arr[j, 0]), int(arr[j, 1]), _KIND_AGG, t, int(arr[j, 2]),
+                )
+        # every instance aggregated (its owner always contributes)
+        ver_after = self._ver + 1
+
+        # ---- replica publishes --------------------------------------------
+        if len(self._rep_src):
+            msgs += self._pub_msgs
+            nbytes += self._pub_bytes
+            rep_src_agent = self._inst_owner[self._rep_src]
+            rep_dst_agent = self._inst_owner[self._rep_dst]
+            de_p, dl_p = f.draw(CH_REPLICA, t, rep_src_agent, self._rep_k, rep_dst_agent)
+            drops += int((~de_p).sum())
+            lat_p = lat_rounds(dl_p)
+            for j in np.nonzero(de_p)[0]:
+                si, di = int(self._rep_src[j]), int(self._rep_dst[j])
+                self._merge_ring[(t + int(lat_p[j])) % qd].append(
+                    (t, si, di, int(ver_after[si]), int(dl_p[j]))
+                )
+
+        # ---- merge set: version-filtered replica values due this round ----
+        # ordered columns into the flattened (HD*K_inst) value-history table,
+        # sorted by landing tick (then send tick, then source agent) = the
+        # scalar inbox's FIFO drain order, so the device's sequential merge
+        # associates exactly like the scalar oracle's np.mean over [self] +
+        # arrivals. A value published at tick TICKS*send_r + 3 with delay dl
+        # lands at +3 + dl.
+        msrc = np.zeros((K_inst, self._mw), np.int64)
+        mmsk = np.zeros((K_inst, self._mw), bool)
+        cnt = np.zeros(K_inst, np.float32)
+        merges, self._merge_ring[t % qd] = self._merge_ring[t % qd], []
+        entries = sorted(
+            (send_r * TICKS + 2 + dl, send_r * TICKS + 3, int(self._inst_owner[si]),
+             di, ver_sent, (t - send_r) * K_inst + si)
+            for send_r, si, di, ver_sent, dl in merges
+        )
+        for _kt, _st, _sr, di, ver_sent, col_src in entries:
+            if ver_sent >= ver_after[di]:
+                col = int(cnt[di])
+                msrc[di, col] = col_src
+                mmsk[di, col] = True
+                cnt[di] += 1.0
+        self._ver = ver_after
+
+        # ---- cache writes (phase-0 / phase-2 drains) ----------------------
+        # source rows index the concatenated value tables of _pre
+        # ([Vstart ring; Vagg ring]) and _core ([...; this round's V_agg])
+        c0: Dict[Tuple[int, int], int] = {}
+        c2: Dict[Tuple[int, int], int] = {}
+        cache_events, self._cache_ring[t % qd] = self._cache_ring[t % qd], []
+        for ctr, _sc, _holder, _seq, a, k, kind, src_r, inst in sorted(cache_events):
+            if kind == _KIND_START:
+                idx = (t - src_r) * K_inst + inst
+            elif src_r < t:
+                idx = HD * K_inst + (t - src_r - 1) * K_inst + inst
+            else:
+                idx = 2 * HD * K_inst + inst
+            # later deliveries to one slot overwrite earlier ones
+            (c0 if ctr % TICKS <= 1 else c2)[(a, k)] = idx
+            self._has_cache[a, k] = True  # suppresses fetches from round t+1
+
+        # ---- contributor tables, slot order = reduction order -------------
+        # the scalar pending order: own delta first (the local push precedes
+        # the inbox drain), then arrivals in delivery order. The quantized
+        # kernel takes the owner's raw delta through a dedicated input summed
+        # first, so its table holds only the remote rows
+        kidx = np.zeros((K_inst, self.R_cap), np.int64)
+        kmask = np.zeros((K_inst, self.R_cap), np.float32)
+        for i in range(K_inst):
+            rows = contrib_cols[i] if self._int8 else [int(self._inst_owner[i])] + contrib_cols[i]
+            kidx[i, : len(rows)] = rows
+            kmask[i, : len(rows)] = 1.0
+
+        self._t = t + 1
+        return dict(
+            c0=self._cache_updates(c0), c2=self._cache_updates(c2),
+            msrc=msrc, mmask=mmsk, cnt=cnt, eps=self._eps64.astype(np.float32),
+            kidx=kidx, kmask=kmask, msgs=msgs, drops=drops, nbytes=nbytes,
+        )
+
+    def _cache_updates(self, writes: Dict[Tuple[int, int], int]):
+        """(agent rows, partitions, source rows) index tensors of one drain
+        point's cache writes."""
+        arr = np.asarray([(a, k, i) for (a, k), i in writes.items()], np.int64).reshape(-1, 3)
+        return tuple(torch.as_tensor(arr[:, c], device=self.device) for c in range(3))
+
+    def _run_round_lossy(self, rnd: int) -> dict:
+        with self._phase("control"):
+            ctl = self._control_round(rnd)
+        with self._phase("batches"):
+            Xs, Ys = self._batches()
+        with self._phase("device_pre"):
+            Vstart_new, W = self._pre(ctl)
+        with self._phase("device_sgd"):
+            D = W - self.sgd_all(W, Xs, Ys)
+        del W
+        with self._phase("device_core"):
+            accs = self._core(D, Vstart_new, ctl).cpu().numpy()
+        self.device_dispatches += 2 + len(self._buckets)
+        self.messages_sent += ctl["msgs"]
+        self.messages_dropped += ctl["drops"]
+        self._bytes_total += ctl["nbytes"]
+        metrics = self._metrics_entry(rnd, accs)
+        self.history.append(metrics)
+        return metrics
+
     # -- introspection (tests / benchmarks) ---------------------------------
     def agent_weights(self) -> np.ndarray:
         """The (A, N) matrix of per-agent assembled models, equal to what
         each scalar agent's `load_model()` would return (reconstructed from
         the value tables and the last round's routing)."""
+        if self._lossy:
+            return self._assemble(self._V, self._C, self._fill_all).cpu().numpy()
         V_all = torch.cat([self._V_pre, self._V_merged], dim=0).cpu().numpy()
         t_inst = self._t_inst[self._last_phase]
         W = np.zeros((self.A, self.N), np.float32)

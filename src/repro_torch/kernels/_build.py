@@ -1,0 +1,60 @@
+"""Build a kernel source with ``nvcc`` into a shared library, load it, launch.
+
+Every kernel of the port is a ``.cu`` file with a plain C interface under
+its module's ``csrc/``, compiled at first use (never at import) into
+``build/`` beside it and loaded with ``ctypes``. The library is named by a
+hash of its source and flags, so an edited source is rebuilt and a stale
+one never loaded.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build_library(src: Path) -> ctypes.CDLL:
+    """Compile ``src`` (once per source hash) into ``<module>/build/`` and
+    load it. Safe to call from several threads or processes at once: each
+    compiles to its own temporary file and renames it into place."""
+    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    build_dir = src.parent.parent / "build"
+    so = build_dir / f"lib{src.stem}-{tag}.so"
+    if not so.exists():
+        build_dir.mkdir(exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)], capture_output=True, text=True
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+        os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
+    return ctypes.CDLL(str(so))
+
+
+def launch(name: str, fn, *args, device: torch.device) -> None:
+    """Call a library entry point with PyTorch's current stream on ``device``
+    as its last argument; raise if it reports a CUDA error (a refused launch
+    never runs, and a later synchronize would not say so)."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

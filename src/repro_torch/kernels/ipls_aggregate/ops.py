@@ -1,78 +1,57 @@
-"""Wrappers of the hand-written IPLS aggregation kernel (csrc/ipls_aggregate.cu).
+"""Wrappers of the hand-written IPLS aggregation kernels (csrc/ipls_aggregate.cu).
 
 The device of the input decides the path and nothing else: a CUDA tensor
 launches the CUDA kernel (or raises if it cannot be built or launched); a
 CPU tensor takes the plain PyTorch version in ``ref.py``. There is no
-fallback from one to the other.
-
-The kernel is compiled with ``nvcc`` at first use into ``build/`` beside
-this file (named by a hash of the source and flags, so an edited source is
-rebuilt) and loaded with ``ctypes``.
+fallback from one to the other. The library is compiled with ``nvcc`` at
+first use (``kernels/_build.py``).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.ipls_aggregate.ref import ipls_aggregate_batched_ref
+from repro_torch.kernels._build import build_library, launch
+from repro_torch.kernels.ipls_aggregate.ref import (
+    ipls_aggregate_batched_q_ref,
+    ipls_aggregate_batched_ref,
+)
+from repro_torch.kernels.quantize.ref import num_blocks
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "ipls_aggregate.cu"
-_BUILD_DIR = _SRC.parent.parent / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
 _lib = None  # the loaded shared library, once built
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     global _lib
-    if _lib is not None:
-        return _lib
-    tag = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"libipls_aggregate-{tag}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC.name}:\n{proc.stderr}")
-        os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
-    lib = ctypes.CDLL(str(so))
-    fn = lib.ipls_aggregate_batched_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    if _lib is None:
+        lib = build_library(_SRC)
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.ipls_aggregate_batched_f32.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+        lib.ipls_aggregate_batched_f32.restype = ctypes.c_int
+        lib.ipls_aggregate_batched_q_f32.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+        lib.ipls_aggregate_batched_q_f32.restype = ctypes.c_int
+        _lib = lib
+    return _lib
 
 
-def _check(w, deltas, mask, eps) -> None:
-    tensors = {"w": w, "deltas": deltas, "mask": mask, "eps": eps}
+def _check_tensors(tensors, int8=()) -> None:
+    w = tensors["w"]
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        dtype = torch.int8 if name in int8 else torch.float32
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device != w.device:
             raise ValueError(f"{name} is on {t.device}, w on {w.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check(w, deltas, mask, eps) -> None:
+    _check_tensors({"w": w, "deltas": deltas, "mask": mask, "eps": eps})
     if w.dim() != 2 or w.shape[0] < 1 or w.shape[1] < 1:
         raise ValueError(f"w must be (K, S) with K, S >= 1, got {tuple(w.shape)}")
     K, S = w.shape
@@ -98,18 +77,13 @@ def aggregate_batched(w, deltas, mask, eps):
         return ipls_aggregate_batched_ref(w, deltas, mask, eps)
     if w.device.type != "cuda":
         raise ValueError(f"unsupported device {w.device}")
-    lib = build()
     K, S = w.shape
-    R = deltas.shape[1]
     out = torch.empty_like(w)
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = lib.ipls_aggregate_batched_f32(
-            out.data_ptr(), w.data_ptr(), deltas.data_ptr(), mask.data_ptr(),
-            eps.data_ptr(), K, R, S, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"ipls_aggregate_batched launch failed: CUDA error {err}")
+    launch(
+        "ipls_aggregate_batched", build().ipls_aggregate_batched_f32, out.data_ptr(),
+        w.data_ptr(), deltas.data_ptr(), mask.data_ptr(), eps.data_ptr(), K,
+        deltas.shape[1], S, device=w.device,
+    )
     aggregate_batched.LAUNCHES += 1
     return out
 
@@ -125,3 +99,49 @@ def aggregate(w, deltas, mask, eps):
         w.reshape(1, -1), deltas.unsqueeze(0), mask.reshape(1, -1), eps.reshape(1)
     )
     return out.reshape(w.shape)
+
+
+def aggregate_batched_q(w, own, q, scales, mask, own_mask, eps):
+    """Quantized-wire form (the reference's ``ipls_aggregate_batched_q``):
+    ``w[k] - eps[k] * (own_mask[k]*own[k] + sum_r mask[k,r] * q[k,r]*scale)``
+    in one launch. w, own (K,S) float32; q (K,R,S) int8 codes; scales
+    (K,R,ceil(S/1024)) float32 per-block power-of-two scales; mask (K,R);
+    own_mask, eps (K,); all contiguous on one device. Returns a new (K,S)
+    tensor."""
+    _check_tensors(
+        {"w": w, "own": own, "q": q, "scales": scales, "mask": mask,
+         "own_mask": own_mask, "eps": eps},
+        int8=("q",),
+    )
+    if w.dim() != 2 or w.shape[0] < 1 or w.shape[1] < 1:
+        raise ValueError(f"w must be (K, S) with K, S >= 1, got {tuple(w.shape)}")
+    K, S = w.shape
+    if own.shape != w.shape:
+        raise ValueError(f"own must be ({K}, {S}), got {tuple(own.shape)}")
+    if q.dim() != 3 or q.shape[0] != K or q.shape[2] != S:
+        raise ValueError(f"q must be ({K}, R, {S}), got {tuple(q.shape)}")
+    R, NB = q.shape[1], num_blocks(S)
+    if tuple(scales.shape) != (K, R, NB):
+        raise ValueError(f"scales must be ({K}, {R}, {NB}), got {tuple(scales.shape)}")
+    if tuple(mask.shape) != (K, R):
+        raise ValueError(f"mask must be ({K}, {R}), got {tuple(mask.shape)}")
+    for name, t in (("own_mask", own_mask), ("eps", eps)):
+        if tuple(t.shape) != (K,):
+            raise ValueError(f"{name} must be ({K},), got {tuple(t.shape)}")
+    if K > 65535 or max(R, S) >= 2**31:
+        raise ValueError(f"shape {(K, R, S)} exceeds the kernel's grid")
+    if w.device.type == "cpu":
+        return ipls_aggregate_batched_q_ref(w, own, q, scales, mask, own_mask, eps)
+    if w.device.type != "cuda":
+        raise ValueError(f"unsupported device {w.device}")
+    out = torch.empty_like(w)
+    launch(
+        "ipls_aggregate_batched_q", build().ipls_aggregate_batched_q_f32, out.data_ptr(),
+        w.data_ptr(), own.data_ptr(), q.data_ptr(), scales.data_ptr(), mask.data_ptr(),
+        own_mask.data_ptr(), eps.data_ptr(), K, R, S, NB, device=w.device,
+    )
+    aggregate_batched_q.LAUNCHES += 1
+    return out
+
+
+aggregate_batched_q.LAUNCHES = 0

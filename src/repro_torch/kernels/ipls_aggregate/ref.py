@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.quantize.ref import BLOCK
+
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 ``a*b + c`` with ONE rounding to nearest, as ``fmaf`` does.
@@ -45,4 +47,25 @@ def ipls_aggregate_batched_ref(
     acc = torch.zeros_like(w)
     for r in range(deltas.shape[1]):
         acc = acc + mask[:, r, None] * deltas[:, r]
+    return fma_f32(-eps[:, None], acc, w)
+
+
+def ipls_aggregate_batched_q_ref(
+    w: torch.Tensor,         # (K, S) partition values
+    own: torch.Tensor,       # (K, S) the holder's own (never quantized) delta
+    q: torch.Tensor,         # (K, R, S) int8 wire codes of the remote deltas
+    scales: torch.Tensor,    # (K, R, ceil(S/BLOCK)) float32 per-block pow2 scales
+    mask: torch.Tensor,      # (K, R) 1.0 where the remote contribution arrived
+    own_mask: torch.Tensor,  # (K,) 1.0 where the holder's own delta takes part
+    eps: torch.Tensor,       # (K,) staleness weight per partition
+) -> torch.Tensor:
+    """Quantized-input form, with the arithmetic of the reference's Pallas
+    kernel operation for operation: the own delta first, then slot by slot
+    ``acc + mask * (code * scale)`` (the dequantize is exact), then one fused
+    update."""
+    S = w.shape[1]
+    acc = own_mask[:, None] * own
+    for r in range(q.shape[1]):
+        scale = scales[:, r].repeat_interleave(BLOCK, dim=1)[:, :S]
+        acc = acc + mask[:, r, None] * (q[:, r].to(torch.float32) * scale)
     return fma_f32(-eps[:, None], acc, w)

@@ -3,9 +3,10 @@
 Same data, same config, same seeds: per round, ``bytes_total`` and
 ``active`` exactly equal and accuracy within 5e-3; ``messages_sent`` exactly
 equal; final weights within 1e-4 (float32 GEMM sums in other orders, the
-bound the reference's own engines are held to). Also: configurations outside
-this slice raise, the default device is CUDA and raises without one, and
-nothing in the port imports JAX or the reference package. The reference is
+bound the reference's own engines are held to). Also: configurations the
+port does not run yet (churn, multi-round windows, telemetry) raise, the
+default device is CUDA and raises without one, and nothing in the port
+imports JAX or the reference package. The reference is
 imported only where it is run, so the cuda-marked test also runs on a GPU
 host without JAX.
 """
@@ -22,6 +23,7 @@ from repro_torch.data import iid_split, synth_mnist  # bitwise the reference's
 from repro_torch.fl import IPLSSimulation, SimConfig, make_simulation
 from repro_torch.fl.local_trainer import LocalTrainer
 from repro_torch.kernels.ipls_aggregate import ops
+from repro_torch.kernels.quantize import ops as q_ops
 from repro_torch.p2p.network import LOSSY
 
 REPO = Path(__file__).resolve().parent.parent
@@ -116,20 +118,30 @@ def test_scalar_engine_matches_jax_beyond_perfect(data, kw):
     assert psim.net.pubsub.messages_dropped == jsim.net.pubsub.messages_dropped
 
 
+def _launches():
+    return (
+        ops.aggregate_batched.LAUNCHES, ops.aggregate_batched_q.LAUNCHES,
+        q_ops.quantize.LAUNCHES, q_ops.dequantize.LAUNCHES,
+    )
+
+
 def test_vectorized_runs_no_kernel_on_cpu(data):
-    """On the CPU the aggregation takes the plain version: no launch."""
-    before = ops.aggregate_batched.LAUNCHES
+    """On the CPU the kernels take their plain versions: no launch, on the
+    PERFECT f32 path and on the event-driven int8 path."""
+    before = _launches()
     kw = dict(PERFECT_CONFIGS[0], rounds=1, local_iters=1)
     sim = _port_run(data, kw, "vectorized")
-    assert ops.aggregate_batched.LAUNCHES == before
+    assert _launches() == before
     assert sim.device_dispatches == 1
+    _port_run(data, dict(kw, conditions=LOSSY, wire_dtype="int8"), "vectorized")
+    assert _launches() == before
 
 
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(conditions=LOSSY),
-        dict(wire_dtype="int8"),
+        dict(conditions=LOSSY, scan_rounds=2),
+        dict(wire_dtype="int8", churn={1: [(3, "offline")]}),
         dict(churn={1: [(3, "offline")]}),
         dict(scan_rounds=2),
         dict(telemetry=True),
