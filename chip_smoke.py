@@ -18,6 +18,19 @@ exits non-zero:
               through make_simulation(engine="vectorized"); the scalar engine
               is the reference (counters exact, round-0 weights within 1e-3);
   main_int8 — the same at full width on the LOSSY network and the int8 wire;
+  lm_agree  — the dense LMs (internlm2, phi4-mini, minitron) at their reduced
+              configs: the port on the card (attention kernels) against the
+              port on the CPU (plain versions), same weights from one seed,
+              prompts of 16 and 100 tokens, 8 decode steps; logits within one
+              bfloat16 ulp (+1e-5) in float32 weights, within 0.03 in bf16;
+  serve     — the LM main path at full width: internlm2-1.8b
+              (1,889,110,016 parameters, bf16) through build_model and
+              serve_lm.generate, batch 4, a 4,096-token prompt from the seed,
+              256 greedy tokens; exactly 24 flash-attention and 24 x 255
+              flash-decode launches; prefill and decode times, peak memory,
+              finite logits; decode at pos 4,096 against the last-token
+              logits of a 4,097-token prefill, in bf16 and, for the served
+              prompt and a second one, in a float32 copy;
   kernel    — the f32 aggregation kernel against its plain PyTorch version,
               bit for bit, at the main path's shape (K=20, R=51, S=44361),
               ragged cases and the single-partition form; kernel (device
@@ -25,7 +38,12 @@ exits non-zero:
               one-call yardstick times (CUDA events) beside the bound;
   kernel_q  — the int8 codec kernels (quantize, dequantize) and the quantized
               aggregation kernel against their plain versions, bit for bit,
-              at the int8 path's shapes and edge cases; times and bounds.
+              at the int8 path's shapes and edge cases; times and bounds;
+  kernel_attn — the attention kernels against their plain versions at the
+              serve shapes (flash B=4, H=16, KV=8, S=4096, D=128; decode at
+              T=4352, pos 0, 255, 4095, 4351) and ragged ones: float32 within
+              2e-5, bf16 within one bf16 ulp (+2e-5); times beside the bound and
+              scaled_dot_product_attention as the yardstick.
 Each main phase sets every kernel's launch count to 0 before it runs and
 requires the counts its path must give. Then the kernels line, the
 nvidia-smi line and, last, the result line. Imports nothing of JAX or of the
@@ -64,6 +82,32 @@ WEIGHT_TOL = 1e-4  # engine agreement: f32 GEMM sums in other orders
 # deltas, which amplifies the per-delta GEMM-order noise up to 26-fold
 ROUND0_TOL = 1e-3
 AGREE_CFG = dict(num_agents=5, num_partitions=8, pi=2, rho=2, rounds=3, local_iters=3)
+# the LM main path: internlm2-1.8b at full width, serving
+SERVE = dict(arch="internlm2-1.8b", batch=4, prompt_len=4096, tokens=256, seed=0)
+SERVE_PARAMS = 1_889_110_016
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+LM_AGREE_CASES = ((16, 32), (100, 128))  # (prompt length, cache_len)
+LM_AGREE_STEPS = 8
+# bf16 logits, card vs CPU: both sides run the port's own code, so only the
+# order of float32 sums and the roundings to bf16 differ (measured at most
+# 8.3e-3 on an H100, about one bf16 ulp at logits of 1-2)
+LM_BF16_TOL = 0.03
+# decode at pos 4,096 vs the last-token logits of a 4,097-token prefill
+# (logits of std about 1.8). The two paths round differently: GEMMs of M = 4
+# against M = 16,388 rows, two attention kernels summing in other orders.
+# The reference's init (std 1/sqrt(24) on every weight) gives each layer a
+# large gain, so 24 layers amplify those differences: in a float32 copy of
+# the weights the two paths differed by 0.03125 on an H100 (2 bf16 ulps at
+# |logit| 2-4; the same on a second prompt, so the bound is 3.2x the larger
+# reading), and in bf16 each side's own roundings add more (0.297). A
+# wrong cache slot, position or mask moves logits by their whole scale.
+SERVE_DECODE_VS_PREFILL_BF16 = 0.5
+SERVE_DECODE_VS_PREFILL_F32 = 0.1
+# the attention kernels against their plain versions
+ATTN_F32_TOL = 2e-5  # as tests/test_kernels.py
+FLASH_SHAPE = (4, 16, 8, 4096, 128)  # B, H, KV, S, D of the serve prefill
+DECODE_SHAPE = (4, 16, 8, 4352, 128)  # B, H, KV, T, D of the serve decode
+DECODE_POS = (0, 255, 4095, 4351)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -114,11 +158,12 @@ def _device_ms(fn, launches: int = 20, replays: int = 10) -> dict:
     return {"ms": ms, "call_ms": call_ms}
 
 
-def _bound(moved_bytes: float, flops: float) -> dict:
+def _bound(moved_bytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    operations over the float32 rate, whichever is larger."""
+    operations over the given rate (float32 by default), whichever is
+    larger."""
     bytes_ms = moved_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    ops_ms = flops / flops_per_s * 1e3
     return {
         "bytes_moved": moved_bytes, "flops": flops, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -531,6 +576,305 @@ def phase_main(mods, kmods, name, extra, shape, want):
     return res
 
 
+def _bf16_ulp(x):
+    """One bfloat16 ulp at |x| (a float32 tensor)."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0**-126))) - 7)
+
+
+def _gap(got, want, tol: float, ulp: bool):
+    """(max |got - want|, passes): each element within ``tol`` plus, with
+    ``ulp``, one bfloat16 ulp of the larger magnitude."""
+    import torch
+
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    bound = tol + (_bf16_ulp(torch.maximum(g.abs(), w.abs())) if ulp else 0.0)
+    return d.max().item(), bool((d <= bound).all())
+
+
+def _same_argmax(a, b) -> float:
+    """The share of rows whose greedy token is the same in two logits."""
+    return (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+
+
+def _serve_run(model, prompt, steps, cache_len):
+    """The port's prefill, then teacher-forced decode steps; every logits."""
+    logits, cache = model.prefill({"tokens": prompt, "cache_len": cache_len})
+    out = [logits.cpu()]
+    for i, tok in enumerate(steps):
+        logits, cache = model.decode_step(
+            cache, {"token": tok, "pos": prompt.shape[1] + i}
+        )
+        out.append(logits.cpu())
+    return out
+
+
+def phase_lm_agree(lm, kmods):
+    """The dense LMs at their reduced configs: card (kernels) against CPU
+    (plain versions), same weights, float32 and bf16."""
+    import copy
+
+    import torch
+
+    configs = lm["configs"]
+    lm["device"].resolve_device("cuda")  # TF32 off: float32 products in full float32
+    fops, dops = kmods["flash_attention"], kmods["decode_attention"]
+    out = {}
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get_config(arch, reduced=True)
+        n_attn = sum(b.kind == "attn" for g in cfg.groups for b in g.blocks * g.repeat)
+        base = configs.build_model(cfg, device="cpu", seed=0)
+        for dtype in (torch.float32, torch.bfloat16):
+            cpu = copy.deepcopy(base).to(dtype)
+            gpu = copy.deepcopy(cpu).to("cuda")
+            for P, cache_len in LM_AGREE_CASES:
+                rng = np.random.default_rng(P)
+                prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, P), dtype=np.int32))
+                steps = [torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1), dtype=np.int32))
+                         for _ in range(LM_AGREE_STEPS)]
+                want = _serve_run(cpu, prompt, steps, cache_len)
+                f0, d0 = fops.LAUNCHES, dops.LAUNCHES
+                got = _serve_run(gpu, prompt, steps, cache_len)
+                _require((fops.LAUNCHES - f0, dops.LAUNCHES - d0)
+                         == (n_attn, n_attn * LM_AGREE_STEPS), f"{arch}: launches")
+                f32 = dtype == torch.float32
+                worst = 0.0
+                for i, (g, w) in enumerate(zip(got, want)):
+                    d, ok = _gap(g, w, 1e-5 if f32 else LM_BF16_TOL, ulp=f32)
+                    _require(ok and bool(torch.isfinite(g.float()).all()),
+                             f"lm_agree {arch} {dtype} P={P} step {i}: max |d| {d}")
+                    worst = max(worst, d)
+                out[f"{arch}/{str(dtype)[6:]}/P{P}"] = worst
+    _emit({"phase": "lm_agree", "steps": LM_AGREE_STEPS, "cases": list(LM_AGREE_CASES),
+           "tolerance": {"float32": "one bf16 ulp + 1e-5", "bfloat16": LM_BF16_TOL},
+           "max_abs_logit_diff": out})
+
+
+def _profile(fn):
+    """fn's result, and the device time by kernel over that one call of
+    ``fn`` (torch.profiler), the wall time and the device's busy share of
+    it; None where the profiler shows no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = {}  # device activities only (kernels, copies): host ops would count twice
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us, n = by_kernel.get(e.key[:80], (0.0, 0))
+        by_kernel[e.key[:80]] = (us + e.self_device_time_total, n + e.count)
+    total_us = sum(us for us, _ in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    return value, {
+        "wall_s": wall, "device_s": total_us / 1e6 if total_us else None,
+        "device_busy_share": total_us / 1e6 / wall if total_us else None,
+        "top_kernels_ms": {k: [us / 1e3, n] for k, (us, n) in top},
+    }
+
+
+def phase_serve(lm, kmods):
+    """The LM main path at full width through the user's entry points:
+    build_model, then serve_lm.generate (prefill, greedy decode)."""
+    import copy
+
+    import torch
+
+    configs, serve_lm = lm["configs"], lm["serve_lm"]
+    cfg = configs.get_config(SERVE["arch"])
+    B, P, n_new = SERVE["batch"], SERVE["prompt_len"], SERVE["tokens"]
+    t0 = time.perf_counter()
+    model = configs.build_model(cfg, device="cuda", seed=SERVE["seed"])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    _require(n_params == model.num_params() == SERVE_PARAMS, f"serve: {n_params} parameters")
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    prompt = serve_lm.prompt_tokens(cfg.vocab, B, P, SERVE["seed"])
+    n_attn = sum(b.kind == "attn" for g in cfg.groups for b in g.blocks * g.repeat)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(kmods)
+    res = serve_lm.generate(model, prompt, n_new)
+    launches = {k: fn.LAUNCHES for k, fn in kmods.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(dict.fromkeys(kmods, 0), flash_attention=n_attn,
+                decode_attention=n_attn * (n_new - 1))
+    _require(launches == want, f"serve: launches {launches}, expected {want}")
+    toks = res["tokens"]
+    _require(tuple(toks.shape) == (B, n_new) and int(toks.min()) >= 0
+             and int(toks.max()) < cfg.vocab, "serve: tokens out of range")
+    for name in ("prefill_logits", "first_step_logits"):
+        lg = res[name]
+        _require(tuple(lg.shape) == (B, 1, cfg.vocab) and bool(torch.isfinite(lg.float()).all()),
+                 f"serve: {name} not finite or of the wrong shape")
+    steps = n_new - 1
+
+    # decode at pos P against the last-token logits of a prefill of P + 1
+    # tokens, in bf16 (the served model), profiled, then in a float32 copy
+    full = torch.cat([prompt, toks[:, :1]], dim=1)
+    ref_bf16, prefill_prof = _profile(lambda: model.prefill({"tokens": full})[0])
+    d_bf16 = (res["first_step_logits"].float() - ref_bf16.float()).abs().max().item()
+    same_bf16 = _same_argmax(res["first_step_logits"], ref_bf16)
+    # device time of 8 steady decode steps (slots of the cache reused)
+    cache, tok = res.pop("cache"), toks[:, -1:].to(model.device)
+    pos = torch.tensor(P + n_new - 8, dtype=torch.int32, device=model.device)
+
+    def decode8():
+        nonlocal cache
+        for _ in range(8):
+            _, cache = model.decode_step(cache, {"token": tok, "pos": pos})
+            pos.add_(1)
+
+    _, decode_prof = _profile(decode8)
+    del cache, res["prefill_logits"]
+    m32 = copy.deepcopy(model).float()
+    del model
+    # the served prompt with its first greedy token, and a second prompt
+    # (P + 1 tokens from the next seed): two readings of the float32 gap
+    second = serve_lm.prompt_tokens(cfg.vocab, B, P + 1, SERVE["seed"] + 1)
+    d_f32, same_f32, over_ulp = [], [], []
+    for seq in (full, second):
+        _, cache32 = m32.prefill({"tokens": seq[:, :P], "cache_len": P + 1})
+        step32, _ = m32.decode_step(cache32, {"token": seq[:, P:], "pos": P})
+        del cache32
+        ref32, _ = m32.prefill({"tokens": seq})
+        s32, r32 = step32.float(), ref32.float()
+        d_f32.append((s32 - r32).abs().max().item())
+        same_f32.append(_same_argmax(step32, ref32))
+        over_ulp.append(((s32 - r32).abs()
+                         > _bf16_ulp(torch.maximum(s32.abs(), r32.abs()))).sum().item())
+    del m32
+    torch.cuda.empty_cache()
+    out = {
+        "phase": "serve", "arch": cfg.name, "params": n_params, "weight_bytes": weight_bytes,
+        "batch": B, "prompt_len": P, "new_tokens": n_new, "decode_steps": steps,
+        "launches": launches, "build_model_s": build_s,
+        "prefill_s": res["prefill_s"], "prefill_tokens_per_s": B * P / res["prefill_s"],
+        "decode_s": res["decode_s"], "decode_ms_per_step": res["decode_s"] / steps * 1e3,
+        "decode_tokens_per_s": B * steps / res["decode_s"],
+        "max_memory_allocated": peak,
+        "decode_vs_prefill_max_abs": {"bf16": d_bf16, "float32_copy": d_f32},
+        "decode_vs_prefill_tolerance": {"bf16": SERVE_DECODE_VS_PREFILL_BF16,
+                                        "float32_copy": SERVE_DECODE_VS_PREFILL_F32},
+        "decode_vs_prefill_same_argmax": {"bf16": same_bf16, "float32_copy": same_f32},
+        "decode_vs_prefill_float32_over_one_ulp": [over_ulp, B * cfg.vocab],
+        "first_tokens": toks[0, :8].tolist(),
+        "profile_prefill_4097": prefill_prof, "profile_decode_8_steps": decode_prof,
+    }
+    _emit(out)  # the numbers first, so that a failing check shows them
+    _require(d_bf16 <= SERVE_DECODE_VS_PREFILL_BF16, f"serve: decode vs prefill (bf16) {d_bf16}")
+    _require(max(d_f32) <= SERVE_DECODE_VS_PREFILL_F32,
+             f"serve: decode vs prefill (float32) {d_f32}")
+    return out
+
+
+def _attn_inputs(B, H, KV, S, D, dtype, seed):
+    """q (B, H, S, D) and k, v (B, KV, S, D) as transposed views of
+    (B, S, heads, D) tensors, as the model passes them."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(
+        torch.randn((B, S, h, D), generator=g, device="cuda").to(dtype).transpose(1, 2)
+        for h in (H, KV, KV)
+    )
+
+
+def _attn_check(got, want, dtype, what):
+    import torch
+
+    # bf16: one rounding apart, so within one bf16 ulp, plus the float32
+    # tolerance for outputs near 0, where bf16 keeps float32's noise
+    d, ok = _gap(got, want, ATTN_F32_TOL, ulp=dtype == torch.bfloat16)
+    _require(ok, f"{what}: kernel != plain, max |d| {d}")
+    return d
+
+
+def phase_kernel_attn(fops, fref, dops, dref):
+    """The attention kernels against their plain versions at the serve
+    shapes and ragged ones; times, bounds and the SDPA yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    err = {"flash_attention": {}, "decode_attention": {}}
+    flash_cases = [FLASH_SHAPE, (2, 16, 8, 100, 128), (1, 16, 8, 4097, 128), (2, 4, 2, 100, 16),
+                   (1, 6, 2, 300, 16)]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        worst = 0.0
+        for i, shape in enumerate(flash_cases):
+            q, k, v = _attn_inputs(*shape, dtype=dtype, seed=i)
+            got = fops.attention(q, k, v)
+            want = fref.flash_attention_ref(q, k, v)
+            torch.cuda.synchronize()
+            worst = max(worst, _attn_check(got, want, dtype, f"flash {name} {shape}"))
+            del got, want
+        err["flash_attention"][name] = worst
+        worst = 0.0
+        B, H, KV, T, D = DECODE_SHAPE
+        cases = [(DECODE_SHAPE, p) for p in DECODE_POS]
+        cases += [((2, 16, 8, 1000, 128), 999), ((2, 16, 8, 1000, 128), 500),
+                  ((2, 4, 2, 300, 16), 299), ((1, 24, 8, 700, 16), 5000)]
+        for i, ((B, H, KV, T, D), p) in enumerate(cases):
+            q, k, v = _attn_inputs(B, H, KV, T, D, dtype=dtype, seed=100 + i)
+            q = q[:, :, 0]
+            pos = torch.tensor(p, dtype=torch.int32, device="cuda")
+            got = dops.decode(q, k, v, pos)
+            want = dref.decode_ref(q, k, v, pos)
+            torch.cuda.synchronize()
+            worst = max(worst, _attn_check(got, want, dtype, f"decode {name} T={T} pos={p}"))
+        err["decode_attention"][name] = worst
+
+    # times in bf16, the served dtype, at the serve shapes
+    bf16 = torch.bfloat16
+    size = 2
+    B, H, KV, S, D = FLASH_SHAPE
+    q, k, v = _attn_inputs(*FLASH_SHAPE, dtype=bf16, seed=0)
+    lib = _device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                              enable_gqa=True), 5, 3)
+    flash = {
+        "shape": list(FLASH_SHAPE), **_device_ms(lambda: fops.attention(q, k, v), 5, 3),
+        "plain_ms": _time_ms(lambda: fref.flash_attention_ref(q, k, v), iters=3, warmup=1),
+        "library": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+        "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
+        **_bound((2 * B * H * S * D + 2 * B * KV * S * D) * size,
+                 4 * B * H * D * S * (S + 1) / 2, BF16_FLOPS_PER_S),
+    }
+    flash["achieved_tflop_s"] = flash["flops"] / (flash["ms"] * 1e-3) / 1e12
+    del q, k, v
+    B, H, KV, T, D = DECODE_SHAPE
+    q, k, v = _attn_inputs(*DECODE_SHAPE, dtype=bf16, seed=1)
+    q = q[:, :, 0]
+    p = DECODE_POS[-1]
+    pos = torch.tensor(p, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(T, device="cuda") <= p)[None, None, None, :]
+    lib = _device_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
+                                                              enable_gqa=True))
+    decode = {
+        "shape": list(DECODE_SHAPE), "pos": p, **_device_ms(lambda: dops.decode(q, k, v, pos)),
+        "plain_ms": _time_ms(lambda: dref.decode_ref(q, k, v, pos), iters=5),
+        "library": "scaled_dot_product_attention(attn_mask=keys <= pos, enable_gqa=True)",
+        "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
+        **_bound((2 * B * KV * (p + 1) * D + 2 * B * H * D) * size, 4 * B * H * (p + 1) * D,
+                 BF16_FLOPS_PER_S),
+    }
+    decode["achieved_gb_s"] = decode["bytes_moved"] / (decode["ms"] * 1e-3) / 1e9
+    res = {"phase": "kernel_attn", "max_abs_err": err,
+           "tolerance": {"float32": ATTN_F32_TOL, "bfloat16": "one bf16 ulp + 2e-5"},
+           "timings": {"flash_attention": flash, "decode_attention": decode}}
+    _emit(res)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -542,7 +886,11 @@ def main() -> int:
         print(f"chip_smoke: {src / 'repro_torch'} not found; run from a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    from repro_torch import data, fl, telemetry
+    from repro_torch import configs, data, device, fl, serve_lm, telemetry
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.ipls_aggregate import ops, ref
     from repro_torch.kernels.quantize import ops as qops
     from repro_torch.kernels.quantize import ref as qref
@@ -556,7 +904,10 @@ def main() -> int:
         "ipls_aggregate_batched_q": ops.aggregate_batched_q,
         "quantize": qops.quantize,
         "dequantize": qops.dequantize,
+        "flash_attention": fops.attention,
+        "decode_attention": dops.decode,
     }
+    lm = {"configs": configs, "device": device, "serve_lm": serve_lm}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -571,9 +922,10 @@ def main() -> int:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source, at once
-        futs = {"ipls_aggregate": pool.submit(timed_build, ops),
-                "quantize": pool.submit(timed_build, qops)}
+    libs = {"ipls_aggregate": ops, "quantize": qops, "flash_attention": fops,
+            "decode_attention": dops}
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:  # one nvcc per source, at once
+        futs = {k: pool.submit(timed_build, mod) for k, mod in libs.items()}
         build_s = {k: f.result() for k, f in futs.items()}
     _emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_library_s": build_s})
 
@@ -592,8 +944,11 @@ def main() -> int:
         MAIN_Q_SHAPE,
         dict(none, ipls_aggregate_batched_q=rounds, quantize=3 * rounds, dequantize=2 * rounds),
     )
+    phase_lm_agree(lm, kmods)
+    serve = phase_serve(lm, kmods)
     kern = phase_kernel(ops, ref)
     kern_q = phase_kernel_q(qops, qref, ops, ref)
+    kern_attn = phase_kernel_attn(fops, fref, dops, dref)
 
     t = kern_q["timings"]
     agg_q = t["aggregate_batched_q@{}x{}x{}".format(*MAIN_Q_SHAPE)]
@@ -608,6 +963,14 @@ def main() -> int:
         ("dequantize", "quantize/csrc/quantize.cu", "kernels/quantize/quantize.py:107", main_q,
          kern_q["max_abs_err"]["dequantize"], t[f"dequantize@{VALUE_PLANE}"]),
     ]
+    for name, source, replaces in (
+        ("flash_attention", "flash_attention/csrc/flash_attention.cu",
+         "kernels/flash_attention/flash_attention.py:74"),
+        ("decode_attention", "decode_attention/csrc/decode_attention.cu",
+         "kernels/decode_attention/decode_attention.py:67"),
+    ):  # max |err| of the float32 cases (bf16 ones: within one bf16 ulp)
+        rows.append((name, source, replaces, serve, kern_attn["max_abs_err"][name]["float32"],
+                     kern_attn["timings"][name]))
     _emit({"kernels": [{
         "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/{source}",
         "replaces": f"src/repro/{replaces}", "path": path["phase"],

@@ -1,0 +1,78 @@
+"""Config helpers shared by the per-architecture files (dense family).
+
+Port of the reference's ``configs/base.py``: ``attn_block``, ``mlp_block``
+and ``dense_lm``. The MoE, Mamba2 and RWKV6 helpers come with their slices.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import ArchConfig, BlockSpec, GroupSpec
+
+
+def attn_block(
+    d_model: int,
+    n_heads: int,
+    kv_heads: int,
+    head_dim: int,
+    window: Optional[int] = None,
+    rope: str = "std",
+    rope_theta: float = 10000.0,
+    qk_norm: bool = False,
+    bias: bool = False,
+) -> BlockSpec:
+    return BlockSpec(
+        kind="attn",
+        attn=L.AttnSpec(
+            d_model=d_model,
+            n_heads=n_heads,
+            kv_heads=kv_heads,
+            head_dim=head_dim,
+            window=window,
+            rope=rope,
+            rope_theta=rope_theta,
+            qk_norm=qk_norm,
+            bias=bias,
+        ),
+    )
+
+
+def mlp_block(d_model: int, d_ff: int, activation: str = "silu", gated: bool = True) -> BlockSpec:
+    return BlockSpec(kind="mlp", mlp=L.MLPSpec(d_model, d_ff, activation, gated))
+
+
+def dense_lm(
+    name: str,
+    n_layers: int,
+    d_model: int,
+    n_heads: int,
+    kv_heads: int,
+    d_ff: int,
+    vocab: int,
+    head_dim: Optional[int] = None,
+    activation: str = "silu",
+    gated: bool = True,
+    rope_theta: float = 10000.0,
+    tie_embeddings: bool = False,
+    qk_norm: bool = False,
+    bias: bool = False,
+    mrope: bool = False,
+) -> ArchConfig:
+    hd = head_dim or d_model // n_heads
+    layer = (
+        attn_block(
+            d_model, n_heads, kv_heads, hd,
+            rope="mrope" if mrope else "std",
+            rope_theta=rope_theta, qk_norm=qk_norm, bias=bias,
+        ),
+        mlp_block(d_model, d_ff, activation, gated),
+    )
+    return ArchConfig(
+        name=name,
+        vocab=vocab,
+        d_model=d_model,
+        groups=(GroupSpec(blocks=layer, repeat=n_layers),),
+        tie_embeddings=tie_embeddings,
+        mrope=mrope,
+    )

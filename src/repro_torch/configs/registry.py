@@ -1,0 +1,53 @@
+"""Architecture registry of the port: ``--arch <id>`` resolution, model
+construction and the shape table.
+
+Port of the reference's ``configs/registry.py`` for the dense family; the
+other architectures come with their slices (ROADMAP.md queue 1), and the
+reference's ``input_specs`` (JAX ShapeDtypeStruct stand-ins) has no
+counterpart yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Dict
+
+from repro_torch.models.transformer import ArchConfig, TransformerLM
+
+ARCH_MODULES = {
+    "minitron-4b": "repro_torch.configs.minitron_4b",
+    "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
+    "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
+}
+
+ARCH_IDS = tuple(ARCH_MODULES)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def get_config(arch: str, reduced: bool = False) -> ArchConfig:
+    if arch not in ARCH_MODULES:
+        raise KeyError(f"unknown or not yet ported arch {arch!r}; the port has {ARCH_IDS}")
+    mod = importlib.import_module(ARCH_MODULES[arch])
+    return mod.reduced() if reduced else mod.config()
+
+
+def build_model(arch_or_cfg, device="cuda", seed: int = 0) -> TransformerLM:
+    """The model of an arch id or config, its weights drawn from ``seed`` on
+    ``device`` (CUDA by default; raises when there is none)."""
+    cfg = get_config(arch_or_cfg) if isinstance(arch_or_cfg, str) else arch_or_cfg
+    return TransformerLM(cfg, device=device, seed=seed)

@@ -1,0 +1,96 @@
+"""Wrapper of the hand-written flash-attention kernel (csrc/flash_attention.cu).
+
+The device of the input decides the path and nothing else: a CUDA tensor
+launches the CUDA kernel (or raises if it cannot be built or launched); a
+CPU tensor takes the plain PyTorch version in ``ref.py``. There is no
+fallback from one to the other. The library is compiled with ``nvcc`` at
+first use (``kernels/_build.py``).
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._build import build_library, launch
+from repro_torch.kernels.flash_attention import ref
+
+_SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_lib = None  # the loaded shared library, once built
+HEAD_DIMS = (16, 128)  # the kernels' instantiations: the ported configs' head sizes
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the flash-attention library."""
+    global _lib
+    if _lib is None:
+        lib = build_library(_SRC)
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_fwd.argtypes = [ptr] * 4 + [i32] * 7 + [ptr, ptr]
+        lib.flash_attention_fwd.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check_attention_args(q, k, v, kv_name: str = "k, v") -> None:
+    """The checks both attention wrappers share: one device and dtype,
+    float32 or bfloat16, head_dim contiguous (on CUDA in HEAD_DIMS; the plain
+    versions take any), H % KV == 0."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in DTYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q is on {q.device}")
+        if t.shape[-1] != q.shape[-1]:
+            raise ValueError(f"head_dim of {name} is {t.shape[-1]}, of q {q.shape[-1]}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous in its last (head_dim) dimension")
+    if k.shape != v.shape:
+        raise ValueError(f"{kv_name} shapes differ: {tuple(k.shape)} vs {tuple(v.shape)}")
+    if q.shape[0] != k.shape[0]:
+        raise ValueError(f"batch of q is {q.shape[0]}, of {kv_name} {k.shape[0]}")
+    if k.shape[1] < 1 or q.shape[1] % k.shape[1] != 0:
+        raise ValueError(f"q heads ({q.shape[1]}) must be a multiple of kv heads ({k.shape[1]})")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    if q.device.type == "cuda" and q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head_dim {q.shape[-1]} not in the kernels' {HEAD_DIMS}")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True):
+    """Softmax attention, causal by default: q (B, H, S, D), k and v
+    (B, KV, S, D) with H % KV == 0, any strides with D contiguous, float32 or
+    bfloat16, any S >= 1. Query head h reads kv head h // (H / KV). Returns
+    (B, H, S, D) in q's dtype; on CUDA with q's strides, so for a transposed
+    (B, S, H, D) q the result transposes back to a contiguous tensor."""
+    check_attention_args(q, k, v)
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q, k, v must be 4-D, got {tuple(q.shape)}, {tuple(k.shape)}")
+    if k.shape[2] != q.shape[2]:
+        raise ValueError(f"q has {q.shape[2]} positions, k and v {k.shape[2]}")
+    if q.shape[2] < 1:
+        raise ValueError("empty sequence")
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    B, H, S, D = q.shape
+    if B * H > 65535:
+        raise ValueError(f"B * H = {B * H} exceeds the grid's 65535")
+    lib = build()
+    out = torch.empty_like(q)  # q's strides (dense, non-overlapping inputs)
+    strides = (ctypes.c_int64 * 12)(
+        *(s for t in (out, q, k, v) for s in t.stride()[:3])
+    )
+    launch(
+        "flash_attention", lib.flash_attention_fwd, out.data_ptr(), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), DTYPES[q.dtype], B, H, k.shape[1], S, D, int(causal),
+        ctypes.cast(strides, ctypes.c_void_p), device=q.device,
+    )
+    attention.LAUNCHES += 1
+    return out
+
+
+attention.LAUNCHES = 0  # kernel launches, counted where they happen

@@ -1,0 +1,249 @@
+"""Decoder-only LM stack, dense family (attention + MLP blocks), for serving.
+
+Port of the reference's ``models/transformer.py``. A model is a sequence of
+GROUPS; each group is a PERIOD of blocks repeated ``repeat`` times. The
+reference stacks a group's layers on a leading axis for ``lax.scan``; here
+each layer is its own ``ParamTree`` in an ``nn.ModuleList`` and the layers
+run in a Python loop. Blocks are pre-norm residual: ``x + f(norm(x))``.
+
+Serving entry points keep the reference's layouts: tokens (B, S) int,
+logits (B, 1, V) bfloat16, and per layer a cache ``{"k", "v"}`` of
+(B, T, KV, hd) in ``cache[f"g{gi}"][layer][f"b{bi}"]``. Only block kinds
+``attn`` and ``mlp`` are ported; the others (MLA, MoE, Mamba2, RWKV6),
+shared blocks and training (``loss``) belong to later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.param_defs import (
+    ParamDef,
+    ParamTree,
+    count_params,
+    init_values,
+    stack_defs,
+    unstack,
+)
+
+SUPPORTED_KINDS = ("attn", "mlp")
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSpec:
+    kind: str                                   # attn | mlp (the reference has more)
+    attn: Optional[L.AttnSpec] = None
+    mlp: Optional[L.MLPSpec] = None
+    norm: str = "rms"                            # rms | ln
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    blocks: Tuple[BlockSpec, ...]
+    repeat: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """The reference's fields that the dense family sets; gemma's embedding
+    scale and soft cap, the MoE loss weight and the training and shape
+    flags come with the slices that use them."""
+
+    name: str
+    vocab: int
+    d_model: int
+    groups: Tuple[GroupSpec, ...]
+    tie_embeddings: bool = False
+    final_norm: str = "rms"
+    mrope: bool = False                          # expects positions3 input
+
+    @property
+    def n_layers(self) -> int:
+        return sum(g.repeat * len(g.blocks) for g in self.groups)
+
+
+def _norm_init(kind: str, d: int):
+    return L.init_rmsnorm(d) if kind == "rms" else L.init_layernorm(d)
+
+
+def _norm_apply(kind: str, p, x):
+    return L.rms_norm(p, x) if kind == "rms" else L.layer_norm(p, x)
+
+
+def _check_kind(b: BlockSpec) -> None:
+    if b.kind not in SUPPORTED_KINDS:
+        raise NotImplementedError(
+            f"block kind {b.kind!r} (MLA, MoE, Mamba2, RWKV6) is not ported yet: it belongs "
+            f"to a later slice of the port (ROADMAP.md queue 1); this one runs {SUPPORTED_KINDS}"
+        )
+
+
+def block_defs(b: BlockSpec, d_model: int) -> Dict[str, Any]:
+    _check_kind(b)
+    defs: Dict[str, Any] = {"norm": _norm_init(b.norm, d_model)}
+    if b.kind == "attn":
+        defs["attn"] = L.init_attention(b.attn)
+    else:
+        defs["mlp"] = L.init_mlp(b.mlp)
+    return defs
+
+
+def block_cache_defs(b: BlockSpec, batch: int, seq_len: int, dtype) -> Optional[Dict[str, Any]]:
+    if b.kind == "attn":
+        return L.init_attn_cache(b.attn, batch, seq_len, dtype)
+    return None  # mlp is stateless
+
+
+def apply_block_prefill(b: BlockSpec, p, x, ctx):
+    """Returns (y, cache_entry)."""
+    h = _norm_apply(b.norm, p["norm"], x)
+    if b.kind == "mlp":
+        return x + L.apply_mlp(p["mlp"], b.mlp, h), None
+    y, k, v = L.prefill_attention(p["attn"], b.attn, h, ctx["positions"])
+    T, Sq = ctx["cache_len"], h.shape[1]
+    kc = k.new_zeros((k.shape[0], T) + k.shape[2:])
+    vc = torch.zeros_like(kc)
+    keep = min(T, Sq)
+    kc[:, :keep] = k[:, Sq - keep:]
+    vc[:, :keep] = v[:, Sq - keep:]
+    return x + y, {"k": kc, "v": vc}
+
+
+def apply_block_decode(b: BlockSpec, p, x, cache, pos):
+    h = _norm_apply(b.norm, p["norm"], x)
+    if b.kind == "mlp":
+        return x + L.apply_mlp(p["mlp"], b.mlp, h), cache
+    y, cache = L.decode_attention(p["attn"], b.attn, h, cache, pos)
+    return x + y, cache
+
+
+def lm_param_defs(cfg: ArchConfig) -> Dict[str, Any]:
+    """The reference's declaration of a model's parameters: each group's
+    period stacked on a leading ``layers`` axis (drawn stacked, then split
+    per layer)."""
+    defs: Dict[str, Any] = {"embed": L.init_embedding(cfg.vocab, cfg.d_model)}
+    for gi, g in enumerate(cfg.groups):
+        period = {f"b{bi}": block_defs(b, cfg.d_model) for bi, b in enumerate(g.blocks)}
+        defs[f"g{gi}"] = stack_defs(period, g.repeat)
+    defs["final_norm"] = _norm_init(cfg.final_norm, cfg.d_model)
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = {
+            "table": ParamDef((cfg.vocab, cfg.d_model), init="embed", scale=0.02)
+        }
+    return defs
+
+
+class TransformerLM(nn.Module):
+    """The dense LM. Parameters are drawn at construction from ``seed`` on
+    ``device`` (frozen: the port serves, it does not train yet). The device
+    is CUDA by default and raises when there is none; pass ``device="cpu"``
+    to run on the CPU."""
+
+    def __init__(self, cfg: ArchConfig, device="cuda", seed: int = 0):
+        super().__init__()
+        if cfg.mrope:
+            L.apply_mrope()
+        for g in cfg.groups:
+            for b in g.blocks:
+                _check_kind(b)
+        device = resolve_device(device)
+        self.cfg = cfg
+        gen = torch.Generator(device=device).manual_seed(seed)
+        values = init_values(self.param_defs(), gen, device)
+        self.embed = ParamTree(values["embed"])
+        self.groups = nn.ModuleList(
+            nn.ModuleList(ParamTree(p) for p in unstack(values[f"g{gi}"], g.repeat))
+            for gi, g in enumerate(cfg.groups)
+        )
+        self.final_norm = ParamTree(values["final_norm"])
+        if not cfg.tie_embeddings:
+            self.lm_head = ParamTree(values["lm_head"])
+
+    def param_defs(self) -> Dict[str, Any]:
+        return lm_param_defs(self.cfg)
+
+    def num_params(self) -> int:
+        return count_params(self.param_defs())
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed.table.dtype
+
+    # -- pieces ---------------------------------------------------------------
+    def _logits(self, x):
+        """bfloat16 logits of a float32-accumulated product with the
+        (tied or separate) unembedding table."""
+        table = self.embed.table if self.cfg.tie_embeddings else self.lm_head.table
+        return (x @ table.t()).to(torch.bfloat16)
+
+    def _layers(self):
+        for gi, g in enumerate(self.cfg.groups):
+            for li, p in enumerate(self.groups[gi]):
+                for bi, b in enumerate(g.blocks):
+                    yield gi, li, f"b{bi}", b, p[f"b{bi}"]
+
+    def _put(self, caches, gi: int, li: int, key: str, entry) -> None:
+        """``caches[f"g{gi}"][li][key] = entry``, one dict per layer."""
+        layers = caches.setdefault(f"g{gi}", [{} for _ in range(self.cfg.groups[gi].repeat)])
+        layers[li][key] = entry
+
+    # -- serving ---------------------------------------------------------------
+    def init_cache(self, batch: int, cache_len: int, dtype=None):
+        """Zero KV caches in the model's dtype (the reference's default is
+        bfloat16 whatever the weights; the port's decode needs the cache in
+        the activations' dtype)."""
+        dtype = dtype or self.dtype
+        caches: Dict[str, Any] = {}
+        for gi, li, key, b, _ in self._layers():
+            defs = block_cache_defs(b, batch, cache_len, dtype)
+            if defs is not None:
+                self._put(caches, gi, li, key, {
+                    n: torch.zeros(d.shape, dtype=d.dtype, device=self.device)
+                    for n, d in defs.items()
+                })
+        return caches
+
+    @torch.no_grad()
+    def prefill(self, batch):
+        """Full-prompt forward. batch: tokens (B, S) int, optional cache_len
+        (default S). Returns (last-token logits (B, 1, V) bf16, cache) with
+        the prompt's keys and values in slots 0..S-1 of a new cache."""
+        tokens = batch["tokens"].to(self.device)
+        B, Sq = tokens.shape
+        ctx = {
+            "positions": torch.arange(Sq, device=self.device)[None, :].expand(B, Sq),
+            "cache_len": batch.get("cache_len", Sq),
+        }
+        x = L.embed(self.embed, tokens)
+        caches: Dict[str, Any] = {}
+        for gi, li, key, b, p in self._layers():
+            x, c = apply_block_prefill(b, p, x, ctx)
+            if c is not None:
+                self._put(caches, gi, li, key, c)
+        x = _norm_apply(self.cfg.final_norm, self.final_norm, x[:, -1:])
+        return self._logits(x), caches
+
+    @torch.no_grad()
+    def decode_step(self, cache, batch):
+        """One new token. batch: token (B, 1) int, pos () int32 (a 0-d tensor
+        on the model's device, or an int): the number of tokens already
+        cached. Unlike the reference, which returns a new cache, this writes
+        the token's keys and values into ``cache`` IN PLACE and returns it
+        with the logits (B, 1, V) bf16."""
+        token = batch["token"].to(self.device)
+        pos = torch.as_tensor(batch["pos"], dtype=torch.int32, device=self.device)
+        x = L.embed(self.embed, token)
+        for gi, li, key, b, p in self._layers():
+            entry = cache[f"g{gi}"][li].get(key) if f"g{gi}" in cache else None
+            x, _ = apply_block_decode(b, p, x, entry, pos)
+        x = _norm_apply(self.cfg.final_norm, self.final_norm, x)
+        return self._logits(x), cache
