@@ -18,11 +18,12 @@ exits non-zero:
               through make_simulation(engine="vectorized"); the scalar engine
               is the reference (counters exact, round-0 weights within 1e-3);
   main_int8 — the same at full width on the LOSSY network and the int8 wire;
-  lm_agree  — the dense LMs (internlm2, phi4-mini, minitron) at their reduced
-              configs: the port on the card (attention kernels) against the
-              port on the CPU (plain versions), same weights from one seed,
-              prompts of 16 and 100 tokens, 8 decode steps; logits within one
-              bfloat16 ulp (+1e-5) in float32 weights, within 0.03 in bf16;
+  lm_agree  — the LMs (internlm2, phi4-mini, minitron, rwkv6) at their reduced
+              configs: the port on the card (attention and scan kernels)
+              against the port on the CPU (plain versions), same weights from
+              one seed, prompts of 16 and 100 tokens, 8 decode steps; logits
+              within one bfloat16 ulp (+1e-5) in float32 weights, within
+              0.03 in bf16;
   serve     — the LM main path at full width: internlm2-1.8b
               (1,889,110,016 parameters, bf16) through build_model and
               serve_lm.generate, batch 4, a 4,096-token prompt from the seed,
@@ -30,7 +31,14 @@ exits non-zero:
               flash-decode launches; prefill and decode times, peak memory,
               finite logits; decode at pos 4,096 against the last-token
               logits of a 4,097-token prefill, in bf16 and, for the served
-              prompt and a second one, in a float32 copy;
+              prompt and a second one, in float32 weights;
+  serve_rwkv — the RWKV6 path at full width: rwkv6-7b (7,534,546,944
+              parameters, bf16) through build_model and serve_lm.generate,
+              batch 4, a 4,096-token prompt from the seed, 128 greedy tokens;
+              exactly 32 linear-scan launches (one per time-mix layer, in the
+              prefill) and none of any other kernel; the same numbers and
+              checks as serve, the 4,097-token prefill running the kernel's
+              ragged last chunk;
   kernel    — the f32 aggregation kernel against its plain PyTorch version,
               bit for bit, at the main path's shape (K=20, R=51, S=44361),
               ragged cases and the single-partition form; kernel (device
@@ -43,7 +51,14 @@ exits non-zero:
               serve shapes (flash B=4, H=16, KV=8, S=4096, D=128; decode at
               T=4352, pos 0, 255, 4095, 4351) and ragged ones: float32 within
               2e-5, bf16 within one bf16 ulp (+2e-5); times beside the bound and
-              scaled_dot_product_attention as the yardstick.
+              scaled_dot_product_attention as the yardstick;
+  kernel_scan — the linear-scan kernel against both plain versions (step
+              oracle, chunked scan) at the serve shape (4, 4096, 64, 64) in
+              float32 and bf16, T = 1, 100 and 4,097, one head, an initial
+              state, a nonzero bonus, strided inputs and log-decays over the
+              model's whole clip range: within 3e-5 of the output's scale
+              (bf16: one bf16 ulp more); times beside the bound (no PyTorch
+              call computes the recurrence).
 Each main phase sets every kernel's launch count to 0 before it runs and
 requires the counts its path must give. Then the kernels line, the
 nvidia-smi line and, last, the result line. Imports nothing of JAX or of the
@@ -108,6 +123,28 @@ ATTN_F32_TOL = 2e-5  # as tests/test_kernels.py
 FLASH_SHAPE = (4, 16, 8, 4096, 128)  # B, H, KV, S, D of the serve prefill
 DECODE_SHAPE = (4, 16, 8, 4352, 128)  # B, H, KV, T, D of the serve decode
 DECODE_POS = (0, 255, 4095, 4351)
+# the RWKV6 path: rwkv6-7b at full width, serving
+SERVE_RWKV = dict(arch="rwkv6-7b", batch=4, prompt_len=4096, tokens=128, seed=0)
+SERVE_RWKV_PARAMS = 7_534_546_944
+# decode at pos 4,096 vs the last-token logits of a 4,097-token prefill. The
+# recurrence's step is float32 on both paths (decode in PyTorch from the
+# kernel's final state; the kernel's last, ragged chunk), so the gap comes
+# from the GEMMs (4 rows against 16,388) and, in bf16, the activations'
+# roundings, carried through 32 layers of the reference's high-gain init. On
+# an H100: 0.03125 in float32 weights on two prompts (one bf16 ulp at
+# |logit| 4-8; 54 of 262,144 logits over one ulp) and 0.125 in bf16; the
+# bounds are about 3x those. A wrong state, token shift or decay moves the
+# logits by their whole scale.
+SERVE_RWKV_DECODE_VS_PREFILL_BF16 = 0.4
+SERVE_RWKV_DECODE_VS_PREFILL_F32 = 0.1
+# the linear-scan kernel against its plain versions: float32 sums in other
+# orders, held against the output's scale max(1, max |want|). Measured 6.0e-6
+# on an H100 (against the chunked scan; its own error against a float64
+# result reaches 1e-5 of the scale at chunks of 64 on the CPU, the step
+# form's 2e-7)
+SCAN_TOL = 3e-5
+SCAN_SHAPE = (4, 4096, 64, 64)  # B, T, H, K of the serve prefill
+LOG_DECAY_CLIP = (-8.0, 4.0)  # logw = -exp(clip(., -8, 4)) in the model
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -611,20 +648,24 @@ def _serve_run(model, prompt, steps, cache_len):
     return out
 
 
+def _count_kinds(cfg, kind: str) -> int:
+    return sum(b.kind == kind for g in cfg.groups for b in g.blocks * g.repeat)
+
+
 def phase_lm_agree(lm, kmods):
-    """The dense LMs at their reduced configs: card (kernels) against CPU
-    (plain versions), same weights, float32 and bf16."""
+    """The LMs at their reduced configs: card (kernels) against CPU (plain
+    versions), same weights, float32 and bf16."""
     import copy
 
     import torch
 
     configs = lm["configs"]
     lm["device"].resolve_device("cuda")  # TF32 off: float32 products in full float32
-    fops, dops = kmods["flash_attention"], kmods["decode_attention"]
+    lm_kernels = [kmods[k] for k in ("flash_attention", "decode_attention", "rwkv6_scan")]
     out = {}
     for arch in configs.ARCH_IDS:
         cfg = configs.get_config(arch, reduced=True)
-        n_attn = sum(b.kind == "attn" for g in cfg.groups for b in g.blocks * g.repeat)
+        n_attn, n_time = _count_kinds(cfg, "attn"), _count_kinds(cfg, "rwkv6_time")
         base = configs.build_model(cfg, device="cpu", seed=0)
         for dtype in (torch.float32, torch.bfloat16):
             cpu = copy.deepcopy(base).to(dtype)
@@ -635,10 +676,11 @@ def phase_lm_agree(lm, kmods):
                 steps = [torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1), dtype=np.int32))
                          for _ in range(LM_AGREE_STEPS)]
                 want = _serve_run(cpu, prompt, steps, cache_len)
-                f0, d0 = fops.LAUNCHES, dops.LAUNCHES
+                before = [fn.LAUNCHES for fn in lm_kernels]
                 got = _serve_run(gpu, prompt, steps, cache_len)
-                _require((fops.LAUNCHES - f0, dops.LAUNCHES - d0)
-                         == (n_attn, n_attn * LM_AGREE_STEPS), f"{arch}: launches")
+                launched = [fn.LAUNCHES - n for fn, n in zip(lm_kernels, before)]
+                _require(launched == [n_attn, n_attn * LM_AGREE_STEPS, n_time],
+                         f"{arch}: launches {launched}")
                 f32 = dtype == torch.float32
                 worst = 0.0
                 for i, (g, w) in enumerate(zip(got, want)):
@@ -680,25 +722,27 @@ def _profile(fn):
     }
 
 
-def phase_serve(lm, kmods):
-    """The LM main path at full width through the user's entry points:
-    build_model, then serve_lm.generate (prefill, greedy decode)."""
-    import copy
-
+def phase_serve(lm, kmods, name, spec, n_params_want, bounds):
+    """An LM path at full width through the user's entry points:
+    build_model, then serve_lm.generate (prefill, greedy decode). Each
+    kernel runs as often as the arch's layers say: flash attention once per
+    attention layer, flash-decode once per attention layer and decode step,
+    the linear scan once per time-mix layer (prefill only), the others
+    never. ``bounds``: the decode-vs-prefill bounds (bf16, float32)."""
     import torch
 
     configs, serve_lm = lm["configs"], lm["serve_lm"]
-    cfg = configs.get_config(SERVE["arch"])
-    B, P, n_new = SERVE["batch"], SERVE["prompt_len"], SERVE["tokens"]
+    cfg = configs.get_config(spec["arch"])
+    B, P, n_new = spec["batch"], spec["prompt_len"], spec["tokens"]
     t0 = time.perf_counter()
-    model = configs.build_model(cfg, device="cuda", seed=SERVE["seed"])
+    model = configs.build_model(cfg, device="cuda", seed=spec["seed"])
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    _require(n_params == model.num_params() == SERVE_PARAMS, f"serve: {n_params} parameters")
+    _require(n_params == model.num_params() == n_params_want, f"{name}: {n_params} parameters")
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    prompt = serve_lm.prompt_tokens(cfg.vocab, B, P, SERVE["seed"])
-    n_attn = sum(b.kind == "attn" for g in cfg.groups for b in g.blocks * g.repeat)
+    prompt = serve_lm.prompt_tokens(cfg.vocab, B, P, spec["seed"])
+    n_attn = _count_kinds(cfg, "attn")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -707,19 +751,19 @@ def phase_serve(lm, kmods):
     launches = {k: fn.LAUNCHES for k, fn in kmods.items()}
     peak = torch.cuda.max_memory_allocated()
     want = dict(dict.fromkeys(kmods, 0), flash_attention=n_attn,
-                decode_attention=n_attn * (n_new - 1))
-    _require(launches == want, f"serve: launches {launches}, expected {want}")
+                decode_attention=n_attn * (n_new - 1), rwkv6_scan=_count_kinds(cfg, "rwkv6_time"))
+    _require(launches == want, f"{name}: launches {launches}, expected {want}")
     toks = res["tokens"]
     _require(tuple(toks.shape) == (B, n_new) and int(toks.min()) >= 0
-             and int(toks.max()) < cfg.vocab, "serve: tokens out of range")
-    for name in ("prefill_logits", "first_step_logits"):
-        lg = res[name]
+             and int(toks.max()) < cfg.vocab, f"{name}: tokens out of range")
+    for key in ("prefill_logits", "first_step_logits"):
+        lg = res[key]
         _require(tuple(lg.shape) == (B, 1, cfg.vocab) and bool(torch.isfinite(lg.float()).all()),
-                 f"serve: {name} not finite or of the wrong shape")
+                 f"{name}: {key} not finite or of the wrong shape")
     steps = n_new - 1
 
     # decode at pos P against the last-token logits of a prefill of P + 1
-    # tokens, in bf16 (the served model), profiled, then in a float32 copy
+    # tokens, in bf16 (the served model), profiled, then in float32 weights
     full = torch.cat([prompt, toks[:, :1]], dim=1)
     ref_bf16, prefill_prof = _profile(lambda: model.prefill({"tokens": full})[0])
     d_bf16 = (res["first_step_logits"].float() - ref_bf16.float()).abs().max().item()
@@ -736,11 +780,11 @@ def phase_serve(lm, kmods):
 
     _, decode_prof = _profile(decode8)
     del cache, res["prefill_logits"]
-    m32 = copy.deepcopy(model).float()
+    m32 = model.float()  # in place: each bf16 weight is freed once converted
     del model
     # the served prompt with its first greedy token, and a second prompt
     # (P + 1 tokens from the next seed): two readings of the float32 gap
-    second = serve_lm.prompt_tokens(cfg.vocab, B, P + 1, SERVE["seed"] + 1)
+    second = serve_lm.prompt_tokens(cfg.vocab, B, P + 1, spec["seed"] + 1)
     d_f32, same_f32, over_ulp = [], [], []
     for seq in (full, second):
         _, cache32 = m32.prefill({"tokens": seq[:, :P], "cache_len": P + 1})
@@ -755,7 +799,7 @@ def phase_serve(lm, kmods):
     del m32
     torch.cuda.empty_cache()
     out = {
-        "phase": "serve", "arch": cfg.name, "params": n_params, "weight_bytes": weight_bytes,
+        "phase": name, "arch": cfg.name, "params": n_params, "weight_bytes": weight_bytes,
         "batch": B, "prompt_len": P, "new_tokens": n_new, "decode_steps": steps,
         "launches": launches, "build_model_s": build_s,
         "prefill_s": res["prefill_s"], "prefill_tokens_per_s": B * P / res["prefill_s"],
@@ -763,17 +807,15 @@ def phase_serve(lm, kmods):
         "decode_tokens_per_s": B * steps / res["decode_s"],
         "max_memory_allocated": peak,
         "decode_vs_prefill_max_abs": {"bf16": d_bf16, "float32_copy": d_f32},
-        "decode_vs_prefill_tolerance": {"bf16": SERVE_DECODE_VS_PREFILL_BF16,
-                                        "float32_copy": SERVE_DECODE_VS_PREFILL_F32},
+        "decode_vs_prefill_tolerance": {"bf16": bounds[0], "float32_copy": bounds[1]},
         "decode_vs_prefill_same_argmax": {"bf16": same_bf16, "float32_copy": same_f32},
         "decode_vs_prefill_float32_over_one_ulp": [over_ulp, B * cfg.vocab],
         "first_tokens": toks[0, :8].tolist(),
         "profile_prefill_4097": prefill_prof, "profile_decode_8_steps": decode_prof,
     }
     _emit(out)  # the numbers first, so that a failing check shows them
-    _require(d_bf16 <= SERVE_DECODE_VS_PREFILL_BF16, f"serve: decode vs prefill (bf16) {d_bf16}")
-    _require(max(d_f32) <= SERVE_DECODE_VS_PREFILL_F32,
-             f"serve: decode vs prefill (float32) {d_f32}")
+    _require(d_bf16 <= bounds[0], f"{name}: decode vs prefill (bf16) {d_bf16}")
+    _require(max(d_f32) <= bounds[1], f"{name}: decode vs prefill (float32) {d_f32}")
     return out
 
 
@@ -875,6 +917,100 @@ def phase_kernel_attn(fops, fref, dops, dref):
     return res
 
 
+def _scan_inputs(B, T, H, dtype, seed, state=False, strided=False):
+    """r, k, v (B, T, H, 64) in ``dtype`` (with ``strided``, transposed views
+    of (B, H, T, 64) tensors), log-decays over the model's whole clip range
+    with both edges, a nonzero bonus u, and an initial state or None."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (B, H, T, 64) if strided else (B, T, H, 64)
+    r, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(3))
+    if strided:
+        r, k, v = (a.transpose(1, 2) for a in (r, k, v))
+    lo, hi = LOG_DECAY_CLIP
+    logw = -torch.exp(torch.rand((B, T, H, 64), generator=g, device="cuda") * (hi - lo) + lo)
+    logw.view(-1)[:2] = torch.tensor([-math.exp(hi), -math.exp(lo)], device="cuda")
+    u = torch.randn((H, 64), generator=g, device="cuda") * 0.5
+    s0 = torch.randn((B, H, 64, 64), generator=g, device="cuda") if state else None
+    return r, k, v, logw, u, s0
+
+
+def _scan_gap(got, got_s, want, want_s):
+    """(max |d| of out, max |d| of out and state over their scales
+    max(1, max |want|), passes): out within SCAN_TOL of its scale plus, in
+    bf16, one bf16 ulp (one rounding of the float32 result); the state
+    within SCAN_TOL of its scale."""
+    import torch
+
+    d = (got.float() - want).abs()
+    scale, scale_s = max(1.0, want.abs().max().item()), max(1.0, want_s.abs().max().item())
+    if got.dtype == torch.bfloat16:
+        bound = SCAN_TOL * scale + _bf16_ulp(torch.maximum(got.float().abs(), want.abs()))
+    else:
+        bound = SCAN_TOL * scale
+    d_s = (got_s - want_s).abs().max().item()
+    ok = bool((d <= bound).all()) and d_s <= SCAN_TOL * scale_s
+    return d.max().item(), max(d.max().item() / scale, d_s / scale_s), ok
+
+
+def phase_kernel_scan(sops, sref):
+    """The linear-scan kernel against both plain versions, the step oracle
+    and the chunked scan (the CPU path), at the serve shape and ragged ones;
+    times and the bound in bf16 at the serve shape."""
+    import torch
+
+    B, T, H, _ = SCAN_SHAPE
+    cases = [  # (B, T, H, initial state, strided)
+        (B, T, H, False, False), (2, 1, 4, True, False), (2, 100, 4, True, True),
+        (1, 4097, 4, True, False), (2, 300, 1, False, False),
+    ]
+    err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        worst_abs, worst_rel = 0.0, {"step": 0.0, "chunked": 0.0}
+        for i, (b, t, h, state, strided) in enumerate(cases):
+            r, k, v, logw, u, s0 = _scan_inputs(b, t, h, dtype, seed=10 + i, state=state,
+                                                strided=strided)
+            got, got_s = sops.rwkv6_scan(r, k, v, logw, u, 16, s0)
+            for plain, (want, want_s) in (
+                ("step", sref.rwkv6_ref(r, k, v, logw, u, s0)),
+                ("chunked", sref.rwkv6_chunked(r, k, v, logw, u, 16, s0)),
+            ):
+                torch.cuda.synchronize()
+                d_abs, d_rel, ok = _scan_gap(got, got_s, want, want_s)
+                _require(ok, f"rwkv6_scan {name} {(b, t, h)} vs {plain}: max |d| {d_abs}, "
+                             f"{d_rel} of the scale")
+                worst_abs = max(worst_abs, d_abs)
+                worst_rel[plain] = max(worst_rel[plain], d_rel)
+            del got, got_s, want, want_s
+        err[name] = {"max_abs": worst_abs, "max_over_scale": worst_rel}
+
+    # times in bf16, the served dtype, at the serve shape
+    bf16, size = torch.bfloat16, 2
+    B, T, H, K = SCAN_SHAPE
+    r, k, v, logw, u, _ = _scan_inputs(B, T, H, bf16, seed=0)
+    n = B * T * H * K
+    timing = {
+        "shape": list(SCAN_SHAPE),
+        **_device_ms(lambda: sops.rwkv6_scan(r, k, v, logw, u, 16), 5, 3),
+        "plain_ms": _time_ms(lambda: sref.rwkv6_chunked(r, k, v, logw, u, 16), iters=2, warmup=1),
+        "plain": "ref.rwkv6_chunked, chunks of 16 (the CPU path)",
+        "library_ms": None, "library": "none: no single PyTorch call computes the RWKV6 recurrence",
+        # r, k, v and out in bf16, logw float32, u, the float32 final state;
+        # per token and head 5*K*V flops of readout and update, plus the bonus
+        **_bound(4 * n * size + n * 4 + H * K * 4 + B * H * K * K * 4,
+                 B * T * H * (5 * K * K + 3 * K + 2 * K)),
+    }
+    timing["share_of_bound"] = timing["bound_ms"] / timing["ms"]
+    res = {"phase": "kernel_scan", "cases": len(cases) * 2, "max_err": err,
+           "tolerance": {"float32": f"{SCAN_TOL} of the scale",
+                         "bfloat16": f"{SCAN_TOL} of the scale + one bf16 ulp"},
+           "timings": {"rwkv6_scan": timing}}
+    _emit(res)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -892,6 +1028,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.ipls_aggregate import ops, ref
+    from repro_torch.kernels.linear_scan import ops as sops
+    from repro_torch.kernels.linear_scan import ref as sref
     from repro_torch.kernels.quantize import ops as qops
     from repro_torch.kernels.quantize import ref as qref
     from repro_torch.models import mlp_mnist
@@ -906,6 +1044,7 @@ def main() -> int:
         "dequantize": qops.dequantize,
         "flash_attention": fops.attention,
         "decode_attention": dops.decode,
+        "rwkv6_scan": sops.rwkv6_scan,
     }
     lm = {"configs": configs, "device": device, "serve_lm": serve_lm}
     smi = subprocess.run(
@@ -923,7 +1062,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = {"ipls_aggregate": ops, "quantize": qops, "flash_attention": fops,
-            "decode_attention": dops}
+            "decode_attention": dops, "linear_scan": sops}
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:  # one nvcc per source, at once
         futs = {k: pool.submit(timed_build, mod) for k, mod in libs.items()}
         build_s = {k: f.result() for k, f in futs.items()}
@@ -945,10 +1084,14 @@ def main() -> int:
         dict(none, ipls_aggregate_batched_q=rounds, quantize=3 * rounds, dequantize=2 * rounds),
     )
     phase_lm_agree(lm, kmods)
-    serve = phase_serve(lm, kmods)
+    serve = phase_serve(lm, kmods, "serve", SERVE, SERVE_PARAMS,
+                        (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32))
+    serve_rwkv = phase_serve(lm, kmods, "serve_rwkv", SERVE_RWKV, SERVE_RWKV_PARAMS,
+                             (SERVE_RWKV_DECODE_VS_PREFILL_BF16, SERVE_RWKV_DECODE_VS_PREFILL_F32))
     kern = phase_kernel(ops, ref)
     kern_q = phase_kernel_q(qops, qref, ops, ref)
     kern_attn = phase_kernel_attn(fops, fref, dops, dref)
+    kern_scan = phase_kernel_scan(sops, sref)
 
     t = kern_q["timings"]
     agg_q = t["aggregate_batched_q@{}x{}x{}".format(*MAIN_Q_SHAPE)]
@@ -971,6 +1114,9 @@ def main() -> int:
     ):  # max |err| of the float32 cases (bf16 ones: within one bf16 ulp)
         rows.append((name, source, replaces, serve, kern_attn["max_abs_err"][name]["float32"],
                      kern_attn["timings"][name]))
+    rows.append(("rwkv6_scan", "linear_scan/csrc/linear_scan.cu",
+                 "kernels/linear_scan/linear_scan.py:77", serve_rwkv,
+                 kern_scan["max_err"]["float32"]["max_abs"], kern_scan["timings"]["rwkv6_scan"]))
     _emit({"kernels": [{
         "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/{source}",
         "replaces": f"src/repro/{replaces}", "path": path["phase"],

@@ -1,13 +1,16 @@
-"""Config helpers shared by the per-architecture files (dense family).
+"""Config helpers shared by the per-architecture files (dense family and
+RWKV6).
 
-Port of the reference's ``configs/base.py``: ``attn_block``, ``mlp_block``
-and ``dense_lm``. The MoE, Mamba2 and RWKV6 helpers come with their slices.
+Port of the reference's ``configs/base.py``: ``attn_block``, ``mlp_block``,
+``rwkv6_blocks`` and ``dense_lm``. The MoE and Mamba2 helpers come with
+their slices.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.transformer import ArchConfig, BlockSpec, GroupSpec
 
 
@@ -40,6 +43,14 @@ def attn_block(
 
 def mlp_block(d_model: int, d_ff: int, activation: str = "silu", gated: bool = True) -> BlockSpec:
     return BlockSpec(kind="mlp", mlp=L.MLPSpec(d_model, d_ff, activation, gated))
+
+
+def rwkv6_blocks(d_model: int, d_ff: int, chunk: int = 64) -> Tuple[BlockSpec, BlockSpec]:
+    spec = S.RWKV6Spec(d_model=d_model, chunk=chunk)
+    return (
+        BlockSpec(kind="rwkv6_time", rwkv=spec),
+        BlockSpec(kind="rwkv6_channel", rwkv=spec, rwkv_ffn=d_ff),
+    )
 
 
 def dense_lm(

@@ -1,10 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` resolution, model
 construction and the shape table.
 
-Port of the reference's ``configs/registry.py`` for the dense family; the
-other architectures come with their slices (ROADMAP.md queue 1), and the
-reference's ``input_specs`` (JAX ShapeDtypeStruct stand-ins) has no
-counterpart yet.
+Port of the reference's ``configs/registry.py`` for the dense family and
+RWKV6; the other architectures come with their slices (ROADMAP.md queue
+1), and the reference's ``input_specs`` (JAX ShapeDtypeStruct stand-ins)
+has no counterpart yet.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ ARCH_MODULES = {
     "minitron-4b": "repro_torch.configs.minitron_4b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
 }
 
 ARCH_IDS = tuple(ARCH_MODULES)

@@ -1,0 +1,86 @@
+"""Plain PyTorch versions of the RWKV6 linear-scan kernel.
+
+The function is the RWKV6/GLA recurrence with a data-dependent decay per
+channel, for r, k, v, logw of (B, T, H, K) and a bonus u of (H, K):
+
+    out_t = r_t . S_{t-1} + (r_t . (u * k_t)) v_t
+    S_t   = diag(exp(logw_t)) S_{t-1} + k_t v_t^T
+
+``rwkv6_ref`` is the step-by-step oracle (the reference's
+``kernels/linear_scan/ref.py``, with an initial state). ``rwkv6_chunked``
+ports the reference model's chunked scan (``models/ssm.py``
+``rwkv6_chunked``): exact intra-chunk pair weights in the difference form
+``exp(Lx_i - L_j)``, clamped at 0 where masked, and the carried state
+between chunks; any T (a ragged tail is padded with decay 1 and k = v = 0).
+The CPU path of the port takes ``rwkv6_chunked``, so the CPU tests compare
+with the reference model's own arithmetic; on the card the CUDA kernel is
+held against both. Both compute in float32 and return float32 outputs
+(B, T, H, K) and a float32 final state (B, H, K, K).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _zero_state(r: torch.Tensor, init_state):
+    B, _, H, K = r.shape
+    if init_state is None:
+        return torch.zeros((B, H, K, K), dtype=torch.float32, device=r.device)
+    return init_state.float()
+
+
+def rwkv6_ref(r, k, v, logw, u, init_state=None):
+    """The recurrence one step at a time, in float32."""
+    r32, k32, v32, lw = (a.float() for a in (r, k, v, logw))
+    u32 = u.float()
+    S = _zero_state(r, init_state)
+    outs = []
+    for t in range(r.shape[1]):
+        rt, kt, vt = r32[:, t], k32[:, t], v32[:, t]  # (B, H, K)
+        outs.append(torch.einsum("bhk,bhkv->bhv", rt, S)
+                    + (rt * u32 * kt).sum(-1, keepdim=True) * vt)
+        S = S * torch.exp(lw[:, t])[..., None] + kt[..., :, None] * vt[..., None, :]
+    return torch.stack(outs, dim=1), S
+
+
+def rwkv6_chunked(r, k, v, logw, u, chunk: int, init_state=None):
+    """The recurrence chunk by chunk (chunk length ``min(chunk, T)``), in
+    float32. The chunk length bounds the (B, Q, Q, H, K) pair tensor of one
+    chunk; it does not change the function."""
+    B, T, H, K = r.shape
+    Q = min(chunk, T)
+    if T % Q:
+        # pad with logw = 0 (decay 1) and k = v = 0: the state is unaffected
+        padn = Q - T % Q
+        y, final = rwkv6_chunked(*(F.pad(a, (0, 0, 0, 0, 0, padn)) for a in (r, k, v, logw)),
+                                 u, chunk, init_state)
+        return y[:, :T], final
+    nc = T // Q
+
+    def to_chunks(x):  # (B, T, H, K) -> (nc, B, Q, H, K)
+        return x.float().reshape(B, nc, Q, H, K).movedim(1, 0)
+
+    rc, kc, vc, lwc = (to_chunks(a) for a in (r, k, v, logw))
+    u32 = u.float()
+    ii = torch.arange(Q, device=r.device)
+    strictly = (ii[:, None] > ii[None, :])[:, :, None, None]  # (Q, Q, 1, 1)
+    S = _zero_state(r, init_state)
+    ys = []
+    for rq, kq, vq, lwq in zip(rc, kc, vc, lwc):  # (B, Q, H, K) each
+        L = torch.cumsum(lwq, dim=1)  # inclusive
+        Lx = L - lwq  # exclusive
+        # pair decays exp(Lx_i - L_j) for j < i (<= 0, exact); the clamp keeps
+        # masked (j >= i) entries finite
+        diff = torch.clamp(Lx[:, :, None] - L[:, None, :], max=0.0)  # (B, Q, Q, H, K)
+        w_pair = torch.where(strictly, torch.exp(diff), 0.0)
+        att = torch.einsum("bihk,bijhk,bjhk->bhij", rq, w_pair, kq)
+        y = torch.einsum("bhij,bjhv->bihv", att, vq)
+        y = y + torch.einsum("bihk,hk,bihk->bih", rq, u32, kq)[..., None] * vq  # bonus
+        y = y + torch.einsum("bihk,bhkv->bihv", rq * torch.exp(Lx), S)  # carried state
+        last = L[:, -1:]  # (B, 1, H, K)
+        S = S * torch.exp(last[:, 0])[..., None] + torch.einsum(
+            "bjhk,bjhv->bhkv", kq * torch.exp(last - L), vq
+        )
+        ys.append(y)
+    return torch.stack(ys, dim=1).reshape(B, T, H, K), S

@@ -1,4 +1,5 @@
-"""Decoder-only LM stack, dense family (attention + MLP blocks), for serving.
+"""Decoder-only LM stack for serving: the dense family (attention + MLP
+blocks) and RWKV6 (time-mix + channel-mix blocks).
 
 Port of the reference's ``models/transformer.py``. A model is a sequence of
 GROUPS; each group is a PERIOD of blocks repeated ``repeat`` times. The
@@ -7,10 +8,13 @@ each layer is its own ``ParamTree`` in an ``nn.ModuleList`` and the layers
 run in a Python loop. Blocks are pre-norm residual: ``x + f(norm(x))``.
 
 Serving entry points keep the reference's layouts: tokens (B, S) int,
-logits (B, 1, V) bfloat16, and per layer a cache ``{"k", "v"}`` of
-(B, T, KV, hd) in ``cache[f"g{gi}"][layer][f"b{bi}"]``. Only block kinds
-``attn`` and ``mlp`` are ported; the others (MLA, MoE, Mamba2, RWKV6),
-shared blocks and training (``loss``) belong to later slices.
+logits (B, 1, V) bfloat16, and per layer a cache entry in
+``cache[f"g{gi}"][layer][f"b{bi}"]``: ``{"k", "v"}`` of (B, T, KV, hd) for
+attention, ``{"state", "x_prev"}`` (float32 (B, H, K, K) and the block's
+last normed input (B, 1, D)) for the RWKV6 time mix, ``{"x_prev"}`` for
+the channel mix. Decode updates the entries in place. The other block kinds
+(MLA, MoE, Mamba2), shared blocks and training (``loss``) belong to later
+slices.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.param_defs import (
     ParamDef,
     ParamTree,
@@ -31,14 +36,16 @@ from repro_torch.models.param_defs import (
     unstack,
 )
 
-SUPPORTED_KINDS = ("attn", "mlp")
+SUPPORTED_KINDS = ("attn", "mlp", "rwkv6_time", "rwkv6_channel")
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
-    kind: str                                   # attn | mlp (the reference has more)
+    kind: str                                   # attn | mlp | rwkv6_time | rwkv6_channel
     attn: Optional[L.AttnSpec] = None
     mlp: Optional[L.MLPSpec] = None
+    rwkv: Optional[S.RWKV6Spec] = None
+    rwkv_ffn: int = 0
     norm: str = "rms"                            # rms | ln
 
 
@@ -50,8 +57,8 @@ class GroupSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """The reference's fields that the dense family sets; gemma's embedding
-    scale and soft cap, the MoE loss weight and the training and shape
+    """The reference's fields that the dense family and RWKV6 set; gemma's
+    embedding scale and soft cap, the MoE loss weight and the training
     flags come with the slices that use them."""
 
     name: str
@@ -60,6 +67,7 @@ class ArchConfig:
     groups: Tuple[GroupSpec, ...]
     tie_embeddings: bool = False
     final_norm: str = "rms"
+    subquadratic: bool = False                   # eligible for long_500k
     mrope: bool = False                          # expects positions3 input
 
     @property
@@ -78,7 +86,7 @@ def _norm_apply(kind: str, p, x):
 def _check_kind(b: BlockSpec) -> None:
     if b.kind not in SUPPORTED_KINDS:
         raise NotImplementedError(
-            f"block kind {b.kind!r} (MLA, MoE, Mamba2, RWKV6) is not ported yet: it belongs "
+            f"block kind {b.kind!r} (MLA, MoE, Mamba2) is not ported yet: it belongs "
             f"to a later slice of the port (ROADMAP.md queue 1); this one runs {SUPPORTED_KINDS}"
         )
 
@@ -88,15 +96,26 @@ def block_defs(b: BlockSpec, d_model: int) -> Dict[str, Any]:
     defs: Dict[str, Any] = {"norm": _norm_init(b.norm, d_model)}
     if b.kind == "attn":
         defs["attn"] = L.init_attention(b.attn)
-    else:
+    elif b.kind == "mlp":
         defs["mlp"] = L.init_mlp(b.mlp)
+    elif b.kind == "rwkv6_time":
+        defs["rwkv"] = S.init_rwkv6_time(b.rwkv)
+    else:
+        defs["rwkv_ffn"] = S.init_rwkv6_channel(b.rwkv, b.rwkv_ffn)
     return defs
 
 
 def block_cache_defs(b: BlockSpec, batch: int, seq_len: int, dtype) -> Optional[Dict[str, Any]]:
     if b.kind == "attn":
         return L.init_attn_cache(b.attn, batch, seq_len, dtype)
-    return None  # mlp is stateless
+    if b.kind == "mlp":
+        return None  # stateless
+    x_prev = ParamDef((batch, 1, b.rwkv.d_model), init="zeros", dtype=dtype)
+    if b.kind == "rwkv6_channel":
+        return {"x_prev": x_prev}
+    H, K = b.rwkv.n_heads, b.rwkv.head_dim
+    return {"state": ParamDef((batch, H, K, K), init="zeros", dtype=torch.float32),
+            "x_prev": x_prev}
 
 
 def apply_block_prefill(b: BlockSpec, p, x, ctx):
@@ -104,6 +123,12 @@ def apply_block_prefill(b: BlockSpec, p, x, ctx):
     h = _norm_apply(b.norm, p["norm"], x)
     if b.kind == "mlp":
         return x + L.apply_mlp(p["mlp"], b.mlp, h), None
+    if b.kind == "rwkv6_time":
+        y, final, x_last = S.apply_rwkv6_time(p["rwkv"], b.rwkv, h)
+        return x + y, {"state": final, "x_prev": x_last.clone()}  # a copy: h is freed
+    if b.kind == "rwkv6_channel":
+        y, x_last = S.apply_rwkv6_channel(p["rwkv_ffn"], h)
+        return x + y, {"x_prev": x_last.clone()}
     y, k, v = L.prefill_attention(p["attn"], b.attn, h, ctx["positions"])
     T, Sq = ctx["cache_len"], h.shape[1]
     kc = k.new_zeros((k.shape[0], T) + k.shape[2:])
@@ -115,9 +140,19 @@ def apply_block_prefill(b: BlockSpec, p, x, ctx):
 
 
 def apply_block_decode(b: BlockSpec, p, x, cache, pos):
+    """One token through a block; attention and RWKV6 caches are updated
+    in place."""
     h = _norm_apply(b.norm, p["norm"], x)
     if b.kind == "mlp":
         return x + L.apply_mlp(p["mlp"], b.mlp, h), cache
+    if b.kind == "rwkv6_time":
+        y, _, _ = S.decode_rwkv6_time(p["rwkv"], b.rwkv, h, cache["state"], cache["x_prev"])
+        cache["x_prev"].copy_(h)
+        return x + y, cache
+    if b.kind == "rwkv6_channel":
+        y, _ = S.apply_rwkv6_channel(p["rwkv_ffn"], h, cache["x_prev"])
+        cache["x_prev"].copy_(h)
+        return x + y, cache
     y, cache = L.decode_attention(p["attn"], b.attn, h, cache, pos)
     return x + y, cache
 
@@ -139,7 +174,7 @@ def lm_param_defs(cfg: ArchConfig) -> Dict[str, Any]:
 
 
 class TransformerLM(nn.Module):
-    """The dense LM. Parameters are drawn at construction from ``seed`` on
+    """The LM (dense or RWKV6). Parameters are drawn at construction from ``seed`` on
     ``device`` (frozen: the port serves, it does not train yet). The device
     is CUDA by default and raises when there is none; pass ``device="cpu"``
     to run on the CPU."""
@@ -198,9 +233,10 @@ class TransformerLM(nn.Module):
 
     # -- serving ---------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, dtype=None):
-        """Zero KV caches in the model's dtype (the reference's default is
-        bfloat16 whatever the weights; the port's decode needs the cache in
-        the activations' dtype)."""
+        """Zero caches: KV caches and RWKV6 ``x_prev`` in the model's dtype
+        (the reference's default is bfloat16 whatever the weights; the
+        port's decode needs them in the activations' dtype), RWKV6 states in
+        float32."""
         dtype = dtype or self.dtype
         caches: Dict[str, Any] = {}
         for gi, li, key, b, _ in self._layers():
@@ -216,7 +252,8 @@ class TransformerLM(nn.Module):
     def prefill(self, batch):
         """Full-prompt forward. batch: tokens (B, S) int, optional cache_len
         (default S). Returns (last-token logits (B, 1, V) bf16, cache) with
-        the prompt's keys and values in slots 0..S-1 of a new cache."""
+        the prompt's keys and values in slots 0..S-1 of a new cache, and
+        each RWKV6 block's final state and last normed input."""
         tokens = batch["tokens"].to(self.device)
         B, Sq = tokens.shape
         ctx = {
@@ -237,8 +274,9 @@ class TransformerLM(nn.Module):
         """One new token. batch: token (B, 1) int, pos () int32 (a 0-d tensor
         on the model's device, or an int): the number of tokens already
         cached. Unlike the reference, which returns a new cache, this writes
-        the token's keys and values into ``cache`` IN PLACE and returns it
-        with the logits (B, 1, V) bf16."""
+        the token's keys and values, and the RWKV6 states and last inputs,
+        into ``cache`` IN PLACE and returns it with the logits (B, 1, V)
+        bf16."""
         token = batch["token"].to(self.device)
         pos = torch.as_tensor(batch["pos"], dtype=torch.int32, device=self.device)
         x = L.embed(self.embed, token)

@@ -1,13 +1,19 @@
-"""Serve a dense LM: batched prefill, then greedy decode from the KV cache.
+"""Serve an LM of ``ARCH_IDS``: batched prefill, then greedy decode from
+the cache.
 
 The port's counterpart of ``examples/serve_lm.py``. Weights are random,
-drawn from ``--seed``; so is the prompt (numpy). On CUDA every attention
-layer runs the port's kernels: flash attention in the prefill, flash-decode
-in every decode step.
+drawn from ``--seed``; so is the prompt (numpy). On CUDA every layer with a
+kernel runs it: in a dense LM, flash attention in the prefill and
+flash-decode in every decode step; in rwkv6-7b, the linear-scan kernel in
+each time-mix layer of the prefill (decode is one recurrent step in plain
+PyTorch, as in the reference).
 
     python -m repro_torch.serve_lm --arch internlm2-1.8b --batch 4 \\
         --prompt-len 4096 --tokens 256                     # on a GPU
+    python -m repro_torch.serve_lm --arch rwkv6-7b --batch 4 \\
+        --prompt-len 4096 --tokens 128                     # on a GPU
     python -m repro_torch.serve_lm --device cpu --reduced  # anywhere
+    python -m repro_torch.serve_lm --arch rwkv6-7b --device cpu --reduced
 """
 from __future__ import annotations
 
