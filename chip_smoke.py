@@ -7,6 +7,9 @@ Phases, in this order, each printing one JSON line; any failure raises and
 exits non-zero:
   device    — GPU name, count, torch/CUDA versions, power limit;
   build     — compile every kernel library from csrc/ with nvcc, all at once;
+              then the flash library's kernels: registers, spills and static
+              shared memory (ptxas), dynamic shared memory, and the count of
+              HGMMA (wgmma) instructions in its SASS, which must be > 0;
   agree     — the batched engine against the scalar engine on the card at a
               small config (PERFECT f32 and int8, LOSSY f32 and int8, long
               delays int8), and the card against the CPU: traffic counters
@@ -29,6 +32,7 @@ exits non-zero:
               serve_lm.generate, batch 4, a 4,096-token prompt from the seed,
               256 greedy tokens; exactly 24 flash-attention and 24 x 255
               flash-decode launches; prefill and decode times, peak memory,
+              flash attention's share of the prefill's device time,
               finite logits; decode at pos 4,096 against the last-token
               logits of a 4,097-token prefill, in bf16 and, for the served
               prompt and a second one, in float32 weights;
@@ -49,9 +53,15 @@ exits non-zero:
               at the int8 path's shapes and edge cases; times and bounds;
   kernel_attn — the attention kernels against their plain versions at the
               serve shapes (flash B=4, H=16, KV=8, S=4096, D=128; decode at
-              T=4352, pos 0, 255, 4095, 4351) and ragged ones: float32 within
-              2e-5, bf16 within one bf16 ulp (+2e-5); times beside the bound and
-              scaled_dot_product_attention as the yardstick;
+              T=4352, pos 0, 255, 4095, 4351) and ragged ones (flash S = 1,
+              100, 128, 129, 300, 4097, and q x 8 to drive the online
+              rescale): float32 within 2e-5; decode in bf16 within one bf16
+              ulp (+2e-5); flash in bf16, which rounds P to bf16 on the
+              tensor cores, within 2**-7 * attn(q, k, |v|) + one bf16 ulp +
+              2e-5 of both the plain version and the plain tiled version
+              (with, for each, the elements beyond two bf16 ulps);
+              times beside the bound (achieved TFLOP/s, share of the bound)
+              and scaled_dot_product_attention as the yardstick;
   kernel_scan — the linear-scan kernel against both plain versions (step
               oracle, chunked scan) at the serve shape (4, 4096, 64, 64) in
               float32 and bf16, T = 1, 100 and 4,097, one head, an initial
@@ -120,7 +130,25 @@ SERVE_DECODE_VS_PREFILL_BF16 = 0.5
 SERVE_DECODE_VS_PREFILL_F32 = 0.1
 # the attention kernels against their plain versions
 ATTN_F32_TOL = 2e-5  # as tests/test_kernels.py
+# The bf16 flash kernel rounds P = exp(s - m) to bf16 before P V (tensor cores),
+# each p within a relative 2**-8, so each output within 2**-8 * attn(q, k, |v|)
+# of the float32 product: it is held to twice that, plus one bf16 ulp of the
+# larger magnitude (the final roundings) and ATTN_F32_TOL (outputs near 0).
+# Decode and the float32 flash path keep one bf16 ulp (+2e-5) and 2e-5.
+# The plain tiled version rounds P too, but from float32 p that differ from
+# the kernel's in their last bits (summation order, ex2.approx, the folded
+# scale): where a bf16 rounding midpoint lies between the two, they round one
+# bf16 ulp of p apart. Each is within 2**-8 * attn(q, k, |v|) of the float32
+# product, so the two are within 2**-7 * attn(q, k, |v|): the same bound.
+FLASH_BF16_P_ROUNDING = 2.0**-7
 FLASH_SHAPE = (4, 16, 8, 4096, 128)  # B, H, KV, S, D of the serve prefill
+# (shape, causal, q scale): S = 1, at and past one tile, ragged, past 32 tiles;
+# q x 8 moves the running max across key tiles (alpha far from 1)
+FLASH_CASES = [(FLASH_SHAPE, True, 1.0), ((2, 16, 8, 100, 128), True, 1.0),
+               ((1, 16, 8, 4097, 128), True, 1.0), ((2, 4, 2, 100, 16), True, 1.0),
+               ((1, 6, 2, 300, 16), True, 1.0), ((1, 16, 8, 1, 128), True, 1.0),
+               ((2, 16, 8, 128, 128), True, 1.0), ((2, 16, 8, 129, 128), False, 1.0),
+               ((1, 16, 8, 4097, 128), True, 8.0), ((2, 8, 2, 300, 16), False, 8.0)]
 DECODE_SHAPE = (4, 16, 8, 4352, 128)  # B, H, KV, T, D of the serve decode
 DECODE_POS = (0, 255, 4095, 4351)
 # the RWKV6 path: rwkv6-7b at full width, serving
@@ -722,6 +750,15 @@ def _profile(fn):
     }
 
 
+def _share(prof, tag: str):
+    """The share of a profile's device time spent in kernels whose name
+    holds ``tag`` (among its ten largest kinds); None without device time."""
+    if not prof["device_s"]:
+        return None
+    ms = sum(t for k, (t, _) in prof["top_kernels_ms"].items() if tag in k)
+    return ms / (prof["device_s"] * 1e3)
+
+
 def phase_serve(lm, kmods, name, spec, n_params_want, bounds):
     """An LM path at full width through the user's entry points:
     build_model, then serve_lm.generate (prefill, greedy decode). Each
@@ -812,6 +849,7 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds):
         "decode_vs_prefill_float32_over_one_ulp": [over_ulp, B * cfg.vocab],
         "first_tokens": toks[0, :8].tolist(),
         "profile_prefill_4097": prefill_prof, "profile_decode_8_steps": decode_prof,
+        "prefill_flash_attention_share": _share(prefill_prof, "flash_fwd"),
     }
     _emit(out)  # the numbers first, so that a failing check shows them
     _require(d_bf16 <= bounds[0], f"{name}: decode vs prefill (bf16) {d_bf16}")
@@ -819,15 +857,17 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds):
     return out
 
 
-def _attn_inputs(B, H, KV, S, D, dtype, seed):
+def _attn_inputs(B, H, KV, S, D, dtype, seed, qscale=1.0):
     """q (B, H, S, D) and k, v (B, KV, S, D) as transposed views of
-    (B, S, heads, D) tensors, as the model passes them."""
+    (B, S, heads, D) tensors, as the model passes them; q scaled by
+    ``qscale`` (large logits move the running max across key tiles)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     return tuple(
-        torch.randn((B, S, h, D), generator=g, device="cuda").to(dtype).transpose(1, 2)
-        for h in (H, KV, KV)
+        torch.randn((B, S, h, D), generator=g, device="cuda").mul(qscale if i == 0 else 1.0)
+        .to(dtype).transpose(1, 2)
+        for i, h in enumerate((H, KV, KV))
     )
 
 
@@ -841,6 +881,32 @@ def _attn_check(got, want, dtype, what):
     return d
 
 
+def _flash_bf16_check(got, q, k, v, causal, fref, what):
+    """The bf16 flash kernel against the plain version and the plain tiled
+    version: |got - want| <= 2**-7 * attn(q, k, |v|) + one bf16 ulp of the
+    larger magnitude + 2e-5, elementwise. Returns, for each, max |d|, the
+    largest share of the bound, and the count of elements and the largest
+    number of bf16 ulps by which |d| - 2e-5 exceeds two ulps (a tighter,
+    ulp-only bound would fail there)."""
+    import torch
+
+    g = got.float()
+    attn_abs = fref.flash_attention_ref(q.float(), k.float(), v.float().abs(), causal=causal)
+    out = {}
+    for name, plain in (("plain", fref.flash_attention_ref),
+                        ("tiled", fref.flash_attention_tiled_ref)):
+        w = plain(q, k, v, causal=causal).float()
+        ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
+        d = (g - w).abs()
+        share = (d / (FLASH_BF16_P_ROUNDING * attn_abs + ulp + ATTN_F32_TOL)).max().item()
+        _require(share <= 1.0, f"{what}: kernel != {name} version, max |d| {d.max().item()}, "
+                               f"{share} of the bound")
+        ulps = (d - ATTN_F32_TOL).clamp_min(0) / ulp
+        out[name] = (d.max().item(), share, int((ulps > 2).sum().item()), ulps.max().item())
+        del w, ulp, d, ulps
+    return out
+
+
 def phase_kernel_attn(fops, fref, dops, dref):
     """The attention kernels against their plain versions at the serve
     shapes and ragged ones; times, bounds and the SDPA yardstick."""
@@ -848,19 +914,34 @@ def phase_kernel_attn(fops, fref, dops, dref):
     import torch.nn.functional as F
 
     err = {"flash_attention": {}, "decode_attention": {}}
-    flash_cases = [FLASH_SHAPE, (2, 16, 8, 100, 128), (1, 16, 8, 4097, 128), (2, 4, 2, 100, 16),
-                   (1, 6, 2, 300, 16)]
+    f32_worst = 0.0
+    # max |d|, share of the bound, elements beyond two ulps (summed), most ulps
+    bf16_worst = {"plain": (0.0, 0.0, 0, 0.0), "tiled": (0.0, 0.0, 0, 0.0)}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
-        worst = 0.0
-        for i, shape in enumerate(flash_cases):
-            q, k, v = _attn_inputs(*shape, dtype=dtype, seed=i)
-            got = fops.attention(q, k, v)
-            want = fref.flash_attention_ref(q, k, v)
+        for i, (shape, causal, qscale) in enumerate(FLASH_CASES):
+            q, k, v = _attn_inputs(*shape, dtype=dtype, seed=i, qscale=qscale)
+            got = fops.attention(q, k, v, causal=causal)
             torch.cuda.synchronize()
-            worst = max(worst, _attn_check(got, want, dtype, f"flash {name} {shape}"))
-            del got, want
-        err["flash_attention"][name] = worst
+            what = f"flash {name} {shape} causal={causal} q x {qscale}"
+            _require(bool(torch.isfinite(got.float()).all()), f"{what}: not finite")
+            if dtype == torch.float32:
+                want = fref.flash_attention_ref(q, k, v, causal=causal)
+                f32_worst = max(f32_worst, _attn_check(got, want, dtype, what))
+                del want
+            else:
+                for plain, (d, sh, n, u) in _flash_bf16_check(got, q, k, v, causal, fref,
+                                                              what).items():
+                    d0, sh0, n0, u0 = bf16_worst[plain]
+                    bf16_worst[plain] = (max(d0, d), max(sh0, sh), n0 + n, max(u0, u))
+            del got
+    err["flash_attention"] = {"float32": f32_worst}
+    for plain, key in (("plain", "bfloat16"), ("tiled", "bfloat16_vs_tiled")):
+        d, sh, n, u = bf16_worst[plain]
+        err["flash_attention"].update({key: d, f"{key}_share_of_bound": sh,
+                                       f"{key}_beyond_2_ulps": n, f"{key}_max_ulps": u})
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
         worst = 0.0
         B, H, KV, T, D = DECODE_SHAPE
         cases = [(DECODE_SHAPE, p) for p in DECODE_POS]
@@ -892,6 +973,8 @@ def phase_kernel_attn(fops, fref, dops, dref):
                  4 * B * H * D * S * (S + 1) / 2, BF16_FLOPS_PER_S),
     }
     flash["achieved_tflop_s"] = flash["flops"] / (flash["ms"] * 1e-3) / 1e12
+    flash["share_of_bound"] = flash["bound_ms"] / flash["ms"]
+    flash["ms_over_library_ms"] = flash["ms"] / flash["library_ms"]
     del q, k, v
     B, H, KV, T, D = DECODE_SHAPE
     q, k, v = _attn_inputs(*DECODE_SHAPE, dtype=bf16, seed=1)
@@ -911,7 +994,8 @@ def phase_kernel_attn(fops, fref, dops, dref):
     }
     decode["achieved_gb_s"] = decode["bytes_moved"] / (decode["ms"] * 1e-3) / 1e9
     res = {"phase": "kernel_attn", "max_abs_err": err,
-           "tolerance": {"float32": ATTN_F32_TOL, "bfloat16": "one bf16 ulp + 2e-5"},
+           "tolerance": {"float32": ATTN_F32_TOL, "bfloat16": "one bf16 ulp + 2e-5",
+                         "flash_bfloat16": "2**-7 * attn(q, k, |v|) + one bf16 ulp + 2e-5"},
            "timings": {"flash_attention": flash, "decode_attention": decode}}
     _emit(res)
     return res
@@ -1011,6 +1095,42 @@ def phase_kernel_scan(sops, sref):
     return res
 
 
+def _flash_build_facts(fops, build):
+    """The flash library as built: per kernel, ptxas's registers, stack,
+    spills and static shared memory (from the build log), its dynamic shared
+    memory, and the HGMMA (wgmma) and HMMA (mma.sync) instructions in the
+    library's SASS (cuobjdump)."""
+    import re
+    import shutil
+
+    so = build.library_path(fops._SRC)
+    kernels, name = {}, None
+    for line in so.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = re.sub(r".*?(flash_fwd\w*?)I(f?)Li(\d+)E.*", r"\1<\2\3>", m.group(1))
+            name = name.replace("<f", "<float, ")
+            kernels[name] = {}
+        elif name and "bytes stack frame" in line:
+            st, ss, sl = (int(x) for x in re.findall(r"(\d+) bytes", line)[:3])
+            kernels[name].update(stack_bytes=st, spill_store_bytes=ss, spill_load_bytes=sl)
+        elif name and "Used" in line and "registers" in line:
+            kernels[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            kernels[name]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    lib = fops.build()
+    for dtype, key in ((0, "flash_fwd<float, {}>"), (1, "flash_fwd_wgmma<{}>")):
+        for d in fops.HEAD_DIMS:
+            kernels.setdefault(key.format(d), {})["dynamic_smem_bytes"] = (
+                lib.flash_attention_smem_bytes(dtype, d))
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    return {"library": so.name, "kernels": kernels,
+            "sass_hgmma": len(re.findall(r"\bHGMMA\b", sass)),
+            "sass_hmma": len(re.findall(r"\bHMMA\b", sass))}
+
+
 def main() -> int:
     import torch
 
@@ -1023,6 +1143,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(src))
     from repro_torch import configs, data, device, fl, serve_lm, telemetry
+    from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention import ref as dref
     from repro_torch.kernels.flash_attention import ops as fops
@@ -1066,7 +1187,10 @@ def main() -> int:
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:  # one nvcc per source, at once
         futs = {k: pool.submit(timed_build, mod) for k, mod in libs.items()}
         build_s = {k: f.result() for k, f in futs.items()}
-    _emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_library_s": build_s})
+    flash_built = _flash_build_facts(fops, _build)
+    _emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_library_s": build_s,
+           "flash_attention": flash_built})
+    _require(flash_built["sass_hgmma"] > 0, "no HGMMA in the flash library's SASS")
 
     # the engine phases first: the timing phases below leave cuBLAS
     # workspaces of their graph captures allocated, which would count in
@@ -1106,14 +1230,19 @@ def main() -> int:
         ("dequantize", "quantize/csrc/quantize.cu", "kernels/quantize/quantize.py:107", main_q,
          kern_q["max_abs_err"]["dequantize"], t[f"dequantize@{VALUE_PLANE}"]),
     ]
-    for name, source, replaces in (
+    fa = kern_attn["max_abs_err"]["flash_attention"]
+    rows += [
+        # flash: its bf16 cases (the served and timed dtype) against the plain version
         ("flash_attention", "flash_attention/csrc/flash_attention.cu",
-         "kernels/flash_attention/flash_attention.py:74"),
+         "kernels/flash_attention/flash_attention.py:74", serve, fa["bfloat16"],
+         kern_attn["timings"]["flash_attention"],
+         {"max_abs_err_of": "bfloat16", "err_share_of_tolerance": fa["bfloat16_share_of_bound"]}),
+        # decode: its float32 cases (the bf16 ones within one bf16 ulp)
         ("decode_attention", "decode_attention/csrc/decode_attention.cu",
-         "kernels/decode_attention/decode_attention.py:67"),
-    ):  # max |err| of the float32 cases (bf16 ones: within one bf16 ulp)
-        rows.append((name, source, replaces, serve, kern_attn["max_abs_err"][name]["float32"],
-                     kern_attn["timings"][name]))
+         "kernels/decode_attention/decode_attention.py:67", serve,
+         kern_attn["max_abs_err"]["decode_attention"]["float32"],
+         kern_attn["timings"]["decode_attention"], {"max_abs_err_of": "float32"}),
+    ]
     rows.append(("rwkv6_scan", "linear_scan/csrc/linear_scan.cu",
                  "kernels/linear_scan/linear_scan.py:77", serve_rwkv,
                  kern_scan["max_err"]["float32"]["max_abs"], kern_scan["timings"]["rwkv6_scan"]))
@@ -1121,9 +1250,9 @@ def main() -> int:
         "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/{source}",
         "replaces": f"src/repro/{replaces}", "path": path["phase"],
         "launches": path["launches"][name], "max_abs_err": err, "ms": tm["ms"],
-        "call_ms": tm["call_ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-        "library_ms": tm["library_ms"],
-    } for name, source, replaces, path, err, tm in rows]})
+        "call_ms": tm["call_ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+        "bound_by": tm["bound_by"], "library_ms": tm["library_ms"], **dict(*extra),
+    } for name, source, replaces, path, err, tm, *extra in rows]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})

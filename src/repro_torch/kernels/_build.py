@@ -20,6 +20,7 @@ import torch
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, spills and shared memory per kernel, into the build log
 )
 
 
@@ -31,21 +32,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def library_path(src: Path) -> Path:
+    """Where ``build_library`` puts the library of ``src``; its ``nvcc``
+    output (ptxas's per-kernel resource lines) lies beside it, ``.log``."""
+    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return src.parent.parent / "build" / f"lib{src.stem}-{tag}.so"
+
+
 def build_library(src: Path) -> ctypes.CDLL:
     """Compile ``src`` (once per source hash) into ``<module>/build/`` and
     load it. Safe to call from several threads or processes at once: each
     compiles to its own temporary file and renames it into place."""
-    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    build_dir = src.parent.parent / "build"
-    so = build_dir / f"lib{src.stem}-{tag}.so"
+    so = library_path(src)
     if not so.exists():
-        build_dir.mkdir(exist_ok=True)
+        so.parent.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         proc = subprocess.run(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)], capture_output=True, text=True
         )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+        tmp.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp.with_suffix(".log"), so.with_suffix(".log"))
         os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
     return ctypes.CDLL(str(so))
 

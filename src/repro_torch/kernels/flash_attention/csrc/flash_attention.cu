@@ -7,41 +7,57 @@
 //   s_j = (q_i . k_j) / sqrt(D), masked to finfo(float32).min where j > i (causal)
 //   o_i = sum_j softmax(s)_j v_j
 //
-// in float32 throughout (online softmax: running max m, sum l, accumulator acc), the
-// output cast to the input type at the end, with l clamped at 1e-30 as the TPU kernel
-// does. A masked score gives exp(min - m) = 0 and never a NaN.
+// with a float32 online softmax (running max m, sum l, accumulator acc), l clamped at
+// 1e-30 and the output cast to the input type, as the TPU kernel does. A masked score
+// gives a probability of exactly 0, never a NaN.
 //
 // Bound: operations. At the serve shape (B=4, H=16, S=4096, D=128) the causal products
 // are 4*B*H*D*S(S+1)/2 = 275 GFLOP, 0.278 ms at the card's 989 TFLOP/s bf16 tensor-core
-// rate, while q, k, v and o are 0.2 GB (0.06 ms at 3.35 TB/s). This first kernel
-// computes on the CUDA cores in float32 (67 TFLOP/s peak); tensor cores (mma/wgmma)
-// and TMA are later work.
+// rate, while q, k, v and o are 0.2 GB (0.06 ms at 3.35 TB/s).
 //
-// Design. The TPU kernel walked a sequential (B*H, q tile, k tile) grid with the
-// softmax state in VMEM scratch. Here one block of 256 threads owns a 64-row query tile
-// of one (batch, head); the key tiles are a loop inside the block, so the state lives
-// in registers. The grid is (query tiles, B*H), longest causal rows first. Per key
-// tile the block stages K (then V, in the same buffer) in shared memory as float32;
-// each thread computes a 4x4 patch of the 64x64 scores (rows ty+16i, columns tx+16j)
-// and keeps the matching 4 rows x D/16 columns of the output accumulator, so a query
-// row's D=128 accumulators are spread over 16 threads. Row max and sum are xor
-// shuffles across those 16 lanes. Rows of shared memory are padded by one float so
-// column reads fall on 32 distinct banks. Tensors come with strides (the last
-// dimension contiguous), so the model's (B, S, H, D) projections go in as (B, H, S, D)
-// views without a copy; GQA reads kv head h / (H/KV) directly. Any S: the ragged last
-// tile is masked.
+// Two paths, chosen by the input's type:
+//
+// bfloat16 (served): flash_fwd_wgmma. One CTA of 384 threads owns a 128-row query tile
+// of one (batch, head), longest causal rows first. Warpgroup 0 is the producer: it gives
+// up registers (setmaxnreg 24) and one thread issues TMA loads, Q once and then each
+// 128-key tile of K and of V into its own two-stage ring, each stage with a full and an
+// empty mbarrier. Warpgroups 1 and 2 (setmaxnreg 240) each own 64 query rows. S = Q K^T
+// is wgmma m64n128k16 (bf16 in, float32 out, both operands K-major from 128-byte (D =
+// 128) or 32-byte (D = 16) swizzled shared memory, D/16 steps). The softmax runs on the
+// accumulator's layout (a thread holds parts of two rows; a row spans 4 lanes), with
+// scale*log2(e) folded into one ex2 per score, and rescales the output accumulator by
+// alpha. P is rounded to bf16 in registers (the accumulator's layout is the A operand's)
+// and O += P V is wgmma in its register-A form, V read MN-major (the transpose bit).
+// Each consumer issues S of tile t + 1 together with P V of tile t and runs the softmax
+// of tile t + 1 while P V runs; the two consumers take turns at issuing (named
+// barriers), so one's softmax overlaps the other's products. K and V stages go back to
+// the producer after the wgmma wait that retires their last reader. Only the last key
+// tile (the diagonal, or the ragged end) is masked; tiles above the diagonal are never
+// loaded; TMA fills rows past S with zeros. The tensor maps are 4-D (D, S, heads, B)
+// over the caller's strides, so the model's (B, S, H, D) projections go in as (B, H, S,
+// D) views without a copy; GQA reads kv head h / (H/KV). Bases and strides must be
+// multiples of 16 bytes (the wrapper checks). The one deliberate change from a float32
+// product: P is rounded to bf16 before P V, as tensor-core flash kernels do; l is summed
+// from the float32 P.
+//
+// float32 (the tight agreement checks): flash_fwd, on the CUDA cores in float32
+// throughout, as it was first written. One block of 256 threads owns a 64-row query
+// tile; per 64-key tile it stages K, then V, in shared memory as float32; each thread
+// computes a 4x4 patch of the scores and keeps 4 rows x D/16 output columns; row max
+// and sum are xor shuffles across 16 lanes.
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: the encoder comes from the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16
+constexpr int kBQ = 64;        // float32 path: query rows per block
+constexpr int kBK = 64;        // float32 path: keys per tile
+constexpr int kThreads = 256;  // float32 path: 16 x 16
 constexpr float kNegInf = -FLT_MAX;  // finfo(float32).min, the TPU kernel's mask value
 
 struct Strides {
@@ -49,9 +65,7 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 template <int D>
 constexpr int smem_bytes() {
@@ -201,14 +215,468 @@ int launch(void* out, const void* q, const void* k, const void* v, int B, int H,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(void* out, const void* q, const void* k, const void* v, int B, int H, int KV,
-               int S, int D, int causal, const int64_t* st, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(out, q, k, v, B, H, KV, S, causal, st, stream);
-    case 128: return launch<T, 128>(out, q, k, v, B, H, KV, S, causal, st, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+
+// ---- bfloat16: warp-specialised TMA + wgmma ----------------------------------------
+
+constexpr int kTileRows = 128;  // query rows per CTA, and keys per tile
+constexpr int kWsThreads = 384;  // producer warpgroup + two consumer warpgroups
+
+// Shared-memory geometry of a 128-row tile of D bf16 columns, as TMA writes it: panels
+// of kSwz bytes a row (the swizzle span: 128 B at D >= 64, 32 B at D = 16), each panel
+// 128 rows deep, rows kSwz bytes apart, 8-row groups 8 * kSwz bytes apart.
+template <int D>
+struct Tile {
+  static constexpr int kSwz = D * 2 >= 128 ? 128 : D * 2;
+  static constexpr int kBoxCols = kSwz / 2;  // bf16 columns of one TMA box
+  static constexpr int kPanels = D / kBoxCols;
+  static constexpr int kPanelBytes = kTileRows * kSwz;
+  static constexpr int kBytes = kTileRows * D * 2;
+  static constexpr uint64_t kLayout = kSwz == 128 ? 1 : 3;  // wgmma's code of the swizzle
+  // Q, two K stages, two V stages, 9 mbarriers; 1 KB of slack to align the tiles
+  static constexpr int kSmem = 5 * kBytes + 9 * 8 + 1024;
+  static_assert(kSwz == 32 || kSwz == 128, "D = 16 or a multiple of 64");
+  static_assert(D <= 256 && D % 16 == 0, "wgmma n");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride byte offsets
+// (16-byte units) and the swizzle layout.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                         uint64_t layout) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Wait until at most N committed wgmma groups of this warpgroup are still running.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma's registers across the
+// asynchronous instruction.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define F16(i) F4(i), F4(i + 4), F4(i + 8), F4(i + 12)
+#define D64                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "          \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128, float32) (+)= A (64 x 16) B (16 x 128), A and B K-major in shared memory.
+__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}"
+      : F16(0), F16(16), F16(32), F16(48)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128) += A (64 x 16, bf16 in registers) B (16 x 128), B MN-major in shared memory.
+__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
+      : F16(0), F16(16), F16(32), F16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 16) += A (64 x 16, bf16 in registers) B (16 x 16), B MN-major in shared memory.
+__device__ __forceinline__ void mma_rs(float (&d)[8], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}"
+      ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}"
+      : F4(0), F4(4)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef D64
+#undef F16
+#undef F4
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2**x in one MUFU instruction (flushes results below 2**-126 to 0: probabilities that
+// small vanish beside the row's largest, which is 1)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Mask a thread's scores of the key tile at k0: keys past S, and (causal) keys after
+// the query row. The thread holds rows row0 (s[4i], s[4i+1]) and row0 + 8 (s[4i+2],
+// s[4i+3]) at columns k0 + 8i + col0 + {0, 1}.
+__device__ __forceinline__ void mask_tile(float (&s)[64], int k0, int col0, int row0, int S,
+                                          int causal) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = k0 + 8 * i + col0 + j;
+      if (col >= S || (causal && col > row0)) s[4 * i + j] = kNegInf;
+      if (col >= S || (causal && col > row0 + 8)) s[4 * i + 2 + j] = kNegInf;
+    }
   }
+}
+
+// The float32 online-softmax state of a thread's two rows: running maxima (of the raw
+// scores), this thread's partial sums, and the last step's rescale factors.
+struct Softmax {
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f, alpha0 = 1.0f, alpha1 = 1.0f;
+
+  // s: raw scores of one key tile -> p = exp((s - m) / sqrt(D)) = exp2(s c - m c), with
+  // c = log2(e) / sqrt(D); a row's max over the 4 lanes that hold it.
+  __device__ __forceinline__ void step(float (&s)[64], float c) {
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mc0 = mx0 * c, mc1 = mx1 * c;
+    alpha0 = exp2_approx(fmaf(m0, c, -mc0));
+    alpha1 = exp2_approx(fmaf(m1, c, -mc1));
+    m0 = mx0;
+    m1 = mx1;
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      s[4 * i] = exp2_approx(fmaf(s[4 * i], c, -mc0));
+      s[4 * i + 1] = exp2_approx(fmaf(s[4 * i + 1], c, -mc0));
+      s[4 * i + 2] = exp2_approx(fmaf(s[4 * i + 2], c, -mc1));
+      s[4 * i + 3] = exp2_approx(fmaf(s[4 * i + 3], c, -mc1));
+      sum0 += s[4 * i] + s[4 * i + 1];
+      sum1 += s[4 * i + 2] + s[4 * i + 3];
+    }
+    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
+  }
+
+  // the rows' sums over their 4 lanes
+  __device__ __forceinline__ void finish() {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
+                Strides so, int H, int group, int S, float scale_log2, int causal) {
+  using T = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled tiles start on 1 KB boundaries (the 128-byte swizzle repeats every 1 KB)
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t s_q = (raw + 1023u) & ~1023u;
+  const uint32_t s_k = s_q + T::kBytes;      // stage st at s_k + st * kBytes
+  const uint32_t s_v = s_k + 2 * T::kBytes;  // likewise
+  const uint32_t bar = s_v + 2 * T::kBytes;  // q_full, k_full[2], k_empty[2], v_full[2], v_empty[2]
+  const uint32_t q_full = bar;
+  auto k_full = [&](int st) { return bar + 8 * (1 + st); };
+  auto k_empty = [&](int st) { return bar + 8 * (3 + st); };
+  auto v_full = [&](int st) { return bar + 8 * (5 + st); };
+  auto v_empty = [&](int st) { return bar + 8 * (7 + st); };
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
+  const int q0 = qt * kTileRows;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / group;
+  const int n_tiles = causal ? qt + 1 : (S + kTileRows - 1) / kTileRows;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(k_empty(st), 8);  // lane 0 of each consumer warp
+      mbar_init(v_empty(st), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // ---- producer warpgroup ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, T::kBytes);
+      for (int p = 0; p < T::kPanels; ++p)
+        tma_load(s_q + p * T::kPanelBytes, &tm_q, q_full, p * T::kBoxCols, q0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t & 1;
+        const uint32_t ph = (t >> 1) & 1;
+        mbar_wait(k_empty(st), ph ^ 1);  // the first pass through the ring does not wait
+        mbar_expect_tx(k_full(st), T::kBytes);
+        for (int p = 0; p < T::kPanels; ++p)
+          tma_load(s_k + st * T::kBytes + p * T::kPanelBytes, &tm_k, k_full(st),
+                   p * T::kBoxCols, t * kTileRows, kvh, b);
+        mbar_wait(v_empty(st), ph ^ 1);
+        mbar_expect_tx(v_full(st), T::kBytes);
+        for (int p = 0; p < T::kPanels; ++p)
+          tma_load(s_v + st * T::kBytes + p * T::kPanelBytes, &tm_v, v_full(st),
+                   p * T::kBoxCols, t * kTileRows, kvh, b);
+      }
+    }
+  } else {  // ---- consumer warpgroups: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    const int tid = threadIdx.x - 128;
+    const int cw = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int row0 = q0 + 64 * cw + 16 * warp + (lane >> 2);  // this thread's rows: row0, row0 + 8
+    const int col0 = 2 * (lane & 3);  // its columns in each 8-column group: col0, col0 + 1
+    const uint32_t q_rows = s_q + 64 * cw * T::kSwz;  // this warpgroup's rows of Q
+
+    float o[D / 2];  // the output accumulator, m64nD layout
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    Softmax sm;
+    float s[64];  // scores, then probabilities, of 64 rows x 128 keys (m64n128 layout)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.0f;
+    uint32_t pa[32];  // P in bf16: 8 A operands of 16 keys
+
+    // S = Q K^T: D/16 steps of 16 columns (32 bytes) along the swizzled rows
+    auto issue_s = [&](int st) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk * 32) / T::kSwz * T::kPanelBytes + (kk * 32) % T::kSwz;
+        mma_ss_n128(s, desc(q_rows + off, 16, 8 * T::kSwz, T::kLayout),
+                    desc(s_k + st * T::kBytes + off, 16, 8 * T::kSwz, T::kLayout), kk > 0);
+      }
+      wg_commit();
+    };
+    // O += P V: 8 steps of 16 keys; V (keys x D, D contiguous) read MN-major
+    auto issue_pv = [&](int st) {
+#pragma unroll
+      for (int kk = 0; kk < kTileRows / 16; ++kk)
+        mma_rs(o, pa + 4 * kk,
+               desc(s_v + st * T::kBytes + kk * 16 * T::kSwz, T::kPanelBytes, 8 * T::kSwz,
+                    T::kLayout));
+      wg_commit();
+    };
+    // the scores of key tile t, once its product has landed: release K, mask the last
+    // tile (the diagonal, or the ragged end), online softmax in place
+    auto softmax = [&](int t) {
+      if (lane == 0) mbar_arrive(k_empty(t & 1));
+      if (t == n_tiles - 1) mask_tile(s, t * kTileRows, col0, row0, S, causal);
+      sm.step(s, scale_log2);
+    };
+    // the m64n128 accumulator's 16-key slices are the m64k16 A operand's layout
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) pa[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+    };
+
+    // The two consumer warpgroups take turns at issuing their products (named barriers
+    // 1 and 2, one per warpgroup), so that one's softmax runs while the other's
+    // products occupy the tensor cores. Warpgroup 0 goes first.
+    auto my_turn = [&]() { asm volatile("bar.sync %0, 256;" ::"r"(1 + cw) : "memory"); };
+    auto your_turn = [&]() { asm volatile("bar.arrive %0, 256;" ::"r"(2 - cw) : "memory"); };
+    if (cw == 1) your_turn();
+
+    mbar_wait(q_full, 0);
+    mbar_wait(k_full(0), 0);
+    my_turn();
+    wg_fence();
+    pin(s);
+    issue_s(0);
+    your_turn();
+    wg_wait<0>();
+    pin(s);
+    softmax(0);
+    pack_p();
+    // Per tile t: S of tile t + 1 and P V of tile t go to the tensor cores together, and
+    // the softmax of tile t + 1 runs while P V does. No branch between a wgmma and the
+    // wait that retires it, so ptxas keeps them asynchronous.
+    for (int t = 0; t + 1 < n_tiles; ++t) {
+      const int st = t & 1;
+      mbar_wait(k_full(st ^ 1), ((t + 1) >> 1) & 1);
+      mbar_wait(v_full(st), (t >> 1) & 1);
+      my_turn();
+      wg_fence();
+      pin(s);
+      issue_s(st ^ 1);
+      pin(o);
+      pin(pa);
+      issue_pv(st);
+      your_turn();
+      wg_wait<1>();
+      pin(s);
+      softmax(t + 1);
+      wg_wait<0>();
+      pin(o);
+      pin(pa);
+      if (lane == 0) mbar_arrive(v_empty(st));
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        o[4 * i] *= sm.alpha0;
+        o[4 * i + 1] *= sm.alpha0;
+        o[4 * i + 2] *= sm.alpha1;
+        o[4 * i + 3] *= sm.alpha1;
+      }
+      pack_p();
+    }
+    mbar_wait(v_full((n_tiles - 1) & 1), ((n_tiles - 1) >> 1) & 1);
+    my_turn();
+    wg_fence();
+    pin(o);
+    pin(pa);
+    issue_pv((n_tiles - 1) & 1);
+    if (cw == 0) your_turn();  // warpgroup 1's last turn is the last: no arrival left over
+    wg_wait<0>();
+    pin(o);
+    pin(pa);
+
+    sm.finish();
+    const float d0 = fmaxf(sm.l0, 1e-30f), d1 = fmaxf(sm.l1, 1e-30f);
+    __nv_bfloat16* ob = out + b * so.b + h * so.h + col0;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      if (row0 < S)
+        *reinterpret_cast<uint32_t*>(ob + row0 * so.s + 8 * i) =
+            pack_bf16(o[4 * i] / d0, o[4 * i + 1] / d0);
+      if (row0 + 8 < S)
+        *reinterpret_cast<uint32_t*>(ob + (row0 + 8) * so.s + 8 * i) =
+            pack_bf16(o[4 * i + 2] / d1, o[4 * i + 3] / d1);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched through the CUDA runtime: no link against libcuda.
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map (D, S, heads, B) over bf16 `base` with element strides st = (b, h, s); boxes
+// of (kBoxCols, 128, 1, 1) with the tile's swizzle. Rows past S read as zeros.
+template <int D>
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int S, int heads, int B,
+            const int64_t* st) {
+  using T = Tile<D>;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {T::kBoxCols, kTileRows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz =
+      T::kSwz == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_wgmma(void* out, const void* q, const void* k, const void* v, int B, int H, int KV,
+                 int S, int causal, const int64_t* st, cudaStream_t stream) {
+  using T = Tile<D>;
+  const EncodeTiled fn = tensor_map_encoder();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode<D>(fn, &tm_q, q, S, H, B, st + 3) || !encode<D>(fn, &tm_k, k, S, KV, B, st + 6) ||
+      !encode<D>(fn, &tm_v, v, S, KV, B, st + 9))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;  // once per instantiation, before any graph capture
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid((S + kTileRows - 1) / kTileRows, B * H);
+  const float scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D)));
+  flash_fwd_wgmma<D><<<grid, kWsThreads, T::kSmem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), Strides{st[0], st[1], st[2]}, H,
+      H / KV, S, scale_log2, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -216,14 +684,27 @@ int dispatch_d(void* out, const void* q, const void* k, const void* v, int B, in
 // Plain C entry point, loaded with ctypes. out, q: (B, H, S, D); k, v: (B, KV, S, D),
 // device pointers of one type (dtype 0 = float32, 1 = bfloat16), the last dimension
 // contiguous; `strides` holds 12 host int64 element strides (b, h, s) of out, q, k, v
-// in that order. H % KV == 0, D in {16, 128} (the ported configs' head sizes), S >= 1. The launch goes on
-// `stream` and does not synchronise. Returns the CUDA error after the launch (0 =
-// launched).
+// in that order. H % KV == 0, D in {16, 128} (the ported configs' head sizes), S >= 1;
+// for bfloat16 the base pointers and strides are multiples of 16 bytes (TMA). float32
+// runs flash_fwd on the CUDA cores, bfloat16 flash_fwd_wgmma on the tensor cores. The
+// launch goes on `stream` and does not synchronise. Returns the CUDA error after the
+// launch (0 = launched).
 extern "C" int flash_attention_fwd(void* out, const void* q, const void* k, const void* v,
                                    int dtype, int B, int H, int KV, int S, int D, int causal,
                                    const int64_t* strides, cudaStream_t stream) {
-  if (dtype == 0) return dispatch_d<float>(out, q, k, v, B, H, KV, S, D, causal, strides, stream);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(out, q, k, v, B, H, KV, S, D, causal, strides, stream);
+  if (dtype == 0) {
+    if (D == 16) return launch<float, 16>(out, q, k, v, B, H, KV, S, causal, strides, stream);
+    if (D == 128) return launch<float, 128>(out, q, k, v, B, H, KV, S, causal, strides, stream);
+  } else if (dtype == 1) {
+    if (D == 16) return launch_wgmma<16>(out, q, k, v, B, H, KV, S, causal, strides, stream);
+    if (D == 128) return launch_wgmma<128>(out, q, k, v, B, H, KV, S, causal, strides, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of the kernel that `dtype` and D select, in bytes (0 if none).
+extern "C" int flash_attention_smem_bytes(int dtype, int D) {
+  if (dtype == 0) return D == 16 ? smem_bytes<16>() : D == 128 ? smem_bytes<128>() : 0;
+  if (dtype == 1) return D == 16 ? Tile<16>::kSmem : D == 128 ? Tile<128>::kSmem : 0;
+  return 0;
 }

@@ -3,8 +3,10 @@
 The device of the input decides the path and nothing else: a CUDA tensor
 launches the CUDA kernel (or raises if it cannot be built or launched); a
 CPU tensor takes the plain PyTorch version in ``ref.py``. There is no
-fallback from one to the other. The library is compiled with ``nvcc`` at
-first use (``kernels/_build.py``).
+fallback from one to the other. On the card, bfloat16 runs the tensor-core
+kernel (TMA loads, ``wgmma``; P rounded to bf16 before the product with V)
+and float32 the CUDA-core kernel (float32 throughout). The library is
+compiled with ``nvcc`` at first use (``kernels/_build.py``).
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ def build() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_fwd.argtypes = [ptr] * 4 + [i32] * 7 + [ptr, ptr]
         lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_smem_bytes.argtypes = [i32, i32]
+        lib.flash_attention_smem_bytes.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -61,10 +65,24 @@ def check_attention_args(q, k, v, kv_name: str = "k, v") -> None:
         raise ValueError(f"head_dim {q.shape[-1]} not in the kernels' {HEAD_DIMS}")
 
 
+def check_tma_layout(*tensors) -> None:
+    """The bfloat16 kernel loads its tiles with TMA, which takes base
+    addresses and strides that are multiples of 16 bytes: raise ValueError
+    for any other layout (there is no other kernel to switch to)."""
+    for t in tensors:
+        size = t.element_size()
+        if t.data_ptr() % 16 or any(st * size % 16 for st in t.stride()[:-1]):
+            raise ValueError(
+                f"the bf16 kernel needs 16-byte aligned base and strides, got address "
+                f"{t.data_ptr():#x} and strides {tuple(t.stride())} of {size}-byte elements"
+            )
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True):
     """Softmax attention, causal by default: q (B, H, S, D), k and v
-    (B, KV, S, D) with H % KV == 0, any strides with D contiguous, float32 or
-    bfloat16, any S >= 1. Query head h reads kv head h // (H / KV). Returns
+    (B, KV, S, D) with H % KV == 0, any strides with D contiguous (bfloat16
+    on CUDA: 16-byte aligned, ``check_tma_layout``), float32 or bfloat16,
+    any S >= 1. Query head h reads kv head h // (H / KV). Returns
     (B, H, S, D) in q's dtype; on CUDA with q's strides, so for a transposed
     (B, S, H, D) q the result transposes back to a contiguous tensor."""
     check_attention_args(q, k, v)
@@ -79,6 +97,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
     B, H, S, D = q.shape
     if B * H > 65535:
         raise ValueError(f"B * H = {B * H} exceeds the grid's 65535")
+    if q.dtype == torch.bfloat16:
+        check_tma_layout(q, k, v)
     lib = build()
     out = torch.empty_like(q)  # q's strides (dense, non-overlapping inputs)
     strides = (ctypes.c_int64 * 12)(

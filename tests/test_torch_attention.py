@@ -12,8 +12,20 @@ versions keep the softmax and the product with V in float32, as the
 kernels do.
 
 The CUDA kernels are held against the plain versions on the card
-(``-m cuda``): float32 within 2e-5, bfloat16 within one bfloat16 ulp
-(+2e-5 for outputs near 0).
+(``-m cuda``): float32 within 2e-5; decode in bfloat16 within one bfloat16
+ulp (+2e-5 for outputs near 0). The bfloat16 flash kernel rounds P to bf16
+before the product with V (tensor cores), so it is held to the bound that
+rounding implies: each p is off by a relative 2**-8 at most, each output by
+at most 2**-8 * attn(q, k, |v|); the check allows twice that, plus one bf16
+ulp of the larger magnitude (the two final roundings) and 2e-5:
+``|got - want| <= 2**-7 * attn(q, k, |v|) + ulp + 2e-5``. The plain tiled
+version (``ref.flash_attention_tiled_ref``, the kernel's arithmetic) is held
+to the same bound on the CPU, against the Pallas kernel and the plain
+version, and a faulty tiled version is shown to break it. On the card the
+kernel is held to the tiled version within the same bound: both round P,
+but from float32 p that differ in their last bits, so where a bf16 rounding
+midpoint lies between them they round one bf16 ulp of p apart; each is
+within 2**-8 * attn(q, k, |v|) of the float32 product, the two within 2**-7.
 """
 import numpy as np
 import pytest
@@ -97,6 +109,143 @@ def test_flash_strided_views_equal_contiguous():
         v.transpose(1, 2).contiguous(),
     )
     assert torch.equal(got, want)
+
+
+# --- the tiled plain version: the bf16 kernel's arithmetic ---------------------
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at |x| (float32 tensor)."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0**-126)))
+    return torch.exp2(e - 7)
+
+
+def _flash_bf16_gap(got, want, q, k, v, causal):
+    """max |got - want| over the bf16 flash bound, elementwise (<= 1 passes):
+    2**-7 * attn(q, k, |v|) + one bf16 ulp of max(|got|, |want|) + 2e-5."""
+    g, w = got.float(), want.float()
+    attn_abs = fref.flash_attention_ref(q.float(), k.float(), v.float().abs(), causal=causal)
+    bound = 2.0**-7 * attn_abs + _bf16_ulp(torch.maximum(g.abs(), w.abs())) + 2e-5
+    return ((g - w).abs() / bound).max().item()
+
+
+# (B, H, KV, S, D, causal): S % 128 == 0 runs the Pallas kernel, the ragged S
+# its float32 oracle (mha_ref, GQA repeated for it)
+TILED_CASES = [
+    (1, 2, 2, 128, 128, True), (1, 4, 2, 256, 16, False), (2, 4, 1, 256, 128, True),
+    (2, 4, 2, 100, 16, True), (1, 4, 1, 257, 128, False), (1, 6, 2, 257, 16, True),
+]
+
+
+def _tiled_inputs(case, dtype, seed):
+    B, H, KV, S, D, _ = case
+    arrs = _arrays([(B, H, S, D), (B, KV, S, D), (B, KV, S, D)], seed=seed)
+    # the same values on both sides: rounded to the dtype once
+    return [t.float().numpy() for t in _torch(arrs, dtype)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", TILED_CASES)
+def test_flash_tiled_plain_within_bound_of_jax(case, dtype):
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention.ops import attention
+    from repro.kernels.flash_attention.ref import mha_ref
+
+    B, H, KV, S, D, causal = case
+    arrs = _tiled_inputs(case, dtype, seed=S + D)
+    if S % 128 == 0:
+        want = attention(*_jax(arrs, dtype), causal=causal)
+    else:
+        q, k, v = (jnp.asarray(a) for a in arrs)
+        want = mha_ref(q, jnp.repeat(k, H // KV, 1), jnp.repeat(v, H // KV, 1), causal=causal)
+    q, k, v = _torch(arrs, dtype)
+    got = fref.flash_attention_tiled_ref(q, k, v, causal=causal)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = torch.from_numpy(np.array(want, np.float32))
+    assert _flash_bf16_gap(got, want, q, k, v, causal) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", TILED_CASES)
+def test_flash_tiled_plain_within_bound_of_plain(case, dtype):
+    """The same bound against the port's own plain version, in the large-logit
+    regime too (q x 8: the running max moves across tiles, alpha far from 1)."""
+    B, H, KV, S, D, causal = case
+    q, k, v = _torch(_tiled_inputs(case, dtype, seed=S + D + 1), dtype)
+    for qs in (1.0, 8.0):
+        qq = (q.float() * qs).to(q.dtype)
+        got = fref.flash_attention_tiled_ref(qq, k, v, causal=causal)
+        want = fref.flash_attention_ref(qq, k, v, causal=causal)
+        assert _flash_bf16_gap(got, want, qq, k, v, causal) <= 1.0
+
+
+def _faulty_tiled(q, k, v, causal, fault):
+    """flash_attention_tiled_ref with one deliberate fault: ``drop_last_tile``
+    skips the last key tile; ``skip_alpha`` leaves the accumulator unrescaled
+    at the first tile boundary."""
+    rep = q.shape[1] // k.shape[1]
+    k = k.repeat_interleave(rep, dim=1).float()
+    v = v.repeat_interleave(rep, dim=1).float()
+    qf = q.float() / np.sqrt(q.shape[-1])
+    B, H, S, D = q.shape
+    m = torch.full((B, H, S, 1), fref.NEG_INF)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, D))
+    rows = torch.arange(S)[:, None]
+    starts = list(range(0, S, fref.TILE))
+    if fault == "drop_last_tile":
+        starts = starts[:-1]
+    for i, k0 in enumerate(starts):
+        s = torch.einsum("bhsd,bhtd->bhst", qf, k[:, :, k0 : k0 + fref.TILE])
+        if causal:
+            cols = torch.arange(k0, min(k0 + fref.TILE, S))[None, :]
+            s = s.masked_fill(cols > rows, fref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        keep = torch.ones_like(alpha) if (fault == "skip_alpha" and i == 1) else alpha
+        acc = acc * keep + torch.einsum("bhst,bhtd->bhsd", p.bfloat16().float(),
+                                        v[:, :, k0 : k0 + fref.TILE])
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+@pytest.mark.parametrize("fault,causal", [
+    ("drop_last_tile", False), ("skip_alpha", False), ("skip_alpha", True),
+])
+def test_flash_bound_catches_a_faulty_tiled_version(fault, causal):
+    """At S = 257 (two full tiles and one of a single key) the bound passes
+    the tiled version and fails each fault. The last key's value is scaled
+    by 64, so that dropping it moves every row (non-causal: in the causal
+    case only row 256 sees it); the running max moves at the first tile
+    boundary in about half the rows."""
+    q, k, v = _torch(_arrays([(1, 4, 257, 16), (1, 2, 257, 16), (1, 2, 257, 16)], seed=7),
+                     "float32")
+    v[:, :, -1] *= 64
+    want = fref.flash_attention_ref(q, k, v, causal=causal)
+    assert _flash_bf16_gap(fref.flash_attention_tiled_ref(q, k, v, causal), want, q, k, v,
+                           causal) <= 1.0
+    assert _flash_bf16_gap(_faulty_tiled(q, k, v, causal, fault), want, q, k, v, causal) > 1.0
+
+
+@pytest.mark.parametrize("layout,ok", [
+    ("transposed", True), ("base+2B", False), ("stride 17", False), ("contiguous", True),
+])
+def test_flash_tma_layout_check(layout, ok):
+    """The bf16 kernel's TMA needs 16-byte aligned bases and strides; the
+    wrapper checks before any launch (CPU tensors stand in here)."""
+    base = torch.zeros(2 * 40 * 4 * 32 + 8, dtype=torch.bfloat16)
+    n = 2 * 40 * 4 * 32
+    t = {
+        "transposed": lambda: base[:n].view(2, 40, 4, 32).transpose(1, 2),
+        "base+2B": lambda: base[1 : n + 1].view(2, 4, 40, 32),
+        "stride 17": lambda: base[: 2 * 4 * 40 * 17].view(2, 4, 40, 17)[..., :16],
+        "contiguous": lambda: base[:n].view(2, 4, 40, 32),
+    }[layout]()
+    if ok:
+        fops.check_tma_layout(t)
+    else:
+        with pytest.raises(ValueError, match="16-byte"):
+            fops.check_tma_layout(t)
 
 
 # --- decode attention ---------------------------------------------------------
@@ -193,12 +342,6 @@ def test_cpu_tensors_launch_nothing():
 
 
 # --- on the card: each kernel against its plain version -------------------------
-def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
-    """One bfloat16 ulp at |x| (float32 tensor)."""
-    e = torch.floor(torch.log2(x.abs().clamp_min(2.0**-126)))
-    return torch.exp2(e - 7)
-
-
 def _hold(got, want, dtype):
     if dtype == torch.float32:
         assert (got - want).abs().max().item() <= 2e-5
@@ -216,13 +359,19 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,KV,S,D,causal", [
-    (1, 2, 2, 128, 128, True), (2, 4, 2, 100, 16, True), (1, 6, 2, 257, 128, True),
-    (2, 2, 1, 77, 16, False),
+@pytest.mark.parametrize("B,H,KV,S,D,causal,qscale", [
+    (1, 2, 2, 128, 128, True, 1), (2, 4, 2, 100, 16, True, 1), (1, 6, 2, 257, 128, True, 1),
+    (2, 2, 1, 77, 16, False, 1), (1, 4, 4, 1, 128, True, 1), (2, 4, 4, 1, 16, False, 1),
+    (1, 8, 2, 127, 128, True, 1), (2, 4, 1, 128, 16, False, 1), (1, 4, 2, 129, 128, False, 1),
+    (1, 8, 2, 4097, 128, True, 1), (1, 4, 1, 4097, 16, True, 1), (1, 8, 4, 1000, 128, True, 8),
+    (2, 4, 4, 257, 16, False, 8), (1, 4, 1, 4097, 128, True, 8),
 ])
-def test_flash_kernel_matches_plain(cuda, dtype, B, H, KV, S, D, causal):
-    g = torch.Generator(device=cuda).manual_seed(S)
-    q = torch.randn((B, S, H, D), generator=g, device=cuda).to(dtype).transpose(1, 2)
+def test_flash_kernel_matches_plain(cuda, dtype, B, H, KV, S, D, causal, qscale):
+    """S = 1, one key short of, at and past a tile, and past 32 tiles; GQA
+    groups 1, 2 and 4; q x 8 drives the online rescale across tiles. float32
+    within 2e-5; bf16 within the P-rounding bound of both plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    q = torch.randn((B, S, H, D), generator=g, device=cuda).mul(qscale).to(dtype).transpose(1, 2)
     k = torch.randn((B, S, KV, D), generator=g, device=cuda).to(dtype).transpose(1, 2)
     v = torch.randn((B, S, KV, D), generator=g, device=cuda).to(dtype).transpose(1, 2)
     n = fops.attention.LAUNCHES
@@ -230,7 +379,33 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, H, KV, S, D, causal):
     torch.cuda.synchronize()
     assert fops.attention.LAUNCHES == n + 1
     assert got.transpose(1, 2).is_contiguous()
-    _hold(got, fref.flash_attention_ref(q, k, v, causal=causal), dtype)
+    assert bool(torch.isfinite(got.float()).all())
+    want = fref.flash_attention_ref(q, k, v, causal=causal)
+    if dtype == torch.float32:
+        _hold(got, want, dtype)
+    else:
+        assert _flash_bf16_gap(got, want, q, k, v, causal) <= 1.0
+        tiled = fref.flash_attention_tiled_ref(q, k, v, causal=causal)
+        assert _flash_bf16_gap(got, tiled, q, k, v, causal) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["base", "stride"])
+def test_flash_kernel_rejects_misaligned_bf16(cuda, what):
+    """TMA takes 16-byte aligned bases and strides: anything else raises
+    ValueError before a launch, with no other kernel to switch to."""
+    n = fops.attention.LAUNCHES
+    if what == "base":
+        flat = torch.zeros(2 * 4 * 40 * 16 + 1, dtype=torch.bfloat16, device=cuda)
+        q = flat[1:].view(2, 4, 40, 16)
+    else:
+        q = torch.zeros((2, 4, 40, 17), dtype=torch.bfloat16, device=cuda)[..., :16]
+    kv = torch.zeros((2, 2, 40, 16), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        fops.attention(q, kv, kv)
+    assert fops.attention.LAUNCHES == n
+    fops.attention(q.float(), kv.float(), kv.float())  # float32 takes any strides
+    assert fops.attention.LAUNCHES == n + 1
 
 
 @pytest.mark.cuda
