@@ -7,9 +7,10 @@ Phases, in this order, each printing one JSON line; any failure raises and
 exits non-zero:
   device    — GPU name, count, torch/CUDA versions, power limit;
   build     — compile every kernel library from csrc/ with nvcc, all at once;
-              then the flash library's kernels: registers, spills and static
-              shared memory (ptxas), dynamic shared memory, and the count of
-              HGMMA (wgmma) instructions in its SASS, which must be > 0;
+              then the flash and decode libraries' kernels: registers, spills
+              and static shared memory (ptxas), dynamic shared memory, and
+              the count of HGMMA (wgmma) instructions in the flash library's
+              SASS, which must be > 0;
   agree     — the batched engine against the scalar engine on the card at a
               small config (PERFECT f32 and int8, LOSSY f32 and int8, long
               delays int8), and the card against the CPU: traffic counters
@@ -56,11 +57,15 @@ exits non-zero:
               T=4352, pos 0, 255, 4095, 4351) and ragged ones (flash S = 1,
               100, 128, 129, 300, 4097, and q x 8 to drive the online
               rescale): float32 within 2e-5; decode in bf16 within one bf16
-              ulp (+2e-5); flash in bf16, which rounds P to bf16 on the
-              tensor cores, within 2**-7 * attn(q, k, |v|) + one bf16 ulp +
-              2e-5 of both the plain version and the plain tiled version
-              (with, for each, the elements beyond two bf16 ulps);
-              times beside the bound (achieved TFLOP/s, share of the bound)
+              ulp (+2e-5), two calls bitwise equal, and a CUDA graph of one
+              decode call replayed with pos 0, 255, 4095, 4351 written into
+              its pos tensor bitwise equal to the eager call and within the
+              same bound of the plain version; flash in bf16, which rounds
+              P to bf16 on the tensor cores, within 2**-7 * attn(q, k, |v|)
+              + one bf16 ulp + 2e-5 of both the plain version and the plain
+              tiled version (with, for each, the elements beyond two bf16
+              ulps); times beside the bound (achieved TFLOP/s, share of the
+              bound; decode: the split count and the other candidate's time)
               and scaled_dot_product_attention as the yardstick;
   kernel_scan — the linear-scan kernel against both plain versions (step
               oracle, chunked scan) at the serve shape (4, 4096, 64, 64) in
@@ -241,6 +246,8 @@ def _bits_equal(a, b) -> bool:
 
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
@@ -907,6 +914,36 @@ def _flash_bf16_check(got, q, k, v, causal, fref, what):
     return out
 
 
+def _decode_graph_check(dops, dref):
+    """A CUDA graph of one decode call at the serve shape (bf16), replayed
+    with each of DECODE_POS written into its pos tensor in place: every
+    replay bitwise equal to the eager call and within one bf16 ulp + 2e-5 of
+    the plain version. Returns the largest max |d|."""
+    import torch
+
+    q, k, v = _attn_inputs(*DECODE_SHAPE, dtype=torch.bfloat16, seed=7)
+    q = q[:, :, 0]
+    pos = torch.tensor(0, dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream before capture
+        dops.decode(q, k, v, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dops.decode(q, k, v, pos)
+    worst = 0.0
+    for p in DECODE_POS:
+        pos.fill_(p)
+        graph.replay()
+        eager = dops.decode(q, k, v, torch.tensor(p, dtype=torch.int32, device="cuda"))
+        torch.cuda.synchronize()
+        what = f"decode graph replay pos={p}"
+        _require(_bits_equal(out, eager), f"{what}: replay != eager call")
+        worst = max(worst, _attn_check(out, dref.decode_ref(q, k, v, pos), torch.bfloat16, what))
+    return worst
+
+
 def phase_kernel_attn(fops, fref, dops, dref):
     """The attention kernels against their plain versions at the serve
     shapes and ragged ones; times, bounds and the SDPA yardstick."""
@@ -952,10 +989,14 @@ def phase_kernel_attn(fops, fref, dops, dref):
             q = q[:, :, 0]
             pos = torch.tensor(p, dtype=torch.int32, device="cuda")
             got = dops.decode(q, k, v, pos)
+            again = dops.decode(q, k, v, pos)
             want = dref.decode_ref(q, k, v, pos)
             torch.cuda.synchronize()
-            worst = max(worst, _attn_check(got, want, dtype, f"decode {name} T={T} pos={p}"))
+            what = f"decode {name} T={T} pos={p}"
+            worst = max(worst, _attn_check(got, want, dtype, what))
+            _require(_bits_equal(got, again), f"{what}: two calls differ")
         err["decode_attention"][name] = worst
+    err["decode_attention"]["graph_replay_bfloat16"] = _decode_graph_check(dops, dref)
 
     # times in bf16, the served dtype, at the serve shapes
     bf16 = torch.bfloat16
@@ -984,6 +1025,11 @@ def phase_kernel_attn(fops, fref, dops, dref):
     mask = (torch.arange(T, device="cuda") <= p)[None, None, None, :]
     lib = _device_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
                                                               enable_gqa=True))
+    # the wrapper's n_splits for this card, and the other candidate (one CTA
+    # an SM against two)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    n_splits = dops.choose_splits(B, KV, n_sm)
+    alt = dops.choose_splits(B, KV, n_sm, ctas_per_sm=3 - dops.CTAS_PER_SM)
     decode = {
         "shape": list(DECODE_SHAPE), "pos": p, **_device_ms(lambda: dops.decode(q, k, v, pos)),
         "plain_ms": _time_ms(lambda: dref.decode_ref(q, k, v, pos), iters=5),
@@ -991,8 +1037,12 @@ def phase_kernel_attn(fops, fref, dops, dref):
         "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
         **_bound((2 * B * KV * (p + 1) * D + 2 * B * H * D) * size, 4 * B * H * (p + 1) * D,
                  BF16_FLOPS_PER_S),
+        "n_splits": n_splits, "sm_count": n_sm, "other_n_splits": alt,
+        "other_n_splits_ms": _device_ms(lambda: dops.decode(q, k, v, pos, n_splits=alt))["ms"],
     }
     decode["achieved_gb_s"] = decode["bytes_moved"] / (decode["ms"] * 1e-3) / 1e9
+    decode["share_of_bound"] = decode["bound_ms"] / decode["ms"]
+    decode["ms_over_library_ms"] = decode["ms"] / decode["library_ms"]
     res = {"phase": "kernel_attn", "max_abs_err": err,
            "tolerance": {"float32": ATTN_F32_TOL, "bfloat16": "one bf16 ulp + 2e-5",
                          "flash_bfloat16": "2**-7 * attn(q, k, |v|) + one bf16 ulp + 2e-5"},
@@ -1095,21 +1145,17 @@ def phase_kernel_scan(sops, sref):
     return res
 
 
-def _flash_build_facts(fops, build):
-    """The flash library as built: per kernel, ptxas's registers, stack,
-    spills and static shared memory (from the build log), its dynamic shared
-    memory, and the HGMMA (wgmma) and HMMA (mma.sync) instructions in the
-    library's SASS (cuobjdump)."""
+def _ptxas_kernels(so, rename):
+    """Per kernel of a library, from its build log (ptxas -v): registers,
+    stack, spills and static shared memory; ``rename`` turns a mangled name
+    into a short one."""
     import re
-    import shutil
 
-    so = build.library_path(fops._SRC)
     kernels, name = {}, None
     for line in so.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = re.sub(r".*?(flash_fwd\w*?)I(f?)Li(\d+)E.*", r"\1<\2\3>", m.group(1))
-            name = name.replace("<f", "<float, ")
+            name = rename(m.group(1))
             kernels[name] = {}
         elif name and "bytes stack frame" in line:
             st, ss, sl = (int(x) for x in re.findall(r"(\d+) bytes", line)[:3])
@@ -1118,6 +1164,22 @@ def _flash_build_facts(fops, build):
             kernels[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
             smem = re.search(r"(\d+) bytes smem", line)
             kernels[name]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return kernels
+
+
+def _flash_build_facts(fops, build):
+    """The flash library as built: per kernel, ptxas's facts, its dynamic
+    shared memory, and the HGMMA (wgmma) and HMMA (mma.sync) instructions in
+    the library's SASS (cuobjdump)."""
+    import re
+    import shutil
+
+    def rename(mangled):
+        name = re.sub(r".*?(flash_fwd\w*?)I(f?)Li(\d+)E.*", r"\1<\2\3>", mangled)
+        return name.replace("<f", "<float, ")
+
+    so = build.library_path(fops._SRC)
+    kernels = _ptxas_kernels(so, rename)
     lib = fops.build()
     for dtype, key in ((0, "flash_fwd<float, {}>"), (1, "flash_fwd_wgmma<{}>")):
         for d in fops.HEAD_DIMS:
@@ -1129,6 +1191,26 @@ def _flash_build_facts(fops, build):
     return {"library": so.name, "kernels": kernels,
             "sass_hgmma": len(re.findall(r"\bHGMMA\b", sass)),
             "sass_hmma": len(re.findall(r"\bHMMA\b", sass))}
+
+
+def _decode_build_facts(dops, build):
+    """The decode library as built: per instantiation decode_attn<type, D,
+    kG>, ptxas's facts and the ring's dynamic shared memory."""
+    import re
+
+    def rename(mangled):
+        m = re.search(r"(decode_attn)I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", mangled)
+        if not m:
+            return mangled
+        dtype = "float" if m.group(2) == "f" else "bf16"
+        return f"{m.group(1)}<{dtype}, {m.group(3)}, {m.group(4)}>"
+
+    so = build.library_path(dops._SRC)
+    kernels = _ptxas_kernels(so, rename)
+    ring = dops.build().decode_attention_smem_bytes()
+    for facts in kernels.values():
+        facts["dynamic_smem_bytes"] = ring
+    return {"library": so.name, "kernels": kernels}
 
 
 def main() -> int:
@@ -1188,8 +1270,9 @@ def main() -> int:
         futs = {k: pool.submit(timed_build, mod) for k, mod in libs.items()}
         build_s = {k: f.result() for k, f in futs.items()}
     flash_built = _flash_build_facts(fops, _build)
+    decode_built = _decode_build_facts(dops, _build)
     _emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_library_s": build_s,
-           "flash_attention": flash_built})
+           "flash_attention": flash_built, "decode_attention": decode_built})
     _require(flash_built["sass_hgmma"] > 0, "no HGMMA in the flash library's SASS")
 
     # the engine phases first: the timing phases below leave cuBLAS
@@ -1241,7 +1324,9 @@ def main() -> int:
         ("decode_attention", "decode_attention/csrc/decode_attention.cu",
          "kernels/decode_attention/decode_attention.py:67", serve,
          kern_attn["max_abs_err"]["decode_attention"]["float32"],
-         kern_attn["timings"]["decode_attention"], {"max_abs_err_of": "float32"}),
+         kern_attn["timings"]["decode_attention"],
+         {"max_abs_err_of": "float32",
+          "share_of_bound": kern_attn["timings"]["decode_attention"]["share_of_bound"]}),
     ]
     rows.append(("rwkv6_scan", "linear_scan/csrc/linear_scan.cu",
                  "kernels/linear_scan/linear_scan.py:77", serve_rwkv,
