@@ -7,10 +7,10 @@ Phases, in this order, each printing one JSON line; any failure raises and
 exits non-zero:
   device    — GPU name, count, torch/CUDA versions, power limit;
   build     — compile every kernel library from csrc/ with nvcc, all at once;
-              then the flash and decode libraries' kernels: registers, spills
-              and static shared memory (ptxas), dynamic shared memory, and
-              the count of HGMMA (wgmma) instructions in the flash library's
-              SASS, which must be > 0;
+              then the flash, decode, linear-scan and aggregation libraries'
+              kernels: registers, spills and static shared memory (ptxas),
+              dynamic shared memory, and the count of HGMMA (wgmma)
+              instructions in the flash library's SASS, which must be > 0;
   agree     — the batched engine against the scalar engine on the card at a
               small config (PERFECT f32 and int8, LOSSY f32 and int8, long
               delays int8), and the card against the CPU: traffic counters
@@ -50,8 +50,13 @@ exits non-zero:
               time from CUDA-graph replay, and per wrapper call), plain and
               one-call yardstick times (CUDA events) beside the bound;
   kernel_q  — the int8 codec kernels (quantize, dequantize) and the quantized
-              aggregation kernel against their plain versions, bit for bit,
-              at the int8 path's shapes and edge cases; times and bounds;
+              aggregation kernel against their plain versions, bit for bit
+              (bit patterns: the sign of zero counts), at the int8 path's
+              shapes, every lane width the kernel takes, S = 1, 16, 17, 1023,
+              1025, 70001, R = 1 and inputs whose sums are signed zeros;
+              times and bounds; for the quantized aggregation the lanes a
+              thread owns and the time before this design (175.3 us; the
+              time at every width: aggregate_variants.py);
   kernel_attn — the attention kernels against their plain versions at the
               serve shapes (flash B=4, H=16, KV=8, S=4096, D=128; decode at
               T=4352, pos 0, 255, 4095, 4351) and ragged ones (flash S = 1,
@@ -67,13 +72,17 @@ exits non-zero:
               ulps); times beside the bound (achieved TFLOP/s, share of the
               bound; decode: the split count and the other candidate's time)
               and scaled_dot_product_attention as the yardstick;
-  kernel_scan — the linear-scan kernel against both plain versions (step
-              oracle, chunked scan) at the serve shape (4, 4096, 64, 64) in
-              float32 and bf16, T = 1, 100 and 4,097, one head, an initial
-              state, a nonzero bonus, strided inputs and log-decays over the
-              model's whole clip range: within 3e-5 of the output's scale
-              (bf16: one bf16 ulp more); times beside the bound (no PyTorch
-              call computes the recurrence).
+  kernel_scan — the linear-scan kernel against three plain versions (step
+              oracle, chunked scan, the kernel's split order) at the serve
+              shape (4, 4096, 64, 64) in float32 and bf16, T = 1, 17, 100,
+              300 and 4,097, one head, an initial state, a nonzero bonus,
+              strided inputs and log-decays over the model's whole clip
+              range: within 3e-5 of the output's scale (bf16: one bf16 ulp
+              more), two calls bitwise equal; times beside the bound (no
+              PyTorch call computes the recurrence) and the time before this
+              design (1.105 ms); the threads and warps a (batch, head) and
+              the warps an SM holds (the other splits of the state, their
+              occupancy and times: scan_variants.py).
 Each main phase sets every kernel's launch count to 0 before it runs and
 requires the counts its path must give. Then the kernels line, the
 nvidia-smi line and, last, the result line. Imports nothing of JAX or of the
@@ -177,6 +186,8 @@ SERVE_RWKV_DECODE_VS_PREFILL_F32 = 0.1
 # form's 2e-7)
 SCAN_TOL = 3e-5
 SCAN_SHAPE = (4, 4096, 64, 64)  # B, T, H, K of the serve prefill
+# device times of the previous designs (PERF.md's kernel table, H100 80GB HBM3, 700 W)
+BEFORE_MS = {"rwkv6_scan": 1.105, "ipls_aggregate_batched_q": 0.1753}
 LOG_DECAY_CLIP = (-8.0, 4.0)  # logw = -exp(clip(., -8, 4)) in the model
 
 
@@ -369,6 +380,34 @@ def _agg_q_inputs(K, R, S, seed):
     return w, own, q, scales, mask, own_mask, eps
 
 
+def _agg_q_signed_zeros(K, R, S, seed):
+    """Scales 0 but in the last instance, codes nine in ten negative, w +-0
+    in most lanes: every sum is +-0 and its sign reaches out (see
+    tests/test_torch_quantize.py ``_signed_zero_inputs``)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nb = -(-S // 1024)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device="cuda")
+
+    w = torch.where(rand(K, S) < 0.5, -0.0, 0.0)
+    w[:, ::7] = torch.randn(w[:, ::7].shape, generator=g, device="cuda")
+    own = -(rand(K, S) * 0.5 + 0.5)
+    own[2] = torch.where(rand(S) < 0.5, -0.0, 0.0)
+    q = torch.randint(-127, 1, (K, R, S), generator=g, device="cuda").to(torch.int8)
+    q[rand(K, R, S) < 0.1] = 7
+    scales = torch.zeros((K, R, nb), device="cuda")
+    scales[-1] = torch.where(rand(R, nb) < 0.5, 0.0, 2.0**-7)
+    mask = torch.zeros((K, R), device="cuda")
+    mask[1, R // 2] = 1.0
+    mask[2:] = torch.randint(0, 2, (K - 2, R), generator=g, device="cuda").float()
+    own_mask = torch.tensor([0.0, 0.0] + [1.0] * (K - 3) + [0.0], device="cuda")
+    eps = rand(K) * 0.9 + 0.1
+    return w, own, q, scales, mask, own_mask, eps
+
+
 def phase_kernel_q(qops, qref, ops, ref):
     """int8 codec and quantized aggregation kernels vs plain versions,
     bitwise; times at the int8 path's shapes."""
@@ -391,16 +430,27 @@ def phase_kernel_q(qops, qref, ops, ref):
         _require(_bits_equal(deq, deq_r), f"dequantize != plain at N={n}")
         if n >= 8193:  # the edge cases really occur
             _require(bool((s == 0).any()) and int(q.abs().max()) == 127, f"edge cases at N={n}")
-    for i, shape in enumerate([MAIN_Q_SHAPE, (20, 99, 45056), (3, 5, 70001), (7, 11, 1)]):
-        args = _agg_q_inputs(*shape, seed=200 + i)
+    # every width the wrapper picks (8 at the main shape, 16 and 4104, 4 at 45060, 1 where
+    # S is odd), R = 1, signed zeros at each width
+    agg_cases = [(_agg_q_inputs, shape) for shape in (
+        MAIN_Q_SHAPE, (20, 99, 45056), (3, 5, 70001), (7, 11, 1), (5, 1, 16), (5, 1, 17),
+        (5, 5, 1023), (5, 5, 1025), (5, 3, 4104), (5, 3, 45060))]
+    agg_cases += [(_agg_q_signed_zeros, (4, R, S)) for R in (5, 8) for S in (45056, 45060, 45057)]
+    n_zero = 0
+    for i, (make, shape) in enumerate(agg_cases):
+        args = make(*shape, seed=200 + i)
         got = ops.aggregate_batched_q(*args)
         want = ref.ipls_aggregate_batched_q_ref(*args)
         torch.cuda.synchronize()
         e = (got - want).abs().max().item()
         max_err["ipls_aggregate_batched_q"] = max(max_err["ipls_aggregate_batched_q"], e)
         _require(_bits_equal(got, want), f"aggregate_batched_q != plain at {shape}: {e}")
+        if make is _agg_q_signed_zeros:
+            n_zero += int((torch.signbit(want) & (want == 0)).sum())
+    _require(n_zero > 0, "the signed-zero cases gave no -0")
 
-    res = {"phase": "kernel_q", "max_abs_err": max_err, "tolerance": 0.0, "timings": {}}
+    res = {"phase": "kernel_q", "max_abs_err": max_err, "tolerance": 0.0, "timings": {},
+           "aggregate_q_cases": len(agg_cases), "aggregate_q_negative_zeros": n_zero}
     no_lib = "no single PyTorch call computes it"
     for n in (DELTA_PLANE, VALUE_PLANE):
         x, err = _codec_input(n, seed=7)
@@ -425,14 +475,19 @@ def phase_kernel_q(qops, qref, ops, ref):
     for shape in (MAIN_Q_SHAPE, (20, 99, 45056)):
         K, R, S = shape
         args = _agg_q_inputs(K, R, S, seed=9)
-        res["timings"][f"aggregate_batched_q@{K}x{R}x{S}"] = {
+        tm = {
             **_device_ms(lambda: ops.aggregate_batched_q(*args)),
+            "lanes_per_thread": ops.choose_lanes(S, *args[:3]),
             "plain_ms": _time_ms(lambda: ref.ipls_aggregate_batched_q_ref(*args), iters=3),
             # dequantize fused into an ordered masked sum over int8 codes
             "library_ms": None, "library": no_lib,
             **_bound(K * R * S + K * R * (-(-S // 1024)) * 4 + 3 * K * S * 4 + K * R * 4 + 2 * K * 4,
                      3 * K * R * S + 2 * K * S),
         }
+        tm["share_of_bound"] = tm["bound_ms"] / tm["ms"]
+        if shape == MAIN_Q_SHAPE:
+            tm["ms_before"] = BEFORE_MS["ipls_aggregate_batched_q"]
+        res["timings"][f"aggregate_batched_q@{K}x{R}x{S}"] = tm
     _emit(res)
     return res
 
@@ -561,6 +616,28 @@ def _reset_launches(kmods):
         fn.LAUNCHES = 0
 
 
+@contextmanager
+def _masked_slots(masks):
+    """While active, every quantized aggregation the batched engine calls
+    appends its (K_inst, R_cap) slot mask to ``masks`` (the engine makes a
+    new one each call; the caller reads them afterwards, so the probe adds
+    no device work or synchronisation); the kernel runs as always."""
+    import importlib
+
+    vec = importlib.import_module("repro_torch.fl.vectorized")
+    agg = vec.aggregate_batched_q
+
+    def probe(w, own, q, scales, mask, own_mask, eps):
+        masks.append(mask)
+        return agg(w, own, q, scales, mask, own_mask, eps)
+
+    vec.aggregate_batched_q = probe
+    try:
+        yield
+    finally:
+        vec.aggregate_batched_q = agg
+
+
 def phase_main(mods, kmods, name, extra, shape, want):
     """A full-width path through the user's entry points: counts reset, the
     path run, every count read; the scalar engine on the same inputs is the
@@ -582,14 +659,15 @@ def phase_main(mods, kmods, name, extra, shape, want):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches(kmods)
-    round_s, w_round0 = [], None
-    for rnd in range(cfg.rounds):
-        t0 = time.perf_counter()
-        sim.run_round(rnd)
-        torch.cuda.synchronize()
-        round_s.append(time.perf_counter() - t0)
-        if rnd == 0:
-            w_round0 = sim.agent_weights()
+    round_s, w_round0, masked = [], None, []
+    with _masked_slots(masked):
+        for rnd in range(cfg.rounds):
+            t0 = time.perf_counter()
+            sim.run_round(rnd)
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t0)
+            if rnd == 0:
+                w_round0 = sim.agent_weights()
     launches = {k: fn.LAUNCHES for k, fn in kmods.items()}
     peak = torch.cuda.max_memory_allocated()
     _require(launches == want, f"{name}: launches {launches}, expected {want}")
@@ -644,6 +722,8 @@ def phase_main(mods, kmods, name, extra, shape, want):
         "max_abs_w_final": float(np.abs(w_v).max()),
         "max_w_diff_vs_scalar_final": float(np.abs(w_r - w_v).max()),
     }
+    if masked:  # the int8 path: the share of the quantized aggregation's slots masked out
+        res["masked_slot_share"] = [float((m == 0).float().mean()) for m in masked]
     _emit(res)
     return res
 
@@ -1097,19 +1177,24 @@ def phase_kernel_scan(sops, sref):
     B, T, H, _ = SCAN_SHAPE
     cases = [  # (B, T, H, initial state, strided)
         (B, T, H, False, False), (2, 1, 4, True, False), (2, 100, 4, True, True),
-        (1, 4097, 4, True, False), (2, 300, 1, False, False),
+        (1, 4097, 4, True, False), (2, 300, 1, False, False), (2, 17, 3, True, True),
     ]
     err = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
-        worst_abs, worst_rel = 0.0, {"step": 0.0, "chunked": 0.0}
+        worst_abs, worst_rel = 0.0, {"step": 0.0, "chunked": 0.0, "split": 0.0}
         for i, (b, t, h, state, strided) in enumerate(cases):
             r, k, v, logw, u, s0 = _scan_inputs(b, t, h, dtype, seed=10 + i, state=state,
                                                 strided=strided)
             got, got_s = sops.rwkv6_scan(r, k, v, logw, u, 16, s0)
+            again, again_s = sops.rwkv6_scan(r, k, v, logw, u, 16, s0)
+            torch.cuda.synchronize()
+            _require(_bits_equal(got, again) and _bits_equal(got_s, again_s),
+                     f"rwkv6_scan {name} {(b, t, h)}: two calls differ")
             for plain, (want, want_s) in (
                 ("step", sref.rwkv6_ref(r, k, v, logw, u, s0)),
                 ("chunked", sref.rwkv6_chunked(r, k, v, logw, u, 16, s0)),
+                ("split", sref.rwkv6_split_ref(r, k, v, logw, u, s0)),
             ):
                 torch.cuda.synchronize()
                 d_abs, d_rel, ok = _scan_gap(got, got_s, want, want_s)
@@ -1130,6 +1215,7 @@ def phase_kernel_scan(sops, sref):
         **_device_ms(lambda: sops.rwkv6_scan(r, k, v, logw, u, 16), 5, 3),
         "plain_ms": _time_ms(lambda: sref.rwkv6_chunked(r, k, v, logw, u, 16), iters=2, warmup=1),
         "plain": "ref.rwkv6_chunked, chunks of 16 (the CPU path)",
+        "ms_before": BEFORE_MS["rwkv6_scan"],
         "library_ms": None, "library": "none: no single PyTorch call computes the RWKV6 recurrence",
         # r, k, v and out in bf16, logw float32, u, the float32 final state;
         # per token and head 5*K*V flops of readout and update, plus the bonus
@@ -1137,6 +1223,11 @@ def phase_kernel_scan(sops, sref):
                  B * T * H * (5 * K * K + 3 * K + 2 * K)),
     }
     timing["share_of_bound"] = timing["bound_ms"] / timing["ms"]
+    # a block of THREADS per (batch, head), BLOCKS_PER_SM an SM (the kernel's launch bounds;
+    # scan_variants.py reads the occupancy API)
+    timing["threads_per_bh"] = sops.THREADS
+    timing["warps_per_bh"] = sops.THREADS // 32
+    timing["warps_per_sm"] = sops.BLOCKS_PER_SM * sops.THREADS // 32
     res = {"phase": "kernel_scan", "cases": len(cases) * 2, "max_err": err,
            "tolerance": {"float32": f"{SCAN_TOL} of the scale",
                          "bfloat16": f"{SCAN_TOL} of the scale + one bf16 ulp"},
@@ -1213,6 +1304,25 @@ def _decode_build_facts(dops, build):
     return {"library": so.name, "kernels": kernels}
 
 
+def _scan_agg_build_facts(sops, ops, build):
+    """The linear-scan and aggregation libraries as built: per kernel,
+    ptxas's facts."""
+    import re
+
+    def rename(mangled):
+        m = re.search(r"(rwkv6_scan_kernel)I(f|13__nv_bfloat16)E", mangled)
+        if m:
+            return f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}>"
+        m = re.search(r"(ipls_aggregate_batched(?:_q)?_kernel)(?:ILi(\d+)E)?", mangled)
+        if m:
+            return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        return mangled
+
+    return {lib: {"library": build.library_path(mod._SRC).name,
+                  "kernels": _ptxas_kernels(build.library_path(mod._SRC), rename)}
+            for lib, mod in (("linear_scan", sops), ("ipls_aggregate", ops))}
+
+
 def main() -> int:
     import torch
 
@@ -1272,7 +1382,8 @@ def main() -> int:
     flash_built = _flash_build_facts(fops, _build)
     decode_built = _decode_build_facts(dops, _build)
     _emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_library_s": build_s,
-           "flash_attention": flash_built, "decode_attention": decode_built})
+           "flash_attention": flash_built, "decode_attention": decode_built,
+           **_scan_agg_build_facts(sops, ops, _build)})
     _require(flash_built["sass_hgmma"] > 0, "no HGMMA in the flash library's SASS")
 
     # the engine phases first: the timing phases below leave cuBLAS

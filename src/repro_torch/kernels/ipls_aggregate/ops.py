@@ -32,7 +32,7 @@ def build() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.ipls_aggregate_batched_f32.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
         lib.ipls_aggregate_batched_f32.restype = ctypes.c_int
-        lib.ipls_aggregate_batched_q_f32.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+        lib.ipls_aggregate_batched_q_f32.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
         lib.ipls_aggregate_batched_q_f32.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -101,13 +101,31 @@ def aggregate(w, deltas, mask, eps):
     return out.reshape(w.shape)
 
 
+LANES = (8, 4, 1)  # lanes a thread of the quantized kernel owns (csrc: launch_q<L>), widest first
+
+
+def choose_lanes(S: int, *tensors) -> int:
+    """The first lane count of ``LANES`` that divides S and to
+    which the tensors' first elements are aligned (16 bytes for the float32
+    ones where it is 4 or more): every code row is then one aligned vector
+    per thread."""
+    for lanes in LANES:
+        if S % lanes == 0 and all(
+            t.data_ptr() % (lanes if t.dtype == torch.int8 else (16 if lanes >= 4 else 4)) == 0
+            for t in tensors
+        ):
+            return lanes
+    return 1
+
+
 def aggregate_batched_q(w, own, q, scales, mask, own_mask, eps):
     """Quantized-wire form (the reference's ``ipls_aggregate_batched_q``):
     ``w[k] - eps[k] * (own_mask[k]*own[k] + sum_r mask[k,r] * q[k,r]*scale)``
     in one launch. w, own (K,S) float32; q (K,R,S) int8 codes; scales
     (K,R,ceil(S/1024)) float32 per-block power-of-two scales; mask (K,R);
     own_mask, eps (K,); all contiguous on one device. Returns a new (K,S)
-    tensor."""
+    tensor. On CUDA each thread owns ``choose_lanes`` adjacent lanes; every
+    width gives the same bits."""
     _check_tensors(
         {"w": w, "own": own, "q": q, "scales": scales, "mask": mask,
          "own_mask": own_mask, "eps": eps},
@@ -138,7 +156,8 @@ def aggregate_batched_q(w, own, q, scales, mask, own_mask, eps):
     launch(
         "ipls_aggregate_batched_q", build().ipls_aggregate_batched_q_f32, out.data_ptr(),
         w.data_ptr(), own.data_ptr(), q.data_ptr(), scales.data_ptr(), mask.data_ptr(),
-        own_mask.data_ptr(), eps.data_ptr(), K, R, S, NB, device=w.device,
+        own_mask.data_ptr(), eps.data_ptr(), K, R, S, NB, choose_lanes(S, w, own, q, out),
+        device=w.device,
     )
     aggregate_batched_q.LAUNCHES += 1
     return out

@@ -20,6 +20,10 @@ from repro_torch.kernels.linear_scan import ref
 _SRC = Path(__file__).resolve().parent / "csrc" / "linear_scan.cu"
 _lib = None  # the loaded shared library, once built
 HEAD_SIZE = 64  # the kernel's K = V (csrc: kK), every RWKV6 config's head size
+# a block per (batch, head) of this many threads, each holding ref.ROWS x 2 state
+# elements (csrc: kThreads, kRT, kCT), two blocks an SM (its __launch_bounds__)
+THREADS = HEAD_SIZE * HEAD_SIZE // (ref.ROWS * 2)
+BLOCKS_PER_SM = 2
 
 
 def build() -> ctypes.CDLL:
@@ -70,9 +74,11 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Te
 
     On CUDA the kernel runs the step form for K = 64 and ignores ``chunk``;
     r, k, v and logw may have any strides with K contiguous; u and the
-    initial state must be contiguous. On the CPU, ``ref.rwkv6_chunked`` with
-    chunks of ``chunk`` steps (the reference model's memory knob; any K),
-    its float32 output rounded once to r's dtype."""
+    initial state must be contiguous; a readout's partial sums are added
+    in ``ref.rwkv6_split_ref``'s order. On the CPU,
+    ``ref.rwkv6_chunked`` with chunks of ``chunk`` steps (the reference
+    model's memory knob; any K), its float32 output rounded once to r's
+    dtype."""
     _check(r, k, v, logw, u, chunk, init_state)
     if r.device.type == "cpu":
         out, state = ref.rwkv6_chunked(r, k, v, logw, u, chunk, init_state)

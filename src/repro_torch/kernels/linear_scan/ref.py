@@ -7,14 +7,17 @@ channel, for r, k, v, logw of (B, T, H, K) and a bonus u of (H, K):
     S_t   = diag(exp(logw_t)) S_{t-1} + k_t v_t^T
 
 ``rwkv6_ref`` is the step-by-step oracle (the reference's
-``kernels/linear_scan/ref.py``, with an initial state). ``rwkv6_chunked``
+``kernels/linear_scan/ref.py``, with an initial state). ``rwkv6_split_ref``
+is the step form in the CUDA kernel's order: 16-step chunks, a readout
+split over row groups and summed in group order, the bonus as the
+kernel's tree. ``rwkv6_chunked``
 ports the reference model's chunked scan (``models/ssm.py``
 ``rwkv6_chunked``): exact intra-chunk pair weights in the difference form
 ``exp(Lx_i - L_j)``, clamped at 0 where masked, and the carried state
 between chunks; any T (a ragged tail is padded with decay 1 and k = v = 0).
 The CPU path of the port takes ``rwkv6_chunked``, so the CPU tests compare
 with the reference model's own arithmetic; on the card the CUDA kernel is
-held against both. Both compute in float32 and return float32 outputs
+held against all three. Both compute in float32 and return float32 outputs
 (B, T, H, K) and a float32 final state (B, H, K, K).
 """
 from __future__ import annotations
@@ -84,3 +87,47 @@ def rwkv6_chunked(r, k, v, logw, u, chunk: int, init_state=None):
         )
         ys.append(y)
     return torch.stack(ys, dim=1).reshape(B, T, H, K), S
+
+
+CHUNK_STEPS = 16  # the kernel's chunk (csrc: kSteps)
+ROWS = 8  # state rows a kernel thread holds (csrc: kRT): the readout's row groups
+
+
+def _bonus_tree(r, u, k):
+    """r . (u * k) over the last axis of 64 as the kernel forms it: four
+    lanes in order, then a butterfly over the 16 four-lane parts."""
+    x = r * u * k
+    p = ((x[..., 0::4] + x[..., 1::4]) + x[..., 2::4]) + x[..., 3::4]  # (..., 16)
+    while p.shape[-1] > 1:
+        half = p.shape[-1] // 2
+        p = p[..., :half] + p[..., half:]
+    return p[..., 0]
+
+
+def rwkv6_split_ref(r, k, v, logw, u, init_state=None):
+    """The recurrence one step at a time in float32, in the kernel's order:
+    per step, the readout partial of each group of ``ROWS`` state rows with
+    S_{t-1}, then the update; per 16-step chunk, the partials summed in
+    group order and the bonus added. K = 64."""
+    B, T, H, K = r.shape
+    G = K // ROWS
+    r32, k32, v32 = (a.float() for a in (r, k, v))
+    u32 = u.float()
+    S = _zero_state(r, init_state)
+    ys = []
+    for c0 in range(0, T, CHUNK_STEPS):
+        sl = slice(c0, min(c0 + CHUNK_STEPS, T))
+        rc, kc, vc = r32[:, sl], k32[:, sl], v32[:, sl]
+        wc = torch.exp(logw[:, sl].float())
+        bonus = _bonus_tree(rc, u32, kc)  # (B, n, H)
+        parts = []
+        for s in range(rc.shape[1]):
+            parts.append(torch.einsum("bhgi,bhgij->bhgj", rc[:, s].reshape(B, H, G, ROWS),
+                                      S.reshape(B, H, G, ROWS, K)))
+            S = S * wc[:, s][..., None] + kc[:, s][..., :, None] * vc[:, s][..., None, :]
+        P = torch.stack(parts, dim=1)  # (B, n, H, G, K)
+        y = P[..., 0, :]
+        for g in range(1, G):
+            y = y + P[..., g, :]
+        ys.append(y + bonus[..., None] * vc)
+    return torch.cat(ys, dim=1), S

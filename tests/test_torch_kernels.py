@@ -2,7 +2,9 @@
 
 On the CPU the wrapper takes the kernel's plain PyTorch version, which must
 equal the Pallas kernel run in interpret mode BIT FOR BIT: both sum the
-contributor slots in order and apply ``w - eps*acc`` with one rounding. The
+contributor slots in order and apply ``w - eps*acc`` with one rounding.
+"Bit for bit" compares bit patterns (``_bits``), not values: a -0 where
+the other side has +0 is a different result. The
 CUDA kernel itself is held against the plain version on the card
 (``-m cuda``), where this file's cuda-marked test runs; JAX is imported
 only by the tests that compare with it, since the GPU host has none.
@@ -38,6 +40,13 @@ def _jax_batched(w, d, m, eps):
     return np.asarray(out)
 
 
+def _bits(a) -> np.ndarray:
+    """The float32 bit patterns of a numpy array or a tensor (-0 != +0)."""
+    if isinstance(a, torch.Tensor):
+        a = a.cpu().numpy()
+    return np.ascontiguousarray(np.asarray(a, np.float32)).view(np.uint32)
+
+
 def _port(fn, *arrays):
     return fn(*(torch.from_numpy(np.array(a, np.float32)) for a in arrays)).numpy()
 
@@ -47,8 +56,8 @@ def _port(fn, *arrays):
 def test_plain_equals_pallas_interpret_bitwise(N, R):
     w, d, m, eps = _inputs(4, R, N, seed=N + R)
     got = _port(ops.aggregate_batched, w, d, m, eps)
-    np.testing.assert_array_equal(got, _jax_batched(w, d, m, eps))
-    np.testing.assert_array_equal(got[2], w[2])
+    np.testing.assert_array_equal(_bits(got), _bits(_jax_batched(w, d, m, eps)))
+    np.testing.assert_array_equal(_bits(got[2]), _bits(w[2]))
 
 
 def test_plain_equals_pallas_unequal_sizes_zero_tails():
@@ -65,7 +74,7 @@ def test_plain_equals_pallas_unequal_sizes_zero_tails():
     m = np.ones((K, R), np.float32)
     eps = rng.uniform(0.1, 1.0, K).astype(np.float32)
     got = _port(ops.aggregate_batched, w, d, m, eps)
-    np.testing.assert_array_equal(got, _jax_batched(w, d, m, eps))
+    np.testing.assert_array_equal(_bits(got), _bits(_jax_batched(w, d, m, eps)))
     for k, s in enumerate(sizes):
         assert np.all(got[k, s:] == 0.0)
 
@@ -86,7 +95,7 @@ def test_single_partition_equals_pallas_interpret_bitwise(N, R):
         jnp.asarray(w[0]), jnp.asarray(d[0]), jnp.asarray(m[0]), jnp.asarray(eps[0]),
         interpret=True,
     )
-    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
 def test_double_rounding_tie_is_one_rounding():
@@ -176,4 +185,5 @@ def test_cuda_kernel_equals_plain_bitwise(shape):
     got = ops.aggregate_batched(w, d, m, eps)
     torch.cuda.synchronize()
     assert ops.aggregate_batched.LAUNCHES == before + 1
-    assert torch.equal(got, ref.ipls_aggregate_batched_ref(w, d, m, eps))
+    want = ref.ipls_aggregate_batched_ref(w, d, m, eps)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

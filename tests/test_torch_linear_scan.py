@@ -21,6 +21,12 @@ size of one element.
   bfloat16 within the reference test's 5e-2 (measured 1.7e-3).
 - Any chunk length computes the same function: within 5e-5 of the scale
   of the step oracle (measured 1.7e-5).
+- ``rwkv6_split_ref``, the step form in the CUDA kernel's order (16-step
+  chunks, row-group partials of the readout summed in group order), against
+  the JAX step oracle and the Pallas kernel in interpret mode: within
+  SCAN_TOL = 3e-5 of the scale, the bound the kernel is held to on the
+  card. ``_faulty_split`` shows that the bound catches a dropped row slice,
+  a skipped decay and a stale step at a chunk boundary.
 
 On the card (``-m cuda``) the CUDA kernel is held against both plain
 versions: within 3e-5 of the scale in float32 (chip_smoke.py's bound;
@@ -34,6 +40,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.linear_scan import ops, ref
 
 EDGES = (-np.exp(4.0), -np.exp(-8.0))  # the model's clip range of log-decays
+SCAN_TOL = 3e-5  # the kernel against its plain versions (chip_smoke.py), of the scale
 
 
 def _arrays(B, T, H, K, seed, state=True):
@@ -171,6 +178,84 @@ def test_cpu_tensors_launch_nothing():
     assert ops._lib is None  # nothing was built either
 
 
+@pytest.mark.parametrize("T,state,dtype", [
+    (1, True, "float32"), (15, True, "float32"), (16, False, "float32"),
+    (17, False, "float32"), (33, True, "float32"), (100, True, "float32"),
+    (37, True, "bfloat16"), (64, False, "bfloat16"),
+])
+def test_split_ref_matches_jax_oracle(T, state, dtype):
+    """The kernel's order against the reference's step oracle, the inputs
+    rounded to ``dtype`` on both sides."""
+    from repro.kernels.linear_scan.ref import rwkv6_ref
+
+    arrs = _arrays(2, T, 3, 64, seed=T, state=state)
+    j = _jax(arrs, dtype)
+    jo, js = rwkv6_ref(*[a.astype("float32") for a in j[:3]], *j[3:5], *j[5:] if state else ())
+    po, ps = ref.rwkv6_split_ref(*_torch(arrs, dtype))
+    assert po.dtype == ps.dtype == torch.float32 and po.shape == (2, T, 3, 64)
+    assert _rel(po, jo) <= SCAN_TOL and _rel(ps, js) <= SCAN_TOL
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 2, 64), (2, 128, 2, 64)])
+def test_split_ref_matches_pallas_interpret(shape):
+    """The Pallas kernel (Q = 64, no initial state) in float32, run as
+    tests/test_kernels.py runs it."""
+    from repro.kernels.linear_scan.ops import linear_scan
+
+    arrs = _arrays(*shape, seed=sum(shape) + 1, state=False)
+    for a in arrs[:3]:
+        a *= 0.5  # the reference test's input scale
+    want, want_s = linear_scan(*_jax(arrs)[:5], use_kernel=True, interpret=True)
+    got, got_s = ref.rwkv6_split_ref(*_torch(arrs)[:5])
+    assert _rel(got, want) <= SCAN_TOL and _rel(got_s, want_s) <= SCAN_TOL
+
+
+def _faulty_split(r, k, v, logw, u, init_state, fault):
+    """rwkv6_split_ref with one deliberate fault: ``drop_rows``
+    leaves the last row group's partial out of every readout; ``skip_decay``
+    leaves the state undecayed at step 15, the last of the first chunk;
+    ``chunk_boundary`` runs the first step of every later chunk on the
+    previous step's inputs (a stale buffer at the boundary)."""
+    B, T, H, K = r.shape
+    rows, G = ref.ROWS, K // ref.ROWS
+    S = init_state.clone()
+    ys = []
+    for c0 in range(0, T, ref.CHUNK_STEPS):
+        idx = list(range(c0, min(c0 + ref.CHUNK_STEPS, T)))
+        if fault == "chunk_boundary" and c0 > 0:
+            idx[0] = c0 - 1
+        rc, kc, vc, lc = (a[:, idx] for a in (r, k, v, logw))
+        wc = torch.exp(lc)
+        bonus = ref._bonus_tree(rc, u, kc)
+        parts = []
+        for s, t in enumerate(range(c0, c0 + len(idx))):
+            parts.append(torch.einsum("bhgi,bhgij->bhgj", rc[:, s].reshape(B, H, G, rows),
+                                      S.reshape(B, H, G, rows, K)))
+            decay = 1.0 if (fault == "skip_decay" and t == 15) else wc[:, s][..., None]
+            S = S * decay + kc[:, s][..., :, None] * vc[:, s][..., None, :]
+        P = torch.stack(parts, dim=1)
+        y = P[..., 0, :]
+        for g in range(1, G - 1 if fault == "drop_rows" else G):
+            y = y + P[..., g, :]
+        ys.append(y + bonus[..., None] * vc)
+    return torch.cat(ys, dim=1), S
+
+
+@pytest.mark.parametrize("T", [17, 4097])
+@pytest.mark.parametrize("fault", ["drop_rows", "skip_decay", "chunk_boundary"])
+def test_scan_bound_catches_a_faulty_split_version(T, fault):
+    """At T = 17 (one chunk and a one-step tail) and 4,097 the bound passes
+    the split version and fails each fault, in the output or the state."""
+    arrs = _torch(_arrays(1, T, 2, 64, seed=T))
+    want, want_s = ref.rwkv6_ref(*arrs)
+
+    def gap(got, got_s):
+        return max(_rel(got, want), _rel(got_s, want_s))
+
+    assert gap(*ref.rwkv6_split_ref(*arrs)) <= SCAN_TOL
+    assert gap(*_faulty_split(*arrs, fault)) > SCAN_TOL
+
+
 # --- on the card: the kernel against its plain versions ----------------------------
 def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """One bfloat16 ulp at |x| (float32 tensor)."""
@@ -204,3 +289,54 @@ def test_kernel_matches_plain(cuda, dtype, B, T, H, state):
             bound = bound + _bf16_ulp(want)
         assert bool(((got.float() - want).abs() <= bound).all())
         assert (got_s - want_s).abs().max().item() <= 3e-5 * max(1.0, want_s.abs().max().item())
+
+
+def _cuda_arrays(cuda, B, T, H, dtype, state, layout, seed):
+    """Inputs on the card: ``contiguous``; ``strided`` (transposed views of
+    (B, H, T, 64) tensors); or ``misaligned`` (rows one element past a
+    16-byte boundary, the kernel's element-load path)."""
+    arrs = [a.to(cuda) if a is not None else None
+            for a in _torch(_arrays(B, T, H, 64, seed=seed, state=state), dtype)]
+    if layout == "strided":
+        arrs[:4] = [a.transpose(1, 2).contiguous().transpose(1, 2) for a in arrs[:4]]
+    elif layout == "misaligned":
+        def shift(a):
+            base = torch.empty((B, T, H, 65), dtype=a.dtype, device=cuda)
+            base[..., 1:] = a
+            return base[..., 1:]
+        arrs[:4] = [shift(a) for a in arrs[:4]]
+    return arrs
+
+
+def _within_scan_tol(got, got_s, want, want_s):
+    scale = max(1.0, want.abs().max().item())
+    bound = SCAN_TOL * scale
+    if got.dtype == torch.bfloat16:  # one rounding of the float32 result apart, at most
+        bound = bound + _bf16_ulp(want)
+    scale_s = max(1.0, want_s.abs().max().item())
+    return (bool(((got.float() - want).abs() <= bound).all())
+            and (got_s - want_s).abs().max().item() <= SCAN_TOL * scale_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H,state,layout", [
+    (2, 1, 3, True, "contiguous"), (2, 15, 2, False, "strided"), (1, 16, 2, True, "contiguous"),
+    (2, 17, 1, True, "strided"), (1, 4097, 2, False, "contiguous"),
+    (1, 4097, 1, True, "strided"), (2, 33, 2, True, "misaligned"),
+])
+def test_kernel_matches_split_ref_at_chunk_edges(cuda, dtype, B, T, H, state, layout):
+    """T at and around the 16-step chunk, one head, with and without the
+    initial state, strided and misaligned rows: the kernel against the step
+    oracle and the split version within SCAN_TOL; two calls bitwise equal."""
+    arrs = _cuda_arrays(cuda, B, T, H, dtype, state, layout, seed=T + 7 * H)
+    n = ops.rwkv6_scan.LAUNCHES
+    got, got_s = ops.rwkv6_scan(*arrs[:5], 16, arrs[5])
+    again, again_s = ops.rwkv6_scan(*arrs[:5], 16, arrs[5])
+    torch.cuda.synchronize()
+    assert ops.rwkv6_scan.LAUNCHES == n + 2
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), again.view(bits))
+    assert torch.equal(got_s.view(torch.int32), again_s.view(torch.int32))
+    for want, want_s in (ref.rwkv6_ref(*arrs), ref.rwkv6_split_ref(*arrs)):
+        assert _within_scan_tol(got, got_s, want, want_s)

@@ -7,6 +7,8 @@ wire codec (``repro.core.wire._np_quantize``), the jnp row helpers, and the
 Pallas ``ipls_aggregate_batched_q`` in interpret mode. The CUDA kernels are
 held against the plain versions on the card (``-m cuda``); JAX is imported
 only by the tests that compare with it, since the GPU host has none.
+"Bit for bit" compares bit patterns (``_bits``): the aggregation's contract
+includes the sign of zero, which a comparison of values would not see.
 """
 import numpy as np
 import pytest
@@ -175,12 +177,86 @@ def test_aggregate_q_plain_equals_pallas_interpret_bitwise(R, N, own_on):
     args = _agg_q_inputs(4, R, N, seed=R * N + own_on, own_on=own_on)
     got = _port_agg_q(*args)
     want = ipls_aggregate_batched_q(*(jnp.asarray(a) for a in args), interpret=True)
-    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(_bits(got), _bits(np.asarray(want)))
     w, own, _, _, _, _, eps = args
     # the zero-mask instance sums only its own delta
     np.testing.assert_array_equal(
-        got[2], agg_ref.fma_f32(*(torch.from_numpy(a) for a in (-eps[2:3], own[2], w[2]))).numpy()
+        _bits(got[2]),
+        _bits(agg_ref.fma_f32(*(torch.from_numpy(a) for a in (-eps[2:3], own[2], w[2]))).numpy()),
     )
+
+
+def _signed_zero_inputs(K, R, N, seed):
+    """Inputs on which the sign of zero decides the bits. Every scale is 0 but
+    in the last instance, so every slot adds code * 0 * mask, a -0 for a
+    negative code (nine in ten here) and a +0 otherwise, and the sum is -0
+    only where every term is; w is +-0 in most lanes, so out = fma(-eps,
+    acc, w) carries acc's sign. Instance 0: own_mask 0 and a negative own
+    (a -0 first term), every slot masked; 1: own_mask 0, one slot unmasked;
+    2: own_mask 1 and own +-0; the last: masks at random, own_mask 0, half
+    its scales nonzero. Skipping a masked slot, or adding in another order
+    than the slots', changes bits here."""
+    rng = np.random.default_rng(seed)
+    nb = -(-N // 1024)
+    w = np.where(rng.random((K, N)) < 0.5, -0.0, 0.0).astype(np.float32)
+    w[:, ::7] = rng.standard_normal(w[:, ::7].shape)
+    own = -rng.uniform(0.5, 1.0, (K, N)).astype(np.float32)
+    own[2] = np.where(rng.random(N) < 0.5, -0.0, 0.0)
+    q = rng.integers(-127, 1, (K, R, N)).astype(np.int8)
+    q[rng.random((K, R, N)) < 0.1] = 7
+    scales = np.zeros((K, R, nb), np.float32)
+    scales[-1] = np.where(rng.random((R, nb)) < 0.5, 0.0, 2.0 ** -7)
+    mask = np.zeros((K, R), np.float32)
+    mask[1, R // 2] = 1.0
+    mask[2:] = rng.integers(0, 2, (K - 2, R))
+    own_mask = np.array([0.0, 0.0] + [1.0] * (K - 3) + [0.0], np.float32)
+    eps = rng.uniform(0.1, 1.0, K).astype(np.float32)
+    return w, own, q, scales, mask, own_mask, eps
+
+
+@pytest.mark.parametrize("N", [1024, 3000])
+def test_aggregate_q_signed_zeros_plain_equals_pallas_bitwise(N):
+    """R = 8, a whole slot tile of the Pallas kernel: it pads R to a multiple
+    of 8 with zero slots, which add +0 and so turn an all -0 sum into +0
+    where the slots proper (and the plain version) leave -0."""
+    import jax.numpy as jnp
+
+    from repro.kernels.ipls_aggregate.ipls_aggregate import ipls_aggregate_batched_q
+
+    args = _signed_zero_inputs(4, 8, N, seed=N)
+    got = _port_agg_q(*args)
+    want = np.asarray(ipls_aggregate_batched_q(*(jnp.asarray(a) for a in args), interpret=True))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    zeros = got == 0
+    assert np.signbit(got[zeros]).any() and (~np.signbit(got[zeros])).any()
+
+
+@pytest.mark.parametrize("N", [1024, 3000])
+@pytest.mark.parametrize("R", [5, 6])  # 6 = 198 % 8: the main_int8 path's last slot tile
+def test_aggregate_q_signed_zeros_ragged_r_vs_pallas(R, N):
+    """At R % 8 != 0 the Pallas kernel pads R with zero slots, and each adds
+    +0. The sums then differ in one known place. Take a lane where w is -0 and
+    every real term (the own term and every slot's) is -0. The plain version
+    (and the CUDA kernel) sums to -0 and gives fma(-eps, -0, -0) = +0. The
+    Pallas kernel sums to +0 and gives -0 - eps*(+0) = -0. Every other lane
+    is equal bit for bit."""
+    import jax.numpy as jnp
+
+    from repro.kernels.ipls_aggregate.ipls_aggregate import ipls_aggregate_batched_q
+
+    args = _signed_zero_inputs(4, R, N, seed=N + R)
+    w, own, q, scales, mask, own_mask, _ = args
+    got = np.ascontiguousarray(_port_agg_q(*args)).view(np.uint32)
+    want = np.asarray(ipls_aggregate_batched_q(*(jnp.asarray(a) for a in args), interpret=True))
+    want = np.ascontiguousarray(want).view(np.uint32)
+    lane_scales = np.repeat(scales, 1024, axis=2)[..., :N]  # (K, R, N)
+    terms = [own_mask[:, None] * own] + [
+        mask[:, r, None] * (q[:, r].astype(np.float32) * lane_scales[:, r]) for r in range(R)]
+    minus_zero = [(t == 0) & np.signbit(t) for t in terms]
+    known = np.logical_and.reduce(minus_zero) & (w == 0) & np.signbit(w)
+    assert known.any()
+    np.testing.assert_array_equal(got[~known], want[~known])
+    assert (got[known] == 0).all() and (want[known] == 0x80000000).all()
 
 
 @pytest.mark.parametrize(
@@ -245,6 +321,20 @@ def test_cpu_path_launches_no_kernel():
     assert after == before
 
 
+@pytest.mark.parametrize("S, ptr_offset, want", [
+    (45056, 0, 8), (45064, 0, 8), (45060, 0, 4), (70001, 0, 1), (1, 0, 1),
+    (45056, 4, 4), (45056, 2, 1),  # the codes' first element 4 or 2 bytes past 16
+])
+def test_choose_lanes(S, ptr_offset, want):
+    """The first preferred lane count that divides S and that the codes'
+    alignment allows (the float32 tensors' too, at 16 bytes)."""
+    base = torch.zeros(S + 32, dtype=torch.int8)
+    off = (-base.data_ptr()) % 16 + ptr_offset
+    q = base[off:off + S]
+    assert q.data_ptr() % 16 == ptr_offset
+    assert agg_ops.choose_lanes(S, q, torch.zeros(4)) == want
+
+
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run with -m cuda on a GPU host)")
@@ -275,4 +365,34 @@ def test_cuda_aggregate_q_equals_plain_bitwise(shape):
     got = agg_ops.aggregate_batched_q(*args)
     torch.cuda.synchronize()
     assert agg_ops.aggregate_batched_q.LAUNCHES == before + 1
-    assert torch.equal(got, agg_ref.ipls_aggregate_batched_q_ref(*args))
+    want = agg_ref.ipls_aggregate_batched_q_ref(*args)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 1023, 1024, 1025, 4104, 45060, 70001])
+@pytest.mark.parametrize("R", [1, 5])
+def test_cuda_aggregate_q_lane_edges_bitwise(S, R):
+    """Every lane width the wrapper picks (8 at S = 16, 1024, 4104; 4 at
+    45060; 1 elsewhere), R = 1, and the all-masked instance (K // 2)."""
+    _need_cuda()
+    args = [torch.from_numpy(a).cuda() for a in _agg_q_inputs(5, R, S, seed=S + R, own_on=False)]
+    got = agg_ops.aggregate_batched_q(*args)
+    want = agg_ref.ipls_aggregate_batched_q_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [5, 8])
+@pytest.mark.parametrize("N", [1024, 45056, 45060, 45057])
+def test_cuda_aggregate_q_signed_zeros_bitwise(N, R):
+    """The signed-zero inputs at each lane width the wrapper picks (8 at N =
+    1024 and 45056, 4 at 45060, 1 at 45057): the kernel against the plain
+    version, bit for bit."""
+    _need_cuda()
+    args = [torch.from_numpy(a).cuda() for a in _signed_zero_inputs(4, R, N, seed=N + R)]
+    got = agg_ops.aggregate_batched_q(*args)
+    want = agg_ref.ipls_aggregate_batched_q_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (N, R)
