@@ -22,6 +22,21 @@ exits non-zero:
               through make_simulation(engine="vectorized"); the scalar engine
               is the reference (counters exact, round-0 weights within 1e-3);
   main_int8 — the same at full width on the LOSSY network and the int8 wire;
+  main_window — the PERFECT f32 path at the same width in multi-round
+              windows: 4 rounds, scan_rounds=2 (two windows, each one CUDA-
+              graph replay; one capture). Bit for bit the same rounds run
+              one at a time on the card (weights, evaluated accuracies,
+              counters); the scalar engine's counters every round and its
+              round-0 weights as in main; one graph, 2 dispatches, the
+              kernel launches of the warm-up round and of each replay
+              exactly; per window: wall time, capture apart from replay,
+              host phases (fate_draw, control, batches), peak memory. Then,
+              past the checked rounds, 4 more replays (the median and
+              spread of a replayed window) and one under torch.profiler:
+              the kernels it shows, by symbol, must be those the capture
+              recorded;
+  main_int8_window — the same for the int8 LOSSY path: 6 rounds,
+              scan_rounds=3, eval_cadence=3;
   lm_agree  — the LMs (internlm2, phi4-mini, minitron, rwkv6) at their reduced
               configs: the port on the card (attention and scan kernels)
               against the port on the CPU (plain versions), same weights from
@@ -93,6 +108,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -121,6 +137,21 @@ WEIGHT_TOL = 1e-4  # engine agreement: f32 GEMM sums in other orders
 # deltas, which amplifies the per-delta GEMM-order noise up to 26-fold
 ROUND0_TOL = 1e-3
 AGREE_CFG = dict(num_agents=5, num_partitions=8, pi=2, rho=2, rounds=3, local_iters=3)
+# the multi-round windows of the main paths: two windows of one (W, evaluation
+# pattern), so one capture and one replay of a graph that is already captured
+MAIN_WINDOW = dict(rounds=4, scan_rounds=2, eval_cadence=1)
+MAIN_Q_WINDOW = dict(rounds=6, scan_rounds=3, eval_cadence=3)
+# windows replayed after a window phase's checks, for the spread of a
+# replayed window's time (with the one replay of the checked run), then one
+# more under the profiler, whose kernels are counted by symbol
+EXTRA_REPLAYS = 4
+# the CUDA kernels of the protocol paths' wrappers, by symbol
+KERNEL_SYMBOLS = {
+    "ipls_aggregate_batched": "ipls_aggregate_batched_kernel",
+    "ipls_aggregate_batched_q": "ipls_aggregate_batched_q_kernel",
+    "quantize": "quantize_kernel",
+    "dequantize": "dequantize_kernel",
+}
 # the LM main path: internlm2-1.8b at full width, serving
 SERVE = dict(arch="internlm2-1.8b", batch=4, prompt_len=4096, tokens=256, seed=0)
 SERVE_PARAMS = 1_889_110_016
@@ -224,6 +255,7 @@ def _device_ms(fn, launches: int = 20, replays: int = 10) -> dict:
     replayed, so no host work is on the clock. Inputs of a few MB stay in
     the 50 MB L2 cache across replays."""
     import torch
+    from repro_torch.kernels import _build
 
     call_ms = _time_ms(fn, iters=50, warmup=5)
     side = torch.cuda.Stream()
@@ -231,8 +263,8 @@ def _device_ms(fn, launches: int = 20, replays: int = 10) -> dict:
     with torch.cuda.stream(side):  # warm up off the default stream before capture
         fn()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    graph = _build.Graph()  # a kernel's wrapper may be captured only into a counting graph
+    with graph.capture():
         for _ in range(launches):
             fn()
     ms = _time_ms(graph.replay, iters=replays, warmup=1) / launches
@@ -728,6 +760,202 @@ def phase_main(mods, kmods, name, extra, shape, want):
     return res
 
 
+def _window_snapshot(sim):
+    """The engine's cumulative counters and phase seconds, to difference
+    around one window."""
+    return {
+        "counters": (sim.messages_sent, sim.messages_dropped, sim._bytes_total),
+        "phases": {k: v["total_s"] for k, v in sim.timer.summary().items()},
+    }
+
+
+def _timed_window(sim, r0, W):
+    """``sim.run_window(r0, W)``, synchronized: its wall time and the
+    seconds of each phase it ran."""
+    import torch
+
+    before = _window_snapshot(sim)
+    t0 = time.perf_counter()
+    sim.run_window(r0, W)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = _window_snapshot(sim)
+    return {
+        "rounds": [r0, r0 + W - 1], "s": wall, "s_per_round": wall / W,
+        "phases_s": {k: v - before["phases"].get(k, 0.0) for k, v in after["phases"].items()
+                     if v != before["phases"].get(k, 0.0)},
+    }, after["counters"]
+
+
+def _kernel_events(fn, symbols):
+    """Run ``fn`` under torch.profiler; the device's kernel events by
+    symbol (each of ``symbols``: name -> kernel symbol), the count of all
+    its kernel events and the sum of their durations in seconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset"))]
+    by_symbol = {k: sum(bool(re.search(rf"(?<!\w){sym}\b", e.name)) for e in kernels)
+                 for k, sym in symbols.items()}
+    busy_us = sum(e.time_range.end - e.time_range.start for e in kernels)
+    return by_symbol, len(kernels), busy_us / 1e6
+
+
+def phase_window(mods, kmods, name, extra, window, shape, per_round):
+    """A main path in multi-round windows at full width, through
+    make_simulation and run_window: each window one CUDA-graph replay. The
+    same rounds run one at a time (scan_rounds=0) on the same card and
+    inputs are the reference for the bits: weights, every evaluated round's
+    accuracies, every round's bytes and the message counters at every
+    window's end, equal bit for bit. The scalar engine is the reference for
+    the protocol: counters exact every round, the per-round path's round-0
+    weights within the bounds of ``phase_main``. Kernel launches: the
+    engine's warm-up round before its one capture, then each replay the
+    launches its capture recorded, ``per_round`` each round; a profiled
+    replay past the checked rounds must run those kernels on the card."""
+    import torch
+
+    fl, data, telemetry = mods["fl"], mods["data"], mods["telemetry"]
+    x_tr, y_tr, x_te, y_te = data.synth_mnist(**MAIN_DATA)
+    cfg = fl.SimConfig(**dict(MAIN_CFG, **window), **extra)
+    shards = data.iid_split(x_tr, y_tr, cfg.num_agents, seed=0)
+    R, W = cfg.rounds, cfg.scan_rounds
+
+    # the same rounds one at a time, eagerly, on the same card and inputs
+    eager = fl.make_simulation(dataclasses.replace(cfg, scan_rounds=0), shards, x_te, y_te,
+                               device="cuda")
+    eager_s, eager_counters, eager_accs = [], [], []
+    for rnd in range(R):
+        t0 = time.perf_counter()
+        eager.run_round(rnd)
+        torch.cuda.synchronize()
+        eager_s.append(time.perf_counter() - t0)
+        eager_counters.append((eager.messages_sent, eager.messages_dropped, eager._bytes_total))
+        eager_accs.append(eager._last_accs)
+        if rnd == 0:
+            w_round0 = eager.agent_weights()
+    w_eager, hist_eager = eager.agent_weights(), list(eager.history)
+    del eager
+    torch.cuda.empty_cache()
+
+    sim = fl.make_simulation(cfg, shards, x_te, y_te, device="cuda")
+    got_shape = (sim.K_inst, sim.R_cap, sim.S)
+    _require(got_shape == shape, f"{name}: kernel shape {got_shape} != {shape}")
+    sim.timer = telemetry.PhaseTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(kmods)
+    windows, accs_bits_equal = [], True
+    for r0 in range(0, R, W):
+        win, counters = _timed_window(sim, r0, min(W, R - r0))
+        last = win["rounds"][1]
+        _require(counters == eager_counters[last],
+                 f"{name}: counters {counters} after round {last}, "
+                 f"one round at a time {eager_counters[last]}")
+        if sim._do_eval(last):
+            accs_bits_equal &= sim._last_accs.tobytes() == eager_accs[last].tobytes()
+        windows.append(win)
+    launches = {k: fn.LAUNCHES for k, fn in kmods.items()}
+    peak = torch.cuda.max_memory_allocated()
+    _emit({"phase": name, "windows": windows, "launches": launches})  # before the checks
+
+    # one graph, captured once, replayed once a window
+    dispatches = sim.device_dispatches
+    _require(dispatches == R // W, f"{name}: {dispatches} dispatches")
+    _require(len(sim.graphs) == 1, f"{name}: {len(sim.graphs)} graphs captured")
+    (graph,) = (g.graph for g in sim.graphs.values())
+    _require(graph.replays == R // W, f"{name}: {graph.replays} replays")
+    recorded = {k: graph.launches.get(fn, 0) for k, fn in kmods.items()}
+    want_graph = {k: W * per_round.get(k, 0) for k in kmods}
+    _require(recorded == want_graph, f"{name}: the graph records {recorded}, expected {want_graph}")
+    want = {k: recorded[k] * graph.replays + per_round.get(k, 0) for k in kmods}
+    _require(launches == want, f"{name}: launches {launches}, expected {want}")
+    # bit for bit the rounds run one at a time
+    w_v = sim.agent_weights()
+    _require(w_v.tobytes() == w_eager.tobytes(),
+             f"{name}: weights differ from the per-round path by {np.abs(w_v - w_eager).max()}")
+    for mv, me in zip(sim.history, hist_eager, strict=True):
+        _require(mv["bytes_total"] == me["bytes_total"], f"{name}: bytes {mv} vs {me}")
+        if sim._do_eval(mv["round"]):
+            _require(mv == me, f"{name}: round {mv['round']}: {mv} vs {me}")
+    _require(accs_bits_equal, f"{name}: accuracies differ from the per-round path")
+    accs = [h["acc_mean"] for h in sim.history]
+    _require(all(math.isfinite(a) for a in accs), f"{name}: non-finite accuracy {accs}")
+    _require(bool(np.isfinite(w_v).all()), f"{name}: non-finite weights")
+
+    # the protocol: the scalar engine on the same inputs
+    t0 = time.perf_counter()
+    ref = fl.make_simulation(
+        dataclasses.replace(cfg, engine="scalar"), shards, x_te, y_te, device="cuda"
+    )
+    r0_check = {}
+    for rnd in range(R):
+        mr = ref.run_round(rnd)
+        _require(mr["bytes_total"] == sim.history[rnd]["bytes_total"],
+                 f"{name}: bytes_total {mr} vs {sim.history[rnd]}")
+        ps = ref.net.pubsub
+        _require((ps.messages_sent, ps.messages_dropped) == eager_counters[rnd][:2],
+                 f"{name}: round {rnd} messages {ps.messages_sent, ps.messages_dropped} "
+                 f"vs {eager_counters[rnd][:2]}")
+        if rnd == 0:
+            w_r = np.stack([ref.agents[a].load_model() for a in range(cfg.num_agents)])
+            diff = np.abs(w_r - w_round0)
+            tol = (_flip_bound(w_r, w_round0, sim._offsets, sim._sizes, ROUND0_TOL)
+                   if cfg.wire_dtype == "int8" else ROUND0_TOL)
+            r0_check = {"max_w_diff_vs_scalar_round0": float(diff.max()),
+                        "n_over_1e_4": int((diff > WEIGHT_TOL).sum())}
+            _require(bool((diff <= tol).all()), f"{name}: round-0 weights differ by {diff.max()}")
+    scalar_s = time.perf_counter() - t0
+    phases = {k: v["total_s"] for k, v in sim.timer.summary().items()}
+
+    # after the checks: more windows of the same key, each a replay, for
+    # the spread of a replayed window; then one under the profiler, whose
+    # kernels must be those the capture recorded
+    replayed = [w["s"] for w in windows[1:]]
+    for i in range(EXTRA_REPLAYS):
+        replayed.append(_timed_window(sim, R + i * W, W)[0]["s"])
+    by_symbol, n_kernels, kernel_s = _kernel_events(
+        lambda: sim.run_window(R + EXTRA_REPLAYS * W, W), KERNEL_SYMBOLS
+    )
+    _require(n_kernels > 0, f"{name}: the profiler shows no kernel of the replay")
+    want_symbols = {k: W * per_round.get(k, 0) for k in KERNEL_SYMBOLS}
+    _require(by_symbol == want_symbols,
+             f"{name}: a profiled replay ran {by_symbol}, its capture recorded {want_symbols}")
+    _require(len(sim.graphs) == 1 and graph.replays == R // W + EXTRA_REPLAYS + 1,
+             f"{name}: the timed windows were not all replays of one graph")
+    res = {
+        "phase": name, "agents": cfg.num_agents, "params": sim.N, "rounds": R,
+        "scan_rounds": W, "eval_cadence": cfg.eval_cadence,
+        "conditions": dataclasses.asdict(cfg.conditions), "wire_dtype": cfg.wire_dtype,
+        "kernel_shape": list(got_shape), "launches": launches,
+        "graph_launches_per_replay": recorded, "graphs": len(sim.graphs),
+        "device_dispatches": dispatches, "extra_replays": EXTRA_REPLAYS + 1,
+        "s_per_round": sum(w["s"] for w in windows) / R,
+        "replayed_window_s": replayed,
+        "replayed_window_s_median": float(np.median(replayed)),
+        "s_per_round_replayed_median": float(np.median(replayed)) / W,
+        "windows": windows, "phases_s": phases,
+        "profiled_replay_kernels": {"by_symbol": by_symbol, "all": n_kernels,
+                                    "kernel_s": kernel_s,
+                                    "kernel_share_of_median_window": kernel_s / float(np.median(replayed))},
+        "per_round_path_round_s": eager_s, "bitwise_equal_to_per_round_path": True,
+        "acc_mean": accs, "bytes_total": sim.history[-1]["bytes_total"],
+        "messages_sent": sim.messages_sent, "messages_dropped": sim.messages_dropped,
+        "max_memory_allocated": peak, "scalar_engine_s": scalar_s, **r0_check,
+        "round0_tolerance": ("2 code steps of the weight's block + 1e-3, per weight"
+                             if cfg.wire_dtype == "int8" else ROUND0_TOL),
+    }
+    del sim, ref
+    torch.cuda.empty_cache()
+    _emit(res)
+    return res
+
+
 def _bf16_ulp(x):
     """One bfloat16 ulp at |x| (a float32 tensor)."""
     import torch
@@ -1000,6 +1228,7 @@ def _decode_graph_check(dops, dref):
     replay bitwise equal to the eager call and within one bf16 ulp + 2e-5 of
     the plain version. Returns the largest max |d|."""
     import torch
+    from repro_torch.kernels import _build
 
     q, k, v = _attn_inputs(*DECODE_SHAPE, dtype=torch.bfloat16, seed=7)
     q = q[:, :, 0]
@@ -1009,8 +1238,8 @@ def _decode_graph_check(dops, dref):
     with torch.cuda.stream(side):  # warm up off the default stream before capture
         dops.decode(q, k, v, pos)
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    graph = _build.Graph()
+    with graph.capture():
         out = dops.decode(q, k, v, pos)
     worst = 0.0
     for p in DECODE_POS:
@@ -1401,6 +1630,13 @@ def main() -> int:
         MAIN_Q_SHAPE,
         dict(none, ipls_aggregate_batched_q=rounds, quantize=3 * rounds, dequantize=2 * rounds),
     )
+    main_w = phase_window(mods, kmods, "main_window", {}, MAIN_WINDOW, MAIN_SHAPE,
+                          {"ipls_aggregate_batched": 1})
+    main_qw = phase_window(
+        mods, kmods, "main_int8_window", dict(wire_dtype="int8", conditions=network.LOSSY),
+        MAIN_Q_WINDOW, MAIN_Q_SHAPE,
+        {"ipls_aggregate_batched_q": 1, "quantize": 3, "dequantize": 2},
+    )
     phase_lm_agree(lm, kmods)
     serve = phase_serve(lm, kmods, "serve", SERVE, SERVE_PARAMS,
                         (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32))
@@ -1447,7 +1683,9 @@ def main() -> int:
         "replaces": f"src/repro/{replaces}", "path": path["phase"],
         "launches": path["launches"][name], "max_abs_err": err, "ms": tm["ms"],
         "call_ms": tm["call_ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-        "bound_by": tm["bound_by"], "library_ms": tm["library_ms"], **dict(*extra),
+        "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
+        "window_launches": {w["phase"]: w["launches"][name] for w in (main_w, main_qw)},
+        **dict(*extra),
     } for name, source, replaces, path, err, tm, *extra in rows]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,7 @@
 
 Counterpart of ``repro.fl.local_trainer``: the trainer takes and returns
 FLAT numpy weight vectors and runs its SGD on ``device``. The batch
-selection stream (``draw_batch``) is the reference's numpy stream exactly,
+selection stream (``draw_indices``) is the reference's numpy stream exactly,
 so both packages train on the same samples.
 """
 from __future__ import annotations
@@ -39,13 +39,19 @@ class LocalTrainer:
             _, self._layout = flatten_params(mlp_mnist.init_params(0))
         return self._layout
 
-    def draw_batch(self) -> Tuple[np.ndarray, np.ndarray]:
+    def draw_indices(self) -> np.ndarray:
         """Advance this agent's private RNG stream by one round's batch
-        selection. The single source of truth for the per-round data order —
-        the vectorized engine draws through this same method, which is what
-        keeps the two engines' SGD inputs identical."""
+        selection and return the rows of the shard it selects. The single
+        source of truth for the per-round data order: the vectorized engine
+        draws through this same method and gathers the rows from its
+        device-resident copy of the shards, which is what keeps the two
+        engines' SGD inputs identical."""
         bs = min(self.batch_size, len(self.x))
-        sel = self._rng.choice(len(self.x), size=bs, replace=False)
+        return self._rng.choice(len(self.x), size=bs, replace=False)
+
+    def draw_batch(self) -> Tuple[np.ndarray, np.ndarray]:
+        """One round's batch: the rows ``draw_indices`` selects."""
+        sel = self.draw_indices()
         return self.x[sel], self.y[sel]
 
     def train_delta(self, w_flat: np.ndarray) -> np.ndarray:

@@ -78,6 +78,16 @@ class MessageFates:
         delivered, delay = self.draw(channel, rnd, agent, part, peer)
         return bool(delivered), int(delay)
 
+    def draw_window(self, channel: int, rounds, agent, part, peer=0):
+        """Fates for a whole window of rounds at once, as
+        ``(W, *broadcast(agent, part, peer))`` arrays. Row ``w`` equals
+        ``draw(channel, rounds[w], agent, part, peer)`` exactly (the stream is
+        a pure hash of the coordinates), so the batched engine can draw every
+        per-round mask/delay tensor of a multi-round window up front."""
+        return self.conditions.sample_stream_window(
+            self.seed, channel, rounds, agent, part, peer
+        )
+
     def pubsub_fate(
         self, topic: str, sender: int, recipient: int, payload: Any, counter: int
     ) -> Tuple[bool, int]:
@@ -138,13 +148,15 @@ class SimConfig:
     churn: Optional[Dict[int, List[Tuple[int, str]]]] = None
     memory: bool = True  # False = 'memoryless training' (paper Fig 3b)
     # round engine: "scalar" (per-agent loops) or "vectorized" (whole-round
-    # batched device work; in this port PERFECT conditions, f32 wire, no
-    # churn — see fl/vectorized.py)
+    # batched device work; in this port any network and wire, a fixed
+    # membership — see fl/vectorized.py)
     engine: str = "scalar"
-    # multi-round fusion of the reference's vectorized engine (windows of W
-    # rounds per device call); not yet in the port, which requires 0
+    # multi-round windows of the vectorized engine: W rounds per device
+    # program (one CUDA-graph replay on the card); 0 = one round at a time.
+    # The scalar engine ignores it
     scan_rounds: int = 0
-    # scanned-mode evaluation cadence (read only with scan_rounds > 0)
+    # windowed-mode evaluation cadence: every c-th round and the last
+    # (read only with scan_rounds > 0)
     eval_cadence: int = 1
     # data shard for agents added by a "join" churn action: a callable
     # agent_id -> (x, y). None = round-robin over the initial shards.

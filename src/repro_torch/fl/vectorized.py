@@ -1,10 +1,9 @@
 """Vectorized IPLS round engine on PyTorch: whole-round batching across agents.
 
-Counterpart of ``repro.fl.vectorized`` for a fixed membership and one round
-per device program (``scan_rounds=0``). The scalar engine (`fl/rounds.py`)
-trains one agent at a time and reduces one partition at a time in numpy;
-this engine runs the same per-round dataflow as a few batched device phases,
-on one of two paths.
+Counterpart of ``repro.fl.vectorized`` for a fixed membership. The scalar
+engine (`fl/rounds.py`) trains one agent at a time and reduces one partition
+at a time in numpy; this engine runs the same per-round dataflow as a few
+batched device phases, on one of two paths.
 
 PERFECT network, f32 wire (the phase-table path):
 
@@ -47,16 +46,31 @@ its quantize->dequantize image. int8 runs this path under PERFECT
 conditions too: quantized replica consensus gives each holder its own
 merged value, which the phase tables cannot represent.
 
+Both paths share one device round (`_round`): it reads one round's host
+output — every agent's batch rows into the device-resident shards, the
+routing tables or the control plane's fixed-shape tensors — and updates the
+device state in place. Multi-round windows (``SimConfig(scan_rounds=W)``,
+the reference's ``lax.scan`` windows): the host work of W rounds (fate
+draws through ``MessageFates.draw_window``, the control plane, batch rows)
+runs up front and is staged as (W, ...) tensors; on the card the W device
+rounds are ONE CUDA-graph replay, captured at the first window of each
+(W, evaluation pattern), on the CPU a plain loop of the same rounds. A
+window gives the same bits as its rounds run one at a time.
+``eval_cadence`` thins evaluation inside windows; a skipped round reuses
+the last accuracies.
+
 On the CPU both paths run the same dataflow with the kernels' plain
 versions, so the CPU tests test what the card runs. Both engines agree to
 float tolerance round by round, traffic counters exactly
-(tests/test_torch_engine.py, test_torch_lossy.py, test_torch_int8.py).
+(tests/test_torch_engine.py, test_torch_lossy.py, test_torch_int8.py,
+test_torch_window.py).
 
-Churn and multi-round windows are later slices of the port; such
-configurations raise NotImplementedError.
+Churn is a later slice of the port; such configurations raise
+NotImplementedError.
 """
 from __future__ import annotations
 
+import dataclasses
 from contextlib import contextmanager
 from typing import Dict, List, Tuple
 
@@ -77,7 +91,9 @@ from repro_torch.fl.rounds import (
     MessageFates,
     eval_subset,
 )
+from repro_torch.kernels._build import Graph
 from repro_torch.kernels.ipls_aggregate.ops import aggregate_batched, aggregate_batched_q
+from repro_torch.kernels.quantize.ops import dequantize, quantize
 from repro_torch.models import mlp_mnist
 from repro_torch.telemetry import NULL_TIMER
 
@@ -87,16 +103,48 @@ _KIND_AGG = 1  # holder value after aggregation, pre-merge (UpdateModel reply)
 
 
 def _check_in_slice(cfg) -> None:
-    later = []
-    if cfg.scan_rounds:
-        later.append("scan_rounds > 0 (the multi-round window slice)")
     if cfg.churn:
-        later.append("churn (the churn re-snapshot slice)")
-    if later:
         raise NotImplementedError(
-            "the port's vectorized engine runs a fixed membership one round at a "
-            "time; not yet ported: " + "; ".join(later)
+            "the port's vectorized engine runs a fixed membership; not yet "
+            "ported: churn (the churn re-snapshot slice)"
         )
+
+
+class _FateWindow:
+    """The request-side fates of rounds r0 .. r0+W-1 (`MessageFates.draw_window`).
+
+    The request-side channels (fetch, UpdateModel, replica publish) have
+    fixed per-round keys, so the (W, ...) mask/delay arrays of a window (of
+    one round, one round at a time) are drawn in one hashing pass up front;
+    the reply channels stay per-event draws inside the control plane (their
+    keys depend on which messages arrived). A fate is a pure hash of its
+    coordinates, so round t's slice is the scalar pubsub's draws."""
+
+    def __init__(self, fates, r0, W, a_col, k_row, rep_src_agent, rep_k, rep_dst_agent):
+        rounds = np.arange(r0, r0 + W)
+        self.r0 = r0
+        self.fetch = fates.draw_window(CH_FETCH, rounds, a_col, k_row)
+        self.update = fates.draw_window(CH_UPDATE, rounds, a_col, k_row)
+        self.replica = (
+            fates.draw_window(CH_REPLICA, rounds, rep_src_agent, rep_k, rep_dst_agent)
+            if len(rep_src_agent)
+            else None
+        )
+
+    def slice(self, name: str, t: int):
+        de, dl = getattr(self, name)
+        return de[t - self.r0], dl[t - self.r0]
+
+
+@dataclasses.dataclass
+class WindowGraph:
+    """One captured window: the graph (it counts its replays and the kernel
+    launches each makes), its static inputs (rewritten before each replay)
+    and its (W, E) accuracy output."""
+
+    graph: Graph
+    inputs: Dict[str, torch.Tensor]
+    accs: torch.Tensor
 
 
 class VectorizedIPLSSimulation:
@@ -109,12 +157,24 @@ class VectorizedIPLSSimulation:
     """
 
     def __init__(self, cfg, shards, x_test, y_test, device="cuda"):
+        # multi-round windows: run() executes windows of `scan_rounds`
+        # rounds as one device program each (0 = one round at a time)
+        self.scan_rounds = int(cfg.scan_rounds or 0)
+        if self.scan_rounds < 0:
+            raise ValueError("scan_rounds must be >= 0")
+        self._eval_cadence = max(1, int(cfg.eval_cadence or 1))
         _check_in_slice(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
-        # device programs per round (the reference counts its jitted calls
-        # the same way): one on the PERFECT path, 2 + buckets on the event path
+        # device programs (the reference counts its jitted calls the same
+        # way): one per window; one round at a time, one per round on the
+        # PERFECT path and 2 + buckets on the event path
         self.device_dispatches = 0
+        # captured windows by (W, evaluation pattern), on CUDA, all in one
+        # memory pool (replays run one after another on one stream)
+        self.graphs: Dict[Tuple[int, Tuple[bool, ...]], WindowGraph] = {}
+        self._pool = None
+        self._last_accs: np.ndarray | None = None
         # phase timer: assign a telemetry.PhaseTimer to time the round phases
         self.timer = NULL_TIMER
         # exact init state + init-phase traffic via the scalar constructor
@@ -183,8 +243,8 @@ class VectorizedIPLSSimulation:
         self.messages_dropped = self.net.pubsub.messages_dropped
 
         # ---- trainers: the scalar constructor's LocalTrainer objects own
-        # the per-agent RNG streams; drawing batches through their
-        # draw_batch() keeps both engines' SGD inputs identical ----
+        # the per-agent RNG streams; drawing batch rows through their
+        # draw_indices() keeps both engines' SGD inputs identical ----
         self._trainers = [seed_sim.trainers[a] for a in range(A)]
         bs = [min(cfg.batch_size, len(shards[a][0])) for a in range(A)]
         # contiguous buckets of equal batch size (array_split shard sizes
@@ -195,6 +255,12 @@ class VectorizedIPLSSimulation:
             if a == A or bs[a] != bs[start]:
                 self._buckets.append((start, a))
                 start = a
+        # every agent's shard on the device once, concatenated: a round's
+        # batches are row gathers at each agent's offset
+        dev = self.device
+        self._x_all = torch.as_tensor(np.concatenate([tr.x for tr in self._trainers]), device=dev)
+        self._y_all = torch.as_tensor(np.concatenate([tr.y for tr in self._trainers]), device=dev)
+        self._shard_off = np.cumsum([0] + [len(tr.x) for tr in self._trainers[:-1]])
 
         self._eval_idx = np.asarray(eval_subset(list(range(A)), cfg.eval_agents), np.int64)
         self._x_te, self._y_te = seed_sim._x_te, seed_sim._y_te
@@ -233,7 +299,7 @@ class VectorizedIPLSSimulation:
 
         # ---- per-phase routing tables (period = lcm of replication) -------
         # non-owner a targets H(k)[(round + a) % rho_k]; the pattern repeats
-        # with period lcm(rho_k), so all gather index tensors are
+        # with period lcm(rho_k), so all gather index tables are
         # precomputed once
         self._period = int(np.lcm.reduce(rho)) if len(rho) else 1
         agents_arr = np.arange(A)
@@ -264,6 +330,16 @@ class VectorizedIPLSSimulation:
             t_insts.append(t_inst)
             contrib_rows.append(rows)
         self.R_cap = R_cap
+        self._t_inst = t_insts
+        self._contrib_idx, self._contrib_mask = [], []
+        for p in range(self._period):
+            idx = np.zeros((self.K_inst, R_cap), np.int64)
+            msk = np.zeros((self.K_inst, R_cap), np.float32)
+            for i, row in enumerate(contrib_rows[p]):
+                idx[i, : len(row)] = row
+                msk[i, : len(row)] = 1.0
+            self._contrib_idx.append(idx)
+            self._contrib_mask.append(msk)
 
         # ---- replica-merge order: scalar np.mean over [own post-agg value]
         # + arrivals in publish order (holder agent ascending) -------------
@@ -278,26 +354,14 @@ class VectorizedIPLSSimulation:
                 morder[i, : len(row)] = row
                 mmask[i, : len(row)] = True
 
-        # ---- device state and constants -----------------------------------
-        dev = self.device
-        self._V_pre = torch.as_tensor(V_pre, device=dev)
-        self._V_merged = self._V_pre.clone()  # all replicas equal at init
-        self._eps = torch.as_tensor(eps, device=dev)
+        # ---- device state (updated in place by every round) and constants -
+        V_pre_t = torch.as_tensor(V_pre, device=dev)
+        self._state = {
+            "V_pre": V_pre_t,
+            "V_merged": V_pre_t.clone(),  # all replicas equal at init
+            "eps": torch.as_tensor(eps, device=dev),
+        }
         self._last_phase = self._period - 1  # any phase: all replicas equal at init
-        self._t_inst = t_insts  # host copies, for agent_weights()
-        self._phase_tables = []
-        for p in range(self._period):
-            idx = np.zeros((self.K_inst, R_cap), np.int64)
-            msk = np.zeros((self.K_inst, R_cap), np.float32)
-            for i, row in enumerate(contrib_rows[p]):
-                idx[i, : len(row)] = row
-                msk[i, : len(row)] = 1.0
-            self._phase_tables.append(
-                tuple(
-                    torch.as_tensor(a, device=dev)
-                    for a in (idx, msk, t_insts[p], t_insts[p][self._eval_idx])
-                )
-            )
         self._morder = torch.as_tensor(morder, device=dev)
         self._mmask = torch.as_tensor(mmask, device=dev)
         self._rho_inst = torch.as_tensor(rho[self._inst_k].astype(np.float32), device=dev)
@@ -378,45 +442,217 @@ class VectorizedIPLSSimulation:
         W_eval = self.build_W(V_pre, V_merged, t_eval)
         return mlp_mnist.evaluate(unflatten_params(W_eval, self.layout), self._x_te, self._y_te)
 
-    # -- one round ----------------------------------------------------------
-    def _batches(self):
-        """Every agent's batch for this round, drawn through its trainer's
-        RNG stream and stacked per bucket on the device."""
-        xs, ys = [], []
-        for tr in self._trainers:
-            xb, yb = tr.draw_batch()
-            xs.append(xb)
-            ys.append(yb)
+    # -- one round of device work -------------------------------------------
+    def _batch_rows(self) -> Dict[str, np.ndarray]:
+        """This round's batch rows into the device-resident shards, one
+        (A_b, bs_b) array per bucket, drawn through every trainer's RNG
+        stream in agent order."""
+        rows = [tr.draw_indices() + off for tr, off in zip(self._trainers, self._shard_off)]
+        return {f"bidx{b}": np.stack(rows[lo:hi]) for b, (lo, hi) in enumerate(self._buckets)}
+
+    def _batches(self, x):
+        """The round's stacked batches per bucket, gathered on the device."""
+        idx = [x[f"bidx{b}"] for b in range(len(self._buckets))]
+        return [self._x_all[i] for i in idx], [self._y_all[i] for i in idx]
+
+    def _round(self, st, x, do_eval: bool, acc_out, ph) -> None:
+        """One round of device work: read one round's staged inputs ``x``,
+        update the device state ``st`` in place, write the evaluated agents'
+        accuracies into ``acc_out`` (NaN where ``do_eval`` is False). Nothing
+        here reads device data back to the host, so a window of these can
+        be captured into one CUDA graph. ``ph`` names the timed phases."""
+        if self._lossy:
+            accs = self._round_event(st, x, do_eval, ph)
+        else:
+            accs = self._round_perfect(st, x, do_eval, ph)
+        if accs is None:
+            acc_out.fill_(float("nan"))
+        else:
+            acc_out.copy_(accs)
+
+    def _round_perfect(self, st, x, do_eval, ph):
+        with ph("build_w"):
+            W = self.build_W(st["V_pre"], st["V_merged"], x["t_prev"])
+        with ph("sgd"):
+            W2 = self.sgd_all(W, *self._batches(x))
+        with ph("aggregate"):
+            V_pre, V_merged, eps = self.agg_merge(
+                st["V_merged"], st["eps"], W, W2, x["idx"], x["mask"]
+            )
+            del W, W2
+            st["V_pre"].copy_(V_pre)
+            st["V_merged"].copy_(V_merged)
+            st["eps"].copy_(eps)
+        if not do_eval:
+            return None
+        with ph("eval"):
+            return self.eval_rows(st["V_pre"], st["V_merged"], x["t_eval"])
+
+    def _round_event(self, st, x, do_eval, ph):
+        with ph("device_pre"):
+            Vstart_new, W = self._pre(st, x)
+        with ph("device_sgd"):
+            D = W - self.sgd_all(W, *self._batches(x))
+        del W
+        with ph("device_core"):
+            return self._core(st, D, Vstart_new, x, do_eval)
+
+    def _perfect_inputs(self, rnd: int) -> Dict[str, np.ndarray]:
+        """Round ``rnd``'s routing tables on the PERFECT path: weights are
+        assembled with the previous round's routing, contributions and
+        evaluation use this round's."""
+        p = rnd % self._period
+        x = dict(
+            t_prev=self._t_inst[self._last_phase], idx=self._contrib_idx[p],
+            mask=self._contrib_mask[p], t_eval=self._t_inst[p][self._eval_idx],
+        )
+        self._last_phase = p
+        return x
+
+    def _do_eval(self, rnd: int) -> bool:
+        """Windowed-mode evaluation gate: every `eval_cadence`-th round plus
+        the final round of the run."""
+        return (rnd + 1) % self._eval_cadence == 0 or rnd == self.cfg.rounds - 1
+
+    def _run(self, r0: int, W: int, windowed: bool):
+        """Rounds r0 .. r0+W-1: their host work up front, then their device
+        rounds, as one window (one CUDA-graph replay on the card) or as one
+        round run eagerly (W = 1). Returns the (W, E) accuracies and, on the
+        event path, each round's (msgs, drops, nbytes)."""
+        rounds = range(r0, r0 + W)
+        counts = None
+        if self._lossy:
+            with self._phase("fate_draw"):
+                wf = _FateWindow(
+                    self._fates, self._t, W, np.arange(self.A)[:, None],
+                    np.arange(self.K)[None, :], self._inst_owner[self._rep_src],
+                    self._rep_k, self._inst_owner[self._rep_dst],
+                )
+            with self._phase("control"):
+                xs, counts = zip(*[self._control_round(r, wf) for r in rounds])
+        else:
+            xs = [self._perfect_inputs(r) for r in rounds]
+        with self._phase("batches"):
+            for x in xs:
+                x.update(self._batch_rows())
+        host = {k: np.stack([x[k] for x in xs]) for k in xs[0]}
+        if windowed:
+            accs = self._device_window(host, tuple(self._do_eval(r) for r in rounds))
+            self.device_dispatches += 1
+        else:
+            accs = self._device_rounds(host, (True,), self._phase)
+            self.device_dispatches += 2 + len(self._buckets) if self._lossy else 1
+        return accs, counts
+
+    def _run_perfect(self, r0: int, W: int, windowed: bool) -> None:
+        accs, _ = self._run(r0, W, windowed)
+        for w in range(W):
+            self._perfect_traffic(r0 + w)
+            self.history.append(self._metrics_entry(r0 + w, accs[w]))
+
+    def _run_round_lossy(self, rnd: int) -> None:
+        accs, ((msgs, drops, nbytes),) = self._run(rnd, 1, windowed=False)
+        self.messages_sent += msgs
+        self.messages_dropped += drops
+        self._bytes_total += nbytes
+        self.history.append(self._metrics_entry(rnd, accs[0]))
+
+    def _run_window_lossy(self, r0: int, W: int) -> None:
+        accs, counts = self._run(r0, W, windowed=True)
+        for w, (msgs, drops, nbytes) in enumerate(counts):
+            self.messages_sent += msgs
+            self.messages_dropped += drops
+            self._bytes_total += nbytes
+            self.history.append(self._metrics_entry(r0 + w, accs[w]))
+
+    def _device_rounds(self, host, des, ph) -> np.ndarray:
+        """The device rounds of ``host``'s staged inputs run eagerly, one
+        after another; returns the (W, E) accuracies."""
+        inp = {k: torch.as_tensor(v, device=self.device) for k, v in host.items()}
+        accs = torch.empty((len(des), len(self._eval_idx)), dtype=torch.float32, device=self.device)
+        for w, de in enumerate(des):
+            self._round(self._state, {k: v[w] for k, v in inp.items()}, de, accs[w], ph)
+        return accs.cpu().numpy()
+
+    def _device_window(self, host, des) -> np.ndarray:
+        """A window's device rounds: on the CPU a plain loop; on CUDA one
+        replay of the window's graph, captured at the first window of its
+        (W, evaluation pattern). A graph that cannot be captured raises:
+        nothing falls back to the eager loop."""
+        if self.device.type != "cuda":
+            with self._phase("device_window"):
+                return self._device_rounds(host, des, NULL_TIMER.phase)
+        key = (len(des), des)
+        g = self.graphs.get(key)
+        if g is None:
+            with self._phase("graph_capture"):
+                g = self.graphs[key] = self._capture(host, des)
+        else:
+            for k, buf in g.inputs.items():
+                buf.copy_(torch.from_numpy(host[k]))
+        with self._phase("device_window"):
+            g.graph.replay()
+            return g.accs.cpu().numpy()
+
+    def _capture(self, host, des) -> WindowGraph:
+        """Capture a window's device rounds into one CUDA graph over static
+        buffers: the state tensors (updated in place), the staged inputs
+        (holding this window's values) and the accuracy output. One eager
+        round on a copy of the state runs first, off the capturing stream:
+        it builds the kernels and lets cuBLAS and autograd set up, and its
+        kernel launches are real ones. The kernels the capture records are
+        counted at every replay (`kernels._build.Graph`)."""
         dev = self.device
-        Xs = [torch.as_tensor(np.stack(xs[lo:hi]), device=dev) for lo, hi in self._buckets]
-        Ys = [torch.as_tensor(np.stack(ys[lo:hi]), device=dev) for lo, hi in self._buckets]
-        return Xs, Ys
+        inputs = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+        accs = torch.empty((len(des), len(self._eval_idx)), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            scratch = {k: v.clone() for k, v in self._state.items()}
+            x0 = {k: v[0] for k, v in inputs.items()}
+            self._round(scratch, x0, True, torch.empty_like(accs[0]), NULL_TIMER.phase)
+            del scratch, x0
+        stream.wait_stream(side)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = Graph()
+        with graph.capture(pool=self._pool):
+            for w, de in enumerate(des):
+                x = {k: v[w] for k, v in inputs.items()}
+                self._round(self._state, x, de, accs[w], NULL_TIMER.phase)
+        return WindowGraph(graph, inputs, accs)
 
     def run_round(self, rnd: int) -> dict:
         if self._lossy:
-            return self._run_round_lossy(rnd)
-        with self._phase("batches"):
-            Xs, Ys = self._batches()
-        p = rnd % self._period
-        idx, mask, _, t_eval = self._phase_tables[p]
-        t_prev = self._phase_tables[self._last_phase][2]
-        with self._phase("build_w"):
-            W = self.build_W(self._V_pre, self._V_merged, t_prev)
-        with self._phase("sgd"):
-            W2 = self.sgd_all(W, Xs, Ys)
-        with self._phase("aggregate"):
-            self._V_pre, self._V_merged, self._eps = self.agg_merge(
-                self._V_merged, self._eps, W, W2, idx, mask
-            )
-        del W, W2
-        with self._phase("eval"):
-            accs = self.eval_rows(self._V_pre, self._V_merged, t_eval).cpu().numpy()
-        self.device_dispatches += 1
-        self._last_phase = p
-        self._perfect_traffic(rnd)
-        metrics = self._metrics_entry(rnd, accs)
-        self.history.append(metrics)
-        return metrics
+            self._run_round_lossy(rnd)
+        else:
+            self._run_perfect(rnd, 1, windowed=False)
+        return self.history[-1]
+
+    def run_window(self, start_rnd: int, window: int) -> List[dict]:
+        """Run ``window`` consecutive rounds as ONE device program (one
+        CUDA-graph replay on the card). Returns the new history entries, one
+        per round, traffic counted per round exactly as the scalar pubsub
+        would."""
+        if window < 1:
+            raise ValueError("window must be >= 1")
+        n0 = len(self.history)
+        if self._lossy:
+            self._run_window_lossy(start_rnd, window)
+        else:
+            self._run_perfect(start_rnd, window, windowed=True)
+        return self.history[n0:]
+
+    def run(self) -> List[dict]:
+        W, R = self.scan_rounds, self.cfg.rounds
+        if W:
+            for r0 in range(0, R, W):
+                self.run_window(r0, min(W, R - r0))
+        else:
+            for rnd in range(R):
+                self.run_round(rnd)
+        return self.history
 
     def _perfect_traffic(self, rnd: int) -> None:
         self._bytes_total += self._round_bytes + (
@@ -429,6 +665,13 @@ class VectorizedIPLSSimulation:
         )
 
     def _metrics_entry(self, rnd: int, accs: np.ndarray) -> dict:
+        """History entry for one round; rounds a window did not evaluate
+        (NaN accuracies, eval_cadence > 1) reuse the last computed
+        accuracies, so the history schema never changes."""
+        if np.isnan(accs).all():
+            accs = self._last_accs if self._last_accs is not None else np.zeros_like(accs)
+        else:
+            self._last_accs = accs
         return {
             "acc_mean": float(accs.mean()),
             "acc_std": float(accs.std()),
@@ -437,11 +680,6 @@ class VectorizedIPLSSimulation:
             "active": self.A,
             "bytes_total": self._bytes_total,
         }
-
-    def run(self) -> List[dict]:
-        for rnd in range(self.cfg.rounds):
-            self.run_round(rnd)
-        return self.history
 
     # ===================== event-driven path (LOSSY / int8) ================
     def _init_lossy(self, seed_sim) -> None:
@@ -540,9 +778,14 @@ class VectorizedIPLSSimulation:
                 has[a, k] = True
         self._has_cache = has
         dev = self.device
-        self._V = torch.as_tensor(V, device=dev)
-        self._C = torch.as_tensor(C, device=dev)
         Lu = self._Lu
+        # the device state, updated in place by every round
+        self._state = {
+            "V": torch.as_tensor(V, device=dev),
+            "C": torch.as_tensor(C, device=dev),
+            "Vagg_hist": torch.zeros((HD, K_inst, S), dtype=torch.float32, device=dev),
+            "Vstart_hist": torch.zeros((HD, K_inst, S), dtype=torch.float32, device=dev),
+        }
         if self._int8:
             # error-feedback residuals, one per (sender, partition) wire slice
             E = np.zeros((A, K, S), np.float32)
@@ -550,17 +793,15 @@ class VectorizedIPLSSimulation:
                 for k, err in sim.agents[a]._delta_err.items():
                     if err is not None:
                         E[a, k, : len(err)] = err
-            self._E = torch.as_tensor(E, device=dev)
+            self._state["E"] = torch.as_tensor(E, device=dev)
             # delta ring of in-flight windows, one entry per delay age: the
             # int8 codes and per-block scales, dequantized inside the kernel
-            self._ring = (
-                torch.zeros((Lu, A, K, S), dtype=torch.int8, device=dev),
-                torch.zeros((Lu, A, K, S // BLOCK), dtype=torch.float32, device=dev),
+            self._state["ring_q"] = torch.zeros((Lu, A, K, S), dtype=torch.int8, device=dev)
+            self._state["ring_s"] = torch.zeros(
+                (Lu, A, K, S // BLOCK), dtype=torch.float32, device=dev
             )
         else:
-            self._ring = torch.zeros((Lu, A, N), dtype=torch.float32, device=dev)
-        self._Vagg_hist = torch.zeros((HD, K_inst, S), dtype=torch.float32, device=dev)
-        self._Vstart_hist = torch.zeros((HD, K_inst, S), dtype=torch.float32, device=dev)
+            self._state["ring"] = torch.zeros((Lu, A, N), dtype=torch.float32, device=dev)
         self._serve_ring: List[list] = [[] for _ in range(HD)]
         self._arr_ring: List[list] = [[] for _ in range(HD)]
         self._cache_ring: List[list] = [[] for _ in range(HD)]
@@ -605,67 +846,63 @@ class VectorizedIPLSSimulation:
                 W[pos, o : o + sz] = V[inst, :sz]
         return W
 
-    def _write_cache(self, updates, table_parts) -> None:
-        """Cache-plane writes of one drain point, in place (the previous
-        plane is never read again): (agent, partition) <- row of the
-        concatenated value table."""
-        a, k, src = updates
-        if len(a):
-            T = torch.cat([t.reshape(-1, self.S) for t in table_parts], dim=0)
-            self._C[a, k] = T[src]
+    def _write_cache(self, C, mask, src, table_parts) -> None:
+        """Cache-plane writes of one drain point, in place: slot (a, k)
+        takes row ``src[a, k]`` of the concatenated value table where
+        ``mask[a, k]``, and keeps its value elsewhere."""
+        T = torch.cat([t.reshape(-1, self.S) for t in table_parts], dim=0)
+        torch.where(mask[:, :, None], T[src], C, out=C)
 
-    def _pre(self, ctl):
+    def _pre(self, st, x):
         """Roll the start-of-round value ring, apply the cache writes the
         scalar engine drains before LoadModel, assemble all agents' flat
         weights. The value rings store WIRE values — every consumer (fetch
         and UpdateModel-reply cache writes, replica merges) saw the payload
         after one trip over the wire — so under int8 the authoritative V
         stays raw while the ring entry is its quantize->dequantize image."""
-        V = self._V
+        V = st["V"]
         V0 = qdq_rows(V) if self._int8 else V
-        Vstart_new = torch.cat([V0[None], self._Vstart_hist[:-1]], dim=0)
-        self._write_cache(ctl["c0"], (Vstart_new, self._Vagg_hist))
-        return Vstart_new, self._assemble(V, self._C, self._fill_all)
+        Vstart_new = torch.cat([V0[None], st["Vstart_hist"][:-1]], dim=0)
+        self._write_cache(st["C"], x["c0_mask"], x["c0_src"], (Vstart_new, st["Vagg_hist"]))
+        return Vstart_new, self._assemble(V, st["C"], self._fill_all)
 
-    def _aggregate_lossy(self, D, ctl) -> torch.Tensor:
+    def _aggregate_lossy(self, st, D, x) -> torch.Tensor:
         """Aggregate every instance from this round's and the in-flight
         delta windows, in the control plane's delivery order (kidx), through
         one kernel launch; roll the delta ring."""
         A, K, S, Lu, HD = self.A, self.K, self.S, self._Lu, self._HD
-        dev = self.device
-        eps = torch.as_tensor(ctl["eps"], device=dev)
-        kidx = torch.as_tensor(ctl["kidx"], device=dev)
-        kmask = torch.as_tensor(ctl["kmask"], device=dev)
         if not self._int8:
-            D_all = torch.cat([D[None], self._ring], dim=0)
-            self._ring = D_all[:Lu]
-            G = self._gather_deltas(D_all.reshape(HD * A, self.N), kidx)
-            return aggregate_batched(self._V, G, kmask, eps)
+            D_all = torch.cat([D[None], st["ring"]], dim=0)
+            st["ring"].copy_(D_all[:Lu])
+            G = self._gather_deltas(D_all.reshape(HD * A, self.N), x["kidx"])
+            return aggregate_batched(st["V"], G, x["kmask"], x["eps"])
         # int8: every (agent, partition) slice is quantized with its error-
         # feedback residual, updated at send time (loss-independent, like the
         # scalar encode); owner slices never transit, so their residuals stay
-        Dplane = torch.zeros((A, K, S), dtype=torch.float32, device=dev)
+        Dplane = torch.zeros((A, K, S), dtype=torch.float32, device=self.device)
         for k, s in enumerate(self._sizes):
             o = int(self._offsets[k])
             Dplane[:, k, :s] = D[:, o : o + s]
-        qn, scn, E_new = quantize_rows(Dplane, self._E)
-        E_new[self._own_a, self._own_k] = self._E[self._own_a, self._own_k]
-        self._E = E_new
+        E = st["E"]
+        qn, scn, E_new = quantize_rows(Dplane, E)
+        E_new[self._own_a, self._own_k] = E[self._own_a, self._own_k]
+        E.copy_(E_new)
         # gather the contributor CODES + SCALES per instance (the owner is not
         # in kidx: its raw delta enters through the kernel's own input)
-        Q_all = torch.cat([qn[None], self._ring[0]], dim=0)
-        S_all = torch.cat([scn[None], self._ring[1]], dim=0)
-        self._ring = (Q_all[:Lu], S_all[:Lu])
-        G_q = Q_all.reshape(HD * A, K, S)[kidx, self._own_k_col]
-        G_s = S_all.reshape(HD * A, K, S // BLOCK)[kidx, self._own_k_col]
+        Q_all = torch.cat([qn[None], st["ring_q"]], dim=0)
+        S_all = torch.cat([scn[None], st["ring_s"]], dim=0)
+        st["ring_q"].copy_(Q_all[:Lu])
+        st["ring_s"].copy_(S_all[:Lu])
+        G_q = Q_all.reshape(HD * A, K, S)[x["kidx"], self._own_k_col]
+        G_s = S_all.reshape(HD * A, K, S // BLOCK)[x["kidx"], self._own_k_col]
         d_own = Dplane[self._own_a, self._own_k]
-        return aggregate_batched_q(self._V, d_own, G_q, G_s, kmask, self._ones_inst, eps)
+        return aggregate_batched_q(st["V"], d_own, G_q, G_s, x["kmask"], self._ones_inst, x["eps"])
 
-    def _core(self, D, Vstart_new, ctl) -> torch.Tensor:
+    def _core(self, st, D, Vstart_new, x, do_eval):
         """Aggregation, version-filtered replica consensus, reply-driven
-        cache writes, history rings, evaluation. Returns the accuracies."""
-        dev = self.device
-        V_agg = self._aggregate_lossy(D, ctl)
+        cache writes, history rings, evaluation. Returns the accuracies
+        (None when ``do_eval`` is False)."""
+        V_agg = self._aggregate_lossy(st, D, x)
         # everything a post-aggregate value feeds (UpdateModel-reply cache
         # writes, replica publishes) crossed the wire: ring and table the wire
         # image, keep the authoritative V_agg raw. (The reference pins ONE
@@ -675,23 +912,22 @@ class VectorizedIPLSSimulation:
         # replica consensus: mean of self + version-kept arrived values (late
         # values read the post-aggregate ring at their send age), added in
         # the control plane's landing-tick order so the association matches
-        # the scalar np.mean over [self] + arrivals; columns fill left to
-        # right, so those past the largest count are all empty
-        Vm_flat = torch.cat([V_aggw[None], self._Vagg_hist[: self._HD - 1]], dim=0)
-        Vm_flat = Vm_flat.reshape(-1, self.S)
-        msrc = torch.as_tensor(ctl["msrc"], device=dev)
-        mmask = torch.as_tensor(ctl["mmask"], device=dev)
-        cnt = torch.as_tensor(ctl["cnt"], device=dev)
+        # the scalar np.mean over [self] + arrivals. Every column runs: a
+        # masked one keeps acc bit for bit
+        hist = st["Vagg_hist"]
+        Vm_flat = torch.cat([V_aggw[None], hist[: self._HD - 1]], dim=0).reshape(-1, self.S)
         acc = V_agg
-        for j in range(int(ctl["cnt"].max())):
-            acc = torch.where(mmask[:, j, None], acc + Vm_flat[msrc[:, j]], acc)
-        self._V = acc / (1.0 + cnt)[:, None]
+        for j in range(self._mw):
+            acc = torch.where(x["mmask"][:, j, None], acc + Vm_flat[x["msrc"][:, j]], acc)
         # phase-2 cache writes (may read this round's post-aggregate table)
-        self._write_cache(ctl["c2"], (Vstart_new, self._Vagg_hist, V_aggw))
-        self._Vagg_hist = torch.cat([V_aggw[None], self._Vagg_hist[:-1]], dim=0)
-        self._Vstart_hist = Vstart_new
+        self._write_cache(st["C"], x["c2_mask"], x["c2_src"], (Vstart_new, hist, V_aggw))
+        hist.copy_(torch.cat([V_aggw[None], hist[:-1]], dim=0))
+        st["Vstart_hist"].copy_(Vstart_new)
+        st["V"].copy_(acc / (1.0 + x["cnt"])[:, None])
+        if not do_eval:
+            return None
         # evaluate the sub-sampled agents on end-of-round state
-        W_eval = self._assemble(self._V, self._C, self._fill_eval, self._eval_rows)
+        W_eval = self._assemble(st["V"], st["C"], self._fill_eval, self._eval_rows)
         return mlp_mnist.evaluate(unflatten_params(W_eval, self.layout), self._x_te, self._y_te)
 
     def _push_cache_event(self, deliver_ctr, send_ctr, a, k, kind, src_round, inst):
@@ -709,13 +945,15 @@ class VectorizedIPLSSimulation:
         )
         self._seq += 1
 
-    def _control_round(self, rnd: int) -> dict:
-        """One round of the host-side control plane: fate draws, queue-ring
+    def _control_round(self, rnd: int, wf: _FateWindow):
+        """One round of the host-side control plane: request fates sliced
+        from the window's pre-drawn ``wf``, reply fate draws, queue-ring
         drains, the fetch warm-up state machine, traffic counters. Pure
         integer/boolean numpy over the fixed-shape event space — no device
-        data. Returns the round's control tensors plus (msgs, drops,
-        nbytes), which are exactly the scalar pubsub's counters for the
-        round by construction."""
+        data — so a window runs it W times up front. Returns the round's
+        fixed-shape control arrays and (msgs, drops, nbytes), which are
+        exactly the scalar pubsub's counters for the round by
+        construction."""
         t = self._t
         TICKS = TICKS_PER_ROUND
         qd = HD = self._HD
@@ -736,7 +974,7 @@ class VectorizedIPLSSimulation:
         need = ~owner & ~self._has_cache
         n_need = int(need.sum())
         if n_need:
-            de, dl = f.draw(CH_FETCH, t, a_col, k_row)
+            de, dl = wf.slice("fetch", t)
             msgs += n_need
             nbytes += 16 * n_need
             drops += int((need & ~de).sum())
@@ -763,7 +1001,7 @@ class VectorizedIPLSSimulation:
                 )
 
         # ---- phase 2: UpdateModel sends -----------------------------------
-        de_u, dl_u = f.draw(CH_UPDATE, t, a_col, k_row)
+        de_u, dl_u = wf.slice("update", t)
         send_u = self._upd_send_mask
         msgs += self._upd_msgs
         nbytes += self._upd_bytes
@@ -817,9 +1055,7 @@ class VectorizedIPLSSimulation:
         if len(self._rep_src):
             msgs += self._pub_msgs
             nbytes += self._pub_bytes
-            rep_src_agent = self._inst_owner[self._rep_src]
-            rep_dst_agent = self._inst_owner[self._rep_dst]
-            de_p, dl_p = f.draw(CH_REPLICA, t, rep_src_agent, self._rep_k, rep_dst_agent)
+            de_p, dl_p = wf.slice("replica", t)
             drops += int((~de_p).sum())
             lat_p = lat_rounds(dl_p)
             for j in np.nonzero(de_p)[0]:
@@ -852,11 +1088,14 @@ class VectorizedIPLSSimulation:
                 cnt[di] += 1.0
         self._ver = ver_after
 
-        # ---- cache writes (phase-0 / phase-2 drains) ----------------------
+        # ---- cache writes (phase-0 / phase-2 drains), fixed shape ---------
         # source rows index the concatenated value tables of _pre
-        # ([Vstart ring; Vagg ring]) and _core ([...; this round's V_agg])
-        c0: Dict[Tuple[int, int], int] = {}
-        c2: Dict[Tuple[int, int], int] = {}
+        # ([Vstart ring; Vagg ring]) and _core ([...; this round's V_agg]);
+        # later deliveries to one slot overwrite earlier ones
+        c0_mask = np.zeros((A, K), bool)
+        c0_src = np.zeros((A, K), np.int64)
+        c2_mask = np.zeros((A, K), bool)
+        c2_src = np.zeros((A, K), np.int64)
         cache_events, self._cache_ring[t % qd] = self._cache_ring[t % qd], []
         for ctr, _sc, _holder, _seq, a, k, kind, src_r, inst in sorted(cache_events):
             if kind == _KIND_START:
@@ -865,8 +1104,10 @@ class VectorizedIPLSSimulation:
                 idx = HD * K_inst + (t - src_r - 1) * K_inst + inst
             else:
                 idx = 2 * HD * K_inst + inst
-            # later deliveries to one slot overwrite earlier ones
-            (c0 if ctr % TICKS <= 1 else c2)[(a, k)] = idx
+            if ctr % TICKS <= 1:
+                c0_mask[a, k], c0_src[a, k] = True, idx
+            else:
+                c2_mask[a, k], c2_src[a, k] = True, idx
             self._has_cache[a, k] = True  # suppresses fetches from round t+1
 
         # ---- contributor tables, slot order = reduction order -------------
@@ -882,46 +1123,22 @@ class VectorizedIPLSSimulation:
             kmask[i, : len(rows)] = 1.0
 
         self._t = t + 1
-        return dict(
-            c0=self._cache_updates(c0), c2=self._cache_updates(c2),
+        ctl = dict(
+            c0_mask=c0_mask, c0_src=c0_src, c2_mask=c2_mask, c2_src=c2_src,
             msrc=msrc, mmask=mmsk, cnt=cnt, eps=self._eps64.astype(np.float32),
-            kidx=kidx, kmask=kmask, msgs=msgs, drops=drops, nbytes=nbytes,
+            kidx=kidx, kmask=kmask,
         )
-
-    def _cache_updates(self, writes: Dict[Tuple[int, int], int]):
-        """(agent rows, partitions, source rows) index tensors of one drain
-        point's cache writes."""
-        arr = np.asarray([(a, k, i) for (a, k), i in writes.items()], np.int64).reshape(-1, 3)
-        return tuple(torch.as_tensor(arr[:, c], device=self.device) for c in range(3))
-
-    def _run_round_lossy(self, rnd: int) -> dict:
-        with self._phase("control"):
-            ctl = self._control_round(rnd)
-        with self._phase("batches"):
-            Xs, Ys = self._batches()
-        with self._phase("device_pre"):
-            Vstart_new, W = self._pre(ctl)
-        with self._phase("device_sgd"):
-            D = W - self.sgd_all(W, Xs, Ys)
-        del W
-        with self._phase("device_core"):
-            accs = self._core(D, Vstart_new, ctl).cpu().numpy()
-        self.device_dispatches += 2 + len(self._buckets)
-        self.messages_sent += ctl["msgs"]
-        self.messages_dropped += ctl["drops"]
-        self._bytes_total += ctl["nbytes"]
-        metrics = self._metrics_entry(rnd, accs)
-        self.history.append(metrics)
-        return metrics
+        return ctl, (msgs, drops, nbytes)
 
     # -- introspection (tests / benchmarks) ---------------------------------
     def agent_weights(self) -> np.ndarray:
         """The (A, N) matrix of per-agent assembled models, equal to what
         each scalar agent's `load_model()` would return (reconstructed from
         the value tables and the last round's routing)."""
+        st = self._state
         if self._lossy:
-            return self._assemble(self._V, self._C, self._fill_all).cpu().numpy()
-        V_all = torch.cat([self._V_pre, self._V_merged], dim=0).cpu().numpy()
+            return self._assemble(st["V"], st["C"], self._fill_all).cpu().numpy()
+        V_all = torch.cat([st["V_pre"], st["V_merged"]], dim=0).cpu().numpy()
         t_inst = self._t_inst[self._last_phase]
         W = np.zeros((self.A, self.N), np.float32)
         for k in range(self.K):

@@ -4,7 +4,9 @@ Every kernel of the port is a ``.cu`` file with a plain C interface under
 its module's ``csrc/``, compiled at first use (never at import) into
 ``build/`` beside it and loaded with ``ctypes``. The library is named by a
 hash of its source and flags, so an edited source is rebuilt and a stale
-one never loaded.
+one never loaded. Each wrapper counts its launches in its ``LAUNCHES``
+through ``count_launch``; kernels captured into a CUDA graph are counted at
+every replay of a ``Graph``.
 """
 from __future__ import annotations
 
@@ -13,7 +15,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+from contextlib import contextmanager
 from pathlib import Path
+from typing import Callable, Dict, List
 
 import torch
 
@@ -66,3 +70,50 @@ def launch(name: str, fn, *args, device: torch.device) -> None:
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+_capturing: List["Graph"] = []  # the Graph being captured, innermost last
+
+
+def count_launch(wrapper: Callable) -> None:
+    """Count one launch of ``wrapper``'s kernel in ``wrapper.LAUNCHES``. A
+    call under CUDA-graph capture launches nothing: it is recorded in the
+    ``Graph`` being captured, whose every replay counts it."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.LAUNCHES += 1
+    elif _capturing:
+        tally = _capturing[-1].launches
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+    else:
+        raise RuntimeError(
+            f"{wrapper.__name__} captured outside a _build.Graph: its replays would go uncounted"
+        )
+
+
+class Graph:
+    """A CUDA graph that counts the kernel launches it replays: the
+    wrappers called under ``capture()`` record their kernels in
+    ``launches`` (wrapper -> launches per replay), and each ``replay()``
+    adds those to the wrappers' counters."""
+
+    def __init__(self):
+        self.graph = torch.cuda.CUDAGraph()
+        self.launches: Dict[Callable, int] = {}
+        self.replays = 0
+
+    @contextmanager
+    def capture(self, pool=None):
+        """``torch.cuda.graph`` over this graph (``pool``: a memory pool to
+        share with graphs replayed one after another on one stream)."""
+        _capturing.append(self)
+        try:
+            with torch.cuda.graph(self.graph, pool=pool):
+                yield
+        finally:
+            _capturing.pop()
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.replays += 1
+        for wrapper, n in self.launches.items():
+            wrapper.LAUNCHES += n

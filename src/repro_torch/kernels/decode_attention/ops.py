@@ -13,7 +13,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import build_library, launch
+from repro_torch.kernels._build import build_library, count_launch, launch
 from repro_torch.kernels.decode_attention import ref
 from repro_torch.kernels.flash_attention.ops import DTYPES, check_attention_args
 
@@ -92,7 +92,7 @@ def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
         k.data_ptr(), v.data_ptr(), pos.data_ptr(), DTYPES[q.dtype], B, H, KV, T, D, n_splits,
         ctypes.cast(strides, ctypes.c_void_p), device=q.device,
     )
-    decode.LAUNCHES += 1
+    count_launch(decode)
     return out
 
 

@@ -15,7 +15,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import build_library, launch
+from repro_torch.kernels._build import build_library, count_launch, launch
 from repro_torch.kernels.flash_attention import ref
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -109,7 +109,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
         v.data_ptr(), DTYPES[q.dtype], B, H, k.shape[1], S, D, int(causal),
         ctypes.cast(strides, ctypes.c_void_p), device=q.device,
     )
-    attention.LAUNCHES += 1
+    count_launch(attention)
     return out
 
 

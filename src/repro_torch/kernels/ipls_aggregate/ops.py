@@ -13,7 +13,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import build_library, launch
+from repro_torch.kernels._build import build_library, count_launch, launch
 from repro_torch.kernels.ipls_aggregate.ref import (
     ipls_aggregate_batched_q_ref,
     ipls_aggregate_batched_ref,
@@ -84,7 +84,7 @@ def aggregate_batched(w, deltas, mask, eps):
         w.data_ptr(), deltas.data_ptr(), mask.data_ptr(), eps.data_ptr(), K,
         deltas.shape[1], S, device=w.device,
     )
-    aggregate_batched.LAUNCHES += 1
+    count_launch(aggregate_batched)
     return out
 
 
@@ -159,7 +159,7 @@ def aggregate_batched_q(w, own, q, scales, mask, own_mask, eps):
         own_mask.data_ptr(), eps.data_ptr(), K, R, S, NB, choose_lanes(S, w, own, q, out),
         device=w.device,
     )
-    aggregate_batched_q.LAUNCHES += 1
+    count_launch(aggregate_batched_q)
     return out
 
 

@@ -13,7 +13,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import build_library, launch
+from repro_torch.kernels._build import build_library, count_launch, launch
 from repro_torch.kernels.flash_attention.ops import DTYPES
 from repro_torch.kernels.linear_scan import ref
 
@@ -104,7 +104,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Te
         None if init_state is None else init_state.data_ptr(), DTYPES[r.dtype], B, T, H,
         ctypes.cast(strides, ctypes.c_void_p), device=r.device,
     )
-    rwkv6_scan.LAUNCHES += 1
+    count_launch(rwkv6_scan)
     return out, state
 
 

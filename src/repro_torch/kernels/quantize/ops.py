@@ -13,7 +13,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import build_library, launch
+from repro_torch.kernels._build import build_library, count_launch, launch
 from repro_torch.kernels.quantize import ref
 from repro_torch.kernels.quantize.ref import num_blocks
 
@@ -69,7 +69,7 @@ def quantize(x: torch.Tensor, err: torch.Tensor):
         "quantize", lib.quantize_f32_int8, q.data_ptr(), scales.data_ptr(),
         new_err.data_ptr(), x.data_ptr(), err.data_ptr(), n, device=x.device,
     )
-    quantize.LAUNCHES += 1
+    count_launch(quantize)
     return q, scales, new_err
 
 
@@ -91,7 +91,7 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
         "dequantize", lib.dequantize_int8_f32, out.data_ptr(), q.data_ptr(),
         scales.data_ptr(), q.shape[0], device=q.device,
     )
-    dequantize.LAUNCHES += 1
+    count_launch(dequantize)
     return out
 
 

@@ -10,7 +10,9 @@ Two sampling modes:
   * ``sample_stream(...)`` — counter-based draws keyed by integer message
     coordinates (channel, round, sender, partition, peer): each message's
     fate is a pure hash of its key, so the scalar pubsub and a batched
-    engine read the same values in any order.
+    engine read the same values in any order;
+  * ``sample_stream_window(...)`` — the same draws for a window of rounds
+    at once.
 """
 from __future__ import annotations
 
@@ -78,6 +80,20 @@ class NetworkConditions:
                 delay += np.where((u < self.delay_prob) & (delay == slot - 1), 1, 0)
         delay = np.where(delivered, delay, 0)
         return delivered, delay
+
+    def sample_stream_window(
+        self, seed: int, channel: int, rounds, *key
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Windowed batch draw: a whole window of rounds' fates as
+        ``(W, *broadcast(key))`` arrays. ``rounds`` is a 1-D array of round
+        indices; the other key components broadcast as in ``sample_stream``.
+        Fates are pure hashes of their coordinates, so row ``w`` equals
+        ``sample_stream(seed, channel, rounds[w], *key)`` exactly."""
+        rounds = np.asarray(rounds, np.int64)
+        if key:
+            b = np.broadcast(*[np.asarray(c) for c in key])
+            rounds = rounds.reshape(rounds.shape + (1,) * b.ndim)
+        return self.sample_stream(seed, channel, rounds, *key)
 
 
 PERFECT = NetworkConditions()

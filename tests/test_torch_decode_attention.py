@@ -24,6 +24,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.decode_attention import ref as dref
 
@@ -271,12 +272,15 @@ def test_decode_kernel_graph_replays_at_any_pos(cuda):
     with torch.cuda.stream(side):
         dops.decode(q, k, v, pos)
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    graph = _build.Graph()
+    with graph.capture():
         out = dops.decode(q, k, v, pos)
+    assert graph.launches == {dops.decode: 1}
     for p in (0, 255, 4095, 4351):
         pos.fill_(p)
+        before = dops.decode.LAUNCHES
         graph.replay()
+        assert dops.decode.LAUNCHES == before + 1
         eager = dops.decode(q, k, v, torch.tensor(p, dtype=torch.int32, device=cuda))
         torch.cuda.synchronize()
         assert torch.equal(_bits(out), _bits(eager)), p
