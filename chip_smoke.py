@@ -13,10 +13,14 @@ exits non-zero:
               instructions in the flash library's SASS, which must be > 0;
   agree     — the batched engine against the scalar engine on the card at a
               small config (PERFECT f32 and int8, LOSSY f32 and int8, long
-              delays int8), and the card against the CPU: traffic counters
-              exact; weights within 1e-4 on the f32 wire; on the int8 wire
+              delays int8, and every churn action on LOSSY f32 one round at
+              a time and int8 in windows of 3), and the card against the
+              CPU: traffic counters and `active` exact, the live ids equal;
+              weights within 1e-4 on the f32 wire; on the int8 wire
               within a bound for codes flipped by SGD float noise, and
-              within 1e-4 once that noise is removed (float64 SGD);
+              within 1e-4 once that noise is removed (float64 SGD); under
+              churn, whose schedule amplifies that noise, the float64-SGD
+              runs within 1e-4 and the float32 runs' gaps reported;
   main      — the PERFECT f32 path at full width: 100 agents train the
               paper's 785x500x100x10 MLP on 60,000 samples for 3 rounds
               through make_simulation(engine="vectorized"); the scalar engine
@@ -37,6 +41,22 @@ exits non-zero:
               recorded;
   main_int8_window — the same for the int8 LOSSY path: 6 rounds,
               scan_rounds=3, eval_cadence=3;
+  main_churn — the int8 LOSSY path at the same width under churn: 12
+              rounds, scan_rounds=3, half the agents offline at round 3 and
+              back at 7 (the paper's Fig. 3b outage, shortened), a crash at
+              7, a leave and a join at 9. Event rounds replay on the scalar
+              oracle; the spans between (rounds 0-2, 4-6, 8, 10-11) are
+              re-snapshotted and run one window each, a graph captured
+              anew in each span. Bit for bit the same schedule run one
+              round at a time on the card; the scalar engine's counters and
+              `active` every round, its live ids and round-0 weights as in
+              main; 4 dispatches; the kernel launches of each span's
+              warm-up round and replay exactly, and a profiled replay's
+              kernels by symbol; peak memory no span more than 10% over the
+              first. Reports each span's seconds a round, each event's
+              boundary cost (device_to_scalar, the oracle round, snapshot
+              with harvest, graph_capture), the baseline run without churn
+              and the overhead per event;
   lm_agree  — the LMs (internlm2, phi4-mini, minitron, rwkv6) at their reduced
               configs: the port on the card (attention and scan kernels)
               against the port on the CPU (plain versions), same weights from
@@ -141,6 +161,26 @@ AGREE_CFG = dict(num_agents=5, num_partitions=8, pi=2, rho=2, rounds=3, local_it
 # pattern), so one capture and one replay of a graph that is already captured
 MAIN_WINDOW = dict(rounds=4, scan_rounds=2, eval_cadence=1)
 MAIN_Q_WINDOW = dict(rounds=6, scan_rounds=3, eval_cadence=3)
+# every membership action at the agree config (tests/test_torch_churn.py).
+# At that config the schedule amplifies SGD float noise chaotically: with
+# agent 2 offline at round 1, the port's scalar engine alone moves by
+# 3.4e-4 (301 weights over 1e-4) on the CPU when its SGD runs in float64
+# instead of float32 (8.9e-8 over the same 8 rounds without churn), and on
+# the int8 wire that noise flips codes, which feed back. So under churn the
+# agree phase holds the weights of the float64-SGD runs, which remove that
+# noise, to WEIGHT_TOL (bit for bit on the CPU), and reports the float32
+# runs' gaps
+CHURN_ALL_ACTIONS = {1: [(2, "offline")], 3: [(4, "leave"), (2, "online")], 4: [(5, "join")],
+                     6: [(1, "crash")]}
+# the churn path at full width: main_int8 for 12 rounds in windows of 3 under
+# a short form of the paper's Fig. 3b outage (half the agents offline, then
+# back) plus a crash, a leave and a join (agent 100 takes the shard agent 7's
+# crash freed). Oracle rounds 3, 7 and 9; spans 0-2, 4-6, 8 and 10-11
+MAIN_CHURN = dict(rounds=12, scan_rounds=3, churn={
+    3: [(a, "offline") for a in range(50, 100)],
+    7: [(a, "online") for a in range(50, 100)] + [(7, "crash")],
+    9: [(13, "leave"), (100, "join")],
+})
 # windows replayed after a window phase's checks, for the spread of a
 # replayed window's time (with the one replay of the checked run), then one
 # more under the profiler, whose kernels are counted by symbol
@@ -581,42 +621,59 @@ def _weights_check(w_ref, w, sim, base):
     return {"max": float(diff.max()), "n_over_1e-4": n_over, "n": int(diff.size)}, ok
 
 
-def _agree_runs(fl, cfg, shards, x_te, y_te):
+def _live_ids(sim_s):
+    """The scalar engine's live agents, in its order (the batched engine's
+    rows)."""
+    return [a for a, ag in sim_s.agents.items() if ag.live]
+
+
+def _agree_runs(fl, cfg, shards, x_te, y_te, scan_rounds=0):
     sim_s = fl.make_simulation(cfg, shards, x_te, y_te, device="cuda")
     sim_s.run()
-    vcfg = dataclasses.replace(cfg, engine="vectorized")
+    vcfg = dataclasses.replace(cfg, engine="vectorized", scan_rounds=scan_rounds)
     sim_v = fl.make_simulation(vcfg, shards, x_te, y_te, device="cuda")
     sim_v.run()
     sim_c = fl.make_simulation(vcfg, shards, x_te, y_te, device="cpu")
     sim_c.run()
-    w_s = np.stack([sim_s.agents[a].load_model() for a in range(cfg.num_agents)])
+    ids = sim_v.agent_ids()
+    _require(ids == _live_ids(sim_s) == sim_c.agent_ids(),
+             f"live ids: scalar {_live_ids(sim_s)}, card {ids}, cpu {sim_c.agent_ids()}")
+    w_s = np.stack([sim_s.agents[a].load_model() for a in ids])
     return sim_s, sim_v, w_s, sim_v.agent_weights(), sim_c.agent_weights()
 
 
 def phase_agree(mods):
     """Batched engine vs scalar engine on the card, and card vs CPU, on each
-    network / wire combination of the two paths. Counters exact; weights
-    within 1e-4 (f32 wire), within the flip bound (int8 wire), and within
-    1e-4 on the int8 wire once the SGD noise is removed (float64 SGD)."""
+    network / wire combination of the two paths, and under churn (every
+    membership action; one round at a time on the f32 wire, windows of 3 on
+    int8). Counters and ``active`` exact every round, the live ids equal;
+    weights within 1e-4 (f32 wire), within the flip bound (int8 wire), and
+    within 1e-4 on the int8 wire and under churn once the SGD noise is
+    removed (float64 SGD); the churn schedule amplifies that noise, so its
+    float32 runs' weights are reported, not held."""
     fl, data, net = mods["fl"], mods["data"], mods["network"]
     x_tr, y_tr, x_te, y_te = data.synth_mnist(num_train=1500, num_test=300, seed=0)
+    churn = dict(rounds=8, churn=CHURN_ALL_ACTIONS, conditions=net.LOSSY)
     cases = {
-        "perfect_f32": {},
-        "perfect_int8": dict(wire_dtype="int8"),
-        "lossy_f32": dict(conditions=net.LOSSY),
-        "lossy_int8": dict(conditions=net.LOSSY, wire_dtype="int8"),
-        "deep_int8": dict(
+        "perfect_f32": ({}, 0),
+        "perfect_int8": (dict(wire_dtype="int8"), 0),
+        "lossy_f32": (dict(conditions=net.LOSSY), 0),
+        "lossy_int8": (dict(conditions=net.LOSSY, wire_dtype="int8"), 0),
+        "deep_int8": (dict(
             conditions=net.NetworkConditions(loss_prob=0.2, delay_prob=0.5, max_delay_rounds=6),
             wire_dtype="int8",
-        ),
+        ), 0),
+        "churn_lossy_f32": (churn, 0),
+        "churn_lossy_int8": (dict(churn, wire_dtype="int8"), 3),
     }
     out = {}
-    for name, extra in cases.items():
-        cfg = fl.SimConfig(**AGREE_CFG, **extra)
+    for name, (extra, scan) in cases.items():
+        cfg = fl.SimConfig(**dict(AGREE_CFG, **extra))
         shards = data.iid_split(x_tr, y_tr, cfg.num_agents, seed=0)
-        sim_s, sim_v, w_s, w_v, w_c = _agree_runs(fl, cfg, shards, x_te, y_te)
+        sim_s, sim_v, w_s, w_v, w_c = _agree_runs(fl, cfg, shards, x_te, y_te, scan)
         for ms, mv in zip(sim_s.history, sim_v.history, strict=True):
             _require(ms["bytes_total"] == mv["bytes_total"], f"{name}: bytes_total {ms} vs {mv}")
+            _require(ms["active"] == mv["active"], f"{name}: active {ms} vs {mv}")
             _require(abs(ms["acc_mean"] - mv["acc_mean"]) <= 5e-3, f"{name}: acc {ms} vs {mv}")
         ps = sim_s.net.pubsub
         _require(ps.messages_sent == sim_v.messages_sent, f"{name}: messages_sent differ")
@@ -625,22 +682,30 @@ def phase_agree(mods):
             _require(sim_v.messages_dropped > 0, f"{name}: no message was dropped")
         vs_scalar, ok_s = _weights_check(w_s, w_v, sim_v, WEIGHT_TOL)
         vs_cpu, ok_c = _weights_check(w_c, w_v, sim_v, WEIGHT_TOL)
-        _require(ok_s and ok_c, f"{name}: weights differ: scalar {vs_scalar}, cpu {vs_cpu}")
         res = {
             "bytes_total": sim_v.history[-1]["bytes_total"], "messages_sent": sim_v.messages_sent,
             "messages_dropped": sim_v.messages_dropped, "R_cap": sim_v.R_cap,
             "w_diff_vs_scalar": vs_scalar, "w_diff_vs_cpu": vs_cpu,
         }
-        if cfg.wire_dtype == "int8":
+        if cfg.churn:
+            res.update(scan_rounds=scan, agent_ids=sim_v.agent_ids(),
+                       active=[h["active"] for h in sim_v.history],
+                       oracle_rounds=[h["round"] for h in sim_v._seed.history],
+                       device_dispatches=sim_v.device_dispatches)
+        if cfg.wire_dtype == "int8" or cfg.churn:
             with _float64_sgd(mods["mlp_mnist"]):
-                _, sim_v, w_s, w_v, w_c = _agree_runs(fl, cfg, shards, x_te, y_te)
+                _, sim_v, w_s, w_v, w_c = _agree_runs(fl, cfg, shards, x_te, y_te, scan)
             d_s, d_c = float(np.abs(w_s - w_v).max()), float(np.abs(w_c - w_v).max())
-            _require(max(d_s, d_c) <= WEIGHT_TOL,
-                     f"{name}, float64 SGD: weights differ: scalar {d_s}, cpu {d_c}")
             res["float64_sgd"] = {"max_w_diff_vs_scalar": d_s, "max_w_diff_vs_cpu": d_c}
+            _require(max(d_s, d_c) <= WEIGHT_TOL,
+                     f"{name}, float64 SGD: weights differ: scalar {d_s}, cpu {d_c}; {res}")
+        # under churn the float32 weights are reported, not held (see
+        # CHURN_ALL_ACTIONS): the float64-SGD runs above hold them
+        _require(ok_s and ok_c or bool(cfg.churn),
+                 f"{name}: weights differ: scalar {vs_scalar}, cpu {vs_cpu}; {res}")
         out[name] = res
-    _emit({"phase": "agree", "rounds": AGREE_CFG["rounds"], "tolerance": WEIGHT_TOL,
-           "cases": out})
+    _emit({"phase": "agree", "rounds": AGREE_CFG["rounds"], "churn_rounds": churn["rounds"],
+           "tolerance": WEIGHT_TOL, "cases": out})
 
 
 def _reset_launches(kmods):
@@ -782,9 +847,13 @@ def _timed_window(sim, r0, W):
     after = _window_snapshot(sim)
     return {
         "rounds": [r0, r0 + W - 1], "s": wall, "s_per_round": wall / W,
-        "phases_s": {k: v - before["phases"].get(k, 0.0) for k, v in after["phases"].items()
-                     if v != before["phases"].get(k, 0.0)},
+        "phases_s": _phase_delta(before["phases"], after["phases"]),
     }, after["counters"]
+
+
+def _phase_delta(before, after):
+    """The seconds each phase gained between two `_window_snapshot`s."""
+    return {k: v - before.get(k, 0.0) for k, v in after.items() if v != before.get(k, 0.0)}
 
 
 def _kernel_events(fn, symbols):
@@ -955,6 +1024,203 @@ def phase_window(mods, kmods, name, extra, window, shape, per_round):
     _emit(res)
     return res
 
+
+def phase_churn(mods, kmods, name, extra, window, shape, per_round):
+    """The churn path at full width through make_simulation and run_window:
+    ``main_int8`` under MAIN_CHURN's schedule, each membership-event round
+    replayed on the embedded scalar oracle, each span between re-snapshotted
+    and run in windows (one CUDA-graph replay each, captured anew in every
+    span). References: the same schedule one round at a time on the card
+    (bit for bit: weights, accuracies, counters every round); the scalar
+    engine on the card (counters and ``active`` every round, the live ids,
+    the per-round run's round-0 weights within the bound of ``phase_main``);
+    the same config without churn, the baseline of the per-event overhead.
+    Kernel launches: a warm-up round before each span's capture, then the
+    replays; a profiled replay past the checked rounds must run the kernels
+    its capture recorded. Reports each span's seconds a round, each event's
+    boundary cost by phase, the peak device memory of each span."""
+    import torch
+
+    fl, data, telemetry = mods["fl"], mods["data"], mods["telemetry"]
+    x_tr, y_tr, x_te, y_te = data.synth_mnist(**MAIN_DATA)
+    cfg = fl.SimConfig(**dict(MAIN_CFG, **window), **extra)
+    shards = data.iid_split(x_tr, y_tr, cfg.num_agents, seed=0)
+    R, W = cfg.rounds, cfg.scan_rounds
+    events = sorted(cfg.churn)
+
+    # the same schedule one round at a time, on the same card and inputs
+    t0 = time.perf_counter()
+    eager = fl.make_simulation(dataclasses.replace(cfg, scan_rounds=0), shards, x_te, y_te,
+                               device="cuda")
+    eager_counters = []
+    for rnd in range(R):
+        eager.run_round(rnd)
+        eager_counters.append((eager.messages_sent, eager.messages_dropped, eager._bytes_total))
+        if rnd == 0:
+            w_round0 = eager.agent_weights()
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    w_eager, hist_eager, ids_eager = eager.agent_weights(), list(eager.history), eager.agent_ids()
+    del eager
+    torch.cuda.empty_cache()
+
+    sim = fl.make_simulation(cfg, shards, x_te, y_te, device="cuda")
+    got_shape, n_params = (sim.K_inst, sim.R_cap, sim.S), sim.N
+    _require(got_shape == shape, f"{name}: kernel shape {got_shape} != {shape}")
+    sim.timer = telemetry.PhaseTimer()
+    torch.cuda.synchronize()
+    _reset_launches(kmods)
+    # run() by hand, to time each span and each boundary apart
+    spans, boundaries, rnd, t_run = [], [], 0, time.perf_counter()
+    while rnd < R:
+        if rnd in sim._replay_set:
+            before = _window_snapshot(sim)["phases"]
+            t0 = time.perf_counter()
+            sim.run_round(rnd)
+            torch.cuda.synchronize()
+            boundaries.append({"round": rnd, "s": time.perf_counter() - t0,
+                               "active_after": sim.history[-1]["active"],
+                               "phases_s": _phase_delta(before, _window_snapshot(sim)["phases"])})
+            rnd += 1
+            continue
+        hi = next((r for r in events if r > rnd), R)
+        torch.cuda.reset_peak_memory_stats()
+        before, wins = _window_snapshot(sim)["phases"], []
+        for r0 in range(rnd, hi, W):
+            win, counters = _timed_window(sim, r0, min(W, hi - r0))
+            last = win["rounds"][1]
+            _require(counters == eager_counters[last],
+                     f"{name}: counters {counters} after round {last}, "
+                     f"one round at a time {eager_counters[last]}")
+            wins.append(win)
+        phases = _phase_delta(before, _window_snapshot(sim)["phases"])
+        span = {"rounds": [rnd, hi - 1], "agents": sim.A, "online": sim._n_act,
+                "kernel_shape": [sim.K_inst, sim.R_cap, sim.S], "windows": wins,
+                "s_per_round": sum(w["s"] for w in wins) / (hi - rnd),
+                "snapshot_s": phases.get("snapshot", 0.0),
+                "graph_capture_s": phases.get("graph_capture", 0.0),
+                # the span-constant plane of harvested in-flight values
+                "mail_bytes": 0 if sim._mail is None else sim._mail.nbytes,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "memory_allocated_end": torch.cuda.memory_allocated()}
+        spans.append(span)
+        rnd = hi
+    churn_s = time.perf_counter() - t_run
+    launches = {k: fn.LAUNCHES for k, fn in kmods.items()}
+    # each event's boundary cost: leaving the span and the oracle round,
+    # then the next span's snapshot (harvest included) and graph capture
+    for b, nxt in zip(boundaries, spans[1:]):
+        b["cost_s"] = {"device_to_scalar": b["phases_s"].get("device_to_scalar", 0.0),
+                       "oracle_round": b["phases_s"].get("oracle_round", 0.0),
+                       "snapshot": nxt["snapshot_s"], "graph_capture": nxt["graph_capture_s"]}
+    _emit({"phase": name, "spans": spans, "boundaries": boundaries, "launches": launches})
+
+    # one window a span here, each a capture: a warm-up round, then its
+    # replay; no oracle round launches a kernel
+    dispatches = sim.device_dispatches
+    _require(dispatches == len(spans), f"{name}: {dispatches} dispatches, {len(spans)} spans")
+    _require([h["round"] for h in sim._seed.history] == events,
+             f"{name}: the oracle ran rounds {[h['round'] for h in sim._seed.history]}")
+    n_device_rounds = R - len(events)
+    want = {k: per_round.get(k, 0) * (n_device_rounds + len(spans)) for k in kmods}
+    _require(launches == want, f"{name}: launches {launches}, expected {want}")
+    _require(all(launches[k] > 0 for k in per_round), f"{name}: a kernel never launched")
+    # peak memory: the dropped graphs freed their pools
+    peaks = [s["max_memory_allocated"] for s in spans]
+    _require(max(peaks) <= 1.1 * peaks[0], f"{name}: peak memory grew across spans: {peaks}")
+    # bit for bit the rounds run one at a time
+    w_v = sim.agent_weights()
+    _require(sim.agent_ids() == ids_eager, f"{name}: ids {sim.agent_ids()} vs {ids_eager}")
+    _require(w_v.tobytes() == w_eager.tobytes(),
+             f"{name}: weights differ from the per-round path by {np.abs(w_v - w_eager).max()}")
+    _require(sim.history == hist_eager, f"{name}: history differs from the per-round path")
+    accs = [h["acc_mean"] for h in sim.history]
+    _require(all(math.isfinite(a) for a in accs), f"{name}: non-finite accuracy {accs}")
+    _require(bool(np.isfinite(w_v).all()), f"{name}: non-finite weights")
+
+    # the protocol: the scalar engine on the same inputs
+    t0 = time.perf_counter()
+    ref = fl.make_simulation(
+        dataclasses.replace(cfg, engine="scalar"), shards, x_te, y_te, device="cuda"
+    )
+    r0_check = {}
+    for rnd in range(R):
+        mr = ref.run_round(rnd)
+        mv = sim.history[rnd]
+        _require((mr["bytes_total"], mr["active"]) == (mv["bytes_total"], mv["active"]),
+                 f"{name}: round {rnd}: {mr} vs {mv}")
+        ps = ref.net.pubsub
+        _require((ps.messages_sent, ps.messages_dropped) == eager_counters[rnd][:2],
+                 f"{name}: round {rnd} messages {ps.messages_sent, ps.messages_dropped} "
+                 f"vs {eager_counters[rnd][:2]}")
+        if rnd == 0:
+            w_r = np.stack([ref.agents[a].load_model() for a in _live_ids(ref)])
+            diff = np.abs(w_r - w_round0)
+            tol = _flip_bound(w_r, w_round0, sim._offsets, sim._sizes, ROUND0_TOL)
+            r0_check = {"max_w_diff_vs_scalar_round0": float(diff.max()),
+                        "n_over_1e_4": int((diff > WEIGHT_TOL).sum())}
+            _require(bool((diff <= tol).all()), f"{name}: round-0 weights differ by {diff.max()}")
+    scalar_s = time.perf_counter() - t0
+    _require(_live_ids(ref) == sim.agent_ids(), f"{name}: live ids differ from the scalar engine")
+    w_r = np.stack([ref.agents[a].load_model() for a in _live_ids(ref)])
+    del ref
+
+    # after the checks: replays of the last span's graph (its key again),
+    # timed, then one under the profiler, whose kernels must be those the
+    # capture recorded
+    (graph,) = (g.graph for g in sim.graphs.values())
+    Wl = spans[-1]["windows"][-1]["rounds"][1] - spans[-1]["windows"][-1]["rounds"][0] + 1
+    replayed = [_timed_window(sim, R + i * Wl, Wl)[0]["s"] for i in range(EXTRA_REPLAYS)]
+    by_symbol, n_kernels, kernel_s = _kernel_events(
+        lambda: sim.run_window(R + EXTRA_REPLAYS * Wl, Wl), KERNEL_SYMBOLS
+    )
+    _require(n_kernels > 0, f"{name}: the profiler shows no kernel of the replay")
+    recorded = {k: graph.launches.get(fn, 0) for k, fn in kmods.items()}
+    _require(by_symbol == {k: recorded[k] for k in KERNEL_SYMBOLS},
+             f"{name}: a profiled replay ran {by_symbol}, its capture recorded {recorded}")
+    _require(recorded == {k: Wl * per_round.get(k, 0) for k in kmods},
+             f"{name}: the graph records {recorded}")
+    _require(len(sim.graphs) == 1 and graph.replays == EXTRA_REPLAYS + 2,
+             f"{name}: the timed windows were not all replays of one graph")
+    del sim
+    torch.cuda.empty_cache()
+
+    # the baseline: the same config and W without churn
+    base = fl.make_simulation(dataclasses.replace(cfg, churn=None), shards, x_te, y_te,
+                              device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base.run()
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+    _require(base.device_dispatches == -(-R // W), f"{name}: baseline dispatches")
+    del base
+    torch.cuda.empty_cache()
+
+    res = {
+        "phase": name, "agents": cfg.num_agents, "params": n_params, "rounds": R,
+        "scan_rounds": W, "conditions": dataclasses.asdict(cfg.conditions),
+        "wire_dtype": cfg.wire_dtype,
+        "schedule": {r: {act: sum(e[1] == act for e in cfg.churn[r]) for _, act in cfg.churn[r]}
+                     for r in events},
+        "spans": spans, "boundaries": boundaries, "launches": launches,
+        "graph_launches_per_replay": recorded, "device_dispatches": dispatches,
+        "active": [h["active"] for h in hist_eager], "agent_ids_n": len(ids_eager),
+        "churn_run_s": churn_s, "baseline_run_s": base_s,
+        "overhead_s_per_event": (churn_s - base_s) / len(events),
+        "replayed_window_rounds": Wl, "replayed_window_s": replayed,
+        "replayed_window_s_median": float(np.median(replayed)),
+        "profiled_replay_kernels": {"by_symbol": by_symbol, "all": n_kernels,
+                                    "kernel_s": kernel_s},
+        "per_round_path_s": eager_s, "bitwise_equal_to_per_round_path": True,
+        "acc_mean": accs, "bytes_total": hist_eager[-1]["bytes_total"],
+        "messages_sent": eager_counters[-1][0], "messages_dropped": eager_counters[-1][1],
+        "scalar_engine_s": scalar_s, **r0_check,
+        "round0_tolerance": "2 code steps of the weight's block + 1e-3, per weight",
+        "max_w_diff_vs_scalar_final": float(np.abs(w_r - w_v).max()),
+    }
+    _emit(res)
+    return res
 
 def _bf16_ulp(x):
     """One bfloat16 ulp at |x| (a float32 tensor)."""
@@ -1637,6 +1903,11 @@ def main() -> int:
         MAIN_Q_WINDOW, MAIN_Q_SHAPE,
         {"ipls_aggregate_batched_q": 1, "quantize": 3, "dequantize": 2},
     )
+    main_churn = phase_churn(
+        mods, kmods, "main_churn", dict(wire_dtype="int8", conditions=network.LOSSY),
+        MAIN_CHURN, MAIN_Q_SHAPE,
+        {"ipls_aggregate_batched_q": 1, "quantize": 3, "dequantize": 2},
+    )
     phase_lm_agree(lm, kmods)
     serve = phase_serve(lm, kmods, "serve", SERVE, SERVE_PARAMS,
                         (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32))
@@ -1684,7 +1955,8 @@ def main() -> int:
         "launches": path["launches"][name], "max_abs_err": err, "ms": tm["ms"],
         "call_ms": tm["call_ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
-        "window_launches": {w["phase"]: w["launches"][name] for w in (main_w, main_qw)},
+        "window_launches": {w["phase"]: w["launches"][name]
+                            for w in (main_w, main_qw, main_churn)},
         **dict(*extra),
     } for name, source, replaces, path, err, tm, *extra in rows]})
     print(smi, flush=True)

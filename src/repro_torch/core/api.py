@@ -22,14 +22,13 @@ Serialization is numpy ``tobytes`` — the byte counts drive the scalability
 benchmark (paper §3 'the data sent and received by each agent is constant').
 
 Counterpart of ``repro.core.api``: the same numpy protocol, message for
-message, including the single-rounding f64 update in ``aggregate``. The
-state snapshot hooks of the churn re-snapshot come with the churn slice of
-the batched engine.
+message, including the single-rounding f64 update in ``aggregate``, and
+the state snapshot hooks the batched engine's churn re-snapshot uses.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -328,6 +327,44 @@ class IPLSAgent:
             elif k in self.cache:
                 w[offsets[k] : offsets[k] + self.spec.sizes[k]] = self.cache[k]
         return w
+
+    # -- Snapshot hooks ----------------------------------------------------------
+    # Used by the batched engine's churn re-snapshot (fl/vectorized.py): at a
+    # membership-event boundary the dense device planes are written back into
+    # the scalar agents (import), the event round replays on the scalar
+    # oracle, and the next span reads the updated state back.
+    def export_state(self) -> dict:
+        """Protocol state as plain dicts of arrays and scalars: owned
+        partition values with their (eps, version), the cached global parts,
+        and the int8 error-feedback residuals. Values are the live arrays,
+        not copies: callers copy them into dense planes at once."""
+        return {
+            "owned": {k: (st.value, st.eps, st.version) for k, st in self.owned.items()},
+            "cache": dict(self.cache),
+            "delta_err": dict(self._delta_err),
+        }
+
+    def import_state(
+        self,
+        owned: Dict[int, Tuple[np.ndarray, float, int]],
+        cache: Dict[int, np.ndarray],
+        delta_err: Optional[Dict[int, np.ndarray]] = None,
+    ) -> None:
+        """Overwrite protocol state from dense-plane values (copied). Only
+        partitions this agent owns now (per the shared table) are accepted;
+        their pending delta buffers reset (the caller re-injects in-flight
+        messages through the pubsub instead)."""
+        for k, (val, eps, ver) in owned.items():
+            st = self.owned.get(k)
+            if st is None:
+                continue
+            st.value = np.asarray(val, np.float32).copy()
+            st.eps = float(eps)
+            st.version = int(ver)
+            st.pending_n = 0
+        self.cache = {k: np.asarray(v, np.float32).copy() for k, v in cache.items()}
+        if delta_err is not None:
+            self._delta_err = {k: np.asarray(v, np.float32).copy() for k, v in delta_err.items()}
 
     # -- Terminate ---------------------------------------------------------------
     def terminate(self) -> None:

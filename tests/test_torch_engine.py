@@ -4,12 +4,11 @@ Same data, same config, same seeds: per round, ``bytes_total`` and
 ``active`` exactly equal and accuracy within 5e-3; ``messages_sent`` exactly
 equal; final weights within 1e-4 (float32 GEMM sums in other orders, the
 bound the reference's own engines are held to). Also: configurations the
-port does not run yet (churn in the batched engine, telemetry, with or
-without multi-round windows) raise, the
-default device is CUDA and raises without one, and nothing in the port
-imports JAX or the reference package. The reference is
-imported only where it is run, so the cuda-marked test also runs on a GPU
-host without JAX.
+port does not run yet (telemetry, with or without multi-round windows)
+raise, the default device is CUDA and raises without one, and nothing in
+the port imports JAX or the reference package. The reference is imported
+only where it is run, so the cuda-marked test also runs on a GPU host
+without JAX.
 """
 import ast
 import dataclasses
@@ -141,9 +140,6 @@ def test_vectorized_runs_no_kernel_on_cpu(data):
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(conditions=LOSSY, scan_rounds=2, churn={1: [(3, "offline")]}),
-        dict(wire_dtype="int8", churn={1: [(3, "offline")]}),
-        dict(churn={1: [(3, "offline")]}),
         dict(scan_rounds=2, telemetry=True),
         dict(telemetry=True),
     ],
@@ -154,9 +150,8 @@ def test_out_of_slice_configs_raise(data, kw):
     shards = iid_split(x_tr, y_tr, 4, seed=0)
     with pytest.raises(NotImplementedError):
         make_simulation(cfg, shards, x_te, y_te, device="cpu")
-    if kw.get("telemetry"):
-        with pytest.raises(NotImplementedError):
-            IPLSSimulation(dataclasses.replace(cfg, engine="scalar"), shards, x_te, y_te, "cpu")
+    with pytest.raises(NotImplementedError):
+        IPLSSimulation(dataclasses.replace(cfg, engine="scalar"), shards, x_te, y_te, "cpu")
     with pytest.raises(ValueError):
         make_simulation(dataclasses.replace(cfg, engine="nope"), shards, x_te, y_te, "cpu")
 
