@@ -20,7 +20,14 @@ exits non-zero:
               within a bound for codes flipped by SGD float noise, and
               within 1e-4 once that noise is removed (float64 SGD); under
               churn, whose schedule amplifies that noise, the float64-SGD
-              runs within 1e-4 and the float32 runs' gaps reported;
+              runs within 1e-4 and the float32 runs' gaps reported. Then
+              the metric streams (telemetry on, float64 SGD) of PERFECT
+              f32, LOSSY f32 and int8, and every churn action on int8 in
+              windows of 3: the scalar engine, the batched engine one round
+              at a time and in windows byte-identical on the card; against
+              the port's scalar engine on the CPU the SGD-free columns
+              exact, the norms within a relative 1e-5, the protocol trace
+              (pid 1) event for event;
   main      — the PERFECT f32 path at full width: 100 agents train the
               paper's 785x500x100x10 MLP on 60,000 samples for 3 rounds
               through make_simulation(engine="vectorized"); the scalar engine
@@ -57,6 +64,20 @@ exits non-zero:
               boundary cost (device_to_scalar, the oracle round, snapshot
               with harvest, graph_capture), the baseline run without churn
               and the overhead per event;
+  main_telemetry — telemetry at full width on the configs of
+              main_int8_window (6 rounds, W=3, eval_cadence=3) and
+              main_window (4 rounds, W=2): each run in windows with
+              telemetry off and on, and one round at a time with it on.
+              Weights and history bit for bit off against on, the same
+              kernel launches and graph records; the windowed stream byte
+              for byte the per-round stream (skipped rounds carrying the
+              last evaluated accuracies); every row's totals the engine's
+              counters and its channel columns their change; for int8 the
+              first 2 rounds' SGD-free columns those of the scalar engine.
+              Reports 5 replayed windows' seconds off and on, timed in
+              turns (median, spread, phases), each run's peak memory, a
+              profiled replay's kernels, copies and device seconds off and
+              on, and the kernels by which they differ;
   lm_agree  — the LMs (internlm2, phi4-mini, minitron, rwkv6) at their reduced
               configs: the port on the card (attention and scan kernels)
               against the port on the CPU (plain versions), same weights from
@@ -125,6 +146,7 @@ JAX package.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -185,6 +207,17 @@ MAIN_CHURN = dict(rounds=12, scan_rounds=3, churn={
 # replayed window's time (with the one replay of the checked run), then one
 # more under the profiler, whose kernels are counted by symbol
 EXTRA_REPLAYS = 4
+# main_telemetry: the configs of main_int8_window and main_window, each run
+# with telemetry off and on; windows replayed after the checked rounds, per
+# run, for the median and spread (then one more under the profiler); the
+# int8 config's first rounds also on the scalar engine
+TEL_REPLAYS = 5
+TEL_SCALAR_ROUNDS = 2
+# profiles of one replayed window, each held to the graph's record (up to
+# twice as many while none has kept some of its warm-up), and the
+# throwaway kernels each profile starts with
+PROFILE_TRIES = 3
+PROFILER_WARMUP = 32
 # the CUDA kernels of the protocol paths' wrappers, by symbol
 KERNEL_SYMBOLS = {
     "ipls_aggregate_batched": "ipls_aggregate_batched_kernel",
@@ -704,8 +737,10 @@ def phase_agree(mods):
         _require(ok_s and ok_c or bool(cfg.churn),
                  f"{name}: weights differ: scalar {vs_scalar}, cpu {vs_cpu}; {res}")
         out[name] = res
+    streams = _agree_streams(mods, x_tr, y_tr, x_te, y_te)
     _emit({"phase": "agree", "rounds": AGREE_CFG["rounds"], "churn_rounds": churn["rounds"],
-           "tolerance": WEIGHT_TOL, "cases": out})
+           "tolerance": WEIGHT_TOL, "cases": out,
+           "streams": {"sgd": "float64", "norm_rtol_vs_cpu": NORM_RTOL, "cases": streams}})
 
 
 def _reset_launches(kmods):
@@ -857,22 +892,97 @@ def _phase_delta(before, after):
 
 
 def _kernel_events(fn, symbols):
-    """Run ``fn`` under torch.profiler; the device's kernel events by
-    symbol (each of ``symbols``: name -> kernel symbol), the count of all
-    its kernel events and the sum of their durations in seconds."""
+    """Run ``fn`` under torch.profiler. Returns the device's kernel events
+    by symbol (each of ``symbols``: name -> kernel symbol), the count of its
+    kernel events (copy-engine transfers left out) and their summed seconds,
+    and every device event by name (copies included) with their summed
+    seconds. Late in a run a profile loses its first device events (2 to
+    84 seen), so it starts with PROFILER_WARMUP throwaway spin
+    kernels of about 10 us each, left out of the counts; ``warmup_seen``
+    says how many of them it kept."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        for _ in range(PROFILER_WARMUP):
+            torch.cuda._sleep(20_000)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset"))]
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    warmup = [e for e in events if "spin_kernel" in e.name]
+    events = [e for e in events if "spin_kernel" not in e.name]
+    kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
     by_symbol = {k: sum(bool(re.search(rf"(?<!\w){sym}\b", e.name)) for e in kernels)
                  for k, sym in symbols.items()}
-    busy_us = sum(e.time_range.end - e.time_range.start for e in kernels)
-    return by_symbol, len(kernels), busy_us / 1e6
+    return {
+        "by_symbol": by_symbol, "kernels": len(kernels),
+        "kernel_s": sum(e.time_range.end - e.time_range.start for e in kernels) / 1e6,
+        "names": collections.Counter(e.name for e in events),
+        "device_s": sum(e.time_range.end - e.time_range.start for e in events) / 1e6,
+        "warmup_seen": len(warmup),
+    }
+
+
+def _device_state(sim):
+    """Copies of what a replay of ``sim``'s one window graph writes: the
+    state tensors and the graph's outputs."""
+    (g,) = sim.graphs.values()
+    out = {k: v.clone() for k, v in sim._state.items()}
+    out["accs"] = g.accs.clone()
+    if g.mets is not None:
+        out["mets"] = g.mets.clone()
+    return out
+
+
+def _witnessed_profile(sim, run, kmods, name):
+    """``run`` (one window of ``sim``: its inputs staged, then one replay of
+    its one graph) under torch.profiler, with the protocol kernels held to
+    the graph's record, and a second witness that the replay ran: from the
+    state the replay started at, an unprofiled replay of the same graph on
+    the same inputs must give the same state and outputs bit for bit, and
+    so must PROFILE_TRIES - 1 more profiled replays (up to 2 * PROFILE_TRIES
+    profiles in all, while none has kept some of its warm-up kernels, see
+    `_kernel_events`). Every profile that kept some must show the record
+    exactly. Returns the first profile, every profile's protocol kernel
+    counts, event total and warm-up kernels kept, and the replays made
+    beyond ``run``'s (the state is left as ``run`` left it)."""
+    import torch
+
+    (g,) = sim.graphs.values()
+    start = {k: v.clone() for k, v in sim._state.items()}
+    want = {k: g.graph.launches.get(kmods[k], 0) for k in KERNEL_SYMBOLS}
+
+    def replay(profiled):
+        for k, v in sim._state.items():
+            v.copy_(start[k])
+        prof = _kernel_events(g.graph.replay, KERNEL_SYMBOLS) if profiled else g.graph.replay()
+        torch.cuda.synchronize()
+        got = _device_state(sim)
+        _require(got.keys() == after.keys() and all(_bits_equal(got[k], after[k]) for k in got),
+                 f"{name}: a {'profiled' if profiled else 'plain'} replay of the same window "
+                 "gave other bits")
+        return prof
+
+    first = _kernel_events(run, KERNEL_SYMBOLS)
+    after = _device_state(sim)
+    replay(profiled=False)
+    profs = [first] + [replay(profiled=True) for _ in range(PROFILE_TRIES - 1)]
+    while not any(p["warmup_seen"] for p in profs) and len(profs) < 2 * PROFILE_TRIES:
+        profs.append(replay(profiled=True))
+    readings = [{"by_symbol": p["by_symbol"], "events": sum(p["names"].values()),
+                 "warmup_seen": p["warmup_seen"]} for p in profs]
+    # a profile that kept none of its warm-up kernels may have lost some of
+    # the replay's too: it decides nothing; every other one must show the
+    # record exactly
+    whole = [p for p in profs if p["warmup_seen"] > 0]
+    _require(len(whole) > 0, f"{name}: every profile lost its warm-up kernels: {readings}")
+    _require(all(p["by_symbol"] == want for p in whole),
+             f"{name}: a profiled replay ran other kernels than its graph records: "
+             f"{readings}, record {want}")
+    return first, readings, len(profs)
 
 
 def phase_window(mods, kmods, name, extra, window, shape, per_round):
@@ -988,14 +1098,13 @@ def phase_window(mods, kmods, name, extra, window, shape, per_round):
     replayed = [w["s"] for w in windows[1:]]
     for i in range(EXTRA_REPLAYS):
         replayed.append(_timed_window(sim, R + i * W, W)[0]["s"])
-    by_symbol, n_kernels, kernel_s = _kernel_events(
-        lambda: sim.run_window(R + EXTRA_REPLAYS * W, W), KERNEL_SYMBOLS
+    prof, readings, witness_replays = _witnessed_profile(
+        sim, lambda: sim.run_window(R + EXTRA_REPLAYS * W, W), kmods, name
     )
-    _require(n_kernels > 0, f"{name}: the profiler shows no kernel of the replay")
-    want_symbols = {k: W * per_round.get(k, 0) for k in KERNEL_SYMBOLS}
-    _require(by_symbol == want_symbols,
-             f"{name}: a profiled replay ran {by_symbol}, its capture recorded {want_symbols}")
-    _require(len(sim.graphs) == 1 and graph.replays == R // W + EXTRA_REPLAYS + 1,
+    kernel_s = prof["kernel_s"]
+    _require(prof["kernels"] > 0, f"{name}: the profiler shows no kernel of the replay")
+    _require(len(sim.graphs) == 1
+             and graph.replays == R // W + EXTRA_REPLAYS + 1 + witness_replays,
              f"{name}: the timed windows were not all replays of one graph")
     res = {
         "phase": name, "agents": cfg.num_agents, "params": sim.N, "rounds": R,
@@ -1009,9 +1118,10 @@ def phase_window(mods, kmods, name, extra, window, shape, per_round):
         "replayed_window_s_median": float(np.median(replayed)),
         "s_per_round_replayed_median": float(np.median(replayed)) / W,
         "windows": windows, "phases_s": phases,
-        "profiled_replay_kernels": {"by_symbol": by_symbol, "all": n_kernels,
+        "profiled_replay_kernels": {"by_symbol": prof["by_symbol"], "all": prof["kernels"],
                                     "kernel_s": kernel_s,
-                                    "kernel_share_of_median_window": kernel_s / float(np.median(replayed))},
+                                    "kernel_share_of_median_window": kernel_s / float(np.median(replayed)),
+                                    "profiles": readings},
         "per_round_path_round_s": eager_s, "bitwise_equal_to_per_round_path": True,
         "acc_mean": accs, "bytes_total": sim.history[-1]["bytes_total"],
         "messages_sent": sim.messages_sent, "messages_dropped": sim.messages_dropped,
@@ -1171,16 +1281,14 @@ def phase_churn(mods, kmods, name, extra, window, shape, per_round):
     (graph,) = (g.graph for g in sim.graphs.values())
     Wl = spans[-1]["windows"][-1]["rounds"][1] - spans[-1]["windows"][-1]["rounds"][0] + 1
     replayed = [_timed_window(sim, R + i * Wl, Wl)[0]["s"] for i in range(EXTRA_REPLAYS)]
-    by_symbol, n_kernels, kernel_s = _kernel_events(
-        lambda: sim.run_window(R + EXTRA_REPLAYS * Wl, Wl), KERNEL_SYMBOLS
+    prof, readings, witness_replays = _witnessed_profile(
+        sim, lambda: sim.run_window(R + EXTRA_REPLAYS * Wl, Wl), kmods, name
     )
-    _require(n_kernels > 0, f"{name}: the profiler shows no kernel of the replay")
+    _require(prof["kernels"] > 0, f"{name}: the profiler shows no kernel of the replay")
     recorded = {k: graph.launches.get(fn, 0) for k, fn in kmods.items()}
-    _require(by_symbol == {k: recorded[k] for k in KERNEL_SYMBOLS},
-             f"{name}: a profiled replay ran {by_symbol}, its capture recorded {recorded}")
     _require(recorded == {k: Wl * per_round.get(k, 0) for k in kmods},
              f"{name}: the graph records {recorded}")
-    _require(len(sim.graphs) == 1 and graph.replays == EXTRA_REPLAYS + 2,
+    _require(len(sim.graphs) == 1 and graph.replays == EXTRA_REPLAYS + 2 + witness_replays,
              f"{name}: the timed windows were not all replays of one graph")
     del sim
     torch.cuda.empty_cache()
@@ -1210,8 +1318,8 @@ def phase_churn(mods, kmods, name, extra, window, shape, per_round):
         "overhead_s_per_event": (churn_s - base_s) / len(events),
         "replayed_window_rounds": Wl, "replayed_window_s": replayed,
         "replayed_window_s_median": float(np.median(replayed)),
-        "profiled_replay_kernels": {"by_symbol": by_symbol, "all": n_kernels,
-                                    "kernel_s": kernel_s},
+        "profiled_replay_kernels": {"by_symbol": prof["by_symbol"], "all": prof["kernels"],
+                                    "kernel_s": prof["kernel_s"], "profiles": readings},
         "per_round_path_s": eager_s, "bitwise_equal_to_per_round_path": True,
         "acc_mean": accs, "bytes_total": hist_eager[-1]["bytes_total"],
         "messages_sent": eager_counters[-1][0], "messages_dropped": eager_counters[-1][1],
@@ -1221,6 +1329,304 @@ def phase_churn(mods, kmods, name, extra, window, shape, per_round):
     }
     _emit(res)
     return res
+
+
+# the telemetry stream's columns that do not depend on SGD (exact between
+# engines and devices), and the norms' relative tolerance against the CPU
+STREAM_SGD_FREE = ("round", "active", "drops_offline", "delay_hist", "contrib", "eps",
+                   "bytes_total", "msgs_total", "drops_total")
+NORMS = ("delta_normsq", "value_normsq")
+NORM_RTOL = 1e-5
+
+
+def _sgd_free(row):
+    """A telemetry row's SGD-free columns (the traffic by channel too)."""
+    return {k: v for k, v in row.items()
+            if k in STREAM_SGD_FREE or k.startswith(("msgs_", "bytes_", "drops_"))}
+
+
+def _rows(lines):
+    return [json.loads(x) for x in lines]
+
+
+def _stream_lines(sim):
+    return sim.recorder.jsonl_lines()[1:]
+
+
+def _carried(lines, evaluated):
+    """The stream a windowed run with eval_cadence gives, from one that
+    evaluated every round: a round outside ``evaluated`` carries the last
+    evaluated round's accuracies (zeros before the first)."""
+    out, last = [], None
+    for row in _rows(lines):
+        if row["round"] in evaluated:
+            last = row
+        else:
+            acc = last or {"accs": [0.0] * len(row["accs"]), "acc_mean": 0.0, "acc_std": 0.0,
+                           "acc_max": 0.0}
+            for k in ("accs", "acc_mean", "acc_std", "acc_max"):
+                row[k] = acc[k]
+        out.append(json.dumps(row, separators=(",", ":")))
+    return out
+
+
+def _agree_streams(mods, x_tr, y_tr, x_te, y_te):
+    """The metric streams at the agree config with float64 SGD (which
+    removes the float noise by which per-agent and batched products
+    differ): on the card, the scalar engine, the batched engine one round at
+    a time and in windows give byte-identical JSONL; against the port's
+    scalar engine on the CPU the SGD-free columns are exact and the norms
+    within a relative NORM_RTOL; every scalar run is traced, and the card's
+    protocol track (pid 1) equals the CPU's event for event."""
+    fl, data, net = mods["fl"], mods["data"], mods["network"]
+    churn = dict(rounds=8, churn=CHURN_ALL_ACTIONS, conditions=net.LOSSY)
+    cases = {
+        "perfect_f32": ({}, 2),
+        "lossy_f32": (dict(conditions=net.LOSSY), 2),
+        "lossy_int8": (dict(conditions=net.LOSSY, wire_dtype="int8"), 2),
+        "churn_lossy_int8": (dict(churn, wire_dtype="int8"), 3),
+    }
+    out = {}
+    for name, (extra, W) in cases.items():
+        cfg = fl.SimConfig(**dict(AGREE_CFG, **extra), telemetry=True)
+        shards = data.iid_split(x_tr, y_tr, cfg.num_agents, seed=0)
+        runs = {}
+        with _float64_sgd(mods["mlp_mnist"]):
+            for key, engine, scan, device in (
+                ("scalar", "scalar", 0, "cuda"), ("batched", "vectorized", 0, "cuda"),
+                ("windowed", "vectorized", W, "cuda"), ("cpu", "scalar", 0, "cpu"),
+            ):
+                c = dataclasses.replace(cfg, engine=engine, scan_rounds=scan,
+                                        trace=engine == "scalar")
+                sim = fl.make_simulation(c, shards, x_te, y_te, device=device)
+                sim.run()
+                runs[key] = sim
+        streams = {k: _stream_lines(s) for k, s in runs.items()}
+        _require(len(streams["scalar"]) == cfg.rounds, f"agree streams {name}: rows")
+        _require(streams["scalar"] == streams["batched"] == streams["windowed"],
+                 f"agree streams {name}: the card's streams differ")
+        card, cpu = _rows(streams["scalar"]), _rows(streams["cpu"])
+        gaps = {k: 0.0 for k in NORMS}
+        for r, c in zip(card, cpu, strict=True):
+            _require(_sgd_free(r) == _sgd_free(c),
+                     f"agree streams {name}: round {r['round']} SGD-free columns differ")
+            for k in NORMS:
+                gaps[k] = max(gaps[k], abs(r[k] - c[k]) / max(abs(c[k]), 1e-30))
+        _require(max(gaps.values()) <= NORM_RTOL, f"agree streams {name}: norms {gaps}")
+        track = {k: [e for e in runs[k].recorder.trace.events if e["pid"] == 1]
+                 for k in ("scalar", "cpu")}
+        _require(len(track["scalar"]) > 0 and track["scalar"] == track["cpu"],
+                 f"agree streams {name}: the protocol traces differ")
+        out[name] = {"rows": len(card), "scan_rounds": W, "bytes_identical": True,
+                     "norm_rel_gap_vs_cpu": gaps, "protocol_events": len(track["scalar"]),
+                     "oracle_rounds": [h["round"] for h in runs["windowed"]._seed.history]}
+    return out
+
+
+# device events that copy or set memory: copy-engine transfers, and the
+# kernels CUDA runs for some memcpy nodes of a graph
+_COPY_EVENTS = ("Memcpy", "Memset", "memcpy", "memset")
+
+
+def _split_copies(names):
+    """(compute kernels, copies) of a `_kernel_events` name counter."""
+    copies = collections.Counter({k: n for k, n in names.items() if k.startswith(_COPY_EVENTS)})
+    return names - copies, copies
+
+
+def _telemetry_run(mods, kmods, cfg, shards, x_te, y_te, telemetry: bool):
+    """One windowed run at full width with telemetry off or on, its counts
+    set to 0 before and read after. Returns the run and what it gave: the
+    launches and graph records, the device memory it took at its peak over
+    what was allocated before it, its weights, history and stream."""
+    import torch
+
+    fl, tel = mods["fl"], mods["telemetry"]
+    R, W = cfg.rounds, cfg.scan_rounds
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sim = fl.make_simulation(dataclasses.replace(cfg, telemetry=telemetry), shards, x_te, y_te,
+                             device="cuda")
+    if not telemetry:
+        sim.timer = tel.PhaseTimer()  # the recorder's timer when on: both synchronize alike
+    start = (sim.messages_sent, sim.messages_dropped, sim._bytes_total)
+    _reset_launches(kmods)
+    for r0 in range(0, R, W):
+        sim.run_window(r0, min(W, R - r0))
+    torch.cuda.synchronize()
+    return sim, {
+        "launches": {k: fn.LAUNCHES for k, fn in kmods.items()},
+        "peak_memory": torch.cuda.max_memory_allocated() - base,
+        "graph_launches": [{k: g.graph.launches.get(fn, 0) for k, fn in kmods.items()}
+                           for g in sim.graphs.values()],
+        "weights": sim.agent_weights(), "history": list(sim.history), "start": start,
+        "stream": _stream_lines(sim) if telemetry else None,
+    }
+
+
+def _replays_in_turns(runs, kmods, name, R, W):
+    """TEL_REPLAYS windows past the checked rounds for each of ``runs``
+    (tag -> (simulation, timer); two runs may share a simulation), in turns
+    (forward, then backward, ...), each window timed with its run's timer;
+    then one witnessed profiled replay of each simulation
+    (`_witnessed_profile`). Returns per run the windows' seconds and phases
+    and its simulation's profile."""
+    out = {tag: {"wins": []} for tag in runs}
+    at = {id(sim): R for sim, _ in runs.values()}
+    order = list(runs)
+    for i in range(TEL_REPLAYS):
+        for tag in (order if i % 2 == 0 else order[::-1]):
+            sim, timer = runs[tag]
+            sim.timer = timer
+            out[tag]["wins"].append(_timed_window(sim, at[id(sim)], W)[0])
+            at[id(sim)] += W
+    profiles = {}
+    for tag, (sim, _) in runs.items():
+        if id(sim) not in profiles:
+            prof, readings, extra = _witnessed_profile(
+                sim, lambda: sim.run_window(at[id(sim)], W), kmods, f"{name} {tag}")
+            (graph,) = (g.graph for g in sim.graphs.values())
+            _require(graph.replays == at[id(sim)] // W + 1 + extra,
+                     f"{name} {tag}: the timed windows were not all replays of one graph")
+            profiles[id(sim)] = {"names": prof["names"], "device_s": prof["device_s"],
+                                 "profiles": readings}
+        out[tag].update(profiles[id(sim)])
+    return out
+
+
+def phase_telemetry(mods, kmods, configs):
+    """Telemetry at full width, for each of ``configs`` (name, extra, window,
+    per-round launches, scalar rounds): the windowed run with telemetry off,
+    the same with it on, the same rounds one at a time with it on and, for
+    ``scalar rounds``, the scalar engine with it on. Requires: weights and
+    history bit for bit off against on, the same kernel launches and graph
+    records; the windowed stream byte for byte the per-round stream (its
+    skipped rounds carrying the last evaluated accuracies); every row's
+    totals the engine's counters after its round and its channel columns
+    their change; the scalar engine's first rows equal in every SGD-free
+    column; a witnessed profiled replay of each run (`_witnessed_profile`).
+    Reports TEL_REPLAYS replayed windows' seconds (median, spread) and
+    phases, timed in turns on the same card, with telemetry off (timed twice:
+    with NULL_TIMER, the engine's default, which syncs nowhere, and with a
+    PhaseTimer, which syncs at each device phase's end as the recorder's
+    timer does) and on; each run's peak device memory over what was
+    allocated before it; the profiled replay's kernels, copies and device
+    seconds, and by which kernels off and on differ."""
+    import torch
+
+    fl, data = mods["fl"], mods["data"]
+    x_tr, y_tr, x_te, y_te = data.synth_mnist(**MAIN_DATA)
+    out, launches = {}, dict.fromkeys(kmods, 0)
+    for name, extra, window, per_round, n_scalar in configs:
+        cfg = fl.SimConfig(**dict(MAIN_CFG, **window), **extra)
+        shards = data.iid_split(x_tr, y_tr, cfg.num_agents, seed=0)
+        R, W = cfg.rounds, cfg.scan_rounds
+        sim_off, off = _telemetry_run(mods, kmods, cfg, shards, x_te, y_te, False)
+        sim_on, on = _telemetry_run(mods, kmods, cfg, shards, x_te, y_te, True)
+        evaluated = {r for r in range(R) if sim_on._do_eval(r)}
+        runs = {"off_null": (sim_off, mods["telemetry"].NULL_TIMER),
+                "off": (sim_off, sim_off.timer), "on": (sim_on, sim_on.timer)}
+        timed = _replays_in_turns(runs, kmods, name, R, W)
+        del sim_off, sim_on
+        torch.cuda.empty_cache()
+        for k in kmods:
+            launches[k] += on["launches"][k]
+        _require(on["weights"].tobytes() == off["weights"].tobytes(),
+                 f"{name}: telemetry changed the weights by "
+                 f"{np.abs(on['weights'] - off['weights']).max()}")
+        _require(on["history"] == off["history"], f"{name}: telemetry changed the history")
+        _require(on["launches"] == off["launches"],
+                 f"{name}: launches on {on['launches']}, off {off['launches']}")
+        _require(on["graph_launches"] == off["graph_launches"],
+                 f"{name}: graph records on {on['graph_launches']}, off {off['graph_launches']}")
+        want = {k: per_round.get(k, 0) * (R + 1) for k in kmods}  # a warm-up round + R
+        _require(on["launches"] == want, f"{name}: launches {on['launches']}, expected {want}")
+
+        # the same rounds one at a time, telemetry on: the stream's reference
+        eager = fl.make_simulation(dataclasses.replace(cfg, scan_rounds=0, telemetry=True),
+                                   shards, x_te, y_te, device="cuda")
+        counters = []
+        for rnd in range(R):
+            eager.run_round(rnd)
+            counters.append((eager.messages_sent, eager.messages_dropped, eager._bytes_total))
+        per_round_lines = _stream_lines(eager)
+        del eager
+        torch.cuda.empty_cache()
+        _require(on["stream"] == _carried(per_round_lines, evaluated),
+                 f"{name}: the windowed stream differs from the per-round stream")
+        rows, prev = _rows(on["stream"]), on["start"]
+        for row, c in zip(rows, counters, strict=True):
+            totals = (row["msgs_total"], row["drops_total"], row["bytes_total"])
+            _require(totals == c, f"{name}: round {row['round']} totals {totals}, counters {c}")
+            ch = {m: sum(row[f"{m}_{x}"] for x in mods["telemetry"].CHANNELS)
+                  for m in ("msgs", "bytes", "drops")}
+            got = (ch["msgs"], ch["drops"] + row["drops_offline"], ch["bytes"])
+            _require(got == tuple(a - b for a, b in zip(c, prev)),
+                     f"{name}: round {row['round']} channel sums {got}, counters {c} from {prev}")
+            prev = c
+        vs_scalar = None
+        if n_scalar:
+            t0 = time.perf_counter()
+            ref = fl.make_simulation(dataclasses.replace(cfg, engine="scalar", telemetry=True),
+                                     shards, x_te, y_te, device="cuda")
+            for rnd in range(n_scalar):
+                ref.run_round(rnd)
+            for r, s in zip(rows[:n_scalar], _rows(_stream_lines(ref)), strict=True):
+                _require(_sgd_free(r) == _sgd_free(s),
+                         f"{name}: round {r['round']} differs from the scalar engine's row")
+            vs_scalar = {"rounds": n_scalar, "sgd_free_columns_equal": True,
+                         "scalar_s": time.perf_counter() - t0}
+            del ref
+            torch.cuda.empty_cache()
+
+        (k_off, c_off), (k_on, c_on) = (_split_copies(timed[t]["names"]) for t in ("off", "on"))
+        res = {
+            "config": name, "rounds": R, "scan_rounds": W, "eval_cadence": cfg.eval_cadence,
+            "wire_dtype": cfg.wire_dtype, "conditions": dataclasses.asdict(cfg.conditions),
+            "bitwise_off_vs_on": True, "stream_equals_per_round": True,
+            "launches": on["launches"], "graph_launches_per_replay": on["graph_launches"],
+            "vs_scalar": vs_scalar,
+        }
+        for tag in ("off_null", "off", "on"):
+            wins = timed[tag]["wins"]
+            rep = [w["s"] for w in wins]
+            res[tag] = {
+                "replayed_window_s": rep, "median_s": float(np.median(rep)),
+                "spread_s": float(max(rep) - min(rep)),
+                "median_s_per_round": float(np.median(rep)) / W,
+                "median_phases_s": {k: float(np.median([w["phases_s"].get(k, 0.0) for w in wins]))
+                                    for k in sorted({k for w in wins for k in w["phases_s"]})},
+            }
+        for tag, m, kernels, copies in (("off", off, k_off, c_off), ("on", on, k_on, c_on)):
+            res[tag].update({
+                "peak_memory": m["peak_memory"],
+                "profiled_replay_kernels": sum(kernels.values()),
+                "profiled_replay_copies": dict(copies),
+                "profiled_replay_device_s": timed[tag]["device_s"],
+                "profiles": timed[tag]["profiles"],
+            })
+        res["on_minus_off"] = {
+            "median_s_per_round": res["on"]["median_s_per_round"] - res["off"]["median_s_per_round"],
+            # against the engine's default off path (NULL_TIMER: no phase
+            # syncs), what a user pays for turning telemetry on
+            "median_s_per_round_vs_off_null":
+                res["on"]["median_s_per_round"] - res["off_null"]["median_s_per_round"],
+            "median_phases_s_per_round": {
+                k: (res["on"]["median_phases_s"].get(k, 0.0) - v) / W
+                for k, v in res["off"]["median_phases_s"].items()},
+            "profiled_replay_device_s_per_round":
+                (timed["on"]["device_s"] - timed["off"]["device_s"]) / W,
+            "peak_memory": on["peak_memory"] - off["peak_memory"],
+            "kernels_added": dict(k_on - k_off), "kernels_removed": dict(k_off - k_on),
+            "copies_added": dict(c_on - c_off), "copies_removed": dict(c_off - c_on),
+        }
+        out[name] = res
+    _require(all(launches[k] > 0 for c in configs for k in c[3]), "a kernel never launched")
+    res = {"phase": "main_telemetry", "configs": out, "launches": launches}
+    _emit(res)
+    return res
+
 
 def _bf16_ulp(x):
     """One bfloat16 ulp at |x| (a float32 tensor)."""
@@ -1908,6 +2314,11 @@ def main() -> int:
         MAIN_CHURN, MAIN_Q_SHAPE,
         {"ipls_aggregate_batched_q": 1, "quantize": 3, "dequantize": 2},
     )
+    main_tel = phase_telemetry(mods, kmods, [
+        ("main_int8", dict(wire_dtype="int8", conditions=network.LOSSY), MAIN_Q_WINDOW,
+         {"ipls_aggregate_batched_q": 1, "quantize": 3, "dequantize": 2}, TEL_SCALAR_ROUNDS),
+        ("main", {}, MAIN_WINDOW, {"ipls_aggregate_batched": 1}, 0),
+    ])
     phase_lm_agree(lm, kmods)
     serve = phase_serve(lm, kmods, "serve", SERVE, SERVE_PARAMS,
                         (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32))
@@ -1956,7 +2367,7 @@ def main() -> int:
         "call_ms": tm["call_ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
         "window_launches": {w["phase"]: w["launches"][name]
-                            for w in (main_w, main_qw, main_churn)},
+                            for w in (main_w, main_qw, main_churn, main_tel)},
         **dict(*extra),
     } for name, source, replaces, path, err, tm, *extra in rows]})
     print(smi, flush=True)

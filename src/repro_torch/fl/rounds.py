@@ -14,7 +14,8 @@ the eps-weighting absorbs the shrunken contributor count r.
 Counterpart of ``repro.fl.rounds``. The protocol is the reference's numpy
 code, message for message (any ``NetworkConditions``, either wire format,
 churn); local SGD and evaluation run in PyTorch on the simulation's device.
-Telemetry (``cfg.telemetry`` / ``cfg.trace``) comes with a later slice.
+``cfg.telemetry`` attaches a ``MetricsRecorder`` (per-message pubsub taps,
+one schema row per round through ``_tel_finish``), ``cfg.trace`` its trace.
 """
 from __future__ import annotations
 
@@ -33,13 +34,14 @@ from repro_torch.core.api import (
     reset_registry,
 )
 from repro_torch.core.partition import PartitionSpec, PartitionTable, flatten_params
-from repro_torch.core.wire import make_wire
+from repro_torch.core.wire import BLOCK, make_wire
 from repro_torch.device import resolve_device
 from repro_torch.fl.local_trainer import LocalTrainer
 from repro_torch.models import mlp_mnist
 from repro_torch.p2p.ipfs_sim import SimIPFS
 from repro_torch.p2p.network import PERFECT, NetworkConditions
-from repro_torch.telemetry import NULL_TIMER
+from repro_torch.telemetry import NULL_TIMER, MetricsRecorder, TraceWriter
+from repro_torch.telemetry.device import host_normsq
 
 # the simulation ticks the substrate 4 times per training round (after the
 # fetch requests, the fetch replies, the UpdateModel sends, and the
@@ -148,8 +150,8 @@ class SimConfig:
     churn: Optional[Dict[int, List[Tuple[int, str]]]] = None
     memory: bool = True  # False = 'memoryless training' (paper Fig 3b)
     # round engine: "scalar" (per-agent loops) or "vectorized" (whole-round
-    # batched device work; in this port any network and wire, a fixed
-    # membership — see fl/vectorized.py)
+    # batched device work; any network, either wire, churn — see
+    # fl/vectorized.py)
     engine: str = "scalar"
     # multi-round windows of the vectorized engine: W rounds per device
     # program (one CUDA-graph replay on the card); 0 = one round at a time.
@@ -165,8 +167,12 @@ class SimConfig:
     # (block-int8 + per-block scales + error feedback on the delta channel —
     # ~4x fewer bytes_total; see core/wire.py)
     wire_dtype: str = "f32"
-    # observability (per-round metric stream and trace of the reference);
-    # not yet in the port, which raises NotImplementedError when either is set
+    # observability (repro_torch.telemetry): telemetry=True attaches a
+    # MetricsRecorder emitting one schema-ordered row per round, byte for
+    # byte identical across the port's engines, plus per-phase wall timers;
+    # trace=True adds a Chrome trace-event timeline (protocol sends,
+    # deliveries and drops on simulated ticks, host phase spans). Both off by
+    # default: the off path adds no device work and no per-message work
     telemetry: bool = False
     trace: bool = False
 
@@ -202,11 +208,6 @@ def make_simulation(cfg: SimConfig, shards, x_test, y_test, device="cuda"):
 
 class IPLSSimulation:
     def __init__(self, cfg: SimConfig, shards, x_test, y_test, device="cuda"):
-        if cfg.telemetry or cfg.trace:
-            raise NotImplementedError(
-                "cfg.telemetry / cfg.trace: the metric recorder and trace come "
-                "with the telemetry slice of the port (ROADMAP queue 1)"
-            )
         self.cfg = cfg
         self.device = resolve_device(device)
         # the test set lives on the device once, not per evaluation
@@ -241,6 +242,22 @@ class IPLSSimulation:
         self.history: List[dict] = []
         # phase timer: assign a telemetry.PhaseTimer to time the round phases
         self.timer = NULL_TIMER
+        # observability: attached AFTER init, so the join/bootstrap traffic
+        # stays out of the per-round rows of every engine (it still shows in
+        # the cumulative *_total counters through the pubsub)
+        self.recorder: Optional[MetricsRecorder] = None
+        if cfg.telemetry:
+            self.recorder = MetricsRecorder(
+                ticks_per_round=TICKS_PER_ROUND,
+                max_delay_ticks=cfg.conditions.max_delay_rounds,
+                trace=TraceWriter() if cfg.trace else None,
+            )
+            self.timer = self.recorder.timer
+            self.net.pubsub.telemetry = self.recorder
+            # the instance width of the batched engine's value planes (int8:
+            # whole quantization blocks)
+            s_max = int(max(self.spec.sizes))
+            self._tel_S = -(-s_max // BLOCK) * BLOCK if cfg.wire_dtype == "int8" else s_max
 
     def _trainer(self, agent_id: int, x, y) -> LocalTrainer:
         cfg = self.cfg
@@ -329,6 +346,7 @@ class IPLSSimulation:
         self._apply_churn(rnd)
         active = self._live_online()
         pt = self.timer
+        rec = self.recorder
 
         # 0. collect missing global parameters (paper: 'each agent initially
         # contacts enough agents to collect the global parameters'; also how
@@ -344,12 +362,15 @@ class IPLSSimulation:
                 self.agents[a].receive_replies()
 
         # 1. local training + UpdateModel
+        deltas: List[np.ndarray] = []
         with pt.phase("train"):
             for a in active:
                 if a not in self.trainers:
                     continue
                 w = self.agents[a].load_model()
                 delta = self.trainers[a].train_delta(w)
+                if rec is not None:
+                    deltas.append(delta)
                 self.agents[a].update_model(delta, rnd)
             self.net.tick()
 
@@ -357,6 +378,13 @@ class IPLSSimulation:
         with pt.phase("aggregate"):
             for a in active:
                 self.agents[a].collect()
+            # contributor counts: captured between drain and aggregate, when
+            # every instance's pending buffer holds this round's full r
+            instances = contrib = None
+            if rec is not None:
+                instances = self._tel_instances()
+                contrib = [st.pending_n if st is not None else 0
+                           for st in self._tel_states(instances)]
             for a in active:
                 self.agents[a].aggregate()
             for a in active:
@@ -375,6 +403,8 @@ class IPLSSimulation:
         metrics["active"] = len(active)
         metrics["bytes_total"] = self.net.pubsub.total_bytes()
         self.history.append(metrics)
+        if rec is not None:
+            self._tel_finish(rnd, len(active), deltas, instances, contrib, accs)
         return metrics
 
     def evaluate(self) -> dict:
@@ -398,6 +428,44 @@ class IPLSSimulation:
             "acc_std": float(accs.std()),
             "acc_max": float(accs.max()),
         }
+
+    # -- telemetry emission (one finish_round per round) ---------------------
+    def _tel_instances(self) -> List[Tuple[int, int]]:
+        """(partition, holder) instances, k-major in holder order: the row
+        order of the batched engine's value planes."""
+        return [(k, h) for k in range(self.cfg.num_partitions) for h in self.table.holders_of(k)]
+
+    def _tel_states(self, instances):
+        for k, h in instances:
+            ag = self.agents.get(h)
+            yield ag.owned.get(k) if ag is not None else None
+
+    def _tel_finish(self, rnd, n_active, deltas, instances, contrib, accs):
+        """The engine's one emission site. The norms reduce the planes the
+        batched engine reduces, with the same shapes on the same device: the
+        (n_active, N) delta rows in training order and the (K_inst, S) value
+        plane (``telemetry.device``)."""
+        V = np.zeros((len(instances), self._tel_S), np.float32)
+        eps = []
+        for i, st in enumerate(self._tel_states(instances)):
+            if st is not None:
+                V[i, : st.value.size] = st.value
+                eps.append(st.eps)
+            else:
+                eps.append(1.0)
+        dn = host_normsq(np.stack(deltas), self.device) if deltas else 0.0
+        self.recorder.finish_round(
+            round=rnd,
+            active=n_active,
+            contrib=contrib,
+            eps=eps,
+            delta_normsq=dn,
+            value_normsq=host_normsq(V, self.device),
+            accs=accs,
+            bytes_total=self.net.pubsub.total_bytes(),
+            msgs_total=self.net.pubsub.messages_sent,
+            drops_total=self.net.pubsub.messages_dropped,
+        )
 
     def run(self) -> List[dict]:
         for rnd in range(self.cfg.rounds):

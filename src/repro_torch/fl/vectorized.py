@@ -74,17 +74,29 @@ on none, and the oracle's in-flight messages move into the rings and a
 span-constant mail plane (`_harvest_pubsub`). Graphs captured in one span
 are dropped at the next re-snapshot.
 
+Telemetry (``SimConfig(telemetry=True)``, the reference's recorder): the
+engine emits the seed simulation's stream through its recorder, one row a
+round (`_emit_row`). Traffic comes from the closed forms (PERFECT) or the
+control plane's taps, per channel and round, before the device rounds run;
+contributor counts and float64 eps are per-round host snapshots; the two
+norm columns are an auxiliary (2,) output of each device round (a (W, 2)
+buffer of the window's graph), reduced on the planes the scalar engine
+reduces. With telemetry off the rounds run exactly the kernels they run
+without it. Oracle rounds emit through the oracle's own emitter into the
+same recorder.
+
 On the CPU both paths run the same dataflow with the kernels' plain
 versions, so the CPU tests test what the card runs. Both engines agree to
 float tolerance round by round, traffic counters exactly
 (tests/test_torch_engine.py, test_torch_lossy.py, test_torch_int8.py,
-test_torch_window.py, test_torch_churn*.py).
+test_torch_window.py, test_torch_churn*.py), and their metric streams byte
+for byte once SGD float noise is removed (test_torch_telemetry*.py).
 """
 from __future__ import annotations
 
 import dataclasses
 from contextlib import contextmanager
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -109,6 +121,7 @@ from repro_torch.kernels.ipls_aggregate.ops import aggregate_batched, aggregate_
 from repro_torch.models import mlp_mnist
 from repro_torch.p2p.ipfs_sim import Message
 from repro_torch.telemetry import NULL_TIMER
+from repro_torch.telemetry.device import metric_pair
 
 # cache-event value sources (see _control_round)
 _KIND_START = 0  # holder value at the start of the serve round (fetch reply)
@@ -153,12 +166,14 @@ class _FateWindow:
 @dataclasses.dataclass
 class WindowGraph:
     """One captured window: the graph (it counts its replays and the kernel
-    launches each makes), its static inputs (rewritten before each replay)
-    and its (W, E) accuracy output."""
+    launches each makes), its static inputs (rewritten before each replay),
+    its (W, E) accuracy output and, with telemetry on, its (W, 2) norm
+    metrics (``telemetry.device.metric_pair`` of each round)."""
 
     graph: Graph
     inputs: Dict[str, torch.Tensor]
     accs: torch.Tensor
+    mets: Optional[torch.Tensor]
 
 
 class VectorizedIPLSSimulation:
@@ -202,6 +217,14 @@ class VectorizedIPLSSimulation:
         seed_sim = IPLSSimulation(cfg, shards, x_test, y_test, device=self.device)
         self._seed = seed_sim
         self.net = seed_sim.net
+        # telemetry handoff: this engine emits the seed's stream through the
+        # seed's recorder, fed by the control plane / closed-form traffic
+        # instead of the pubsub taps, so the tap is detached (the oracle's
+        # rounds attach it again, `_device_to_scalar`)
+        self.recorder = seed_sim.recorder
+        if self.recorder is not None:
+            self.timer = seed_sim.timer
+            self.net.pubsub.telemetry = None
         self.spec = seed_sim.spec
         self.table = seed_sim.table
         self.layout = seed_sim.layout
@@ -259,24 +282,27 @@ class VectorizedIPLSSimulation:
         self._eval_idx = np.asarray(eval_subset(list(range(A)), cfg.eval_agents), np.int64)
 
         # round-0 warm-up traffic (agents fetch partitions absent from both
-        # their owned set and the donor caches left behind by joins)
-        fetch_bytes = fetch_msgs = 0
+        # their owned set and the donor caches left behind by joins): one
+        # 16-byte fetch and one reply carrying the partition each
+        fetch_n = fetch_rep_bytes = 0
         for a in range(A):
             ag = seed_sim.agents[a]
             for k in range(K):
                 if k not in ag.owned and k not in ag.cache:
-                    fetch_bytes += 16 + int(self._wsizes[k])
-                    fetch_msgs += 2  # the fetch and its reply
-        self._round0_fetch_bytes = fetch_bytes
-        self._round0_fetch_msgs = fetch_msgs
+                    fetch_n += 1
+                    fetch_rep_bytes += int(self._wsizes[k])
+        self._fetch0_n = fetch_n
+        self._fetch0_rep_bytes = fetch_rep_bytes
 
-        # steady-state per-round traffic: every agent updates every non-owned
-        # partition (one wire payload up + one reply) and each replica of a
-        # rho_k>1 partition publishes once for consensus
-        upd = int(np.sum((A - rho) * self._wsizes))
-        replica = int(np.sum(np.where(rho > 1, rho * self._wsizes, 0)))
-        self._round_bytes = 2 * upd + replica
-        self._round_msgs = 2 * int(np.sum(A - rho)) + int(np.sum(np.where(rho > 1, rho, 0)))
+        # steady-state per-round traffic, by channel: every agent sends one
+        # UpdateModel per non-owned partition and gets one reply of the same
+        # size back; each replica of a rho_k>1 partition publishes once for
+        # consensus, fanning out to the rho_k-1 other subscribers
+        self._upd_msgs = int(np.sum(A - rho))
+        self._upd_bytes = int(np.sum((A - rho) * self._wsizes))
+        self._rep_msgs = int(np.sum(np.where(rho > 1, rho, 0)))
+        self._rep_bytes = int(np.sum(np.where(rho > 1, rho * self._wsizes, 0)))
+        self._rep_deliv = int(np.sum(np.where(rho > 1, rho * (rho - 1), 0)))
 
         # ---- snapshot values / eps from the scalar init -------------------
         V_pre = np.zeros((self.K_inst, self.S), np.float32)
@@ -356,6 +382,15 @@ class VectorizedIPLSSimulation:
         self._morder = torch.as_tensor(morder, device=dev)
         self._mmask = torch.as_tensor(mmask, device=dev)
         self._rho_inst = torch.as_tensor(rho[self._inst_k].astype(np.float32), device=dev)
+        if self.recorder is not None:
+            # the stream carries the scalar engine's eps, a Python float: the
+            # recursion is replayed on the host in float64 (the device's
+            # float32 one drifts by an ulp); the contributor counts are fixed
+            # per routing phase
+            self._tel_eps64 = np.asarray(
+                [seed_sim.agents[int(self._inst_owner[i])].owned[int(self._inst_k[i])].eps
+                 for i in range(self.K_inst)], np.float64)
+            self._tel_r = [m.sum(axis=1).astype(np.int64) for m in self._contrib_mask]
 
     def _instance_plane(self):
         """The instance plane of the current partition table: one row per
@@ -507,22 +542,25 @@ class VectorizedIPLSSimulation:
         idx = [x[f"bidx{b}"] for b in range(len(self._buckets))]
         return [self._x_all[i] for i in idx], [self._y_all[i] for i in idx]
 
-    def _round(self, st, x, do_eval: bool, acc_out, ph) -> None:
+    def _round(self, st, x, do_eval: bool, acc_out, met_out, ph) -> None:
         """One round of device work: read one round's staged inputs ``x``,
         update the device state ``st`` in place, write the evaluated agents'
-        accuracies into ``acc_out`` (NaN where ``do_eval`` is False). Nothing
-        here reads device data back to the host, so a window of these can
-        be captured into one CUDA graph. ``ph`` names the timed phases."""
+        accuracies into ``acc_out`` (NaN where ``do_eval`` is False) and,
+        with telemetry on, the round's (delta_normsq, value_normsq) into the
+        (2,) ``met_out`` (None with telemetry off: the round then runs
+        exactly the kernels it runs without telemetry). Nothing here reads
+        device data back to the host, so a window of these can be captured
+        into one CUDA graph. ``ph`` names the timed phases."""
         if self._lossy:
-            accs = self._round_event(st, x, do_eval, ph)
+            accs = self._round_event(st, x, do_eval, met_out, ph)
         else:
-            accs = self._round_perfect(st, x, do_eval, ph)
+            accs = self._round_perfect(st, x, do_eval, met_out, ph)
         if accs is None:
             acc_out.fill_(float("nan"))
         else:
             acc_out.copy_(accs)
 
-    def _round_perfect(self, st, x, do_eval, ph):
+    def _round_perfect(self, st, x, do_eval, met_out, ph):
         with ph("build_w"):
             W = self.build_W(st["V_pre"], st["V_merged"], x["t_prev"])
         with ph("sgd"):
@@ -531,6 +569,9 @@ class VectorizedIPLSSimulation:
             V_pre, V_merged, eps = self.agg_merge(
                 st["V_merged"], st["eps"], W, W2, x["idx"], x["mask"]
             )
+            if met_out is not None:
+                # every agent's delta and the post-merge value plane
+                met_out.copy_(metric_pair(W - W2, V_merged))
             del W, W2
             st["V_pre"].copy_(V_pre)
             st["V_merged"].copy_(V_merged)
@@ -540,14 +581,19 @@ class VectorizedIPLSSimulation:
         with ph("eval"):
             return self.eval_rows(st["V_pre"], st["V_merged"], x["t_eval"])
 
-    def _round_event(self, st, x, do_eval, ph):
+    def _round_event(self, st, x, do_eval, met_out, ph):
         with ph("device_pre"):
             Vstart_new, W = self._pre(st, x)
         with ph("device_sgd"):
             D = W - self.sgd_all(W, *self._batches(x))
         del W
         with ph("device_core"):
-            return self._core(st, D, Vstart_new, x, do_eval)
+            accs = self._core(st, D, Vstart_new, x, do_eval)
+            if met_out is not None:
+                # the trained rows' raw (pre-quantize) deltas, as the scalar
+                # engine stacks them, and the post-merge value plane
+                met_out.copy_(metric_pair(D, st["V"]))
+        return accs
 
     def _perfect_inputs(self, rnd: int) -> Dict[str, np.ndarray]:
         """Round ``rnd``'s routing tables on the PERFECT path: weights are
@@ -569,10 +615,12 @@ class VectorizedIPLSSimulation:
     def _run(self, r0: int, W: int, windowed: bool):
         """Rounds r0 .. r0+W-1: their host work up front, then their device
         rounds, as one window (one CUDA-graph replay on the card) or as one
-        round run eagerly (W = 1). Returns the (W, E) accuracies and, on the
-        event path, each round's (msgs, drops, nbytes)."""
+        round run eagerly (W = 1). Returns the (W, E) accuracies, the (W, 2)
+        norm metrics (None with telemetry off) and, on the event path, each
+        round's (msgs, drops, nbytes) and its telemetry snapshot (see
+        `_control_round`)."""
         rounds = range(r0, r0 + W)
-        counts = None
+        counts = snaps = None
         if self._lossy:
             with self._phase("fate_draw"):
                 wf = _FateWindow(
@@ -580,7 +628,7 @@ class VectorizedIPLSSimulation:
                     self._rep_src_agent, self._rep_k, self._rep_dst_agent,
                 )
             with self._phase("control"):
-                xs, counts = zip(*[self._control_round(r, wf) for r in rounds])
+                xs, counts, snaps = zip(*[self._control_round(r, wf) for r in rounds])
         else:
             xs = [self._perfect_inputs(r) for r in rounds]
         with self._phase("batches"):
@@ -588,44 +636,65 @@ class VectorizedIPLSSimulation:
                 x.update(self._batch_rows())
         host = {k: np.stack([x[k] for x in xs]) for k in xs[0]}
         if windowed:
-            accs = self._device_window(host, tuple(self._do_eval(r) for r in rounds))
+            accs, mets = self._device_window(host, tuple(self._do_eval(r) for r in rounds))
             self.device_dispatches += 1
         else:
-            accs = self._device_rounds(host, (True,), self._phase)
+            accs, mets = self._device_rounds(host, (True,), self._phase)
             self.device_dispatches += 2 + len(self._buckets) if self._lossy else 1
-        return accs, counts
+        return accs, mets, counts, snaps
 
     def _run_perfect(self, r0: int, W: int, windowed: bool) -> None:
-        accs, _ = self._run(r0, W, windowed)
+        accs, mets, _, _ = self._run(r0, W, windowed)
         for w in range(W):
             self._perfect_traffic(r0 + w)
             self.history.append(self._metrics_entry(r0 + w, accs[w]))
+            if self.recorder is not None:
+                self._emit_perfect(r0 + w, mets[w])
 
     def _run_round_lossy(self, rnd: int) -> None:
-        accs, ((msgs, drops, nbytes),) = self._run(rnd, 1, windowed=False)
+        accs, mets, ((msgs, drops, nbytes),), (snap,) = self._run(rnd, 1, windowed=False)
         self.messages_sent += msgs
         self.messages_dropped += drops
         self._bytes_total += nbytes
         self.history.append(self._metrics_entry(rnd, accs[0]))
+        if self.recorder is not None:
+            self._emit_row(rnd, *snap, mets[0])
 
     def _run_window_lossy(self, r0: int, W: int) -> None:
-        accs, counts = self._run(r0, W, windowed=True)
+        accs, mets, counts, snaps = self._run(r0, W, windowed=True)
         for w, (msgs, drops, nbytes) in enumerate(counts):
             self.messages_sent += msgs
             self.messages_dropped += drops
             self._bytes_total += nbytes
             self.history.append(self._metrics_entry(r0 + w, accs[w]))
+            if self.recorder is not None:
+                self._emit_row(r0 + w, *snaps[w], mets[w])
 
-    def _device_rounds(self, host, des, ph) -> np.ndarray:
+    def _device_outputs(self, W: int):
+        """Fresh (W, E) accuracy and (W, 2) norm-metric outputs (the latter
+        None with telemetry off)."""
+        dev = self.device
+        accs = torch.empty((W, len(self._eval_idx)), dtype=torch.float32, device=dev)
+        mets = None
+        if self.recorder is not None:
+            mets = torch.empty((W, 2), dtype=torch.float32, device=dev)
+        return accs, mets
+
+    @staticmethod
+    def _host(accs, mets):
+        return accs.cpu().numpy(), None if mets is None else mets.cpu().numpy()
+
+    def _device_rounds(self, host, des, ph):
         """The device rounds of ``host``'s staged inputs run eagerly, one
-        after another; returns the (W, E) accuracies."""
+        after another; returns the (W, E) accuracies and (W, 2) metrics."""
         inp = {k: torch.as_tensor(v, device=self.device) for k, v in host.items()}
-        accs = torch.empty((len(des), len(self._eval_idx)), dtype=torch.float32, device=self.device)
+        accs, mets = self._device_outputs(len(des))
         for w, de in enumerate(des):
-            self._round(self._state, {k: v[w] for k, v in inp.items()}, de, accs[w], ph)
-        return accs.cpu().numpy()
+            self._round(self._state, {k: v[w] for k, v in inp.items()}, de, accs[w],
+                        None if mets is None else mets[w], ph)
+        return self._host(accs, mets)
 
-    def _device_window(self, host, des) -> np.ndarray:
+    def _device_window(self, host, des):
         """A window's device rounds: on the CPU a plain loop; on CUDA one
         replay of the window's graph, captured at the first window of its
         (W, evaluation pattern). A graph that cannot be captured raises:
@@ -643,7 +712,7 @@ class VectorizedIPLSSimulation:
                 buf.copy_(torch.from_numpy(host[k]))
         with self._phase("device_window"):
             g.graph.replay()
-            return g.accs.cpu().numpy()
+            return self._host(g.accs, g.mets)
 
     def _capture(self, host, des) -> WindowGraph:
         """Capture a window's device rounds into one CUDA graph over static
@@ -655,7 +724,7 @@ class VectorizedIPLSSimulation:
         counted at every replay (`kernels._build.Graph`)."""
         dev = self.device
         inputs = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
-        accs = torch.empty((len(des), len(self._eval_idx)), dtype=torch.float32, device=dev)
+        accs, mets = self._device_outputs(len(des))
         stream = torch.cuda.current_stream(dev)
         if self._warmup_stream is None:
             self._warmup_stream = torch.cuda.Stream(dev)
@@ -664,7 +733,8 @@ class VectorizedIPLSSimulation:
         with torch.cuda.stream(side):
             scratch = {k: v.clone() for k, v in self._state.items()}
             x0 = {k: v[0] for k, v in inputs.items()}
-            self._round(scratch, x0, True, torch.empty_like(accs[0]), NULL_TIMER.phase)
+            self._round(scratch, x0, True, torch.empty_like(accs[0]),
+                        None if mets is None else torch.empty_like(mets[0]), NULL_TIMER.phase)
             del scratch, x0
         stream.wait_stream(side)
         if self._pool is None:
@@ -673,8 +743,9 @@ class VectorizedIPLSSimulation:
         with graph.capture(pool=self._pool):
             for w, de in enumerate(des):
                 x = {k: v[w] for k, v in inputs.items()}
-                self._round(self._state, x, de, accs[w], NULL_TIMER.phase)
-        return WindowGraph(graph, inputs, accs)
+                self._round(self._state, x, de, accs[w], None if mets is None else mets[w],
+                            NULL_TIMER.phase)
+        return WindowGraph(graph, inputs, accs, mets)
 
     def run_round(self, rnd: int) -> dict:
         if not self._lossy:
@@ -726,21 +797,23 @@ class VectorizedIPLSSimulation:
         return self.history
 
     def _perfect_traffic(self, rnd: int) -> None:
-        self._bytes_total += self._round_bytes + (
-            self._round0_fetch_bytes if rnd == 0 else 0
-        )
         # keep the pubsub-mirroring counters live (nothing drops under
         # PERFECT conditions)
-        self.messages_sent += self._round_msgs + (
-            self._round0_fetch_msgs if rnd == 0 else 0
-        )
+        self._bytes_total += 2 * self._upd_bytes + self._rep_bytes
+        self.messages_sent += 2 * self._upd_msgs + self._rep_msgs
+        if rnd == 0:
+            self._bytes_total += 16 * self._fetch0_n + self._fetch0_rep_bytes
+            self.messages_sent += 2 * self._fetch0_n
 
     def _metrics_entry(self, rnd: int, accs: np.ndarray) -> dict:
         """History entry for one round; rounds a window did not evaluate
         (NaN accuracies, eval_cadence > 1) reuse the last computed
-        accuracies, so the history schema never changes."""
+        accuracies (zeros before the first), so the history schema never
+        changes; the round's telemetry row carries the same ones."""
         if np.isnan(accs).all():
-            accs = self._last_accs if self._last_accs is not None else np.zeros_like(accs)
+            if self._last_accs is None:
+                self._last_accs = np.zeros_like(accs)
+            accs = self._last_accs
         else:
             self._last_accs = accs
         return {
@@ -751,6 +824,50 @@ class VectorizedIPLSSimulation:
             "active": self._n_act,
             "bytes_total": self._bytes_total,
         }
+
+    # -- telemetry emission --------------------------------------------------
+    def _emit_row(self, rnd: int, contrib, eps, met) -> None:
+        """The engine's one emission site: one schema-ordered finish_round
+        per round, from the device's norm metrics and the control plane's
+        snapshots, after `_metrics_entry` (skipped rounds carry the reused
+        accuracies). Values and float paths are the scalar engine's, so the
+        rows are byte for byte the same."""
+        m = np.asarray(met, np.float32)
+        self.recorder.finish_round(
+            round=rnd,
+            active=self._n_act,
+            contrib=[int(x) for x in contrib],
+            eps=[float(x) for x in eps],
+            delta_normsq=float(m[0]),
+            value_normsq=float(m[1]),
+            accs=self._last_accs,
+            bytes_total=self._bytes_total,
+            msgs_total=self.messages_sent,
+            drops_total=self.messages_dropped,
+        )
+
+    def _emit_perfect(self, rnd: int, met) -> None:
+        """PERFECT-path telemetry: the closed-form traffic split by channel
+        (everything delivered at delay 0; replica publishes fan out rho_k-1
+        ways), then the host float64 replay of the scalar eps recursion."""
+        rec = self.recorder
+        if rnd == 0 and self._fetch0_n:
+            n = self._fetch0_n
+            rec.on_channel(rnd, "fetch", n, 16 * n, 0)
+            rec.on_delivered(rnd, 0, n)
+            rec.on_channel(rnd, "fetch_reply", n, self._fetch0_rep_bytes, 0)
+            rec.on_delivered(rnd, 0, n)
+        rec.on_channel(rnd, "update", self._upd_msgs, self._upd_bytes, 0)
+        rec.on_delivered(rnd, 0, self._upd_msgs)
+        rec.on_channel(rnd, "update_reply", self._upd_msgs, self._upd_bytes, 0)
+        rec.on_delivered(rnd, 0, self._upd_msgs)
+        if self._rep_msgs:
+            rec.on_channel(rnd, "replica", self._rep_msgs, self._rep_bytes, 0)
+            rec.on_delivered(rnd, 0, self._rep_deliv)
+        r = self._tel_r[rnd % self._period]
+        alpha = self.cfg.alpha
+        self._tel_eps64 = alpha * self._tel_eps64 + (1.0 - alpha) / r
+        self._emit_row(rnd, r, self._tel_eps64, met)
 
     # ===================== event-driven path (LOSSY / int8) ================
     def _init_lossy(self) -> None:
@@ -962,6 +1079,8 @@ class VectorizedIPLSSimulation:
         self.messages_sent = ps.messages_sent
         self.messages_dropped = ps.messages_dropped
         self._bytes_total = ps.total_bytes()
+        # the span's rounds feed the recorder from the control plane
+        ps.telemetry = None
         if harvest and self._eval_cadence > 1:
             # windowed rounds that skip evaluation reuse the last computed
             # accuracies: those of the oracle's round, so the reuse crosses
@@ -1167,7 +1286,7 @@ class VectorizedIPLSSimulation:
             derr = {k: st["E"][r, k, : sizes[k]] for k in range(self.K)} if self._int8 else None
             sim.agents[aid].import_state(owned, cache, derr)
 
-        # ---- pubsub clock and counters -----------------------------------
+        # ---- pubsub clock, counters, telemetry tap ------------------------
         ps.round = TICKS * rnd
         ps.messages_sent = self.messages_sent
         ps.messages_dropped = self.messages_dropped
@@ -1176,6 +1295,9 @@ class VectorizedIPLSSimulation:
             # the span counts traffic in aggregate; only the total is
             # observable (total_bytes sums the per-sender dict)
             ps.bytes_sent[self._ids[0]] += delta_b
+        # the oracle's rounds tap the pubsub and emit through the oracle's
+        # own `_tel_finish`, into the same recorder
+        ps.telemetry = self.recorder
 
         # ---- queued entries back into the pubsub as messages --------------
         # sort key = (send tick, phase rank, the scalar within-tick order):
@@ -1414,13 +1536,18 @@ class VectorizedIPLSSimulation:
         integer/boolean numpy over the fixed-shape event space — no device
         data — so a window runs it W times up front. Routing and every fate
         are keyed by agent IDS (the scalar rules), every dense index runs
-        over membership ROWS. Returns the round's fixed-shape control arrays
-        and (msgs, drops, nbytes), which are exactly the scalar pubsub's
-        counters for the round by construction."""
+        over membership ROWS. Returns the round's fixed-shape control arrays,
+        (msgs, drops, nbytes), which are exactly the scalar pubsub's counters
+        for the round by construction, and with telemetry on the round's
+        contributor counts and post-recursion float64 eps (copies: a window
+        runs W control rounds before its replay, and ``_eps64`` moves), else
+        None. With telemetry on, each channel's traffic, drops and delivered
+        delays are tapped into the recorder, keyed by round."""
         t = self._t
         TICKS = TICKS_PER_ROUND
         qd = HD = self._HD
         f = self._fates
+        rec = self.recorder
         A, K, K_inst = self.A, self.K, self.K_inst
         owner, rho, act = self._owner_col, self._rho, self._act
         ids, owner_id = self._ids_arr, self._inst_owner_id
@@ -1440,7 +1567,10 @@ class VectorizedIPLSSimulation:
 
         # ---- messages harvested at the span's start whose recipient is
         # offline: the scalar tick drops them at their delivery tick
-        drops += len(self._pending_drop_msgs.pop(t, []))
+        n_pend = len(self._pending_drop_msgs.pop(t, []))
+        drops += n_pend
+        if rec is not None:
+            rec.on_offline_drops(rnd, n_pend)
 
         # ---- phase 0: fetch requests for partitions never yet cached ------
         need = act[:, None] & ~owner & ~self._has_cache & has_tgt
@@ -1449,7 +1579,12 @@ class VectorizedIPLSSimulation:
             de, dl = wf.slice("fetch", t)
             msgs += n_need
             nbytes += 16 * n_need
-            drops += int((need & ~de).sum()) + int((need & de & ~tgt_act).sum())
+            n_lost, n_off = int((need & ~de).sum()), int((need & de & ~tgt_act).sum())
+            drops += n_lost + n_off
+            if rec is not None:
+                rec.on_channel(rnd, "fetch", n_need, 16 * n_need, n_lost)
+                rec.on_offline_drops(rnd, n_off)
+                rec.on_delays(rnd, dl[need & de & tgt_act])
             lat = lat_rounds(dl)
             for a, k in np.argwhere(need & de & tgt_act):
                 self._serve_ring[(t + int(lat[a, k])) % qd].append(
@@ -1464,8 +1599,12 @@ class VectorizedIPLSSimulation:
             sv = np.asarray(serves, np.int64)  # (send round, agent row, partition, instance)
             de1, d1 = f.draw(CH_FETCH_REPLY, t, ids[sv[:, 1]], sv[:, 2], owner_id[sv[:, 3]])
             msgs += len(serves)
-            nbytes += int(np.sum(self._wsizes[sv[:, 2]]))
+            sv_bytes = int(np.sum(self._wsizes[sv[:, 2]]))
+            nbytes += sv_bytes
             drops += int((~de1).sum())
+            if rec is not None:
+                rec.on_channel(rnd, "fetch_reply", len(serves), sv_bytes, int((~de1).sum()))
+                rec.on_delays(rnd, d1[de1])
             for j in np.nonzero(de1)[0]:
                 self._push_cache_event(
                     TICKS * t + 1 + int(d1[j]), TICKS * t + 1,
@@ -1477,13 +1616,18 @@ class VectorizedIPLSSimulation:
         send_u = self._upd_send_mask
         msgs += self._upd_msgs
         nbytes += self._upd_bytes
-        drops += int((send_u & ~de_u).sum()) + int((send_u & de_u & ~tgt_act).sum())
+        n_lost, n_off = int((send_u & ~de_u).sum()), int((send_u & de_u & ~tgt_act).sum())
+        drops += n_lost + n_off
         lat_u = lat_rounds(dl_u)
         # ring appends must mirror the scalar inbox, which fills in delivery-
         # TICK order: a message delayed d ticks lands at tick TICKS*t+2+d, so
         # same-send-round arrivals drain delay-ascending first, then publish
         # (a, k) order. np.unique gives the delays sorted ascending.
         live_u = send_u & de_u & tgt_act
+        if rec is not None:
+            rec.on_channel(rnd, "update", self._upd_msgs, self._upd_bytes, n_lost)
+            rec.on_offline_drops(rnd, n_off)
+            rec.on_delays(rnd, dl_u[live_u])
         for d in np.unique(dl_u[live_u]):
             for a, k in np.argwhere(live_u & (dl_u == d)):
                 self._arr_ring[(t + int(lat_u[a, k])) % qd].append(
@@ -1515,8 +1659,12 @@ class VectorizedIPLSSimulation:
             arr = np.asarray([(a, k, i) for (_, a, k, i) in arrivals], np.int64)
             de_r, d_r = f.draw(CH_UPDATE_REPLY, t, ids[arr[:, 0]], arr[:, 1], owner_id[arr[:, 2]])
             msgs += len(arrivals)
-            nbytes += int(np.sum(self._wsizes[arr[:, 1]]))
+            rep_bytes = int(np.sum(self._wsizes[arr[:, 1]]))
+            nbytes += rep_bytes
             drops += int((~de_r).sum())
+            if rec is not None:
+                rec.on_channel(rnd, "update_reply", len(arrivals), rep_bytes, int((~de_r).sum()))
+                rec.on_delays(rnd, d_r[de_r])
             for j in np.nonzero(de_r)[0]:
                 self._push_cache_event(
                     TICKS * t + 3 + int(d_r[j]), TICKS * t + 3,
@@ -1530,7 +1678,12 @@ class VectorizedIPLSSimulation:
             msgs += self._pub_msgs
             nbytes += self._pub_bytes
             de_p, dl_p = wf.slice("replica", t)
-            drops += int((~de_p).sum()) + int((de_p & ~self._rep_dst_act).sum())
+            n_lost, n_off = int((~de_p).sum()), int((de_p & ~self._rep_dst_act).sum())
+            drops += n_lost + n_off
+            if rec is not None:
+                rec.on_channel(rnd, "replica", self._pub_msgs, self._pub_bytes, n_lost)
+                rec.on_offline_drops(rnd, n_off)
+                rec.on_delays(rnd, dl_p[de_p & self._rep_dst_act])
             lat_p = lat_rounds(dl_p)
             for j in np.nonzero(de_p & self._rep_dst_act)[0]:
                 si, di = int(self._rep_src[j]), int(self._rep_dst[j])
@@ -1614,7 +1767,8 @@ class VectorizedIPLSSimulation:
             msrc=msrc, mmask=mmsk, cnt=cnt, eps=self._eps64.astype(np.float32),
             kidx=kidx, kmask=kmask,
         )
-        return ctl, (msgs, drops, nbytes)
+        snap = None if rec is None else (r_vec.astype(np.int64), self._eps64.copy())
+        return ctl, (msgs, drops, nbytes), snap
 
     # -- introspection (tests / benchmarks) ---------------------------------
     def agent_weights(self) -> np.ndarray:

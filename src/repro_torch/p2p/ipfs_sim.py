@@ -1,8 +1,8 @@
 """In-process IPFS substitute: content-addressed store + pub/sub topics.
 
 Counterpart of ``repro.p2p.ipfs_sim``: the same store, topics, per-message
-loss/delay and traffic counters, message for message. Delivery is pulled by
-the simulation driver calling ``tick()``.
+loss/delay, traffic counters and telemetry taps, message for message.
+Delivery is pulled by the simulation calling ``tick()``.
 """
 from __future__ import annotations
 
@@ -66,6 +66,9 @@ class PubSub:
         self.fate_source: Optional[
             Callable[[str, int, int, Any, int], Tuple[bool, int]]
         ] = None
+        # optional MetricsRecorder tap (repro_torch.telemetry). None = every
+        # tap site is a single check; the counters above stay authoritative
+        self.telemetry = None
 
     def _fate(self, topic: str, sender: int, recipient: int, payload: Any) -> Tuple[bool, int]:
         if self.fate_source is not None:
@@ -92,39 +95,68 @@ class PubSub:
 
     # -- data plane --------------------------------------------------------
     def publish(self, topic: str, sender: int, payload: Any, nbytes: int) -> None:
+        tel = self.telemetry
         if sender in self._offline:
             self.messages_dropped += 1
+            if tel is not None:
+                tel.on_offline_drop(self.round)
             return
         self.messages_sent += 1
         self.bytes_sent[sender] += nbytes
+        if tel is not None:
+            tel.on_send(topic, self.round, sender, nbytes)
         for agent in self._subs[topic]:
             if agent == sender:
                 continue
             delivered, delay = self._fate(topic, sender, agent, payload)
-            if not delivered or agent in self._offline:
+            if not delivered:
                 self.messages_dropped += 1
+                if tel is not None:
+                    tel.on_fate(topic, self.round, sender, agent, False, delay)
                 continue
+            if agent in self._offline:
+                self.messages_dropped += 1
+                if tel is not None:
+                    tel.on_offline_drop(self.round)
+                continue
+            if tel is not None:
+                tel.on_fate(topic, self.round, sender, agent, True, delay)
             self._inflight.append(
                 Message(topic, sender, payload, self.round, self.round + delay, nbytes, agent)
             )
 
     def send(self, topic: str, sender: int, recipient: int, payload: Any, nbytes: int) -> None:
         """Directed message (UpdateModel request/reply); same loss/delay model."""
+        tel = self.telemetry
         if sender in self._offline:
             self.messages_dropped += 1
+            if tel is not None:
+                tel.on_offline_drop(self.round)
             return
         self.messages_sent += 1
         self.bytes_sent[sender] += nbytes
+        if tel is not None:
+            tel.on_send(topic, self.round, sender, nbytes)
         delivered, delay = self._fate(topic, sender, recipient, payload)
-        if not delivered or recipient in self._offline:
+        if not delivered:
             self.messages_dropped += 1
+            if tel is not None:
+                tel.on_fate(topic, self.round, sender, recipient, False, delay)
             return
+        if recipient in self._offline:
+            self.messages_dropped += 1
+            if tel is not None:
+                tel.on_offline_drop(self.round)
+            return
+        if tel is not None:
+            tel.on_fate(topic, self.round, sender, recipient, True, delay)
         self._inflight.append(
             Message(topic, sender, payload, self.round, self.round + delay, nbytes, recipient)
         )
 
     def tick(self) -> None:
         """Advance one tick: deliver everything due now."""
+        tel = self.telemetry
         still: List[Message] = []
         for msg in self._inflight:
             if msg.deliver_round > self.round:
@@ -133,9 +165,15 @@ class PubSub:
             agent = msg.recipient
             if agent in self._offline:
                 self.messages_dropped += 1
+                if tel is not None:
+                    tel.on_offline_drop(self.round)
                 continue
             self._inbox[agent].append(msg)
             self.bytes_recv[agent] += msg.nbytes
+            if tel is not None:
+                tel.on_delivery(
+                    msg.topic, msg.sent_round, self.round, msg.sender, agent, msg.nbytes
+                )
         self._inflight = still
         self.round += 1
 

@@ -1,9 +1,11 @@
 """Per-phase wall timers: phase-level attribution for the round engines.
 
 Counterpart of ``repro.telemetry.timing``. ``PhaseTimer.phase(name)`` is a
-context manager accumulating count/seconds per phase. ``NULL_TIMER`` is what
-engines hold by default — its ``phase()`` is a shared no-op context manager,
-so the disabled-path cost is one attribute lookup per phase.
+context manager accumulating count/seconds per phase; with a ``TraceWriter``
+attached every phase also lands as a Chrome trace "X" (complete) event on
+the host wall-clock track. ``NULL_TIMER`` is what engines hold by default —
+its ``phase()`` is a shared no-op context manager, so the disabled-path
+cost is one attribute lookup per phase.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ class PhaseTimer:
 
     sync = True
 
-    def __init__(self):
+    def __init__(self, trace=None):
+        self.trace = trace
         self.totals: Dict[str, list] = {}  # name -> [count, seconds]
 
     @contextmanager
@@ -31,9 +34,12 @@ class PhaseTimer:
         try:
             yield
         finally:
+            dt = time.perf_counter() - t0
             ent = self.totals.setdefault(name, [0, 0.0])
             ent[0] += 1
-            ent[1] += time.perf_counter() - t0
+            ent[1] += dt
+            if self.trace is not None:
+                self.trace.host_span(name, t0, dt)
 
     def summary(self) -> Dict[str, Dict[str, float]]:
         return {

@@ -3,15 +3,13 @@
 Same data, same config, same seeds: per round, ``bytes_total`` and
 ``active`` exactly equal and accuracy within 5e-3; ``messages_sent`` exactly
 equal; final weights within 1e-4 (float32 GEMM sums in other orders, the
-bound the reference's own engines are held to). Also: configurations the
-port does not run yet (telemetry, with or without multi-round windows)
-raise, the default device is CUDA and raises without one, and nothing in
+bound the reference's own engines are held to). Also: an unknown engine
+raises, the default device is CUDA and raises without one, and nothing in
 the port imports JAX or the reference package. The reference is imported
 only where it is run, so the cuda-marked test also runs on a GPU host
 without JAX.
 """
 import ast
-import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -20,7 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.data import iid_split, synth_mnist  # bitwise the reference's
-from repro_torch.fl import IPLSSimulation, SimConfig, make_simulation
+from repro_torch.fl import SimConfig, make_simulation
 from repro_torch.fl.local_trainer import LocalTrainer
 from repro_torch.kernels.ipls_aggregate import ops
 from repro_torch.kernels.quantize import ops as q_ops
@@ -137,23 +135,11 @@ def test_vectorized_runs_no_kernel_on_cpu(data):
     assert _launches() == before
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [
-        dict(scan_rounds=2, telemetry=True),
-        dict(telemetry=True),
-    ],
-)
-def test_out_of_slice_configs_raise(data, kw):
+def test_unknown_engine_raises(data):
     x_tr, y_tr, x_te, y_te = data
-    cfg = SimConfig(num_agents=4, rounds=2, engine="vectorized", **kw)
-    shards = iid_split(x_tr, y_tr, 4, seed=0)
-    with pytest.raises(NotImplementedError):
-        make_simulation(cfg, shards, x_te, y_te, device="cpu")
-    with pytest.raises(NotImplementedError):
-        IPLSSimulation(dataclasses.replace(cfg, engine="scalar"), shards, x_te, y_te, "cpu")
-    with pytest.raises(ValueError):
-        make_simulation(dataclasses.replace(cfg, engine="nope"), shards, x_te, y_te, "cpu")
+    cfg = SimConfig(num_agents=4, rounds=2, engine="nope")
+    with pytest.raises(ValueError, match="unknown engine"):
+        make_simulation(cfg, iid_split(x_tr, y_tr, 4, seed=0), x_te, y_te, "cpu")
 
 
 def test_default_device_is_cuda_and_raises_without_it(data):
