@@ -78,6 +78,23 @@ exits non-zero:
               turns (median, spread, phases), each run's peak memory, a
               profiled replay's kernels, copies and device seconds off and
               on, and the kernels by which they differ;
+  baselines — the paper's baselines (repro_torch.fl run_centralized and
+              run_gossip, batched on the card): (a) at agree's data, 5
+              agents, 3 rounds, against the reference's per-agent bodies
+              written here over the port's LocalTrainer and numpy's means:
+              with float64 SGD the weights bit for bit, bytes_total the
+              closed forms exactly every round, the float32 gap reported;
+              (b) fig2, Fig. 2a's largest cell (50 agents on main's data,
+              K=10, pi=2, rho=2, 40 rounds, 5 agents evaluated): IPLS on the
+              batched engine in windows of 8 against centralized FedAvg on
+              the same shards, both accuracy series, the final drop per
+              mille (reported, not gated), seconds per round (the capture
+              apart), peak memory; centralized must learn; (c) gossip at
+              main's 100 agents and data (fanout 2, K=10, 3 rounds): seconds
+              per round by phase (host draws, sgd, pull, eval), peak memory,
+              bytes per agent per round beside main's. The port's examples
+              (quickstart, churn_demo) run as processes on the card while
+              (a) runs, and must exit 0;
   lm_agree  — the LMs (internlm2, phi4-mini, minitron, rwkv6) at their reduced
               configs: the port on the card (attention and scan kernels)
               against the port on the CPU (plain versions), same weights from
@@ -155,7 +172,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -203,6 +220,21 @@ MAIN_CHURN = dict(rounds=12, scan_rounds=3, churn={
     7: [(a, "online") for a in range(50, 100)] + [(7, "crash")],
     9: [(13, "leave"), (100, "join")],
 })
+# the paper's baselines (phase baselines): Fig. 2a's largest cell
+# (benchmarks/bench_convergence.py:28-36: 50 agents, 40 rounds, 5 agents
+# evaluated) with IPLS in windows of bench_rounds.py's SCAN_W = 8 against
+# centralized FedAvg on the same shards; and segmented gossip at the main
+# path's width (MAIN_CFG's 100 agents and data), paper §4's traffic
+# comparison against IPLS main
+FIG2 = dict(num_agents=50, num_partitions=10, pi=2, rho=2, rounds=40, local_iters=10,
+            batch_size=128, eval_agents=5, engine="vectorized", scan_rounds=8)
+GOSSIP = dict(rounds=3, fanout=2, num_partitions=10, local_iters=10, batch_size=128)
+# the port's examples, as a user starts them on the card
+EXAMPLES = {
+    "quickstart": ("--engine", "vectorized", "--scan-rounds", "5", "--wire-dtype", "int8"),
+    "churn_demo": ("--engine", "vectorized", "--scan-rounds", "7"),
+}
+EXAMPLE_TIMEOUT_S = 300
 # windows replayed after a window phase's checks, for the spread of a
 # replayed window's time (with the one replay of the checked run), then one
 # more under the profiler, whose kernels are counted by symbol
@@ -1628,6 +1660,275 @@ def phase_telemetry(mods, kmods, configs):
     return res
 
 
+def _last_state(rounds):
+    """A baseline's round generator run to its end: its history and its
+    last state (weights or models) on the host."""
+    hist, state = [], None
+    for h, state in rounds:
+        hist.append(h)
+    return hist, state.cpu().numpy()
+
+
+def _centralized_loop(part, trainer, mlp_mnist, shards, x_te, y_te, rounds, local_iters):
+    """The reference's run_centralized body (src/repro/fl/centralized.py:
+    28-47) as its per-agent loop: the port's LocalTrainer on the card,
+    numpy's mean. Returns the final weights and the history."""
+    w, _ = part.flatten_params(mlp_mnist.init_params(0))
+    trainers = [trainer(a, x, y, 0.1, local_iters, 128, 0, device="cuda")
+                for a, (x, y) in enumerate(shards)]
+    hist = []
+    for rnd in range(rounds):
+        deltas = np.stack([t.train_delta(w.copy()) for t in trainers])
+        w = w - deltas.mean(axis=0)
+        hist.append({"acc_mean": trainers[0].evaluate(w, x_te, y_te),
+                     "bytes_total": int((rnd + 1) * 2 * len(shards) * w.nbytes)})
+    return w, hist
+
+
+def _gossip_loop(part, trainer, mlp_mnist, shards, x_te, y_te, rounds, local_iters, fanout, K):
+    """The reference's run_gossip body (src/repro/fl/gossip.py:34-72) as its
+    per-agent loop, the same way. Returns the final (A, N) models and the
+    history."""
+    rng = np.random.default_rng(0)
+    n = len(shards)
+    w0, _ = part.flatten_params(mlp_mnist.init_params(0))
+    spec = part.PartitionSpec.even(w0.size, K)
+    models = [w0.copy() for _ in range(n)]
+    trainers = [trainer(a, x, y, 0.1, local_iters, 128, 0, device="cuda")
+                for a, (x, y) in enumerate(shards)]
+    hist, total = [], 0
+    for _ in range(rounds):
+        for a in range(n):
+            models[a] = models[a] - trainers[a].train_delta(models[a].copy())
+        new_models = []
+        for a in range(n):
+            acc = models[a].copy()
+            for lo, s in zip(spec.offsets(), spec.sizes):
+                peers = rng.choice([p for p in range(n) if p != a], size=min(fanout, n - 1),
+                                   replace=False)
+                acc[lo : lo + s] = np.mean(
+                    [models[p][lo : lo + s] for p in peers] + [models[a][lo : lo + s]], axis=0)
+                total += int(models[a][lo : lo + s].nbytes * len(peers))
+            new_models.append(acc)
+        models = new_models
+        accs = np.array([trainers[0].evaluate(m, x_te, y_te) for m in models])
+        hist.append({"acc_mean": float(accs.mean()), "bytes_total": total})
+    return np.stack(models), hist
+
+
+def _baselines_agree(mods):
+    """(a) The batched baselines on the card against the reference's
+    per-agent bodies on the card, at `agree`'s data and 5 agents, 3 rounds:
+    with float64 SGD (``_float64_sgd``) the weights bit for bit; every round
+    ``bytes_total`` the closed form exactly; with float32 SGD the weights'
+    gap reported."""
+    import importlib
+
+    import torch
+
+    fl, data, mlp = mods["fl"], mods["data"], mods["mlp_mnist"]
+    part = importlib.import_module("repro_torch.core.partition")
+    x_tr, y_tr, x_te, y_te = data.synth_mnist(num_train=1500, num_test=300, seed=0)
+    A, K, R, L = (AGREE_CFG[k] for k in ("num_agents", "num_partitions", "rounds", "local_iters"))
+    shards = data.iid_split(x_tr, y_tr, A, seed=0)
+    N = part.flatten_params(mlp.init_params(0))[0].size
+    cases = {
+        "centralized": (
+            lambda: fl.centralized._centralized_rounds(shards, x_te, y_te, R, 0.1, L, 128, 0, "cuda"),
+            lambda: _centralized_loop(part, fl.LocalTrainer, mlp, shards, x_te, y_te, R, L),
+            [(r + 1) * 2 * A * 4 * N for r in range(R)]),
+    }
+    for fanout in (1, 2):
+        cases[f"gossip_fanout{fanout}"] = (
+            lambda f=fanout: fl.gossip._gossip_rounds(
+                shards, x_te, y_te, R, f, K, 0.1, L, 128, 0, "cuda"),
+            lambda f=fanout: _gossip_loop(part, fl.LocalTrainer, mlp, shards, x_te, y_te, R, L, f, K),
+            [(r + 1) * A * min(fanout, A - 1) * 4 * N for r in range(R)])
+    out = {}
+    for name, (batched, loop, closed) in cases.items():
+        res = {}
+        for sgd in ("float64", "float32"):
+            with _float64_sgd(mlp) if sgd == "float64" else nullcontext():
+                hist, w = _last_state(batched())
+                w_loop, hist_loop = loop()
+            got = [h["bytes_total"] for h in hist]
+            _require(got == closed == [h["bytes_total"] for h in hist_loop]
+                     and all(type(b) is int for b in got),
+                     f"baselines {name}: bytes_total {got}, closed form {closed}")
+            accs = [h["acc_mean"] for h in hist]
+            _require(all(math.isfinite(a) for a in accs), f"baselines {name}: accuracy {accs}")
+            res[sgd] = {
+                "max_abs_w_diff": float(np.abs(w - w_loop).max()),
+                "bitwise": _bits_equal(torch.from_numpy(w), torch.from_numpy(w_loop.astype(np.float32))),
+                "acc_mean": accs, "acc_mean_loop": [h["acc_mean"] for h in hist_loop],
+            }
+        _require(res["float64"]["bitwise"],
+                 f"baselines {name}, float64 SGD: weights differ from the per-agent loop: {res}")
+        out[name] = dict(res, bytes_total=closed)
+    return out
+
+
+def _fig2(mods, x_tr, y_tr, x_te, y_te):
+    """(b) Fig. 2a's largest cell: IPLS on the batched engine in windows of
+    8 against run_centralized on the same shards."""
+    import gc
+
+    import torch
+
+    fl, data, telemetry = mods["fl"], mods["data"], mods["telemetry"]
+    cfg = fl.SimConfig(**FIG2)
+    shards = data.iid_split(x_tr, y_tr, cfg.num_agents, seed=0)
+    gc.collect()
+    torch.cuda.synchronize()
+    start_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = fl.make_simulation(cfg, shards, x_te, y_te, device="cuda")
+    setup_s = time.perf_counter() - t0
+    sim.timer = telemetry.PhaseTimer()
+    windows = [_timed_window(sim, r0, min(cfg.scan_rounds, cfg.rounds - r0))[0]
+               for r0 in range(0, cfg.rounds, cfg.scan_rounds)]
+    ipls = {
+        "setup_s": setup_s, "windows": windows, "graphs": len(sim.graphs),
+        "device_dispatches": sim.device_dispatches,
+        "capture_s": windows[0]["phases_s"].get("graph_capture"),
+        "first_window_s_per_round_without_capture":
+            (windows[0]["s"] - windows[0]["phases_s"].get("graph_capture", 0.0)) / cfg.scan_rounds,
+        "replayed_s_per_round": [w["s_per_round"] for w in windows[1:]],
+        "allocated_at_start": start_mem, "peak_memory": torch.cuda.max_memory_allocated(),
+        "acc_mean": [h["acc_mean"] for h in sim.history],
+    }
+    _require(len(sim.history) == cfg.rounds and sim.device_dispatches == len(windows),
+             f"fig2: {len(sim.history)} rounds in {sim.device_dispatches} dispatches")
+    del sim
+    gc.collect()
+    torch.cuda.synchronize()
+    start_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    round_s, hist = [], []
+    t0 = time.perf_counter()
+    for h, _ in fl.centralized._centralized_rounds(
+            shards, x_te, y_te, cfg.rounds, cfg.lr, cfg.local_iters, cfg.batch_size, cfg.seed,
+            "cuda"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        round_s.append(t1 - t0)
+        hist.append(h)
+        t0 = t1
+    central = {"round_s": round_s, "median_s_per_round": float(np.median(round_s)),
+               "allocated_at_start": start_mem, "peak_memory": torch.cuda.max_memory_allocated(),
+               "acc_mean": [h["acc_mean"] for h in hist]}
+    accs = ipls["acc_mean"] + central["acc_mean"]
+    _require(all(math.isfinite(a) for a in accs), f"fig2: non-finite accuracy {accs}")
+    acc_i, acc_c = ipls["acc_mean"][-1], central["acc_mean"][-1]
+    _require(acc_c > central["acc_mean"][0], f"fig2: centralized did not learn {central}")
+    return {
+        "config": FIG2, "ipls": ipls, "centralized": central,
+        # as bench_convergence.py:51 reckons it; recorded, not gated
+        "final_drop_permille": (acc_c - acc_i) / max(acc_c, 1e-9) * 1000.0,
+    }
+
+
+def _gossip_full(mods, x_tr, y_tr, x_te, y_te, main):
+    """(c) Segmented gossip at the main path's width: seconds per round by
+    phase, peak memory, and bytes per agent per round beside IPLS main's
+    (bench_scalability.py's reckoning: total bytes / agents / rounds)."""
+    import gc
+
+    import torch
+
+    fl, data, telemetry = mods["fl"], mods["data"], mods["telemetry"]
+    A, g = MAIN_CFG["num_agents"], GOSSIP
+    shards = data.iid_split(x_tr, y_tr, A, seed=0)
+    timer = telemetry.PhaseTimer()
+    gc.collect()
+    torch.cuda.synchronize()
+    start_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rounds, hist, phases, models = [], [], {}, None
+    t0 = time.perf_counter()
+    for h, models in fl.gossip._gossip_rounds(
+            shards, x_te, y_te, g["rounds"], g["fanout"], g["num_partitions"], 0.1,
+            g["local_iters"], g["batch_size"], 0, "cuda", timer=timer):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        now = {k: v["total_s"] for k, v in timer.summary().items()}
+        rounds.append({"s": t1 - t0, "phases_s": _phase_delta(phases, now)})
+        hist.append(h)
+        phases, t0 = now, t1
+    peak = torch.cuda.max_memory_allocated()
+    accs = [h["acc_mean"] for h in hist]
+    _require(all(math.isfinite(a) for a in accs), f"gossip: non-finite accuracy {accs}")
+    _require(bool(torch.isfinite(models).all()), "gossip: non-finite weights")
+    per_agent = hist[-1]["bytes_total"] / A / g["rounds"]
+    ipls = main["bytes_total"] / main["agents"] / main["rounds"]
+    return {
+        "config": dict(g, num_agents=A), "rounds": rounds, "allocated_at_start": start_mem,
+        "peak_memory": peak,
+        "acc_mean": accs, "acc_std": [h["acc_std"] for h in hist],
+        "bytes_total": hist[-1]["bytes_total"], "bytes_per_agent_per_round": per_agent,
+        "ipls_main_bytes_per_agent_per_round": ipls, "gossip_over_ipls": per_agent / ipls,
+    }
+
+
+def _start_examples():
+    """The port's examples, each its own process on the card, all at once."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    return {
+        name: (time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", f"repro_torch.examples.{name}", *args], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for name, args in EXAMPLES.items()
+    }
+
+
+def _finish_examples(procs):
+    """Wait for the examples; each must exit 0. Returns their wall seconds
+    and the lines of their summary."""
+    out = {}
+    for name, (t0, p) in procs.items():
+        try:
+            stdout, stderr = p.communicate(timeout=EXAMPLE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(f"chip_smoke: example {name} ran over {EXAMPLE_TIMEOUT_S} s")
+        _require(p.returncode == 0, f"example {name} exited {p.returncode}: {stderr[-3000:]}")
+        out[name] = {
+            "args": list(EXAMPLES[name]), "s": time.perf_counter() - t0,
+            "summary": [ln for ln in stdout.splitlines() if re.match(
+                r"(accuracy drop|total bytes|device dispatches|scalar-oracle|partition)", ln)],
+        }
+    return out
+
+
+def phase_baselines(mods, main):
+    """The paper's baselines on the card: (a) agreement at `agree`'s config,
+    (b) Fig. 2a's 50-agent cell in windows of 8 against centralized FedAvg,
+    (c) segmented gossip at 100 agents against IPLS ``main``'s traffic; and
+    both examples as subprocesses, run while (a) runs (not timed)."""
+    t0 = time.perf_counter()
+    procs = _start_examples()
+    try:
+        agree = _baselines_agree(mods)
+        examples = _finish_examples(procs)
+    finally:  # stop any example left running
+        for _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    x_tr, y_tr, x_te, y_te = mods["data"].synth_mnist(**MAIN_DATA)
+    res = {
+        "phase": "baselines", "agree": agree, "examples": examples,
+        "fig2": _fig2(mods, x_tr, y_tr, x_te, y_te),
+        "gossip": _gossip_full(mods, x_tr, y_tr, x_te, y_te, main),
+    }
+    res["seconds"] = time.perf_counter() - t0
+    _emit(res)
+    return res
+
+
 def _bf16_ulp(x):
     """One bfloat16 ulp at |x| (a float32 tensor)."""
     import torch
@@ -2319,6 +2620,7 @@ def main() -> int:
          {"ipls_aggregate_batched_q": 1, "quantize": 3, "dequantize": 2}, TEL_SCALAR_ROUNDS),
         ("main", {}, MAIN_WINDOW, {"ipls_aggregate_batched": 1}, 0),
     ])
+    phase_baselines(mods, main_f32)
     phase_lm_agree(lm, kmods)
     serve = phase_serve(lm, kmods, "serve", SERVE, SERVE_PARAMS,
                         (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32))

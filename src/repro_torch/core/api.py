@@ -445,3 +445,11 @@ _AGENTS: Dict[int, IPLSAgent] = {}
 
 def reset_registry() -> None:
     _AGENTS.clear()
+
+
+def register(agent: IPLSAgent) -> None:
+    _AGENTS[agent.id] = agent
+
+
+def lookup(agent_id: int) -> Optional[IPLSAgent]:
+    return _AGENTS.get(agent_id)

@@ -7,8 +7,8 @@ high accuracy by the paper's 784-500-100-10 MLP, hard enough that accuracy
 climbs over tens of rounds (like Fig 2), and exactly reproducible from the
 seed.
 
-Counterpart of ``repro.data.synthetic.synth_mnist``: the same numpy draws,
-so the arrays are bitwise equal.
+Counterpart of ``repro.data.synthetic`` (``synth_mnist``, ``synth_tokens``):
+the same numpy draws, so the arrays are bitwise equal.
 """
 from __future__ import annotations
 
@@ -59,3 +59,24 @@ def synth_mnist(
     x_tr, y_tr = make(num_train, rng)
     x_te, y_te = make(num_test, rng)
     return x_tr, y_tr, x_te, y_te
+
+
+def synth_tokens(
+    num_sequences: int,
+    seq_len: int,
+    vocab: int,
+    seed: int = 0,
+) -> np.ndarray:
+    """Markov-ish synthetic token stream for LM smoke training: next token is
+    a noisy function of the previous one, so there is signal to learn.
+    (num_sequences, seq_len) int32, bitwise ``repro.data.synth_tokens``."""
+    rng = np.random.default_rng(seed)
+    # sparse deterministic successor table + noise
+    successor = rng.integers(0, vocab, size=vocab)
+    toks = np.empty((num_sequences, seq_len), np.int32)
+    cur = rng.integers(0, vocab, size=num_sequences)
+    for t in range(seq_len):
+        toks[:, t] = cur
+        noise = rng.random(num_sequences) < 0.2
+        cur = np.where(noise, rng.integers(0, vocab, size=num_sequences), successor[cur])
+    return toks

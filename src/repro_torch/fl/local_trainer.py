@@ -3,12 +3,13 @@
 Counterpart of ``repro.fl.local_trainer``: the trainer takes and returns
 FLAT numpy weight vectors and runs its SGD on ``device``. The batch
 selection stream (``draw_indices``) is the reference's numpy stream exactly,
-so both packages train on the same samples.
+so both packages train on the same samples. ``TrainingRows`` trains many
+trainers as one batch on the device (the batched engine, the baselines).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,3 +73,48 @@ class LocalTrainer:
         x = torch.as_tensor(x, device=self.device)
         y = torch.as_tensor(y, device=self.device)
         return float(mlp_mnist.evaluate(params, x, y))
+
+
+class TrainingRows:
+    """Trainers whose local SGD runs as one batch on the device: row ``a`` of
+    an (A, N) weight matrix trains on trainer ``a``'s batches.
+
+    Batch rows are drawn through each trainer's ``draw_indices`` in row
+    order (the reference's per-agent numpy streams, so the SGD inputs are
+    those of a per-agent loop) and gathered from the shards, copied to the
+    device once and concatenated. Trainers of equal batch size form a
+    bucket (``iid_split``'s shard sizes differ by at most one, so there are
+    at most two, contiguous), one batched SGD call each."""
+
+    def __init__(self, trainers: Sequence[LocalTrainer], device):
+        self.trainers = list(trainers)
+        bs = [min(tr.batch_size, len(tr.x)) for tr in self.trainers]
+        self.buckets: List[Tuple[int, int]] = []
+        start = 0
+        for a in range(1, len(bs) + 1):
+            if a == len(bs) or bs[a] != bs[start]:
+                self.buckets.append((start, a))
+                start = a
+        self.x_all = torch.as_tensor(np.concatenate([tr.x for tr in self.trainers]), device=device)
+        self.y_all = torch.as_tensor(np.concatenate([tr.y for tr in self.trainers]), device=device)
+        self._off = np.cumsum([0] + [len(tr.x) for tr in self.trainers[:-1]])
+
+    def draw_indices(self) -> List[np.ndarray]:
+        """One round's batch rows into the concatenated shards: one (A_b,
+        bs_b) array per bucket, every trainer's stream advanced once."""
+        rows = [tr.draw_indices() + off for tr, off in zip(self.trainers, self._off)]
+        return [np.stack(rows[lo:hi]) for lo, hi in self.buckets]
+
+    def gather(self, idx) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """The stacked batches per bucket at ``draw_indices``' rows (host
+        arrays or device tensors), gathered on the device."""
+        return [self.x_all[i] for i in idx], [self.y_all[i] for i in idx]
+
+    def sgd(self, W, Xs, Ys, lr: float, iters: int, layout) -> torch.Tensor:
+        """Every row's local SGD from the (A, N) weights ``W``; returns the
+        new (A, N) weights."""
+        parts = [
+            mlp_mnist.sgd_steps_flat_batched(W[lo:hi], Xs[b], Ys[b], lr, iters, layout)
+            for b, (lo, hi) in enumerate(self.buckets)
+        ]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)

@@ -95,7 +95,6 @@ for byte once SGD float noise is removed (test_torch_telemetry*.py).
 from __future__ import annotations
 
 import dataclasses
-from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -105,6 +104,7 @@ from repro_torch.core.api import FETCH_TOPIC, REPLICA_TOPIC, REPLY_TOPIC, UPDATE
 from repro_torch.core.partition import unflatten_params
 from repro_torch.core.wire import BLOCK, qdq_rows, quantize_rows, wire_size
 from repro_torch.device import resolve_device
+from repro_torch.fl.local_trainer import TrainingRows
 from repro_torch.fl.rounds import (
     CH_FETCH,
     CH_FETCH_REPLY,
@@ -122,6 +122,7 @@ from repro_torch.models import mlp_mnist
 from repro_torch.p2p.ipfs_sim import Message
 from repro_torch.telemetry import NULL_TIMER
 from repro_torch.telemetry.device import metric_pair
+from repro_torch.telemetry.timing import device_phase
 
 # cache-event value sources (see _control_round)
 _KIND_START = 0  # holder value at the start of the serve round (fetch reply)
@@ -435,32 +436,15 @@ class VectorizedIPLSSimulation:
         """The training rows: their LocalTrainer objects (the scalar
         engine's own, which own the per-agent RNG streams, so drawing batch
         rows through their draw_indices() keeps both engines' SGD inputs
-        identical), their buckets of equal batch size (array_split shard
-        sizes differ by at most one, so there are at most two, contiguous)
-        and their shards on the device once, concatenated: a round's batches
-        are row gathers at each trainer's offset."""
-        bs = [min(self.cfg.batch_size, len(tr.x)) for tr in trainers]
-        self._trainers = trainers
-        self._buckets: List[Tuple[int, int]] = []
-        start = 0
-        for a in range(1, len(bs) + 1):
-            if a == len(bs) or bs[a] != bs[start]:
-                self._buckets.append((start, a))
-                start = a
-        dev = self.device
-        self._x_all = torch.as_tensor(np.concatenate([tr.x for tr in trainers]), device=dev)
-        self._y_all = torch.as_tensor(np.concatenate([tr.y for tr in trainers]), device=dev)
-        self._shard_off = np.cumsum([0] + [len(tr.x) for tr in trainers[:-1]])
+        identical), bucketed by batch size, with their shards on the device
+        once: a round's batches are row gathers (`TrainingRows`)."""
+        self._rows = TrainingRows(trainers, self.device)
 
     # -- batched phases ------------------------------------------------------
-    @contextmanager
     def _phase(self, name: str):
         """A timed phase; with a PhaseTimer attached, device work is
         synchronized at its end so it cannot leak into the next phase."""
-        with self.timer.phase(name):
-            yield
-            if self.timer.sync and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+        return device_phase(self.timer, name, self.device)
 
     def build_W(self, V_pre, V_merged, t_inst) -> torch.Tensor:
         """Assemble ``len(t_inst)`` agents' flat weights from the concatenated
@@ -476,14 +460,7 @@ class VectorizedIPLSSimulation:
         """All agents' local SGD on the (A, N) weight matrix; Xs/Ys are
         per-bucket stacked batches (a single bucket unless array_split handed
         out shards of two sizes below the batch size)."""
-        cfg = self.cfg
-        parts = [
-            mlp_mnist.sgd_steps_flat_batched(
-                W[lo:hi], Xs[b], Ys[b], cfg.lr, cfg.local_iters, self.layout
-            )
-            for b, (lo, hi) in enumerate(self._buckets)
-        ]
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+        return self._rows.sgd(W, Xs, Ys, self.cfg.lr, self.cfg.local_iters, self.layout)
 
     def agg_merge(self, V_merged, eps, W, W2, contrib_idx, contrib_mask):
         """Aggregation + replica consensus, given the pre/post local-SGD
@@ -534,13 +511,11 @@ class VectorizedIPLSSimulation:
         (A_b, bs_b) array per bucket, drawn through every training row's
         RNG stream in row order (only online agents train: the scalar round
         skips offline ones, so their streams do not advance)."""
-        rows = [tr.draw_indices() + off for tr, off in zip(self._trainers, self._shard_off)]
-        return {f"bidx{b}": np.stack(rows[lo:hi]) for b, (lo, hi) in enumerate(self._buckets)}
+        return {f"bidx{b}": idx for b, idx in enumerate(self._rows.draw_indices())}
 
     def _batches(self, x):
         """The round's stacked batches per bucket, gathered on the device."""
-        idx = [x[f"bidx{b}"] for b in range(len(self._buckets))]
-        return [self._x_all[i] for i in idx], [self._y_all[i] for i in idx]
+        return self._rows.gather([x[f"bidx{b}"] for b in range(len(self._rows.buckets))])
 
     def _round(self, st, x, do_eval: bool, acc_out, met_out, ph) -> None:
         """One round of device work: read one round's staged inputs ``x``,
@@ -640,7 +615,7 @@ class VectorizedIPLSSimulation:
             self.device_dispatches += 1
         else:
             accs, mets = self._device_rounds(host, (True,), self._phase)
-            self.device_dispatches += 2 + len(self._buckets) if self._lossy else 1
+            self.device_dispatches += 2 + len(self._rows.buckets) if self._lossy else 1
         return accs, mets, counts, snaps
 
     def _run_perfect(self, r0: int, W: int, windowed: bool) -> None:
@@ -924,7 +899,7 @@ class VectorizedIPLSSimulation:
         into that span's state tensors, whose shapes and addresses this
         changes: they go first, and with them their memory pool."""
         self.graphs, self._pool = {}, None
-        self._state, self._x_all, self._y_all = {}, None, None
+        self._state, self._rows = {}, None
         sim = self._seed
         ps = sim.net.pubsub
         cfg = self.cfg

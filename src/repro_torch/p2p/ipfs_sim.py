@@ -32,6 +32,12 @@ class ContentStore:
             raise KeyError(f"unknown CID {cid[:12]}…")
         return self._blobs[cid]
 
+    def has(self, cid: str) -> bool:
+        return cid in self._blobs
+
+    def __len__(self) -> int:
+        return len(self._blobs)
+
 
 @dataclasses.dataclass
 class Message:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import time
 from contextlib import contextmanager
-from typing import Dict
+from typing import Dict, Optional
 
 
 class PhaseTimer:
@@ -63,10 +63,24 @@ class _NullTimer:
 NULL_TIMER = _NullTimer()
 
 
-def host_metadata() -> Dict[str, object]:
+@contextmanager
+def device_phase(timer, name: str, device):
+    """``timer.phase(name)`` around device work: with a syncing timer on a
+    CUDA ``device``, the device is synchronized at the phase's end, so its
+    queued work cannot leak into the next phase."""
+    with timer.phase(name):
+        yield
+        if timer.sync and device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(device)
+
+
+def host_metadata(timestamp: Optional[str] = None) -> Dict[str, object]:
     """Environment stamp for measurements: torch and CUDA versions, and the
     GPU's name and power limit (a card set below its maximum runs slower
-    under load, so every device number travels with it)."""
+    under load, so every device number travels with it). The timestamp is
+    passed in by the caller, so library code stays clock-free."""
     import os
     import platform
     import subprocess
@@ -85,6 +99,7 @@ def host_metadata() -> Dict[str, object]:
         "gpu_name": None,
         "gpu_count": 0,
         "power_limit": None,
+        "timestamp": timestamp,
     }
     if torch.cuda.is_available():
         meta["gpu_name"] = torch.cuda.get_device_name(0)

@@ -40,6 +40,18 @@ from repro_torch.kernels.flash_attention import ref as fref
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The runs here are many small products, which torch's thread pool
+    slows down when several test processes share the cores: run them on
+    one thread (no numeric effect: both sides of every comparison run in
+    this process), and give the pool back afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _arrays(shapes, seed):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(s).astype(np.float32) for s in shapes]

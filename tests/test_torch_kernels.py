@@ -19,6 +19,18 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.ipls_aggregate import ops, ref
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The runs here are many small products, which torch's thread pool
+    slows down when several test processes share the cores: run them on
+    one thread (no numeric effect: both sides of every comparison run in
+    this process), and give the pool back afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(K, R, N, seed):
     rng = np.random.default_rng(seed)
     w = rng.standard_normal((K, N)).astype(np.float32)

@@ -43,6 +43,18 @@ EDGES = (-np.exp(4.0), -np.exp(-8.0))  # the model's clip range of log-decays
 SCAN_TOL = 3e-5  # the kernel against its plain versions (chip_smoke.py), of the scale
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The runs here are many small products, which torch's thread pool
+    slows down when several test processes share the cores: run them on
+    one thread (no numeric effect: both sides of every comparison run in
+    this process), and give the pool back afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _arrays(B, T, H, K, seed, state=True):
     """r, k, v, logw (B, T, H, K), u (H, K) and an initial state (or None),
     float32 numpy."""

@@ -38,6 +38,18 @@ B, S, CL, STEPS = 2, 16, 32, 4
 BF16_TOL = 0.25
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The runs here are many small products, which torch's thread pool
+    slows down when several test processes share the cores: run them on
+    one thread (no numeric effect: both sides of every comparison run in
+    this process), and give the pool back afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_models():
     """The reference's reduced models and params, bf16 and float32."""

@@ -18,6 +18,18 @@ from repro_torch.fl.local_trainer import LocalTrainer as TTrainer
 from repro_torch.models import mlp_mnist as t_mlp
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The runs here are many small products, which torch's thread pool
+    slows down when several test processes share the cores: run them on
+    one thread (no numeric effect: both sides of every comparison run in
+    this process), and give the pool back afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def data():
     return synth_mnist(num_train=400, num_test=200, seed=0)

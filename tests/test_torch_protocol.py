@@ -8,7 +8,7 @@ exactly the reference's values.
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 pytest.importorskip("jax")  # the reference; absent on a GPU host
 
 from repro.core import partition as j_partition
@@ -29,6 +29,18 @@ from repro_torch.fl import rounds as t_rounds
 from repro_torch.fl.local_trainer import LocalTrainer as TTrainer
 from repro_torch.p2p import ipfs_sim as t_ipfs
 from repro_torch.p2p import network as t_network
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The runs here are many small products, which torch's thread pool
+    slows down when several test processes share the cores: run them on
+    one thread (no numeric effect: both sides of every comparison run in
+    this process), and give the pool back afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _table_trace(mod, K, pi, rho, A, events):

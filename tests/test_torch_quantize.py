@@ -23,6 +23,18 @@ from repro_torch.kernels.quantize import ops, ref
 SIZES = [1, 1025, 8193, 70001]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The runs here are many small products, which torch's thread pool
+    slows down when several test processes share the cores: run them on
+    one thread (no numeric effect: both sides of every comparison run in
+    this process), and give the pool back afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _codec_input(n: int, seed: int, subnormal: bool = True) -> tuple:
     """x and err of n values whose blocks cover the codec's edge cases:
     all-zero blocks, blocks below 2**-120 (subnormal values in them unless

@@ -35,6 +35,18 @@ B, S, STEPS = 2, 21, 4  # S is no multiple of the reduced config's chunk of 8
 BF16_TOL = 0.1
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The runs here are many small products, which torch's thread pool
+    slows down when several test processes share the cores: run them on
+    one thread (no numeric effect: both sides of every comparison run in
+    this process), and give the pool back afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _randomize(tree, rng):
     """The numpy tree with its mu_*, u and w0 leaves redrawn (same dtype)."""
     out = {}

@@ -49,6 +49,18 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 TOPICS = [UPDATE_TOPIC, FETCH_TOPIC, REPLY_TOPIC, f"{REPLICA_TOPIC}/3", MEMBER_TOPIC]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The runs here are many small products, which torch's thread pool
+    slows down when several test processes share the cores: run them on
+    one thread (no numeric effect: both sides of every comparison run in
+    this process), and give the pool back afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_telemetry():
     import repro.telemetry as jt
 
