@@ -101,6 +101,32 @@ exits non-zero:
               one seed, prompts of 16 and 100 tokens, 8 decode steps; logits
               within one bfloat16 ulp (+1e-5) in float32 weights, within
               0.03 in bf16;
+  train_agree — the IPLS train step (repro_torch.core.sharded through
+              launch.steps.build_train_step) on the card's smoke mesh (a
+              one-process NCCL group), internlm2-reduced in float32: 3
+              steps of SGD 0.5 with clip 1.0, then 3 of AdamW with
+              accum_steps=2. Bit for bit the card's step without a mesh;
+              each step against the same step on the CPU from the card's
+              state before it, in float32 (loss, moments, AdamW params,
+              step and eps within stated bounds) and in float64 (the SGD
+              params and every grad norm: the card at most twice as far
+              from it as the CPU's float32 step); checkpointed after step
+              2 and restored into a fresh model, bit for bit the
+              uninterrupted run; no kernel launched;
+  train     — the LM training path at full width: internlm2-1.8b
+              (1,889,110,016 bf16 parameters, nothing cut) through
+              build_model, make_smoke_mesh and build_train_step with the
+              default AdamW and IplsStepConfig() (eps on, clip 1.0), global
+              batch 2 x 4,096 tokens from synth_tokens (train_4k's sequence,
+              its batch of 256 cut to 2), 5 steps: each step's seconds,
+              the median of steps 2-5, tokens/s, model FLOP/s (6 x the
+              matrix parameters x tokens) and its share of the 989 TFLOP/s
+              bf16 peak, peak memory, losses, grad norms and eps (the
+              recursion's values exactly, step 5 at the end, finite, no
+              kernel launched); then one step split by a syncing phase
+              timer (forward, backward with the recompute, update with
+              the collectives), one under torch.profiler, and the plain
+              attention alone at a layer's shapes (its share of a step);
   serve     — the LM main path at full width: internlm2-1.8b
               (1,889,110,016 parameters, bf16) through build_model and
               serve_lm.generate, batch 4, a 4,096-token prompt from the seed,
@@ -278,6 +304,32 @@ LM_BF16_TOL = 0.03
 # wrong cache slot, position or mask moves logits by their whole scale.
 SERVE_DECODE_VS_PREFILL_BF16 = 0.5
 SERVE_DECODE_VS_PREFILL_F32 = 0.1
+# the LM training path (phase train): internlm2-1.8b at full width through
+# build_train_step on the smoke mesh (one card), default_optimizer (AdamW,
+# cosine warm-up), IplsStepConfig() (eps on, clip 1.0); train_4k's sequence
+# of 4,096 with its global batch of 256 cut to 2 for one card
+TRAIN = dict(arch="internlm2-1.8b", batch=2, seq_len=4096, steps=5, seed=0)
+# phase train_agree: internlm2-reduced in float32, 3 steps of SGD 0.5 with
+# clip 1.0, then 3 of AdamW with accum_steps=2, on the card's smoke mesh
+TRAIN_AGREE = dict(batch=4, seq_len=64, steps=3, seed=0)
+TRAIN_AGREE_ADAMW_LR = 1e-3
+# A step on the CPU from the card's state before it (float32 products in
+# other orders, TF32 off), in float32 and in float64. The reduced model's
+# random init makes its attention nearly one-hot, which amplifies float32
+# noise: on an H100 the CPU's own float32 SGD step lay 1.0e-4 (params) and
+# 5.1e-3 (grad norm, relative) from the same step in float64, the card's
+# 3.6e-5 and 1.0e-3, and card and CPU 6.7e-5 and 6.1e-3 apart. So both
+# legs are held to the float64 step: the card's gap at most twice the CPU
+# float32 step's, plus a floor of 1e-7 for gaps near 0. SGD params by their
+# largest |d|. AdamW moves each parameter by about lr * sign(g), and a
+# gradient near 0 may change sign between precisions, so its params by the
+# L2 norm of the gap over that of the float64 step's update (a skipped step
+# is 1, a negated one 2); its moments m and v each by their largest |d|
+# over the largest |value| of their own leaf (a skipped update is far off:
+# 1 for a first step from zeros). The script checks that a skipped or
+# negated AdamW step fails these bounds. Directly: the loss within 1e-5 of
+# max(1, |loss|) (measured 9.1e-8), step, eps and participation exactly.
+TRAIN_AGREE_TOL = {"float64_ratio": 2.0, "float64_floor": 1e-7, "loss": 1e-5}
 # the attention kernels against their plain versions
 ATTN_F32_TOL = 2e-5  # as tests/test_kernels.py
 # The bf16 flash kernel rounds P = exp(s - m) to bf16 before P V (tensor cores),
@@ -2010,6 +2062,303 @@ def phase_lm_agree(lm, kmods):
            "max_abs_logit_diff": out})
 
 
+def _host_state(tree, state):
+    """A host copy of a train state (every tensor)."""
+    return tree.tree_map(lambda t: t.detach().to("cpu", copy=True), state)
+
+
+def _load_state(tree, state, host) -> None:
+    """Write a host copy's values into a state's own tensors."""
+    import torch
+
+    with torch.no_grad():
+        for dst, src in zip(tree.tree_leaves(state), tree.tree_leaves(host)):
+            dst.copy_(src)
+
+
+def phase_train_agree(tr, kmods):
+    """The train step on the card's smoke mesh (internlm2-reduced, float32):
+    bit for bit the card's step without a mesh; each step, from the card's
+    state before it, as close to the same step on the CPU in float64 as the
+    CPU's float32 step is (TRAIN_AGREE_TOL), by bounds that refuse a skipped
+    or negated AdamW step; a run checkpointed after step 2 and restored into
+    a fresh model bit for bit the uninterrupted one; no kernel launch."""
+    import tempfile
+
+    import torch
+
+    configs, sharded, steps, optim, tree = (tr[k] for k in
+                                            ("configs", "sharded", "steps", "optim", "tree"))
+    cfg = configs.get_config(TRAIN["arch"], reduced=True)
+    B, S, n = TRAIN_AGREE["batch"], TRAIN_AGREE["seq_len"], TRAIN_AGREE["steps"]
+    rng = np.random.default_rng(TRAIN_AGREE["seed"])
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S), dtype=np.int32)),
+             "participation": torch.ones(B)}
+    mesh = tr["mesh"].make_smoke_mesh("cuda")
+    shape = configs.ShapeSpec("train_agree", S, B, "train")
+    legs = (("sgd", lambda: optim.sgd(0.5), sharded.IplsStepConfig(grad_clip=1.0)),
+            ("adamw", lambda: optim.adamw(TRAIN_AGREE_ADAMW_LR),
+             sharded.IplsStepConfig(accum_steps=2)))
+    launches0 = {k: fn.LAUNCHES for k, fn in kmods.items()}
+
+    def fresh(device):
+        return configs.build_model(cfg, device=device, seed=TRAIN_AGREE["seed"]).float()
+
+    def step_fn(model, leg, device, on_mesh):
+        _, make_opt, scfg = next(x for x in legs if x[0] == leg)
+        opt = make_opt()
+        if on_mesh:
+            built = steps.build_train_step(model, mesh, shape, optimizer=opt, step_cfg=scfg)
+            return built.fn, built.init_state(model.params())
+        return (sharded.make_train_step(model.loss, opt, scfg, num_agents=1),
+                sharded.init_state(model.params(), opt))
+
+    def run(device, on_mesh):
+        """Both legs on one model: per step (leg, state before, state after,
+        metrics), host copies."""
+        model, out = fresh(device), []
+        for leg, _, _ in legs:
+            fn, state = step_fn(model, leg, device, on_mesh)
+            for _ in range(n):
+                before = _host_state(tree, state)
+                state, m = fn(state, batch)
+                out.append((leg, before, _host_state(tree, state),
+                            {k: v.detach().cpu() for k, v in m.items()}))
+        return out
+
+    mesh_run = run("cuda", on_mesh=True)
+    no_mesh = run("cuda", on_mesh=False)
+    bitwise = all(
+        all(_bits_equal(a, b) for a, b in zip(tree.tree_leaves(x[2]), tree.tree_leaves(y[2])))
+        and all(_bits_equal(x[3][k], y[3][k]) for k in x[3])
+        for x, y in zip(mesh_run, no_mesh))
+
+    # each step on the CPU from the card's state before it, in float32 and
+    # in float64 (the yardstick of both float32 steps)
+    f64_keys = ("params_sgd", "params_adamw", "moments", "grad_norm")
+    gaps = {"params": {"sgd": 0.0, "adamw": 0.0}, "metrics": dict.fromkeys(mesh_run[0][3], 0.0),
+            "vs_float64": {f"{who}_{k}": 0.0 for k in f64_keys for who in ("card", "cpu")},
+            # the wrong AdamW steps the bounds must refuse (the least over steps)
+            "adamw_wrong": {"params_skipped": 1.0,  # before - w64 = -update, exactly 1
+                            "params_negated": np.inf, "moments_skipped": np.inf}}
+    wrong = gaps["adamw_wrong"]
+
+    def cpu_step(leg, before, dtype):
+        model = fresh("cpu").to(dtype)
+        fn, state = step_fn(model, leg, "cpu", on_mesh=False)
+        _load_state(tree, state, before)
+        return fn(state, batch)
+
+    def most(d, key, value):
+        d[key] = max(d[key], value)
+
+    def leaf_rel(x, w):
+        """Largest |x - w| over the largest |w| of the leaf (float64)."""
+        d, scale = float((x.double() - w).abs().max()), float(w.abs().max())
+        return d / scale if scale > 0 else (0.0 if d == 0 else np.inf)
+
+    for leg, before, after, metrics in mesh_run:
+        state, m = cpu_step(leg, before, torch.float32)
+        s64, m64 = cpu_step(leg, before, torch.float64)
+        card_t, p64 = dict(tree.named_leaves(after)), dict(tree.named_leaves(s64))
+        was = dict(tree.named_leaves(before))
+        sq = dict.fromkeys(("card", "cpu", "update", "negated"), 0.0)  # AdamW params, L2
+        for name, g in tree.named_leaves(state):
+            card, w = card_t[name], p64[name]
+            d = float((g.float() - card.float()).abs().max())
+            if name.startswith(".params"):
+                most(gaps["params"], leg, d)
+                if leg == "sgd":
+                    most(gaps["vs_float64"], "cpu_params_sgd", float((g.double() - w).abs().max()))
+                    most(gaps["vs_float64"], "card_params_sgd",
+                         float((card.double() - w).abs().max()))
+                else:
+                    b = was[name].double()
+                    sq["card"] += float((card.double() - w).square().sum())
+                    sq["cpu"] += float((g.double() - w).square().sum())
+                    sq["update"] += float((w - b).square().sum())
+                    sq["negated"] += float((2 * b - card.double() - w).square().sum())
+            elif name.startswith(".opt_state"):
+                most(gaps["vs_float64"], "cpu_moments", leaf_rel(g, w))
+                most(gaps["vs_float64"], "card_moments", leaf_rel(card, w))
+                wrong["moments_skipped"] = min(wrong["moments_skipped"], leaf_rel(was[name], w))
+            else:
+                _require(d == 0.0, f"train_agree: {name} differs on the CPU")
+        if leg == "adamw":
+            upd = np.sqrt(sq["update"])
+            _require(upd > 0, "train_agree: the float64 AdamW step moved nothing")
+            for who in ("card", "cpu"):
+                most(gaps["vs_float64"], f"{who}_params_adamw", np.sqrt(sq[who]) / upd)
+            wrong["params_negated"] = min(wrong["params_negated"], np.sqrt(sq["negated"]) / upd)
+        for k in m:
+            most(gaps["metrics"], k, abs(float(m[k]) - float(metrics[k]))
+                 / max(1.0, abs(float(metrics[k]))))
+        gn = float(m64["grad_norm"])
+        most(gaps["vs_float64"], "cpu_grad_norm", abs(float(m["grad_norm"]) - gn) / gn)
+        most(gaps["vs_float64"], "card_grad_norm", abs(float(metrics["grad_norm"]) - gn) / gn)
+
+    # checkpointed after 2 SGD steps, restored into a fresh model, one more
+    with tempfile.TemporaryDirectory() as d:
+        mgr = tr["checkpoint"].CheckpointManager(d)
+        model = fresh("cuda")
+        fn, state = step_fn(model, "sgd", "cuda", on_mesh=True)
+        for _ in range(2):
+            state, _ = fn(state, batch)
+        mgr.save(state, step=2)
+        model2 = fresh("cuda")
+        fn2, state2 = step_fn(model2, "sgd", "cuda", on_mesh=True)
+        restored, at = mgr.restore_latest(state2)
+        _load_state(tree, state2, restored)
+        state2, _ = fn2(state2, batch)
+        ckpt_bitwise = at == 2 and all(
+            _bits_equal(a, b) for a, b in zip(tree.tree_leaves(_host_state(tree, state2)),
+                                               tree.tree_leaves(mesh_run[2][2])))
+    launched = {k: fn.LAUNCHES - launches0[k] for k, fn in kmods.items()}
+    tol, f64 = TRAIN_AGREE_TOL, gaps["vs_float64"]
+    bound = {what: tol["float64_ratio"] * f64[f"cpu_{what}"] + tol["float64_floor"]
+             for what in f64_keys}
+    losses = {leg: [float(x[3]["loss"]) for x in mesh_run if x[0] == leg] for leg, _, _ in legs}
+    _emit({"phase": "train_agree", "arch": cfg.name, "batch": B, "seq_len": S,
+           "steps_per_leg": n, "legs": [x[0] for x in legs], "losses": losses,
+           "bitwise_mesh_vs_no_mesh": bitwise, "checkpoint_restore_bitwise": ckpt_bitwise,
+           "cpu_vs_card_max": gaps, "float64_bounds": bound, "tolerance": TRAIN_AGREE_TOL,
+           "launches": launched})
+    _require(bitwise, "train_agree: the mesh step differs from the step without a mesh")
+    _require(ckpt_bitwise, "train_agree: the restored run differs from the uninterrupted one")
+    _require(all(v == 0 for v in launched.values()), f"train_agree: kernels launched {launched}")
+    for what in f64_keys:
+        _require(f64[f"card_{what}"] <= bound[what],
+                 f"train_agree: {what} against float64: {f64}, bounds {bound}")
+    # the bounds refuse an AdamW step that was skipped or negated
+    _require(min(wrong["params_skipped"], wrong["params_negated"]) > bound["params_adamw"]
+             and wrong["moments_skipped"] > bound["moments"],
+             f"train_agree: the bounds {bound} pass a wrong AdamW step {wrong}")
+    _require(gaps["metrics"]["loss"] <= tol["loss"]
+             and gaps["metrics"]["participation"] == gaps["metrics"]["eps"] == 0.0,
+             f"train_agree: {gaps}")
+    _require(all(np.isfinite(v).all() for v in losses.values()), "train_agree: loss not finite")
+
+
+def _sdpa_ms(layers, B, S, H, KV, D):
+    """The training attention (``layers._sdpa``, plain PyTorch) at one
+    layer's shapes in bf16: forward alone (as the checkpointed forward
+    runs it) and forward plus backward (the recompute and the backward)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(B, S, H, D, device="cuda", generator=g, dtype=torch.bfloat16)
+    k = torch.randn(B, S, KV, D, device="cuda", generator=g, dtype=torch.bfloat16)
+    v = torch.randn(B, S, KV, D, device="cuda", generator=g, dtype=torch.bfloat16)
+    mask = layers.causal_mask(S, S, device="cuda")
+    with torch.no_grad():
+        fwd = _time_ms(lambda: layers._sdpa(q, k, v, mask, H // KV), iters=3, warmup=1)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    dout = torch.randn(B, S, H, D, device="cuda", generator=g, dtype=torch.bfloat16)
+
+    def fwd_bwd():
+        torch.autograd.grad(layers._sdpa(q, k, v, mask, H // KV), (q, k, v), dout)
+
+    return fwd, _time_ms(fwd_bwd, iters=3, warmup=1)
+
+
+def phase_train(tr, kmods):
+    """The LM training path at full width through the user's entry points:
+    build_model, make_smoke_mesh, build_train_step (default optimizer,
+    IplsStepConfig()), TRAIN["steps"] steps on synth_tokens. Seconds a
+    step (host clock after a sync), tokens/s, model FLOP/s and MFU, peak
+    memory, a phase split of one more step (forward, backward with the
+    recompute, update with the collectives: a syncing PhaseTimer), a
+    profile of one more step, and the plain attention's share (``_sdpa``
+    timed alone at the layer's shapes, times the layers)."""
+    import statistics
+
+    import torch
+
+    configs, sharded, steps = (tr[k] for k in ("configs", "sharded", "steps"))
+    cfg = configs.get_config(TRAIN["arch"])
+    B, S, n = TRAIN["batch"], TRAIN["seq_len"], TRAIN["steps"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = configs.build_model(cfg, device="cuda", seed=TRAIN["seed"])
+    mesh = tr["mesh"].make_smoke_mesh("cuda")
+    built = steps.build_train_step(model, mesh, configs.ShapeSpec("train_4k_cut", S, B, "train"))
+    state = built.init_state(model.params())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    _require(n_params == SERVE_PARAMS, f"train: {n_params} parameters")
+    # the matrices the step multiplies by: every 2-D+ weight but the
+    # embedding table (a gather); the unembedding is one
+    n_matmul = sum(p.numel() for name, p in model.named_parameters()
+                   if p.dim() >= 2 and not name.startswith("embed."))
+    tokens = tr["data"].synth_tokens(B, S, cfg.vocab, seed=TRAIN["seed"])
+    batch = {"tokens": torch.from_numpy(tokens), "participation": torch.ones(B)}
+
+    _reset_launches(kmods)
+    step_s, losses, gnorms, epss = [], [], [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = built.fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        epss.append(float(m["eps"]))
+    launches = {k: fn.LAUNCHES for k, fn in kmods.items()}
+    peak = torch.cuda.max_memory_allocated()
+    step_after = int(state.step)
+    # eps <- alpha eps + (1 - alpha) / r in float32, one agent, all in (r = 1)
+    want_eps, e = [], np.float32(1.0)
+    for _ in range(n):
+        e = np.float32(np.float32(0.5) * e + np.float32(0.5) / np.float32(1.0))
+        want_eps.append(float(e))
+    median = statistics.median(step_s[1:])
+    model_flops = 6 * n_matmul * B * S
+
+    # one more step with a syncing phase timer (the same pieces)
+    timer = tr["telemetry"].PhaseTimer()
+    timed = sharded.make_train_step(model.loss, built.optimizer, sharded.IplsStepConfig(),
+                                    num_agents=1, update_shardings=built.update_shardings,
+                                    mesh=mesh, timer=timer)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, _ = timed(state, batch)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t
+    split = {k: v["total_s"] for k, v in timer.summary().items()}
+    # and one under torch.profiler
+    _, prof = _profile(lambda: built.fn(state, batch))
+    del state, built, model, timed
+    torch.cuda.empty_cache()
+    spec = next(b.attn for g in cfg.groups for b in g.blocks if b.kind == "attn")
+    fwd_ms, fb_ms = _sdpa_ms(tr["layers"], B, S, spec.n_heads, spec.kv_heads, spec.head_dim)
+    # per layer: the forward, then in the backward the recompute and the backward
+    attn_s = _count_kinds(cfg, "attn") * (fwd_ms + fb_ms) / 1e3
+    torch.cuda.empty_cache()
+    out = {
+        "phase": "train", "arch": cfg.name, "params": n_params, "matmul_params": n_matmul,
+        "global_batch": B, "seq_len": S, "steps": n, "launches": launches,
+        "build_s": build_s, "step_s": step_s, "step_s_median_2_to_5": median,
+        "tokens_per_s": B * S / median, "model_flops_per_step": model_flops,
+        "model_flops_per_s": model_flops / median,
+        "mfu_of_bf16_peak": model_flops / median / BF16_FLOPS_PER_S,
+        "max_memory_allocated": peak, "losses": losses, "grad_norms": gnorms, "eps": epss,
+        "phase_split_step_s": timed_s, "phase_split_s": split,
+        "profile_step": prof,
+        "sdpa_ms_per_layer": {"forward": fwd_ms, "forward_backward": fb_ms},
+        "attention_share_of_step": attn_s / median,
+        "step_after_steps": step_after,
+    }
+    _emit(out)  # the numbers first, so that a failing check shows them
+    _require(all(v == 0 for v in launches.values()), f"train: kernels launched {launches}")
+    _require(all(np.isfinite(losses)) and all(np.isfinite(gnorms)), "train: not finite")
+    _require(epss == want_eps, f"train: eps {epss}, the recursion gives {want_eps}")
+    _require(step_after == n, f"train: step {step_after} after {n} steps")
+    return out
+
+
 def _profile(fn):
     """fn's result, and the device time by kernel over that one call of
     ``fn`` (torch.profiler), the wall time and the device's busy share of
@@ -2536,7 +2885,8 @@ def main() -> int:
         print(f"chip_smoke: {src / 'repro_torch'} not found; run from a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    from repro_torch import configs, data, device, fl, serve_lm, telemetry
+    from repro_torch import checkpoint, configs, data, device, fl, optim, serve_lm, telemetry, tree
+    from repro_torch.core import sharded
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention import ref as dref
@@ -2547,7 +2897,8 @@ def main() -> int:
     from repro_torch.kernels.linear_scan import ref as sref
     from repro_torch.kernels.quantize import ops as qops
     from repro_torch.kernels.quantize import ref as qref
-    from repro_torch.models import mlp_mnist
+    from repro_torch.launch import mesh, steps
+    from repro_torch.models import layers, mlp_mnist
     from repro_torch.p2p import network
 
     mods = {"data": data, "fl": fl, "telemetry": telemetry, "network": network,
@@ -2562,6 +2913,9 @@ def main() -> int:
         "rwkv6_scan": sops.rwkv6_scan,
     }
     lm = {"configs": configs, "device": device, "serve_lm": serve_lm}
+    tr = {"configs": configs, "sharded": sharded, "steps": steps, "mesh": mesh, "optim": optim,
+          "checkpoint": checkpoint, "tree": tree, "data": data, "layers": layers,
+          "telemetry": telemetry}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -2622,6 +2976,9 @@ def main() -> int:
     ])
     phase_baselines(mods, main_f32)
     phase_lm_agree(lm, kmods)
+    phase_train_agree(tr, kmods)
+    phase_train(tr, kmods)
+    torch.distributed.destroy_process_group()  # the smoke mesh's one-process group
     serve = phase_serve(lm, kmods, "serve", SERVE, SERVE_PARAMS,
                         (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32))
     serve_rwkv = phase_serve(lm, kmods, "serve_rwkv", SERVE_RWKV, SERVE_RWKV_PARAMS,

@@ -1,16 +1,16 @@
 """Architecture registry of the port: ``--arch <id>`` resolution, model
-construction and the shape table.
+construction, the shape table and ``input_specs``.
 
 Port of the reference's ``configs/registry.py`` for the dense family and
-RWKV6; the other architectures come with their slices (ROADMAP.md queue
-1), and the reference's ``input_specs`` (JAX ShapeDtypeStruct stand-ins)
-has no counterpart yet.
+RWKV6; the other architectures come with their slices (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict
+from typing import Dict, Tuple
+
+import torch
 
 from repro_torch.models.transformer import ArchConfig, TransformerLM
 
@@ -52,3 +52,23 @@ def build_model(arch_or_cfg, device="cuda", seed: int = 0) -> TransformerLM:
     ``device`` (CUDA by default; raises when there is none)."""
     cfg = get_config(arch_or_cfg) if isinstance(arch_or_cfg, str) else arch_or_cfg
     return TransformerLM(cfg, device=device, seed=seed)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """Shape and dtype of an input, without storage (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, TensorSpec]:
+    """The inputs of a train shape: the full federated batch, tokens and
+    the participation mask. The prefill and decode shapes' inputs come with
+    their step builders (ROADMAP.md queue 1)."""
+    if shape.kind != "train":
+        raise NotImplementedError(f"{shape.kind} inputs are not ported yet (ROADMAP.md queue 1)")
+    S, B = shape.seq_len, shape.global_batch
+    return {"tokens": TensorSpec((B, S), torch.int32),
+            "participation": TensorSpec((B,), torch.float32)}

@@ -75,6 +75,21 @@ def launch(name: str, fn, *args, device: torch.device) -> None:
 _capturing: List["Graph"] = []  # the Graph being captured, innermost last
 
 
+def forbid_grad(name: str, *tensors) -> None:
+    """Raise if autograd would record a call of a forward-only wrapper:
+    grad mode on and an input that requires grad. Its output has no
+    ``grad_fn`` (the kernels write into fresh tensors, and the plain
+    versions must behave as the kernels do), so the inputs' gradients would
+    silently be zero. Training takes the plain differentiable path
+    (``models.layers.apply_attention``); serving runs under
+    ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only (its kernel has no backward) but an input requires grad: "
+            "call it under torch.no_grad(), or train through the plain differentiable path"
+        )
+
+
 def count_launch(wrapper: Callable) -> None:
     """Count one launch of ``wrapper``'s kernel in ``wrapper.LAUNCHES``. A
     call under CUDA-graph capture launches nothing: it is recorded in the

@@ -13,7 +13,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import build_library, count_launch, launch
+from repro_torch.kernels._build import build_library, count_launch, forbid_grad, launch
 from repro_torch.kernels.decode_attention import ref
 from repro_torch.kernels.flash_attention.ops import DTYPES, check_attention_args
 
@@ -58,6 +58,7 @@ def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
     of whole 16-byte units. ``n_splits`` (1..8) sets the CTAs of each
     (batch, kv head); None takes ``choose_splits`` for the card. The result
     does not depend on it beyond float32 rounding."""
+    forbid_grad("decode", q, k, v)
     check_attention_args(q, k, v, kv_name="the cache")
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError(f"q must be 3-D and k, v 4-D, got {tuple(q.shape)}, {tuple(k.shape)}")

@@ -15,7 +15,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import build_library, count_launch, launch
+from repro_torch.kernels._build import build_library, count_launch, forbid_grad, launch
 from repro_torch.kernels.flash_attention import ref
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -85,6 +85,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
     any S >= 1. Query head h reads kv head h // (H / KV). Returns
     (B, H, S, D) in q's dtype; on CUDA with q's strides, so for a transposed
     (B, S, H, D) q the result transposes back to a contiguous tensor."""
+    forbid_grad("attention", q, k, v)
     check_attention_args(q, k, v)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q, k, v must be 4-D, got {tuple(q.shape)}, {tuple(k.shape)}")

@@ -7,13 +7,21 @@ numpy arrays (``np.asarray`` of each leaf) and unstacks them into the
 port's modules. bfloat16 arrays (numpy dtype ``bfloat16`` from
 ``ml_dtypes``, which ``torch.from_numpy`` refuses) cross as their 16-bit
 patterns; every other dtype as it is, so a float32 tree loads as float32.
+
+``load_jax_state`` carries a whole reference ``IplsTrainState`` across in
+the same way (params, the optimizer state unstacked per layer as the
+params are, step and eps), and ``to_reference_layout`` stacks a port state
+back into the reference's layout, so that the two packages' states compare
+leaf for leaf by name (``repro_torch.tree.named_leaves``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.sharded import IplsTrainState
 from repro_torch.models.param_defs import ParamTree
+from repro_torch.optim.optimizers import AdamLeaf
 
 
 def to_torch(arr: np.ndarray) -> torch.Tensor:
@@ -59,3 +67,71 @@ def load_jax_params(model, tree: dict):
         for li, p in enumerate(layers):
             _assign(p, tree[f"g{gi}"], layer=li, path=f"/g{gi}[{li}]")
     return model
+
+
+def _opt_leaf(x, layer, device):
+    """A reference optimizer-state leaf (an array, or an AdamLeaf of two)
+    as the port's, its slice ``layer`` of the stacked axis if given."""
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        if tuple(x._fields) != AdamLeaf._fields:
+            raise TypeError(f"unknown optimizer state leaf {type(x).__name__}{x._fields}")
+        return AdamLeaf(*(_opt_leaf(a, layer, device) for a in x))
+    return to_torch(np.asarray(x) if layer is None else np.asarray(x)[layer]).to(device)
+
+
+def _opt_tree(tree, layer, device):
+    if isinstance(tree, dict):
+        return {k: _opt_tree(v, layer, device) for k, v in tree.items()}
+    return _opt_leaf(tree, layer, device)
+
+
+def load_jax_state(model, state):
+    """A reference ``IplsTrainState`` (fields step, params, opt_state, eps;
+    leaves numpy arrays) as the port's: its params loaded into ``model``
+    (``load_jax_params``) and the state's params the model's own tensors
+    (``model.params()``), the optimizer state (empty for SGD, a float32
+    array per parameter for momentum, an AdamLeaf per parameter for
+    Adam/AdamW) unstacked per layer, step and eps as 0-d tensors; all on
+    the model's device."""
+    load_jax_params(model, state.params)
+    dev = model.device
+    opt = state.opt_state
+    if not (isinstance(opt, tuple) and len(opt) == 0):
+        groups = len(model.cfg.groups)
+        opt = dict(
+            {k: _opt_tree(v, None, dev) for k, v in opt.items() if not k.startswith("g")},
+            **{f"g{gi}": [_opt_tree(opt[f"g{gi}"], li, dev)
+                          for li in range(model.cfg.groups[gi].repeat)] for gi in range(groups)},
+        )
+    return IplsTrainState(step=to_torch(np.asarray(state.step)).to(dev),
+                          params=model.params(), opt_state=opt,
+                          eps=to_torch(np.asarray(state.eps)).to(dev))
+
+
+def _stack(x):
+    """A per-layer list of trees (tensors or AdamLeafs) stacked on a
+    leading axis, on the CPU."""
+    first = x[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in x]) for k in first}
+    if isinstance(first, AdamLeaf):
+        return AdamLeaf(*(_stack([t[i] for t in x]) for i in range(len(first))))
+    return torch.stack([t.detach().cpu() for t in x])
+
+
+def _host(x):
+    if isinstance(x, dict):
+        return {k: (_stack(v) if isinstance(v, list) else _host(v)) for k, v in x.items()}
+    if isinstance(x, AdamLeaf):
+        return AdamLeaf(*(_host(a) for a in x))
+    return x.detach().cpu().clone()
+
+
+def to_reference_layout(state: IplsTrainState) -> IplsTrainState:
+    """A port state in the reference's layout, as CPU tensors: every
+    group's per-layer list stacked on a leading ``layers`` axis (params and
+    optimizer state alike). Its ``named_leaves`` are the names
+    ``jax.tree_util.keystr`` gives the reference state's leaves."""
+    opt = state.opt_state
+    return IplsTrainState(step=_host(state.step), params=_host(state.params),
+                          opt_state=opt if opt == () else _host(opt), eps=_host(state.eps))

@@ -6,11 +6,14 @@ pair of functions, ``init_<block>`` (a nested dict of ``ParamDef``) and an
 apply function over a ``ParamTree``. Layouts are the reference's:
 activations (B, S, D), heads (B, S, H, hd), KV cache (B, T, KV, hd).
 
-Attention goes through the port's kernels: prefill through the flash
-attention wrapper, decode through the flash-decode wrapper. On CUDA tensors
-those launch the hand-written CUDA kernels; on CPU tensors they take the
-plain versions. Sliding windows, M-RoPE, MLA and MoE belong to later slices
-and raise ``NotImplementedError``.
+Serving attention goes through the port's kernels: prefill through the
+flash attention wrapper, decode through the flash-decode wrapper. On CUDA
+tensors those launch the hand-written CUDA kernels; on CPU tensors they take
+the plain versions. The kernels have no backward, so training attention
+(``apply_attention``) is the reference's own plain form, ``_sdpa``: two
+products and a float32 softmax, differentiated by autograd. Sliding
+windows, M-RoPE, MLA and MoE belong to later slices and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.param_defs import ParamDef
+from repro_torch.models.sharding_hooks import shard_act
 
 _LATER = "is not ported yet: it belongs to a later slice of the port (ROADMAP.md queue 1)"
 
@@ -34,7 +38,7 @@ _LATER = "is not ported yet: it belongs to a later slice of the port (ROADMAP.md
 
 
 def init_rmsnorm(d: int) -> Dict[str, ParamDef]:
-    return {"scale": ParamDef((d,), init="ones")}
+    return {"scale": ParamDef((d,), (None,), init="ones")}
 
 
 def rms_norm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -47,8 +51,8 @@ def rms_norm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 def init_layernorm(d: int) -> Dict[str, ParamDef]:
     return {
-        "scale": ParamDef((d,), init="ones"),
-        "bias": ParamDef((d,), init="zeros"),
+        "scale": ParamDef((d,), (None,), init="ones"),
+        "bias": ParamDef((d,), (None,), init="zeros"),
     }
 
 
@@ -123,15 +127,15 @@ def _check_spec(s: AttnSpec) -> None:
 def init_attention(s: AttnSpec) -> Dict[str, Any]:
     d, h, kv, hd = s.d_model, s.n_heads, s.kv_heads, s.head_dim
     defs: Dict[str, Any] = {
-        "wq": ParamDef((d, h, hd)),
-        "wk": ParamDef((d, kv, hd)),
-        "wv": ParamDef((d, kv, hd)),
-        "wo": ParamDef((h, hd, d)),
+        "wq": ParamDef((d, h, hd), ("embed", "heads", None)),
+        "wk": ParamDef((d, kv, hd), ("embed", "kv_heads", None)),
+        "wv": ParamDef((d, kv, hd), ("embed", "kv_heads", None)),
+        "wo": ParamDef((h, hd, d), ("heads", None, "embed")),
     }
     if s.bias:
-        defs["bq"] = ParamDef((h, hd), init="zeros")
-        defs["bk"] = ParamDef((kv, hd), init="zeros")
-        defs["bv"] = ParamDef((kv, hd), init="zeros")
+        defs["bq"] = ParamDef((h, hd), ("heads", None), init="zeros")
+        defs["bk"] = ParamDef((kv, hd), ("kv_heads", None), init="zeros")
+        defs["bv"] = ParamDef((kv, hd), ("kv_heads", None), init="zeros")
     if s.qk_norm:
         defs["q_norm"] = init_rmsnorm(hd)
         defs["k_norm"] = init_rmsnorm(hd)
@@ -185,13 +189,61 @@ def prefill_attention(params, s: AttnSpec, x: torch.Tensor, positions: torch.Ten
     return _out_proj(out.transpose(1, 2), params["wo"]), k, v
 
 
+def _sdpa(q, k, v, mask, n_rep: int) -> torch.Tensor:
+    """The reference's plain attention: q (B, S, H, hd); k, v (B, T, KV, hd);
+    mask broadcastable to (B, 1, S, T). Scores in q's dtype, then float32
+    (scaled, masked, softmax), probabilities back in q's dtype."""
+    if n_rep > 1:
+        k = k.repeat_interleave(n_rep, dim=2)
+        v = v.repeat_interleave(n_rep, dim=2)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    logits = torch.einsum("bshk,bthk->bhst", q, k).float() * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bthk->bshk", probs, v)
+
+
+def causal_mask(S: int, T: int, window: Optional[int] = None, offset: int = 0,
+                device="cpu") -> torch.Tensor:
+    """(1, 1, S, T) bool mask; ``offset`` is the position of query row 0
+    within the T axis."""
+    qi = torch.arange(S, device=device)[:, None] + offset
+    kj = torch.arange(T, device=device)[None, :]
+    m = kj <= qi
+    if window is not None:
+        m = m & (kj > qi - window)
+    return m[None, None]
+
+
+def apply_attention(params, s: AttnSpec, x: torch.Tensor, positions: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None):
+    """Full-sequence causal self-attention for training, differentiable:
+    ``_sdpa``, never a kernel. The activations take the reference's
+    sequence-parallel layout (q sharded over the sequence, k and v
+    gathered): the identity on a mesh whose model axis is 1
+    (``sharding_hooks``)."""
+    _check_spec(s)
+    S = x.shape[1]
+    q, k, v = _proj_qkv(params, s, x)
+    q, k = _rope_qk(s, q, k, positions)
+    q = shard_act(q, ("batch", "act_seq", None, None))
+    k = shard_act(k, ("batch", None, None, None))
+    v = shard_act(v, ("batch", None, None, None))
+    if mask is None:
+        mask = causal_mask(S, S, s.window, device=x.device)
+    out = _sdpa(q, k, v, mask, s.n_heads // s.kv_heads)
+    return _out_proj(out, params["wo"])
+
+
 def init_attn_cache(s: AttnSpec, batch: int, seq_len: int, dtype=torch.bfloat16):
     """KV cache defs for decode: full layers keep ``seq_len`` positions."""
     _check_spec(s)
     shape = (batch, seq_len, s.kv_heads, s.head_dim)
+    axes = ("batch", "kv_seq", "kv_heads", None)
     return {
-        "k": ParamDef(shape, init="zeros", dtype=dtype),
-        "v": ParamDef(shape, init="zeros", dtype=dtype),
+        "k": ParamDef(shape, axes, init="zeros", dtype=dtype),
+        "v": ParamDef(shape, axes, init="zeros", dtype=dtype),
     }
 
 
@@ -237,11 +289,11 @@ class MLPSpec:
 
 def init_mlp(s: MLPSpec) -> Dict[str, Any]:
     defs = {
-        "wu": ParamDef((s.d_model, s.d_ff)),
-        "wd": ParamDef((s.d_ff, s.d_model)),
+        "wu": ParamDef((s.d_model, s.d_ff), ("embed", "ffn")),
+        "wd": ParamDef((s.d_ff, s.d_model), ("ffn", "embed")),
     }
     if s.gated:
-        defs["wg"] = ParamDef((s.d_model, s.d_ff))
+        defs["wg"] = ParamDef((s.d_model, s.d_ff), ("embed", "ffn"))
     return defs
 
 
@@ -269,7 +321,7 @@ def apply_mlp(params, s: MLPSpec, x: torch.Tensor) -> torch.Tensor:
 
 
 def init_embedding(vocab: int, d_model: int) -> Dict[str, Any]:
-    return {"table": ParamDef((vocab, d_model), init="embed", scale=0.02)}
+    return {"table": ParamDef((vocab, d_model), ("vocab", "embed"), init="embed", scale=0.02)}
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,12 @@
-"""Parameter definitions: shape and init in one declaration.
+"""Parameter definitions: shape, logical sharding axes and init in one
+declaration.
 
 Port of the reference's ``models/param_defs.py``. A model declares a nested
 dict of ``ParamDef``; ``init_values`` draws it and ``ParamTree`` holds the
 values as a module whose attributes (and ``[]`` items) are the sub-trees and
 parameters, so layer code reads ``params["attn"]["wq"]`` as the reference
-does. The reference's logical sharding axes come with the slice that shards.
+does. ``axes_tree`` gives the matching tree of logical-axis tuples, which
+``core/sharded.py`` maps onto a mesh (the IPLS partition plane).
 
 The init follows the reference's fan-in rule (``init_leaf``), drawn from a
 ``torch.Generator``, so the numbers differ from JAX's for the same seed: the
@@ -13,7 +15,7 @@ tests carry the JAX weights across instead (``models/convert.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,9 +25,14 @@ from torch import nn
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # one logical axis name (or None) per dim
     init: str = "normal"        # normal | zeros | ones | embed
     scale: float = 1.0           # multiplier on the default fan-in scale
     dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ in rank")
 
 
 def init_leaf(d: ParamDef, gen: torch.Generator, device) -> torch.Tensor:
@@ -50,14 +57,36 @@ def stack_defs(defs, n: int):
     reference's scan layout); ``init_values`` draws a stacked leaf at once
     and ``unstack`` splits it into per-layer trees."""
     if isinstance(defs, ParamDef):
-        return dataclasses.replace(defs, shape=(n,) + defs.shape)
+        return dataclasses.replace(defs, shape=(n,) + defs.shape, axes=("layers",) + defs.axes)
     return {k: stack_defs(v, n) for k, v in defs.items()}
+
+
+def axes_tree(defs):
+    """The tree of logical-axis tuples matching ``defs``."""
+    if isinstance(defs, ParamDef):
+        return defs.axes
+    return {k: axes_tree(v) for k, v in defs.items()}
+
+
+def unstack_axes(defs, n: int) -> list:
+    """``n`` per-layer copies of a stacked period's axes, the leading
+    ``layers`` axis removed (the port keeps one tree per layer)."""
+    def drop(v):
+        if isinstance(v, ParamDef):
+            if v.axes[:1] != ("layers",):
+                raise ValueError(f"not a layer-stacked def: axes {v.axes}")
+            return v.axes[1:]
+        return {k: drop(x) for k, x in v.items()}
+
+    return [drop(defs) for _ in range(n)]
 
 
 class ParamTree(nn.Module):
     """A nested dict of parameters as a module: sub-trees are child modules,
-    leaves are frozen ``nn.Parameter``s (the port serves, it does not train
-    yet). ``tree[name]`` is ``getattr(tree, name)``."""
+    leaves frozen ``nn.Parameter``s (the train step takes its gradients
+    through detached aliases of them, ``core/sharded.py``).
+    ``tree[name]`` is ``getattr(tree, name)``; ``as_dict()`` is the nested
+    dict of the parameters themselves (no copies)."""
 
     def __init__(self, values: dict):
         super().__init__()
@@ -69,6 +98,11 @@ class ParamTree(nn.Module):
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+    def as_dict(self) -> dict:
+        out = {k: m.as_dict() for k, m in self._modules.items()}
+        out.update(self._parameters)
+        return out
 
 
 def _leaves(defs, prefix=()):

@@ -44,22 +44,22 @@ def init_rwkv6_time(s: RWKV6Spec) -> Dict[str, Any]:
     return {
         # token-shift interpolation weights (static per-stream mixes; the
         # decay lora below is the data-dependent part that defines RWKV6)
-        "mu_r": ParamDef((d,), init="ones", scale=0.5),
-        "mu_k": ParamDef((d,), init="ones", scale=0.5),
-        "mu_v": ParamDef((d,), init="ones", scale=0.5),
-        "mu_w": ParamDef((d,), init="ones", scale=0.5),
-        "mu_g": ParamDef((d,), init="ones", scale=0.5),
-        "wr": ParamDef((d, d)),
-        "wk": ParamDef((d, d)),
-        "wv": ParamDef((d, d)),
-        "wg": ParamDef((d, d)),
+        "mu_r": ParamDef((d,), (None,), init="ones", scale=0.5),
+        "mu_k": ParamDef((d,), (None,), init="ones", scale=0.5),
+        "mu_v": ParamDef((d,), (None,), init="ones", scale=0.5),
+        "mu_w": ParamDef((d,), (None,), init="ones", scale=0.5),
+        "mu_g": ParamDef((d,), (None,), init="ones", scale=0.5),
+        "wr": ParamDef((d, d), ("embed", "heads")),
+        "wk": ParamDef((d, d), ("embed", "heads")),
+        "wv": ParamDef((d, d), ("embed", "heads")),
+        "wg": ParamDef((d, d), ("embed", "heads")),
         # data-dependent decay: w_t = exp(-exp(w0 + tanh(x w1) w2))
-        "w0": ParamDef((d,), init="zeros"),
-        "w1": ParamDef((d, s.decay_lora), scale=0.1),
-        "w2": ParamDef((s.decay_lora, d), scale=0.1),
-        "u": ParamDef((d,), init="zeros"),  # bonus for the current token
+        "w0": ParamDef((d,), (None,), init="zeros"),
+        "w1": ParamDef((d, s.decay_lora), ("embed", None), scale=0.1),
+        "w2": ParamDef((s.decay_lora, d), (None, "heads"), scale=0.1),
+        "u": ParamDef((d,), (None,), init="zeros"),  # bonus for the current token
         "ln_out": init_rmsnorm(d),
-        "wo": ParamDef((d, d)),
+        "wo": ParamDef((d, d), ("heads", "embed")),
     }
 
 
@@ -129,11 +129,11 @@ def decode_rwkv6_time(params, s: RWKV6Spec, x, state, x_prev):
 def init_rwkv6_channel(s: RWKV6Spec, d_ff: int) -> Dict[str, Any]:
     d = s.d_model
     return {
-        "mu_k": ParamDef((d,), init="ones", scale=0.5),
-        "mu_r": ParamDef((d,), init="ones", scale=0.5),
-        "wk": ParamDef((d, d_ff)),
-        "wv": ParamDef((d_ff, d)),
-        "wr": ParamDef((d, d)),
+        "mu_k": ParamDef((d,), (None,), init="ones", scale=0.5),
+        "mu_r": ParamDef((d,), (None,), init="ones", scale=0.5),
+        "wk": ParamDef((d, d_ff), ("embed", "ffn")),
+        "wv": ParamDef((d_ff, d), ("ffn", "embed")),
+        "wr": ParamDef((d, d), ("embed", None)),
     }
 
 

@@ -1,5 +1,6 @@
-"""Decoder-only LM stack for serving: the dense family (attention + MLP
-blocks) and RWKV6 (time-mix + channel-mix blocks).
+"""Decoder-only LM stack: the dense family (attention + MLP blocks) and
+RWKV6 (time-mix + channel-mix blocks), for serving and, the dense family,
+for training.
 
 Port of the reference's ``models/transformer.py``. A model is a sequence of
 GROUPS; each group is a PERIOD of blocks repeated ``repeat`` times. The
@@ -12,9 +13,14 @@ logits (B, 1, V) bfloat16, and per layer a cache entry in
 ``cache[f"g{gi}"][layer][f"b{bi}"]``: ``{"k", "v"}`` of (B, T, KV, hd) for
 attention, ``{"state", "x_prev"}`` (float32 (B, H, K, K) and the block's
 last normed input (B, 1, D)) for the RWKV6 time mix, ``{"x_prev"}`` for
-the channel mix. Decode updates the entries in place. The other block kinds
-(MLA, MoE, Mamba2), shared blocks and training (``loss``) belong to later
-slices.
+the channel mix. Decode updates the entries in place.
+
+Training (``loss``) takes the params as a tree (``params()``: the module's
+own parameters, one dict per layer in ``g{gi}``'s list), runs each layer
+under ``torch.utils.checkpoint`` (the reference's remat) with the plain
+attention ``layers.apply_attention``, and returns the per-example
+next-token cross entropy over bfloat16 logits. RWKV6 training, the other
+block kinds (MLA, MoE, Mamba2) and shared blocks belong to later slices.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -30,11 +37,15 @@ from repro_torch.models import ssm as S
 from repro_torch.models.param_defs import (
     ParamDef,
     ParamTree,
+    axes_tree,
     count_params,
     init_values,
     stack_defs,
     unstack,
+    unstack_axes,
 )
+from repro_torch.models.sharding_hooks import shard_act
+from repro_torch.tree import tree_map
 
 SUPPORTED_KINDS = ("attn", "mlp", "rwkv6_time", "rwkv6_channel")
 
@@ -69,6 +80,7 @@ class ArchConfig:
     final_norm: str = "rms"
     subquadratic: bool = False                   # eligible for long_500k
     mrope: bool = False                          # expects positions3 input
+    remat: bool = True                           # recompute each layer in backward
 
     @property
     def n_layers(self) -> int:
@@ -105,16 +117,51 @@ def block_defs(b: BlockSpec, d_model: int) -> Dict[str, Any]:
     return defs
 
 
+def _sharded_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token NLL in the reference's masked-reduction form (which stays
+    local under a vocab-sharded layout): float32 logsumexp minus the target
+    logit picked by a comparison with the vocab index."""
+    l32 = logits.float()
+    m = l32.amax(dim=-1)
+    lse = m + torch.log(torch.exp(l32 - m[..., None]).sum(dim=-1))
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    tgt = torch.where(vocab == targets[..., None], l32, 0.0).sum(dim=-1)
+    return lse - tgt
+
+
+def apply_block_train(b: BlockSpec, p, x, ctx: dict) -> torch.Tensor:
+    """A block's training forward: ``x + f(norm(x))``, differentiable. The
+    reference gathers a block's input over the sequence (Megatron-SP) when
+    its heads or ffn divide a model axis above 1; on the ported meshes
+    (model axis 1) it never does, and its attention runs sequence-parallel."""
+    h = _norm_apply(b.norm, p["norm"], x)
+    if b.kind == "attn":
+        y = L.apply_attention(p["attn"], b.attn, h, ctx["positions"])
+    elif b.kind == "mlp":
+        y = L.apply_mlp(p["mlp"], b.mlp, h)
+    else:
+        raise NotImplementedError(_RWKV_TRAIN)
+    return shard_act(x + y, ("batch", "act_seq", "embed"))
+
+
+_RWKV_TRAIN = (
+    "RWKV6 training is not ported yet: its time mix launches the forward-only scan "
+    "kernel (ROADMAP.md queue 1)"
+)
+
+
 def block_cache_defs(b: BlockSpec, batch: int, seq_len: int, dtype) -> Optional[Dict[str, Any]]:
     if b.kind == "attn":
         return L.init_attn_cache(b.attn, batch, seq_len, dtype)
     if b.kind == "mlp":
         return None  # stateless
-    x_prev = ParamDef((batch, 1, b.rwkv.d_model), init="zeros", dtype=dtype)
+    x_prev = ParamDef((batch, 1, b.rwkv.d_model), ("batch", None, None), init="zeros",
+                      dtype=dtype)
     if b.kind == "rwkv6_channel":
         return {"x_prev": x_prev}
     H, K = b.rwkv.n_heads, b.rwkv.head_dim
-    return {"state": ParamDef((batch, H, K, K), init="zeros", dtype=torch.float32),
+    return {"state": ParamDef((batch, H, K, K), ("batch", "heads", None, None),
+                                      init="zeros", dtype=torch.float32),
             "x_prev": x_prev}
 
 
@@ -168,16 +215,27 @@ def lm_param_defs(cfg: ArchConfig) -> Dict[str, Any]:
     defs["final_norm"] = _norm_init(cfg.final_norm, cfg.d_model)
     if not cfg.tie_embeddings:
         defs["lm_head"] = {
-            "table": ParamDef((cfg.vocab, cfg.d_model), init="embed", scale=0.02)
+            "table": ParamDef((cfg.vocab, cfg.d_model), ("vocab", "embed"), init="embed",
+                              scale=0.02)
         }
     return defs
 
 
+def lm_axes(cfg: ArchConfig) -> Dict[str, Any]:
+    """The logical axes of a model's ``params()``: the reference's, per
+    layer (its stacked ``layers`` axis removed). Nothing is allocated."""
+    defs = lm_param_defs(cfg)
+    out = {k: axes_tree(v) for k, v in defs.items() if not k.startswith("g")}
+    for gi, g in enumerate(cfg.groups):
+        out[f"g{gi}"] = unstack_axes(defs[f"g{gi}"], g.repeat)
+    return out
+
+
 class TransformerLM(nn.Module):
-    """The LM (dense or RWKV6). Parameters are drawn at construction from ``seed`` on
-    ``device`` (frozen: the port serves, it does not train yet). The device
-    is CUDA by default and raises when there is none; pass ``device="cpu"``
-    to run on the CPU."""
+    """The LM (dense or RWKV6). Parameters are drawn at construction from
+    ``seed`` on ``device``, frozen (``ParamTree``).
+    The device is CUDA by default and raises when there is none; pass
+    ``device="cpu"`` to run on the CPU."""
 
     def __init__(self, cfg: ArchConfig, device="cuda", seed: int = 0):
         super().__init__()
@@ -202,6 +260,24 @@ class TransformerLM(nn.Module):
     def param_defs(self) -> Dict[str, Any]:
         return lm_param_defs(self.cfg)
 
+    def params(self) -> Dict[str, Any]:
+        """The parameters as a tree (the module's own tensors, no copies):
+        ``embed``, ``final_norm``, ``lm_head`` and, per group ``g{gi}``, a
+        list of per-layer dicts. A train step that updates the tree in
+        place updates the module."""
+        out: Dict[str, Any] = {k: getattr(self, k).as_dict()
+                               for k in ("embed", "final_norm", "lm_head") if hasattr(self, k)}
+        for gi, layers in enumerate(self.groups):
+            out[f"g{gi}"] = [p.as_dict() for p in layers]
+        return out
+
+    def axes(self) -> Dict[str, Any]:
+        return lm_axes(self.cfg)
+
+    def param_shapes(self) -> Dict[str, Any]:
+        """``params()`` as meta tensors: shapes and dtypes, no storage."""
+        return tree_map(lambda p: torch.empty_like(p, device="meta"), self.params())
+
     def num_params(self) -> int:
         return count_params(self.param_defs())
 
@@ -214,10 +290,12 @@ class TransformerLM(nn.Module):
         return self.embed.table.dtype
 
     # -- pieces ---------------------------------------------------------------
-    def _logits(self, x):
+    def _logits(self, x, params=None):
         """bfloat16 logits of a float32-accumulated product with the
-        (tied or separate) unembedding table."""
-        table = self.embed.table if self.cfg.tie_embeddings else self.lm_head.table
+        (tied or separate) unembedding table, of ``params`` (a tree) or of
+        the module."""
+        key = "embed" if self.cfg.tie_embeddings else "lm_head"
+        table = getattr(self, key).table if params is None else params[key]["table"]
         return (x @ table.t()).to(torch.bfloat16)
 
     def _layers(self):
@@ -230,6 +308,40 @@ class TransformerLM(nn.Module):
         """``caches[f"g{gi}"][li][key] = entry``, one dict per layer."""
         layers = caches.setdefault(f"g{gi}", [{} for _ in range(self.cfg.groups[gi].repeat)])
         layers[li][key] = entry
+
+    # -- training ----------------------------------------------------------------
+    def _stack_apply_train(self, params, x, ctx):
+        """Every layer's blocks in order; with ``cfg.remat`` each layer runs
+        under ``torch.utils.checkpoint`` (its activations recomputed in the
+        backward pass, the reference's ``jax.checkpoint`` of its scan body)."""
+        for gi, g in enumerate(self.cfg.groups):
+            for lp in params[f"g{gi}"]:
+                def layer(x, blocks=g.blocks, lp=lp):
+                    for bi, b in enumerate(blocks):
+                        x = apply_block_train(b, lp[f"b{bi}"], x, ctx)
+                    return x
+
+                x = checkpoint(layer, x, use_reentrant=False) if self.cfg.remat else layer(x)
+        return x
+
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross entropy. batch: tokens (B, S) int. Returns
+        (per_example_loss (B,) float32, aux), differentiable in ``params``
+        (a tree as ``params()`` gives). The logits are bfloat16 (a
+        float32-accumulated product), the CE in float32."""
+        for g in self.cfg.groups:
+            if any(b.kind.startswith("rwkv6") for b in g.blocks):
+                raise NotImplementedError(_RWKV_TRAIN)
+        tokens = batch["tokens"].to(self.device).long()
+        B, Sq = tokens.shape
+        ctx = {"positions": torch.arange(Sq, device=self.device)[None, :].expand(B, Sq)}
+        x = shard_act(L.embed(params["embed"], tokens), ("batch", "act_seq", "embed"))
+        x = self._stack_apply_train(params, x, ctx)
+        x = _norm_apply(self.cfg.final_norm, params["final_norm"], x)
+        x = shard_act(x, ("batch", None, "embed"))
+        logits = shard_act(self._logits(x[:, :-1], params), ("batch", None, "vocab"))
+        nll = _sharded_ce(logits, tokens[:, 1:])
+        return nll.mean(dim=-1), {"lb_loss": torch.zeros((), device=self.device)}
 
     # -- serving ---------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, dtype=None):
