@@ -95,12 +95,12 @@ exits non-zero:
               bytes per agent per round beside main's. The port's examples
               (quickstart, churn_demo) run as processes on the card while
               (a) runs, and must exit 0;
-  lm_agree  — the LMs (internlm2, phi4-mini, minitron, rwkv6) at their reduced
-              configs: the port on the card (attention and scan kernels)
-              against the port on the CPU (plain versions), same weights from
-              one seed, prompts of 16 and 100 tokens, 8 decode steps; logits
-              within one bfloat16 ulp (+1e-5) in float32 weights, within
-              0.03 in bf16;
+  lm_agree  — the LMs (internlm2, phi4-mini, minitron, granite-moe,
+              deepseek-v2-lite, rwkv6) at their reduced configs: the port on
+              the card (attention and scan kernels) against the port on the
+              CPU (plain versions), same weights from one seed, prompts of
+              16 and 100 tokens, 8 decode steps; logits within one bfloat16
+              ulp (+1e-5) in float32 weights, within 0.03 in bf16;
   train_agree — the IPLS train step (repro_torch.core.sharded through
               launch.steps.build_train_step) on the card's smoke mesh (a
               one-process NCCL group), internlm2-reduced in float32: 3
@@ -135,7 +135,11 @@ exits non-zero:
               flash attention's share of the prefill's device time,
               finite logits; decode at pos 4,096 against the last-token
               logits of a 4,097-token prefill, in bf16 and, for the served
-              prompt and a second one, in float32 weights;
+              prompt and a second one, in float32 weights, end to end
+              and block by block (each block's decode from its prefill
+              input: float32 within 1e-4 of its output's scale, bf16 no
+              worse than the bf16 prefill against the block run in
+              float32; LAYER_TOL); no host sync in 8 decode steps;
   serve_rwkv — the RWKV6 path at full width: rwkv6-7b (7,534,546,944
               parameters, bf16) through build_model and serve_lm.generate,
               batch 4, a 4,096-token prompt from the seed, 128 greedy tokens;
@@ -143,6 +147,28 @@ exits non-zero:
               prefill) and none of any other kernel; the same numbers and
               checks as serve, the 4,097-token prefill running the kernel's
               ragged last chunk;
+  serve_moe — the MoE family at full width: granite-moe-3b-a800m
+              (3,298,793,472 bf16 parameters, 882,872,832 active, nothing
+              cut) through build_model and serve_lm.generate, batch 4, a
+              4,096-token prompt, 128 greedy tokens; exactly 32 flash and
+              32 x 127 decode launches (head_dim 64), none of any other
+              kernel; serve's numbers, and the profiler's shares of the MoE
+              layers' named ranges (dispatch and combine, expert GEMMs);
+              no host sync (cudaStreamSynchronize, .item()) in 8 decode
+              steps. Decode at pos 4,096 vs a 4,097-token prefill: the
+              served config's gap reported (its capacity drops differ
+              between 4 and 16,388 tokens, and its prefill of 4,097-token
+              rows runs in one group, the served one in 32), and serve's
+              checks on a copy whose capacity keeps every choice
+              (capacity_factor = experts / top_k, same weights); the
+              end-to-end limits in bf16 and float32 given way to the
+              witness of WITNESS_FACTOR's note (the model's own gain);
+  serve_mla — the same for deepseek-v2-lite-16b (15,706,484,224 bf16
+              parameters, 2,451,432,960 active; MLA and 64 routed experts
+              top-6 with 2 shared): batch 4, a 4,096-token prompt, 64
+              tokens, no kernel launch; its decode-vs-prefill checks at
+              batch 1 (its float32 copy is 63 GB), the bf16 end-to-end
+              limit given way to the witness;
   kernel    — the f32 aggregation kernel against its plain PyTorch version,
               bit for bit, at the main path's shape (K=20, R=51, S=44361),
               ragged cases and the single-partition form; kernel (device
@@ -158,19 +184,23 @@ exits non-zero:
               time at every width: aggregate_variants.py);
   kernel_attn — the attention kernels against their plain versions at the
               serve shapes (flash B=4, H=16, KV=8, S=4096, D=128; decode at
-              T=4352, pos 0, 255, 4095, 4351) and ragged ones (flash S = 1,
-              100, 128, 129, 300, 4097, and q x 8 to drive the online
-              rescale): float32 within 2e-5; decode in bf16 within one bf16
+              T=4352, pos 0, 255, 4095, 4351), at serve_moe's (flash B=4,
+              H=24, KV=8, S=4096, D=64; decode at T=4352, the same pos) and
+              ragged ones (flash S = 1, 100, 128, 129, 300, 4097, and q x 8
+              to drive the online rescale; D = 16, 64, 128): float32 within
+              2e-5; decode in bf16 within one bf16
               ulp (+2e-5), two calls bitwise equal, and a CUDA graph of one
               decode call replayed with pos 0, 255, 4095, 4351 written into
               its pos tensor bitwise equal to the eager call and within the
-              same bound of the plain version; flash in bf16, which rounds
+              same bound of the plain version (at both head sizes); flash
+              in bf16, which rounds
               P to bf16 on the tensor cores, within 2**-7 * attn(q, k, |v|)
               + one bf16 ulp + 2e-5 of both the plain version and the plain
               tiled version (with, for each, the elements beyond two bf16
               ulps); times beside the bound (achieved TFLOP/s, share of the
               bound; decode: the split count and the other candidate's time)
-              and scaled_dot_product_attention as the yardstick;
+              and scaled_dot_product_attention as the yardstick, at D = 128
+              and D = 64;
   kernel_scan — the linear-scan kernel against three plain versions (step
               oracle, chunked scan, the kernel's split order) at the serve
               shape (4, 4096, 64, 64) in float32 and bf16, T = 1, 17, 100,
@@ -291,7 +321,10 @@ LM_AGREE_CASES = ((16, 32), (100, 128))  # (prompt length, cache_len)
 LM_AGREE_STEPS = 8
 # bf16 logits, card vs CPU: both sides run the port's own code, so only the
 # order of float32 sums and the roundings to bf16 differ (measured at most
-# 8.3e-3 on an H100, about one bf16 ulp at logits of 1-2)
+# 8.3e-3 on an H100, about one bf16 ulp at logits of 1-2). The MoE archs'
+# routes are the same on both sides on these inputs (a route flipped between
+# two gates within a bf16 rounding would move a logit by a whole expert's
+# output): 0.0127 (granite-moe) and 0.0039 (deepseek) on an H100
 LM_BF16_TOL = 0.03
 # decode at pos 4,096 vs the last-token logits of a 4,097-token prefill
 # (logits of std about 1.8). The two paths round differently: GEMMs of M = 4
@@ -346,13 +379,58 @@ FLASH_BF16_P_ROUNDING = 2.0**-7
 FLASH_SHAPE = (4, 16, 8, 4096, 128)  # B, H, KV, S, D of the serve prefill
 # (shape, causal, q scale): S = 1, at and past one tile, ragged, past 32 tiles;
 # q x 8 moves the running max across key tiles (alpha far from 1)
+FLASH_D64_SHAPE = (4, 24, 8, 4096, 64)  # granite-moe's prefill (serve_moe)
 FLASH_CASES = [(FLASH_SHAPE, True, 1.0), ((2, 16, 8, 100, 128), True, 1.0),
                ((1, 16, 8, 4097, 128), True, 1.0), ((2, 4, 2, 100, 16), True, 1.0),
                ((1, 6, 2, 300, 16), True, 1.0), ((1, 16, 8, 1, 128), True, 1.0),
                ((2, 16, 8, 128, 128), True, 1.0), ((2, 16, 8, 129, 128), False, 1.0),
-               ((1, 16, 8, 4097, 128), True, 8.0), ((2, 8, 2, 300, 16), False, 8.0)]
+               ((1, 16, 8, 4097, 128), True, 8.0), ((2, 8, 2, 300, 16), False, 8.0),
+               (FLASH_D64_SHAPE, True, 1.0), ((1, 24, 8, 4097, 64), True, 8.0),
+               ((2, 24, 8, 129, 64), False, 1.0), ((2, 24, 8, 1, 64), True, 1.0)]
 DECODE_SHAPE = (4, 16, 8, 4352, 128)  # B, H, KV, T, D of the serve decode
+DECODE_D64_SHAPE = (4, 24, 8, 4352, 64)  # granite-moe's decode (serve_moe)
 DECODE_POS = (0, 255, 4095, 4351)
+# the MoE family at full width, serving: granite-moe-3b-a800m (GQA attention
+# at head_dim 64 through both attention kernels, 40 experts top-8) and
+# deepseek-v2-lite-16b (MLA and 64 routed experts top-6 + 2 shared, plain
+# PyTorch: no kernel); (parameters, active parameters) as the reference counts them
+SERVE_MOE = dict(arch="granite-moe-3b-a800m", batch=4, prompt_len=4096, tokens=128, seed=0)
+SERVE_MOE_PARAMS = (3_298_793_472, 882_872_832)
+SERVE_MLA = dict(arch="deepseek-v2-lite-16b", batch=4, prompt_len=4096, tokens=64, seed=0)
+SERVE_MLA_PARAMS = (15_706_484_224, 2_451_432_960)
+# deepseek's float32 copy is 63 GB: its float32 decode-vs-prefill checks run
+# at batch 1
+SERVE_MLA_CHECK_BATCH = 1
+# Decode vs prefill block by block (``_layerwise``), every served arch: each
+# block's decode from its prefill input, against the cache a prefill of the
+# first P positions filled, to its prefill output at position P, as a share
+# of that output's largest |value|. In float32 weights within LAYER_TOL (a
+# wrong cache slot, position, mask, state or expert moves it by its scale).
+# In bf16 the decode's gap from the block run in float32 (its weights and
+# input cast up) within LAYER_BF16_RATIO times the bf16 prefill's own gap
+# from it plus LAYER_BF16_FLOOR (two bf16 ulps): decode rounds no worse than
+# prefill.
+LAYER_TOL = 1e-4
+LAYER_BF16_RATIO = 2.0
+LAYER_BF16_FLOOR = 2.0**-7
+# An arch whose end-to-end decode-vs-prefill gap in a dtype exceeds its
+# bound only through the model's own gain: the witness is the ``carried``
+# chain of ``_layerwise``, prefill alone fed the first block's decode output
+# at position P (a difference within the block's bound above). Where that
+# chain's logits gap already reaches the bound, the end-to-end gap is held
+# to WITNESS_FACTOR times it instead; else to the bound. On an H100
+# granite's carried chain parted from prefill as its free decode chain did,
+# block for block (float32: 3.2e-5 of the scale after the first block,
+# 0.014, 0.15, 0.32, 0.49 after blocks 9, 17, 25, 33; 0.80 and 0.79 after
+# block 57), and the end-to-end gaps were 0.73-1.03 times the carried
+# chain's logits gaps (float32 6.66 / 6.47, 5.59 / 7.63; bf16 9.30 / 9.47).
+WITNESS_FACTOR = 2.0
+SERVE_MOE_WITNESSED = ("bf16", "float32")
+SERVE_MLA_WITNESSED = ("bf16",)
+# the profiler ranges of the MoE and MLA layers (models/layers.py ``_span``)
+SPANS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine", "moe.shared", "mla")
+# host syncs a decode step must not have (a device value read on the host)
+HOST_SYNCS = ("cudaStreamSynchronize", "aten::_local_scalar_dense")
 # the RWKV6 path: rwkv6-7b at full width, serving
 SERVE_RWKV = dict(arch="rwkv6-7b", batch=4, prompt_len=4096, tokens=128, seed=0)
 SERVE_RWKV_PARAMS = 7_534_546_944
@@ -2362,7 +2440,10 @@ def phase_train(tr, kmods):
 def _profile(fn):
     """fn's result, and the device time by kernel over that one call of
     ``fn`` (torch.profiler), the wall time and the device's busy share of
-    it; None where the profiler shows no device time."""
+    it; None where the profiler shows no device time. Also the device time
+    of the kernels launched inside each of the model's named ranges
+    (``SPANS``; ms and calls) and the count of each host sync in
+    ``HOST_SYNCS``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2373,7 +2454,15 @@ def _profile(fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_kernel = {}  # device activities only (kernels, copies): host ops would count twice
+    spans = {}  # the ranges' host events, with the device time of their kernels
+    syncs = dict.fromkeys(HOST_SYNCS, 0)
     for e in prof.key_averages():
+        if e.key in syncs:
+            syncs[e.key] += e.count
+        if e.key in SPANS:  # its device-side copy (a GPU annotation) is no kernel
+            if e.device_type != DeviceType.CUDA:
+                spans[e.key] = [e.device_time_total / 1e3, e.count]
+            continue
         if e.device_type != DeviceType.CUDA:
             continue
         us, n = by_kernel.get(e.key[:80], (0.0, 0))
@@ -2384,7 +2473,16 @@ def _profile(fn):
         "wall_s": wall, "device_s": total_us / 1e6 if total_us else None,
         "device_busy_share": total_us / 1e6 / wall if total_us else None,
         "top_kernels_ms": {k: [us / 1e3, n] for k, (us, n) in top},
+        "spans_ms": spans, "host_syncs": syncs,
     }
+
+
+def _span_share(prof, names):
+    """The share of a profile's device time in the kernels of the named
+    ranges; None without device time."""
+    if not prof["device_s"]:
+        return None
+    return sum(prof["spans_ms"].get(n, [0.0])[0] for n in names) / (prof["device_s"] * 1e3)
 
 
 def _share(prof, tag: str):
@@ -2396,16 +2494,133 @@ def _share(prof, tag: str):
     return ms / (prof["device_s"] * 1e3)
 
 
-def phase_serve(lm, kmods, name, spec, n_params_want, bounds):
+def _lossless(cfg):
+    """The config with every MoE capacity at all of its choices
+    (capacity_factor = num_experts / top_k): prefill and decode then drop
+    nothing, so they route each token alike."""
+    def block(b):
+        if b.kind != "moe":
+            return b
+        return dataclasses.replace(b, moe=dataclasses.replace(
+            b.moe, capacity_factor=b.moe.num_experts / b.moe.top_k))
+
+    return dataclasses.replace(cfg, groups=tuple(
+        dataclasses.replace(g, blocks=tuple(block(b) for b in g.blocks)) for g in cfg.groups))
+
+
+def _decode_vs_prefill(model, seq, P):
+    """Decode of token P after a prefill of seq[:, :P], against the
+    last-token logits of a prefill of seq (P + 1 tokens): max |d|, the
+    share of rows with the same greedy token, and the logits more than one
+    bf16 ulp apart."""
+    import torch
+
+    _, cache = model.prefill({"tokens": seq[:, :P], "cache_len": P + 1})
+    step, _ = model.decode_step(cache, {"token": seq[:, P:], "pos": P})
+    del cache
+    ref, _ = model.prefill({"tokens": seq})
+    s, r = step.float(), ref.float()
+    over = ((s - r).abs() > _bf16_ulp(torch.maximum(s.abs(), r.abs()))).sum().item()
+    return (s - r).abs().max().item(), _same_argmax(step, ref), over
+
+
+def _tree_cast(tree, dtype):
+    """A copy of a nested dict of tensors, its floating leaves in ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _tree_cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def _layerwise(model, seq, P, carry: bool):
+    """Decode of token P against a prefill of seq (P + 1 tokens), block by
+    block, chained as prefill and decode_step chain them. A block with a
+    cache takes it from a prefill of its input's first P positions
+    (``cache_len`` P + 1); each gap is max |d| at position P over the
+    largest |value| of the block's prefill output there:
+      forced  -- the block's decode from its prefill input: its own arithmetic;
+      free    -- the decode chain from the embedding (decode_step's);
+      carried -- with ``carry``, the prefill chain fed, from the second
+                 block on, the first block's decode output at P: that
+                 difference taken on by prefill alone (the witness of
+                 WITNESS_FACTOR's note);
+    for a bf16 model, each block also run in float32 (its weights and input
+    cast up, a row at a time) and the bf16 prefill's and forced decode's
+    gaps from it (``err_prefill``, ``err_decode``); and the logits gaps
+    (max |d|) of the free and carried chains."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    dev = model.device
+    tokens = seq.to(dev)
+    B = tokens.shape[0]
+    ar = torch.arange(P + 1, device=dev)[None].expand(B, P + 1)
+    full, head = {"positions": ar, "cache_len": P + 1}, {"positions": ar[:, :P], "cache_len": P + 1}
+    row = {"positions": ar[:1], "cache_len": P + 1}
+    pos = torch.tensor(P, dtype=torch.int32, device=dev)
+    up = model.dtype != torch.float32
+    keys = ("forced", "free") + (("carried",) if carry else ()) + (
+        ("err_prefill", "err_decode") if up else ())
+    out = {k: [] for k in keys}
+
+    def logits(h):
+        return model._logits(T._norm_apply(model.cfg.final_norm, model.final_norm, h)).float()
+
+    with torch.no_grad():
+        x = L.embed(model.embed, tokens)
+        x_free, x_car = x[:, P:], None
+        for _, _, _, b, p in model._layers():
+            c = None
+            if T.block_cache_defs(b, 1, 1, model.dtype) is not None:
+                c = T.apply_block_prefill(b, p, x[:, :P], head)[1]
+            forced_c = None if c is None else {k: v.clone() for k, v in c.items()}
+            y, _ = T.apply_block_decode(b, p, x[:, P:], forced_c, pos)
+            x_free, _ = T.apply_block_decode(b, p, x_free, c, pos)
+            del c, forced_c
+            if up:
+                p32 = _tree_cast(p.as_dict(), torch.float32)
+                ref32 = torch.cat([T.apply_block_prefill(b, p32, x[r:r + 1].float(), row)[0][:, P:]
+                                   for r in range(B)])
+                del p32
+            x_out = T.apply_block_prefill(b, p, x, full)[0]
+            if carry:
+                x_car = (torch.cat([x_out[:, :P], y], dim=1) if x_car is None
+                         else T.apply_block_prefill(b, p, x_car, full)[0])
+            x = x_out
+            want = x[:, P:].float()
+            scale = want.abs().max().item()
+            for key, got in (("forced", y), ("free", x_free)) + (
+                    (("carried", x_car[:, P:]),) if carry else ()):
+                out[key].append((got.float() - want).abs().max().item() / scale)
+            if up:
+                out["err_prefill"].append((want - ref32).abs().max().item() / scale)
+                out["err_decode"].append((y.float() - ref32).abs().max().item() / scale)
+        want = logits(x[:, P:])
+        out["logits"] = {k: (logits(h) - want).abs().max().item()
+                         for k, h in (("free", x_free),) + ((("carried", x_car[:, P:]),)
+                                                            if carry else ())}
+    return out
+
+
+def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, witnessed=()):
     """An LM path at full width through the user's entry points:
     build_model, then serve_lm.generate (prefill, greedy decode). Each
     kernel runs as often as the arch's layers say: flash attention once per
     attention layer, flash-decode once per attention layer and decode step,
     the linear scan once per time-mix layer (prefill only), the others
-    never. ``bounds``: the decode-vs-prefill bounds (bf16, float32)."""
+    never. ``n_params_want``: the parameter count, or (count, active
+    count). Decode against prefill: the served config's gap reported, then,
+    on a copy whose MoE capacity keeps every choice (``_lossless``, the same
+    weights; any other arch as it is), the end-to-end gap held to
+    ``bounds`` (bf16, float32) and every block to LAYER_TOL /
+    LAYER_BF16_RATIO (``_layerwise``), in bf16 and in a float32 copy; for
+    the dtypes in ``witnessed`` the end-to-end limit is WITNESS_FACTOR's.
+    ``check_batch``: the rows of the float32 checks (all by default; bf16
+    takes them all)."""
     import torch
 
     configs, serve_lm = lm["configs"], lm["serve_lm"]
+    t_phase = time.perf_counter()
     cfg = configs.get_config(spec["arch"])
     B, P, n_new = spec["batch"], spec["prompt_len"], spec["tokens"]
     t0 = time.perf_counter()
@@ -2413,7 +2628,11 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    _require(n_params == model.num_params() == n_params_want, f"{name}: {n_params} parameters")
+    want_n, want_active = n_params_want if isinstance(n_params_want, tuple) else (n_params_want,
+                                                                                 None)
+    _require(n_params == model.num_params() == want_n, f"{name}: {n_params} parameters")
+    _require(want_active is None or model.num_active_params() == want_active,
+             f"{name}: {model.num_active_params()} active parameters")
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     prompt = serve_lm.prompt_tokens(cfg.vocab, B, P, spec["seed"])
     n_attn = _count_kinds(cfg, "attn")
@@ -2436,12 +2655,13 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds):
                  f"{name}: {key} not finite or of the wrong shape")
     steps = n_new - 1
 
-    # decode at pos P against the last-token logits of a prefill of P + 1
-    # tokens, in bf16 (the served model), profiled, then in float32 weights
+    # the served decode at pos P against the last-token logits of a prefill
+    # of P + 1 tokens (profiled): a MoE arch's capacity drops differ between
+    # T = B and T = B (P + 1), so this gap is reported only
     full = torch.cat([prompt, toks[:, :1]], dim=1)
     ref_bf16, prefill_prof = _profile(lambda: model.prefill({"tokens": full})[0])
-    d_bf16 = (res["first_step_logits"].float() - ref_bf16.float()).abs().max().item()
-    same_bf16 = _same_argmax(res["first_step_logits"], ref_bf16)
+    served = {"bf16": (res["first_step_logits"].float() - ref_bf16.float()).abs().max().item(),
+              "same_argmax": _same_argmax(res["first_step_logits"], ref_bf16)}
     # device time of 8 steady decode steps (slots of the cache reused)
     cache, tok = res.pop("cache"), toks[:, -1:].to(model.device)
     pos = torch.tensor(P + n_new - 8, dtype=torch.int32, device=model.device)
@@ -2453,44 +2673,72 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds):
             pos.add_(1)
 
     _, decode_prof = _profile(decode8)
-    del cache, res["prefill_logits"]
+    del cache, res["prefill_logits"], ref_bf16
+    rows = check_batch or B
+    model.cfg = _lossless(cfg)
+
+    def reading(m, seq, dtype):
+        d, same, over = _decode_vs_prefill(m, seq, P)
+        return {"max_abs": d, "same_argmax": same, "over_one_ulp": over,
+                "layerwise": _layerwise(m, seq, P, carry=dtype in witnessed)}
+
+    checks = {"bf16": [reading(model, full, "bf16")]}
+    torch.cuda.empty_cache()
     m32 = model.float()  # in place: each bf16 weight is freed once converted
     del model
     # the served prompt with its first greedy token, and a second prompt
     # (P + 1 tokens from the next seed): two readings of the float32 gap
     second = serve_lm.prompt_tokens(cfg.vocab, B, P + 1, spec["seed"] + 1)
-    d_f32, same_f32, over_ulp = [], [], []
-    for seq in (full, second):
-        _, cache32 = m32.prefill({"tokens": seq[:, :P], "cache_len": P + 1})
-        step32, _ = m32.decode_step(cache32, {"token": seq[:, P:], "pos": P})
-        del cache32
-        ref32, _ = m32.prefill({"tokens": seq})
-        s32, r32 = step32.float(), ref32.float()
-        d_f32.append((s32 - r32).abs().max().item())
-        same_f32.append(_same_argmax(step32, ref32))
-        over_ulp.append(((s32 - r32).abs()
-                         > _bf16_ulp(torch.maximum(s32.abs(), r32.abs()))).sum().item())
+    checks["float32"] = [reading(m32, seq[:rows], "float32") for seq in (full, second)]
     del m32
     torch.cuda.empty_cache()
+    for dtype, bound in zip(("bf16", "float32"), bounds):
+        for r in checks[dtype]:
+            carried = r["layerwise"]["logits"].get("carried", 0.0)
+            r["limit"] = WITNESS_FACTOR * carried if carried >= bound else bound
     out = {
         "phase": name, "arch": cfg.name, "params": n_params, "weight_bytes": weight_bytes,
-        "batch": B, "prompt_len": P, "new_tokens": n_new, "decode_steps": steps,
-        "launches": launches, "build_model_s": build_s,
+        "active_params": want_active, "batch": B, "prompt_len": P, "new_tokens": n_new,
+        "decode_steps": steps, "launches": launches, "build_model_s": build_s,
         "prefill_s": res["prefill_s"], "prefill_tokens_per_s": B * P / res["prefill_s"],
         "decode_s": res["decode_s"], "decode_ms_per_step": res["decode_s"] / steps * 1e3,
         "decode_tokens_per_s": B * steps / res["decode_s"],
         "max_memory_allocated": peak,
-        "decode_vs_prefill_max_abs": {"bf16": d_bf16, "float32_copy": d_f32},
-        "decode_vs_prefill_tolerance": {"bf16": bounds[0], "float32_copy": bounds[1]},
-        "decode_vs_prefill_same_argmax": {"bf16": same_bf16, "float32_copy": same_f32},
-        "decode_vs_prefill_float32_over_one_ulp": [over_ulp, B * cfg.vocab],
+        "served_config_decode_vs_prefill": served,
+        "decode_vs_prefill_of": "lossless copy", "check_batch": rows,
+        "decode_vs_prefill_bounds": {"bf16": bounds[0], "float32_copy": bounds[1]},
+        "witnessed": list(witnessed),
+        "decode_vs_prefill": {"bf16": checks["bf16"], "float32_copy": checks["float32"]},
+        "layerwise_tolerance": {"float32_forced": LAYER_TOL, "bf16_ratio": LAYER_BF16_RATIO,
+                                "bf16_floor": LAYER_BF16_FLOOR},
         "first_tokens": toks[0, :8].tolist(),
         "profile_prefill_4097": prefill_prof, "profile_decode_8_steps": decode_prof,
         "prefill_flash_attention_share": _share(prefill_prof, "flash_fwd"),
+        "decode_attention_share": _share(decode_prof, "decode_attn"),
+        "shares": {
+            f"{which}_{part}": _span_share(prof, names)
+            for which, prof in (("prefill", prefill_prof), ("decode", decode_prof))
+            for part, names in (("moe_dispatch_combine", ("moe.route", "moe.dispatch",
+                                                         "moe.combine")),
+                                ("moe_expert_gemms", ("moe.experts",)),
+                                ("moe_shared", ("moe.shared",)), ("mla", ("mla",)))},
     }
+    out["phase_s"] = time.perf_counter() - t_phase
     _emit(out)  # the numbers first, so that a failing check shows them
-    _require(d_bf16 <= bounds[0], f"{name}: decode vs prefill (bf16) {d_bf16}")
-    _require(max(d_f32) <= bounds[1], f"{name}: decode vs prefill (float32) {d_f32}")
+    for dtype, rs in checks.items():
+        for r in rs:
+            _require(r["max_abs"] <= r["limit"],
+                     f"{name}: decode vs prefill ({dtype}) {r['max_abs']}, limit {r['limit']}")
+            lw = r["layerwise"]
+            if dtype == "float32":
+                _require(max(lw["forced"]) <= LAYER_TOL,
+                         f"{name}: a block's decode vs prefill (float32) {max(lw['forced'])}")
+            else:
+                worse = [i for i, (d, p) in enumerate(zip(lw["err_decode"], lw["err_prefill"]))
+                         if d > LAYER_BF16_RATIO * p + LAYER_BF16_FLOOR]
+                _require(not worse, f"{name}: blocks {worse} decode worse than prefill (bf16)")
+    _require(all(n == 0 for n in decode_prof["host_syncs"].values()),
+             f"{name}: host syncs in 8 decode steps {decode_prof['host_syncs']}")
     return out
 
 
@@ -2544,15 +2792,15 @@ def _flash_bf16_check(got, q, k, v, causal, fref, what):
     return out
 
 
-def _decode_graph_check(dops, dref):
-    """A CUDA graph of one decode call at the serve shape (bf16), replayed
+def _decode_graph_check(dops, dref, shape):
+    """A CUDA graph of one decode call at a serve shape (bf16), replayed
     with each of DECODE_POS written into its pos tensor in place: every
     replay bitwise equal to the eager call and within one bf16 ulp + 2e-5 of
     the plain version. Returns the largest max |d|."""
     import torch
     from repro_torch.kernels import _build
 
-    q, k, v = _attn_inputs(*DECODE_SHAPE, dtype=torch.bfloat16, seed=7)
+    q, k, v = _attn_inputs(*shape, dtype=torch.bfloat16, seed=7)
     q = q[:, :, 0]
     pos = torch.tensor(0, dtype=torch.int32, device="cuda")
     side = torch.cuda.Stream()
@@ -2569,7 +2817,7 @@ def _decode_graph_check(dops, dref):
         graph.replay()
         eager = dops.decode(q, k, v, torch.tensor(p, dtype=torch.int32, device="cuda"))
         torch.cuda.synchronize()
-        what = f"decode graph replay pos={p}"
+        what = f"decode graph replay {shape} pos={p}"
         _require(_bits_equal(out, eager), f"{what}: replay != eager call")
         worst = max(worst, _attn_check(out, dref.decode_ref(q, k, v, pos), torch.bfloat16, what))
     return worst
@@ -2579,7 +2827,6 @@ def phase_kernel_attn(fops, fref, dops, dref):
     """The attention kernels against their plain versions at the serve
     shapes and ragged ones; times, bounds and the SDPA yardstick."""
     import torch
-    import torch.nn.functional as F
 
     err = {"flash_attention": {}, "decode_attention": {}}
     f32_worst = 0.0
@@ -2611,10 +2858,11 @@ def phase_kernel_attn(fops, fref, dops, dref):
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         worst = 0.0
-        B, H, KV, T, D = DECODE_SHAPE
         cases = [(DECODE_SHAPE, p) for p in DECODE_POS]
         cases += [((2, 16, 8, 1000, 128), 999), ((2, 16, 8, 1000, 128), 500),
                   ((2, 4, 2, 300, 16), 299), ((1, 24, 8, 700, 16), 5000)]
+        cases += [(DECODE_D64_SHAPE, p) for p in DECODE_POS]
+        cases += [((2, 6, 2, 1000, 64), 999), ((1, 24, 8, 700, 64), 5000)]
         for i, ((B, H, KV, T, D), p) in enumerate(cases):
             q, k, v = _attn_inputs(B, H, KV, T, D, dtype=dtype, seed=100 + i)
             q = q[:, :, 0]
@@ -2623,35 +2871,64 @@ def phase_kernel_attn(fops, fref, dops, dref):
             again = dops.decode(q, k, v, pos)
             want = dref.decode_ref(q, k, v, pos)
             torch.cuda.synchronize()
-            what = f"decode {name} T={T} pos={p}"
+            what = f"decode {name} {(B, H, KV, T, D)} pos={p}"
             worst = max(worst, _attn_check(got, want, dtype, what))
             _require(_bits_equal(got, again), f"{what}: two calls differ")
         err["decode_attention"][name] = worst
-    err["decode_attention"]["graph_replay_bfloat16"] = _decode_graph_check(dops, dref)
+    err["decode_attention"]["graph_replay_bfloat16"] = max(
+        _decode_graph_check(dops, dref, shape) for shape in (DECODE_SHAPE, DECODE_D64_SHAPE))
 
-    # times in bf16, the served dtype, at the serve shapes
-    bf16 = torch.bfloat16
-    size = 2
-    B, H, KV, S, D = FLASH_SHAPE
-    q, k, v = _attn_inputs(*FLASH_SHAPE, dtype=bf16, seed=0)
+    # times in bf16, the served dtype, at the serve shapes (D = 128: serve;
+    # D = 64: serve_moe)
+    timings = {}
+    for key, shape in (("flash_attention", FLASH_SHAPE), ("flash_attention_d64", FLASH_D64_SHAPE)):
+        timings[key] = _flash_timing(fops, fref, shape)
+    for key, shape in (("decode_attention", DECODE_SHAPE),
+                       ("decode_attention_d64", DECODE_D64_SHAPE)):
+        timings[key] = _decode_timing(dops, dref, shape)
+    res = {"phase": "kernel_attn", "max_abs_err": err,
+           "tolerance": {"float32": ATTN_F32_TOL, "bfloat16": "one bf16 ulp + 2e-5",
+                         "flash_bfloat16": "2**-7 * attn(q, k, |v|) + one bf16 ulp + 2e-5"},
+           "timings": timings}
+    _emit(res)
+    return res
+
+
+def _flash_timing(fops, fref, shape):
+    """The bf16 flash kernel at a serve shape: device and call times, the
+    plain version's time, SDPA's (causal, GQA) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    B, H, KV, S, D = shape
+    q, k, v = _attn_inputs(*shape, dtype=torch.bfloat16, seed=0)
     lib = _device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                               enable_gqa=True), 5, 3)
     flash = {
-        "shape": list(FLASH_SHAPE), **_device_ms(lambda: fops.attention(q, k, v), 5, 3),
+        "shape": list(shape), **_device_ms(lambda: fops.attention(q, k, v), 5, 3),
         "plain_ms": _time_ms(lambda: fref.flash_attention_ref(q, k, v), iters=3, warmup=1),
         "library": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
         "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
-        **_bound((2 * B * H * S * D + 2 * B * KV * S * D) * size,
+        **_bound((2 * B * H * S * D + 2 * B * KV * S * D) * 2,
                  4 * B * H * D * S * (S + 1) / 2, BF16_FLOPS_PER_S),
     }
     flash["achieved_tflop_s"] = flash["flops"] / (flash["ms"] * 1e-3) / 1e12
     flash["share_of_bound"] = flash["bound_ms"] / flash["ms"]
     flash["ms_over_library_ms"] = flash["ms"] / flash["library_ms"]
-    del q, k, v
-    B, H, KV, T, D = DECODE_SHAPE
-    q, k, v = _attn_inputs(*DECODE_SHAPE, dtype=bf16, seed=1)
+    return flash
+
+
+def _decode_timing(dops, dref, shape):
+    """The bf16 decode kernel at a serve shape and pos T - 1: device and
+    call times, the plain version's, SDPA's (key mask, GQA), the bound, and
+    the other split count's time."""
+    import torch
+    import torch.nn.functional as F
+
+    B, H, KV, T, D = shape
+    q, k, v = _attn_inputs(*shape, dtype=torch.bfloat16, seed=1)
     q = q[:, :, 0]
-    p = DECODE_POS[-1]
+    p = T - 1
     pos = torch.tensor(p, dtype=torch.int32, device="cuda")
     mask = (torch.arange(T, device="cuda") <= p)[None, None, None, :]
     lib = _device_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
@@ -2662,11 +2939,11 @@ def phase_kernel_attn(fops, fref, dops, dref):
     n_splits = dops.choose_splits(B, KV, n_sm)
     alt = dops.choose_splits(B, KV, n_sm, ctas_per_sm=3 - dops.CTAS_PER_SM)
     decode = {
-        "shape": list(DECODE_SHAPE), "pos": p, **_device_ms(lambda: dops.decode(q, k, v, pos)),
+        "shape": list(shape), "pos": p, **_device_ms(lambda: dops.decode(q, k, v, pos)),
         "plain_ms": _time_ms(lambda: dref.decode_ref(q, k, v, pos), iters=5),
         "library": "scaled_dot_product_attention(attn_mask=keys <= pos, enable_gqa=True)",
         "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
-        **_bound((2 * B * KV * (p + 1) * D + 2 * B * H * D) * size, 4 * B * H * (p + 1) * D,
+        **_bound((2 * B * KV * (p + 1) * D + 2 * B * H * D) * 2, 4 * B * H * (p + 1) * D,
                  BF16_FLOPS_PER_S),
         "n_splits": n_splits, "sm_count": n_sm, "other_n_splits": alt,
         "other_n_splits_ms": _device_ms(lambda: dops.decode(q, k, v, pos, n_splits=alt))["ms"],
@@ -2674,12 +2951,7 @@ def phase_kernel_attn(fops, fref, dops, dref):
     decode["achieved_gb_s"] = decode["bytes_moved"] / (decode["ms"] * 1e-3) / 1e9
     decode["share_of_bound"] = decode["bound_ms"] / decode["ms"]
     decode["ms_over_library_ms"] = decode["ms"] / decode["library_ms"]
-    res = {"phase": "kernel_attn", "max_abs_err": err,
-           "tolerance": {"float32": ATTN_F32_TOL, "bfloat16": "one bf16 ulp + 2e-5",
-                         "flash_bfloat16": "2**-7 * attn(q, k, |v|) + one bf16 ulp + 2e-5"},
-           "timings": {"flash_attention": flash, "decode_attention": decode}}
-    _emit(res)
-    return res
+    return decode
 
 
 def _scan_inputs(B, T, H, dtype, seed, state=False, strided=False):
@@ -2983,6 +3255,12 @@ def main() -> int:
                         (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32))
     serve_rwkv = phase_serve(lm, kmods, "serve_rwkv", SERVE_RWKV, SERVE_RWKV_PARAMS,
                              (SERVE_RWKV_DECODE_VS_PREFILL_BF16, SERVE_RWKV_DECODE_VS_PREFILL_F32))
+    serve_moe = phase_serve(lm, kmods, "serve_moe", SERVE_MOE, SERVE_MOE_PARAMS,
+                            (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32),
+                            witnessed=SERVE_MOE_WITNESSED)
+    phase_serve(lm, kmods, "serve_mla", SERVE_MLA, SERVE_MLA_PARAMS,
+                (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32),
+                check_batch=SERVE_MLA_CHECK_BATCH, witnessed=SERVE_MLA_WITNESSED)
     kern = phase_kernel(ops, ref)
     kern_q = phase_kernel_q(qops, qref, ops, ref)
     kern_attn = phase_kernel_attn(fops, fref, dops, dref)
@@ -3002,19 +3280,29 @@ def main() -> int:
          kern_q["max_abs_err"]["dequantize"], t[f"dequantize@{VALUE_PLANE}"]),
     ]
     fa = kern_attn["max_abs_err"]["flash_attention"]
+    ta = kern_attn["timings"]
+
+    def d64(key, name):
+        """A kernel's head_dim 64 reading (serve_moe's shapes) beside its row."""
+        tm = ta[f"{key}_d64"]
+        return {"d64": {"launches": serve_moe["launches"][name], "path": serve_moe["phase"],
+                        **{k: tm[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms", "share_of_bound")}}}
+
     rows += [
         # flash: its bf16 cases (the served and timed dtype) against the plain version
         ("flash_attention", "flash_attention/csrc/flash_attention.cu",
          "kernels/flash_attention/flash_attention.py:74", serve, fa["bfloat16"],
-         kern_attn["timings"]["flash_attention"],
-         {"max_abs_err_of": "bfloat16", "err_share_of_tolerance": fa["bfloat16_share_of_bound"]}),
+         ta["flash_attention"],
+         {"max_abs_err_of": "bfloat16", "err_share_of_tolerance": fa["bfloat16_share_of_bound"],
+          **d64("flash_attention", "flash_attention")}),
         # decode: its float32 cases (the bf16 ones within one bf16 ulp)
         ("decode_attention", "decode_attention/csrc/decode_attention.cu",
          "kernels/decode_attention/decode_attention.py:67", serve,
          kern_attn["max_abs_err"]["decode_attention"]["float32"],
-         kern_attn["timings"]["decode_attention"],
-         {"max_abs_err_of": "float32",
-          "share_of_bound": kern_attn["timings"]["decode_attention"]["share_of_bound"]}),
+         ta["decode_attention"],
+         {"max_abs_err_of": "float32", "share_of_bound": ta["decode_attention"]["share_of_bound"],
+          **d64("decode_attention", "decode_attention")}),
     ]
     rows.append(("rwkv6_scan", "linear_scan/csrc/linear_scan.cu",
                  "kernels/linear_scan/linear_scan.py:77", serve_rwkv,

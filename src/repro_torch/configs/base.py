@@ -1,9 +1,9 @@
-"""Config helpers shared by the per-architecture files (dense family and
-RWKV6).
+"""Config helpers shared by the per-architecture files (dense family, MoE
+family and RWKV6).
 
 Port of the reference's ``configs/base.py``: ``attn_block``, ``mlp_block``,
-``rwkv6_blocks`` and ``dense_lm``. The MoE and Mamba2 helpers come with
-their slices.
+``moe_block``, ``rwkv6_blocks`` and ``dense_lm``. The Mamba2 helper comes
+with its slice.
 """
 from __future__ import annotations
 
@@ -43,6 +43,29 @@ def attn_block(
 
 def mlp_block(d_model: int, d_ff: int, activation: str = "silu", gated: bool = True) -> BlockSpec:
     return BlockSpec(kind="mlp", mlp=L.MLPSpec(d_model, d_ff, activation, gated))
+
+
+def moe_block(
+    d_model: int,
+    d_expert: int,
+    num_experts: int,
+    top_k: int,
+    num_shared: int = 0,
+    d_shared: int = 0,
+    capacity_factor: float = 1.25,
+) -> BlockSpec:
+    return BlockSpec(
+        kind="moe",
+        moe=L.MoESpec(
+            d_model=d_model,
+            d_expert=d_expert,
+            num_experts=num_experts,
+            top_k=top_k,
+            num_shared=num_shared,
+            d_shared=d_shared,
+            capacity_factor=capacity_factor,
+        ),
+    )
 
 
 def rwkv6_blocks(d_model: int, d_ff: int, chunk: int = 64) -> Tuple[BlockSpec, BlockSpec]:

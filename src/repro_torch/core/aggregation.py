@@ -19,6 +19,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 class EpsState(NamedTuple):
     """Per-partition staleness weight state."""
@@ -27,7 +29,10 @@ class EpsState(NamedTuple):
     alpha: torch.Tensor  # scalar smoothing in (0, 1)
 
 
-def init_eps(alpha: float = 0.5, shape=(), device="cpu") -> EpsState:
+def init_eps(alpha: float = 0.5, shape=(), device="cuda") -> EpsState:
+    """eps = 1 of ``shape`` and the smoothing ``alpha``, on ``device``
+    (CUDA by default; raises without one: pass ``device="cpu"``)."""
+    device = resolve_device(device)
     return EpsState(
         eps=torch.ones(shape, dtype=torch.float32, device=device),
         alpha=torch.tensor(alpha, dtype=torch.float32, device=device),

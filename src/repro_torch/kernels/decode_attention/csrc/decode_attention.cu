@@ -530,6 +530,7 @@ int dispatch_d(void* out, const void* q, const void* k, const void* v, const int
                cudaStream_t stream) {
   switch (D) {
     case 16: return dispatch_g<T, 16>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream);
+    case 64: return dispatch_g<T, 64>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream);
     case 128: return dispatch_g<T, 128>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -542,7 +543,7 @@ int dispatch_d(void* out, const void* q, const void* k, const void* v, const int
 // the last dimension contiguous, k and v 16-byte aligned with 16-byte aligned strides;
 // `strides` holds 8 host int64 element strides: q (b, h), k (b, h, t), v (b, h, t).
 // pos is one device int32 (keys 0..pos are attended; pos >= T means all).
-// H % KV == 0, H / KV <= 8, D in {16, 128}, T >= 1, 1 <= n_splits <= 8 (the CTAs of
+// H % KV == 0, H / KV <= 8, D in {16, 64, 128}, T >= 1, 1 <= n_splits <= 8 (the CTAs of
 // each (batch, kv head), one cluster). One launch on `stream`, no synchronisation.
 // Returns the CUDA error of the launch (0 = launched).
 extern "C" int decode_attention_fwd(void* out, const void* q, const void* k, const void* v,

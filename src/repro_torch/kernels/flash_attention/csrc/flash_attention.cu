@@ -23,11 +23,12 @@
 // 128-key tile of K and of V into its own two-stage ring, each stage with a full and an
 // empty mbarrier. Warpgroups 1 and 2 (setmaxnreg 240) each own 64 query rows. S = Q K^T
 // is wgmma m64n128k16 (bf16 in, float32 out, both operands K-major from 128-byte (D =
-// 128) or 32-byte (D = 16) swizzled shared memory, D/16 steps). The softmax runs on the
+// 64, 128) or 32-byte (D = 16) swizzled shared memory, D/16 steps). The softmax runs on the
 // accumulator's layout (a thread holds parts of two rows; a row spans 4 lanes), with
 // scale*log2(e) folded into one ex2 per score, and rescales the output accumulator by
 // alpha. P is rounded to bf16 in registers (the accumulator's layout is the A operand's)
-// and O += P V is wgmma in its register-A form, V read MN-major (the transpose bit).
+// and O += P V is wgmma m64nDk16 in its register-A form, V read MN-major (the transpose
+// bit). At D = 64 a tile row is exactly one 128-byte swizzle row: one TMA box a tile.
 // Each consumer issues S of tile t + 1 together with P V of tile t and runs the softmax
 // of tile t + 1 while P V runs; the two consumers take turns at issuing (named
 // barriers), so one's softmax overlaps the other's products. K and V stages go back to
@@ -336,6 +337,18 @@ __device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t* a, uint64
       " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
       : F16(0), F16(16), F16(32), F16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64) += A (64 x 16, bf16 in registers) B (16 x 64), B MN-major in shared memory.
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
+      : F16(0), F16(16)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -684,7 +697,7 @@ int launch_wgmma(void* out, const void* q, const void* k, const void* v, int B, 
 // Plain C entry point, loaded with ctypes. out, q: (B, H, S, D); k, v: (B, KV, S, D),
 // device pointers of one type (dtype 0 = float32, 1 = bfloat16), the last dimension
 // contiguous; `strides` holds 12 host int64 element strides (b, h, s) of out, q, k, v
-// in that order. H % KV == 0, D in {16, 128} (the ported configs' head sizes), S >= 1;
+// in that order. H % KV == 0, D in {16, 64, 128} (the ported configs' head sizes), S >= 1;
 // for bfloat16 the base pointers and strides are multiples of 16 bytes (TMA). float32
 // runs flash_fwd on the CUDA cores, bfloat16 flash_fwd_wgmma on the tensor cores. The
 // launch goes on `stream` and does not synchronise. Returns the CUDA error after the
@@ -694,9 +707,11 @@ extern "C" int flash_attention_fwd(void* out, const void* q, const void* k, cons
                                    const int64_t* strides, cudaStream_t stream) {
   if (dtype == 0) {
     if (D == 16) return launch<float, 16>(out, q, k, v, B, H, KV, S, causal, strides, stream);
+    if (D == 64) return launch<float, 64>(out, q, k, v, B, H, KV, S, causal, strides, stream);
     if (D == 128) return launch<float, 128>(out, q, k, v, B, H, KV, S, causal, strides, stream);
   } else if (dtype == 1) {
     if (D == 16) return launch_wgmma<16>(out, q, k, v, B, H, KV, S, causal, strides, stream);
+    if (D == 64) return launch_wgmma<64>(out, q, k, v, B, H, KV, S, causal, strides, stream);
     if (D == 128) return launch_wgmma<128>(out, q, k, v, B, H, KV, S, causal, strides, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -704,7 +719,9 @@ extern "C" int flash_attention_fwd(void* out, const void* q, const void* k, cons
 
 // Dynamic shared memory of the kernel that `dtype` and D select, in bytes (0 if none).
 extern "C" int flash_attention_smem_bytes(int dtype, int D) {
-  if (dtype == 0) return D == 16 ? smem_bytes<16>() : D == 128 ? smem_bytes<128>() : 0;
-  if (dtype == 1) return D == 16 ? Tile<16>::kSmem : D == 128 ? Tile<128>::kSmem : 0;
+  if (dtype == 0)
+    return D == 16 ? smem_bytes<16>() : D == 64 ? smem_bytes<64>() : D == 128 ? smem_bytes<128>() : 0;
+  if (dtype == 1)
+    return D == 16 ? Tile<16>::kSmem : D == 64 ? Tile<64>::kSmem : D == 128 ? Tile<128>::kSmem : 0;
   return 0;
 }

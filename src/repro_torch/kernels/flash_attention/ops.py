@@ -20,7 +20,7 @@ from repro_torch.kernels.flash_attention import ref
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _lib = None  # the loaded shared library, once built
-HEAD_DIMS = (16, 128)  # the kernels' instantiations: the ported configs' head sizes
+HEAD_DIMS = (16, 64, 128)  # the kernels' instantiations: the ported configs' head sizes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -13,8 +13,9 @@ process's rows of it (``shard_batch``), as the reference's jitted step
 takes the global batch and lets its sharding pick each device's rows. The
 specs it carries are tuples per dim (``core/sharded.py``). The prefill and
 decode builders, ``lower_step`` (JAX's ahead-of-time lowering) and the
-layouts and per-arch overrides that only they and the dry run read are
-not ported (ROADMAP.md).
+layouts and per-arch step overrides (``TRAIN_OVERRIDES``) that only they
+and the dry run read are not ported (ROADMAP.md); the configs' sharding
+overrides are.
 """
 from __future__ import annotations
 
@@ -111,6 +112,7 @@ def build_train_step(
         num_agents *= mesh_axis_size(mesh, a)
     step_cfg = step_cfg or IplsStepConfig()
     rules = dict(DEFAULT_RULES, **make_rules(mesh, "train"))
+    rules.update(cfg.sharding_overrides)
     rules.update(extra_rules or {})
 
     batch_sh = _batch_shardings(input_specs(cfg, shape), mesh, rules)

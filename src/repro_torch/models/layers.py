@@ -1,32 +1,38 @@
-"""Transformer layers of the dense LM family: norms, RoPE, GQA attention,
-gated and plain MLPs, embeddings.
+"""Transformer layers: norms, RoPE, GQA attention, MLA, gated and plain
+MLPs, MoE with sort-based capacity dispatch, embeddings.
 
-Port of the reference's ``models/layers.py`` (dense parts). Each block is a
-pair of functions, ``init_<block>`` (a nested dict of ``ParamDef``) and an
-apply function over a ``ParamTree``. Layouts are the reference's:
-activations (B, S, D), heads (B, S, H, hd), KV cache (B, T, KV, hd).
+Port of the reference's ``models/layers.py``. Each block is a pair of
+functions, ``init_<block>`` (a nested dict of ``ParamDef``) and an apply
+function over a ``ParamTree``. Layouts are the reference's: activations
+(B, S, D), heads (B, S, H, hd), KV cache (B, T, KV, hd), MLA cache (B, T,
+kv_lora) and (B, T, qk_rope).
 
 Serving attention goes through the port's kernels: prefill through the
 flash attention wrapper, decode through the flash-decode wrapper. On CUDA
 tensors those launch the hand-written CUDA kernels; on CPU tensors they take
 the plain versions. The kernels have no backward, so training attention
 (``apply_attention``) is the reference's own plain form, ``_sdpa``: two
-products and a float32 softmax, differentiated by autograd. Sliding
-windows, M-RoPE, MLA and MoE belong to later slices and raise
-``NotImplementedError``.
+products and a float32 softmax, differentiated by autograd. MLA and MoE
+are plain PyTorch, as in the reference (MLA's q/k and v head sizes differ,
+which the attention kernels do not take). Sliding windows and M-RoPE
+belong to later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+from contextlib import nullcontext
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import sharding_hooks
 from repro_torch.models.param_defs import ParamDef
 from repro_torch.models.sharding_hooks import shard_act
 
@@ -275,6 +281,118 @@ def decode_attention(
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLASpec:
+    d_model: int
+    n_heads: int
+    kv_lora: int = 512
+    qk_nope: int = 128
+    qk_rope: int = 64
+    v_head: int = 128
+    rope_theta: float = 10000.0
+
+
+def init_mla(s: MLASpec) -> Dict[str, Any]:
+    d, h = s.d_model, s.n_heads
+    return {
+        "wq": ParamDef((d, h, s.qk_nope + s.qk_rope), ("embed", "heads", None)),
+        "wdkv": ParamDef((d, s.kv_lora), ("embed", None)),
+        "wk_rope": ParamDef((d, s.qk_rope), ("embed", None)),
+        "kv_norm": init_rmsnorm(s.kv_lora),
+        "wuk": ParamDef((s.kv_lora, h, s.qk_nope), (None, "heads", None)),
+        "wuv": ParamDef((s.kv_lora, h, s.v_head), (None, "heads", None)),
+        "wo": ParamDef((h, s.v_head, d), ("heads", None, "embed")),
+    }
+
+
+def _mla_q(params, s: MLASpec, x, positions):
+    """q_nope (B, S, H, nope) and the rotated q_rope (B, S, H, rope)."""
+    q = _heads(x, params["wq"])
+    return q[..., : s.qk_nope], apply_rope(q[..., s.qk_nope:], positions, s.rope_theta)
+
+
+def _mla_kv(params, s: MLASpec, x, positions):
+    """What the cache keeps of each token: the normed latent (B, S, kv_lora)
+    and the rotated key part shared by all heads (B, S, qk_rope)."""
+    latent = rms_norm(params["kv_norm"], x @ params["wdkv"])
+    k_rope = apply_rope((x @ params["wk_rope"])[:, :, None, :], positions, s.rope_theta)
+    return latent, k_rope[:, :, 0, :]
+
+
+def _masked_softmax(logits, valid, dtype, scale):
+    """The reference's float32 softmax of ``logits`` (in the activations'
+    dtype) times ``scale``, invalid keys at finfo(float32).min, back in
+    ``dtype``. In place where autograd allows: at full width the scores are
+    the prefill's largest tensors."""
+    l32 = logits.float()
+    l32.mul_(scale)
+    l32.masked_fill_(~valid, torch.finfo(torch.float32).min)
+    return torch.softmax(l32, dim=-1).to(dtype)
+
+
+def prefill_mla(params, s: MLASpec, x: torch.Tensor, positions: torch.Tensor):
+    """Training / prefill MLA in the plain (expanded) form. Returns
+    (y (B, S, D), latent, k_rope), the last two for the cache."""
+    with _span("mla"):
+        S = x.shape[1]
+        q_nope, q_rope = _mla_q(params, s, x, positions)
+        latent, k_rope = _mla_kv(params, s, x, positions)
+        k_nope = torch.einsum("bsl,lhk->bshk", latent, params["wuk"])
+        val = torch.einsum("bsl,lhk->bshk", latent, params["wuv"])
+        # the rope part's key is shared by the heads: the reference's broadcast
+        logits = torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+        logits += torch.einsum("bshk,btk->bhst", q_rope, k_rope)
+        del k_nope
+        probs = _masked_softmax(logits, causal_mask(S, S, device=x.device), x.dtype,
+                                1.0 / np.sqrt(s.qk_nope + s.qk_rope))
+        del logits
+        out = torch.einsum("bhst,bthk->bshk", probs, val)
+        return _out_proj(out, params["wo"]), latent, k_rope
+
+
+def apply_mla(params, s: MLASpec, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    return prefill_mla(params, s, x, positions)[0]
+
+
+def init_mla_cache(s: MLASpec, batch: int, seq_len: int, dtype=torch.bfloat16):
+    return {
+        "latent": ParamDef((batch, seq_len, s.kv_lora), ("batch", "kv_seq", None), init="zeros",
+                           dtype=dtype),
+        "k_rope": ParamDef((batch, seq_len, s.qk_rope), ("batch", "kv_seq", None), init="zeros",
+                           dtype=dtype),
+    }
+
+
+def decode_mla(params, s: MLASpec, x, cache, pos):
+    """Absorbed-form MLA decode: the query is taken into the latent space
+    (q_nope wuk) and scored against the latent cache directly, a step
+    costing O(T (kv_lora + qk_rope) H) instead of re-expanding K and V.
+    As ``decode_attention``, the token's latent and k_rope are written into
+    ``cache`` IN PLACE at slot ``pos`` (a 0-d device tensor: no host sync)."""
+    with _span("mla"):
+        B = x.shape[0]
+        positions = pos.reshape(1, 1).expand(B, 1)
+        q_nope, q_rope = _mla_q(params, s, x, positions)
+        latent_new, k_rope_new = _mla_kv(params, s, x, positions)
+        latent, k_rope = cache["latent"], cache["k_rope"]
+        slot = pos.reshape(1).long()
+        latent.index_copy_(1, slot, latent_new.to(latent.dtype))
+        k_rope.index_copy_(1, slot, k_rope_new.to(k_rope.dtype))
+        q_lat = torch.einsum("bshk,lhk->bshl", q_nope, params["wuk"])  # (B, 1, H, L)
+        logits = torch.einsum("bshl,btl->bhst", q_lat, latent)
+        logits += torch.einsum("bshk,btk->bhst", q_rope, k_rope)
+        valid = torch.arange(latent.shape[1], device=x.device) <= pos
+        probs = _masked_softmax(logits, valid, x.dtype, 1.0 / np.sqrt(s.qk_nope + s.qk_rope))
+        o_lat = torch.einsum("bhst,btl->bshl", probs, latent)
+        out = torch.einsum("bshl,lhk->bshk", o_lat, params["wuv"])
+        return _out_proj(out, params["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
 
@@ -313,6 +431,219 @@ def apply_mlp(params, s: MLPSpec, x: torch.Tensor) -> torch.Tensor:
     else:
         h = _act(s.activation, x @ params["wu"])
     return h @ params["wd"]
+
+
+# ---------------------------------------------------------------------------
+# MoE with sort-based capacity dispatch
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    d_model: int
+    d_expert: int
+    num_experts: int
+    top_k: int
+    num_shared: int = 0
+    d_shared: int = 0                 # shared-expert hidden size (total)
+    capacity_factor: float = 1.25
+    # GShard-style floor on per-expert capacity (capped at T*K): without it a
+    # decode step (T = batch) rounds its capacity to about 1 and drops
+    # colliding tokens that a prefill keeps
+    min_capacity: int = 4
+    activation: str = "silu"
+    renorm: bool = True
+    # dispatch groups: routing and capacity are computed per group (the
+    # reference's layout for sharding the token space over its DP axes)
+    groups: int = 32
+
+
+def init_moe(s: MoESpec) -> Dict[str, Any]:
+    defs: Dict[str, Any] = {
+        "router": ParamDef((s.d_model, s.num_experts), ("embed", "experts"), scale=0.1),
+        "wg": ParamDef((s.num_experts, s.d_model, s.d_expert), ("experts", "embed", "expert_ffn")),
+        "wu": ParamDef((s.num_experts, s.d_model, s.d_expert), ("experts", "embed", "expert_ffn")),
+        "wd": ParamDef((s.num_experts, s.d_expert, s.d_model), ("experts", "expert_ffn", "embed")),
+    }
+    if s.num_shared > 0:
+        defs["shared"] = init_mlp(MLPSpec(s.d_model, s.d_shared, s.activation))
+    return defs
+
+
+def moe_capacity(s: MoESpec, tokens: int) -> int:
+    """Slots per expert for ``tokens`` routed tokens: the capacity factor
+    over the balanced load, floored at ``min_capacity`` (capped at all the
+    choices). Host ints only."""
+    K = s.top_k
+    return max(int(np.ceil(tokens * K / s.num_experts * s.capacity_factor)),
+               min(s.min_capacity, tokens * K))
+
+
+def moe_groups(s: MoESpec, tokens: int) -> int:
+    """The reference's group rule: ``groups`` when they divide the tokens
+    and each group holds at least E/K tokens, else one group."""
+    E, K = s.num_experts, s.top_k
+    if s.groups > 0 and tokens % s.groups == 0 and tokens >= s.groups * max(E // K, 1):
+        return s.groups
+    return 1
+
+
+def moe_route(params, s: MoESpec, xg: torch.Tensor):
+    """Router of (..., T, D) tokens: float32 gates (..., T, E), the top-k
+    gates (renormalised, the sum floored at 1e-9) and their experts
+    (..., T, K). Ties go to the lower expert index, as ``lax.top_k``
+    orders them: a stable descending sort, not ``torch.topk``."""
+    gates = torch.softmax((xg @ params["router"]).float(), dim=-1)
+    top_i = torch.argsort(gates, dim=-1, descending=True, stable=True)[..., : s.top_k]
+    top_v = gates.gather(-1, top_i)
+    if s.renorm:
+        top_v = top_v / top_v.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    return gates, top_v, top_i
+
+
+def moe_slots(top_i: torch.Tensor, num_experts: int, C: int) -> torch.Tensor:
+    """Each (group, token, choice)'s capacity slot: its rank among the
+    group's choices of the same expert, in token order (a stable sort of
+    the expert ids, then the first index of each expert by
+    ``searchsorted``), or C where that rank reaches the capacity (dropped).
+    top_i (G, Tg, K) -> (G, Tg, K) int64, fixed shapes and no host sync."""
+    G, Tg, K = top_i.shape
+    flat_e = top_i.reshape(G, Tg * K)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    se = flat_e.gather(1, order)
+    experts = torch.arange(num_experts, device=top_i.device).expand(G, num_experts).contiguous()
+    seg_start = torch.searchsorted(se, experts, side="left")
+    pos = torch.arange(Tg * K, device=top_i.device) - seg_start.gather(1, se)
+    pos_c = torch.where(pos < C, pos, C)
+    return torch.empty_like(pos_c).scatter_(1, order, pos_c).view(G, Tg, K)
+
+
+def _moe_routed(params, s: MoESpec, xg: torch.Tensor, C: int, f32_combine: bool,
+                with_lb: bool = True):
+    """The routed experts of tokens xg (G, Tg, D), C slots an expert in each
+    group. Returns (y (G, Tg, D) in xg's dtype, the Switch load-balance loss
+    of these tokens, or None without ``with_lb``: serving drops it).
+
+    Dispatch is a permutation: each kept choice's token row is copied into
+    its slot of an (E, G * C) slot plane (one extra parking row takes the
+    dropped ones), the three expert products run as batched GEMMs over E,
+    and the combine gathers each choice's output row (the parking row reads
+    0) and weights it by its gate: in xg's dtype (the grouped path's
+    einsum), or, with ``f32_combine``, each product in xg's dtype summed in
+    float32 (the mesh path's scatter-add, here a sum over the K choices)."""
+    G, Tg, D = xg.shape
+    E, K = s.num_experts, s.top_k
+    with _span("moe.route"):
+        gates, top_v, top_i = moe_route(params, s, xg)
+        lb = None
+        if with_lb:  # E * sum_e (mean gate of e) (share of the choices on e)
+            counts = torch.zeros(E, dtype=torch.int64, device=xg.device).index_add_(
+                0, top_i.reshape(-1), torch.ones_like(top_i.reshape(-1)))
+            me = gates.reshape(-1, E).mean(dim=0)
+            lb = E * (me * (counts.float() / (G * Tg) / K)).sum()
+    with _span("moe.dispatch"):
+        pos = moe_slots(top_i, E, C)
+        kept = pos < C
+        park = E * G * C
+        g_idx = torch.arange(G, device=xg.device)[:, None, None]
+        row = torch.where(kept, (top_i * G + g_idx) * C + pos, park)  # (G, Tg, K)
+        contrib = xg[:, :, None, :].expand(G, Tg, K, D).reshape(-1, D)
+        buf = xg.new_zeros((park + 1, D)).index_copy_(0, row.reshape(-1), contrib)
+        xe = buf[:park].view(E, G * C, D)
+    with _span("moe.experts"):
+        h = (_act(s.activation, xe @ params["wg"]) * (xe @ params["wu"])) @ params["wd"]
+    with _span("moe.combine"):
+        # a dropped choice reads 0 (the reference's zero parking slot)
+        picked = torch.where(kept[..., None], h.reshape(park, D)[row.clamp_max(park - 1)], 0)
+        w = top_v.to(xg.dtype)
+        if f32_combine:
+            y = (picked * w[..., None]).float().sum(dim=2).to(xg.dtype)
+        else:
+            y = torch.einsum("gtkd,gtk->gtd", picked, w)
+    return y, lb
+
+
+def _span(name: str):
+    """A named range in a torch.profiler trace (whose kernels a profile can
+    sum); nothing, at no cost, when no profiler runs."""
+    return record_function(name) if torch.autograd._profiler_enabled() else nullcontext()
+
+
+def apply_moe(params, s: MoESpec, x: torch.Tensor,
+              with_lb: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Routed MoE (+ shared experts) of x (B, S, D). Returns (y, {"lb_loss"}),
+    the loss None without ``with_lb`` (prefill and decode: nothing reads it).
+    Inside a mesh context (``sharding_hooks.activation_sharding``) the mesh
+    path runs, as the reference's ``shard_map`` schedule; outside it the
+    grouped path. The two differ in their capacities by design."""
+    ctx = sharding_hooks._CTX.get()
+    if ctx is not None:
+        y, lb = _apply_moe_mesh(params, s, x, ctx, with_lb)
+    else:
+        y, lb = _apply_moe_grouped(params, s, x, with_lb)
+    if s.num_shared > 0:
+        with _span("moe.shared"):
+            y = y + apply_mlp(params["shared"], MLPSpec(s.d_model, s.d_shared, s.activation), x)
+    return y, {"lb_loss": lb}
+
+
+def _apply_moe_grouped(params, s: MoESpec, x: torch.Tensor, with_lb: bool = True):
+    """The reference's grouped path: the T = B S tokens in G groups
+    (``moe_groups``), routing, capacity and dispatch per group, the
+    load-balance loss over all of them."""
+    B, S, D = x.shape
+    G = moe_groups(s, B * S)
+    Tg = B * S // G
+    y, lb = _moe_routed(params, s, x.reshape(G, Tg, D), moe_capacity(s, Tg), f32_combine=False,
+                        with_lb=with_lb)
+    return y.reshape(B, S, D), lb
+
+
+def _apply_moe_mesh(params, s: MoESpec, x: torch.Tensor, ctx, with_lb: bool = True):
+    """The reference's mesh path (``_apply_moe_shardmap``) on this process's
+    rows: each data rank dispatches its own T_loc = B_loc S tokens, in one
+    group with capacity from T_loc, combines in float32, and the
+    load-balance loss is the mean over the data-parallel ranks (``pmean``:
+    ``_MeanOverGroups``). On a model axis of 1 the reference's expert- and
+    ffn-parallel modes are this same arithmetic; a model axis above 1
+    raises."""
+    mesh, rules = ctx
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    if sizes.get("model", 1) > 1:
+        raise NotImplementedError(
+            "experts over a 'model' mesh axis above 1 are not ported yet (ROADMAP.md queue 1)")
+    B, S, D = x.shape
+    y, lb = _moe_routed(params, s, x.reshape(1, B * S, D), moe_capacity(s, B * S),
+                        f32_combine=True, with_lb=with_lb)
+    dp = rules.get("batch")
+    axes = [a for a in (dp if isinstance(dp, tuple) else (dp,) if dp else ())
+            if sizes.get(a, 1) > 1]
+    if axes and with_lb:
+        n = int(np.prod([sizes[a] for a in axes]))
+        lb = _MeanOverGroups.apply(lb, [mesh.get_group(a) for a in axes], n)
+    return y.reshape(B, S, D), lb
+
+
+def _sum_over(x: torch.Tensor, groups) -> torch.Tensor:
+    for g in groups:
+        dist.all_reduce(x, group=g)
+    return x
+
+
+class _MeanOverGroups(torch.autograd.Function):
+    """The mean of a tensor over the ranks of process groups (the
+    reference's ``pmean``). Its gradient is the mean of the ranks'
+    gradients, as ``pmean``'s transpose: each rank's loss depends on every
+    rank's input."""
+
+    @staticmethod
+    def forward(ctx, x, groups, n):
+        ctx.groups, ctx.n = groups, n
+        return _sum_over(x.clone(), groups) / n
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_over(grad.clone(), ctx.groups) / ctx.n, None, None
 
 
 # ---------------------------------------------------------------------------

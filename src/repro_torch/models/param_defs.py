@@ -127,11 +127,26 @@ def init_values(defs, gen: torch.Generator, device) -> dict:
 
 
 def unstack(values: dict, n: int) -> list:
-    """Split a layer-stacked value tree into ``n`` per-layer trees (views)."""
-    def part(v, i):
-        return {k: part(x, i) for k, x in v.items()} if isinstance(v, dict) else v[i]
+    """Split a layer-stacked value tree into ``n`` per-layer trees whose
+    leaves own their storage (copies, not views: a view would keep its
+    whole stacked draw alive, so that converting a model's layers one by
+    one, as ``model.float()`` does, held both dtypes at once). The stacked
+    leaves are taken out of ``values`` as they are split, so each frees
+    once its copies exist."""
+    out: list = [{} for _ in range(n)]
 
-    return [part(values, i) for i in range(n)]
+    def split(src: dict, dsts: list) -> None:
+        for k in list(src):
+            v = src.pop(k)
+            if isinstance(v, dict):
+                split(v, [d.setdefault(k, {}) for d in dsts])
+            else:
+                for i, d in enumerate(dsts):
+                    d[k] = v[i].clone()
+            del v
+
+    split(values, out)
+    return out
 
 
 def count_params(defs) -> int:

@@ -1,6 +1,6 @@
-"""Decoder-only LM stack: the dense family (attention + MLP blocks) and
-RWKV6 (time-mix + channel-mix blocks), for serving and, the dense family,
-for training.
+"""Decoder-only LM stack: the dense family (attention + MLP blocks), the
+MoE family (attention or MLA + routed experts) and RWKV6 (time-mix +
+channel-mix blocks), for serving and, but RWKV6, for training.
 
 Port of the reference's ``models/transformer.py``. A model is a sequence of
 GROUPS; each group is a PERIOD of blocks repeated ``repeat`` times. The
@@ -11,7 +11,8 @@ run in a Python loop. Blocks are pre-norm residual: ``x + f(norm(x))``.
 Serving entry points keep the reference's layouts: tokens (B, S) int,
 logits (B, 1, V) bfloat16, and per layer a cache entry in
 ``cache[f"g{gi}"][layer][f"b{bi}"]``: ``{"k", "v"}`` of (B, T, KV, hd) for
-attention, ``{"state", "x_prev"}`` (float32 (B, H, K, K) and the block's
+attention, ``{"latent", "k_rope"}`` of (B, T, kv_lora) and (B, T, qk_rope)
+for MLA, ``{"state", "x_prev"}`` (float32 (B, H, K, K) and the block's
 last normed input (B, 1, D)) for the RWKV6 time mix, ``{"x_prev"}`` for
 the channel mix. Decode updates the entries in place.
 
@@ -19,8 +20,9 @@ Training (``loss``) takes the params as a tree (``params()``: the module's
 own parameters, one dict per layer in ``g{gi}``'s list), runs each layer
 under ``torch.utils.checkpoint`` (the reference's remat) with the plain
 attention ``layers.apply_attention``, and returns the per-example
-next-token cross entropy over bfloat16 logits. RWKV6 training, the other
-block kinds (MLA, MoE, Mamba2) and shared blocks belong to later slices.
+next-token cross entropy over bfloat16 logits plus the MoE layers'
+load-balance loss. RWKV6 training, Mamba2 blocks and shared blocks belong
+to later slices.
 """
 from __future__ import annotations
 
@@ -47,14 +49,16 @@ from repro_torch.models.param_defs import (
 from repro_torch.models.sharding_hooks import shard_act
 from repro_torch.tree import tree_map
 
-SUPPORTED_KINDS = ("attn", "mlp", "rwkv6_time", "rwkv6_channel")
+SUPPORTED_KINDS = ("attn", "mla", "mlp", "moe", "rwkv6_time", "rwkv6_channel")
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
-    kind: str                                   # attn | mlp | rwkv6_time | rwkv6_channel
+    kind: str                                   # attn|mla|mlp|moe|rwkv6_time|rwkv6_channel
     attn: Optional[L.AttnSpec] = None
+    mla: Optional[L.MLASpec] = None
     mlp: Optional[L.MLPSpec] = None
+    moe: Optional[L.MoESpec] = None
     rwkv: Optional[S.RWKV6Spec] = None
     rwkv_ffn: int = 0
     norm: str = "rms"                            # rms | ln
@@ -68,9 +72,8 @@ class GroupSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """The reference's fields that the dense family and RWKV6 set; gemma's
-    embedding scale and soft cap, the MoE loss weight and the training
-    flags come with the slices that use them."""
+    """The reference's fields that the dense, MoE and RWKV6 families set;
+    gemma's embedding scale and soft cap come with its slice."""
 
     name: str
     vocab: int
@@ -80,7 +83,10 @@ class ArchConfig:
     final_norm: str = "rms"
     subquadratic: bool = False                   # eligible for long_500k
     mrope: bool = False                          # expects positions3 input
+    lb_loss_weight: float = 0.01
     remat: bool = True                           # recompute each layer in backward
+    # per-arch logical -> mesh rule overrides (granite's expert sharding)
+    sharding_overrides: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def n_layers(self) -> int:
@@ -98,8 +104,9 @@ def _norm_apply(kind: str, p, x):
 def _check_kind(b: BlockSpec) -> None:
     if b.kind not in SUPPORTED_KINDS:
         raise NotImplementedError(
-            f"block kind {b.kind!r} (MLA, MoE, Mamba2) is not ported yet: it belongs "
-            f"to a later slice of the port (ROADMAP.md queue 1); this one runs {SUPPORTED_KINDS}"
+            f"block kind {b.kind!r} is not ported yet: Mamba2, sliding windows, M-RoPE and "
+            f"shared blocks belong to later slices of the port (ROADMAP.md queue 1); this one "
+            f"runs {SUPPORTED_KINDS}"
         )
 
 
@@ -108,8 +115,12 @@ def block_defs(b: BlockSpec, d_model: int) -> Dict[str, Any]:
     defs: Dict[str, Any] = {"norm": _norm_init(b.norm, d_model)}
     if b.kind == "attn":
         defs["attn"] = L.init_attention(b.attn)
+    elif b.kind == "mla":
+        defs["mla"] = L.init_mla(b.mla)
     elif b.kind == "mlp":
         defs["mlp"] = L.init_mlp(b.mlp)
+    elif b.kind == "moe":
+        defs["moe"] = L.init_moe(b.moe)
     elif b.kind == "rwkv6_time":
         defs["rwkv"] = S.init_rwkv6_time(b.rwkv)
     else:
@@ -129,19 +140,26 @@ def _sharded_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return lse - tgt
 
 
-def apply_block_train(b: BlockSpec, p, x, ctx: dict) -> torch.Tensor:
-    """A block's training forward: ``x + f(norm(x))``, differentiable. The
-    reference gathers a block's input over the sequence (Megatron-SP) when
-    its heads or ffn divide a model axis above 1; on the ported meshes
-    (model axis 1) it never does, and its attention runs sequence-parallel."""
+def apply_block_train(b: BlockSpec, p, x, ctx: dict):
+    """A block's training forward: (``x + f(norm(x))``, its aux loss, 0
+    but for MoE), differentiable. The reference gathers a block's input
+    over the sequence (Megatron-SP) when its heads or ffn divide a model
+    axis above 1; on the ported meshes (model axis 1) it never does, and
+    its attention runs sequence-parallel."""
     h = _norm_apply(b.norm, p["norm"], x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if b.kind == "attn":
         y = L.apply_attention(p["attn"], b.attn, h, ctx["positions"])
+    elif b.kind == "mla":
+        y = L.apply_mla(p["mla"], b.mla, h, ctx["positions"])
     elif b.kind == "mlp":
         y = L.apply_mlp(p["mlp"], b.mlp, h)
+    elif b.kind == "moe":
+        y, moe_aux = L.apply_moe(p["moe"], b.moe, h)
+        aux = moe_aux["lb_loss"]
     else:
         raise NotImplementedError(_RWKV_TRAIN)
-    return shard_act(x + y, ("batch", "act_seq", "embed"))
+    return shard_act(x + y, ("batch", "act_seq", "embed")), aux
 
 
 _RWKV_TRAIN = (
@@ -153,7 +171,9 @@ _RWKV_TRAIN = (
 def block_cache_defs(b: BlockSpec, batch: int, seq_len: int, dtype) -> Optional[Dict[str, Any]]:
     if b.kind == "attn":
         return L.init_attn_cache(b.attn, batch, seq_len, dtype)
-    if b.kind == "mlp":
+    if b.kind == "mla":
+        return L.init_mla_cache(b.mla, batch, seq_len, dtype)
+    if b.kind in ("mlp", "moe"):
         return None  # stateless
     x_prev = ParamDef((batch, 1, b.rwkv.d_model), ("batch", None, None), init="zeros",
                       dtype=dtype)
@@ -170,6 +190,12 @@ def apply_block_prefill(b: BlockSpec, p, x, ctx):
     h = _norm_apply(b.norm, p["norm"], x)
     if b.kind == "mlp":
         return x + L.apply_mlp(p["mlp"], b.mlp, h), None
+    if b.kind == "moe":
+        return x + L.apply_moe(p["moe"], b.moe, h, with_lb=False)[0], None
+    if b.kind == "mla":
+        y, latent, k_rope = L.prefill_mla(p["mla"], b.mla, h, ctx["positions"])
+        return x + y, {"latent": _cache_fill(latent, ctx["cache_len"]),
+                       "k_rope": _cache_fill(k_rope, ctx["cache_len"])}
     if b.kind == "rwkv6_time":
         y, final, x_last = S.apply_rwkv6_time(p["rwkv"], b.rwkv, h)
         return x + y, {"state": final, "x_prev": x_last.clone()}  # a copy: h is freed
@@ -177,13 +203,17 @@ def apply_block_prefill(b: BlockSpec, p, x, ctx):
         y, x_last = S.apply_rwkv6_channel(p["rwkv_ffn"], h)
         return x + y, {"x_prev": x_last.clone()}
     y, k, v = L.prefill_attention(p["attn"], b.attn, h, ctx["positions"])
-    T, Sq = ctx["cache_len"], h.shape[1]
-    kc = k.new_zeros((k.shape[0], T) + k.shape[2:])
-    vc = torch.zeros_like(kc)
+    return x + y, {"k": _cache_fill(k, ctx["cache_len"]), "v": _cache_fill(v, ctx["cache_len"])}
+
+
+def _cache_fill(t: torch.Tensor, T: int) -> torch.Tensor:
+    """A zero cache of T slots along dim 1 holding the last min(T, S) of the
+    prompt's S entries of ``t`` in its first slots."""
+    Sq = t.shape[1]
+    c = t.new_zeros((t.shape[0], T) + t.shape[2:])
     keep = min(T, Sq)
-    kc[:, :keep] = k[:, Sq - keep:]
-    vc[:, :keep] = v[:, Sq - keep:]
-    return x + y, {"k": kc, "v": vc}
+    c[:, :keep] = t[:, Sq - keep:]
+    return c
 
 
 def apply_block_decode(b: BlockSpec, p, x, cache, pos):
@@ -192,6 +222,11 @@ def apply_block_decode(b: BlockSpec, p, x, cache, pos):
     h = _norm_apply(b.norm, p["norm"], x)
     if b.kind == "mlp":
         return x + L.apply_mlp(p["mlp"], b.mlp, h), cache
+    if b.kind == "moe":
+        return x + L.apply_moe(p["moe"], b.moe, h, with_lb=False)[0], cache
+    if b.kind == "mla":
+        y, cache = L.decode_mla(p["mla"], b.mla, h, cache, pos)
+        return x + y, cache
     if b.kind == "rwkv6_time":
         y, _, _ = S.decode_rwkv6_time(p["rwkv"], b.rwkv, h, cache["state"], cache["x_prev"])
         cache["x_prev"].copy_(h)
@@ -231,6 +266,23 @@ def lm_axes(cfg: ArchConfig) -> Dict[str, Any]:
     return out
 
 
+def lm_active_params(cfg: ArchConfig) -> int:
+    """Parameters a token passes through, for MODEL_FLOPS = 6 N_active
+    tokens (the reference's count, from the declaration): a MoE layer's
+    experts count as top_k / num_experts of their weights, the embedding
+    not (a gather), the unembedding product does."""
+    total = 0
+    for g in cfg.groups:
+        for b in g.blocks:
+            defs = block_defs(b, cfg.d_model)
+            n = count_params(defs)
+            if b.kind == "moe":
+                experts = count_params({k: defs["moe"][k] for k in ("wg", "wu", "wd")})
+                n = n - experts + experts * b.moe.top_k // b.moe.num_experts
+            total += n * g.repeat
+    return total + cfg.vocab * cfg.d_model
+
+
 class TransformerLM(nn.Module):
     """The LM (dense or RWKV6). Parameters are drawn at construction from
     ``seed`` on ``device``, frozen (``ParamTree``).
@@ -250,7 +302,7 @@ class TransformerLM(nn.Module):
         values = init_values(self.param_defs(), gen, device)
         self.embed = ParamTree(values["embed"])
         self.groups = nn.ModuleList(
-            nn.ModuleList(ParamTree(p) for p in unstack(values[f"g{gi}"], g.repeat))
+            nn.ModuleList(ParamTree(p) for p in unstack(values.pop(f"g{gi}"), g.repeat))
             for gi, g in enumerate(cfg.groups)
         )
         self.final_norm = ParamTree(values["final_norm"])
@@ -280,6 +332,9 @@ class TransformerLM(nn.Module):
 
     def num_params(self) -> int:
         return count_params(self.param_defs())
+
+    def num_active_params(self) -> int:
+        return lm_active_params(self.cfg)
 
     @property
     def device(self) -> torch.device:
@@ -311,23 +366,31 @@ class TransformerLM(nn.Module):
 
     # -- training ----------------------------------------------------------------
     def _stack_apply_train(self, params, x, ctx):
-        """Every layer's blocks in order; with ``cfg.remat`` each layer runs
-        under ``torch.utils.checkpoint`` (its activations recomputed in the
-        backward pass, the reference's ``jax.checkpoint`` of its scan body)."""
+        """Every layer's blocks in order, and the sum of their aux losses;
+        with ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
+        (its activations recomputed in the backward pass, the reference's
+        ``jax.checkpoint`` of its scan body)."""
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for gi, g in enumerate(self.cfg.groups):
             for lp in params[f"g{gi}"]:
-                def layer(x, blocks=g.blocks, lp=lp):
+                def layer(x, aux, blocks=g.blocks, lp=lp):
                     for bi, b in enumerate(blocks):
-                        x = apply_block_train(b, lp[f"b{bi}"], x, ctx)
-                    return x
+                        x, a = apply_block_train(b, lp[f"b{bi}"], x, ctx)
+                        aux = aux + a
+                    return x, aux
 
-                x = checkpoint(layer, x, use_reentrant=False) if self.cfg.remat else layer(x)
-        return x
+                if self.cfg.remat:
+                    x, aux_total = checkpoint(layer, x, aux_total, use_reentrant=False)
+                else:
+                    x, aux_total = layer(x, aux_total)
+        return x, aux_total
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Next-token cross entropy. batch: tokens (B, S) int. Returns
-        (per_example_loss (B,) float32, aux), differentiable in ``params``
-        (a tree as ``params()`` gives). The logits are bfloat16 (a
+        """Next-token cross entropy plus ``lb_loss_weight`` times the MoE
+        layers' load-balance loss over the layer count. batch: tokens (B, S)
+        int. Returns (per_example_loss (B,) float32, {"lb_loss": the
+        layers' summed load-balance loss}), differentiable in ``params`` (a
+        tree as ``params()`` gives). The logits are bfloat16 (a
         float32-accumulated product), the CE in float32."""
         for g in self.cfg.groups:
             if any(b.kind.startswith("rwkv6") for b in g.blocks):
@@ -336,16 +399,17 @@ class TransformerLM(nn.Module):
         B, Sq = tokens.shape
         ctx = {"positions": torch.arange(Sq, device=self.device)[None, :].expand(B, Sq)}
         x = shard_act(L.embed(params["embed"], tokens), ("batch", "act_seq", "embed"))
-        x = self._stack_apply_train(params, x, ctx)
+        x, aux = self._stack_apply_train(params, x, ctx)
         x = _norm_apply(self.cfg.final_norm, params["final_norm"], x)
         x = shard_act(x, ("batch", None, "embed"))
         logits = shard_act(self._logits(x[:, :-1], params), ("batch", None, "vocab"))
         nll = _sharded_ce(logits, tokens[:, 1:])
-        return nll.mean(dim=-1), {"lb_loss": torch.zeros((), device=self.device)}
+        per_ex = nll.mean(dim=-1) + self.cfg.lb_loss_weight * aux / max(self.cfg.n_layers, 1)
+        return per_ex, {"lb_loss": aux}
 
     # -- serving ---------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, dtype=None):
-        """Zero caches: KV caches and RWKV6 ``x_prev`` in the model's dtype
+        """Zero caches: KV and MLA caches and RWKV6 ``x_prev`` in the model's dtype
         (the reference's default is bfloat16 whatever the weights; the
         port's decode needs them in the activations' dtype), RWKV6 states in
         float32."""
@@ -364,8 +428,9 @@ class TransformerLM(nn.Module):
     def prefill(self, batch):
         """Full-prompt forward. batch: tokens (B, S) int, optional cache_len
         (default S). Returns (last-token logits (B, 1, V) bf16, cache) with
-        the prompt's keys and values in slots 0..S-1 of a new cache, and
-        each RWKV6 block's final state and last normed input."""
+        the prompt's keys and values (MLA: latents and rope keys) in slots
+        0..S-1 of a new cache, and each RWKV6 block's final state and last
+        normed input."""
         tokens = batch["tokens"].to(self.device)
         B, Sq = tokens.shape
         ctx = {

@@ -3,17 +3,23 @@ the cache.
 
 The port's counterpart of ``examples/serve_lm.py``. Weights are random,
 drawn from ``--seed``; so is the prompt (numpy). On CUDA every layer with a
-kernel runs it: in a dense LM, flash attention in the prefill and
-flash-decode in every decode step; in rwkv6-7b, the linear-scan kernel in
-each time-mix layer of the prefill (decode is one recurrent step in plain
-PyTorch, as in the reference).
+kernel runs it: in a dense LM and in granite-moe's attention, flash
+attention in the prefill and flash-decode in every decode step; in
+rwkv6-7b, the linear-scan kernel in each time-mix layer of the prefill
+(decode is one recurrent step in plain PyTorch, as in the reference). MoE
+layers and deepseek-v2-lite's MLA are plain PyTorch.
 
     python -m repro_torch.serve_lm --arch internlm2-1.8b --batch 4 \\
         --prompt-len 4096 --tokens 256                     # on a GPU
     python -m repro_torch.serve_lm --arch rwkv6-7b --batch 4 \\
         --prompt-len 4096 --tokens 128                     # on a GPU
+    python -m repro_torch.serve_lm --arch granite-moe-3b-a800m --batch 4 \\
+        --prompt-len 4096 --tokens 128                     # on a GPU
+    python -m repro_torch.serve_lm --arch deepseek-v2-lite-16b --batch 4 \\
+        --prompt-len 4096 --tokens 64                      # on a GPU
     python -m repro_torch.serve_lm --device cpu --reduced  # anywhere
     python -m repro_torch.serve_lm --arch rwkv6-7b --device cpu --reduced
+    python -m repro_torch.serve_lm --arch deepseek-v2-lite-16b --device cpu --reduced
 """
 from __future__ import annotations
 

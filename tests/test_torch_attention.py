@@ -353,6 +353,20 @@ def test_cpu_tensors_launch_nothing():
     assert fops._lib is None and dops._lib is None  # nothing was built either
 
 
+def test_head_dim_64_on_the_cpu_takes_the_plain_versions():
+    """granite-moe's attention shapes (24 heads over 8 kv heads, D = 64): the
+    wrappers return their plain versions' results and launch nothing."""
+    g = torch.Generator().manual_seed(64)
+    q = torch.randn((2, 40, 24, 64), generator=g).transpose(1, 2)
+    k, v = (torch.randn((2, 40, 8, 64), generator=g).transpose(1, 2) for _ in range(2))
+    pos = torch.tensor(39, dtype=torch.int32)
+    f0, d0 = fops.attention.LAUNCHES, dops.decode.LAUNCHES
+    assert torch.equal(fops.attention(q, k, v), fref.flash_attention_ref(q, k, v))
+    assert torch.equal(dops.decode(q[:, :, -1], k, v, pos), dref.decode_ref(q[:, :, -1], k, v, pos))
+    assert (fops.attention.LAUNCHES, dops.decode.LAUNCHES) == (f0, d0)
+    assert 64 in fops.HEAD_DIMS
+
+
 # --- on the card: each kernel against its plain version -------------------------
 def _hold(got, want, dtype):
     if dtype == torch.float32:
@@ -377,6 +391,8 @@ def cuda():
     (1, 8, 2, 127, 128, True, 1), (2, 4, 1, 128, 16, False, 1), (1, 4, 2, 129, 128, False, 1),
     (1, 8, 2, 4097, 128, True, 1), (1, 4, 1, 4097, 16, True, 1), (1, 8, 4, 1000, 128, True, 8),
     (2, 4, 4, 257, 16, False, 8), (1, 4, 1, 4097, 128, True, 8),
+    (1, 24, 8, 300, 64, True, 1), (2, 6, 2, 129, 64, False, 1), (2, 3, 1, 1, 64, True, 1),
+    (1, 24, 8, 4097, 64, True, 8),
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, H, KV, S, D, causal, qscale):
     """S = 1, one key short of, at and past a tile, and past 32 tiles; GQA
@@ -424,7 +440,8 @@ def test_flash_kernel_rejects_misaligned_bf16(cuda, what):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,KV,T,D,pos", [
     (2, 4, 2, 300, 16, 0), (2, 4, 2, 300, 16, 299), (1, 6, 2, 1000, 128, 513),
-    (1, 8, 8, 256, 128, 255), (1, 8, 1, 700, 16, 5000),
+    (1, 8, 8, 256, 128, 255), (1, 8, 1, 700, 16, 5000), (2, 24, 8, 700, 64, 699),
+    (1, 6, 2, 300, 64, 100),
 ])
 def test_decode_kernel_matches_plain(cuda, dtype, B, H, KV, T, D, pos):
     g = torch.Generator(device=cuda).manual_seed(T + pos)

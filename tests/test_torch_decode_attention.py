@@ -227,7 +227,7 @@ POS_CASES = ["0", "1", "splits-1", "mid", "T-1", "past"]
 @pytest.mark.cuda
 @pytest.mark.parametrize("pos_case", POS_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [16, 128])
+@pytest.mark.parametrize("D", [16, 64, 128])
 @pytest.mark.parametrize("G", [1, 2, 3, 8])
 def test_decode_kernel_matches_both_plain_versions(cuda, G, D, dtype, pos_case):
     B, KV, T = 2, 2, 1000

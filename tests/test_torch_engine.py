@@ -3,7 +3,18 @@
 Same data, same config, same seeds: per round, ``bytes_total`` and
 ``active`` exactly equal and accuracy within 5e-3; ``messages_sent`` exactly
 equal; final weights within 1e-4 (float32 GEMM sums in other orders, the
-bound the reference's own engines are held to). Also: an unknown engine
+bound the reference's own engines are held to). On the int8 wire the codec
+rounds that float noise: it is larger than a code step of the small delta
+blocks (steps of 4e-6 to 3e-5), so codes differ in many blocks, and a
+weight's wire image lands a code step away now and then (on the CPU the
+codes differ at 1, 2 or 4 threads, not at 8). There each weight is held to
+``test_torch_churn.flip_bound``: 1e-4 plus two code steps of its block
+(measured 0.48 of it, max |d| 2**-10, on one thread), and at most 1% of
+them beyond 1e-4 (measured 14,176 of 2,218,050, 0.64%; churn's shorter
+runs stay under 1e-4 of them). The witness that the codes are the whole
+cause: with every code and scale that differs from the reference's set to
+the reference's, every weight agrees within the f32 wire's 1e-4 (measured
+max 2.3e-5). Also: an unknown engine
 raises, the default device is CUDA and raises without one, and nothing in
 the port imports JAX or the reference package. The reference is imported
 only where it is run, so the cuda-marked test also runs on a GPU host
@@ -43,20 +54,8 @@ def one_torch_thread():
     this process), and give the pool back afterwards."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield n
-    torch.set_num_threads(n)
-
-
-@pytest.fixture
-def default_torch_threads(one_torch_thread):
-    """The default thread pool for one test. On the int8 wire the scalar
-    engine's agreement with JAX to 1e-4 rests on SGD float noise staying
-    below a code step, and torch's CPU products round differently with the
-    pool's size: on 8 cores it holds at the default pool (8 threads) and a
-    code flips at 1, 2 or 4 (ROADMAP queue 3)."""
-    torch.set_num_threads(one_torch_thread)
     yield
-    torch.set_num_threads(1)
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -67,14 +66,15 @@ def data():
 _JAX_RUNS = {}
 
 
-def _jax_run(data, kw):
-    """The JAX scalar engine on one config, run once per module."""
+def _jax_run(data, kw, fresh=False):
+    """The JAX scalar engine on one config, run once per module (``fresh``:
+    run anew, uncached)."""
     from repro.fl import IPLSSimulation as JaxScalar
     from repro.fl import SimConfig as JaxConfig
     from repro.p2p.network import LOSSY as JAX_LOSSY
 
     key = repr(sorted(kw.items()))
-    if key not in _JAX_RUNS:
+    if fresh or key not in _JAX_RUNS:
         x_tr, y_tr, x_te, y_te = data
         if kw.get("conditions") is LOSSY:  # the reference's own LOSSY object
             kw = dict(kw, conditions=JAX_LOSSY)
@@ -112,7 +112,16 @@ def _assert_matches_jax(jsim, psim):
         assert mj["bytes_total"] == mp["bytes_total"]
         np.testing.assert_allclose(mp["acc_mean"], mj["acc_mean"], atol=5e-3)
     assert _messages(psim) == jsim.net.pubsub.messages_sent
-    np.testing.assert_allclose(_weights(psim), _weights(jsim), atol=1e-4)
+    w_p, w_j = _weights(psim), _weights(jsim)
+    if psim.cfg.wire_dtype == "int8":
+        from test_torch_churn import flip_bound
+
+        spec = psim.spec
+        diff = np.abs(w_p - w_j)
+        assert (diff <= flip_bound(w_j, w_p, spec.offsets(), spec.sizes, 1e-4)).all()
+        assert int((diff > 1e-4).sum()) <= 1e-2 * diff.size
+    else:
+        np.testing.assert_allclose(w_p, w_j, atol=1e-4)
 
 
 @pytest.mark.parametrize("engine", ["scalar", "vectorized"])
@@ -130,7 +139,7 @@ def test_engines_match_jax_scalar_under_perfect(data, kw, engine):
         dict(conditions=LOSSY, churn=CHURN),
     ],
 )
-def test_scalar_engine_matches_jax_beyond_perfect(data, kw, default_torch_threads):
+def test_scalar_engine_matches_jax_beyond_perfect(data, kw):
     """The scalar engine is the reference's numpy protocol, so lossy
     networks, the int8 wire and churn already run on it."""
     kw = dict(num_agents=5, num_partitions=6, pi=2, rho=2, rounds=4, local_iters=2, **kw)
@@ -138,6 +147,52 @@ def test_scalar_engine_matches_jax_beyond_perfect(data, kw, default_torch_thread
     psim = _port_run(data, kw, "scalar")
     _assert_matches_jax(jsim, psim)
     assert psim.net.pubsub.messages_dropped == jsim.net.pubsub.messages_dropped
+
+
+def test_int8_weights_beyond_1e4_come_from_the_codes(data, monkeypatch):
+    """The int8 case's weights beyond 1e-4 all come from the codes: record
+    the reference's codec calls (inputs, codes, scales), run the port with
+    each code and scale that differs set to the reference's (its error
+    feedback taken from them), and every weight agrees within the f32
+    wire's 1e-4. The calls pair up one to one: same count, same sizes."""
+    import repro.core.wire as jax_wire
+
+    from repro_torch.core import wire
+
+    kw = dict(num_agents=5, num_partitions=6, pi=2, rho=2, rounds=4, local_iters=2,
+              wire_dtype="int8")
+    calls = []
+
+    def padded(x, err):
+        pad = (-x.shape[0]) % wire.BLOCK
+        return np.pad(x.astype(np.float32), (0, pad)) + np.pad(err.astype(np.float32), (0, pad))
+
+    def record(x, err, _orig=jax_wire._np_quantize):
+        q, s, e = _orig(x, err)
+        calls.append((padded(x, err).size, q.copy(), s.copy()))
+        return q, s, e
+
+    monkeypatch.setattr(jax_wire, "_np_quantize", record)
+    jsim = _jax_run(data, kw, fresh=True)
+    monkeypatch.undo()
+    n_calls = [0]
+
+    def snap(x, err, _orig=wire._np_quantize):
+        q, s, e = _orig(x, err)
+        xb = padded(x, err)
+        size, q_ref, s_ref = calls[n_calls[0]]
+        n_calls[0] += 1
+        assert xb.size == size and q.shape == q_ref.shape
+        if (q != q_ref).any() or (s != s_ref).any():
+            q, s = q_ref.copy(), s_ref.copy()
+            deq = (q.reshape(-1, wire.BLOCK).astype(np.float32) * s[:, None]).reshape(-1)
+            e = (xb - deq)[: x.shape[0]]
+        return q, s, e
+
+    monkeypatch.setattr(wire, "_np_quantize", snap)
+    psim = _port_run(data, kw, "scalar")
+    assert n_calls[0] == len(calls)
+    np.testing.assert_allclose(_weights(psim), _weights(jsim), atol=1e-4)
 
 
 def _launches():

@@ -227,10 +227,10 @@ def test_unported_parts_raise():
     with pytest.raises(NotImplementedError):
         build_model(dense_lm("m", 1, 32, 2, 1, 64, 64, mrope=True),
                     device="cpu")
-    moe = dataclasses.replace(blocks[1], kind="moe")
+    mamba2 = dataclasses.replace(blocks[1], kind="mamba2")
     with pytest.raises(NotImplementedError):
         build_model(dataclasses.replace(cfg, groups=(dataclasses.replace(
-            cfg.groups[0], blocks=(blocks[0], moe)),)), device="cpu")
+            cfg.groups[0], blocks=(blocks[0], mamba2)),)), device="cpu")
     with pytest.raises(KeyError):
         get_config("zamba2-1.2b")
 

@@ -142,14 +142,14 @@ def test_global_norm_and_clip_match_reference():
 
 def test_update_eps_bitwise():
     for alpha in (0.5, 0.3, 0.9):
-        js, ps = jagg.init_eps(alpha), agg.init_eps(alpha)
+        js, ps = jagg.init_eps(alpha), agg.init_eps(alpha, device="cpu")
         for r in (4.0, 2.0, 0.0, 1.0, 3.0, 51.0, 7.0, 0.0, 100.0):
             js = jagg.update_eps(js, jnp.asarray(r))
             ps = agg.update_eps(ps, torch.tensor(r))
             assert ps.eps.numpy().tobytes() == np.asarray(js.eps).tobytes(), (alpha, r)
     # a vector of partitions, with zero contributors in some
     js = jagg.EpsState(eps=jnp.ones((5,)), alpha=jnp.asarray(0.5, jnp.float32))
-    ps = agg.init_eps(0.5, shape=(5,))
+    ps = agg.init_eps(0.5, shape=(5,), device="cpu")
     r = np.array([3, 0, 1, 7, 2], np.float32)
     for _ in range(4):
         js, ps = jagg.update_eps(js, jnp.asarray(r)), agg.update_eps(ps, torch.from_numpy(r))
@@ -169,7 +169,7 @@ def test_masked_mean_aggregate_consensus_decay():
     jw, jst = jagg.aggregate_partition(jnp.asarray(w), jnp.asarray(d), jnp.asarray(m),
                                        jagg.init_eps(0.5))
     pw, pst = agg.aggregate_partition(torch.from_numpy(w), torch.from_numpy(d),
-                                      torch.from_numpy(m), agg.init_eps(0.5))
+                                      torch.from_numpy(m), agg.init_eps(0.5, device="cpu"))
     assert np.abs(pw.numpy() - np.asarray(jw)).max() <= 1e-6
     assert pst.eps.numpy().tobytes() == np.asarray(jst.eps).tobytes()
 
@@ -186,3 +186,11 @@ def test_masked_mean_aggregate_consensus_decay():
         want = jagg.apply_staleness_decay(jnp.asarray(d), jnp.asarray(age), beta=0.7)
         got = agg.apply_staleness_decay(torch.from_numpy(d), torch.tensor(age), beta=0.7)
         assert np.abs(got.numpy() - np.asarray(want)).max() <= 1e-6
+
+
+def test_init_eps_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        agg.init_eps(0.5)
+    assert agg.init_eps(0.5, device="cpu").eps.device.type == "cpu"

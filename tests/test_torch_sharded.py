@@ -262,12 +262,15 @@ def test_mesh_helpers_match_reference(mesh):
     assert psh.mesh_axis_size(mesh, ("data", "model")) == 1
 
 
-@pytest.mark.parametrize("arch", ("internlm2-1.8b", "phi4-mini-3.8b"))
+@pytest.mark.parametrize("arch", ("internlm2-1.8b", "phi4-mini-3.8b", "granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b"))
 @pytest.mark.parametrize("shape", [(1, 1), (2, 1), (8, 1)], ids=["1x1", "2x1", "8x1"])
 def test_model_shardings_match_reference(arch, shape):
     """tree_shardings (compute and ZeRO-1 layouts) and state_shardings of a
     whole model's per-layer leaves: the port's against the reference's
-    functions on the same leaves (full-width shapes, nothing allocated)."""
+    functions on the same leaves (full-width shapes, nothing allocated),
+    with the config's sharding overrides as ``build_train_step`` applies
+    them (granite's experts replicated, their ffn dim over "model")."""
     from repro.models.param_defs import shape_tree
 
     cfg = get_config(arch)
@@ -275,6 +278,8 @@ def test_model_shardings_match_reference(arch, shape):
     names = ("data", "model")
     jmesh, sizes = AbstractMesh(shape, names), dict(zip(names, shape))
     rules = dict(jsh.DEFAULT_RULES, **make_rules(_Names(names, shape), "train"))
+    rules.update(cfg.sharding_overrides)
+    assert cfg.sharding_overrides == jax_config(arch).sharding_overrides
     axes = lm_axes(cfg)
     ref_shapes = shape_tree(jmodel.param_defs())
     # per-layer shapes: the reference's stacked ones without the layers axis
