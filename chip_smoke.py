@@ -95,12 +95,16 @@ exits non-zero:
               bytes per agent per round beside main's. The port's examples
               (quickstart, churn_demo) run as processes on the card while
               (a) runs, and must exit 0;
-  lm_agree  — the LMs (internlm2, phi4-mini, minitron, granite-moe,
-              deepseek-v2-lite, rwkv6) at their reduced configs: the port on
-              the card (attention and scan kernels) against the port on the
-              CPU (plain versions), same weights from one seed, prompts of
-              16 and 100 tokens, 8 decode steps; logits within one bfloat16
-              ulp (+1e-5) in float32 weights, within 0.03 in bf16;
+  lm_agree  — the LMs (gemma3, internlm2, phi4-mini, minitron, granite-moe,
+              deepseek-v2-lite, zamba2, rwkv6) at their reduced configs: the
+              port on the card (attention and scan kernels) against the port
+              on the CPU (plain versions), same weights from one seed,
+              prompts of 16 and 100 tokens (gemma3-reduced's 8-slot rings
+              wrap; zamba2-reduced's chunked scan pads 100 to 112), 8 decode
+              steps; each attention kernel launched once per attention
+              layer and step, zamba2's shared attention once per
+              application; logits within one bfloat16 ulp (+1e-5) in
+              float32 weights, within 0.03 in bf16 (zamba2: 0.1);
   train_agree — the IPLS train step (repro_torch.core.sharded through
               launch.steps.build_train_step) on the card's smoke mesh (a
               one-process NCCL group), internlm2-reduced in float32: 3
@@ -169,6 +173,23 @@ exits non-zero:
               tokens, no kernel launch; its decode-vs-prefill checks at
               batch 1 (its float32 copy is 63 GB), the bf16 end-to-end
               limit given way to the witness;
+  serve_gemma3 — sliding windows at full width: gemma3-1b (999,826,048
+              bf16 parameters, nothing cut; 22 local layers with a 512-key
+              window and 512-slot ring caches, 4 global ones; head_dim 256,
+              4 query heads on 1 kv head) through build_model and
+              serve_lm.generate, batch 4, a 4,096-token prompt, 128 greedy
+              tokens; exactly 26 flash (head_dim 256, 22 of them windowed)
+              and 26 x 127 decode launches, counted apart by window and by
+              cache (22 x 127 on the rings); serve's numbers and checks;
+  serve_zamba2 — Mamba2 and shared blocks at full width: zamba2-1.2b
+              (1,104,937,856 bf16 parameters, 1,440,500,608 active with the
+              shared blocks counted per application; 38 Mamba2 blocks, the
+              shared attention (32 heads of 64) and MLP applied after each
+              of 6 periods) through build_model and serve_lm.generate,
+              batch 4, a 4,096-token prompt, 128 greedy tokens; exactly 6
+              flash and 6 x 127 decode launches; serve's numbers and checks
+              and the profiler's shares of the Mamba2 ranges (in, ssd, out);
+              the bf16 end-to-end limit given way to the witness;
   kernel    — the f32 aggregation kernel against its plain PyTorch version,
               bit for bit, at the main path's shape (K=20, R=51, S=44361),
               ragged cases and the single-partition form; kernel (device
@@ -200,7 +221,13 @@ exits non-zero:
               ulps); times beside the bound (achieved TFLOP/s, share of the
               bound; decode: the split count and the other candidate's time)
               and scaled_dot_product_attention as the yardstick, at D = 128
-              and D = 64;
+              and D = 64; at gemma3's head_dim 256 (flash B=4, H=4, KV=1,
+              S=4096, causal and with window 512, float32 and bf16, and
+              windows of 1, 7, 65 and 130 keys on ragged S; decode at
+              T=4224, pos 4223, and on a 512-slot ring at pos 4223
+              (wrapped) and 300), the same checks, the flash and decode
+              times at the served shapes (window 512 against SDPA with the
+              same mask);
   kernel_scan — the linear-scan kernel against three plain versions (step
               oracle, chunked scan, the kernel's split order) at the serve
               shape (4, 4096, 64, 64) in float32 and bf16, T = 1, 17, 100,
@@ -227,6 +254,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
@@ -326,6 +354,12 @@ LM_AGREE_STEPS = 8
 # two gates within a bf16 rounding would move a logit by a whole expert's
 # output): 0.0127 (granite-moe) and 0.0039 (deepseek) on an H100
 LM_BF16_TOL = 0.03
+# zamba2-reduced's Mamba2 blocks amplify their inputs about 400-fold (the
+# first block: |x| 0.1 in, 38 out), so in bf16 the card's and the CPU's
+# roundings part farther: 0.048 at P=16 (step 7) and 0.028 at P=100 on an
+# H100, float32 within one bf16 ulp. Its bf16 bound is about twice the
+# larger reading
+LM_BF16_TOL_BY_ARCH = {"zamba2-1.2b": 0.1}
 # decode at pos 4,096 vs the last-token logits of a 4,097-token prefill
 # (logits of std about 1.8). The two paths round differently: GEMMs of M = 4
 # against M = 16,388 rows, two attention kernels summing in other orders.
@@ -387,7 +421,23 @@ FLASH_CASES = [(FLASH_SHAPE, True, 1.0), ((2, 16, 8, 100, 128), True, 1.0),
                ((1, 16, 8, 4097, 128), True, 8.0), ((2, 8, 2, 300, 16), False, 8.0),
                (FLASH_D64_SHAPE, True, 1.0), ((1, 24, 8, 4097, 64), True, 8.0),
                ((2, 24, 8, 129, 64), False, 1.0), ((2, 24, 8, 1, 64), True, 1.0)]
+# gemma3-1b's prefill (serve_gemma3): head_dim 256, MQA over 4 heads; its
+# local layers' window
+FLASH_D256_SHAPE = (4, 4, 1, 4096, 256)
+FLASH_WINDOW = 512
+# (shape, causal, q scale, window) at head_dim 256 and windows: the served
+# shape causal and windowed, windows of 1, of no multiple of a tile and
+# across tile edges on ragged S, q x 8 to move the running max
+FLASH_WINDOW_CASES = [(FLASH_D256_SHAPE, True, 1.0, None), (FLASH_D256_SHAPE, True, 1.0, 512),
+                      ((1, 4, 1, 4097, 256), True, 8.0, 512), ((2, 4, 1, 700, 256), True, 1.0, 1),
+                      ((2, 4, 1, 700, 256), True, 1.0, 65), ((1, 4, 2, 700, 128), True, 8.0, 7),
+                      ((1, 6, 2, 500, 64), True, 1.0, 130), ((2, 4, 1, 129, 256), False, 1.0, None)]
 DECODE_SHAPE = (4, 16, 8, 4352, 128)  # B, H, KV, T, D of the serve decode
+# gemma3-1b's decode (serve_gemma3): the global layers' full cache of
+# 4,096 + 128 slots, and the local layers' 512-slot rings at the absolute pos
+DECODE_D256_SHAPE = (4, 4, 1, 4224, 256)
+DECODE_RING_SHAPE = (4, 4, 1, 512, 256)
+DECODE_RING_POS = (4223, 300)  # wrapped, and not yet
 DECODE_D64_SHAPE = (4, 24, 8, 4352, 64)  # granite-moe's decode (serve_moe)
 DECODE_POS = (0, 255, 4095, 4351)
 # the MoE family at full width, serving: granite-moe-3b-a800m (GQA attention
@@ -401,6 +451,22 @@ SERVE_MLA_PARAMS = (15_706_484_224, 2_451_432_960)
 # deepseek's float32 copy is 63 GB: its float32 decode-vs-prefill checks run
 # at batch 1
 SERVE_MLA_CHECK_BATCH = 1
+# sliding windows and Mamba2 at full width, serving: gemma3-1b (head_dim
+# 256 through both attention kernels, 22 of its 26 layers windowed) and
+# zamba2-1.2b (38 Mamba2 blocks in plain PyTorch, the shared attention at
+# head_dim 64 through both kernels); (parameters, active parameters) as the
+# reference counts them
+SERVE_GEMMA3 = dict(arch="gemma3-1b", batch=4, prompt_len=4096, tokens=128, seed=0)
+SERVE_GEMMA3_PARAMS = (999_826_048, 999_824_896)
+SERVE_ZAMBA2 = dict(arch="zamba2-1.2b", batch=4, prompt_len=4096, tokens=128, seed=0)
+SERVE_ZAMBA2_PARAMS = (1_104_937_856, 1_440_500_608)
+# zamba2's Mamba2 blocks amplify their inputs several hundredfold (its
+# reduced config's first block: |x| 0.1 in, 38 out), so the rounding
+# differences of decode and prefill (the recurrent step against the chunked
+# scan, whose state the prefill carries in bf16) grow through 38 of them:
+# in bf16 its end-to-end limit follows WITNESS_FACTOR's rule (float32 stays
+# within its bound: 0.031 on an H100)
+SERVE_ZAMBA2_WITNESSED = ("bf16",)
 # Decode vs prefill block by block (``_layerwise``), every served arch: each
 # block's decode from its prefill input, against the cache a prefill of the
 # first P positions filled, to its prefill output at position P, as a share
@@ -427,8 +493,10 @@ LAYER_BF16_FLOOR = 2.0**-7
 WITNESS_FACTOR = 2.0
 SERVE_MOE_WITNESSED = ("bf16", "float32")
 SERVE_MLA_WITNESSED = ("bf16",)
-# the profiler ranges of the MoE and MLA layers (models/layers.py ``_span``)
-SPANS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine", "moe.shared", "mla")
+# the profiler ranges of the MoE, MLA and Mamba2 layers (models/layers.py
+# ``_span``)
+SPANS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine", "moe.shared", "mla",
+         "mamba2.in", "mamba2.ssd", "mamba2.out")
 # host syncs a decode step must not have (a device value read on the host)
 HOST_SYNCS = ("cudaStreamSynchronize", "aten::_local_scalar_dense")
 # the RWKV6 path: rwkv6-7b at full width, serving
@@ -908,6 +976,33 @@ def phase_agree(mods):
 def _reset_launches(kmods):
     for fn in kmods.values():
         fn.LAUNCHES = 0
+
+
+@contextmanager
+def _launches_by_shape(layers, by):
+    """While active, the attention layers' kernel launches (the increments
+    of each wrapper's own counter) are also tallied in ``by`` per kind of
+    call: flash attention by its window, flash-decode by its cache's slots
+    (a sliding window's ring holds the window's)."""
+    flash, decode = layers.flash_ops, layers.decode_ops
+
+    def tallied(fn, name, key):
+        def call(*args, **kw):
+            n = fn.LAUNCHES
+            out = fn(*args, **kw)
+            by[name][key(*args, **kw)] += fn.LAUNCHES - n
+            return out
+        return call
+
+    layers.flash_ops = types.SimpleNamespace(attention=tallied(
+        flash.attention, "flash_attention",
+        lambda *a, window=None, **kw: f"window {window}" if window else "causal"))
+    layers.decode_ops = types.SimpleNamespace(decode=tallied(
+        decode.decode, "decode_attention", lambda q, k, *a, **kw: f"{k.shape[2]} slots"))
+    try:
+        yield
+    finally:
+        layers.flash_ops, layers.decode_ops = flash, decode
 
 
 @contextmanager
@@ -2095,7 +2190,9 @@ def _serve_run(model, prompt, steps, cache_len):
 
 
 def _count_kinds(cfg, kind: str) -> int:
-    return sum(b.kind == kind for g in cfg.groups for b in g.blocks * g.repeat)
+    """Blocks of ``kind`` a pass runs: a group's shared blocks once per
+    application."""
+    return sum(b.kind == kind for g in cfg.groups for b in (g.blocks + g.shared) * g.repeat)
 
 
 def phase_lm_agree(lm, kmods):
@@ -2122,6 +2219,8 @@ def phase_lm_agree(lm, kmods):
                 steps = [torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1), dtype=np.int32))
                          for _ in range(LM_AGREE_STEPS)]
                 want = _serve_run(cpu, prompt, steps, cache_len)
+                tol = 1e-5 if dtype == torch.float32 else LM_BF16_TOL_BY_ARCH.get(arch,
+                                                                                  LM_BF16_TOL)
                 before = [fn.LAUNCHES for fn in lm_kernels]
                 got = _serve_run(gpu, prompt, steps, cache_len)
                 launched = [fn.LAUNCHES - n for fn, n in zip(lm_kernels, before)]
@@ -2130,13 +2229,14 @@ def phase_lm_agree(lm, kmods):
                 f32 = dtype == torch.float32
                 worst = 0.0
                 for i, (g, w) in enumerate(zip(got, want)):
-                    d, ok = _gap(g, w, 1e-5 if f32 else LM_BF16_TOL, ulp=f32)
+                    d, ok = _gap(g, w, tol, ulp=f32)
                     _require(ok and bool(torch.isfinite(g.float()).all()),
                              f"lm_agree {arch} {dtype} P={P} step {i}: max |d| {d}")
                     worst = max(worst, d)
                 out[f"{arch}/{str(dtype)[6:]}/P{P}"] = worst
     _emit({"phase": "lm_agree", "steps": LM_AGREE_STEPS, "cases": list(LM_AGREE_CASES),
-           "tolerance": {"float32": "one bf16 ulp + 1e-5", "bfloat16": LM_BF16_TOL},
+           "tolerance": {"float32": "one bf16 ulp + 1e-5", "bfloat16": LM_BF16_TOL,
+                         "bfloat16_by_arch": LM_BF16_TOL_BY_ARCH},
            "max_abs_logit_diff": out})
 
 
@@ -2548,7 +2648,6 @@ def _layerwise(model, seq, P, carry: bool):
     gaps from it (``err_prefill``, ``err_decode``); and the logits gaps
     (max |d|) of the free and carried chains."""
     import torch
-    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
 
     dev = model.device
@@ -2567,7 +2666,7 @@ def _layerwise(model, seq, P, carry: bool):
         return model._logits(T._norm_apply(model.cfg.final_norm, model.final_norm, h)).float()
 
     with torch.no_grad():
-        x = L.embed(model.embed, tokens)
+        x = model._embed_in(tokens)
         x_free, x_car = x[:, P:], None
         for _, _, _, b, p in model._layers():
             c = None
@@ -2640,12 +2739,16 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches(kmods)
-    res = serve_lm.generate(model, prompt, n_new)
+    by_shape = collections.defaultdict(collections.Counter)
+    with _launches_by_shape(lm["layers"], by_shape):
+        res = serve_lm.generate(model, prompt, n_new)
     launches = {k: fn.LAUNCHES for k, fn in kmods.items()}
     peak = torch.cuda.max_memory_allocated()
     want = dict(dict.fromkeys(kmods, 0), flash_attention=n_attn,
                 decode_attention=n_attn * (n_new - 1), rwkv6_scan=_count_kinds(cfg, "rwkv6_time"))
     _require(launches == want, f"{name}: launches {launches}, expected {want}")
+    _require(all(sum(by_shape[k].values()) == launches[k] for k in by_shape),
+             f"{name}: launches by shape {dict(by_shape)} do not add up to {launches}")
     toks = res["tokens"]
     _require(tuple(toks.shape) == (B, n_new) and int(toks.min()) >= 0
              and int(toks.max()) < cfg.vocab, f"{name}: tokens out of range")
@@ -2699,7 +2802,8 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, 
     out = {
         "phase": name, "arch": cfg.name, "params": n_params, "weight_bytes": weight_bytes,
         "active_params": want_active, "batch": B, "prompt_len": P, "new_tokens": n_new,
-        "decode_steps": steps, "launches": launches, "build_model_s": build_s,
+        "decode_steps": steps, "launches": launches,
+        "launches_by_shape": {k: dict(v) for k, v in by_shape.items()}, "build_model_s": build_s,
         "prefill_s": res["prefill_s"], "prefill_tokens_per_s": B * P / res["prefill_s"],
         "decode_s": res["decode_s"], "decode_ms_per_step": res["decode_s"] / steps * 1e3,
         "decode_tokens_per_s": B * steps / res["decode_s"],
@@ -2721,7 +2825,9 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, 
             for part, names in (("moe_dispatch_combine", ("moe.route", "moe.dispatch",
                                                          "moe.combine")),
                                 ("moe_expert_gemms", ("moe.experts",)),
-                                ("moe_shared", ("moe.shared",)), ("mla", ("mla",)))},
+                                ("moe_shared", ("moe.shared",)), ("mla", ("mla",)),
+                                ("mamba2", ("mamba2.in", "mamba2.ssd", "mamba2.out")),
+                                ("mamba2_ssd", ("mamba2.ssd",)))},
     }
     out["phase_s"] = time.perf_counter() - t_phase
     _emit(out)  # the numbers first, so that a failing check shows them
@@ -2766,7 +2872,7 @@ def _attn_check(got, want, dtype, what):
     return d
 
 
-def _flash_bf16_check(got, q, k, v, causal, fref, what):
+def _flash_bf16_check(got, q, k, v, causal, fref, what, window=None):
     """The bf16 flash kernel against the plain version and the plain tiled
     version: |got - want| <= 2**-7 * attn(q, k, |v|) + one bf16 ulp of the
     larger magnitude + 2e-5, elementwise. Returns, for each, max |d|, the
@@ -2776,11 +2882,12 @@ def _flash_bf16_check(got, q, k, v, causal, fref, what):
     import torch
 
     g = got.float()
-    attn_abs = fref.flash_attention_ref(q.float(), k.float(), v.float().abs(), causal=causal)
+    attn_abs = fref.flash_attention_ref(q.float(), k.float(), v.float().abs(), causal=causal,
+                                        window=window)
     out = {}
     for name, plain in (("plain", fref.flash_attention_ref),
                         ("tiled", fref.flash_attention_tiled_ref)):
-        w = plain(q, k, v, causal=causal).float()
+        w = plain(q, k, v, causal=causal, window=window).float()
         ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
         d = (g - w).abs()
         share = (d / (FLASH_BF16_P_ROUNDING * attn_abs + ulp + ATTN_F32_TOL)).max().item()
@@ -2829,32 +2936,40 @@ def phase_kernel_attn(fops, fref, dops, dref):
     import torch
 
     err = {"flash_attention": {}, "decode_attention": {}}
-    f32_worst = 0.0
-    # max |d|, share of the bound, elements beyond two ulps (summed), most ulps
-    bf16_worst = {"plain": (0.0, 0.0, 0, 0.0), "tiled": (0.0, 0.0, 0, 0.0)}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype)[6:]
-        for i, (shape, causal, qscale) in enumerate(FLASH_CASES):
-            q, k, v = _attn_inputs(*shape, dtype=dtype, seed=i, qscale=qscale)
-            got = fops.attention(q, k, v, causal=causal)
-            torch.cuda.synchronize()
-            what = f"flash {name} {shape} causal={causal} q x {qscale}"
-            _require(bool(torch.isfinite(got.float()).all()), f"{what}: not finite")
-            if dtype == torch.float32:
-                want = fref.flash_attention_ref(q, k, v, causal=causal)
-                f32_worst = max(f32_worst, _attn_check(got, want, dtype, what))
-                del want
-            else:
-                for plain, (d, sh, n, u) in _flash_bf16_check(got, q, k, v, causal, fref,
-                                                              what).items():
-                    d0, sh0, n0, u0 = bf16_worst[plain]
-                    bf16_worst[plain] = (max(d0, d), max(sh0, sh), n0 + n, max(u0, u))
-            del got
-    err["flash_attention"] = {"float32": f32_worst}
-    for plain, key in (("plain", "bfloat16"), ("tiled", "bfloat16_vs_tiled")):
-        d, sh, n, u = bf16_worst[plain]
-        err["flash_attention"].update({key: d, f"{key}_share_of_bound": sh,
-                                       f"{key}_beyond_2_ulps": n, f"{key}_max_ulps": u})
+    # the cases of earlier slices (their seeds as they were), then head_dim
+    # 256 and the windows, each group's worst reported apart
+    groups = {"": [(c, i, None) for i, c in enumerate(FLASH_CASES)],
+              "head_dim_256_and_windows_": [((shape, causal, qscale), 1000 + j, window)
+                                            for j, (shape, causal, qscale, window)
+                                            in enumerate(FLASH_WINDOW_CASES)]}
+    for prefix, cases in groups.items():
+        f32_worst = 0.0
+        # max |d|, share of the bound, elements beyond two ulps (summed), most ulps
+        bf16_worst = {"plain": (0.0, 0.0, 0, 0.0), "tiled": (0.0, 0.0, 0, 0.0)}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            for (shape, causal, qscale), seed, window in cases:
+                q, k, v = _attn_inputs(*shape, dtype=dtype, seed=seed, qscale=qscale)
+                got = fops.attention(q, k, v, causal=causal, window=window)
+                torch.cuda.synchronize()
+                what = f"flash {name} {shape} causal={causal} window={window} q x {qscale}"
+                _require(bool(torch.isfinite(got.float()).all()), f"{what}: not finite")
+                if dtype == torch.float32:
+                    want = fref.flash_attention_ref(q, k, v, causal=causal, window=window)
+                    f32_worst = max(f32_worst, _attn_check(got, want, dtype, what))
+                    del want
+                else:
+                    for plain, (d, sh, n, u) in _flash_bf16_check(got, q, k, v, causal, fref,
+                                                                  what, window).items():
+                        d0, sh0, n0, u0 = bf16_worst[plain]
+                        bf16_worst[plain] = (max(d0, d), max(sh0, sh), n0 + n, max(u0, u))
+                del got, q, k, v
+        err["flash_attention"][f"{prefix}float32"] = f32_worst
+        for plain, key in (("plain", "bfloat16"), ("tiled", "bfloat16_vs_tiled")):
+            d, sh, n, u = bf16_worst[plain]
+            key = prefix + key
+            err["flash_attention"].update({key: d, f"{key}_share_of_bound": sh,
+                                           f"{key}_beyond_2_ulps": n, f"{key}_max_ulps": u})
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         worst = 0.0
@@ -2863,6 +2978,11 @@ def phase_kernel_attn(fops, fref, dops, dref):
                   ((2, 4, 2, 300, 16), 299), ((1, 24, 8, 700, 16), 5000)]
         cases += [(DECODE_D64_SHAPE, p) for p in DECODE_POS]
         cases += [((2, 6, 2, 1000, 64), 999), ((1, 24, 8, 700, 64), 5000)]
+        n_before = len(cases)
+        cases += [(DECODE_D256_SHAPE, DECODE_D256_SHAPE[3] - 1), (DECODE_D256_SHAPE, 0)]
+        cases += [(DECODE_RING_SHAPE, p) for p in DECODE_RING_POS]
+        cases += [((2, 8, 1, 300, 256), 299), ((1, 16, 2, 700, 256), 5000)]
+        d256 = 0.0
         for i, ((B, H, KV, T, D), p) in enumerate(cases):
             q, k, v = _attn_inputs(B, H, KV, T, D, dtype=dtype, seed=100 + i)
             q = q[:, :, 0]
@@ -2872,20 +2992,31 @@ def phase_kernel_attn(fops, fref, dops, dref):
             want = dref.decode_ref(q, k, v, pos)
             torch.cuda.synchronize()
             what = f"decode {name} {(B, H, KV, T, D)} pos={p}"
-            worst = max(worst, _attn_check(got, want, dtype, what))
+            d = _attn_check(got, want, dtype, what)
+            if i < n_before:
+                worst = max(worst, d)
+            else:
+                d256 = max(d256, d)
             _require(_bits_equal(got, again), f"{what}: two calls differ")
         err["decode_attention"][name] = worst
+        err["decode_attention"][f"head_dim_256_{name}"] = d256
     err["decode_attention"]["graph_replay_bfloat16"] = max(
-        _decode_graph_check(dops, dref, shape) for shape in (DECODE_SHAPE, DECODE_D64_SHAPE))
+        _decode_graph_check(dops, dref, shape)
+        for shape in (DECODE_SHAPE, DECODE_D64_SHAPE, DECODE_D256_SHAPE))
 
     # times in bf16, the served dtype, at the serve shapes (D = 128: serve;
     # D = 64: serve_moe)
     timings = {}
-    for key, shape in (("flash_attention", FLASH_SHAPE), ("flash_attention_d64", FLASH_D64_SHAPE)):
-        timings[key] = _flash_timing(fops, fref, shape)
-    for key, shape in (("decode_attention", DECODE_SHAPE),
-                       ("decode_attention_d64", DECODE_D64_SHAPE)):
-        timings[key] = _decode_timing(dops, dref, shape)
+    for key, shape, window in (("flash_attention", FLASH_SHAPE, None),
+                               ("flash_attention_d64", FLASH_D64_SHAPE, None),
+                               ("flash_attention_d256", FLASH_D256_SHAPE, None),
+                               ("flash_attention_d256_window", FLASH_D256_SHAPE, FLASH_WINDOW)):
+        timings[key] = _flash_timing(fops, fref, shape, window)
+    for key, shape, pos in (("decode_attention", DECODE_SHAPE, None),
+                            ("decode_attention_d64", DECODE_D64_SHAPE, None),
+                            ("decode_attention_d256", DECODE_D256_SHAPE, None),
+                            ("decode_attention_d256_ring", DECODE_RING_SHAPE, DECODE_RING_POS[0])):
+        timings[key] = _decode_timing(dops, dref, shape, pos)
     res = {"phase": "kernel_attn", "max_abs_err": err,
            "tolerance": {"float32": ATTN_F32_TOL, "bfloat16": "one bf16 ulp + 2e-5",
                          "flash_bfloat16": "2**-7 * attn(q, k, |v|) + one bf16 ulp + 2e-5"},
@@ -2894,23 +3025,37 @@ def phase_kernel_attn(fops, fref, dops, dref):
     return res
 
 
-def _flash_timing(fops, fref, shape):
-    """The bf16 flash kernel at a serve shape: device and call times, the
-    plain version's time, SDPA's (causal, GQA) and the bound."""
+def _flash_timing(fops, fref, shape, window=None):
+    """The bf16 flash kernel at a serve shape, causal or over a sliding
+    ``window``: device and call times, the plain version's time, SDPA's
+    (causal, or with the window's boolean mask; GQA) and the bound, whose
+    products count the (query, key) pairs the mask keeps."""
     import torch
     import torch.nn.functional as F
 
     B, H, KV, S, D = shape
     q, k, v = _attn_inputs(*shape, dtype=torch.bfloat16, seed=0)
-    lib = _device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                              enable_gqa=True), 5, 3)
+    if window is None:
+        pairs = S * (S + 1) / 2
+        lib = _device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                  enable_gqa=True), 5, 3)
+        library = "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+    else:
+        w = min(window, S)
+        pairs = w * (w + 1) / 2 + (S - w) * w
+        i = torch.arange(S, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        lib = _device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                                  enable_gqa=True), 5, 3)
+        library = "scaled_dot_product_attention(attn_mask=the window's (S, S) mask, enable_gqa=True)"
     flash = {
-        "shape": list(shape), **_device_ms(lambda: fops.attention(q, k, v), 5, 3),
-        "plain_ms": _time_ms(lambda: fref.flash_attention_ref(q, k, v), iters=3, warmup=1),
-        "library": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
-        "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
-        **_bound((2 * B * H * S * D + 2 * B * KV * S * D) * 2,
-                 4 * B * H * D * S * (S + 1) / 2, BF16_FLOPS_PER_S),
+        "shape": list(shape), "window": window,
+        **_device_ms(lambda: fops.attention(q, k, v, window=window), 5, 3),
+        "plain_ms": _time_ms(lambda: fref.flash_attention_ref(q, k, v, window=window), iters=3,
+                             warmup=1),
+        "library": library, "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
+        **_bound((2 * B * H * S * D + 2 * B * KV * S * D) * 2, 4 * B * H * D * pairs,
+                 BF16_FLOPS_PER_S),
     }
     flash["achieved_tflop_s"] = flash["flops"] / (flash["ms"] * 1e-3) / 1e12
     flash["share_of_bound"] = flash["bound_ms"] / flash["ms"]
@@ -2918,17 +3063,19 @@ def _flash_timing(fops, fref, shape):
     return flash
 
 
-def _decode_timing(dops, dref, shape):
-    """The bf16 decode kernel at a serve shape and pos T - 1: device and
-    call times, the plain version's, SDPA's (key mask, GQA), the bound, and
-    the other split count's time."""
+def _decode_timing(dops, dref, shape, p=None):
+    """The bf16 decode kernel at a serve shape and pos ``p`` (T - 1 by
+    default; past T on a sliding window's ring, where every slot counts):
+    device and call times, the plain version's, SDPA's (key mask, GQA), the
+    bound (the valid keys' bytes), and the other split count's time."""
     import torch
     import torch.nn.functional as F
 
     B, H, KV, T, D = shape
     q, k, v = _attn_inputs(*shape, dtype=torch.bfloat16, seed=1)
     q = q[:, :, 0]
-    p = T - 1
+    p = T - 1 if p is None else p
+    n_keys = min(p, T - 1) + 1
     pos = torch.tensor(p, dtype=torch.int32, device="cuda")
     mask = (torch.arange(T, device="cuda") <= p)[None, None, None, :]
     lib = _device_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
@@ -2943,7 +3090,7 @@ def _decode_timing(dops, dref, shape):
         "plain_ms": _time_ms(lambda: dref.decode_ref(q, k, v, pos), iters=5),
         "library": "scaled_dot_product_attention(attn_mask=keys <= pos, enable_gqa=True)",
         "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
-        **_bound((2 * B * KV * (p + 1) * D + 2 * B * H * D) * 2, 4 * B * H * (p + 1) * D,
+        **_bound((2 * B * KV * n_keys * D + 2 * B * H * D) * 2, 4 * B * H * n_keys * D,
                  BF16_FLOPS_PER_S),
         "n_splits": n_splits, "sm_count": n_sm, "other_n_splits": alt,
         "other_n_splits_ms": _device_ms(lambda: dops.decode(q, k, v, pos, n_splits=alt))["ms"],
@@ -3089,16 +3236,21 @@ def _flash_build_facts(fops, build):
     import shutil
 
     def rename(mangled):
-        name = re.sub(r".*?(flash_fwd\w*?)I(f?)Li(\d+)E.*", r"\1<\2\3>", mangled)
-        return name.replace("<f", "<float, ")
+        m = re.search(r"(flash_fwd\w*?)I(f?)Li(\d+)E(?:Lb([01])E)?", mangled)
+        if not m:
+            return mangled
+        return (f"{m.group(1)}<{'float, ' if m.group(2) else ''}{m.group(3)}"
+                f"{', window' if m.group(4) == '1' else ''}>")
 
     so = build.library_path(fops._SRC)
     kernels = _ptxas_kernels(so, rename)
     lib = fops.build()
-    for dtype, key in ((0, "flash_fwd<float, {}>"), (1, "flash_fwd_wgmma<{}>")):
+    for dtype, keys in ((0, ("flash_fwd<float, {}>",)),
+                        (1, ("flash_fwd_wgmma<{}>", "flash_fwd_wgmma<{}, window>"))):
         for d in fops.HEAD_DIMS:
-            kernels.setdefault(key.format(d), {})["dynamic_smem_bytes"] = (
-                lib.flash_attention_smem_bytes(dtype, d))
+            for key in keys:
+                kernels.setdefault(key.format(d), {})["dynamic_smem_bytes"] = (
+                    lib.flash_attention_smem_bytes(dtype, d))
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True,
                           timeout=120, check=True).stdout
@@ -3184,7 +3336,7 @@ def main() -> int:
         "decode_attention": dops.decode,
         "rwkv6_scan": sops.rwkv6_scan,
     }
-    lm = {"configs": configs, "device": device, "serve_lm": serve_lm}
+    lm = {"configs": configs, "device": device, "serve_lm": serve_lm, "layers": layers}
     tr = {"configs": configs, "sharded": sharded, "steps": steps, "mesh": mesh, "optim": optim,
           "checkpoint": checkpoint, "tree": tree, "data": data, "layers": layers,
           "telemetry": telemetry}
@@ -3261,6 +3413,11 @@ def main() -> int:
     phase_serve(lm, kmods, "serve_mla", SERVE_MLA, SERVE_MLA_PARAMS,
                 (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32),
                 check_batch=SERVE_MLA_CHECK_BATCH, witnessed=SERVE_MLA_WITNESSED)
+    serve_gemma3 = phase_serve(lm, kmods, "serve_gemma3", SERVE_GEMMA3, SERVE_GEMMA3_PARAMS,
+                               (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32))
+    phase_serve(lm, kmods, "serve_zamba2", SERVE_ZAMBA2, SERVE_ZAMBA2_PARAMS,
+                (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32),
+                witnessed=SERVE_ZAMBA2_WITNESSED)
     kern = phase_kernel(ops, ref)
     kern_q = phase_kernel_q(qops, qref, ops, ref)
     kern_attn = phase_kernel_attn(fops, fref, dops, dref)
@@ -3282,12 +3439,28 @@ def main() -> int:
     fa = kern_attn["max_abs_err"]["flash_attention"]
     ta = kern_attn["timings"]
 
-    def d64(key, name):
-        """A kernel's head_dim 64 reading (serve_moe's shapes) beside its row."""
-        tm = ta[f"{key}_d64"]
-        return {"d64": {"launches": serve_moe["launches"][name], "path": serve_moe["phase"],
-                        **{k: tm[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms", "share_of_bound")}}}
+    def reading(key, name, path, kind=None):
+        """A kernel's reading at another served shape, beside its row: its
+        launches on that path (those of one ``kind`` of call where the path
+        has several: flash by window, decode by cache slots), its times and
+        bound."""
+        tm = ta[key]
+        n = path["launches"][name] if kind is None else path["launches_by_shape"][name][kind]
+        return {"launches": n, "path": path["phase"],
+                **{k: tm[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms", "share_of_bound")}}
+
+    def other_shapes(key, name):
+        """head_dim 64 (serve_moe's shapes) and 256 (serve_gemma3's: flash
+        causal and over the 512-key window, decode on the full cache and on
+        a wrapped ring)."""
+        kinds = {"flash_attention_d256": "causal",
+                 "flash_attention_d256_window": f"window {FLASH_WINDOW}",
+                 "decode_attention_d256": f"{DECODE_D256_SHAPE[3]} slots",
+                 "decode_attention_d256_ring": f"{DECODE_RING_SHAPE[3]} slots"}
+        return {"d64": reading(f"{key}_d64", name, serve_moe),
+                **{k[len(key) + 1:]: reading(k, name, serve_gemma3, kinds[k]) for k in ta
+                   if k.startswith(f"{key}_d256")}}
 
     rows += [
         # flash: its bf16 cases (the served and timed dtype) against the plain version
@@ -3295,14 +3468,14 @@ def main() -> int:
          "kernels/flash_attention/flash_attention.py:74", serve, fa["bfloat16"],
          ta["flash_attention"],
          {"max_abs_err_of": "bfloat16", "err_share_of_tolerance": fa["bfloat16_share_of_bound"],
-          **d64("flash_attention", "flash_attention")}),
+          **other_shapes("flash_attention", "flash_attention")}),
         # decode: its float32 cases (the bf16 ones within one bf16 ulp)
         ("decode_attention", "decode_attention/csrc/decode_attention.cu",
          "kernels/decode_attention/decode_attention.py:67", serve,
          kern_attn["max_abs_err"]["decode_attention"]["float32"],
          ta["decode_attention"],
          {"max_abs_err_of": "float32", "share_of_bound": ta["decode_attention"]["share_of_bound"],
-          **d64("decode_attention", "decode_attention")}),
+          **other_shapes("decode_attention", "decode_attention")}),
     ]
     rows.append(("rwkv6_scan", "linear_scan/csrc/linear_scan.cu",
                  "kernels/linear_scan/linear_scan.py:77", serve_rwkv,

@@ -1,9 +1,8 @@
-"""Config helpers shared by the per-architecture files (dense family, MoE
-family and RWKV6).
+"""Config helpers shared by the per-architecture files.
 
 Port of the reference's ``configs/base.py``: ``attn_block``, ``mlp_block``,
-``moe_block``, ``rwkv6_blocks`` and ``dense_lm``. The Mamba2 helper comes
-with its slice.
+``moe_block``, ``mamba2_block``, ``rwkv6_blocks`` and ``dense_lm``. The
+reference's ``mrope_sections`` (qwen2-vl) comes with M-RoPE.
 """
 from __future__ import annotations
 
@@ -66,6 +65,10 @@ def moe_block(
             capacity_factor=capacity_factor,
         ),
     )
+
+
+def mamba2_block(d_model: int, d_state: int = 64, chunk: int = 128) -> BlockSpec:
+    return BlockSpec(kind="mamba2", mamba=S.Mamba2Spec(d_model=d_model, d_state=d_state, chunk=chunk))
 
 
 def rwkv6_blocks(d_model: int, d_ff: int, chunk: int = 64) -> Tuple[BlockSpec, BlockSpec]:

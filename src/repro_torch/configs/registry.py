@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` resolution, model
 construction, the shape table and ``input_specs``.
 
-Port of the reference's ``configs/registry.py`` for the dense family, the
-MoE family (granite-moe, deepseek-v2-lite) and RWKV6; the other
-architectures come with their slices (ROADMAP.md queue 1).
+Port of the reference's ``configs/registry.py`` for the dense family,
+gemma3 (sliding windows), the MoE family (granite-moe, deepseek-v2-lite),
+zamba2 (Mamba2 and shared blocks) and RWKV6; qwen2-vl and whisper come with
+their slices (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -16,11 +17,13 @@ import torch
 from repro_torch.models.transformer import ArchConfig, TransformerLM
 
 ARCH_MODULES = {
+    "gemma3-1b": "repro_torch.configs.gemma3_1b",
     "minitron-4b": "repro_torch.configs.minitron_4b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
     "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
 }
 

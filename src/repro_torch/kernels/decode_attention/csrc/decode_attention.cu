@@ -29,7 +29,8 @@
 //   from device memory (no host sync). A split with no keys leaves m = -FLT_MAX, l = 0,
 //   acc = 0. The CTA serves all G query heads of its kv head, so K and V are read once.
 // - A 3-stage ring in dynamic shared memory, fed by TMA: each stage holds the K and the V
-//   rows of the same tile of keys (16 KB each: 64 keys of bf16 at D = 128). One thread
+//   rows of the same tile of keys (16 KB each: 64 keys of bf16 at D = 128, 32 at D = 256,
+//   whose 16-row boxes of 256 columns are at TMA's box limit). One thread
 //   issues the tile as 16-row boxes of 4-D tensor maps (D, T, KV, B) over the caller's
 //   strides, so the model's (B, T, KV, D) cache goes in as its (B, KV, T, D) view with no
 //   copy; an mbarrier a stage counts the bytes in. Two stages (64 KB) are in flight while
@@ -39,7 +40,8 @@
 //   cache tensor and kept (cache_map): a decode step that passes the same cache encodes
 //   nothing. One __syncthreads a tile frees a stage.
 // - One pass, an online softmax, on the CUDA cores. A key row is D/V 16-byte chunks (V
-//   values each); a lane owns CPL of them (2 at G <= 2, else 1, for registers), so a
+//   values each); a lane owns CPL of them (2 at G <= 2, else 1, for registers; at least
+//   D/(32 V), so that a key spans at most one warp: 2 for float32 at D = 256), so a
 //   "key group" of LPK = D/(V*CPL) lanes shares a key and takes keys grp, grp + NG, ...
 //   of each tile. Each lane holds its slices of the G queries in registers, widens its
 //   slices of K to float32 and FMAs; the group sums its lanes with xor shuffles. Scores
@@ -47,6 +49,9 @@
 //   its own running (m, l) per query head and its slices of acc[G][D], rescales them
 //   only when the max moves, and adds p * v from the same keys' V rows. Accumulators are
 //   sized by kG, G rounded up to 1, 2, 4 or 8: 32 floats a lane at the served G = 2.
+// - Sliding windows need no mask here: a window layer's cache is a ring of T = window
+//   slots written at pos % T, and "keys 0..pos, all of them once pos >= T" is the
+//   reference's ring mask (every slot valid once the ring has wrapped).
 // - The merge. Each warp merges its key groups with xor shuffles (a fixed tree), the
 //   warps of a CTA merge in shared memory (the ring, no longer needed) in warp order,
 //   and the CTA leaves (m[G], l[G], acc[G][D]) in shared memory; the cluster syncs. Rank
@@ -145,12 +150,14 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 
 // How a CTA cuts a tile. A key row is D/V 16-byte chunks; a lane owns CPL of them
 // (chunks part, part + LPK, ...), so LPK lanes share a key: a "key group". Two chunks a
-// lane at kG <= 2 (fewer shuffles and exponentials a key), one above (registers).
+// lane at kG <= 2 (fewer shuffles and exponentials a key), one above (registers), but
+// enough that a key's lanes fit in one warp (float32 rows of 256 are 64 chunks).
 template <typename T, int D, int kG>
 struct Shape {
   static constexpr int V = 16 / static_cast<int>(sizeof(T));  // values per 16-byte chunk
   static constexpr int ROW = D / V;                            // chunks per key row
-  static constexpr int CPL = (kG <= 2 && ROW >= 2) ? 2 : 1;    // chunks per lane
+  static constexpr int CPL0 = (kG <= 2 && ROW >= 2) ? 2 : 1;
+  static constexpr int CPL = ROW / CPL0 > 32 ? ROW / 32 : CPL0;  // chunks per lane
   static constexpr int LPK = ROW / CPL;                        // lanes per key
   static constexpr int NG = kWarps * (32 / LPK);               // key groups per CTA
   static constexpr int KT = kTileBytes / (D * static_cast<int>(sizeof(T)));  // keys per tile
@@ -532,6 +539,7 @@ int dispatch_d(void* out, const void* q, const void* k, const void* v, const int
     case 16: return dispatch_g<T, 16>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream);
     case 64: return dispatch_g<T, 64>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream);
     case 128: return dispatch_g<T, 128>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream);
+    case 256: return dispatch_g<T, 256>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -543,7 +551,7 @@ int dispatch_d(void* out, const void* q, const void* k, const void* v, const int
 // the last dimension contiguous, k and v 16-byte aligned with 16-byte aligned strides;
 // `strides` holds 8 host int64 element strides: q (b, h), k (b, h, t), v (b, h, t).
 // pos is one device int32 (keys 0..pos are attended; pos >= T means all).
-// H % KV == 0, H / KV <= 8, D in {16, 64, 128}, T >= 1, 1 <= n_splits <= 8 (the CTAs of
+// H % KV == 0, H / KV <= 8, D in {16, 64, 128, 256}, T >= 1, 1 <= n_splits <= 8 (the CTAs of
 // each (batch, kv head), one cluster). One launch on `stream`, no synchronisation.
 // Returns the CUDA error of the launch (0 = launched).
 extern "C" int decode_attention_fwd(void* out, const void* q, const void* k, const void* v,

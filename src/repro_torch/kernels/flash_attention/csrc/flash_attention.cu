@@ -4,12 +4,22 @@
 // (src/repro/kernels/flash_attention/flash_attention.py:74, body _kernel, with the GQA
 // repeat of its ops.py). Per (batch, head) and query row i:
 //
-//   s_j = (q_i . k_j) / sqrt(D), masked to finfo(float32).min where j > i (causal)
+//   s_j = (q_i . k_j) / sqrt(D), masked to finfo(float32).min where j > i (causal) and,
+//         with a sliding window W (gemma3's local layers), where j <= i - W
 //   o_i = sum_j softmax(s)_j v_j
 //
 // with a float32 online softmax (running max m, sum l, accumulator acc), l clamped at
 // 1e-30 and the output cast to the input type, as the TPU kernel does. A masked score
-// gives a probability of exactly 0, never a NaN.
+// gives a probability of exactly 0, never a NaN: a row that has seen only masked scores
+// (a window's first tile can hide every key of some rows) takes 0, not its running max
+// -FLT_MAX, as the reference of its exponentials, so they are exp(-FLT_MAX) = 0 and not
+// exp(0) = 1, and the rescale of the first real tile multiplies zeros.
+//
+// Windows: each CTA starts at the first key tile that meets its rows' windows (at S =
+// 4096, W = 512 that cuts a local layer's work about 8-fold) and masks every tile that
+// crosses the diagonal, the window's lower edge (up to three 64-key tiles for 128 rows) or
+// the ragged end. The bf16 kernel is instantiated with and without a window (kWindow):
+// the window as a run-time value cost the full causal kernel about 3% on an H100.
 //
 // Bound: operations. At the serve shape (B=4, H=16, S=4096, D=128) the causal products
 // are 4*B*H*D*S(S+1)/2 = 275 GFLOP, 0.278 ms at the card's 989 TFLOP/s bf16 tensor-core
@@ -33,8 +43,13 @@
 // of tile t + 1 while P V runs; the two consumers take turns at issuing (named
 // barriers), so one's softmax overlaps the other's products. K and V stages go back to
 // the producer after the wgmma wait that retires their last reader. Only the last key
-// tile (the diagonal, or the ragged end) is masked; tiles above the diagonal are never
-// loaded; TMA fills rows past S with zeros. The tensor maps are 4-D (D, S, heads, B)
+// tiles that cross the diagonal, the window's lower edge or the ragged end are masked;
+// tiles above the diagonal or below the window are never loaded; TMA fills rows past S
+// with zeros. At D = 256 the K and V tiles hold 64 keys (Tile<D, Rows>): Q's 64 KB and two
+// stages each of 32 KB K and V tiles make 192 KB of shared memory (128-key tiles would need
+// 320 KB), the S tile is 64 x 64 (wgmma m64n64k16, 32 registers a thread) beside the 128
+// of the 64 x 256 output accumulator, and O += P V is two m64n128k16 products over the two
+// halves of V's columns. The tensor maps are 4-D (D, S, heads, B)
 // over the caller's strides, so the model's (B, S, H, D) projections go in as (B, H, S,
 // D) views without a copy; GQA reads kv head h / (H/KV). Bases and strides must be
 // multiples of 16 bytes (the wrapper checks). The one deliberate change from a float32
@@ -45,7 +60,8 @@
 // throughout, as it was first written. One block of 256 threads owns a 64-row query
 // tile; per 64-key tile it stages K, then V, in shared memory as float32; each thread
 // computes a 4x4 patch of the scores and keeps 4 rows x D/16 output columns; row max
-// and sum are xor shuffles across 16 lanes.
+// and sum are xor shuffles across 16 lanes. At D = 256 that is 148,096 bytes of shared
+// memory, one block an SM.
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
@@ -68,6 +84,12 @@ struct Strides {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
+// Whether key `col` is hidden from query row `row`: past the sequence, after the row
+// (causal), or `window` or more keys before it (window > 0).
+__device__ __forceinline__ bool hidden(int col, int row, int S, int causal, int window) {
+  return col >= S || (causal && col > row) || (window > 0 && col <= row - window);
+}
+
 template <int D>
 constexpr int smem_bytes() {
   return (kBQ * (D + 1) + kBK * (D + 1) + kBQ * (kBK + 1)) * static_cast<int>(sizeof(float));
@@ -77,7 +99,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, Strides so, Strides sq, Strides sk, Strides sv, int H,
-          int group, int S, float scale, int causal) {
+          int group, int S, float scale, int causal, int window) {
   constexpr int kLd = D + 1;    // padded row of q_s and kv_s
   constexpr int kPLd = kBK + 1;  // padded row of p_s
   constexpr int kDc = D / 16;   // output columns per thread
@@ -108,7 +130,8 @@ flash_fwd(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int k_end = causal ? min(S, q0 + kBQ) : S;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // q_s is written; the previous tile's V and P reads are done
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int r = i / D, c = i % D;
@@ -142,17 +165,18 @@ flash_fwd(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
         const float x = s[i][j] * scale;
-        s[i][j] = (col >= S || (causal && col > row)) ? kNegInf : x;
+        s[i][j] = hidden(col, row, S, causal, window) ? kNegInf : x;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
+      const float m_ref = m_new == kNegInf ? 0.0f : m_new;  // only masked scores so far: p = 0
+      const float alpha = expf(m[i] - m_ref);
       float sum = 0.0f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
+        const float p = expf(s[i][j] - m_ref);
         p_s[(ty + 16 * i) * kPLd + tx + 16 * j] = p;
         sum += p;
       }
@@ -198,7 +222,7 @@ flash_fwd(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(void* out, const void* q, const void* k, const void* v, int B, int H, int KV, int S,
-           int causal, const int64_t* st, cudaStream_t stream) {
+           int causal, int window, const int64_t* st, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
   static bool configured = false;  // once per instantiation, before any graph capture
   if (!configured) {
@@ -212,31 +236,43 @@ int launch(void* out, const void* q, const void* k, const void* v, int B, int H,
   flash_fwd<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<T*>(out), static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
-      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, H, H / KV, S, scale, causal);
+      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, H, H / KV, S, scale, causal,
+      window);
   return static_cast<int>(cudaGetLastError());
 }
 
 
 // ---- bfloat16: warp-specialised TMA + wgmma ----------------------------------------
 
-constexpr int kTileRows = 128;  // query rows per CTA, and keys per tile
+constexpr int kTileRows = 128;  // query rows per CTA
 constexpr int kWsThreads = 384;  // producer warpgroup + two consumer warpgroups
 
-// Shared-memory geometry of a 128-row tile of D bf16 columns, as TMA writes it: panels
-// of kSwz bytes a row (the swizzle span: 128 B at D >= 64, 32 B at D = 16), each panel
-// 128 rows deep, rows kSwz bytes apart, 8-row groups 8 * kSwz bytes apart.
-template <int D>
+// Shared-memory geometry of a tile of Rows rows of D bf16 columns, as TMA writes it:
+// panels of kSwz bytes a row (the swizzle span: 128 B at D >= 64, 32 B at D = 16), each
+// panel Rows deep, rows kSwz bytes apart, 8-row groups 8 * kSwz bytes apart.
+template <int D, int Rows>
 struct Tile {
   static constexpr int kSwz = D * 2 >= 128 ? 128 : D * 2;
   static constexpr int kBoxCols = kSwz / 2;  // bf16 columns of one TMA box
   static constexpr int kPanels = D / kBoxCols;
-  static constexpr int kPanelBytes = kTileRows * kSwz;
-  static constexpr int kBytes = kTileRows * D * 2;
+  static constexpr int kPanelBytes = Rows * kSwz;
+  static constexpr int kBytes = Rows * D * 2;
   static constexpr uint64_t kLayout = kSwz == 128 ? 1 : 3;  // wgmma's code of the swizzle
-  // Q, two K stages, two V stages, 9 mbarriers; 1 KB of slack to align the tiles
-  static constexpr int kSmem = 5 * kBytes + 9 * 8 + 1024;
   static_assert(kSwz == 32 || kSwz == 128, "D = 16 or a multiple of 64");
   static_assert(D <= 256 && D % 16 == 0, "wgmma n");
+};
+
+// The kernel's tiles at head_dim D: a 128-row Q tile, K and V tiles of kKeys keys (128,
+// but 64 at D = 256, where 128-key tiles would not fit), two stages each.
+template <int D>
+struct Layout {
+  static constexpr int kKeys = D == 256 ? 64 : 128;
+  using QT = Tile<D, kTileRows>;
+  using KT = Tile<D, kKeys>;
+  // Q, two K stages, two V stages, 9 mbarriers; 1 KB of slack to align the tiles
+  static constexpr int kSmem = QT::kBytes + 4 * KT::kBytes + 9 * 8 + 1024;
+  static_assert(kSmem <= 232448, "above the SM's 227 KB of shared memory a block");
+  static_assert(kTileRows % kKeys == 0, "a query tile spans whole key tiles");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -320,13 +356,24 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
   "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
 // d (64 x 128, float32) (+)= A (64 x 16) B (16 x 128), A and B K-major in shared memory.
-__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
-                                            int accumulate) {
+__device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D64
       ", %64, %65, p, 1, 1, 0, 0;\n}"
       : F16(0), F16(16), F16(32), F16(48)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, float32) (+)= A (64 x 16) B (16 x 64), A and B K-major in shared memory.
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}"
+      : F16(0), F16(16)
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -378,18 +425,18 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// Mask a thread's scores of the key tile at k0: keys past S, and (causal) keys after
-// the query row. The thread holds rows row0 (s[4i], s[4i+1]) and row0 + 8 (s[4i+2],
-// s[4i+3]) at columns k0 + 8i + col0 + {0, 1}.
-__device__ __forceinline__ void mask_tile(float (&s)[64], int k0, int col0, int row0, int S,
-                                          int causal) {
+// Mask a thread's scores of the key tile at k0 (hidden()). The thread holds rows row0
+// (s[4i], s[4i+1]) and row0 + 8 (s[4i+2], s[4i+3]) at columns k0 + 8i + col0 + {0, 1}.
+template <int N>
+__device__ __forceinline__ void mask_tile(float (&s)[N], int k0, int col0, int row0, int S,
+                                          int causal, int window) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < N / 4; ++i) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int col = k0 + 8 * i + col0 + j;
-      if (col >= S || (causal && col > row0)) s[4 * i + j] = kNegInf;
-      if (col >= S || (causal && col > row0 + 8)) s[4 * i + 2 + j] = kNegInf;
+      if (hidden(col, row0, S, causal, window)) s[4 * i + j] = kNegInf;
+      if (hidden(col, row0 + 8, S, causal, window)) s[4 * i + 2 + j] = kNegInf;
     }
   }
 }
@@ -400,11 +447,15 @@ struct Softmax {
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f, alpha0 = 1.0f, alpha1 = 1.0f;
 
   // s: raw scores of one key tile -> p = exp((s - m) / sqrt(D)) = exp2(s c - m c), with
-  // c = log2(e) / sqrt(D); a row's max over the 4 lanes that hold it.
-  __device__ __forceinline__ void step(float (&s)[64], float c) {
+  // c = log2(e) / sqrt(D); a row's max over the 4 lanes that hold it. A row whose max is
+  // still -FLT_MAX (only masked scores so far) takes m c = 0, so that its p are
+  // exp2(-FLT_MAX c) = 0: with m c = -FLT_MAX c rounded, the fmaf would leave that
+  // rounding's error, up to 2^100, in the exponent.
+  template <int N>
+  __device__ __forceinline__ void step(float (&s)[N], float c) {
     float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < N / 4; ++i) {
       mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
       mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
     }
@@ -413,14 +464,15 @@ struct Softmax {
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
-    const float mc0 = mx0 * c, mc1 = mx1 * c;
+    const float mc0 = mx0 == kNegInf ? 0.0f : mx0 * c;
+    const float mc1 = mx1 == kNegInf ? 0.0f : mx1 * c;
     alpha0 = exp2_approx(fmaf(m0, c, -mc0));
     alpha1 = exp2_approx(fmaf(m1, c, -mc1));
     m0 = mx0;
     m1 = mx1;
     float sum0 = 0.0f, sum1 = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < N / 4; ++i) {
       s[4 * i] = exp2_approx(fmaf(s[4 * i], c, -mc0));
       s[4 * i + 1] = exp2_approx(fmaf(s[4 * i + 1], c, -mc0));
       s[4 * i + 2] = exp2_approx(fmaf(s[4 * i + 2], c, -mc1));
@@ -442,19 +494,24 @@ struct Softmax {
   }
 };
 
-template <int D>
+template <int D, bool kWindow>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
-                Strides so, int H, int group, int S, float scale_log2, int causal) {
-  using T = Tile<D>;
+                Strides so, int H, int group, int S, float scale_log2, int causal,
+                int window_arg) {
+  const int window = kWindow ? window_arg : 0;  // a constant 0 folds every window test away
+  using L = Layout<D>;
+  using QT = typename L::QT;
+  using KT = typename L::KT;
+  constexpr int KR = L::kKeys;  // keys per K and V tile
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles start on 1 KB boundaries (the 128-byte swizzle repeats every 1 KB)
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t s_q = (raw + 1023u) & ~1023u;
-  const uint32_t s_k = s_q + T::kBytes;      // stage st at s_k + st * kBytes
-  const uint32_t s_v = s_k + 2 * T::kBytes;  // likewise
-  const uint32_t bar = s_v + 2 * T::kBytes;  // q_full, k_full[2], k_empty[2], v_full[2], v_empty[2]
+  const uint32_t s_k = s_q + QT::kBytes;      // stage st at s_k + st * KT::kBytes
+  const uint32_t s_v = s_k + 2 * KT::kBytes;  // likewise
+  const uint32_t bar = s_v + 2 * KT::kBytes;  // q_full, k_full[2], k_empty[2], v_full[2], v_empty[2]
   const uint32_t q_full = bar;
   auto k_full = [&](int st) { return bar + 8 * (1 + st); };
   auto k_empty = [&](int st) { return bar + 8 * (3 + st); };
@@ -464,7 +521,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
   const int q0 = qt * kTileRows;
   const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / group;
-  const int n_tiles = causal ? qt + 1 : (S + kTileRows - 1) / kTileRows;
+  // key tiles [t_lo, t_lo + n_tiles): from the first that meets the rows' windows to the
+  // last at or before the diagonal (causal) or the end
+  const int t_all = (S + KR - 1) / KR;
+  const int t_lo = window > 0 ? max(0, q0 - window + 1) / KR : 0;
+  const int n_tiles = (causal ? min(t_all, (q0 + kTileRows) / KR) : t_all) - t_lo;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -481,22 +542,22 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   if (threadIdx.x < 128) {  // ---- producer warpgroup ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, T::kBytes);
-      for (int p = 0; p < T::kPanels; ++p)
-        tma_load(s_q + p * T::kPanelBytes, &tm_q, q_full, p * T::kBoxCols, q0, h, b);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int st = t & 1;
-        const uint32_t ph = (t >> 1) & 1;
+      mbar_expect_tx(q_full, QT::kBytes);
+      for (int p = 0; p < QT::kPanels; ++p)
+        tma_load(s_q + p * QT::kPanelBytes, &tm_q, q_full, p * QT::kBoxCols, q0, h, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i & 1, row = (t_lo + i) * KR;
+        const uint32_t ph = (i >> 1) & 1;
         mbar_wait(k_empty(st), ph ^ 1);  // the first pass through the ring does not wait
-        mbar_expect_tx(k_full(st), T::kBytes);
-        for (int p = 0; p < T::kPanels; ++p)
-          tma_load(s_k + st * T::kBytes + p * T::kPanelBytes, &tm_k, k_full(st),
-                   p * T::kBoxCols, t * kTileRows, kvh, b);
+        mbar_expect_tx(k_full(st), KT::kBytes);
+        for (int p = 0; p < KT::kPanels; ++p)
+          tma_load(s_k + st * KT::kBytes + p * KT::kPanelBytes, &tm_k, k_full(st),
+                   p * KT::kBoxCols, row, kvh, b);
         mbar_wait(v_empty(st), ph ^ 1);
-        mbar_expect_tx(v_full(st), T::kBytes);
-        for (int p = 0; p < T::kPanels; ++p)
-          tma_load(s_v + st * T::kBytes + p * T::kPanelBytes, &tm_v, v_full(st),
-                   p * T::kBoxCols, t * kTileRows, kvh, b);
+        mbar_expect_tx(v_full(st), KT::kBytes);
+        for (int p = 0; p < KT::kPanels; ++p)
+          tma_load(s_v + st * KT::kBytes + p * KT::kPanelBytes, &tm_v, v_full(st),
+                   p * KT::kBoxCols, row, kvh, b);
       }
     }
   } else {  // ---- consumer warpgroups: 64 query rows each ----
@@ -505,47 +566,61 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     const int cw = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
     const int row0 = q0 + 64 * cw + 16 * warp + (lane >> 2);  // this thread's rows: row0, row0 + 8
     const int col0 = 2 * (lane & 3);  // its columns in each 8-column group: col0, col0 + 1
-    const uint32_t q_rows = s_q + 64 * cw * T::kSwz;  // this warpgroup's rows of Q
+    const uint32_t q_rows = s_q + 64 * cw * QT::kSwz;  // this warpgroup's rows of Q
 
     float o[D / 2];  // the output accumulator, m64nD layout
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
     Softmax sm;
-    float s[64];  // scores, then probabilities, of 64 rows x 128 keys (m64n128 layout)
+    float s[KR / 2];  // scores, then probabilities, of 64 rows x KR keys (m64nKR layout)
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = 0.0f;
-    uint32_t pa[32];  // P in bf16: 8 A operands of 16 keys
+    for (int i = 0; i < KR / 2; ++i) s[i] = 0.0f;
+    uint32_t pa[KR / 4];  // P in bf16: KR/16 A operands of 16 keys
 
     // S = Q K^T: D/16 steps of 16 columns (32 bytes) along the swizzled rows
     auto issue_s = [&](int st) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk * 32) / T::kSwz * T::kPanelBytes + (kk * 32) % T::kSwz;
-        mma_ss_n128(s, desc(q_rows + off, 16, 8 * T::kSwz, T::kLayout),
-                    desc(s_k + st * T::kBytes + off, 16, 8 * T::kSwz, T::kLayout), kk > 0);
+        const int panel = (kk * 32) / QT::kSwz, off = (kk * 32) % QT::kSwz;
+        mma_ss(s, desc(q_rows + panel * QT::kPanelBytes + off, 16, 8 * QT::kSwz, QT::kLayout),
+               desc(s_k + st * KT::kBytes + panel * KT::kPanelBytes + off, 16, 8 * KT::kSwz,
+                    KT::kLayout),
+               kk > 0);
       }
       wg_commit();
     };
-    // O += P V: 8 steps of 16 keys; V (keys x D, D contiguous) read MN-major
+    // O += P V: KR/16 steps of 16 keys; V (keys x D, D contiguous) read MN-major; at D =
+    // 256 two n128 products a step, over panels 0-1 and 2-3 of V into o's two halves
     auto issue_pv = [&](int st) {
 #pragma unroll
-      for (int kk = 0; kk < kTileRows / 16; ++kk)
-        mma_rs(o, pa + 4 * kk,
-               desc(s_v + st * T::kBytes + kk * 16 * T::kSwz, T::kPanelBytes, 8 * T::kSwz,
-                    T::kLayout));
+      for (int kk = 0; kk < KR / 16; ++kk) {
+        const uint32_t vb = s_v + st * KT::kBytes + kk * 16 * KT::kSwz;
+        if constexpr (D == 256) {
+          mma_rs(*reinterpret_cast<float(*)[64]>(o), pa + 4 * kk,
+                 desc(vb, KT::kPanelBytes, 8 * KT::kSwz, KT::kLayout));
+          mma_rs(*reinterpret_cast<float(*)[64]>(o + 64), pa + 4 * kk,
+                 desc(vb + 2 * KT::kPanelBytes, KT::kPanelBytes, 8 * KT::kSwz, KT::kLayout));
+        } else {
+          mma_rs(o, pa + 4 * kk, desc(vb, KT::kPanelBytes, 8 * KT::kSwz, KT::kLayout));
+        }
+      }
       wg_commit();
     };
-    // the scores of key tile t, once its product has landed: release K, mask the last
-    // tile (the diagonal, or the ragged end), online softmax in place
-    auto softmax = [&](int t) {
-      if (lane == 0) mbar_arrive(k_empty(t & 1));
-      if (t == n_tiles - 1) mask_tile(s, t * kTileRows, col0, row0, S, causal);
+    // the scores of the i-th key tile, once its product has landed: release K, mask a tile
+    // that crosses the diagonal, the window's lower edge or the ragged end, online softmax
+    // in place
+    auto softmax = [&](int i) {
+      if (lane == 0) mbar_arrive(k_empty(i & 1));
+      const int k0 = (t_lo + i) * KR;
+      if (k0 + KR > S || (causal && k0 + KR - 1 > q0) ||
+          (window > 0 && k0 <= q0 + kTileRows - 1 - window))
+        mask_tile(s, k0, col0, row0, S, causal, window);
       sm.step(s, scale_log2);
     };
-    // the m64n128 accumulator's 16-key slices are the m64k16 A operand's layout
+    // the m64nKR accumulator's 16-key slices are the m64k16 A operand's layout
     auto pack_p = [&]() {
 #pragma unroll
-      for (int j = 0; j < 32; ++j) pa[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+      for (int j = 0; j < KR / 4; ++j) pa[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
     };
 
     // The two consumer warpgroups take turns at issuing their products (named barriers
@@ -566,13 +641,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     pin(s);
     softmax(0);
     pack_p();
-    // Per tile t: S of tile t + 1 and P V of tile t go to the tensor cores together, and
-    // the softmax of tile t + 1 runs while P V does. No branch between a wgmma and the
+    // Per tile i: S of tile i + 1 and P V of tile i go to the tensor cores together, and
+    // the softmax of tile i + 1 runs while P V does. No branch between a wgmma and the
     // wait that retires it, so ptxas keeps them asynchronous.
-    for (int t = 0; t + 1 < n_tiles; ++t) {
-      const int st = t & 1;
-      mbar_wait(k_full(st ^ 1), ((t + 1) >> 1) & 1);
-      mbar_wait(v_full(st), (t >> 1) & 1);
+    for (int i = 0; i + 1 < n_tiles; ++i) {
+      const int st = i & 1;
+      mbar_wait(k_full(st ^ 1), ((i + 1) >> 1) & 1);
+      mbar_wait(v_full(st), (i >> 1) & 1);
       my_turn();
       wg_fence();
       pin(s);
@@ -583,17 +658,17 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       your_turn();
       wg_wait<1>();
       pin(s);
-      softmax(t + 1);
+      softmax(i + 1);
       wg_wait<0>();
       pin(o);
       pin(pa);
       if (lane == 0) mbar_arrive(v_empty(st));
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        o[4 * i] *= sm.alpha0;
-        o[4 * i + 1] *= sm.alpha0;
-        o[4 * i + 2] *= sm.alpha1;
-        o[4 * i + 3] *= sm.alpha1;
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= sm.alpha0;
+        o[4 * j + 1] *= sm.alpha0;
+        o[4 * j + 2] *= sm.alpha1;
+        o[4 * j + 3] *= sm.alpha1;
       }
       pack_p();
     }
@@ -648,17 +723,17 @@ EncodeTiled tensor_map_encoder() {
 }
 
 // A 4-D map (D, S, heads, B) over bf16 `base` with element strides st = (b, h, s); boxes
-// of (kBoxCols, 128, 1, 1) with the tile's swizzle. Rows past S read as zeros.
-template <int D>
+// of (kBoxCols, Rows, 1, 1) with the tile's swizzle. Rows past S read as zeros.
+template <int D, int Rows>
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int S, int heads, int B,
             const int64_t* st) {
-  using T = Tile<D>;
+  using T = Tile<D, Rows>;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
                                  static_cast<cuuint64_t>(st[1]) * 2,
                                  static_cast<cuuint64_t>(st[0]) * 2};
-  const cuuint32_t box[4] = {T::kBoxCols, kTileRows, 1, 1};
+  const cuuint32_t box[4] = {T::kBoxCols, Rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swz =
       T::kSwz == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
@@ -667,29 +742,39 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int S, int heads
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, bool kWindow>
 int launch_wgmma(void* out, const void* q, const void* k, const void* v, int B, int H, int KV,
-                 int S, int causal, const int64_t* st, cudaStream_t stream) {
-  using T = Tile<D>;
+                 int S, int causal, int window, const int64_t* st, cudaStream_t stream) {
+  using L = Layout<D>;
   const EncodeTiled fn = tensor_map_encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!encode<D>(fn, &tm_q, q, S, H, B, st + 3) || !encode<D>(fn, &tm_k, k, S, KV, B, st + 6) ||
-      !encode<D>(fn, &tm_v, v, S, KV, B, st + 9))
+  if (!encode<D, kTileRows>(fn, &tm_q, q, S, H, B, st + 3) ||
+      !encode<D, L::kKeys>(fn, &tm_k, k, S, KV, B, st + 6) ||
+      !encode<D, L::kKeys>(fn, &tm_v, v, S, KV, B, st + 9))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;  // once per instantiation, before any graph capture
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+        flash_fwd_wgmma<D, kWindow>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((S + kTileRows - 1) / kTileRows, B * H);
   const float scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D)));
-  flash_fwd_wgmma<D><<<grid, kWsThreads, T::kSmem, stream>>>(
+  flash_fwd_wgmma<D, kWindow><<<grid, kWsThreads, L::kSmem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), Strides{st[0], st[1], st[2]}, H,
-      H / KV, S, scale_log2, causal);
+      H / KV, S, scale_log2, causal, window);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 kernel with a window, or without one.
+template <int D>
+int launch_bf16(void* out, const void* q, const void* k, const void* v, int B, int H, int KV,
+                int S, int causal, int window, const int64_t* st, cudaStream_t stream) {
+  return window > 0
+             ? launch_wgmma<D, true>(out, q, k, v, B, H, KV, S, causal, window, st, stream)
+             : launch_wgmma<D, false>(out, q, k, v, B, H, KV, S, causal, 0, st, stream);
 }
 
 }  // namespace
@@ -697,22 +782,30 @@ int launch_wgmma(void* out, const void* q, const void* k, const void* v, int B, 
 // Plain C entry point, loaded with ctypes. out, q: (B, H, S, D); k, v: (B, KV, S, D),
 // device pointers of one type (dtype 0 = float32, 1 = bfloat16), the last dimension
 // contiguous; `strides` holds 12 host int64 element strides (b, h, s) of out, q, k, v
-// in that order. H % KV == 0, D in {16, 64, 128} (the ported configs' head sizes), S >= 1;
-// for bfloat16 the base pointers and strides are multiples of 16 bytes (TMA). float32
+// in that order. H % KV == 0, D in {16, 64, 128, 256} (the ported configs' head sizes),
+// S >= 1; `window` 0 (none) or, with causal, the keys each row sees (i - window < j <=
+// i); for bfloat16 the base pointers and strides are multiples of 16 bytes (TMA). float32
 // runs flash_fwd on the CUDA cores, bfloat16 flash_fwd_wgmma on the tensor cores. The
 // launch goes on `stream` and does not synchronise. Returns the CUDA error after the
 // launch (0 = launched).
 extern "C" int flash_attention_fwd(void* out, const void* q, const void* k, const void* v,
                                    int dtype, int B, int H, int KV, int S, int D, int causal,
-                                   const int64_t* strides, cudaStream_t stream) {
+                                   int window, const int64_t* strides, cudaStream_t stream) {
+  if (window < 0 || (window > 0 && !causal)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
-    if (D == 16) return launch<float, 16>(out, q, k, v, B, H, KV, S, causal, strides, stream);
-    if (D == 64) return launch<float, 64>(out, q, k, v, B, H, KV, S, causal, strides, stream);
-    if (D == 128) return launch<float, 128>(out, q, k, v, B, H, KV, S, causal, strides, stream);
+    if (D == 16) return launch<float, 16>(out, q, k, v, B, H, KV, S, causal, window, strides, stream);
+    if (D == 64) return launch<float, 64>(out, q, k, v, B, H, KV, S, causal, window, strides, stream);
+    if (D == 128)
+      return launch<float, 128>(out, q, k, v, B, H, KV, S, causal, window, strides, stream);
+    if (D == 256)
+      return launch<float, 256>(out, q, k, v, B, H, KV, S, causal, window, strides, stream);
   } else if (dtype == 1) {
-    if (D == 16) return launch_wgmma<16>(out, q, k, v, B, H, KV, S, causal, strides, stream);
-    if (D == 64) return launch_wgmma<64>(out, q, k, v, B, H, KV, S, causal, strides, stream);
-    if (D == 128) return launch_wgmma<128>(out, q, k, v, B, H, KV, S, causal, strides, stream);
+    if (D == 16) return launch_bf16<16>(out, q, k, v, B, H, KV, S, causal, window, strides, stream);
+    if (D == 64) return launch_bf16<64>(out, q, k, v, B, H, KV, S, causal, window, strides, stream);
+    if (D == 128)
+      return launch_bf16<128>(out, q, k, v, B, H, KV, S, causal, window, strides, stream);
+    if (D == 256)
+      return launch_bf16<256>(out, q, k, v, B, H, KV, S, causal, window, strides, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -720,8 +813,10 @@ extern "C" int flash_attention_fwd(void* out, const void* q, const void* k, cons
 // Dynamic shared memory of the kernel that `dtype` and D select, in bytes (0 if none).
 extern "C" int flash_attention_smem_bytes(int dtype, int D) {
   if (dtype == 0)
-    return D == 16 ? smem_bytes<16>() : D == 64 ? smem_bytes<64>() : D == 128 ? smem_bytes<128>() : 0;
+    return D == 16 ? smem_bytes<16>() : D == 64 ? smem_bytes<64>() : D == 128 ? smem_bytes<128>()
+         : D == 256 ? smem_bytes<256>() : 0;
   if (dtype == 1)
-    return D == 16 ? Tile<16>::kSmem : D == 64 ? Tile<64>::kSmem : D == 128 ? Tile<128>::kSmem : 0;
+    return D == 16 ? Layout<16>::kSmem : D == 64 ? Layout<64>::kSmem : D == 128 ? Layout<128>::kSmem
+         : D == 256 ? Layout<256>::kSmem : 0;
   return 0;
 }

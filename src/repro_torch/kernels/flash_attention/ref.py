@@ -3,9 +3,11 @@
 The function of the reference's Pallas kernel (``kernels/flash_attention/
 flash_attention.py``, with the GQA repeat of its ``ops.py``): float32
 logits scaled by 1/sqrt(D), masked to ``finfo(float32).min`` above the
-diagonal, a float32 softmax and a float32 product with V, cast to q's dtype
-at the end. The CPU path of the port and the tests use it; on the card the
-CUDA kernel is held against it.
+diagonal (and, with a sliding ``window``, at and below ``window`` keys back:
+key j is seen by row i when i - window < j <= i, the reference's
+``causal_mask``), a float32 softmax and a float32 product with V, cast to
+q's dtype at the end. The CPU path of the port and the tests use it; on the
+card the CUDA kernel is held against it.
 """
 from __future__ import annotations
 
@@ -15,29 +17,51 @@ import torch
 
 NEG_INF = torch.finfo(torch.float32).min
 TILE = 128  # keys per tile of the bf16 kernel (kTileRows in csrc/flash_attention.cu)
+TILE_D256 = 64  # at head_dim 256 (Layout<256>::kKeys: 227 KB hold no 128-key tiles)
 
 
-def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
-    """q: (B, H, S, D); k, v: (B, KV, S, D) with H % KV == 0. Returns
-    (B, H, S, D) in q's dtype."""
+def key_tile(D: int) -> int:
+    """Keys per tile of the bf16 kernel at head_dim D."""
+    return TILE_D256 if D == 256 else TILE
+
+
+def masked(S: int, causal: bool, window, device, rows=None, cols=None) -> torch.Tensor:
+    """(len(rows), len(cols)) bool, True where key j is hidden from query
+    row i: j > i (causal), j <= i - window (a sliding window)."""
+    i = (torch.arange(S, device=device) if rows is None else rows)[:, None]
+    j = (torch.arange(S, device=device) if cols is None else cols)[None, :]
+    out = torch.zeros((i.shape[0], j.shape[1]), dtype=torch.bool, device=device)
+    if causal:
+        out |= j > i
+    if window is not None:
+        out |= j <= i - window
+    return out
+
+
+def flash_attention_ref(q, k, v, causal: bool = True, window=None) -> torch.Tensor:
+    """q: (B, H, S, D); k, v: (B, KV, S, D) with H % KV == 0; ``window``
+    None (full causal) or the keys each row sees. Returns (B, H, S, D) in
+    q's dtype."""
     rep = q.shape[1] // k.shape[1]
     k = k.repeat_interleave(rep, dim=1).float()
     v = v.repeat_interleave(rep, dim=1).float()
     S = q.shape[2]
     logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k) * (1.0 / math.sqrt(q.shape[-1]))
-    if causal:
-        ii = torch.arange(S, device=q.device)
-        logits = logits.masked_fill(ii[None, :] > ii[:, None], NEG_INF)
+    if causal or window is not None:
+        logits = logits.masked_fill(masked(S, causal, window, q.device), NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", probs, v).to(q.dtype)
 
 
-def flash_attention_tiled_ref(q, k, v, causal: bool = True) -> torch.Tensor:
+def flash_attention_tiled_ref(q, k, v, causal: bool = True, window=None) -> torch.Tensor:
     """The bf16 CUDA kernel's arithmetic in plain PyTorch, on no path: keys
-    in tiles of ``TILE`` with a running float32 max m, sum l and accumulator;
-    per tile p = exp(s - m) in float32, l from that float32 p, and P rounded
-    to bfloat16 before the product with V (as tensor-core flash kernels
-    do); l clamped at 1e-30 and the output cast to q's dtype. Against
+    in tiles of ``key_tile(D)`` with a running float32 max m, sum l and
+    accumulator; per tile p = exp(s - m) in float32, l from that float32 p,
+    and P rounded to bfloat16 before the product with V (as tensor-core
+    flash kernels do); l clamped at 1e-30 and the output cast to q's dtype.
+    A row that has seen only masked keys takes m = 0 as its reference, so
+    its masked scores give p = 0 (the kernel's guard: no exp(0) = 1 from
+    two equal maxima). Against
     ``flash_attention_ref`` only P's rounding differs (each p within a
     relative 2**-8), so every output is within 2**-8 * attn(q, k, |v|).
     Its float32 p differ from the kernel's in their last bits, so some
@@ -51,17 +75,19 @@ def flash_attention_tiled_ref(q, k, v, causal: bool = True) -> torch.Tensor:
     m = torch.full((B, H, S, 1), NEG_INF, device=q.device)
     l = torch.zeros((B, H, S, 1), device=q.device)
     acc = torch.zeros((B, H, S, D), device=q.device)
-    rows = torch.arange(S, device=q.device)[:, None]
-    for k0 in range(0, S, TILE):
-        s = torch.einsum("bhsd,bhtd->bhst", qf, k[:, :, k0 : k0 + TILE])
-        if causal:
-            cols = torch.arange(k0, min(k0 + TILE, S), device=q.device)[None, :]
-            s = s.masked_fill(cols > rows, NEG_INF)
+    rows = torch.arange(S, device=q.device)
+    tile = key_tile(D)
+    for k0 in range(0, S, tile):
+        s = torch.einsum("bhsd,bhtd->bhst", qf, k[:, :, k0 : k0 + tile])
+        if causal or window is not None:
+            cols = torch.arange(k0, min(k0 + tile, S), device=q.device)
+            s = s.masked_fill(masked(S, causal, window, q.device, rows, cols), NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new)
+        m_ref = torch.where(m_new == NEG_INF, 0.0, m_new)
+        alpha = torch.exp(m - m_ref)
+        p = torch.exp(s - m_ref)
         l = l * alpha + p.sum(-1, keepdim=True)
         p16 = p.to(torch.bfloat16).float()
-        acc = acc * alpha + torch.einsum("bhst,bhtd->bhsd", p16, v[:, :, k0 : k0 + TILE])
+        acc = acc * alpha + torch.einsum("bhst,bhtd->bhsd", p16, v[:, :, k0 : k0 + tile])
         m = m_new
     return (acc / l.clamp_min(1e-30)).to(q.dtype)

@@ -53,8 +53,12 @@ def _assign(tree: ParamTree, values: dict, layer=None, path: str = "") -> None:
 def load_jax_params(model, tree: dict):
     """Load the reference model's params (a nested dict of numpy arrays) into
     ``model`` (a port ``TransformerLM``), in place; returns the model. Each
-    parameter takes the array's dtype, on the model's device."""
-    expected = {"embed", "final_norm"} | {f"g{gi}" for gi in range(len(model.cfg.groups))}
+    parameter takes the array's dtype, on the model's device. A group's
+    shared blocks (``g{gi}_shared``, unstacked) load into the model's one
+    copy of them."""
+    groups = model.cfg.groups
+    shared = [f"g{gi}_shared" for gi, g in enumerate(groups) if g.shared]
+    expected = {"embed", "final_norm", *shared} | {f"g{gi}" for gi in range(len(groups))}
     if not model.cfg.tie_embeddings:
         expected.add("lm_head")
     if set(tree) != expected:
@@ -66,6 +70,8 @@ def load_jax_params(model, tree: dict):
     for gi, layers in enumerate(model.groups):
         for li, p in enumerate(layers):
             _assign(p, tree[f"g{gi}"], layer=li, path=f"/g{gi}[{li}]")
+    for key in shared:
+        _assign(getattr(model, key), tree[key], path=f"/{key}")
     return model
 
 

@@ -1,11 +1,13 @@
-"""Transformer layers: norms, RoPE, GQA attention, MLA, gated and plain
-MLPs, MoE with sort-based capacity dispatch, embeddings.
+"""Transformer layers: norms, RoPE, GQA and sliding-window attention, MLA,
+gated and plain MLPs, MoE with sort-based capacity dispatch, embeddings.
 
 Port of the reference's ``models/layers.py``. Each block is a pair of
 functions, ``init_<block>`` (a nested dict of ``ParamDef``) and an apply
 function over a ``ParamTree``. Layouts are the reference's: activations
 (B, S, D), heads (B, S, H, hd), KV cache (B, T, KV, hd), MLA cache (B, T,
-kv_lora) and (B, T, qk_rope).
+kv_lora) and (B, T, qk_rope). A sliding-window layer's KV cache is a ring
+of min(seq_len, window) slots: the token at position p lives in slot
+p % T, as in the reference.
 
 Serving attention goes through the port's kernels: prefill through the
 flash attention wrapper, decode through the flash-decode wrapper. On CUDA
@@ -14,8 +16,9 @@ the plain versions. The kernels have no backward, so training attention
 (``apply_attention``) is the reference's own plain form, ``_sdpa``: two
 products and a float32 softmax, differentiated by autograd. MLA and MoE
 are plain PyTorch, as in the reference (MLA's q/k and v head sizes differ,
-which the attention kernels do not take). Sliding windows and M-RoPE
-belong to later slices and raise ``NotImplementedError``.
+which the attention kernels do not take). M-RoPE (qwen2-vl) and
+whisper's non-causal cross-attention belong to later slices: M-RoPE raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -104,7 +107,7 @@ def apply_mrope(*args, **kwargs):
 
 
 # ---------------------------------------------------------------------------
-# attention (full causal GQA)
+# attention (causal GQA, full or sliding-window)
 # ---------------------------------------------------------------------------
 
 
@@ -122,8 +125,8 @@ class AttnSpec:
 
 
 def _check_spec(s: AttnSpec) -> None:
-    if s.window is not None:
-        raise NotImplementedError(f"sliding-window attention {_LATER}")
+    if s.window is not None and s.window < 1:
+        raise ValueError(f"window must be at least 1, got {s.window}")
     if s.rope == "mrope":
         apply_mrope()
     if s.rope not in ("std", "none"):
@@ -182,15 +185,16 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 
 def prefill_attention(params, s: AttnSpec, x: torch.Tensor, positions: torch.Tensor):
-    """Full-sequence causal self-attention. Returns (y (B, S, D), k, v), k and
-    v (B, S, KV, hd) for the cache. The attention itself is one call of the
-    flash-attention wrapper on (B, H, S, hd) views of the (B, S, H, hd)
-    projections: no copy, no repeat of the KV heads."""
+    """Full-sequence causal self-attention, over the layer's window if it has
+    one. Returns (y (B, S, D), k, v), k and v (B, S, KV, hd) for the cache.
+    The attention itself is one call of the flash-attention wrapper on
+    (B, H, S, hd) views of the (B, S, H, hd) projections: no copy, no repeat
+    of the KV heads."""
     _check_spec(s)
     q, k, v = _proj_qkv(params, s, x)
     q, k = _rope_qk(s, q, k, positions)
     out = flash_ops.attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window=s.window
     )  # (B, H, S, hd) with q's (B, S, H, hd) strides
     return _out_proj(out.transpose(1, 2), params["wo"]), k, v
 
@@ -242,10 +246,17 @@ def apply_attention(params, s: AttnSpec, x: torch.Tensor, positions: torch.Tenso
     return _out_proj(out, params["wo"])
 
 
+def attn_cache_len(s: AttnSpec, seq_len: int) -> int:
+    """The slots of a layer's KV cache: a sliding-window layer keeps only
+    its window (a ring), a full layer ``seq_len``."""
+    return min(seq_len, s.window) if s.window is not None else seq_len
+
+
 def init_attn_cache(s: AttnSpec, batch: int, seq_len: int, dtype=torch.bfloat16):
-    """KV cache defs for decode: full layers keep ``seq_len`` positions."""
+    """KV cache defs for decode: sliding-window layers keep
+    min(seq_len, window) slots (a ring), full layers ``seq_len``."""
     _check_spec(s)
-    shape = (batch, seq_len, s.kv_heads, s.head_dim)
+    shape = (batch, attn_cache_len(s, seq_len), s.kv_heads, s.head_dim)
     axes = ("batch", "kv_seq", "kv_heads", None)
     return {
         "k": ParamDef(shape, axes, init="zeros", dtype=dtype),
@@ -262,9 +273,12 @@ def decode_attention(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One new token against the KV cache. Unlike the reference, which
     returns a new cache, this writes the token's k and v into ``cache`` IN
-    PLACE at slot ``pos`` and returns the same dict. ``pos`` stays on the
-    device: the cache write, RoPE and the kernel read it there, so the step
-    needs no host sync."""
+    PLACE at slot ``pos`` (a sliding-window layer's ring: ``pos % T``) and
+    returns the same dict. The kernel takes the absolute ``pos``: keys
+    0..pos, all T slots once pos >= T, which for a ring is the reference's
+    mask (every slot valid once the ring has wrapped, else slots 0..pos).
+    ``pos`` stays on the device: the cache write, RoPE and the kernel read
+    it there, so the step needs no host sync."""
     _check_spec(s)
     B = x.shape[0]
     q, k_new, v_new = _proj_qkv(params, s, x)
@@ -273,7 +287,7 @@ def decode_attention(
     kc, vc = cache["k"], cache["v"]
     if kc.dtype != q.dtype:
         raise ValueError(f"cache dtype {kc.dtype} != activation dtype {q.dtype}")
-    slot = pos.reshape(1).long()
+    slot = (pos % kc.shape[1] if s.window is not None else pos).reshape(1).long()
     kc.index_copy_(1, slot, k_new)
     vc.index_copy_(1, slot, v_new)
     out = decode_ops.decode(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), pos)  # (B, H, hd)

@@ -1,32 +1,44 @@
-"""Decoder-only LM stack: the dense family (attention + MLP blocks), the
-MoE family (attention or MLA + routed experts) and RWKV6 (time-mix +
-channel-mix blocks), for serving and, but RWKV6, for training.
+"""Decoder-only LM stack: the dense family (attention + MLP blocks, with
+gemma3's sliding windows), the MoE family (attention or MLA + routed
+experts), RWKV6 (time-mix + channel-mix blocks) and zamba2's hybrid (Mamba2
+blocks + shared attention and MLP blocks), for serving and, but RWKV6,
+Mamba2 and shared blocks, for training.
 
 Port of the reference's ``models/transformer.py``. A model is a sequence of
-GROUPS; each group is a PERIOD of blocks repeated ``repeat`` times. The
-reference stacks a group's layers on a leading axis for ``lax.scan``; here
-each layer is its own ``ParamTree`` in an ``nn.ModuleList`` and the layers
-run in a Python loop. Blocks are pre-norm residual: ``x + f(norm(x))``.
+GROUPS; each group is a PERIOD of blocks repeated ``repeat`` times, then,
+after each period, the group's SHARED blocks: one set of weights
+(``g{gi}_shared``) applied ``repeat`` times, each application with its own
+cache. The reference stacks a group's layers on a leading axis for
+``lax.scan``; here each layer is its own ``ParamTree`` in an
+``nn.ModuleList`` and the layers run in a Python loop. Blocks are pre-norm
+residual: ``x + f(norm(x))``. gemma's embedding scale (``x * sqrt(d_model)``
+in the activations' dtype) and the logit soft cap are the reference's.
 
 Serving entry points keep the reference's layouts: tokens (B, S) int,
 logits (B, 1, V) bfloat16, and per layer a cache entry in
-``cache[f"g{gi}"][layer][f"b{bi}"]``: ``{"k", "v"}`` of (B, T, KV, hd) for
-attention, ``{"latent", "k_rope"}`` of (B, T, kv_lora) and (B, T, qk_rope)
-for MLA, ``{"state", "x_prev"}`` (float32 (B, H, K, K) and the block's
-last normed input (B, 1, D)) for the RWKV6 time mix, ``{"x_prev"}`` for
-the channel mix. Decode updates the entries in place.
+``cache[f"g{gi}"][layer][f"b{bi}"]`` (a shared block's in ``f"s{bi}"``):
+``{"k", "v"}`` of (B, T, KV, hd) for attention (a sliding-window layer's T
+is min(cache_len, window), a ring), ``{"latent", "k_rope"}`` of (B, T,
+kv_lora) and (B, T, qk_rope) for MLA, ``{"conv", "ssm"}`` (the last d_conv
+- 1 convolution inputs (B, d_conv - 1, conv_dim) and the float32 SSM state
+(B, H, N, P)) for Mamba2, ``{"state", "x_prev"}`` (float32 (B, H, K, K) and
+the block's last normed input (B, 1, D)) for the RWKV6 time mix,
+``{"x_prev"}`` for the channel mix. Decode updates the entries in place.
 
 Training (``loss``) takes the params as a tree (``params()``: the module's
-own parameters, one dict per layer in ``g{gi}``'s list), runs each layer
-under ``torch.utils.checkpoint`` (the reference's remat) with the plain
-attention ``layers.apply_attention``, and returns the per-example
-next-token cross entropy over bfloat16 logits plus the MoE layers'
-load-balance loss. RWKV6 training, Mamba2 blocks and shared blocks belong
-to later slices.
+own parameters, one dict per layer in ``g{gi}``'s list, a shared block's in
+``g{gi}_shared``), runs each layer under ``torch.utils.checkpoint`` (the
+reference's remat) with the plain attention ``layers.apply_attention``, and
+returns the per-example next-token cross entropy over bfloat16 logits plus
+the MoE layers' load-balance loss. RWKV6 and Mamba2 training and shared
+blocks' training belong to later slices, as do M-RoPE (qwen2-vl) and
+whisper.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -49,16 +61,17 @@ from repro_torch.models.param_defs import (
 from repro_torch.models.sharding_hooks import shard_act
 from repro_torch.tree import tree_map
 
-SUPPORTED_KINDS = ("attn", "mla", "mlp", "moe", "rwkv6_time", "rwkv6_channel")
+SUPPORTED_KINDS = ("attn", "mla", "mlp", "moe", "mamba2", "rwkv6_time", "rwkv6_channel")
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
-    kind: str                                   # attn|mla|mlp|moe|rwkv6_time|rwkv6_channel
+    kind: str                                   # attn|mla|mlp|moe|mamba2|rwkv6_time|rwkv6_channel
     attn: Optional[L.AttnSpec] = None
     mla: Optional[L.MLASpec] = None
     mlp: Optional[L.MLPSpec] = None
     moe: Optional[L.MoESpec] = None
+    mamba: Optional[S.Mamba2Spec] = None
     rwkv: Optional[S.RWKV6Spec] = None
     rwkv_ffn: int = 0
     norm: str = "rms"                            # rms | ln
@@ -68,29 +81,37 @@ class BlockSpec:
 class GroupSpec:
     blocks: Tuple[BlockSpec, ...]
     repeat: int = 1
+    shared: Tuple[BlockSpec, ...] = ()           # applied after blocks, weights shared
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """The reference's fields that the dense, MoE and RWKV6 families set;
-    gemma's embedding scale and soft cap come with its slice."""
-
     name: str
     vocab: int
     d_model: int
     groups: Tuple[GroupSpec, ...]
     tie_embeddings: bool = False
+    embed_scale: bool = False                    # gemma: x *= sqrt(d_model)
     final_norm: str = "rms"
     subquadratic: bool = False                   # eligible for long_500k
     mrope: bool = False                          # expects positions3 input
     lb_loss_weight: float = 0.01
     remat: bool = True                           # recompute each layer in backward
+    logit_softcap: Optional[float] = None
     # per-arch logical -> mesh rule overrides (granite's expert sharding)
     sharding_overrides: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def n_layers(self) -> int:
         return sum(g.repeat * len(g.blocks) for g in self.groups)
+
+
+@functools.lru_cache(maxsize=None)
+def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
+    """sqrt(d_model) rounded to ``dtype``, as a host float: the reference
+    multiplies by ``jnp.asarray(sqrt(d), x.dtype)``. Computed once per
+    dtype, so that no step reads a tensor's value on the host."""
+    return float(torch.tensor(math.sqrt(d_model), dtype=dtype))
 
 
 def _norm_init(kind: str, d: int):
@@ -104,9 +125,8 @@ def _norm_apply(kind: str, p, x):
 def _check_kind(b: BlockSpec) -> None:
     if b.kind not in SUPPORTED_KINDS:
         raise NotImplementedError(
-            f"block kind {b.kind!r} is not ported yet: Mamba2, sliding windows, M-RoPE and "
-            f"shared blocks belong to later slices of the port (ROADMAP.md queue 1); this one "
-            f"runs {SUPPORTED_KINDS}"
+            f"block kind {b.kind!r} is not ported yet: M-RoPE (qwen2-vl) and whisper belong to "
+            f"later slices of the port (ROADMAP.md queue 1); this one runs {SUPPORTED_KINDS}"
         )
 
 
@@ -121,6 +141,8 @@ def block_defs(b: BlockSpec, d_model: int) -> Dict[str, Any]:
         defs["mlp"] = L.init_mlp(b.mlp)
     elif b.kind == "moe":
         defs["moe"] = L.init_moe(b.moe)
+    elif b.kind == "mamba2":
+        defs["mamba"] = S.init_mamba2(b.mamba)
     elif b.kind == "rwkv6_time":
         defs["rwkv"] = S.init_rwkv6_time(b.rwkv)
     else:
@@ -157,6 +179,8 @@ def apply_block_train(b: BlockSpec, p, x, ctx: dict):
     elif b.kind == "moe":
         y, moe_aux = L.apply_moe(p["moe"], b.moe, h)
         aux = moe_aux["lb_loss"]
+    elif b.kind == "mamba2":
+        raise NotImplementedError(_MAMBA_TRAIN)
     else:
         raise NotImplementedError(_RWKV_TRAIN)
     return shard_act(x + y, ("batch", "act_seq", "embed")), aux
@@ -166,6 +190,10 @@ _RWKV_TRAIN = (
     "RWKV6 training is not ported yet: its time mix launches the forward-only scan "
     "kernel (ROADMAP.md queue 1)"
 )
+_MAMBA_TRAIN = (
+    "training of Mamba2 blocks and shared blocks (zamba2) is not ported yet: this slice serves "
+    "them (ROADMAP.md queue 1)"
+)
 
 
 def block_cache_defs(b: BlockSpec, batch: int, seq_len: int, dtype) -> Optional[Dict[str, Any]]:
@@ -173,6 +201,8 @@ def block_cache_defs(b: BlockSpec, batch: int, seq_len: int, dtype) -> Optional[
         return L.init_attn_cache(b.attn, batch, seq_len, dtype)
     if b.kind == "mla":
         return L.init_mla_cache(b.mla, batch, seq_len, dtype)
+    if b.kind == "mamba2":
+        return S.init_mamba2_cache(b.mamba, batch, dtype)
     if b.kind in ("mlp", "moe"):
         return None  # stateless
     x_prev = ParamDef((batch, 1, b.rwkv.d_model), ("batch", None, None), init="zeros",
@@ -196,6 +226,9 @@ def apply_block_prefill(b: BlockSpec, p, x, ctx):
         y, latent, k_rope = L.prefill_mla(p["mla"], b.mla, h, ctx["positions"])
         return x + y, {"latent": _cache_fill(latent, ctx["cache_len"]),
                        "k_rope": _cache_fill(k_rope, ctx["cache_len"])}
+    if b.kind == "mamba2":
+        y, final, xBC_in = S.prefill_mamba2(p["mamba"], b.mamba, h)
+        return x + y, {"conv": S.mamba2_conv_tail(b.mamba, xBC_in), "ssm": final.float()}
     if b.kind == "rwkv6_time":
         y, final, x_last = S.apply_rwkv6_time(p["rwkv"], b.rwkv, h)
         return x + y, {"state": final, "x_prev": x_last.clone()}  # a copy: h is freed
@@ -203,15 +236,22 @@ def apply_block_prefill(b: BlockSpec, p, x, ctx):
         y, x_last = S.apply_rwkv6_channel(p["rwkv_ffn"], h)
         return x + y, {"x_prev": x_last.clone()}
     y, k, v = L.prefill_attention(p["attn"], b.attn, h, ctx["positions"])
-    return x + y, {"k": _cache_fill(k, ctx["cache_len"]), "v": _cache_fill(v, ctx["cache_len"])}
+    T, ring = L.attn_cache_len(b.attn, ctx["cache_len"]), b.attn.window is not None
+    return x + y, {"k": _cache_fill(k, T, ring), "v": _cache_fill(v, T, ring)}
 
 
-def _cache_fill(t: torch.Tensor, T: int) -> torch.Tensor:
+def _cache_fill(t: torch.Tensor, T: int, ring: bool = False) -> torch.Tensor:
     """A zero cache of T slots along dim 1 holding the last min(T, S) of the
-    prompt's S entries of ``t`` in its first slots."""
+    prompt's S entries of ``t``: in its first slots, or, for a ``ring``
+    (a sliding-window layer's), the entry of position p in slot p % T, the
+    slot decode writes it to (the reference's roll by S % T once the ring
+    is full; before that, slot p)."""
     Sq = t.shape[1]
     c = t.new_zeros((t.shape[0], T) + t.shape[2:])
     keep = min(T, Sq)
+    if ring:
+        slots = torch.arange(Sq - keep, Sq, device=t.device) % T
+        return c.index_copy_(1, slots, t[:, Sq - keep:])
     c[:, :keep] = t[:, Sq - keep:]
     return c
 
@@ -226,6 +266,9 @@ def apply_block_decode(b: BlockSpec, p, x, cache, pos):
         return x + L.apply_moe(p["moe"], b.moe, h, with_lb=False)[0], cache
     if b.kind == "mla":
         y, cache = L.decode_mla(p["mla"], b.mla, h, cache, pos)
+        return x + y, cache
+    if b.kind == "mamba2":
+        y, cache = S.decode_mamba2(p["mamba"], b.mamba, h, cache, pos)
         return x + y, cache
     if b.kind == "rwkv6_time":
         y, _, _ = S.decode_rwkv6_time(p["rwkv"], b.rwkv, h, cache["state"], cache["x_prev"])
@@ -242,11 +285,14 @@ def apply_block_decode(b: BlockSpec, p, x, cache, pos):
 def lm_param_defs(cfg: ArchConfig) -> Dict[str, Any]:
     """The reference's declaration of a model's parameters: each group's
     period stacked on a leading ``layers`` axis (drawn stacked, then split
-    per layer)."""
+    per layer), and its shared blocks once (``g{gi}_shared``)."""
     defs: Dict[str, Any] = {"embed": L.init_embedding(cfg.vocab, cfg.d_model)}
     for gi, g in enumerate(cfg.groups):
         period = {f"b{bi}": block_defs(b, cfg.d_model) for bi, b in enumerate(g.blocks)}
         defs[f"g{gi}"] = stack_defs(period, g.repeat)
+        if g.shared:
+            defs[f"g{gi}_shared"] = {f"b{bi}": block_defs(b, cfg.d_model)
+                                     for bi, b in enumerate(g.shared)}
     defs["final_norm"] = _norm_init(cfg.final_norm, cfg.d_model)
     if not cfg.tie_embeddings:
         defs["lm_head"] = {
@@ -260,7 +306,8 @@ def lm_axes(cfg: ArchConfig) -> Dict[str, Any]:
     """The logical axes of a model's ``params()``: the reference's, per
     layer (its stacked ``layers`` axis removed). Nothing is allocated."""
     defs = lm_param_defs(cfg)
-    out = {k: axes_tree(v) for k, v in defs.items() if not k.startswith("g")}
+    out = {k: axes_tree(v) for k, v in defs.items()
+           if not k.startswith("g") or k.endswith("_shared")}
     for gi, g in enumerate(cfg.groups):
         out[f"g{gi}"] = unstack_axes(defs[f"g{gi}"], g.repeat)
     return out
@@ -269,11 +316,12 @@ def lm_axes(cfg: ArchConfig) -> Dict[str, Any]:
 def lm_active_params(cfg: ArchConfig) -> int:
     """Parameters a token passes through, for MODEL_FLOPS = 6 N_active
     tokens (the reference's count, from the declaration): a MoE layer's
-    experts count as top_k / num_experts of their weights, the embedding
-    not (a gather), the unembedding product does."""
+    experts count as top_k / num_experts of their weights, a shared block
+    once per application, the embedding not (a gather), the unembedding
+    product does."""
     total = 0
     for g in cfg.groups:
-        for b in g.blocks:
+        for b in g.blocks + g.shared:
             defs = block_defs(b, cfg.d_model)
             n = count_params(defs)
             if b.kind == "moe":
@@ -284,8 +332,9 @@ def lm_active_params(cfg: ArchConfig) -> int:
 
 
 class TransformerLM(nn.Module):
-    """The LM (dense or RWKV6). Parameters are drawn at construction from
-    ``seed`` on ``device``, frozen (``ParamTree``).
+    """The LM. Parameters are drawn at construction from ``seed`` on
+    ``device``, frozen (``ParamTree``): one per layer in ``groups``, and a
+    group's shared blocks in the attribute ``g{gi}_shared``.
     The device is CUDA by default and raises when there is none; pass
     ``device="cpu"`` to run on the CPU."""
 
@@ -294,7 +343,7 @@ class TransformerLM(nn.Module):
         if cfg.mrope:
             L.apply_mrope()
         for g in cfg.groups:
-            for b in g.blocks:
+            for b in g.blocks + g.shared:
                 _check_kind(b)
         device = resolve_device(device)
         self.cfg = cfg
@@ -305,6 +354,9 @@ class TransformerLM(nn.Module):
             nn.ModuleList(ParamTree(p) for p in unstack(values.pop(f"g{gi}"), g.repeat))
             for gi, g in enumerate(cfg.groups)
         )
+        for gi, g in enumerate(cfg.groups):
+            if g.shared:
+                setattr(self, f"g{gi}_shared", ParamTree(values.pop(f"g{gi}_shared")))
         self.final_norm = ParamTree(values["final_norm"])
         if not cfg.tie_embeddings:
             self.lm_head = ParamTree(values["lm_head"])
@@ -315,12 +367,15 @@ class TransformerLM(nn.Module):
     def params(self) -> Dict[str, Any]:
         """The parameters as a tree (the module's own tensors, no copies):
         ``embed``, ``final_norm``, ``lm_head`` and, per group ``g{gi}``, a
-        list of per-layer dicts. A train step that updates the tree in
-        place updates the module."""
+        list of per-layer dicts, and its shared blocks' dict
+        ``g{gi}_shared``. A train step that updates the tree in place
+        updates the module."""
         out: Dict[str, Any] = {k: getattr(self, k).as_dict()
                                for k in ("embed", "final_norm", "lm_head") if hasattr(self, k)}
         for gi, layers in enumerate(self.groups):
             out[f"g{gi}"] = [p.as_dict() for p in layers]
+            if self.cfg.groups[gi].shared:
+                out[f"g{gi}_shared"] = getattr(self, f"g{gi}_shared").as_dict()
         return out
 
     def axes(self) -> Dict[str, Any]:
@@ -348,16 +403,36 @@ class TransformerLM(nn.Module):
     def _logits(self, x, params=None):
         """bfloat16 logits of a float32-accumulated product with the
         (tied or separate) unembedding table, of ``params`` (a tree) or of
-        the module."""
+        the module; with ``logit_softcap`` c, c tanh(logits / c) in float32,
+        rounded to bfloat16 again."""
         key = "embed" if self.cfg.tie_embeddings else "lm_head"
         table = getattr(self, key).table if params is None else params[key]["table"]
-        return (x @ table.t()).to(torch.bfloat16)
+        logits = (x @ table.t()).to(torch.bfloat16)
+        c = self.cfg.logit_softcap
+        if c:
+            logits = (torch.tanh(logits.float() / c) * c).to(torch.bfloat16)
+        return logits
+
+    def _embed_in(self, tokens, params=None):
+        """The tokens' embeddings (of ``params`` or of the module); with
+        ``embed_scale``, times sqrt(d_model) rounded to their dtype first,
+        as the reference multiplies (a host float: no device copy)."""
+        x = L.embed(self.embed if params is None else params["embed"], tokens)
+        if self.cfg.embed_scale:
+            x = x * _embed_scale(self.cfg.d_model, x.dtype)
+        return x
 
     def _layers(self):
+        """(group, layer, cache key, block spec, block params) of every
+        block in order: each layer's blocks ``b{bi}``, then its group's
+        shared blocks ``s{bi}`` (one set of weights for every layer)."""
         for gi, g in enumerate(self.cfg.groups):
+            shared = getattr(self, f"g{gi}_shared", None)
             for li, p in enumerate(self.groups[gi]):
                 for bi, b in enumerate(g.blocks):
                     yield gi, li, f"b{bi}", b, p[f"b{bi}"]
+                for bi, b in enumerate(g.shared):
+                    yield gi, li, f"s{bi}", b, shared[f"b{bi}"]
 
     def _put(self, caches, gi: int, li: int, key: str, entry) -> None:
         """``caches[f"g{gi}"][li][key] = entry``, one dict per layer."""
@@ -395,10 +470,12 @@ class TransformerLM(nn.Module):
         for g in self.cfg.groups:
             if any(b.kind.startswith("rwkv6") for b in g.blocks):
                 raise NotImplementedError(_RWKV_TRAIN)
+            if g.shared or any(b.kind == "mamba2" for b in g.blocks):
+                raise NotImplementedError(_MAMBA_TRAIN)
         tokens = batch["tokens"].to(self.device).long()
         B, Sq = tokens.shape
         ctx = {"positions": torch.arange(Sq, device=self.device)[None, :].expand(B, Sq)}
-        x = shard_act(L.embed(params["embed"], tokens), ("batch", "act_seq", "embed"))
+        x = shard_act(self._embed_in(tokens, params), ("batch", "act_seq", "embed"))
         x, aux = self._stack_apply_train(params, x, ctx)
         x = _norm_apply(self.cfg.final_norm, params["final_norm"], x)
         x = shard_act(x, ("batch", None, "embed"))
@@ -409,10 +486,10 @@ class TransformerLM(nn.Module):
 
     # -- serving ---------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, dtype=None):
-        """Zero caches: KV and MLA caches and RWKV6 ``x_prev`` in the model's dtype
-        (the reference's default is bfloat16 whatever the weights; the
-        port's decode needs them in the activations' dtype), RWKV6 states in
-        float32."""
+        """Zero caches: KV and MLA caches, Mamba2 convolution histories and
+        RWKV6 ``x_prev`` in the model's dtype (the reference's default is
+        bfloat16 whatever the weights; the port's decode needs them in the
+        activations' dtype), Mamba2 and RWKV6 states in float32."""
         dtype = dtype or self.dtype
         caches: Dict[str, Any] = {}
         for gi, li, key, b, _ in self._layers():
@@ -429,15 +506,16 @@ class TransformerLM(nn.Module):
         """Full-prompt forward. batch: tokens (B, S) int, optional cache_len
         (default S). Returns (last-token logits (B, 1, V) bf16, cache) with
         the prompt's keys and values (MLA: latents and rope keys) in slots
-        0..S-1 of a new cache, and each RWKV6 block's final state and last
-        normed input."""
+        0..S-1 of a new cache (a sliding-window layer's ring: position p in
+        slot p % T), each Mamba2 block's last convolution inputs and final
+        state, and each RWKV6 block's final state and last normed input."""
         tokens = batch["tokens"].to(self.device)
         B, Sq = tokens.shape
         ctx = {
             "positions": torch.arange(Sq, device=self.device)[None, :].expand(B, Sq),
             "cache_len": batch.get("cache_len", Sq),
         }
-        x = L.embed(self.embed, tokens)
+        x = self._embed_in(tokens)
         caches: Dict[str, Any] = {}
         for gi, li, key, b, p in self._layers():
             x, c = apply_block_prefill(b, p, x, ctx)
@@ -451,12 +529,12 @@ class TransformerLM(nn.Module):
         """One new token. batch: token (B, 1) int, pos () int32 (a 0-d tensor
         on the model's device, or an int): the number of tokens already
         cached. Unlike the reference, which returns a new cache, this writes
-        the token's keys and values, and the RWKV6 states and last inputs,
-        into ``cache`` IN PLACE and returns it with the logits (B, 1, V)
-        bf16."""
+        the token's keys and values, the Mamba2 and RWKV6 states and the
+        last inputs into ``cache`` IN PLACE and returns it with the logits
+        (B, 1, V) bf16."""
         token = batch["token"].to(self.device)
         pos = torch.as_tensor(batch["pos"], dtype=torch.int32, device=self.device)
-        x = L.embed(self.embed, token)
+        x = self._embed_in(token)
         for gi, li, key, b, p in self._layers():
             entry = cache[f"g{gi}"][li].get(key) if f"g{gi}" in cache else None
             x, _ = apply_block_decode(b, p, x, entry, pos)

@@ -3,11 +3,15 @@ the cache.
 
 The port's counterpart of ``examples/serve_lm.py``. Weights are random,
 drawn from ``--seed``; so is the prompt (numpy). On CUDA every layer with a
-kernel runs it: in a dense LM and in granite-moe's attention, flash
+kernel runs it: in a dense LM, in gemma3-1b (head_dim 256; its local
+layers over a 512-key window, their caches 512-slot rings), in
+granite-moe's attention and in zamba2-1.2b's shared attention, flash
 attention in the prefill and flash-decode in every decode step; in
 rwkv6-7b, the linear-scan kernel in each time-mix layer of the prefill
 (decode is one recurrent step in plain PyTorch, as in the reference). MoE
-layers and deepseek-v2-lite's MLA are plain PyTorch.
+layers, deepseek-v2-lite's MLA and zamba2's Mamba2 blocks (the chunked
+SSD scan in the prefill, one recurrent step in decode) are plain PyTorch,
+as the reference computes them without a kernel.
 
     python -m repro_torch.serve_lm --arch internlm2-1.8b --batch 4 \\
         --prompt-len 4096 --tokens 256                     # on a GPU
@@ -17,9 +21,15 @@ layers and deepseek-v2-lite's MLA are plain PyTorch.
         --prompt-len 4096 --tokens 128                     # on a GPU
     python -m repro_torch.serve_lm --arch deepseek-v2-lite-16b --batch 4 \\
         --prompt-len 4096 --tokens 64                      # on a GPU
+    python -m repro_torch.serve_lm --arch gemma3-1b --batch 4 \\
+        --prompt-len 4096 --tokens 128                     # on a GPU
+    python -m repro_torch.serve_lm --arch zamba2-1.2b --batch 4 \\
+        --prompt-len 4096 --tokens 128                     # on a GPU
     python -m repro_torch.serve_lm --device cpu --reduced  # anywhere
     python -m repro_torch.serve_lm --arch rwkv6-7b --device cpu --reduced
     python -m repro_torch.serve_lm --arch deepseek-v2-lite-16b --device cpu --reduced
+    python -m repro_torch.serve_lm --arch gemma3-1b --device cpu --reduced
+    python -m repro_torch.serve_lm --arch zamba2-1.2b --device cpu --reduced
 """
 from __future__ import annotations
 

@@ -130,11 +130,12 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(e - 7)
 
 
-def _flash_bf16_gap(got, want, q, k, v, causal):
+def _flash_bf16_gap(got, want, q, k, v, causal, window=None):
     """max |got - want| over the bf16 flash bound, elementwise (<= 1 passes):
     2**-7 * attn(q, k, |v|) + one bf16 ulp of max(|got|, |want|) + 2e-5."""
     g, w = got.float(), want.float()
-    attn_abs = fref.flash_attention_ref(q.float(), k.float(), v.float().abs(), causal=causal)
+    attn_abs = fref.flash_attention_ref(q.float(), k.float(), v.float().abs(), causal=causal,
+                                        window=window)
     bound = 2.0**-7 * attn_abs + _bf16_ulp(torch.maximum(g.abs(), w.abs())) + 2e-5
     return ((g - w).abs() / bound).max().item()
 
@@ -415,6 +416,42 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, H, KV, S, D, causal, qscale)
         assert _flash_bf16_gap(got, want, q, k, v, causal) <= 1.0
         tiled = fref.flash_attention_tiled_ref(q, k, v, causal=causal)
         assert _flash_bf16_gap(got, tiled, q, k, v, causal) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,S,D,causal,window,qscale", [
+    (1, 4, 1, 300, 256, True, None, 1), (2, 4, 1, 129, 256, False, None, 1),
+    (2, 4, 1, 1, 256, True, None, 1), (1, 8, 2, 64, 256, True, None, 1),
+    (1, 4, 1, 4097, 256, True, None, 8), (1, 4, 1, 4097, 256, True, 512, 8),
+    (1, 4, 1, 700, 256, True, 1, 1), (1, 4, 1, 700, 256, True, 7, 1),
+    (1, 4, 1, 700, 256, True, 65, 1), (1, 4, 1, 700, 256, True, 130, 1),
+    (1, 4, 2, 700, 128, True, 8, 1), (1, 4, 2, 700, 128, True, 100, 8),
+    (1, 6, 2, 500, 64, True, 7, 1), (1, 6, 2, 500, 64, True, 512, 1),
+    (2, 4, 2, 300, 16, True, 8, 1), (2, 4, 2, 300, 16, True, 300, 1),
+])
+def test_flash_kernel_head_dim_256_and_windows(cuda, dtype, B, H, KV, S, D, causal, window,
+                                               qscale):
+    """head_dim 256 (64-key K and V tiles in the bf16 kernel) and sliding
+    windows in both paths: windows of 1, of no multiple of a tile, across
+    tile edges, of S; rows whose first tiles are wholly masked; q x 8
+    drives the rescale. The same bounds as the full causal cases."""
+    g = torch.Generator(device=cuda).manual_seed(S + D + (window or 0))
+    q = torch.randn((B, S, H, D), generator=g, device=cuda).mul(qscale).to(dtype).transpose(1, 2)
+    k = torch.randn((B, S, KV, D), generator=g, device=cuda).to(dtype).transpose(1, 2)
+    v = torch.randn((B, S, KV, D), generator=g, device=cuda).to(dtype).transpose(1, 2)
+    n = fops.attention.LAUNCHES
+    got = fops.attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fops.attention.LAUNCHES == n + 1
+    assert bool(torch.isfinite(got.float()).all())
+    want = fref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    if dtype == torch.float32:
+        _hold(got, want, dtype)
+    else:
+        assert _flash_bf16_gap(got, want, q, k, v, causal, window) <= 1.0
+        tiled = fref.flash_attention_tiled_ref(q, k, v, causal=causal, window=window)
+        assert _flash_bf16_gap(got, tiled, q, k, v, causal, window) <= 1.0
 
 
 @pytest.mark.cuda

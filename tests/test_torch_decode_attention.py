@@ -15,9 +15,11 @@ for given SM counts.
 
 On the card (``-m cuda``) the kernel is held to ``ref.decode_ref`` and
 ``ref.decode_split_ref`` within the same bounds, for groups of 1, 2, 3 and 8
-query heads, D = 16 and 128, both dtypes, pos from 0 to past the cache, and
-every n_splits; two calls are bitwise equal, and a CUDA graph of one call
-replays bit for bit at any pos written into the pos tensor in place.
+query heads, D = 16, 64, 128 and 256, both dtypes, pos from 0 to past the
+cache, and every n_splits; two calls are bitwise equal, a CUDA graph of one
+call replays bit for bit at any pos written into the pos tensor in place,
+and a sliding window's ring (T = window slots, the absolute pos) attends
+what the reference's ring mask does.
 """
 import numpy as np
 import pytest
@@ -227,7 +229,7 @@ POS_CASES = ["0", "1", "splits-1", "mid", "T-1", "past"]
 @pytest.mark.cuda
 @pytest.mark.parametrize("pos_case", POS_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
 @pytest.mark.parametrize("G", [1, 2, 3, 8])
 def test_decode_kernel_matches_both_plain_versions(cuda, G, D, dtype, pos_case):
     B, KV, T = 2, 2, 1000
@@ -256,6 +258,27 @@ def test_decode_kernel_any_n_splits(cuda, n_splits, dtype):
     torch.cuda.synchronize()
     assert _within(got, dref.decode_ref(q, k, v, p), dtype)
     assert _within(got, dref.decode_split_ref(q, k, v, p, n_splits), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos", [300, 511, 512, 4223])
+def test_decode_kernel_on_a_ring(cuda, dtype, pos):
+    """gemma3's local layers: a ring of T = 512 slots at head_dim 256, group
+    4, and the absolute pos. Before the wrap (pos < T) slots 0..pos hold
+    the keys, after it every slot does: the kernel's "keys 0..pos, all once
+    pos >= T" is the reference's ring mask, with no window mask of its own."""
+    q, k, v = _cache(4, 4, 1, 512, 256, dtype, seed=pos, device=cuda)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    got = dops.decode(q, k, v, p)
+    torch.cuda.synchronize()
+    valid = torch.arange(512, device=cuda) <= (pos if pos < 512 else 511)
+    rep = q.shape[1] // k.shape[1]
+    kk, vv = (t.repeat_interleave(rep, dim=1).float() for t in (k, v))
+    s = torch.einsum("bhd,bhtd->bht", q.float(), kk) / 16.0
+    want = torch.einsum("bht,bhtd->bhd", torch.softmax(s.masked_fill(~valid, -torch.inf), -1), vv)
+    assert _within(got, want.to(dtype), dtype)
+    assert _within(got, dref.decode_ref(q, k, v, p), dtype)
 
 
 @pytest.mark.cuda

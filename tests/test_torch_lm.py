@@ -214,6 +214,11 @@ def test_decode_writes_the_cache_in_place():
 
 
 def test_unported_parts_raise():
+    """What later slices port raises: M-RoPE (qwen2-vl), block kinds the
+    port does not run, Mamba2 and shared blocks in training, and the archs
+    not in the registry (qwen2-vl, whisper). Sliding windows and Mamba2
+    serve since their slice (tests/test_torch_sliding.py,
+    test_torch_hybrid_lm.py): a windowed layer's cache is its ring."""
     from repro_torch.configs.base import dense_lm
 
     cfg = get_config("internlm2-1.8b", reduced=True)
@@ -222,17 +227,21 @@ def test_unported_parts_raise():
     cfg_w = dataclasses.replace(cfg, groups=(dataclasses.replace(cfg.groups[0],
                                                                  blocks=(windowed, blocks[1])),))
     port = build_model(cfg_w, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        port.prefill({"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    _, cache = port.prefill({"tokens": torch.zeros((1, 12), dtype=torch.int32), "cache_len": 16})
+    assert cache["g0"][0]["b0"]["k"].shape[1] == 8
     with pytest.raises(NotImplementedError):
         build_model(dense_lm("m", 1, 32, 2, 1, 64, 64, mrope=True),
                     device="cpu")
-    mamba2 = dataclasses.replace(blocks[1], kind="mamba2")
-    with pytest.raises(NotImplementedError):
+    cross = dataclasses.replace(blocks[1], kind="cross_attn")
+    with pytest.raises(NotImplementedError, match="later slice"):
         build_model(dataclasses.replace(cfg, groups=(dataclasses.replace(
-            cfg.groups[0], blocks=(blocks[0], mamba2)),)), device="cpu")
-    with pytest.raises(KeyError):
-        get_config("zamba2-1.2b")
+            cfg.groups[0], blocks=(blocks[0], cross)),)), device="cpu")
+    zamba = build_model(get_config("zamba2-1.2b", reduced=True), device="cpu")
+    with pytest.raises(NotImplementedError):
+        zamba.loss(zamba.params(), {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    for arch in ("qwen2-vl-72b", "whisper-base"):
+        with pytest.raises(KeyError):
+            get_config(arch)
 
 
 def test_param_count_of_the_serve_config():
