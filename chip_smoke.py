@@ -96,15 +96,20 @@ exits non-zero:
               (quickstart, churn_demo) run as processes on the card while
               (a) runs, and must exit 0;
   lm_agree  — the LMs (gemma3, internlm2, phi4-mini, minitron, granite-moe,
-              deepseek-v2-lite, zamba2, rwkv6) at their reduced configs: the
-              port on the card (attention and scan kernels) against the port
-              on the CPU (plain versions), same weights from one seed,
-              prompts of 16 and 100 tokens (gemma3-reduced's 8-slot rings
-              wrap; zamba2-reduced's chunked scan pads 100 to 112), 8 decode
-              steps; each attention kernel launched once per attention
-              layer and step, zamba2's shared attention once per
-              application; logits within one bfloat16 ulp (+1e-5) in
-              float32 weights, within 0.03 in bf16 (zamba2: 0.1);
+              deepseek-v2-lite, qwen2-vl, zamba2, whisper, rwkv6) at their
+              reduced configs: the port on the card (attention and scan
+              kernels) against the port on the CPU (plain versions), same
+              weights from one seed, prompts of 16 and 100 tokens
+              (gemma3-reduced's 8-slot rings wrap; zamba2-reduced's chunked
+              scan pads 100 to 112; qwen2-vl's positions3 hold an image by
+              Qwen2-VL's rule; whisper encodes as many frames as the prompt
+              has tokens), 8 decode steps; each attention kernel launched
+              once per attention layer and step, zamba2's shared attention
+              once per application, whisper's flash once per encoder layer
+              and twice per decoder layer (self, cross) and its decode
+              twice per decoder layer and step; logits within one bfloat16
+              ulp (+1e-5) in float32 weights, within 0.03 in bf16 (zamba2:
+              0.1; whisper: 0.3);
   train_agree — the IPLS train step (repro_torch.core.sharded through
               launch.steps.build_train_step) on the card's smoke mesh (a
               one-process NCCL group), internlm2-reduced in float32: 3
@@ -190,6 +195,26 @@ exits non-zero:
               flash and 6 x 127 decode launches; serve's numbers and checks
               and the profiler's shares of the Mamba2 ranges (in, ssd, out);
               the bf16 end-to-end limit given way to the witness;
+  serve_whisper — the encoder-decoder at full width: whisper-base
+              (116,792,832 bf16 parameters, 83,236,352 active, nothing cut)
+              through build_model and serve_lm.generate, 16 clips of 1,500
+              frames (30 s of audio) drawn from the seed, a 4-token decoder
+              prompt, 128 greedy tokens; exactly 18 flash launches (6
+              non-causal in the encoder, 6 causal, 6 cross-attention with 4
+              query rows against 1,500 keys) and 12 x 127 decode launches
+              (6 x 127 on the 132-slot self caches, 6 x 127 on the
+              1,500-slot cross caches), counted apart by kind; serve's
+              numbers and checks over the decoder blocks (the encoder's
+              output shared by prefill and decode);
+  serve_qwen2_vl — M-RoPE at full width on 16 of qwen2-vl-72b's 80 layers
+              (16,534,380,544 bf16 parameters, 15,288,664,064 active: its
+              float32 copy, 66.1 GB, is the most one card holds): batch 4,
+              a 4,096-token prompt holding one 32 x 32-patch image by
+              Qwen2-VL's positions3 rule, 128 greedy tokens; exactly 16
+              flash (8 query heads a kv head) and 16 x 127 decode launches
+              (group 8); serve's numbers and checks, decode vs prefill with
+              positions3 extended by (P, P, P) (the position decode rotates
+              the token at), the float32 checks at batch 1;
   kernel    — the f32 aggregation kernel against its plain PyTorch version,
               bit for bit, at the main path's shape (K=20, R=51, S=44361),
               ragged cases and the single-partition form; kernel (device
@@ -227,7 +252,17 @@ exits non-zero:
               T=4224, pos 4223, and on a 512-slot ring at pos 4223
               (wrapped) and 300), the same checks, the flash and decode
               times at the served shapes (window 512 against SDPA with the
-              same mask);
+              same mask); whisper's and qwen2-vl's shapes: flash with query
+              and key lengths apart (the served cross shape (16, 8, 8, Sq 4,
+              Sk 1,500, 64), 1 query against 1,500 keys at D = 16, 300
+              against 77 at D = 64, q x 8), the encoder's (16, 8, 8, 1500,
+              64) non-causal and qwen2-vl's (4, 64, 8, 4096, 128) causal,
+              a mask with Sq != Sk refused before a launch; decode at group
+              1 (whisper: the 132-slot self cache, the 1,500-slot cross
+              cache at pos 1,499 and past T) and group 8 (qwen2-vl:
+              (4, 64, 8, 4224, 128)); the same checks, graph replays at the
+              cross and qwen2-vl shapes, and times at every served shape
+              against the bound and SDPA;
   kernel_scan — the linear-scan kernel against three plain versions (step
               oracle, chunked scan, the kernel's split order) at the serve
               shape (4, 4096, 64, 64) in float32 and bf16, T = 1, 17, 100,
@@ -360,6 +395,21 @@ LM_BF16_TOL = 0.03
 # H100, float32 within one bf16 ulp. Its bf16 bound is about twice the
 # larger reading
 LM_BF16_TOL_BY_ARCH = {"zamba2-1.2b": 0.1}
+# whisper-reduced at the reference's init (std 1/sqrt(2) on every weight
+# of its layers, the reference's fan-in over a two-layer stack) scores
+# each query against the keys at a std of about 30, so its softmax is all
+# but one-hot and a bf16 rounding can move the weight from one key to
+# another: its bf16 logits lie up to 0.35 from its float32 ones on the CPU
+# (|logit| < 0.65), and card and CPU 0.154 apart on an H100. A bound that
+# holds those would pass a wrong kernel. Its bf16 leg therefore takes the
+# same draw with every weight matrix of its layers scaled by
+# sqrt(2 / d_model), std 1/sqrt(d_model) (``_unit_gain``): there bf16 lies
+# 0.0063 from float32 on the CPU, under 1% of the logits' scale, and card
+# and CPU 0.0078 apart at both prompt lengths on an H100 (2 bf16 ulps at
+# |logit| 0.67), held to about twice that. Its float32 leg keeps the
+# reference's init.
+LM_BF16_UNIT_GAIN = ("whisper-base",)
+LM_BF16_TOL_BY_ARCH["whisper-base"] = 0.016
 # decode at pos 4,096 vs the last-token logits of a 4,097-token prefill
 # (logits of std about 1.8). The two paths round differently: GEMMs of M = 4
 # against M = 16,388 rows, two attention kernels summing in other orders.
@@ -440,6 +490,27 @@ DECODE_RING_SHAPE = (4, 4, 1, 512, 256)
 DECODE_RING_POS = (4223, 300)  # wrapped, and not yet
 DECODE_D64_SHAPE = (4, 24, 8, 4352, 64)  # granite-moe's decode (serve_moe)
 DECODE_POS = (0, 255, 4095, 4351)
+# whisper-base's attention (serve_whisper): the encoder's self-attention
+# (B, H, KV, S, D, non-causal), the decoder's causal self-attention over
+# the 4-token prompt, its cross-attention (B, H, KV, Sq, Sk, D: the
+# prompt's 4 rows against the 1,500 frames), and decode on the 132-slot
+# self caches and the 1,500-slot cross caches; qwen2-vl-72b's
+# (serve_qwen2_vl): flash with 8 query heads a kv head, decode at the
+# largest group the kernel takes (MAX_GROUP 8)
+FLASH_WHISPER_ENC_SHAPE = (16, 8, 8, 1500, 64)
+FLASH_WHISPER_SELF_SHAPE = (16, 8, 8, 4, 64)
+FLASH_WHISPER_CROSS_SHAPE = (16, 8, 8, 4, 1500, 64)
+FLASH_QWEN2_VL_SHAPE = (4, 64, 8, 4096, 128)
+# (shape, causal, q scale): the served shapes, one query row against 1,500
+# keys, more queries than keys, q x 8 to move the running max
+FLASH_CROSS_CASES = [(FLASH_WHISPER_CROSS_SHAPE, False, 1.0), ((1, 4, 4, 1, 1500, 16), False, 1.0),
+                     ((1, 8, 2, 300, 77, 64), False, 1.0), ((1, 8, 2, 300, 77, 64), False, 8.0),
+                     ((2, 8, 8, 4, 1500, 64), False, 8.0), (FLASH_WHISPER_ENC_SHAPE, False, 1.0),
+                     (FLASH_QWEN2_VL_SHAPE, True, 1.0), (FLASH_WHISPER_SELF_SHAPE, True, 1.0),
+                     (FLASH_WHISPER_SELF_SHAPE, True, 8.0)]
+DECODE_WHISPER_SELF_SHAPE = (16, 8, 8, 132, 64)
+DECODE_WHISPER_CROSS_SHAPE = (16, 8, 8, 1500, 64)
+DECODE_QWEN2_VL_SHAPE = (4, 64, 8, 4224, 128)
 # the MoE family at full width, serving: granite-moe-3b-a800m (GQA attention
 # at head_dim 64 through both attention kernels, 40 experts top-8) and
 # deepseek-v2-lite-16b (MLA and 64 routed experts top-6 + 2 shared, plain
@@ -493,6 +564,26 @@ LAYER_BF16_FLOOR = 2.0**-7
 WITNESS_FACTOR = 2.0
 SERVE_MOE_WITNESSED = ("bf16", "float32")
 SERVE_MLA_WITNESSED = ("bf16",)
+# whisper-base at full width (nothing cut), serving: 16 clips of 30 s of
+# audio (whisper's 1,500 encoder frames at 50 a second; the convolutional
+# frontend is a stub, the frames drawn from the seed), a 4-token decoder
+# prompt (the start-of-transcript sequence), 128 new tokens; (parameters,
+# active parameters) as the reference counts them
+SERVE_WHISPER = dict(arch="whisper-base", batch=16, prompt_len=4, enc_len=1500, tokens=128,
+                     seed=0)
+SERVE_WHISPER_PARAMS = (116_792_832, 83_236_352)
+# qwen2-vl-72b at full width (d 8192, 64 query heads on 8 kv heads of 128,
+# d_ff 29,568, vocab 152,064) on 16 of its 80 layers: 877,684,736 parameters
+# a layer and 2,491,424,768 in the untied embedding and head make 33.1 GB of
+# bf16 at 16 layers, whose float32 copy (the decode-vs-prefill checks) takes
+# 66.1 GB of the card's 80 (20 layers would take 80.2 GB). Batch 4, a
+# 4,096-token prompt holding one image by Qwen2-VL's M-RoPE rule (64 text
+# tokens, a 32 x 32 patch grid at t = 64, h = 64 + row, w = 64 + column,
+# then text from 96 on), 128 new tokens; the float32 checks at batch 1
+SERVE_QWEN2_VL = dict(arch="qwen2-vl-72b", batch=4, prompt_len=4096, tokens=128, seed=0,
+                      layers=16, image=(64, (32, 32)))
+SERVE_QWEN2_VL_PARAMS = (16_534_380_544, 15_288_664_064)
+SERVE_QWEN2_VL_CHECK_BATCH = 1
 # the profiler ranges of the MoE, MLA and Mamba2 layers (models/layers.py
 # ``_span``)
 SPANS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine", "moe.shared", "mla",
@@ -982,8 +1073,9 @@ def _reset_launches(kmods):
 def _launches_by_shape(layers, by):
     """While active, the attention layers' kernel launches (the increments
     of each wrapper's own counter) are also tallied in ``by`` per kind of
-    call: flash attention by its window, flash-decode by its cache's slots
-    (a sliding window's ring holds the window's)."""
+    call: flash attention by its mask (causal, a window, non-causal, or
+    cross: non-causal with fewer queries than keys), flash-decode by its
+    cache's slots (a sliding window's ring holds the window's)."""
     flash, decode = layers.flash_ops, layers.decode_ops
 
     def tallied(fn, name, key):
@@ -994,9 +1086,15 @@ def _launches_by_shape(layers, by):
             return out
         return call
 
+    def flash_kind(q, k, v, causal=True, window=None):
+        if window:
+            return f"window {window}"
+        if causal:
+            return "causal"
+        return "non-causal" if q.shape[2] == k.shape[2] else "cross"
+
     layers.flash_ops = types.SimpleNamespace(attention=tallied(
-        flash.attention, "flash_attention",
-        lambda *a, window=None, **kw: f"window {window}" if window else "causal"))
+        flash.attention, "flash_attention", flash_kind))
     layers.decode_ops = types.SimpleNamespace(decode=tallied(
         decode.decode, "decode_attention", lambda q, k, *a, **kw: f"{k.shape[2]} slots"))
     try:
@@ -2177,9 +2275,10 @@ def _same_argmax(a, b) -> float:
     return (a.argmax(-1) == b.argmax(-1)).float().mean().item()
 
 
-def _serve_run(model, prompt, steps, cache_len):
-    """The port's prefill, then teacher-forced decode steps; every logits."""
-    logits, cache = model.prefill({"tokens": prompt, "cache_len": cache_len})
+def _serve_run(model, prompt, steps, cache_len, extra=None):
+    """The port's prefill (with ``extra`` inputs: whisper's frames, M-RoPE's
+    positions3), then teacher-forced decode steps; every logits."""
+    logits, cache = model.prefill({"tokens": prompt, "cache_len": cache_len, **(extra or {})})
     out = [logits.cpu()]
     for i, tok in enumerate(steps):
         logits, cache = model.decode_step(
@@ -2190,9 +2289,55 @@ def _serve_run(model, prompt, steps, cache_len):
 
 
 def _count_kinds(cfg, kind: str) -> int:
-    """Blocks of ``kind`` a pass runs: a group's shared blocks once per
-    application."""
+    """Blocks of ``kind`` an LM's pass runs: a group's shared blocks once
+    per application."""
     return sum(b.kind == kind for g in cfg.groups for b in (g.blocks + g.shared) * g.repeat)
+
+
+def _image(n: int):
+    """lm_agree's M-RoPE image in an n-token prompt: (text tokens before it,
+    its patch grid), a 2 x 4 grid (3 x 6 from 40 tokens on) after n // 5
+    tokens."""
+    return n // 5, (2, 4) if n < 40 else (3, 6)
+
+
+def _unit_gain(model) -> None:
+    """Scale every weight matrix of an encoder-decoder's layers by
+    sqrt(2 / d_model), in place (LM_BF16_UNIT_GAIN's note)."""
+    import torch
+
+    with torch.no_grad():
+        for layer in list(model.enc) + list(model.dec):
+            for p in layer.parameters():
+                if p.dim() >= 2:
+                    p.mul_((2 / model.cfg.d_model) ** 0.5)
+
+
+def _expected_launches(kmods, model, n_steps: int):
+    """Each kernel's launches in a prefill and ``n_steps`` decode steps of
+    ``model`` (its ``kernel_launches``)."""
+    calls = model.kernel_launches()
+    want = dict.fromkeys(kmods, 0)
+    want.update(calls["prefill"])
+    for k, n in calls["decode_step"].items():
+        want[k] += n * n_steps
+    return want
+
+
+def _with_next(extra, P):
+    """``extra`` for a prefill of P + 1 tokens whose last is decoded at pos P:
+    positions3 extended by (P, P, P), the position decode rotates it at."""
+    import torch
+
+    if "positions3" not in extra:
+        return extra
+    p3 = extra["positions3"]
+    return dict(extra, positions3=torch.cat([p3, torch.full_like(p3[:, :, :1], P)], dim=2))
+
+
+def _first_rows(extra, rows: int):
+    """``extra`` for the first ``rows`` requests."""
+    return {k: v[:, :rows] if k == "positions3" else v[:rows] for k, v in extra.items()}
 
 
 def phase_lm_agree(lm, kmods):
@@ -2204,28 +2349,29 @@ def phase_lm_agree(lm, kmods):
 
     configs = lm["configs"]
     lm["device"].resolve_device("cuda")  # TF32 off: float32 products in full float32
-    lm_kernels = [kmods[k] for k in ("flash_attention", "decode_attention", "rwkv6_scan")]
-    out = {}
+    out, scale = {}, {}
     for arch in configs.ARCH_IDS:
         cfg = configs.get_config(arch, reduced=True)
-        n_attn, n_time = _count_kinds(cfg, "attn"), _count_kinds(cfg, "rwkv6_time")
         base = configs.build_model(cfg, device="cpu", seed=0)
+        want_launches = _expected_launches(kmods, base, LM_AGREE_STEPS)
         for dtype in (torch.float32, torch.bfloat16):
             cpu = copy.deepcopy(base).to(dtype)
+            if dtype == torch.bfloat16 and arch in LM_BF16_UNIT_GAIN:
+                _unit_gain(cpu)
             gpu = copy.deepcopy(cpu).to("cuda")
             for P, cache_len in LM_AGREE_CASES:
                 rng = np.random.default_rng(P)
                 prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, P), dtype=np.int32))
                 steps = [torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1), dtype=np.int32))
                          for _ in range(LM_AGREE_STEPS)]
-                want = _serve_run(cpu, prompt, steps, cache_len)
+                extra = lm["serve_lm"].request_inputs(cfg, 2, P, seed=P, image=_image(P))
+                want = _serve_run(cpu, prompt, steps, cache_len, extra)
                 tol = 1e-5 if dtype == torch.float32 else LM_BF16_TOL_BY_ARCH.get(arch,
                                                                                   LM_BF16_TOL)
-                before = [fn.LAUNCHES for fn in lm_kernels]
-                got = _serve_run(gpu, prompt, steps, cache_len)
-                launched = [fn.LAUNCHES - n for fn, n in zip(lm_kernels, before)]
-                _require(launched == [n_attn, n_attn * LM_AGREE_STEPS, n_time],
-                         f"{arch}: launches {launched}")
+                _reset_launches(kmods)
+                got = _serve_run(gpu, prompt, steps, cache_len, extra)
+                launched = {k: fn.LAUNCHES for k, fn in kmods.items()}
+                _require(launched == want_launches, f"{arch}: launches {launched}")
                 f32 = dtype == torch.float32
                 worst = 0.0
                 for i, (g, w) in enumerate(zip(got, want)):
@@ -2233,11 +2379,14 @@ def phase_lm_agree(lm, kmods):
                     _require(ok and bool(torch.isfinite(g.float()).all()),
                              f"lm_agree {arch} {dtype} P={P} step {i}: max |d| {d}")
                     worst = max(worst, d)
-                out[f"{arch}/{str(dtype)[6:]}/P{P}"] = worst
+                key = f"{arch}/{str(dtype)[6:]}/P{P}"
+                out[key] = worst
+                scale[key] = max(w.float().abs().max().item() for w in want)
     _emit({"phase": "lm_agree", "steps": LM_AGREE_STEPS, "cases": list(LM_AGREE_CASES),
            "tolerance": {"float32": "one bf16 ulp + 1e-5", "bfloat16": LM_BF16_TOL,
                          "bfloat16_by_arch": LM_BF16_TOL_BY_ARCH},
-           "max_abs_logit_diff": out})
+           "bfloat16_unit_gain": list(LM_BF16_UNIT_GAIN),
+           "max_abs_logit_diff": out, "max_abs_logit": scale})
 
 
 def _host_state(tree, state):
@@ -2597,7 +2746,12 @@ def _share(prof, tag: str):
 def _lossless(cfg):
     """The config with every MoE capacity at all of its choices
     (capacity_factor = num_experts / top_k): prefill and decode then drop
-    nothing, so they route each token alike."""
+    nothing, so they route each token alike. whisper's (no MoE) as it is."""
+    from repro_torch.models.whisper import WhisperConfig
+
+    if isinstance(cfg, WhisperConfig):
+        return cfg
+
     def block(b):
         if b.kind != "moe":
             return b
@@ -2608,17 +2762,20 @@ def _lossless(cfg):
         dataclasses.replace(g, blocks=tuple(block(b) for b in g.blocks)) for g in cfg.groups))
 
 
-def _decode_vs_prefill(model, seq, P):
+def _decode_vs_prefill(model, seq, P, extra):
     """Decode of token P after a prefill of seq[:, :P], against the
     last-token logits of a prefill of seq (P + 1 tokens): max |d|, the
     share of rows with the same greedy token, and the logits more than one
-    bf16 ulp apart."""
+    bf16 ulp apart. ``extra``: the inputs of the P + 1-token prefill
+    besides its tokens (``_with_next``; the P-token prefill takes the
+    first P of positions3)."""
     import torch
 
-    _, cache = model.prefill({"tokens": seq[:, :P], "cache_len": P + 1})
+    head = {k: v[..., :P] if k == "positions3" else v for k, v in extra.items()}
+    _, cache = model.prefill({"tokens": seq[:, :P], "cache_len": P + 1, **head})
     step, _ = model.decode_step(cache, {"token": seq[:, P:], "pos": P})
     del cache
-    ref, _ = model.prefill({"tokens": seq})
+    ref, _ = model.prefill({"tokens": seq, **extra})
     s, r = step.float(), ref.float()
     over = ((s - r).abs() > _bf16_ulp(torch.maximum(s.abs(), r.abs()))).sum().item()
     return (s - r).abs().max().item(), _same_argmax(step, ref), over
@@ -2631,9 +2788,58 @@ def _tree_cast(tree, dtype):
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
-def _layerwise(model, seq, P, carry: bool):
+def _blocks(model, tokens, P, extra):
+    """A served model as a chain of blocks at positions 0..P: the
+    embedding x (B, P + 1, d), each block as (params, has_cache, prefill,
+    decode) with prefill(p, x, rows) -> (y, cache entry or None) over x's
+    positions (``rows`` slices the batch of the model's other inputs) and
+    decode(p, x, entry) -> y at position P, and the logits of the last
+    hidden state. A TransformerLM's blocks in order (M-RoPE's positions3
+    from ``extra``, (3, B, P + 1)); whisper's decoder layers over its
+    encoder's output of ``extra``'s frames (the encoder is shared by
+    prefill and decode)."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.whisper import WhisperModel
+
+    dev = model.device
+    pos = torch.tensor(P, dtype=torch.int32, device=dev)
+    if isinstance(model, WhisperModel):
+        enc = model.encode(extra["enc_embeds"])
+        last = torch.tensor(enc.shape[1] - 1, dtype=torch.int32, device=dev)
+        x = model._embed_dec(tokens, model.pos_dec[:P + 1])
+
+        def pre(p, h, rows):
+            return model.dec_block_prefill(p, h, enc[rows].to(h.dtype), P + 1)
+
+        def dec(p, h, c):
+            return model.dec_block_decode(p, h, c, pos, last)
+
+        return x, [(p, True, pre, dec) for p in model.dec], lambda h: model._logits(h).float()
+    B = tokens.shape[0]
+    ar = torch.arange(P + 1, device=dev)[None].expand(B, P + 1)
+    p3 = extra.get("positions3")
+    blocks = []
+    for _, _, _, b, p in model._layers():
+        def pre(p, h, rows, b=b):
+            n = h.shape[1]
+            ctx = {"positions": ar[rows, :n], "cache_len": P + 1}
+            if p3 is not None:
+                ctx["positions3"] = p3[:, rows, :n].to(dev)
+            return T.apply_block_prefill(b, p, h, ctx)
+
+        def dec(p, h, c, b=b):
+            return T.apply_block_decode(b, p, h, c, pos)[0]
+
+        blocks.append((p, T.block_cache_defs(b, 1, 1, model.dtype) is not None, pre, dec))
+    return model._embed_in(tokens), blocks, lambda h: model._logits(
+        T._norm_apply(model.cfg.final_norm, model.final_norm, h)).float()
+
+
+def _layerwise(model, seq, P, carry: bool, extra=None):
     """Decode of token P against a prefill of seq (P + 1 tokens), block by
-    block, chained as prefill and decode_step chain them. A block with a
+    block, chained as prefill and decode_step chain them (``_blocks``;
+    ``extra``: the P + 1-token prefill's other inputs). A block with a
     cache takes it from a prefill of its input's first P positions
     (``cache_len`` P + 1); each gap is max |d| at position P over the
     largest |value| of the block's prefill output there:
@@ -2648,43 +2854,33 @@ def _layerwise(model, seq, P, carry: bool):
     gaps from it (``err_prefill``, ``err_decode``); and the logits gaps
     (max |d|) of the free and carried chains."""
     import torch
-    from repro_torch.models import transformer as T
 
-    dev = model.device
-    tokens = seq.to(dev)
+    tokens = seq.to(model.device)
     B = tokens.shape[0]
-    ar = torch.arange(P + 1, device=dev)[None].expand(B, P + 1)
-    full, head = {"positions": ar, "cache_len": P + 1}, {"positions": ar[:, :P], "cache_len": P + 1}
-    row = {"positions": ar[:1], "cache_len": P + 1}
-    pos = torch.tensor(P, dtype=torch.int32, device=dev)
     up = model.dtype != torch.float32
     keys = ("forced", "free") + (("carried",) if carry else ()) + (
         ("err_prefill", "err_decode") if up else ())
     out = {k: [] for k in keys}
-
-    def logits(h):
-        return model._logits(T._norm_apply(model.cfg.final_norm, model.final_norm, h)).float()
+    every = slice(None)
 
     with torch.no_grad():
-        x = model._embed_in(tokens)
+        x, blocks, logits = _blocks(model, tokens, P, extra or {})
         x_free, x_car = x[:, P:], None
-        for _, _, _, b, p in model._layers():
-            c = None
-            if T.block_cache_defs(b, 1, 1, model.dtype) is not None:
-                c = T.apply_block_prefill(b, p, x[:, :P], head)[1]
+        for p, has_cache, pre, dec in blocks:
+            c = pre(p, x[:, :P], every)[1] if has_cache else None
             forced_c = None if c is None else {k: v.clone() for k, v in c.items()}
-            y, _ = T.apply_block_decode(b, p, x[:, P:], forced_c, pos)
-            x_free, _ = T.apply_block_decode(b, p, x_free, c, pos)
+            y = dec(p, x[:, P:], forced_c)
+            x_free = dec(p, x_free, c)
             del c, forced_c
             if up:
                 p32 = _tree_cast(p.as_dict(), torch.float32)
-                ref32 = torch.cat([T.apply_block_prefill(b, p32, x[r:r + 1].float(), row)[0][:, P:]
+                ref32 = torch.cat([pre(p32, x[r:r + 1].float(), slice(r, r + 1))[0][:, P:]
                                    for r in range(B)])
                 del p32
-            x_out = T.apply_block_prefill(b, p, x, full)[0]
+            x_out = pre(p, x, every)[0]
             if carry:
                 x_car = (torch.cat([x_out[:, :P], y], dim=1) if x_car is None
-                         else T.apply_block_prefill(b, p, x_car, full)[0])
+                         else pre(p, x_car, every)[0])
             x = x_out
             want = x[:, P:].float()
             scale = want.abs().max().item()
@@ -2715,12 +2911,19 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, 
     LAYER_BF16_RATIO (``_layerwise``), in bf16 and in a float32 copy; for
     the dtypes in ``witnessed`` the end-to-end limit is WITNESS_FACTOR's.
     ``check_batch``: the rows of the float32 checks (all by default; bf16
-    takes them all)."""
+    takes them all). ``spec`` may cut the depth (``layers``: the first
+    group's repeat), give whisper's frame count (``enc_len``) and an M-RoPE
+    prompt's image (``image``: text tokens before it, its patch grid)."""
     import torch
 
     configs, serve_lm = lm["configs"], lm["serve_lm"]
     t_phase = time.perf_counter()
     cfg = configs.get_config(spec["arch"])
+    depth = None
+    if "layers" in spec:  # depth cut to fit one card; every width as published
+        depth = {"layers": spec["layers"], "of": cfg.n_layers // len(cfg.groups[0].blocks)}
+        cfg = dataclasses.replace(cfg, groups=(dataclasses.replace(cfg.groups[0],
+                                                                   repeat=spec["layers"]),))
     B, P, n_new = spec["batch"], spec["prompt_len"], spec["tokens"]
     t0 = time.perf_counter()
     model = configs.build_model(cfg, device="cuda", seed=spec["seed"])
@@ -2734,18 +2937,18 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, 
              f"{name}: {model.num_active_params()} active parameters")
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     prompt = serve_lm.prompt_tokens(cfg.vocab, B, P, spec["seed"])
-    n_attn = _count_kinds(cfg, "attn")
+    extra = serve_lm.request_inputs(cfg, B, P, spec["seed"], spec.get("enc_len"),
+                                    spec.get("image"), device=model.device)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches(kmods)
     by_shape = collections.defaultdict(collections.Counter)
     with _launches_by_shape(lm["layers"], by_shape):
-        res = serve_lm.generate(model, prompt, n_new)
+        res = serve_lm.generate(model, prompt, n_new, **extra)
     launches = {k: fn.LAUNCHES for k, fn in kmods.items()}
     peak = torch.cuda.max_memory_allocated()
-    want = dict(dict.fromkeys(kmods, 0), flash_attention=n_attn,
-                decode_attention=n_attn * (n_new - 1), rwkv6_scan=_count_kinds(cfg, "rwkv6_time"))
+    want = _expected_launches(kmods, model, n_new - 1)
     _require(launches == want, f"{name}: launches {launches}, expected {want}")
     _require(all(sum(by_shape[k].values()) == launches[k] for k in by_shape),
              f"{name}: launches by shape {dict(by_shape)} do not add up to {launches}")
@@ -2762,7 +2965,8 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, 
     # of P + 1 tokens (profiled): a MoE arch's capacity drops differ between
     # T = B and T = B (P + 1), so this gap is reported only
     full = torch.cat([prompt, toks[:, :1]], dim=1)
-    ref_bf16, prefill_prof = _profile(lambda: model.prefill({"tokens": full})[0])
+    extra_full = _with_next(extra, P)
+    ref_bf16, prefill_prof = _profile(lambda: model.prefill({"tokens": full, **extra_full})[0])
     served = {"bf16": (res["first_step_logits"].float() - ref_bf16.float()).abs().max().item(),
               "same_argmax": _same_argmax(res["first_step_logits"], ref_bf16)}
     # device time of 8 steady decode steps (slots of the cache reused)
@@ -2780,19 +2984,23 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, 
     rows = check_batch or B
     model.cfg = _lossless(cfg)
 
-    def reading(m, seq, dtype):
-        d, same, over = _decode_vs_prefill(m, seq, P)
+    def reading(m, seq, ext, dtype):
+        d, same, over = _decode_vs_prefill(m, seq, P, ext)
         return {"max_abs": d, "same_argmax": same, "over_one_ulp": over,
-                "layerwise": _layerwise(m, seq, P, carry=dtype in witnessed)}
+                "layerwise": _layerwise(m, seq, P, carry=dtype in witnessed, extra=ext)}
 
-    checks = {"bf16": [reading(model, full, "bf16")]}
+    checks = {"bf16": [reading(model, full, extra_full, "bf16")]}
     torch.cuda.empty_cache()
     m32 = model.float()  # in place: each bf16 weight is freed once converted
     del model
     # the served prompt with its first greedy token, and a second prompt
-    # (P + 1 tokens from the next seed): two readings of the float32 gap
+    # (P + 1 tokens, and frames, from the next seed): two readings of the
+    # float32 gap
     second = serve_lm.prompt_tokens(cfg.vocab, B, P + 1, spec["seed"] + 1)
-    checks["float32"] = [reading(m32, seq[:rows], "float32") for seq in (full, second)]
+    extra_second = _with_next(serve_lm.request_inputs(
+        cfg, B, P, spec["seed"] + 1, spec.get("enc_len"), spec.get("image"), device=m32.device), P)
+    checks["float32"] = [reading(m32, seq[:rows], _first_rows(ext, rows), "float32")
+                         for seq, ext in ((full, extra_full), (second, extra_second))]
     del m32
     torch.cuda.empty_cache()
     for dtype, bound in zip(("bf16", "float32"), bounds):
@@ -2801,7 +3009,9 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, 
             r["limit"] = WITNESS_FACTOR * carried if carried >= bound else bound
     out = {
         "phase": name, "arch": cfg.name, "params": n_params, "weight_bytes": weight_bytes,
-        "active_params": want_active, "batch": B, "prompt_len": P, "new_tokens": n_new,
+        "active_params": want_active, "depth_cut": depth,
+        "enc_len": extra["enc_embeds"].shape[1] if "enc_embeds" in extra else None,
+        "image": spec.get("image"), "batch": B, "prompt_len": P, "new_tokens": n_new,
         "decode_steps": steps, "launches": launches,
         "launches_by_shape": {k: dict(v) for k, v in by_shape.items()}, "build_model_s": build_s,
         "prefill_s": res["prefill_s"], "prefill_tokens_per_s": B * P / res["prefill_s"],
@@ -2848,18 +3058,28 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, 
     return out
 
 
-def _attn_inputs(B, H, KV, S, D, dtype, seed, qscale=1.0):
-    """q (B, H, S, D) and k, v (B, KV, S, D) as transposed views of
-    (B, S, heads, D) tensors, as the model passes them; q scaled by
-    ``qscale`` (large logits move the running max across key tiles)."""
+def _attn_inputs(B, H, KV, S, D, dtype, seed, qscale=1.0, Sk=None):
+    """q (B, H, S, D) and k, v (B, KV, Sk, D) (Sk = S by default) as
+    transposed views of (B, S, heads, D) tensors, as the model passes them;
+    q scaled by ``qscale`` (large logits move the running max across key
+    tiles)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     return tuple(
-        torch.randn((B, S, h, D), generator=g, device="cuda").mul(qscale if i == 0 else 1.0)
+        torch.randn((B, n, h, D), generator=g, device="cuda").mul(qscale if i == 0 else 1.0)
         .to(dtype).transpose(1, 2)
-        for i, h in enumerate((H, KV, KV))
+        for i, (n, h) in enumerate(((S, H), (Sk or S, KV), (Sk or S, KV)))
     )
+
+
+def _flash_dims(shape):
+    """(B, H, KV, Sq, Sk, D) of a flash shape: (B, H, KV, S, D), or
+    (B, H, KV, Sq, Sk, D) for query and key lengths apart."""
+    if len(shape) == 5:
+        B, H, KV, S, D = shape
+        return B, H, KV, S, S, D
+    return tuple(shape)
 
 
 def _attn_check(got, want, dtype, what):
@@ -2872,6 +3092,15 @@ def _attn_check(got, want, dtype, what):
     return d
 
 
+def _by_batch(fn, q, k, v, **kw):
+    """A plain attention version run one batch row at a time (its float32
+    scores of a row, not of the batch, at once: 4.3 GB at qwen2-vl's 64
+    heads and 4,096 positions)."""
+    import torch
+
+    return torch.cat([fn(q[b:b + 1], k[b:b + 1], v[b:b + 1], **kw) for b in range(q.shape[0])])
+
+
 def _flash_bf16_check(got, q, k, v, causal, fref, what, window=None):
     """The bf16 flash kernel against the plain version and the plain tiled
     version: |got - want| <= 2**-7 * attn(q, k, |v|) + one bf16 ulp of the
@@ -2882,12 +3111,12 @@ def _flash_bf16_check(got, q, k, v, causal, fref, what, window=None):
     import torch
 
     g = got.float()
-    attn_abs = fref.flash_attention_ref(q.float(), k.float(), v.float().abs(), causal=causal,
-                                        window=window)
+    attn_abs = _by_batch(fref.flash_attention_ref, q.float(), k.float(), v.float().abs(),
+                         causal=causal, window=window)
     out = {}
     for name, plain in (("plain", fref.flash_attention_ref),
                         ("tiled", fref.flash_attention_tiled_ref)):
-        w = plain(q, k, v, causal=causal, window=window).float()
+        w = _by_batch(plain, q, k, v, causal=causal, window=window).float()
         ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
         d = (g - w).abs()
         share = (d / (FLASH_BF16_P_ROUNDING * attn_abs + ulp + ATTN_F32_TOL)).max().item()
@@ -2941,7 +3170,9 @@ def phase_kernel_attn(fops, fref, dops, dref):
     groups = {"": [(c, i, None) for i, c in enumerate(FLASH_CASES)],
               "head_dim_256_and_windows_": [((shape, causal, qscale), 1000 + j, window)
                                             for j, (shape, causal, qscale, window)
-                                            in enumerate(FLASH_WINDOW_CASES)]}
+                                            in enumerate(FLASH_WINDOW_CASES)],
+              "whisper_and_qwen2_vl_": [(c, 2000 + j, None)
+                                        for j, c in enumerate(FLASH_CROSS_CASES)]}
     for prefix, cases in groups.items():
         f32_worst = 0.0
         # max |d|, share of the bound, elements beyond two ulps (summed), most ulps
@@ -2949,13 +3180,16 @@ def phase_kernel_attn(fops, fref, dops, dref):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype)[6:]
             for (shape, causal, qscale), seed, window in cases:
-                q, k, v = _attn_inputs(*shape, dtype=dtype, seed=seed, qscale=qscale)
+                B, H, KV, Sq, Sk, D = _flash_dims(shape)
+                q, k, v = _attn_inputs(B, H, KV, Sq, D, dtype=dtype, seed=seed, qscale=qscale,
+                                       Sk=Sk)
                 got = fops.attention(q, k, v, causal=causal, window=window)
                 torch.cuda.synchronize()
                 what = f"flash {name} {shape} causal={causal} window={window} q x {qscale}"
                 _require(bool(torch.isfinite(got.float()).all()), f"{what}: not finite")
                 if dtype == torch.float32:
-                    want = fref.flash_attention_ref(q, k, v, causal=causal, window=window)
+                    want = _by_batch(fref.flash_attention_ref, q, k, v, causal=causal,
+                                     window=window)
                     f32_worst = max(f32_worst, _attn_check(got, want, dtype, what))
                     del want
                 else:
@@ -2970,6 +3204,16 @@ def phase_kernel_attn(fops, fref, dops, dref):
             key = prefix + key
             err["flash_attention"].update({key: d, f"{key}_share_of_bound": sh,
                                            f"{key}_beyond_2_ulps": n, f"{key}_max_ulps": u})
+    # a mask pairs query row i with key i: with Sq != Sk it raises, before a launch
+    q, k, v = _attn_inputs(2, 8, 8, 4, 64, dtype=torch.bfloat16, seed=3, Sk=100)
+    n = fops.attention.LAUNCHES
+    for kw in ({"causal": True}, {"causal": True, "window": 8}):
+        try:
+            fops.attention(q, k, v, **kw)
+        except ValueError:
+            continue
+        _require(False, f"flash with Sq != Sk and {kw} did not raise")
+    _require(fops.attention.LAUNCHES == n, "flash launched on a refused call")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         worst = 0.0
@@ -2982,7 +3226,13 @@ def phase_kernel_attn(fops, fref, dops, dref):
         cases += [(DECODE_D256_SHAPE, DECODE_D256_SHAPE[3] - 1), (DECODE_D256_SHAPE, 0)]
         cases += [(DECODE_RING_SHAPE, p) for p in DECODE_RING_POS]
         cases += [((2, 8, 1, 300, 256), 299), ((1, 16, 2, 700, 256), 5000)]
-        d256 = 0.0
+        n_d256 = len(cases)
+        # whisper's (group 1: the self cache, the ragged 1,500-slot cross
+        # cache at its last key and at pos past T) and qwen2-vl's (group 8)
+        cases += [(DECODE_WHISPER_SELF_SHAPE, 100), (DECODE_WHISPER_CROSS_SHAPE, 1499),
+                  (DECODE_WHISPER_CROSS_SHAPE, 5000), (DECODE_QWEN2_VL_SHAPE, 4223),
+                  (DECODE_QWEN2_VL_SHAPE, 0), ((1, 64, 8, 700, 128), 5000)]
+        d256 = served = 0.0
         for i, ((B, H, KV, T, D), p) in enumerate(cases):
             q, k, v = _attn_inputs(B, H, KV, T, D, dtype=dtype, seed=100 + i)
             q = q[:, :, 0]
@@ -2995,27 +3245,39 @@ def phase_kernel_attn(fops, fref, dops, dref):
             d = _attn_check(got, want, dtype, what)
             if i < n_before:
                 worst = max(worst, d)
-            else:
+            elif i < n_d256:
                 d256 = max(d256, d)
+            else:
+                served = max(served, d)
             _require(_bits_equal(got, again), f"{what}: two calls differ")
         err["decode_attention"][name] = worst
         err["decode_attention"][f"head_dim_256_{name}"] = d256
+        err["decode_attention"][f"whisper_and_qwen2_vl_{name}"] = served
     err["decode_attention"]["graph_replay_bfloat16"] = max(
         _decode_graph_check(dops, dref, shape)
-        for shape in (DECODE_SHAPE, DECODE_D64_SHAPE, DECODE_D256_SHAPE))
+        for shape in (DECODE_SHAPE, DECODE_D64_SHAPE, DECODE_D256_SHAPE,
+                      DECODE_WHISPER_CROSS_SHAPE, DECODE_QWEN2_VL_SHAPE))
 
     # times in bf16, the served dtype, at the serve shapes (D = 128: serve;
     # D = 64: serve_moe)
     timings = {}
-    for key, shape, window in (("flash_attention", FLASH_SHAPE, None),
-                               ("flash_attention_d64", FLASH_D64_SHAPE, None),
-                               ("flash_attention_d256", FLASH_D256_SHAPE, None),
-                               ("flash_attention_d256_window", FLASH_D256_SHAPE, FLASH_WINDOW)):
-        timings[key] = _flash_timing(fops, fref, shape, window)
+    for key, shape, window, causal in (
+            ("flash_attention", FLASH_SHAPE, None, True),
+            ("flash_attention_d64", FLASH_D64_SHAPE, None, True),
+            ("flash_attention_d256", FLASH_D256_SHAPE, None, True),
+            ("flash_attention_d256_window", FLASH_D256_SHAPE, FLASH_WINDOW, True),
+            ("flash_attention_whisper_encoder", FLASH_WHISPER_ENC_SHAPE, None, False),
+            ("flash_attention_whisper_self", FLASH_WHISPER_SELF_SHAPE, None, True),
+            ("flash_attention_whisper_cross", FLASH_WHISPER_CROSS_SHAPE, None, False),
+            ("flash_attention_qwen2_vl", FLASH_QWEN2_VL_SHAPE, None, True)):
+        timings[key] = _flash_timing(fops, fref, shape, window, causal)
     for key, shape, pos in (("decode_attention", DECODE_SHAPE, None),
                             ("decode_attention_d64", DECODE_D64_SHAPE, None),
                             ("decode_attention_d256", DECODE_D256_SHAPE, None),
-                            ("decode_attention_d256_ring", DECODE_RING_SHAPE, DECODE_RING_POS[0])):
+                            ("decode_attention_d256_ring", DECODE_RING_SHAPE, DECODE_RING_POS[0]),
+                            ("decode_attention_whisper_self", DECODE_WHISPER_SELF_SHAPE, None),
+                            ("decode_attention_whisper_cross", DECODE_WHISPER_CROSS_SHAPE, None),
+                            ("decode_attention_qwen2_vl", DECODE_QWEN2_VL_SHAPE, None)):
         timings[key] = _decode_timing(dops, dref, shape, pos)
     res = {"phase": "kernel_attn", "max_abs_err": err,
            "tolerance": {"float32": ATTN_F32_TOL, "bfloat16": "one bf16 ulp + 2e-5",
@@ -3025,22 +3287,29 @@ def phase_kernel_attn(fops, fref, dops, dref):
     return res
 
 
-def _flash_timing(fops, fref, shape, window=None):
-    """The bf16 flash kernel at a serve shape, causal or over a sliding
-    ``window``: device and call times, the plain version's time, SDPA's
-    (causal, or with the window's boolean mask; GQA) and the bound, whose
-    products count the (query, key) pairs the mask keeps."""
+def _flash_timing(fops, fref, shape, window=None, causal=True):
+    """The bf16 flash kernel at a served shape ((B, H, KV, S, D), or (B, H,
+    KV, Sq, Sk, D) for cross-attention), causal, over a sliding ``window``
+    or, with ``causal`` False, over every key: device and call times, the
+    plain version's time, SDPA's (causal, with the window's boolean mask,
+    or unmasked; GQA) and the bound, whose products count the (query, key)
+    pairs the mask keeps and whose bytes are q, k, v and o once."""
     import torch
     import torch.nn.functional as F
 
-    B, H, KV, S, D = shape
-    q, k, v = _attn_inputs(*shape, dtype=torch.bfloat16, seed=0)
-    if window is None:
-        pairs = S * (S + 1) / 2
+    B, H, KV, Sq, Sk, D = _flash_dims(shape)
+    q, k, v = _attn_inputs(B, H, KV, Sq, D, dtype=torch.bfloat16, seed=0, Sk=Sk)
+    if not causal:
+        pairs = Sq * Sk
+        lib = _device_ms(lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True), 5, 3)
+        library = "scaled_dot_product_attention(enable_gqa=True)"
+    elif window is None:
+        pairs = Sq * (Sq + 1) / 2
         lib = _device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                                   enable_gqa=True), 5, 3)
         library = "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
     else:
+        S = Sq
         w = min(window, S)
         pairs = w * (w + 1) / 2 + (S - w) * w
         i = torch.arange(S, device="cuda")
@@ -3049,12 +3318,12 @@ def _flash_timing(fops, fref, shape, window=None):
                                                                   enable_gqa=True), 5, 3)
         library = "scaled_dot_product_attention(attn_mask=the window's (S, S) mask, enable_gqa=True)"
     flash = {
-        "shape": list(shape), "window": window,
-        **_device_ms(lambda: fops.attention(q, k, v, window=window), 5, 3),
-        "plain_ms": _time_ms(lambda: fref.flash_attention_ref(q, k, v, window=window), iters=3,
-                             warmup=1),
+        "shape": list(shape), "causal": causal, "window": window,
+        **_device_ms(lambda: fops.attention(q, k, v, causal=causal, window=window), 5, 3),
+        "plain_ms": _time_ms(lambda: fref.flash_attention_ref(q, k, v, causal=causal,
+                                                              window=window), iters=3, warmup=1),
         "library": library, "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
-        **_bound((2 * B * H * S * D + 2 * B * KV * S * D) * 2, 4 * B * H * D * pairs,
+        **_bound((2 * B * H * Sq * D + 2 * B * KV * Sk * D) * 2, 4 * B * H * D * pairs,
                  BF16_FLOPS_PER_S),
     }
     flash["achieved_tflop_s"] = flash["flops"] / (flash["ms"] * 1e-3) / 1e12
@@ -3418,6 +3687,12 @@ def main() -> int:
     phase_serve(lm, kmods, "serve_zamba2", SERVE_ZAMBA2, SERVE_ZAMBA2_PARAMS,
                 (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32),
                 witnessed=SERVE_ZAMBA2_WITNESSED)
+    serve_whisper = phase_serve(lm, kmods, "serve_whisper", SERVE_WHISPER, SERVE_WHISPER_PARAMS,
+                                (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32))
+    serve_qwen2_vl = phase_serve(lm, kmods, "serve_qwen2_vl", SERVE_QWEN2_VL,
+                                 SERVE_QWEN2_VL_PARAMS,
+                                 (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32),
+                                 check_batch=SERVE_QWEN2_VL_CHECK_BATCH)
     kern = phase_kernel(ops, ref)
     kern_q = phase_kernel_q(qops, qref, ops, ref)
     kern_attn = phase_kernel_attn(fops, fref, dops, dref)
@@ -3450,17 +3725,33 @@ def main() -> int:
                 **{k: tm[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms", "share_of_bound")}}
 
+    # the other served shapes' readings: (the path, the kind of call)
+    shape_paths = {
+        "flash_attention_d64": (serve_moe, None),
+        "flash_attention_d256": (serve_gemma3, "causal"),
+        "flash_attention_d256_window": (serve_gemma3, f"window {FLASH_WINDOW}"),
+        "flash_attention_whisper_encoder": (serve_whisper, "non-causal"),
+        "flash_attention_whisper_self": (serve_whisper, "causal"),
+        "flash_attention_whisper_cross": (serve_whisper, "cross"),
+        "flash_attention_qwen2_vl": (serve_qwen2_vl, None),
+        "decode_attention_d64": (serve_moe, None),
+        "decode_attention_d256": (serve_gemma3, f"{DECODE_D256_SHAPE[3]} slots"),
+        "decode_attention_d256_ring": (serve_gemma3, f"{DECODE_RING_SHAPE[3]} slots"),
+        "decode_attention_whisper_self": (serve_whisper, f"{DECODE_WHISPER_SELF_SHAPE[3]} slots"),
+        "decode_attention_whisper_cross": (serve_whisper,
+                                           f"{DECODE_WHISPER_CROSS_SHAPE[3]} slots"),
+        "decode_attention_qwen2_vl": (serve_qwen2_vl, None),
+    }
+
     def other_shapes(key, name):
-        """head_dim 64 (serve_moe's shapes) and 256 (serve_gemma3's: flash
+        """head_dim 64 (serve_moe's shapes), 256 (serve_gemma3's: flash
         causal and over the 512-key window, decode on the full cache and on
-        a wrapped ring)."""
-        kinds = {"flash_attention_d256": "causal",
-                 "flash_attention_d256_window": f"window {FLASH_WINDOW}",
-                 "decode_attention_d256": f"{DECODE_D256_SHAPE[3]} slots",
-                 "decode_attention_d256_ring": f"{DECODE_RING_SHAPE[3]} slots"}
-        return {"d64": reading(f"{key}_d64", name, serve_moe),
-                **{k[len(key) + 1:]: reading(k, name, serve_gemma3, kinds[k]) for k in ta
-                   if k.startswith(f"{key}_d256")}}
+        a wrapped ring), whisper's (flash in the encoder, the decoder's
+        self-attention and the cross-attention, decode on the self and the
+        cross caches) and
+        qwen2-vl's (8 query heads a kv head)."""
+        return {k[len(key) + 1:]: reading(k, name, *shape_paths[k]) for k in ta
+                if k.startswith(f"{key}_")}
 
     rows += [
         # flash: its bf16 cases (the served and timed dtype) against the plain version

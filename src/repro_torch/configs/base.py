@@ -1,8 +1,7 @@
 """Config helpers shared by the per-architecture files.
 
 Port of the reference's ``configs/base.py``: ``attn_block``, ``mlp_block``,
-``moe_block``, ``mamba2_block``, ``rwkv6_blocks`` and ``dense_lm``. The
-reference's ``mrope_sections`` (qwen2-vl) comes with M-RoPE.
+``moe_block``, ``mamba2_block``, ``rwkv6_blocks`` and ``dense_lm``.
 """
 from __future__ import annotations
 
@@ -23,6 +22,7 @@ def attn_block(
     rope_theta: float = 10000.0,
     qk_norm: bool = False,
     bias: bool = False,
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24),
 ) -> BlockSpec:
     return BlockSpec(
         kind="attn",
@@ -36,6 +36,7 @@ def attn_block(
             rope_theta=rope_theta,
             qk_norm=qk_norm,
             bias=bias,
+            mrope_sections=mrope_sections,
         ),
     )
 
@@ -95,6 +96,7 @@ def dense_lm(
     qk_norm: bool = False,
     bias: bool = False,
     mrope: bool = False,
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24),
 ) -> ArchConfig:
     hd = head_dim or d_model // n_heads
     layer = (
@@ -102,6 +104,7 @@ def dense_lm(
             d_model, n_heads, kv_heads, hd,
             rope="mrope" if mrope else "std",
             rope_theta=rope_theta, qk_norm=qk_norm, bias=bias,
+            mrope_sections=mrope_sections,
         ),
         mlp_block(d_model, d_ff, activation, gated),
     )

@@ -2,11 +2,15 @@
 //
 // Replaces the Pallas TPU kernel flash_attention
 // (src/repro/kernels/flash_attention/flash_attention.py:74, body _kernel, with the GQA
-// repeat of its ops.py). Per (batch, head) and query row i:
+// repeat of its ops.py). Per (batch, head) and query row i < Sq, over keys j < Sk:
 //
 //   s_j = (q_i . k_j) / sqrt(D), masked to finfo(float32).min where j > i (causal) and,
 //         with a sliding window W (gemma3's local layers), where j <= i - W
 //   o_i = sum_j softmax(s)_j v_j
+//
+// Sq and Sk differ only without a mask (whisper's cross-attention: 4 decoder rows against
+// 1,500 encoder frames); a mask needs Sq == Sk. The grid, the Q tile and the store guard
+// follow Sq; the key tiles, the ragged-end mask and the K and V tensor maps follow Sk.
 //
 // with a float32 online softmax (running max m, sum l, accumulator acc), l clamped at
 // 1e-30 and the output cast to the input type, as the TPU kernel does. A masked score
@@ -44,7 +48,7 @@
 // barriers), so one's softmax overlaps the other's products. K and V stages go back to
 // the producer after the wgmma wait that retires their last reader. Only the last key
 // tiles that cross the diagonal, the window's lower edge or the ragged end are masked;
-// tiles above the diagonal or below the window are never loaded; TMA fills rows past S
+// tiles above the diagonal or below the window are never loaded; TMA fills rows past Sk
 // with zeros. At D = 256 the K and V tiles hold 64 keys (Tile<D, Rows>): Q's 64 KB and two
 // stages each of 32 KB K and V tiles make 192 KB of shared memory (128-key tiles would need
 // 320 KB), the S tile is 64 x 64 (wgmma m64n64k16, 32 registers a thread) beside the 128
@@ -84,10 +88,10 @@ struct Strides {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
-// Whether key `col` is hidden from query row `row`: past the sequence, after the row
+// Whether key `col` is hidden from query row `row`: past the Sk keys, after the row
 // (causal), or `window` or more keys before it (window > 0).
-__device__ __forceinline__ bool hidden(int col, int row, int S, int causal, int window) {
-  return col >= S || (causal && col > row) || (window > 0 && col <= row - window);
+__device__ __forceinline__ bool hidden(int col, int row, int Sk, int causal, int window) {
+  return col >= Sk || (causal && col > row) || (window > 0 && col <= row - window);
 }
 
 template <int D>
@@ -99,7 +103,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, Strides so, Strides sq, Strides sk, Strides sv, int H,
-          int group, int S, float scale, int causal, int window) {
+          int group, int Sq, int Sk, float scale, int causal, int window) {
   constexpr int kLd = D + 1;    // padded row of q_s and kv_s
   constexpr int kPLd = kBK + 1;  // padded row of p_s
   constexpr int kDc = D / 16;   // output columns per thread
@@ -118,7 +122,7 @@ flash_fwd(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    q_s[r * kLd + c] = q0 + r < S ? to_f32(qb[(q0 + r) * sq.s + c]) : 0.0f;
+    q_s[r * kLd + c] = q0 + r < Sq ? to_f32(qb[(q0 + r) * sq.s + c]) : 0.0f;
   }
   float m[4], l[4], acc[4][kDc];
 #pragma unroll
@@ -129,13 +133,13 @@ flash_fwd(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kDc; ++c) acc[i][c] = 0.0f;
   }
 
-  const int k_end = causal ? min(S, q0 + kBQ) : S;
+  const int k_end = causal ? min(Sk, q0 + kBQ) : Sk;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // q_s is written; the previous tile's V and P reads are done
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int r = i / D, c = i % D;
-      kv_s[r * kLd + c] = k0 + r < S ? to_f32(kb[(k0 + r) * sk.s + c]) : 0.0f;
+      kv_s[r * kLd + c] = k0 + r < Sk ? to_f32(kb[(k0 + r) * sk.s + c]) : 0.0f;
     }
     __syncthreads();
 
@@ -165,7 +169,7 @@ flash_fwd(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
         const float x = s[i][j] * scale;
-        s[i][j] = hidden(col, row, S, causal, window) ? kNegInf : x;
+        s[i][j] = hidden(col, row, Sk, causal, window) ? kNegInf : x;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -191,7 +195,7 @@ flash_fwd(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__ k,
 
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int r = i / D, c = i % D;
-      kv_s[r * kLd + c] = k0 + r < S ? to_f32(vb[(k0 + r) * sv.s + c]) : 0.0f;
+      kv_s[r * kLd + c] = k0 + r < Sk ? to_f32(vb[(k0 + r) * sv.s + c]) : 0.0f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -212,7 +216,7 @@ flash_fwd(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
-    if (row < S) {
+    if (row < Sq) {
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int c = 0; c < kDc; ++c) store(ob + row * so.s + tx + 16 * c, acc[i][c] / denom);
@@ -221,8 +225,8 @@ flash_fwd(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(void* out, const void* q, const void* k, const void* v, int B, int H, int KV, int S,
-           int causal, int window, const int64_t* st, cudaStream_t stream) {
+int launch(void* out, const void* q, const void* k, const void* v, int B, int H, int KV, int Sq,
+           int Sk, int causal, int window, const int64_t* st, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
   static bool configured = false;  // once per instantiation, before any graph capture
   if (!configured) {
@@ -231,13 +235,13 @@ int launch(void* out, const void* q, const void* k, const void* v, int B, int H,
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   flash_fwd<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<T*>(out), static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
-      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, H, H / KV, S, scale, causal,
-      window);
+      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, H, H / KV, Sq, Sk, scale,
+      causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -428,15 +432,15 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // Mask a thread's scores of the key tile at k0 (hidden()). The thread holds rows row0
 // (s[4i], s[4i+1]) and row0 + 8 (s[4i+2], s[4i+3]) at columns k0 + 8i + col0 + {0, 1}.
 template <int N>
-__device__ __forceinline__ void mask_tile(float (&s)[N], int k0, int col0, int row0, int S,
+__device__ __forceinline__ void mask_tile(float (&s)[N], int k0, int col0, int row0, int Sk,
                                           int causal, int window) {
 #pragma unroll
   for (int i = 0; i < N / 4; ++i) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int col = k0 + 8 * i + col0 + j;
-      if (hidden(col, row0, S, causal, window)) s[4 * i + j] = kNegInf;
-      if (hidden(col, row0 + 8, S, causal, window)) s[4 * i + 2 + j] = kNegInf;
+      if (hidden(col, row0, Sk, causal, window)) s[4 * i + j] = kNegInf;
+      if (hidden(col, row0 + 8, Sk, causal, window)) s[4 * i + 2 + j] = kNegInf;
     }
   }
 }
@@ -498,7 +502,7 @@ template <int D, bool kWindow>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
-                Strides so, int H, int group, int S, float scale_log2, int causal,
+                Strides so, int H, int group, int Sq, int Sk, float scale_log2, int causal,
                 int window_arg) {
   const int window = kWindow ? window_arg : 0;  // a constant 0 folds every window test away
   using L = Layout<D>;
@@ -523,7 +527,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / group;
   // key tiles [t_lo, t_lo + n_tiles): from the first that meets the rows' windows to the
   // last at or before the diagonal (causal) or the end
-  const int t_all = (S + KR - 1) / KR;
+  const int t_all = (Sk + KR - 1) / KR;
   const int t_lo = window > 0 ? max(0, q0 - window + 1) / KR : 0;
   const int n_tiles = (causal ? min(t_all, (q0 + kTileRows) / KR) : t_all) - t_lo;
 
@@ -612,9 +616,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     auto softmax = [&](int i) {
       if (lane == 0) mbar_arrive(k_empty(i & 1));
       const int k0 = (t_lo + i) * KR;
-      if (k0 + KR > S || (causal && k0 + KR - 1 > q0) ||
+      if (k0 + KR > Sk || (causal && k0 + KR - 1 > q0) ||
           (window > 0 && k0 <= q0 + kTileRows - 1 - window))
-        mask_tile(s, k0, col0, row0, S, causal, window);
+        mask_tile(s, k0, col0, row0, Sk, causal, window);
       sm.step(s, scale_log2);
     };
     // the m64nKR accumulator's 16-key slices are the m64k16 A operand's layout
@@ -688,10 +692,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     __nv_bfloat16* ob = out + b * so.b + h * so.h + col0;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
-      if (row0 < S)
+      if (row0 < Sq)
         *reinterpret_cast<uint32_t*>(ob + row0 * so.s + 8 * i) =
             pack_bf16(o[4 * i] / d0, o[4 * i + 1] / d0);
-      if (row0 + 8 < S)
+      if (row0 + 8 < Sq)
         *reinterpret_cast<uint32_t*>(ob + (row0 + 8) * so.s + 8 * i) =
             pack_bf16(o[4 * i + 2] / d1, o[4 * i + 3] / d1);
     }
@@ -723,7 +727,8 @@ EncodeTiled tensor_map_encoder() {
 }
 
 // A 4-D map (D, S, heads, B) over bf16 `base` with element strides st = (b, h, s); boxes
-// of (kBoxCols, Rows, 1, 1) with the tile's swizzle. Rows past S read as zeros.
+// of (kBoxCols, Rows, 1, 1) with the tile's swizzle. Rows past S read as zeros (S = Sq for
+// Q, Sk for K and V).
 template <int D, int Rows>
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int S, int heads, int B,
             const int64_t* st) {
@@ -744,14 +749,15 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int S, int heads
 
 template <int D, bool kWindow>
 int launch_wgmma(void* out, const void* q, const void* k, const void* v, int B, int H, int KV,
-                 int S, int causal, int window, const int64_t* st, cudaStream_t stream) {
+                 int Sq, int Sk, int causal, int window, const int64_t* st,
+                 cudaStream_t stream) {
   using L = Layout<D>;
   const EncodeTiled fn = tensor_map_encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!encode<D, kTileRows>(fn, &tm_q, q, S, H, B, st + 3) ||
-      !encode<D, L::kKeys>(fn, &tm_k, k, S, KV, B, st + 6) ||
-      !encode<D, L::kKeys>(fn, &tm_v, v, S, KV, B, st + 9))
+  if (!encode<D, kTileRows>(fn, &tm_q, q, Sq, H, B, st + 3) ||
+      !encode<D, L::kKeys>(fn, &tm_k, k, Sk, KV, B, st + 6) ||
+      !encode<D, L::kKeys>(fn, &tm_v, v, Sk, KV, B, st + 9))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;  // once per instantiation, before any graph capture
   if (!configured) {
@@ -760,52 +766,55 @@ int launch_wgmma(void* out, const void* q, const void* k, const void* v, int B, 
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid((S + kTileRows - 1) / kTileRows, B * H);
+  const dim3 grid((Sq + kTileRows - 1) / kTileRows, B * H);
   const float scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D)));
   flash_fwd_wgmma<D, kWindow><<<grid, kWsThreads, L::kSmem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), Strides{st[0], st[1], st[2]}, H,
-      H / KV, S, scale_log2, causal, window);
+      H / KV, Sq, Sk, scale_log2, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The bf16 kernel with a window, or without one.
 template <int D>
 int launch_bf16(void* out, const void* q, const void* k, const void* v, int B, int H, int KV,
-                int S, int causal, int window, const int64_t* st, cudaStream_t stream) {
+                int Sq, int Sk, int causal, int window, const int64_t* st, cudaStream_t stream) {
   return window > 0
-             ? launch_wgmma<D, true>(out, q, k, v, B, H, KV, S, causal, window, st, stream)
-             : launch_wgmma<D, false>(out, q, k, v, B, H, KV, S, causal, 0, st, stream);
+             ? launch_wgmma<D, true>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, st, stream)
+             : launch_wgmma<D, false>(out, q, k, v, B, H, KV, Sq, Sk, causal, 0, st, stream);
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. out, q: (B, H, S, D); k, v: (B, KV, S, D),
+// Plain C entry point, loaded with ctypes. out, q: (B, H, Sq, D); k, v: (B, KV, Sk, D),
 // device pointers of one type (dtype 0 = float32, 1 = bfloat16), the last dimension
 // contiguous; `strides` holds 12 host int64 element strides (b, h, s) of out, q, k, v
 // in that order. H % KV == 0, D in {16, 64, 128, 256} (the ported configs' head sizes),
-// S >= 1; `window` 0 (none) or, with causal, the keys each row sees (i - window < j <=
-// i); for bfloat16 the base pointers and strides are multiples of 16 bytes (TMA). float32
+// Sq, Sk >= 1, Sq == Sk when causal; `window` 0 (none) or, with causal, the keys each row
+// sees (i - window < j <= i); for bfloat16 the base pointers and strides are multiples of
+// 16 bytes (TMA). float32
 // runs flash_fwd on the CUDA cores, bfloat16 flash_fwd_wgmma on the tensor cores. The
 // launch goes on `stream` and does not synchronise. Returns the CUDA error after the
 // launch (0 = launched).
 extern "C" int flash_attention_fwd(void* out, const void* q, const void* k, const void* v,
-                                   int dtype, int B, int H, int KV, int S, int D, int causal,
-                                   int window, const int64_t* strides, cudaStream_t stream) {
-  if (window < 0 || (window > 0 && !causal)) return static_cast<int>(cudaErrorInvalidValue);
+                                   int dtype, int B, int H, int KV, int Sq, int Sk, int D,
+                                   int causal, int window, const int64_t* strides,
+                                   cudaStream_t stream) {
+  if (window < 0 || (window > 0 && !causal) || (causal && Sq != Sk) || Sq < 1 || Sk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
-    if (D == 16) return launch<float, 16>(out, q, k, v, B, H, KV, S, causal, window, strides, stream);
-    if (D == 64) return launch<float, 64>(out, q, k, v, B, H, KV, S, causal, window, strides, stream);
+    if (D == 16) return launch<float, 16>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, strides, stream);
+    if (D == 64) return launch<float, 64>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, strides, stream);
     if (D == 128)
-      return launch<float, 128>(out, q, k, v, B, H, KV, S, causal, window, strides, stream);
+      return launch<float, 128>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, strides, stream);
     if (D == 256)
-      return launch<float, 256>(out, q, k, v, B, H, KV, S, causal, window, strides, stream);
+      return launch<float, 256>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, strides, stream);
   } else if (dtype == 1) {
-    if (D == 16) return launch_bf16<16>(out, q, k, v, B, H, KV, S, causal, window, strides, stream);
-    if (D == 64) return launch_bf16<64>(out, q, k, v, B, H, KV, S, causal, window, strides, stream);
+    if (D == 16) return launch_bf16<16>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, strides, stream);
+    if (D == 64) return launch_bf16<64>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, strides, stream);
     if (D == 128)
-      return launch_bf16<128>(out, q, k, v, B, H, KV, S, causal, window, strides, stream);
+      return launch_bf16<128>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, strides, stream);
     if (D == 256)
-      return launch_bf16<256>(out, q, k, v, B, H, KV, S, causal, window, strides, stream);
+      return launch_bf16<256>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, strides, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

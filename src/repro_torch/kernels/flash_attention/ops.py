@@ -30,7 +30,7 @@ def build() -> ctypes.CDLL:
     if _lib is None:
         lib = build_library(_SRC)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_fwd.argtypes = [ptr] * 4 + [i32] * 8 + [ptr, ptr]
+        lib.flash_attention_fwd.argtypes = [ptr] * 4 + [i32] * 9 + [ptr, ptr]
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib.flash_attention_smem_bytes.argtypes = [i32, i32]
         lib.flash_attention_smem_bytes.restype = ctypes.c_int
@@ -80,13 +80,15 @@ def check_tma_layout(*tensors) -> None:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
               window: int | None = None):
-    """Softmax attention, causal by default: q (B, H, S, D), k and v
-    (B, KV, S, D) with H % KV == 0, any strides with D contiguous (bfloat16
+    """Softmax attention, causal by default: q (B, H, Sq, D), k and v
+    (B, KV, Sk, D) with H % KV == 0, any strides with D contiguous (bfloat16
     on CUDA: 16-byte aligned, ``check_tma_layout``), float32 or bfloat16,
-    any S >= 1. Query head h reads kv head h // (H / KV). ``window`` (causal
-    only): row i sees keys i - window < j <= i, the reference's sliding
-    window; None sees every key up to i. Returns (B, H, S, D) in q's dtype;
-    on CUDA with q's strides, so for a transposed (B, S, H, D) q the result
+    any Sq, Sk >= 1. Query head h reads kv head h // (H / KV). Causal (row
+    i sees keys j <= i) or with a ``window`` (causal only: row i sees keys
+    i - window < j <= i, the reference's sliding window) needs Sq == Sk,
+    else ValueError; ``causal=False`` sees every key, and Sq and Sk may
+    differ (cross-attention). Returns (B, H, Sq, D) in q's dtype; on CUDA
+    with q's strides, so for a transposed (B, S, H, D) q the result
     transposes back to a contiguous tensor."""
     forbid_grad("attention", q, k, v)
     check_attention_args(q, k, v)
@@ -97,13 +99,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
             raise ValueError(f"window must be at least 1, got {window}")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q, k, v must be 4-D, got {tuple(q.shape)}, {tuple(k.shape)}")
-    if k.shape[2] != q.shape[2]:
-        raise ValueError(f"q has {q.shape[2]} positions, k and v {k.shape[2]}")
-    if q.shape[2] < 1:
+    if q.shape[2] < 1 or k.shape[2] < 1:
         raise ValueError("empty sequence")
+    ref.check_lengths(q.shape[2], k.shape[2], causal, window)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     B, H, S, D = q.shape
+    Sk = k.shape[2]
     if B * H > 65535:
         raise ValueError(f"B * H = {B * H} exceeds the grid's 65535")
     if q.dtype == torch.bfloat16:
@@ -115,7 +117,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
     )
     launch(
         "flash_attention", lib.flash_attention_fwd, out.data_ptr(), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), DTYPES[q.dtype], B, H, k.shape[1], S, D, int(causal),
+        v.data_ptr(), DTYPES[q.dtype], B, H, k.shape[1], S, Sk, D, int(causal),
         min(int(window), S) if window is not None else 0, ctypes.cast(strides, ctypes.c_void_p),
         device=q.device,
     )

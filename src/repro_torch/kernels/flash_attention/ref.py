@@ -6,8 +6,9 @@ logits scaled by 1/sqrt(D), masked to ``finfo(float32).min`` above the
 diagonal (and, with a sliding ``window``, at and below ``window`` keys back:
 key j is seen by row i when i - window < j <= i, the reference's
 ``causal_mask``), a float32 softmax and a float32 product with V, cast to
-q's dtype at the end. The CPU path of the port and the tests use it; on the
-card the CUDA kernel is held against it.
+q's dtype at the end. Without a mask the query and key lengths may differ
+(whisper's cross-attention: every row sees every key). The CPU path of the
+port and the tests use it; on the card the CUDA kernel is held against it.
 """
 from __future__ import annotations
 
@@ -25,9 +26,18 @@ def key_tile(D: int) -> int:
     return TILE_D256 if D == 256 else TILE
 
 
+def check_lengths(Sq: int, Sk: int, causal: bool, window) -> None:
+    """A mask (causal or a window) pairs query row i with key i: raise
+    ValueError unless Sq == Sk there."""
+    if (causal or window is not None) and Sq != Sk:
+        raise ValueError(f"causal or windowed attention needs as many queries as keys, "
+                         f"got {Sq} and {Sk}")
+
+
 def masked(S: int, causal: bool, window, device, rows=None, cols=None) -> torch.Tensor:
     """(len(rows), len(cols)) bool, True where key j is hidden from query
-    row i: j > i (causal), j <= i - window (a sliding window)."""
+    row i: j > i (causal), j <= i - window (a sliding window); rows and
+    cols default to 0..S-1."""
     i = (torch.arange(S, device=device) if rows is None else rows)[:, None]
     j = (torch.arange(S, device=device) if cols is None else cols)[None, :]
     out = torch.zeros((i.shape[0], j.shape[1]), dtype=torch.bool, device=device)
@@ -39,13 +49,14 @@ def masked(S: int, causal: bool, window, device, rows=None, cols=None) -> torch.
 
 
 def flash_attention_ref(q, k, v, causal: bool = True, window=None) -> torch.Tensor:
-    """q: (B, H, S, D); k, v: (B, KV, S, D) with H % KV == 0; ``window``
-    None (full causal) or the keys each row sees. Returns (B, H, S, D) in
-    q's dtype."""
+    """q: (B, H, Sq, D); k, v: (B, KV, Sk, D) with H % KV == 0 (Sq == Sk
+    when causal or windowed); ``window`` None (full causal) or the keys each
+    row sees. Returns (B, H, Sq, D) in q's dtype."""
+    S = q.shape[2]
+    check_lengths(S, k.shape[2], causal, window)
     rep = q.shape[1] // k.shape[1]
     k = k.repeat_interleave(rep, dim=1).float()
     v = v.repeat_interleave(rep, dim=1).float()
-    S = q.shape[2]
     logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k) * (1.0 / math.sqrt(q.shape[-1]))
     if causal or window is not None:
         logits = logits.masked_fill(masked(S, causal, window, q.device), NEG_INF)
@@ -66,21 +77,24 @@ def flash_attention_tiled_ref(q, k, v, causal: bool = True, window=None) -> torc
     relative 2**-8), so every output is within 2**-8 * attn(q, k, |v|).
     Its float32 p differ from the kernel's in their last bits, so some
     entries of P round one bf16 ulp apart: against the kernel it is exact
-    only up to the same 2**-8, from each side."""
+    only up to the same 2**-8, from each side. Shapes as
+    ``flash_attention_ref``."""
+    B, H, S, D = q.shape
+    Sk = k.shape[2]
+    check_lengths(S, Sk, causal, window)
     rep = q.shape[1] // k.shape[1]
     k = k.repeat_interleave(rep, dim=1).float()
     v = v.repeat_interleave(rep, dim=1).float()
     qf = q.float() * (1.0 / math.sqrt(q.shape[-1]))
-    B, H, S, D = q.shape
     m = torch.full((B, H, S, 1), NEG_INF, device=q.device)
     l = torch.zeros((B, H, S, 1), device=q.device)
     acc = torch.zeros((B, H, S, D), device=q.device)
     rows = torch.arange(S, device=q.device)
     tile = key_tile(D)
-    for k0 in range(0, S, tile):
+    for k0 in range(0, Sk, tile):
         s = torch.einsum("bhsd,bhtd->bhst", qf, k[:, :, k0 : k0 + tile])
         if causal or window is not None:
-            cols = torch.arange(k0, min(k0 + tile, S), device=q.device)
+            cols = torch.arange(k0, min(k0 + tile, Sk), device=q.device)
             s = s.masked_fill(masked(S, causal, window, q.device, rows, cols), NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         m_ref = torch.where(m_new == NEG_INF, 0.0, m_new)

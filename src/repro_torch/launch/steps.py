@@ -115,7 +115,12 @@ def build_train_step(
     rules.update(cfg.sharding_overrides)
     rules.update(extra_rules or {})
 
-    batch_sh = _batch_shardings(input_specs(cfg, shape), mesh, rules)
+    specs = input_specs(cfg, shape)
+    if "positions3" in specs or "enc_embeds" in specs:
+        raise NotImplementedError(
+            f"{cfg.name}: training M-RoPE and encoder-decoder models through the step builder is "
+            "not ported yet (ROADMAP.md queue 1)")
+    batch_sh = _batch_shardings(specs, mesh, rules)
     if shape.global_batch % num_agents:
         raise ValueError(
             f"global batch {shape.global_batch} does not split over {num_agents} data ranks"

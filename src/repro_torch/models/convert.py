@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core.sharded import IplsTrainState
 from repro_torch.models.param_defs import ParamTree
+from repro_torch.models.whisper import WhisperModel
 from repro_torch.optim.optimizers import AdamLeaf
 
 
@@ -50,12 +51,34 @@ def _assign(tree: ParamTree, values: dict, layer=None, path: str = "") -> None:
         tree._parameters[name] = torch.nn.Parameter(t.to(old.device), requires_grad=False)
 
 
+def _load_whisper(model, tree: dict):
+    """A reference ``WhisperModel``'s params into a port one: ``enc`` and
+    ``dec`` unstacked per layer, ``embed``, ``pos_dec``, ``enc_ln`` and
+    ``dec_ln`` as they are."""
+    expected = {"embed", "pos_dec", "enc", "dec", "enc_ln", "dec_ln"}
+    if set(tree) != expected:
+        raise KeyError(f"params have {sorted(tree)}, expected {sorted(expected)}")
+    for key in ("embed", "enc_ln", "dec_ln"):
+        _assign(getattr(model, key), tree[key], path=f"/{key}")
+    pos = to_torch(tree["pos_dec"])
+    if tuple(pos.shape) != tuple(model.pos_dec.shape):
+        raise ValueError(f"/pos_dec: shape {tuple(pos.shape)}, port has "
+                         f"{tuple(model.pos_dec.shape)}")
+    model.pos_dec = torch.nn.Parameter(pos.to(model.pos_dec.device), requires_grad=False)
+    for key in ("enc", "dec"):
+        for li, p in enumerate(getattr(model, key)):
+            _assign(p, tree[key], layer=li, path=f"/{key}[{li}]")
+    return model
+
+
 def load_jax_params(model, tree: dict):
     """Load the reference model's params (a nested dict of numpy arrays) into
-    ``model`` (a port ``TransformerLM``), in place; returns the model. Each
-    parameter takes the array's dtype, on the model's device. A group's
-    shared blocks (``g{gi}_shared``, unstacked) load into the model's one
-    copy of them."""
+    ``model`` (a port ``TransformerLM`` or ``WhisperModel``), in place;
+    returns the model. Each parameter takes the array's dtype, on the
+    model's device. A group's shared blocks (``g{gi}_shared``, unstacked)
+    load into the model's one copy of them."""
+    if isinstance(model, WhisperModel):
+        return _load_whisper(model, tree)
     groups = model.cfg.groups
     shared = [f"g{gi}_shared" for gi, g in enumerate(groups) if g.shared]
     expected = {"embed", "final_norm", *shared} | {f"g{gi}" for gi in range(len(groups))}

@@ -1,5 +1,6 @@
-"""Transformer layers: norms, RoPE, GQA and sliding-window attention, MLA,
-gated and plain MLPs, MoE with sort-based capacity dispatch, embeddings.
+"""Transformer layers: norms, RoPE and M-RoPE, GQA, sliding-window,
+bidirectional and cross attention, MLA, gated and plain MLPs, MoE with
+sort-based capacity dispatch, embeddings.
 
 Port of the reference's ``models/layers.py``. Each block is a pair of
 functions, ``init_<block>`` (a nested dict of ``ParamDef``) and an apply
@@ -16,9 +17,10 @@ the plain versions. The kernels have no backward, so training attention
 (``apply_attention``) is the reference's own plain form, ``_sdpa``: two
 products and a float32 softmax, differentiated by autograd. MLA and MoE
 are plain PyTorch, as in the reference (MLA's q/k and v head sizes differ,
-which the attention kernels do not take). M-RoPE (qwen2-vl) and
-whisper's non-causal cross-attention belong to later slices: M-RoPE raises
-``NotImplementedError``.
+which the attention kernels do not take). Whisper's encoder attention is
+the flash kernel without the causal mask, its cross-attention the flash
+kernel with the encoder's keys (query and key lengths differ) in the
+prefill and the flash-decode kernel over all of them in decode.
 """
 from __future__ import annotations
 
@@ -38,8 +40,6 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import sharding_hooks
 from repro_torch.models.param_defs import ParamDef
 from repro_torch.models.sharding_hooks import shard_act
-
-_LATER = "is not ported yet: it belongs to a later slice of the port (ROADMAP.md queue 1)"
 
 # ---------------------------------------------------------------------------
 # norms
@@ -102,12 +102,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def apply_mrope(*args, **kwargs):
-    raise NotImplementedError(f"M-RoPE (qwen2-vl) {_LATER}")
+@functools.lru_cache(maxsize=None)
+def _mrope_components(sections: Tuple[int, int, int], device: torch.device) -> torch.Tensor:
+    """The position component (0, 1, 2 for t, h, w) of each frequency pair,
+    on ``device``, copied there once."""
+    return torch.from_numpy(np.repeat(np.arange(3), sections)).to(device)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float = 1000000.0,
+                sections: Tuple[int, int, int] = (16, 24, 24)) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE, in float32: x (..., S, H, hd);
+    positions3 (3, ..., S) the (t, h, w) ids, on x's device. The rotary
+    spectrum ``rope_freqs(hd, theta)`` is cut into three sections of
+    ``sections`` frequency pairs, each rotated by its own component's
+    positions."""
+    hd = x.shape[-1]
+    if 2 * sum(sections) != hd:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to head_dim / 2 = {hd // 2}")
+    freqs = _rope_freqs_on(hd, theta, x.device)  # (hd/2,)
+    comp = _mrope_components(tuple(sections), x.device)  # (hd/2,)
+    pos = positions3.float().index_select(0, comp).movedim(0, -1)  # (..., S, hd/2)
+    ang = pos * freqs
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x32 = x.float()
+    x1, x2 = x32[..., : hd // 2], x32[..., hd // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
-# attention (causal GQA, full or sliding-window)
+# attention (GQA: causal, sliding-window, bidirectional, cross)
 # ---------------------------------------------------------------------------
 
 
@@ -118,18 +141,18 @@ class AttnSpec:
     kv_heads: int
     head_dim: int
     window: Optional[int] = None        # sliding-window size (None = full)
+    causal: bool = True                  # False for encoder self-attention
     rope: str = "std"                    # "std" | "mrope" | "none"
     rope_theta: float = 10000.0
     qk_norm: bool = False
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
     bias: bool = False
 
 
 def _check_spec(s: AttnSpec) -> None:
     if s.window is not None and s.window < 1:
         raise ValueError(f"window must be at least 1, got {s.window}")
-    if s.rope == "mrope":
-        apply_mrope()
-    if s.rope not in ("std", "none"):
+    if s.rope not in ("std", "mrope", "none"):
         raise ValueError(f"unknown rope {s.rope!r}")
 
 
@@ -172,9 +195,14 @@ def _proj_qkv(params, s: AttnSpec, x: torch.Tensor):
 
 
 def _rope_qk(s: AttnSpec, q, k, positions):
+    """RoPE of q and k: ``positions`` (B, S) for "std", (3, B, S) for
+    "mrope"; "none" leaves them as they are."""
     if s.rope == "std":
         q = apply_rope(q, positions, s.rope_theta)
         k = apply_rope(k, positions, s.rope_theta)
+    elif s.rope == "mrope":
+        q = apply_mrope(q, positions, s.rope_theta, s.mrope_sections)
+        k = apply_mrope(k, positions, s.rope_theta, s.mrope_sections)
     return q, k
 
 
@@ -184,19 +212,61 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return out.reshape(*out.shape[:-2], h * k) @ wo.reshape(h * k, d)
 
 
+def _flash(q, k, v, causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """The flash-attention wrapper on (B, H, S, hd) views of (B, S, heads,
+    hd) tensors: no copy, no repeat of the KV heads. Returns (B, Sq, H, hd)
+    laid out contiguously."""
+    out = flash_ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              causal=causal, window=window)
+    return out.transpose(1, 2)  # the kernel's output has q's (B, S, H, hd) strides
+
+
 def prefill_attention(params, s: AttnSpec, x: torch.Tensor, positions: torch.Tensor):
-    """Full-sequence causal self-attention, over the layer's window if it has
-    one. Returns (y (B, S, D), k, v), k and v (B, S, KV, hd) for the cache.
-    The attention itself is one call of the flash-attention wrapper on
-    (B, H, S, hd) views of the (B, S, H, hd) projections: no copy, no repeat
-    of the KV heads."""
+    """Full-sequence self-attention: causal (over the layer's window if it
+    has one) or, for an encoder (``s.causal`` False), bidirectional.
+    Returns (y (B, S, D), k, v), k and v (B, S, KV, hd) for the cache. The
+    attention itself is one call of the flash-attention wrapper."""
     _check_spec(s)
     q, k, v = _proj_qkv(params, s, x)
     q, k = _rope_qk(s, q, k, positions)
-    out = flash_ops.attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window=s.window
-    )  # (B, H, S, hd) with q's (B, S, H, hd) strides
-    return _out_proj(out.transpose(1, 2), params["wo"]), k, v
+    out = _flash(q, k, v, causal=s.causal, window=s.window)
+    return _out_proj(out, params["wo"]), k, v
+
+
+def cross_kv(params, s: AttnSpec, enc: torch.Tensor):
+    """The encoder output's keys and values for cross-attention, each
+    (B, S_enc, KV, hd) with their biases: computed once per request and
+    kept in the cache."""
+    k = _heads(enc, params["wk"])
+    v = _heads(enc, params["wv"])
+    if s.bias:
+        k, v = k + params["bk"], v + params["bv"]
+    return k, v
+
+
+def _cross_q(params, s: AttnSpec, x: torch.Tensor) -> torch.Tensor:
+    q = _heads(x, params["wq"])
+    return q + params["bq"] if s.bias else q
+
+
+def cross_attention(params, s: AttnSpec, x: torch.Tensor, ek: torch.Tensor,
+                    ev: torch.Tensor) -> torch.Tensor:
+    """Decoder rows x (B, Sq, D) against every key of the encoder's ek, ev
+    (B, S_enc, KV, hd), no mask and no RoPE: one call of the flash-attention
+    wrapper with Sq query rows and S_enc keys."""
+    out = _flash(_cross_q(params, s, x), ek, ev, causal=False)
+    return _out_proj(out, params["wo"])
+
+
+def decode_cross_attention(params, s: AttnSpec, x: torch.Tensor, ek: torch.Tensor,
+                           ev: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """One decoder token x (B, 1, D) against every key of the encoder's ek,
+    ev (B, S_enc, KV, hd): the flash-decode wrapper with ``last`` a 0-d
+    int32 device tensor holding S_enc - 1 (keys 0..S_enc-1), made once per
+    cache, so the step needs no host sync."""
+    q = _cross_q(params, s, x)
+    out = decode_ops.decode(q[:, 0], ek.transpose(1, 2), ev.transpose(1, 2), last)
+    return _out_proj(out[:, None], params["wo"])
 
 
 def _sdpa(q, k, v, mask, n_rep: int) -> torch.Tensor:
@@ -278,11 +348,15 @@ def decode_attention(
     0..pos, all T slots once pos >= T, which for a ring is the reference's
     mask (every slot valid once the ring has wrapped, else slots 0..pos).
     ``pos`` stays on the device: the cache write, RoPE and the kernel read
-    it there, so the step needs no host sync."""
+    it there, so the step needs no host sync. M-RoPE rotates the token at
+    ``pos`` on all three components, as the reference does (a text token's
+    positions advance together)."""
     _check_spec(s)
     B = x.shape[0]
     q, k_new, v_new = _proj_qkv(params, s, x)
     positions = pos.reshape(1, 1).expand(B, 1)
+    if s.rope == "mrope":
+        positions = positions[None].expand(3, B, 1)
     q, k_new = _rope_qk(s, q, k_new, positions)
     kc, vc = cache["k"], cache["v"]
     if kc.dtype != q.dtype:

@@ -1,8 +1,8 @@
 """Decoder-only LM stack: the dense family (attention + MLP blocks, with
-gemma3's sliding windows), the MoE family (attention or MLA + routed
-experts), RWKV6 (time-mix + channel-mix blocks) and zamba2's hybrid (Mamba2
-blocks + shared attention and MLP blocks), for serving and, but RWKV6,
-Mamba2 and shared blocks, for training.
+gemma3's sliding windows and qwen2-vl's M-RoPE), the MoE family (attention
+or MLA + routed experts), RWKV6 (time-mix + channel-mix blocks) and
+zamba2's hybrid (Mamba2 blocks + shared attention and MLP blocks), for
+serving and, but RWKV6, Mamba2 and shared blocks, for training.
 
 Port of the reference's ``models/transformer.py``. A model is a sequence of
 GROUPS; each group is a PERIOD of blocks repeated ``repeat`` times, then,
@@ -14,9 +14,11 @@ cache. The reference stacks a group's layers on a leading axis for
 residual: ``x + f(norm(x))``. gemma's embedding scale (``x * sqrt(d_model)``
 in the activations' dtype) and the logit soft cap are the reference's.
 
-Serving entry points keep the reference's layouts: tokens (B, S) int,
-logits (B, 1, V) bfloat16, and per layer a cache entry in
-``cache[f"g{gi}"][layer][f"b{bi}"]`` (a shared block's in ``f"s{bi}"``):
+Serving entry points keep the reference's layouts: tokens (B, S) int, for
+M-RoPE optional positions3 (3, B, S) int (t, h, w; by default the token
+positions on all three), logits (B, 1, V) bfloat16, and per layer a cache
+entry in ``cache[f"g{gi}"][layer][f"b{bi}"]`` (a shared block's in
+``f"s{bi}"``):
 ``{"k", "v"}`` of (B, T, KV, hd) for attention (a sliding-window layer's T
 is min(cache_len, window), a ring), ``{"latent", "k_rope"}`` of (B, T,
 kv_lora) and (B, T, qk_rope) for MLA, ``{"conv", "ssm"}`` (the last d_conv
@@ -31,8 +33,8 @@ own parameters, one dict per layer in ``g{gi}``'s list, a shared block's in
 reference's remat) with the plain attention ``layers.apply_attention``, and
 returns the per-example next-token cross entropy over bfloat16 logits plus
 the MoE layers' load-balance loss. RWKV6 and Mamba2 training and shared
-blocks' training belong to later slices, as do M-RoPE (qwen2-vl) and
-whisper.
+blocks' training belong to later slices. The encoder-decoder (whisper) is
+``models/whisper.py``.
 """
 from __future__ import annotations
 
@@ -125,9 +127,14 @@ def _norm_apply(kind: str, p, x):
 def _check_kind(b: BlockSpec) -> None:
     if b.kind not in SUPPORTED_KINDS:
         raise NotImplementedError(
-            f"block kind {b.kind!r} is not ported yet: M-RoPE (qwen2-vl) and whisper belong to "
-            f"later slices of the port (ROADMAP.md queue 1); this one runs {SUPPORTED_KINDS}"
+            f"block kind {b.kind!r} is not ported: it would belong to a later slice of the port "
+            f"(ROADMAP.md queue 1); this one runs {SUPPORTED_KINDS}"
         )
+
+
+def _attn_positions(b: BlockSpec, ctx: dict) -> torch.Tensor:
+    """An attention block's positions: (3, B, S) for M-RoPE, else (B, S)."""
+    return ctx["positions3"] if b.attn.rope == "mrope" else ctx["positions"]
 
 
 def block_defs(b: BlockSpec, d_model: int) -> Dict[str, Any]:
@@ -171,7 +178,7 @@ def apply_block_train(b: BlockSpec, p, x, ctx: dict):
     h = _norm_apply(b.norm, p["norm"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if b.kind == "attn":
-        y = L.apply_attention(p["attn"], b.attn, h, ctx["positions"])
+        y = L.apply_attention(p["attn"], b.attn, h, _attn_positions(b, ctx))
     elif b.kind == "mla":
         y = L.apply_mla(p["mla"], b.mla, h, ctx["positions"])
     elif b.kind == "mlp":
@@ -235,7 +242,7 @@ def apply_block_prefill(b: BlockSpec, p, x, ctx):
     if b.kind == "rwkv6_channel":
         y, x_last = S.apply_rwkv6_channel(p["rwkv_ffn"], h)
         return x + y, {"x_prev": x_last.clone()}
-    y, k, v = L.prefill_attention(p["attn"], b.attn, h, ctx["positions"])
+    y, k, v = L.prefill_attention(p["attn"], b.attn, h, _attn_positions(b, ctx))
     T, ring = L.attn_cache_len(b.attn, ctx["cache_len"]), b.attn.window is not None
     return x + y, {"k": _cache_fill(k, T, ring), "v": _cache_fill(v, T, ring)}
 
@@ -340,8 +347,6 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg: ArchConfig, device="cuda", seed: int = 0):
         super().__init__()
-        if cfg.mrope:
-            L.apply_mrope()
         for g in cfg.groups:
             for b in g.blocks + g.shared:
                 _check_kind(b)
@@ -391,6 +396,21 @@ class TransformerLM(nn.Module):
     def num_active_params(self) -> int:
         return lm_active_params(self.cfg)
 
+    def kernel_launches(self) -> Dict[str, Dict[str, int]]:
+        """The kernel launches of one prefill and of one decode step on
+        CUDA, by kernel wrapper: flash attention in the prefill and
+        flash-decode in a decode step once per attention block applied (a
+        group's shared blocks once per layer), the linear scan once per
+        time-mix block in the prefill (its decode is one recurrent step in
+        plain PyTorch)."""
+        def count(kind: str) -> int:
+            return sum(b.kind == kind for g in self.cfg.groups
+                       for b in (g.blocks + g.shared) * g.repeat)
+
+        n_attn = count("attn")
+        return {"prefill": {"flash_attention": n_attn, "rwkv6_scan": count("rwkv6_time")},
+                "decode_step": {"decode_attention": n_attn}}
+
     @property
     def device(self) -> torch.device:
         return self.embed.table.device
@@ -439,6 +459,20 @@ class TransformerLM(nn.Module):
         layers = caches.setdefault(f"g{gi}", [{} for _ in range(self.cfg.groups[gi].repeat)])
         layers[li][key] = entry
 
+    def _ctx(self, batch, tokens: torch.Tensor, cache_len: int = 0) -> dict:
+        """The positions of a pass over ``tokens`` (B, S): (B, S) token
+        positions and, for M-RoPE, ``batch["positions3"]`` (3, B, S) on the
+        model's device, or the token positions on all three components (the
+        reference's ``_ctx``)."""
+        B, Sq = tokens.shape
+        positions = torch.arange(Sq, device=self.device)[None, :].expand(B, Sq)
+        ctx = {"positions": positions, "cache_len": cache_len}
+        if self.cfg.mrope:
+            p3 = batch.get("positions3")
+            ctx["positions3"] = (positions[None].expand(3, B, Sq) if p3 is None
+                                 else torch.as_tensor(p3).to(self.device))
+        return ctx
+
     # -- training ----------------------------------------------------------------
     def _stack_apply_train(self, params, x, ctx):
         """Every layer's blocks in order, and the sum of their aux losses;
@@ -465,7 +499,8 @@ class TransformerLM(nn.Module):
         layers' load-balance loss over the layer count. batch: tokens (B, S)
         int. Returns (per_example_loss (B,) float32, {"lb_loss": the
         layers' summed load-balance loss}), differentiable in ``params`` (a
-        tree as ``params()`` gives). The logits are bfloat16 (a
+        tree as ``params()`` gives). M-RoPE takes ``batch["positions3"]``
+        as ``prefill`` does. The logits are bfloat16 (a
         float32-accumulated product), the CE in float32."""
         for g in self.cfg.groups:
             if any(b.kind.startswith("rwkv6") for b in g.blocks):
@@ -473,8 +508,7 @@ class TransformerLM(nn.Module):
             if g.shared or any(b.kind == "mamba2" for b in g.blocks):
                 raise NotImplementedError(_MAMBA_TRAIN)
         tokens = batch["tokens"].to(self.device).long()
-        B, Sq = tokens.shape
-        ctx = {"positions": torch.arange(Sq, device=self.device)[None, :].expand(B, Sq)}
+        ctx = self._ctx(batch, tokens)
         x = shard_act(self._embed_in(tokens, params), ("batch", "act_seq", "embed"))
         x, aux = self._stack_apply_train(params, x, ctx)
         x = _norm_apply(self.cfg.final_norm, params["final_norm"], x)
@@ -504,17 +538,14 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def prefill(self, batch):
         """Full-prompt forward. batch: tokens (B, S) int, optional cache_len
-        (default S). Returns (last-token logits (B, 1, V) bf16, cache) with
-        the prompt's keys and values (MLA: latents and rope keys) in slots
-        0..S-1 of a new cache (a sliding-window layer's ring: position p in
-        slot p % T), each Mamba2 block's last convolution inputs and final
-        state, and each RWKV6 block's final state and last normed input."""
+        (default S) and, for M-RoPE, positions3 (3, B, S) int. Returns
+        (last-token logits (B, 1, V) bf16, cache) with the prompt's keys and
+        values (MLA: latents and rope keys) in slots 0..S-1 of a new cache (a
+        sliding-window layer's ring: position p in slot p % T), each Mamba2
+        block's last convolution inputs and final state, and each RWKV6
+        block's final state and last normed input."""
         tokens = batch["tokens"].to(self.device)
-        B, Sq = tokens.shape
-        ctx = {
-            "positions": torch.arange(Sq, device=self.device)[None, :].expand(B, Sq),
-            "cache_len": batch.get("cache_len", Sq),
-        }
+        ctx = self._ctx(batch, tokens, batch.get("cache_len", tokens.shape[1]))
         x = self._embed_in(tokens)
         caches: Dict[str, Any] = {}
         for gi, li, key, b, p in self._layers():
@@ -528,10 +559,11 @@ class TransformerLM(nn.Module):
     def decode_step(self, cache, batch):
         """One new token. batch: token (B, 1) int, pos () int32 (a 0-d tensor
         on the model's device, or an int): the number of tokens already
-        cached. Unlike the reference, which returns a new cache, this writes
-        the token's keys and values, the Mamba2 and RWKV6 states and the
-        last inputs into ``cache`` IN PLACE and returns it with the logits
-        (B, 1, V) bf16."""
+        cached (M-RoPE rotates the token at pos on all three components, as
+        the reference does). Unlike the reference, which returns a new
+        cache, this writes the token's keys and values, the Mamba2 and RWKV6
+        states and the last inputs into ``cache`` IN PLACE and returns it
+        with the logits (B, 1, V) bf16."""
         token = batch["token"].to(self.device)
         pos = torch.as_tensor(batch["pos"], dtype=torch.int32, device=self.device)
         x = self._embed_in(token)

@@ -11,7 +11,14 @@ rwkv6-7b, the linear-scan kernel in each time-mix layer of the prefill
 (decode is one recurrent step in plain PyTorch, as in the reference). MoE
 layers, deepseek-v2-lite's MLA and zamba2's Mamba2 blocks (the chunked
 SSD scan in the prefill, one recurrent step in decode) are plain PyTorch,
-as the reference computes them without a kernel.
+as the reference computes them without a kernel. qwen2-vl-72b rotates with
+M-RoPE: the prompt's positions3 are the token positions on all three
+components unless ``generate`` is given others. whisper-base encodes frame
+embeddings drawn from ``--seed`` (``--enc-len`` frames, the prompt length
+by default): the encoder's self-attention and the decoder's
+cross-attention run the flash kernel in the prefill (the cross-attention
+with the prompt's rows against every frame), and the decoder's self- and
+cross-attention the flash-decode kernel in every step.
 
     python -m repro_torch.serve_lm --arch internlm2-1.8b --batch 4 \\
         --prompt-len 4096 --tokens 256                     # on a GPU
@@ -25,22 +32,29 @@ as the reference computes them without a kernel.
         --prompt-len 4096 --tokens 128                     # on a GPU
     python -m repro_torch.serve_lm --arch zamba2-1.2b --batch 4 \\
         --prompt-len 4096 --tokens 128                     # on a GPU
+    python -m repro_torch.serve_lm --arch whisper-base --batch 16 \\
+        --prompt-len 4 --enc-len 1500 --tokens 128         # on a GPU
+    python -m repro_torch.serve_lm --arch qwen2-vl-72b --batch 4 \\
+        --prompt-len 4096 --tokens 128   # on GPUs holding its 145 GB of bf16 weights
     python -m repro_torch.serve_lm --device cpu --reduced  # anywhere
     python -m repro_torch.serve_lm --arch rwkv6-7b --device cpu --reduced
     python -m repro_torch.serve_lm --arch deepseek-v2-lite-16b --device cpu --reduced
     python -m repro_torch.serve_lm --arch gemma3-1b --device cpu --reduced
     python -m repro_torch.serve_lm --arch zamba2-1.2b --device cpu --reduced
+    python -m repro_torch.serve_lm --arch whisper-base --device cpu --reduced
+    python -m repro_torch.serve_lm --arch qwen2-vl-72b --device cpu --reduced
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, build_model, get_config
+from repro_torch.models.whisper import WhisperConfig
 
 
 def _sync(device: torch.device) -> None:
@@ -54,10 +68,60 @@ def prompt_tokens(vocab: int, batch: int, prompt_len: int, seed: int) -> torch.T
     return torch.from_numpy(rng.integers(0, vocab, (batch, prompt_len), dtype=np.int32))
 
 
-def generate(model, tokens: torch.Tensor, n_new: int) -> Dict[str, object]:
+def frame_embeds(d_model: int, batch: int, enc_len: int, seed: int) -> torch.Tensor:
+    """(batch, enc_len, d_model) bfloat16 frame embeddings drawn with numpy
+    (standard normal) from ``seed``: the stub of whisper's audio frontend."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, enc_len, d_model), dtype=np.float32)
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+def image_positions3(batch: int, length: int, text_before: int, grid: tuple) -> torch.Tensor:
+    """(3, batch, length) int32 M-RoPE positions (t, h, w) of a prompt that
+    holds one image, by Qwen2-VL's rule: ``text_before`` text tokens at
+    0, 1, ... on all three components; the image's gh x gw patches
+    (row-major) at t = o, h = o + row, w = o + column, with o =
+    ``text_before``; the text after it at o + max(gh, gw), one more a
+    token."""
+    gh, gw = grid
+    o = text_before
+    n_text = length - o - gh * gw
+    if n_text < 0:
+        raise ValueError(f"a {gh}x{gw} image after {o} tokens does not fit in {length}")
+    rows, cols = np.divmod(np.arange(gh * gw), gw)
+    after = o + max(gh, gw) + np.arange(n_text)
+    text = np.arange(o)
+    p3 = np.stack([np.concatenate([text, np.full(gh * gw, o), after]),
+                   np.concatenate([text, o + rows, after]),
+                   np.concatenate([text, o + cols, after])]).astype(np.int32)
+    return torch.from_numpy(p3)[:, None].expand(3, batch, length).contiguous()
+
+
+def request_inputs(cfg, batch: int, length: int, seed: int, enc_len: Optional[int] = None,
+                   image: Optional[tuple] = None, device="cpu") -> Dict[str, torch.Tensor]:
+    """A request batch's inputs besides its (batch, length) tokens, on
+    ``device``, as ``generate`` takes them: an encoder-decoder's
+    ``enc_embeds`` (``frame_embeds`` of ``enc_len`` frames, the prompt
+    length by default, from ``seed``); with ``image`` = (text tokens before
+    it, its patch grid), an M-RoPE model's ``positions3``
+    (``image_positions3``); nothing else (a model without M-RoPE ignores
+    ``image``, and an M-RoPE prompt without one takes its token positions)."""
+    if isinstance(cfg, WhisperConfig):
+        return {"enc_embeds": frame_embeds(cfg.d_model, batch, enc_len or length,
+                                           seed).to(device)}
+    if cfg.mrope and image is not None:
+        return {"positions3": image_positions3(batch, length, *image).to(device)}
+    return {}
+
+
+def generate(model, tokens: torch.Tensor, n_new: int, enc_embeds: Optional[torch.Tensor] = None,
+             positions3: Optional[torch.Tensor] = None) -> Dict[str, object]:
     """Prefill ``tokens`` (B, P), then decode greedily until each sequence
     has ``n_new`` new tokens (the first from the prefill's logits, then
-    n_new - 1 decode steps at pos P, P+1, ...). Returns the new tokens
+    n_new - 1 decode steps at pos P, P+1, ...). ``enc_embeds`` (B, S_enc, d)
+    go to an encoder-decoder's encoder; ``positions3`` (3, B, P) are an
+    M-RoPE model's prompt positions (decode positions stay the cache slot,
+    on all three components, as in the reference). Returns the new tokens
     (B, n_new) int32 on the host, the prefill's and the first decode step's
     logits (B, 1, V) bf16, the cache, and the prefill and decode wall times
     (host clock around work ended by a device synchronize)."""
@@ -65,10 +129,13 @@ def generate(model, tokens: torch.Tensor, n_new: int) -> Dict[str, object]:
         raise ValueError("n_new must be at least 1")
     dev = model.device
     B, P = tokens.shape
-    tokens = tokens.to(dev)
+    batch = {"tokens": tokens.to(dev), "cache_len": P + n_new}
+    for key, x in (("enc_embeds", enc_embeds), ("positions3", positions3)):
+        if x is not None:
+            batch[key] = x.to(dev)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = model.prefill({"tokens": tokens, "cache_len": P + n_new})
+    logits, cache = model.prefill(batch)
     tok = logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
@@ -98,6 +165,8 @@ def main(argv=None) -> Dict[str, object]:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--enc-len", type=int, default=None,
+                    help="whisper: encoder frames (default: the prompt length)")
     ap.add_argument("--reduced", action="store_true", help="the arch's reduced config")
     ap.add_argument("--device", default="cuda", help="cuda (default; raises without one) or cpu")
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights and the prompt")
@@ -106,7 +175,9 @@ def main(argv=None) -> Dict[str, object]:
     cfg = get_config(args.arch, reduced=args.reduced)
     model = build_model(cfg, device=args.device, seed=args.seed)
     prompt = prompt_tokens(cfg.vocab, args.batch, args.prompt_len, args.seed)
-    res = generate(model, prompt, args.tokens)
+    extra = request_inputs(cfg, args.batch, args.prompt_len, args.seed, enc_len=args.enc_len,
+                           device=model.device)
+    res = generate(model, prompt, args.tokens, **extra)
     B, P, n = args.batch, args.prompt_len, args.tokens
     steps = n - 1
     print(f"{cfg.name} on {model.device}: {model.num_params():,} parameters")

@@ -9,7 +9,11 @@ cases: float32 within 2e-5 and bfloat16 within 3e-2, the reference's own
 tolerances. Measured max |d|: flash 7.2e-7 (float32) and 2.0e-3 (bfloat16,
 single roundings of outputs near 0.5), decode 1.8e-7 and 0.0: the plain
 versions keep the softmax and the product with V in float32, as the
-kernels do.
+kernels do. Without a mask the query and key lengths may differ (whisper's
+cross-attention): the plain versions are held there to the reference
+model's own attention (``repro.models.layers._sdpa`` with no mask, as its
+whisper cross-attends), float32 within 2e-5 and bfloat16 within 3e-2, and a
+mask with unequal lengths raises ``ValueError``.
 
 The CUDA kernels are held against the plain versions on the card
 (``-m cuda``): float32 within 2e-5; decode in bfloat16 within one bfloat16
@@ -261,6 +265,59 @@ def test_flash_tma_layout_check(layout, ok):
             fops.check_tma_layout(t)
 
 
+# --- query and key lengths apart (cross-attention) -------------------------------
+# (B, H, KV, Sq, Sk, D): whisper's cross shape cut down (4 decoder rows against
+# many frames), one query row, more rows than keys, GQA
+CROSS_CASES = [(2, 4, 4, 4, 150, 16), (1, 4, 2, 1, 300, 16), (2, 4, 2, 30, 7, 16),
+               (1, 6, 2, 130, 257, 64)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CROSS_CASES)
+def test_flash_plain_cross_lengths_match_reference_sdpa(case, dtype):
+    """Measured max |d|: 8.3e-7 (float32) and 7.8e-3 (bfloat16: the
+    reference rounds its scores and probabilities to bf16)."""
+    import jax.numpy as jnp
+    from repro.models.layers import _sdpa
+
+    B, H, KV, Sq, Sk, D = case
+    arrs = _arrays([(B, H, Sq, D), (B, KV, Sk, D), (B, KV, Sk, D)], seed=Sq * Sk)
+    q, k, v = (jnp.swapaxes(a, 1, 2) for a in _jax(arrs, dtype))  # (B, S, heads, D)
+    want = jnp.swapaxes(_sdpa(q, k, v, None, H // KV), 1, 2)
+    got = fops.attention(*_torch(arrs, dtype), causal=False)
+    assert got.shape == (B, H, Sq, D) and got.dtype == getattr(torch, dtype)
+    _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("case", CROSS_CASES)
+def test_flash_tiled_plain_cross_lengths_within_bound(case):
+    """The tiled plain version (the bf16 kernel's arithmetic) against the
+    plain one with Sq != Sk, at q x 1 and q x 8, within the P-rounding
+    bound."""
+    B, H, KV, Sq, Sk, D = case
+    q, k, v = _torch(_arrays([(B, H, Sq, D), (B, KV, Sk, D), (B, KV, Sk, D)], seed=Sq + Sk),
+                     "bfloat16")
+    for qs in (1.0, 8.0):
+        qq = (q.float() * qs).to(q.dtype)
+        got = fref.flash_attention_tiled_ref(qq, k, v, causal=False)
+        want = fref.flash_attention_ref(qq, k, v, causal=False)
+        assert got.shape == qq.shape
+        assert _flash_bf16_gap(got, want, qq, k, v, False) <= 1.0
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 3)])
+def test_flash_mask_needs_equal_lengths(causal, window):
+    """A causal or windowed mask pairs row i with key i: with Sq != Sk the
+    wrapper and both plain versions raise ValueError, and nothing runs."""
+    q, k, v = _qkv(S=8)
+    k, v = k[:, :, :5], v[:, :, :5]
+    n = fops.attention.LAUNCHES
+    for fn in (fops.attention, fref.flash_attention_ref, fref.flash_attention_tiled_ref):
+        with pytest.raises(ValueError, match="as many queries as keys"):
+            fn(q, k, v, causal=causal, window=window)
+    assert fops.attention.LAUNCHES == n
+
+
 # --- decode attention ---------------------------------------------------------
 @pytest.mark.parametrize("shape", [(2, 4, 256, 64), (1, 8, 512, 128)])
 @pytest.mark.parametrize("pos_frac", [0.0, 0.4, 1.0])
@@ -318,7 +375,7 @@ def _qkv(dtype=torch.float32, S=8):
         (lambda q, k, v: (q[:, :, :0], k[:, :, :0], v[:, :, :0]), ValueError),  # empty
         (lambda q, k, v: (q.transpose(2, 3).contiguous().transpose(2, 3), k, v),
          ValueError),  # D not contiguous
-        (lambda q, k, v: (q, k[:, :, :4], v[:, :, :4]), ValueError),  # S differs
+        (lambda q, k, v: (q, k[:, :, :4], v[:, :, :4]), ValueError),  # S differs, causal
         (lambda q, k, v: (q[:, :3], k, v), ValueError),  # 3 heads over 2 kv heads
         (lambda q, k, v: (q, k, v[:, :1]), ValueError),  # k, v shapes differ
         (lambda q, k, v: (q[0], k[0], v[0]), ValueError),  # 3-D
@@ -455,6 +512,38 @@ def test_flash_kernel_head_dim_256_and_windows(cuda, dtype, B, H, KV, S, D, caus
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,D,qscale", [
+    (2, 8, 8, 4, 1500, 64, 1), (1, 4, 4, 1, 1500, 16, 1), (1, 8, 2, 300, 77, 64, 1),
+    (1, 8, 2, 300, 77, 64, 8), (2, 4, 4, 129, 128, 128, 1), (1, 4, 1, 5, 700, 256, 8),
+])
+def test_flash_kernel_cross_lengths(cuda, dtype, B, H, KV, Sq, Sk, D, qscale):
+    """Sq != Sk without a mask (whisper's cross-attention): the grid and
+    stores follow Sq, the key tiles and the ragged-end mask Sk. The same
+    bounds as the other flash cases; a mask with Sq != Sk raises before a
+    launch."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk + D)
+    q = torch.randn((B, Sq, H, D), generator=g, device=cuda).mul(qscale).to(dtype).transpose(1, 2)
+    k = torch.randn((B, Sk, KV, D), generator=g, device=cuda).to(dtype).transpose(1, 2)
+    v = torch.randn((B, Sk, KV, D), generator=g, device=cuda).to(dtype).transpose(1, 2)
+    n = fops.attention.LAUNCHES
+    got = fops.attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fops.attention.LAUNCHES == n + 1 and got.shape == (B, H, Sq, D)
+    assert bool(torch.isfinite(got.float()).all())
+    want = fref.flash_attention_ref(q, k, v, causal=False)
+    if dtype == torch.float32:
+        _hold(got, want, dtype)
+    else:
+        assert _flash_bf16_gap(got, want, q, k, v, False) <= 1.0
+        tiled = fref.flash_attention_tiled_ref(q, k, v, causal=False)
+        assert _flash_bf16_gap(got, tiled, q, k, v, False) <= 1.0
+    with pytest.raises(ValueError, match="as many queries as keys"):
+        fops.attention(q, k, v, causal=True)
+    assert fops.attention.LAUNCHES == n + 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("what", ["base", "stride"])
 def test_flash_kernel_rejects_misaligned_bf16(cuda, what):
     """TMA takes 16-byte aligned bases and strides: anything else raises
@@ -479,6 +568,9 @@ def test_flash_kernel_rejects_misaligned_bf16(cuda, what):
     (2, 4, 2, 300, 16, 0), (2, 4, 2, 300, 16, 299), (1, 6, 2, 1000, 128, 513),
     (1, 8, 8, 256, 128, 255), (1, 8, 1, 700, 16, 5000), (2, 24, 8, 700, 64, 699),
     (1, 6, 2, 300, 64, 100),
+    # whisper's cross-attention (group 1, a ragged 1,500 keys, all of them or
+    # pos past T) and qwen2-vl's decode (group 8)
+    (2, 8, 8, 1500, 64, 1499), (2, 8, 8, 1500, 64, 4000), (1, 64, 8, 700, 128, 699),
 ])
 def test_decode_kernel_matches_plain(cuda, dtype, B, H, KV, T, D, pos):
     g = torch.Generator(device=cuda).manual_seed(T + pos)

@@ -19,6 +19,7 @@ CPU (the attention wrappers take their plain versions):
   far. The reference's own bfloat16 logits lie up to 0.25 from its float32
   ones on inputs of these seeds. The float32 case is the tight check.
 """
+import collections
 import dataclasses
 
 import numpy as np
@@ -27,9 +28,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import serve_lm
-from repro_torch.configs import build_model, get_config
+from repro_torch.configs import ARCH_IDS, build_model, get_config
 from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.linear_scan import ops as sops
 from repro_torch.models.convert import load_jax_params, to_torch
 from repro_torch.models.transformer import TransformerLM
 
@@ -214,13 +216,12 @@ def test_decode_writes_the_cache_in_place():
 
 
 def test_unported_parts_raise():
-    """What later slices port raises: M-RoPE (qwen2-vl), block kinds the
-    port does not run, Mamba2 and shared blocks in training, and the archs
-    not in the registry (qwen2-vl, whisper). Sliding windows and Mamba2
-    serve since their slice (tests/test_torch_sliding.py,
-    test_torch_hybrid_lm.py): a windowed layer's cache is its ring."""
-    from repro_torch.configs.base import dense_lm
-
+    """What later slices port raises: block kinds the port does not run,
+    Mamba2 and shared blocks in training, and whisper's training. Sliding
+    windows and Mamba2 serve since their slice (tests/test_torch_sliding.py,
+    test_torch_hybrid_lm.py): a windowed layer's cache is its ring; M-RoPE
+    and whisper since theirs (tests/test_torch_mrope.py,
+    test_torch_whisper.py)."""
     cfg = get_config("internlm2-1.8b", reduced=True)
     blocks = cfg.groups[0].blocks
     windowed = dataclasses.replace(blocks[0], attn=dataclasses.replace(blocks[0].attn, window=8))
@@ -229,9 +230,6 @@ def test_unported_parts_raise():
     port = build_model(cfg_w, device="cpu")
     _, cache = port.prefill({"tokens": torch.zeros((1, 12), dtype=torch.int32), "cache_len": 16})
     assert cache["g0"][0]["b0"]["k"].shape[1] == 8
-    with pytest.raises(NotImplementedError):
-        build_model(dense_lm("m", 1, 32, 2, 1, 64, 64, mrope=True),
-                    device="cpu")
     cross = dataclasses.replace(blocks[1], kind="cross_attn")
     with pytest.raises(NotImplementedError, match="later slice"):
         build_model(dataclasses.replace(cfg, groups=(dataclasses.replace(
@@ -239,9 +237,9 @@ def test_unported_parts_raise():
     zamba = build_model(get_config("zamba2-1.2b", reduced=True), device="cpu")
     with pytest.raises(NotImplementedError):
         zamba.loss(zamba.params(), {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-    for arch in ("qwen2-vl-72b", "whisper-base"):
-        with pytest.raises(KeyError):
-            get_config(arch)
+    whisper = build_model(get_config("whisper-base", reduced=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="training"):
+        whisper.loss(None, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
 
 
 def test_param_count_of_the_serve_config():
@@ -312,3 +310,31 @@ def test_cuda_serving_matches_cpu(arch):
     assert fops.attention.LAUNCHES - f0 == 2 and dops.decode.LAUNCHES - d0 == 2 * STEPS
     for c, g in zip(*outs):
         _logits_within(g, c.float().numpy(), "float32")
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_kernel_launches_count_the_wrapper_calls(arch, monkeypatch):
+    """``kernel_launches``, which the card's launch counts are held to,
+    counts the attention and scan wrapper calls of a prefill and of each
+    decode step (on the CPU each wrapper is called where it launches on the
+    card, and takes its plain version)."""
+    calls = collections.Counter()
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    for mod, name, key in ((fops, "attention", "flash_attention"),
+                           (dops, "decode", "decode_attention"),
+                           (sops, "rwkv6_scan", "rwkv6_scan")):
+        monkeypatch.setattr(mod, name, counted(key, getattr(mod, name)))
+    model = build_model(get_config(arch, reduced=True), device="cpu")
+    cfg = model.cfg
+    extra = serve_lm.request_inputs(cfg, 1, 6, seed=0, image=(1, (2, 2)))
+    serve_lm.generate(model, serve_lm.prompt_tokens(cfg.vocab, 1, 6, seed=0), 3, **extra)
+    want = model.kernel_launches()
+    expected = collections.Counter(want["prefill"])
+    expected.update({k: 2 * n for k, n in want["decode_step"].items()})
+    assert +calls == +expected

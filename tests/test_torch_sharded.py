@@ -38,6 +38,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import sharded as psh
 from repro_torch.launch.mesh import dp_axes, make_rules, make_smoke_mesh
 from repro_torch.models.transformer import lm_axes
+from repro_torch.models.whisper import WhisperConfig, whisper_axes
 from repro_torch.optim import adam, sgd
 from repro_torch.tree import named_leaves, tree_map
 
@@ -202,18 +203,25 @@ def test_state_shardings_match_reference(mesh, fsdp):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_axes_trees_match_reference(arch):
+    """Every arch's axes (whisper's through ``whisper_axes``): a stacked
+    stack of layers per layer without its ``layers`` axis."""
     for reduced in (True, False):
         ref = jax_build(jax_config(arch, reduced=reduced)).axes()
         cfg = get_config(arch, reduced=reduced)
-        got = lm_axes(cfg)
+        if isinstance(cfg, WhisperConfig):
+            got = whisper_axes(cfg)
+            layers = {"enc": cfg.enc_layers, "dec": cfg.dec_layers}
+        else:
+            got = lm_axes(cfg)
+            layers = {f"g{gi}": g.repeat for gi, g in enumerate(cfg.groups)}
         assert set(got) == set(ref)
         for k in got:
-            if k.startswith("g") and not k.endswith("_shared"):  # shared blocks: unstacked
+            if k in layers:  # shared blocks (g{gi}_shared): unstacked
                 strip = jax.tree.map(lambda a: a[1:], ref[k], is_leaf=lambda x: isinstance(x, tuple))
                 assert all(a == ("layers",) + b for a, b in zip(
                     jax.tree.leaves(ref[k], is_leaf=lambda x: isinstance(x, tuple)),
                     jax.tree.leaves(strip, is_leaf=lambda x: isinstance(x, tuple))))
-                assert got[k] == [strip] * cfg.groups[int(k[1:])].repeat
+                assert got[k] == [strip] * layers[k]
             else:
                 assert got[k] == ref[k]
 

@@ -10,7 +10,7 @@
   makes the attention nearly one-hot. The reference's own float32
   gradients lie 1.5e-4 of the embedding's largest gradient from its
   float64 ones on these inputs, the port's 2.3e-4.
-- ``input_specs``; the entry points' default device; and, on a card
+- ``input_specs`` and ``shape_applicable``; the entry points' default device; and, on a card
   (``-m cuda``), one train step on the card's smoke mesh against the same
   step on the CPU.
 
@@ -21,7 +21,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import ShapeSpec, build_model, get_config, input_specs
+from repro_torch.configs import (
+    ARCH_IDS,
+    ShapeSpec,
+    build_model,
+    get_config,
+    input_specs,
+    shape_applicable,
+)
 from repro_torch.core.sharded import IplsStepConfig, init_state, make_train_step
 from repro_torch.examples import train_lm_smoke
 from repro_torch.launch.mesh import make_smoke_mesh
@@ -114,18 +121,25 @@ def test_input_specs_match_reference():
     from repro.configs.registry import SHAPES as J_SHAPES
     from repro.configs.registry import input_specs as j_input_specs
 
-    for arch in DENSE:
+    for arch in ARCH_IDS:  # whisper's enc_embeds and qwen2-vl's positions3 among them
         for shape in J_SHAPES.values():
-            if shape.kind != "train":
-                with pytest.raises(NotImplementedError):
-                    input_specs(get_config(arch), shape)
-                continue
-            want = j_input_specs(jax_config(arch), shape)
-            got = input_specs(get_config(arch), shape)
-            assert got.keys() == want.keys()
-            for k in got:
-                assert got[k].shape == want[k].shape
-                assert str(got[k].dtype).split(".")[-1] == str(want[k].dtype)
+            for scale in (None, 8):
+                want = j_input_specs(jax_config(arch), shape, reduced_scale=scale)
+                got = input_specs(get_config(arch), shape, reduced_scale=scale)
+                assert list(got) == list(want)
+                for k in got:
+                    assert got[k].shape == want[k].shape
+                    assert str(got[k].dtype).split(".")[-1] == str(want[k].dtype)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_shape_applicable_matches_reference(arch):
+    _jax()
+    from repro.configs.registry import SHAPES as J_SHAPES
+    from repro.configs.registry import shape_applicable as j_shape_applicable
+
+    for shape in J_SHAPES:
+        assert shape_applicable(arch, shape) == j_shape_applicable(arch, shape)
 
 
 def test_entry_points_default_to_cuda():
