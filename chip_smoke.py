@@ -139,10 +139,19 @@ exits non-zero:
   serve     — the LM main path at full width: internlm2-1.8b
               (1,889,110,016 parameters, bf16) through build_model and
               serve_lm.generate, batch 4, a 4,096-token prompt from the seed,
-              256 greedy tokens; exactly 24 flash-attention and 24 x 255
-              flash-decode launches; prefill and decode times, peak memory,
-              flash attention's share of the prefill's device time,
-              finite logits; decode at pos 4,096 against the last-token
+              256 greedy tokens, every decode step after the first one
+              replay of a CUDA graph (254 replays, each recording 24
+              flash-decode launches); exactly 24
+              flash-attention and 24 x 255 flash-decode launches (counted
+              through the replays); a second graph run and an eager run
+              (graph=False) of the first EAGER_COMPARE_TOKENS tokens: the
+              same tokens, every step's logits bit for bit; prefill and
+              decode times (the capture apart), the eager decode's, peak
+              memory over the phase's base, flash attention's share of the
+              prefill's device time, finite logits; 8 eager decode steps
+              and 8 replays of the step's graph under torch.profiler (device
+              time, busy share, no host sync, 24 x 8 flash-decode kernels in
+              the replays); decode at pos 4,096 against the last-token
               logits of a 4,097-token prefill, in bf16 and, for the served
               prompt and a second one, in float32 weights, end to end
               and block by block (each block's decode from its prefill
@@ -215,6 +224,25 @@ exits non-zero:
               (group 8); serve's numbers and checks, decode vs prefill with
               positions3 extended by (P, P, P) (the position decode rotates
               the token at), the float32 checks at batch 1;
+  serve_phi4_mini, serve_minitron — the dense family's larger archs at
+              full width (nothing cut): phi4-mini-3.8b (3,836,021,760 bf16
+              parameters) and minitron-4b (4,190,309,376), batch 4, a
+              4,096-token prompt, 64 tokens, through the graph; exactly 32
+              flash and 32 x 63 decode launches; serve's numbers, graph
+              against eager bit for bit, and the bf16 decode-vs-prefill
+              checks end to end (its limit given way to the witness) and
+              block by block (no float32 copy: serve holds the same code);
+  serve_steps — the step builders at full width on the card's smoke mesh
+              (a one-process NCCL group, started and destroyed here):
+              build_prefill_step, then build_decode_step(graph=True)
+              greedily for 31 steps (30 replays), for internlm2-1.8b,
+              granite-moe-3b-a800m, rwkv6-7b (batch 4, 4,096-token prompts)
+              and whisper-base (16 clips of 1,500 frames, a 4-token prompt):
+              the dense, rwkv6 and whisper logits bit for bit
+              serve_lm.generate's on the same weights and prompt;
+              granite-moe's (the MoE mesh path: one group, capacity from
+              the rank's tokens) bit for bit its built step run eagerly,
+              the gap to generate's grouped path reported;
   kernel    — the f32 aggregation kernel against its plain PyTorch version,
               bit for bit, at the main path's shape (K=20, R=51, S=44361),
               ragged cases and the single-partition form; kernel (device
@@ -275,7 +303,8 @@ exits non-zero:
               the warps an SM holds (the other splits of the state, their
               occupancy and times: scan_variants.py).
 Each main phase sets every kernel's launch count to 0 before it runs and
-requires the counts its path must give. Then the kernels line, the
+requires the counts its path must give. After each phase a memory line
+gives the device memory it left allocated. Then the kernels line, the
 nvidia-smi line and, last, the result line. Imports nothing of JAX or of the
 JAX package.
 """
@@ -369,6 +398,12 @@ TEL_SCALAR_ROUNDS = 2
 # throwaway kernels each profile starts with
 PROFILE_TRIES = 3
 PROFILER_WARMUP = 32
+# the serve phases' profiles of 8 decode-graph replays come later in the
+# process, where a profile lost more of its first events: on an H100 the
+# 32 spin kernels of serve, serve_rwkv, serve_moe and serve_mla kept 17, 14,
+# 7 and 2 (every replay kernel kept), and serve_gemma3's lost all 32 in six
+# profiles running; so these start with more of them (about 5 ms)
+REPLAY_PROFILER_WARMUP = 512
 # the CUDA kernels of the protocol paths' wrappers, by symbol
 KERNEL_SYMBOLS = {
     "ipls_aggregate_batched": "ipls_aggregate_batched_kernel",
@@ -584,6 +619,33 @@ SERVE_QWEN2_VL = dict(arch="qwen2-vl-72b", batch=4, prompt_len=4096, tokens=128,
                       layers=16, image=(64, (32, 32)))
 SERVE_QWEN2_VL_PARAMS = (16_534_380_544, 15_288_664_064)
 SERVE_QWEN2_VL_CHECK_BATCH = 1
+# the dense family's two larger archs at full width (nothing cut), serving:
+# phi4-mini-3.8b and minitron-4b, 32 layers of GQA attention (24 query heads
+# on 8 kv heads of 128) each, 8 GB of bf16 weights; batch 4, a 4,096-token
+# prompt, 64 tokens. serve's checks but the float32 copy, which internlm2's
+# serve holds on the same code: graph against eager bit for bit, the
+# parameter counts, the bf16 decode-vs-prefill gap end to end and block by
+# block. phi4-mini's 32 layers of the reference's high-gain init carried
+# that gap to 0.660 on an H100, past SERVE_DECODE_VS_PREFILL_BF16 (internlm2's
+# 24 layers: 0.445), so its bf16 end-to-end limit follows WITNESS_FACTOR's
+# rule, as granite's and zamba2's do
+SERVE_DENSE_LARGE_WITNESSED = ("bf16",)
+SERVE_PHI4 = dict(arch="phi4-mini-3.8b", batch=4, prompt_len=4096, tokens=64, seed=0)
+SERVE_PHI4_PARAMS = (3_836_021_760, 3_836_018_688)
+SERVE_MINITRON = dict(arch="minitron-4b", batch=4, prompt_len=4096, tokens=64, seed=0)
+SERVE_MINITRON_PARAMS = (4_190_309_376, 3_403_874_304)
+# graph against eager in every serve phase: the first this many tokens
+# (None: all of them). The eager loop costs 35-100 ms a step on an H100
+# (host-bound), all of them about 60 s of the run, which then took about
+# 900 s: the first 32 tokens (31 steps, 30 replays) keep every served arch
+# within about 850 s
+EAGER_COMPARE_TOKENS = 32
+# the step builders at full width, one arch of each family (phase serve_steps)
+SERVE_STEPS = (dict(arch="internlm2-1.8b", batch=4, prompt_len=4096, tokens=32, seed=0),
+               dict(arch="granite-moe-3b-a800m", batch=4, prompt_len=4096, tokens=32, seed=0),
+               dict(arch="rwkv6-7b", batch=4, prompt_len=4096, tokens=32, seed=0),
+               dict(arch="whisper-base", batch=16, prompt_len=4, enc_len=1500, tokens=32,
+                    seed=0))
 # the profiler ranges of the MoE, MLA and Mamba2 layers (models/layers.py
 # ``_span``)
 SPANS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine", "moe.shared", "mla",
@@ -1070,19 +1132,30 @@ def _reset_launches(kmods):
 
 
 @contextmanager
-def _launches_by_shape(layers, by):
+def _launches_by_shape(layers, by, build=None):
     """While active, the attention layers' kernel launches (the increments
     of each wrapper's own counter) are also tallied in ``by`` per kind of
     call: flash attention by its mask (causal, a window, non-causal, or
     cross: non-causal with fewer queries than keys), flash-decode by its
-    cache's slots (a sliding window's ring holds the window's)."""
+    cache's slots (a sliding window's ring holds the window's). A call
+    under the capture of a ``build`` (``kernels/_build``) Graph is tallied
+    per replay in the dict this yields (``_add_replays`` adds it to ``by``
+    once the replays are known)."""
     flash, decode = layers.flash_ops, layers.decode_ops
+    per_replay = collections.defaultdict(collections.Counter)
 
     def tallied(fn, name, key):
         def call(*args, **kw):
-            n = fn.LAUNCHES
+            import torch
+
+            graph = (build._capturing[-1] if build is not None and build._capturing
+                     and torch.cuda.is_current_stream_capturing() else None)
+            n = fn.LAUNCHES if graph is None else graph.launches.get(fn, 0)
             out = fn(*args, **kw)
-            by[name][key(*args, **kw)] += fn.LAUNCHES - n
+            if graph is None:
+                by[name][key(*args, **kw)] += fn.LAUNCHES - n
+            else:
+                per_replay[name][key(*args, **kw)] += graph.launches.get(fn, 0) - n
             return out
         return call
 
@@ -1098,9 +1171,16 @@ def _launches_by_shape(layers, by):
     layers.decode_ops = types.SimpleNamespace(decode=tallied(
         decode.decode, "decode_attention", lambda q, k, *a, **kw: f"{k.shape[2]} slots"))
     try:
-        yield
+        yield per_replay
     finally:
         layers.flash_ops, layers.decode_ops = flash, decode
+
+
+def _add_replays(by, per_replay, replays: int) -> None:
+    """``by`` += ``per_replay`` (a graph's tally, by kind) x ``replays``."""
+    for name, kinds in per_replay.items():
+        for kind, n in kinds.items():
+            by[name][kind] += n * replays
 
 
 @contextmanager
@@ -2897,27 +2977,83 @@ def _layerwise(model, seq, P, carry: bool, extra=None):
     return out
 
 
-def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, witnessed=()):
+def _replay_profile(g, pos: int, n: int):
+    """``n`` replays of a decode graph ``g`` (``launch.steps.DecodeGraph``)
+    from ``pos`` under torch.profiler, after REPLAY_PROFILER_WARMUP spin
+    kernels (left out of the counts; see ``_kernel_events``): the wall time, the
+    device time and busy share of the replays, their host syncs
+    (HOST_SYNCS), their kernels and flash-decode kernels. Retaken from
+    ``pos`` (the graph's pos buffer reset) while a profile kept none of its
+    spin kernels, up to 2 * PROFILE_TRIES (as ``_witnessed_profile``).
+    Returns the last profile and the number taken."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    takes = []
+    while len(takes) < 2 * PROFILE_TRIES and not (takes and takes[-1]["warmup_seen"]):
+        g.pos.fill_(pos)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            for _ in range(REPLAY_PROFILER_WARMUP):
+                torch.cuda._sleep(20_000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                g.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = prof.events()
+        dev = [e for e in events if e.device_type == DeviceType.CUDA]
+        warm = sum("spin_kernel" in e.name for e in dev)
+        dev = [e for e in dev if "spin_kernel" not in e.name]
+        device_s = sum(e.time_range.end - e.time_range.start for e in dev) / 1e6
+        takes.append({
+            "replays": n, "wall_s": wall, "device_s": device_s,
+            "device_busy_share": device_s / wall,
+            "host_syncs": {k: sum(e.name == k for e in events if e.device_type != DeviceType.CUDA)
+                           for k in HOST_SYNCS},
+            "kernels": sum(not e.name.startswith(("Memcpy", "Memset")) for e in dev),
+            "decode_attn_kernels": sum("decode_attn" in e.name for e in dev),
+            "warmup_seen": warm,
+        })
+    return takes[-1], len(takes)
+
+
+def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, witnessed=(),
+                float32_checks=True):
     """An LM path at full width through the user's entry points:
-    build_model, then serve_lm.generate (prefill, greedy decode). Each
-    kernel runs as often as the arch's layers say: flash attention once per
-    attention layer, flash-decode once per attention layer and decode step,
-    the linear scan once per time-mix layer (prefill only), the others
-    never. ``n_params_want``: the parameter count, or (count, active
-    count). Decode against prefill: the served config's gap reported, then,
-    on a copy whose MoE capacity keeps every choice (``_lossless``, the same
-    weights; any other arch as it is), the end-to-end gap held to
-    ``bounds`` (bf16, float32) and every block to LAYER_TOL /
-    LAYER_BF16_RATIO (``_layerwise``), in bf16 and in a float32 copy; for
-    the dtypes in ``witnessed`` the end-to-end limit is WITNESS_FACTOR's.
-    ``check_batch``: the rows of the float32 checks (all by default; bf16
-    takes them all). ``spec`` may cut the depth (``layers``: the first
-    group's repeat), give whisper's frame count (``enc_len``) and an M-RoPE
-    prompt's image (``image``: text tokens before it, its patch grid)."""
+    build_model, then serve_lm.generate (prefill, greedy decode, every
+    decode step after the first one replay of a CUDA graph). Each kernel
+    runs as often as the arch's layers say: flash attention once per
+    attention layer, flash-decode once per attention layer and decode step
+    (counted through the graph's replays), the linear scan once per
+    time-mix layer (prefill only), the others never. The graph replays
+    steps - 1 times and records one step's launches. A second graph run
+    and an eager run (``graph=False``) of the first EAGER_COMPARE_TOKENS
+    tokens (32; None: all) keep every step's logits: the same tokens, and
+    every step's logits bit for bit. ``n_params_want``: the parameter
+    count, or (count, active count). The peak memory is reported over the
+    memory allocated when the phase starts (its ``base``). Decode against
+    prefill: the served config's gap reported, then, on a copy whose MoE
+    capacity keeps every choice (``_lossless``, the same weights; any other
+    arch as it is), the end-to-end gap held to ``bounds`` (bf16, float32)
+    and every block to LAYER_TOL / LAYER_BF16_RATIO (``_layerwise``), in
+    bf16 and (but with ``float32_checks=False``) in a float32 copy; for the
+    dtypes in ``witnessed`` the end-to-end limit is WITNESS_FACTOR's. ``check_batch``: the rows of the
+    float32 checks (all by default; bf16 takes them all). Profiles: the
+    prefill of P + 1 tokens, 8 eager decode steps (the ranges' shares) and
+    8 replays of generate's step graph (device time, busy share, no host
+    sync, flash-decode kernels the graph's record x 8). ``spec`` may cut
+    the depth (``layers``: the first group's repeat), give whisper's frame
+    count (``enc_len``) and an M-RoPE prompt's image (``image``: text
+    tokens before it, its patch grid)."""
     import torch
 
-    configs, serve_lm = lm["configs"], lm["serve_lm"]
+    configs, serve_lm, steps_mod = lm["configs"], lm["serve_lm"], lm["steps"]
     t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     cfg = configs.get_config(spec["arch"])
     depth = None
     if "layers" in spec:  # depth cut to fit one card; every width as published
@@ -2944,14 +3080,26 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, 
     torch.cuda.reset_peak_memory_stats()
     _reset_launches(kmods)
     by_shape = collections.defaultdict(collections.Counter)
-    with _launches_by_shape(lm["layers"], by_shape):
+    with _launches_by_shape(lm["layers"], by_shape, lm["build"]) as per_replay:
         res = serve_lm.generate(model, prompt, n_new, **extra)
+    _add_replays(by_shape, per_replay, res["graph_replays"])
     launches = {k: fn.LAUNCHES for k, fn in kmods.items()}
-    peak = torch.cuda.max_memory_allocated()
-    want = _expected_launches(kmods, model, n_new - 1)
+    peak = torch.cuda.max_memory_allocated() - base
+    steps = n_new - 1
+    want = _expected_launches(kmods, model, steps)
     _require(launches == want, f"{name}: launches {launches}, expected {want}")
     _require(all(sum(by_shape[k].values()) == launches[k] for k in by_shape),
              f"{name}: launches by shape {dict(by_shape)} do not add up to {launches}")
+    # the graph: steps - 1 replays, each one step's kernel launches
+    per_step = {k: n for k, n in model.kernel_launches()["decode_step"].items() if n}
+    kernel_of = {fn: k for k, fn in kmods.items()}
+    tally = {kernel_of[fn]: n for fn, n in res["graph_launches"].items()}
+    counted = {k: n * res["graph_replays"] for k, n in tally.items()}
+    _require(res["graph_replays"] == steps - 1,
+             f"{name}: {res['graph_replays']} graph replays for {steps} decode steps")
+    _require(tally == per_step, f"{name}: the graph records {tally}, a step launches {per_step}")
+    _require(all(counted.get(k, 0) == n * (steps - 1) for k, n in per_step.items()),
+             f"{name}: the replays counted {counted}")
     toks = res["tokens"]
     _require(tuple(toks.shape) == (B, n_new) and int(toks.min()) >= 0
              and int(toks.max()) < cfg.vocab, f"{name}: tokens out of range")
@@ -2959,7 +3107,6 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, 
         lg = res[key]
         _require(tuple(lg.shape) == (B, 1, cfg.vocab) and bool(torch.isfinite(lg.float()).all()),
                  f"{name}: {key} not finite or of the wrong shape")
-    steps = n_new - 1
 
     # the served decode at pos P against the last-token logits of a prefill
     # of P + 1 tokens (profiled): a MoE arch's capacity drops differ between
@@ -2969,7 +3116,8 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, 
     ref_bf16, prefill_prof = _profile(lambda: model.prefill({"tokens": full, **extra_full})[0])
     served = {"bf16": (res["first_step_logits"].float() - ref_bf16.float()).abs().max().item(),
               "same_argmax": _same_argmax(res["first_step_logits"], ref_bf16)}
-    # device time of 8 steady decode steps (slots of the cache reused)
+    # device time of 8 steady decode steps (slots of the cache reused): eager
+    # (the ranges' shares), then 8 replays of generate's step graph
     cache, tok = res.pop("cache"), toks[:, -1:].to(model.device)
     pos = torch.tensor(P + n_new - 8, dtype=torch.int32, device=model.device)
 
@@ -2980,7 +3128,43 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, 
             pos.add_(1)
 
     _, decode_prof = _profile(decode8)
-    del cache, res["prefill_logits"], ref_bf16
+    # generate's step graph (its greedy tail writes column pos - P + 1: one
+    # past generate's last, at pos P + n_new - 1)
+    scratch = torch.zeros((B, n_new + 1), dtype=torch.int32, device=model.device)
+    graph = steps_mod.DecodeGraph(model, cache, tok, P + n_new - 9,
+                                  after=serve_lm.greedy(scratch, P))
+    graph.step()  # the eager warm-up step, then the capture
+    replay_prof, replay_takes = _replay_profile(graph, P + n_new - 8, 8)
+    replay_prof["profiles_taken"] = replay_takes
+    replay_prof["graph_decode_attention_per_replay"] = graph.launches.get(kmods["decode_attention"],
+                                                                          0)
+    graph.close()
+    del cache, graph, scratch, res["prefill_logits"], ref_bf16
+
+    # graph against eager, every step's logits kept (n_cmp tokens)
+    n_cmp = n_new if EAGER_COMPARE_TOKENS is None else min(n_new, EAGER_COMPARE_TOKENS)
+    runs = {}
+    for mode in ("graph", "eager"):
+        r = serve_lm.generate(model, prompt, n_cmp, graph=mode == "graph", keep_logits=True,
+                              **extra)
+        del r["cache"]
+        runs[mode] = r
+    g, e = runs["graph"]["step_logits"], runs["eager"]["step_logits"]
+    graph_vs_eager = {
+        "steps_compared": n_cmp - 1,
+        "same_tokens": bool(torch.equal(runs["graph"]["tokens"], runs["eager"]["tokens"])
+                            and torch.equal(runs["graph"]["tokens"], toks[:, :n_cmp])),
+        "logits_bitwise": _bits_equal(g, e) and _bits_equal(runs["graph"]["prefill_logits"],
+                                                            runs["eager"]["prefill_logits"]),
+        "max_abs": (g.float() - e.float()).abs().max().item(),
+        "steps_differing": int(((g.float() - e.float()).abs().amax(dim=(1, 2, 3)) > 0).sum()),
+        "graph_decode_ms_per_step": runs["graph"]["decode_s"] / (n_cmp - 1) * 1e3,
+        "eager_decode_ms_per_step": runs["eager"]["decode_s"] / (n_cmp - 1) * 1e3,
+        "graph_replays": runs["graph"]["graph_replays"],
+    }
+    del runs, g, e
+    torch.cuda.empty_cache()
+
     rows = check_batch or B
     model.cfg = _lossless(cfg)
 
@@ -2991,20 +3175,24 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, 
 
     checks = {"bf16": [reading(model, full, extra_full, "bf16")]}
     torch.cuda.empty_cache()
-    m32 = model.float()  # in place: each bf16 weight is freed once converted
-    del model
-    # the served prompt with its first greedy token, and a second prompt
-    # (P + 1 tokens, and frames, from the next seed): two readings of the
-    # float32 gap
-    second = serve_lm.prompt_tokens(cfg.vocab, B, P + 1, spec["seed"] + 1)
-    extra_second = _with_next(serve_lm.request_inputs(
-        cfg, B, P, spec["seed"] + 1, spec.get("enc_len"), spec.get("image"), device=m32.device), P)
-    checks["float32"] = [reading(m32, seq[:rows], _first_rows(ext, rows), "float32")
-                         for seq, ext in ((full, extra_full), (second, extra_second))]
-    del m32
+    if float32_checks:
+        m32 = model.float()  # in place: each bf16 weight is freed once converted
+        del model
+        # the served prompt with its first greedy token, and a second prompt
+        # (P + 1 tokens, and frames, from the next seed): two readings of the
+        # float32 gap
+        second = serve_lm.prompt_tokens(cfg.vocab, B, P + 1, spec["seed"] + 1)
+        extra_second = _with_next(serve_lm.request_inputs(
+            cfg, B, P, spec["seed"] + 1, spec.get("enc_len"), spec.get("image"),
+            device=m32.device), P)
+        checks["float32"] = [reading(m32, seq[:rows], _first_rows(ext, rows), "float32")
+                             for seq, ext in ((full, extra_full), (second, extra_second))]
+        del m32
+    else:
+        del model
     torch.cuda.empty_cache()
     for dtype, bound in zip(("bf16", "float32"), bounds):
-        for r in checks[dtype]:
+        for r in checks.get(dtype, ()):
             carried = r["layerwise"]["logits"].get("carried", 0.0)
             r["limit"] = WITNESS_FACTOR * carried if carried >= bound else bound
     out = {
@@ -3017,16 +3205,20 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, 
         "prefill_s": res["prefill_s"], "prefill_tokens_per_s": B * P / res["prefill_s"],
         "decode_s": res["decode_s"], "decode_ms_per_step": res["decode_s"] / steps * 1e3,
         "decode_tokens_per_s": B * steps / res["decode_s"],
-        "max_memory_allocated": peak,
+        "decode_graph": {"capture_s": res["capture_s"], "replays": res["graph_replays"],
+                         "launches_per_replay": tally, "launches_counted": counted},
+        "graph_vs_eager": graph_vs_eager,
+        "memory_base": base, "max_memory_allocated_over_base": peak,
         "served_config_decode_vs_prefill": served,
         "decode_vs_prefill_of": "lossless copy", "check_batch": rows,
         "decode_vs_prefill_bounds": {"bf16": bounds[0], "float32_copy": bounds[1]},
         "witnessed": list(witnessed),
-        "decode_vs_prefill": {"bf16": checks["bf16"], "float32_copy": checks["float32"]},
+        "decode_vs_prefill": {"bf16": checks["bf16"], "float32_copy": checks.get("float32")},
         "layerwise_tolerance": {"float32_forced": LAYER_TOL, "bf16_ratio": LAYER_BF16_RATIO,
                                 "bf16_floor": LAYER_BF16_FLOOR},
         "first_tokens": toks[0, :8].tolist(),
         "profile_prefill_4097": prefill_prof, "profile_decode_8_steps": decode_prof,
+        "profile_decode_8_replays": replay_prof,
         "prefill_flash_attention_share": _share(prefill_prof, "flash_fwd"),
         "decode_attention_share": _share(decode_prof, "decode_attn"),
         "shares": {
@@ -3041,6 +3233,10 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, 
     }
     out["phase_s"] = time.perf_counter() - t_phase
     _emit(out)  # the numbers first, so that a failing check shows them
+    _require(graph_vs_eager["same_tokens"] and graph_vs_eager["logits_bitwise"],
+             f"{name}: the graph's decode differs from the eager loop's: {graph_vs_eager}")
+    _require(graph_vs_eager["graph_replays"] == n_cmp - 2,
+             f"{name}: {graph_vs_eager['graph_replays']} replays in the comparison run")
     for dtype, rs in checks.items():
         for r in rs:
             _require(r["max_abs"] <= r["limit"],
@@ -3055,6 +3251,128 @@ def phase_serve(lm, kmods, name, spec, n_params_want, bounds, check_batch=None, 
                 _require(not worse, f"{name}: blocks {worse} decode worse than prefill (bf16)")
     _require(all(n == 0 for n in decode_prof["host_syncs"].values()),
              f"{name}: host syncs in 8 decode steps {decode_prof['host_syncs']}")
+    _require(all(n == 0 for n in replay_prof["host_syncs"].values()),
+             f"{name}: host syncs in 8 replays {replay_prof['host_syncs']}")
+    _require(replay_prof["graph_decode_attention_per_replay"] == per_step.get("decode_attention",
+                                                                              0),
+             f"{name}: the profiled graph records {replay_prof}")
+    _require(replay_prof["warmup_seen"] > 0,
+             f"{name}: every profile of 8 replays lost its warm-up kernels: {replay_prof}")
+    _require(replay_prof["decode_attn_kernels"] == 8 * per_step.get("decode_attention", 0),
+             f"{name}: 8 replays ran {replay_prof['decode_attn_kernels']} flash-decode kernels")
+    return out
+
+
+def _built_greedy(lm, model, mesh, prompt, n, extra, graph):
+    """The built prefill (``build_prefill_step``) of ``prompt`` (B, P), then
+    n - 1 greedy steps of the built decode step (``build_decode_step``,
+    with or without ``graph``) on ``mesh``, each step's token its logits'
+    argmax: the tokens (B, n) on the host, the prefill's logits, every
+    step's logits (n - 1, B, 1, V), the prefill's seconds, the decode's ms
+    a step and the graph's replays."""
+    import torch
+
+    configs, steps_mod = lm["configs"], lm["steps"]
+    B, P = prompt.shape
+    dev = model.device
+    pre = steps_mod.build_prefill_step(model, mesh, configs.ShapeSpec("prefill", P, B, "prefill"))
+    dec = steps_mod.build_decode_step(model, mesh,
+                                      configs.ShapeSpec("decode", P + n, B, "decode"), graph=graph)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, cache = pre.fn({"tokens": prompt.to(dev), "cache_len": P + n, **extra})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = first[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
+    toks, kept = [tok], []
+    pos = torch.tensor(P, dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(n - 1):
+        logits, cache = dec.fn(cache, {"token": tok, "pos": pos})
+        kept.append(logits.clone())  # a graph's logits buffer is overwritten by the next call
+        tok = logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
+        toks.append(tok)
+        pos += 1
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) / (n - 1) * 1e3
+    replays = dec.decode_graph.replays if graph else 0
+    if graph:
+        dec.decode_graph.close()
+    del cache
+    return {"tokens": torch.cat(toks, dim=1).cpu(), "prefill_logits": first,
+            "step_logits": torch.stack(kept), "prefill_s": prefill_s, "decode_ms": decode_ms,
+            "replays": replays}
+
+
+def phase_serve_steps(lm, kmods, specs):
+    """The step builders at full width, one arch of each family (dense,
+    MoE, RWKV6, encoder-decoder), on the card's smoke mesh (a one-process
+    NCCL group, started here and destroyed after): ``build_prefill_step``,
+    then ``build_decode_step(graph=True)`` greedily for ``tokens`` - 1
+    steps (each call after the first one replay of its graph), against
+    ``serve_lm.generate`` (meshless, its own graph) on the same weights and
+    prompt. dense, rwkv6, whisper: the prefill's and every step's logits
+    bit for bit generate's. granite-moe, whose built steps take the MoE
+    mesh path (one group, capacity from the rank's B S tokens, float32
+    combine) where generate takes the grouped path: the same tokens and
+    bits as its built decode step run eagerly (``graph=False``), and its
+    gap to generate's reported. Reports the built prefill's seconds and the
+    built decode's ms a step (replayed and eager, the host's argmax and
+    copies between steps included) beside generate's, and each kernel's
+    launches over the phase."""
+    import torch
+
+    configs, serve_lm = lm["configs"], lm["serve_lm"]
+    t_phase = time.perf_counter()
+    _reset_launches(kmods)
+    mesh = lm["mesh"].make_smoke_mesh("cuda")
+    archs = []
+    try:
+        for spec in specs:
+            cfg = configs.get_config(spec["arch"])
+            model = configs.build_model(cfg, device="cuda", seed=spec["seed"])
+            B, P, n = spec["batch"], spec["prompt_len"], spec["tokens"]
+            prompt = serve_lm.prompt_tokens(cfg.vocab, B, P, spec["seed"])
+            extra = serve_lm.request_inputs(cfg, B, P, spec["seed"], spec.get("enc_len"),
+                                            device=model.device)
+            gen = serve_lm.generate(model, prompt, n, keep_logits=True, **extra)
+            del gen["cache"]
+            built = _built_greedy(lm, model, mesh, prompt, n, extra, graph=True)
+            moe = any(b.kind == "moe" for g in getattr(cfg, "groups", ()) for b in g.blocks)
+            r = {"arch": cfg.name, "batch": B, "prompt_len": P, "new_tokens": n,
+                 "built_prefill_s": built["prefill_s"], "built_decode_ms_per_step":
+                 built["decode_ms"], "built_graph_replays": built["replays"],
+                 "generate_prefill_s": gen["prefill_s"],
+                 "generate_decode_ms_per_step": gen["decode_s"] / (n - 1) * 1e3,
+                 "gap_to_generate": (built["step_logits"].float()
+                                     - gen["step_logits"].float()).abs().max().item(),
+                 "same_tokens_as_generate": bool(torch.equal(built["tokens"], gen["tokens"]))}
+            if moe:
+                eager = _built_greedy(lm, model, mesh, prompt, n, extra, graph=False)
+                r.update(against="the built decode step run eagerly",
+                         built_eager_decode_ms_per_step=eager["decode_ms"],
+                         same_tokens=bool(torch.equal(built["tokens"], eager["tokens"])),
+                         logits_bitwise=_bits_equal(built["step_logits"], eager["step_logits"])
+                         and _bits_equal(built["prefill_logits"], eager["prefill_logits"]))
+                del eager
+            else:
+                r.update(against="generate",
+                         same_tokens=r["same_tokens_as_generate"],
+                         logits_bitwise=_bits_equal(built["step_logits"], gen["step_logits"])
+                         and _bits_equal(built["prefill_logits"], gen["prefill_logits"]))
+            archs.append(r)
+            del model, gen, built
+            torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+    out = {"phase": "serve_steps", "archs": archs,
+           "launches": {k: fn.LAUNCHES for k, fn in kmods.items()},
+           "seconds": time.perf_counter() - t_phase}
+    _emit(out)
+    for r in archs:
+        _require(r["same_tokens"] and r["logits_bitwise"] and r["built_graph_replays"]
+                 == r["new_tokens"] - 2,
+                 f"serve_steps: {r['arch']}'s built steps differ from {r['against']}: {r}")
     return out
 
 
@@ -3567,6 +3885,16 @@ def _scan_agg_build_facts(sops, ops, build):
             for lib, mod in (("linear_scan", sops), ("ipls_aggregate", ops))}
 
 
+def _memory(after: str) -> None:
+    """A line with the device memory still allocated after a phase (what the
+    next phase's ``base`` holds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    _emit({"phase": "memory", "after": after, "allocated": torch.cuda.memory_allocated(),
+           "reserved": torch.cuda.memory_reserved()})
+
+
 def main() -> int:
     import torch
 
@@ -3605,7 +3933,8 @@ def main() -> int:
         "decode_attention": dops.decode,
         "rwkv6_scan": sops.rwkv6_scan,
     }
-    lm = {"configs": configs, "device": device, "serve_lm": serve_lm, "layers": layers}
+    lm = {"configs": configs, "device": device, "serve_lm": serve_lm, "layers": layers,
+          "steps": steps, "build": _build, "mesh": mesh}
     tr = {"configs": configs, "sharded": sharded, "steps": steps, "mesh": mesh, "optim": optim,
           "checkpoint": checkpoint, "tree": tree, "data": data, "layers": layers,
           "telemetry": telemetry}
@@ -3639,10 +3968,12 @@ def main() -> int:
     # workspaces of their graph captures allocated, which would count in
     # the main paths' peak memory
     phase_agree(mods)
+    _memory("agree")
     none = dict.fromkeys(kmods, 0)
     rounds = MAIN_CFG["rounds"]
     main_f32 = phase_main(mods, kmods, "main", {}, MAIN_SHAPE,
                           dict(none, ipls_aggregate_batched=rounds))
+    _memory("main")
     # per round: quantize the delta plane once and qdq_rows twice (V before
     # the round, V_agg after aggregation), one quantized aggregation
     main_q = phase_main(
@@ -3650,49 +3981,74 @@ def main() -> int:
         MAIN_Q_SHAPE,
         dict(none, ipls_aggregate_batched_q=rounds, quantize=3 * rounds, dequantize=2 * rounds),
     )
+    _memory("main_int8")
     main_w = phase_window(mods, kmods, "main_window", {}, MAIN_WINDOW, MAIN_SHAPE,
                           {"ipls_aggregate_batched": 1})
+    _memory("main_window")
     main_qw = phase_window(
         mods, kmods, "main_int8_window", dict(wire_dtype="int8", conditions=network.LOSSY),
         MAIN_Q_WINDOW, MAIN_Q_SHAPE,
         {"ipls_aggregate_batched_q": 1, "quantize": 3, "dequantize": 2},
     )
+    _memory("main_int8_window")
     main_churn = phase_churn(
         mods, kmods, "main_churn", dict(wire_dtype="int8", conditions=network.LOSSY),
         MAIN_CHURN, MAIN_Q_SHAPE,
         {"ipls_aggregate_batched_q": 1, "quantize": 3, "dequantize": 2},
     )
+    _memory("main_churn")
     main_tel = phase_telemetry(mods, kmods, [
         ("main_int8", dict(wire_dtype="int8", conditions=network.LOSSY), MAIN_Q_WINDOW,
          {"ipls_aggregate_batched_q": 1, "quantize": 3, "dequantize": 2}, TEL_SCALAR_ROUNDS),
         ("main", {}, MAIN_WINDOW, {"ipls_aggregate_batched": 1}, 0),
     ])
+    _memory("main_telemetry")
     phase_baselines(mods, main_f32)
+    _memory("baselines")
     phase_lm_agree(lm, kmods)
+    _memory("lm_agree")
     phase_train_agree(tr, kmods)
+    _memory("train_agree")
     phase_train(tr, kmods)
     torch.distributed.destroy_process_group()  # the smoke mesh's one-process group
+    _memory("train")
     serve = phase_serve(lm, kmods, "serve", SERVE, SERVE_PARAMS,
                         (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32))
+    _memory("serve")
     serve_rwkv = phase_serve(lm, kmods, "serve_rwkv", SERVE_RWKV, SERVE_RWKV_PARAMS,
                              (SERVE_RWKV_DECODE_VS_PREFILL_BF16, SERVE_RWKV_DECODE_VS_PREFILL_F32))
+    _memory("serve_rwkv")
     serve_moe = phase_serve(lm, kmods, "serve_moe", SERVE_MOE, SERVE_MOE_PARAMS,
                             (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32),
                             witnessed=SERVE_MOE_WITNESSED)
+    _memory("serve_moe")
     phase_serve(lm, kmods, "serve_mla", SERVE_MLA, SERVE_MLA_PARAMS,
                 (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32),
                 check_batch=SERVE_MLA_CHECK_BATCH, witnessed=SERVE_MLA_WITNESSED)
+    _memory("serve_mla")
     serve_gemma3 = phase_serve(lm, kmods, "serve_gemma3", SERVE_GEMMA3, SERVE_GEMMA3_PARAMS,
                                (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32))
+    _memory("serve_gemma3")
     phase_serve(lm, kmods, "serve_zamba2", SERVE_ZAMBA2, SERVE_ZAMBA2_PARAMS,
                 (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32),
                 witnessed=SERVE_ZAMBA2_WITNESSED)
+    _memory("serve_zamba2")
     serve_whisper = phase_serve(lm, kmods, "serve_whisper", SERVE_WHISPER, SERVE_WHISPER_PARAMS,
                                 (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32))
+    _memory("serve_whisper")
     serve_qwen2_vl = phase_serve(lm, kmods, "serve_qwen2_vl", SERVE_QWEN2_VL,
                                  SERVE_QWEN2_VL_PARAMS,
                                  (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32),
                                  check_batch=SERVE_QWEN2_VL_CHECK_BATCH)
+    _memory("serve_qwen2_vl")
+    for name, spec, n_params in (("serve_phi4_mini", SERVE_PHI4, SERVE_PHI4_PARAMS),
+                                 ("serve_minitron", SERVE_MINITRON, SERVE_MINITRON_PARAMS)):
+        phase_serve(lm, kmods, name, spec, n_params,
+                    (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32),
+                    witnessed=SERVE_DENSE_LARGE_WITNESSED, float32_checks=False)
+        _memory(name)
+    phase_serve_steps(lm, kmods, SERVE_STEPS)
+    _memory("serve_steps")
     kern = phase_kernel(ops, ref)
     kern_q = phase_kernel_q(qops, qref, ops, ref)
     kern_attn = phase_kernel_attn(fops, fref, dops, dref)
@@ -3779,6 +4135,8 @@ def main() -> int:
         "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
         "window_launches": {w["phase"]: w["launches"][name]
                             for w in (main_w, main_qw, main_churn, main_tel)},
+        "launches_through_decode_graph_replays":
+            path.get("decode_graph", {}).get("launches_counted", {}).get(name, 0),
         **dict(*extra),
     } for name, source, replaces, path, err, tm, *extra in rows]})
     print(smi, flush=True)

@@ -206,10 +206,6 @@ class VectorizedIPLSSimulation:
         # memory pool (replays run one after another on one stream)
         self.graphs: Dict[Tuple[int, Tuple[bool, ...]], WindowGraph] = {}
         self._pool = None
-        # the stream of every capture's warm-up round: one for the engine's
-        # life, since the cuBLAS workspaces PyTorch keeps per stream are never
-        # freed (a new stream each capture would grow memory span by span)
-        self._warmup_stream = None
         self._last_accs: np.ndarray | None = None
         # phase timer: assign a telemetry.PhaseTimer to time the round phases
         self.timer = NULL_TIMER
@@ -693,25 +689,22 @@ class VectorizedIPLSSimulation:
         """Capture a window's device rounds into one CUDA graph over static
         buffers: the state tensors (updated in place), the staged inputs
         (holding this window's values) and the accuracy output. One eager
-        round on a copy of the state runs first, off the capturing stream:
-        it builds the kernels and lets cuBLAS and autograd set up, and its
-        kernel launches are real ones. The kernels the capture records are
-        counted at every replay (`kernels._build.Graph`)."""
+        round on a copy of the state runs first, on the current stream (not
+        the capturing one): it builds the kernels and lets cuBLAS and
+        autograd set up, and its kernel launches are real ones. It takes no
+        side stream of its own: PyTorch keeps a cuBLAS workspace (64 MiB on
+        an H100) for every stream that runs a product and never frees it, so
+        a stream per engine left one behind for every simulation. The
+        kernels the capture records are counted at every replay
+        (`kernels._build.Graph`)."""
         dev = self.device
         inputs = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
         accs, mets = self._device_outputs(len(des))
-        stream = torch.cuda.current_stream(dev)
-        if self._warmup_stream is None:
-            self._warmup_stream = torch.cuda.Stream(dev)
-        side = self._warmup_stream
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            scratch = {k: v.clone() for k, v in self._state.items()}
-            x0 = {k: v[0] for k, v in inputs.items()}
-            self._round(scratch, x0, True, torch.empty_like(accs[0]),
-                        None if mets is None else torch.empty_like(mets[0]), NULL_TIMER.phase)
-            del scratch, x0
-        stream.wait_stream(side)
+        scratch = {k: v.clone() for k, v in self._state.items()}
+        x0 = {k: v[0] for k, v in inputs.items()}
+        self._round(scratch, x0, True, torch.empty_like(accs[0]),
+                    None if mets is None else torch.empty_like(mets[0]), NULL_TIMER.phase)
+        del scratch, x0
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = Graph()

@@ -1,49 +1,84 @@
-"""Step builders: assemble (model, optimizer, mesh, shape) into a train step
-with its layouts.
+"""Step builders: assemble (model, optimizer, mesh, shape) into a train,
+prefill or decode step with its layouts.
 
-Port of the reference's ``launch/steps.py`` for ``kind == "train"``. The
-IPLS mapping (``core/sharded.py``):
+Port of the reference's ``launch/steps.py``. The IPLS mapping of the train
+step (``core/sharded.py``):
     grads   -> reduce-scattered over "data" (UpdateModel)
     opt     -> sharded over "data" (responsible-agent update, ZeRO-1)
     params  -> replicated over "data" (all-gather: LoadModel)
     pod axis-> replica consensus (all-reduce of the gradients)
 
-A ``BuiltStep``'s ``fn(state, batch)`` takes the GLOBAL batch and runs this
-process's rows of it (``shard_batch``), as the reference's jitted step
-takes the global batch and lets its sharding pick each device's rows. The
-specs it carries are tuples per dim (``core/sharded.py``). The prefill and
-decode builders, ``lower_step`` (JAX's ahead-of-time lowering) and the
-layouts and per-arch step overrides (``TRAIN_OVERRIDES``) that only they
-and the dry run read are not ported (ROADMAP.md); the configs' sharding
-overrides are.
+A ``BuiltStep``'s ``fn`` takes the GLOBAL batch and runs this process's rows
+of it (``shard_batch``), as the reference's jitted step takes the global
+batch and lets its sharding pick each device's rows. Its specs are tuples
+per dim (``core/sharded.py``): ``in_shardings`` and ``out_shardings`` as
+the reference's, ``arg_shapes`` ``TensorSpec`` trees of the parameters, the
+state or cache, and ``input_specs``, in the port's layouts (one tree per
+layer). The model owns its tensors, so the steps take no parameters: the
+train ``fn(state, batch)`` returns (state, metrics), the prefill
+``fn(batch)`` (logits, cache) and the decode ``fn(cache, batch)`` (logits,
+cache), the cache written in place; their specs still list the parameters
+first, as the reference's. Prefill and decode run under the mesh context
+(``activation_sharding``), so an MoE layer takes the mesh path (one group,
+capacity from this rank's B S tokens, float32 combine), as the reference's
+built steps do; ``serve_lm.generate``, like the reference's example, runs
+meshless and takes the grouped path, so the two differ in capacity by
+design. ``build_decode_step(graph=True)`` runs each step on a CUDA device
+as one replay of a ``DecodeGraph``: the counterpart of jitting the step.
+
+``lower_step`` (JAX's ahead-of-time lowering) has no counterpart here, and
+the per-arch train overrides (``TRAIN_OVERRIDES``) wait for the dry run,
+their only reader (ROADMAP.md).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Optional
+import time
+from typing import Any, Callable, Dict, Optional
 
-from repro_torch.configs.registry import ShapeSpec, input_specs
+import torch
+
+from repro_torch.configs.registry import ShapeSpec, TensorSpec, input_specs
 from repro_torch.core.sharded import (
     DEFAULT_RULES,
     IplsStepConfig,
+    IplsTrainState,
     init_state,
     make_train_step,
     mesh_axis_size,
+    state_shardings,
     tree_shardings,
 )
+from repro_torch.kernels._build import Graph
 from repro_torch.launch.mesh import dp_axes, make_rules
+from repro_torch.models.param_defs import axes_tree
 from repro_torch.models.sharding_hooks import activation_sharding
+from repro_torch.models.whisper import WhisperModel
 from repro_torch.optim.optimizers import Optimizer, adamw
 from repro_torch.optim.schedules import cosine_warmup
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass
 class BuiltStep:
-    fn: Any                       # fn(state, global batch) -> (state, metrics)
+    fn: Any                       # see the module docstring for each kind's signature
     mesh: Any
     rules: Dict[str, Any]
-    update_shardings: Any         # the params' ZeRO-1 specs (owned slices)
-    optimizer: Any
+    in_shardings: Any             # specs (tuples per dim) of (params or state, [cache,] batch)
+    out_shardings: Any            # specs of the outputs
+    arg_shapes: tuple             # TensorSpec trees of the same arguments
+    update_shardings: Any = None  # train: the params' ZeRO-1 specs (owned slices)
+    optimizer: Any = None         # train
+    # decode with graph=True: [the current DecodeGraph], shared with ``fn``
+    # (which holds no reference to this object: a cycle would keep the
+    # model's weights alive until Python's cyclic collector ran)
+    graph_slot: Optional[list] = None
+
+    @property
+    def decode_graph(self) -> Optional["DecodeGraph"]:
+        """The decode graph of the last call (``graph=True``; None before)."""
+        return self.graph_slot[0] if self.graph_slot else None
 
     def init_state(self, params):
         """The train state of ``params`` on this mesh: the optimizer state
@@ -52,14 +87,28 @@ class BuiltStep:
 
 
 def _batch_shardings(specs: Dict[str, Any], mesh, rules) -> Dict[str, tuple]:
-    """Each train input's rows over the data-parallel axes (when the batch
-    divides them), its other dims replicated."""
+    """Each input's spec, as the reference's: tokens, participation and
+    whisper's frames split over the data-parallel axes on dim 0 (the batch),
+    M-RoPE's positions3 (3, B, S) on dim 1, each only where the batch
+    divides the axes; scalars (decode's ``pos``) replicated."""
     dp = rules.get("batch")
     dp_size = mesh_axis_size(mesh, dp)
+
+    def maybe(n: int):
+        return dp if n % dp_size == 0 and n >= dp_size else None
+
     out = {}
     for name, spec in specs.items():
-        rows = dp if spec.shape[0] % dp_size == 0 and spec.shape[0] >= dp_size else None
-        out[name] = (rows,) + (None,) * (len(spec.shape) - 1)
+        if name in ("tokens", "token"):
+            out[name] = (maybe(spec.shape[0]), None)
+        elif name == "participation":
+            out[name] = (maybe(spec.shape[0]),)
+        elif name == "positions3":
+            out[name] = (None, maybe(spec.shape[1]), None)
+        elif name == "enc_embeds":
+            out[name] = (maybe(spec.shape[0]), None, None)
+        else:
+            out[name] = ()
     return out
 
 
@@ -73,21 +122,39 @@ def _dp_rank(mesh, axes) -> int:
 
 
 def shard_batch(batch: dict, specs: Dict[str, tuple], mesh) -> dict:
-    """This process's rows of each input whose first dim is sharded over the
-    data-parallel axes; the whole input where its spec replicates it."""
+    """This process's part of each input: the slice of the dim that its spec
+    splits over the data-parallel axes (positions3's dim 1, the others' dim
+    0); the whole input where the spec replicates it or names none."""
     out = {}
     for name, x in batch.items():
         spec = specs.get(name, ())
-        axes = spec[0] if spec else None
-        if axes is None:
+        dims = [d for d, axes in enumerate(spec) if axes is not None]
+        if not dims:
             out[name] = x
             continue
-        axes = axes if isinstance(axes, tuple) else (axes,)
-        n = mesh_axis_size(mesh, axes)
-        rows = x.shape[0] // n
+        if len(dims) > 1:
+            raise ValueError(f"{name}: spec {spec} splits more than one dim")
+        d = dims[0]
+        axes = spec[d] if isinstance(spec[d], tuple) else (spec[d],)
+        n = x.shape[d] // mesh_axis_size(mesh, axes)
         i = _dp_rank(mesh, axes)
-        out[name] = x[i * rows:(i + 1) * rows]
+        out[name] = x[(slice(None),) * d + (slice(i * n, (i + 1) * n),)]
     return out
+
+
+def _tensor_specs(tree):
+    """A tree of tensors (meta or not) or ``ParamDef``s as ``TensorSpec``s."""
+    return tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype), tree)
+
+
+def _rules(mesh, cfg, kind: str, long_context: bool = False,
+           extra_rules: Optional[dict] = None) -> dict:
+    """The logical -> mesh rules of a step: the defaults, the mesh's for the
+    kind of step, the config's overrides, then ``extra_rules``."""
+    rules = dict(DEFAULT_RULES, **make_rules(mesh, kind, long_context))
+    rules.update(cfg.sharding_overrides)
+    rules.update(extra_rules or {})
+    return rules
 
 
 def default_optimizer(total_steps: int = 10000) -> Optimizer:
@@ -111,15 +178,12 @@ def build_train_step(
     for a in dp_axes(mesh):
         num_agents *= mesh_axis_size(mesh, a)
     step_cfg = step_cfg or IplsStepConfig()
-    rules = dict(DEFAULT_RULES, **make_rules(mesh, "train"))
-    rules.update(cfg.sharding_overrides)
-    rules.update(extra_rules or {})
+    rules = _rules(mesh, cfg, "train", extra_rules=extra_rules)
 
     specs = input_specs(cfg, shape)
-    if "positions3" in specs or "enc_embeds" in specs:
+    if "enc_embeds" in specs:
         raise NotImplementedError(
-            f"{cfg.name}: training M-RoPE and encoder-decoder models through the step builder is "
-            "not ported yet (ROADMAP.md queue 1)")
+            f"{cfg.name}: training encoder-decoder models is not ported yet (ROADMAP.md queue 1)")
     batch_sh = _batch_shardings(specs, mesh, rules)
     if shape.global_batch % num_agents:
         raise ValueError(
@@ -132,25 +196,200 @@ def build_train_step(
     # ZeRO-1 (partition-owned) layout of the in-step update: each rank
     # updates its slices and the LoadModel all-gather moves the parameters'
     # dtype, after the cast
-    update_sh = tree_shardings(model.axes(), model.param_shapes(), mesh, rules, "data")
+    axes, param_shapes = model.axes(), model.param_shapes()
+    update_sh = tree_shardings(axes, param_shapes, mesh, rules, "data")
     raw_step = make_train_step(
         loss_fn, optimizer, step_cfg, num_agents=num_agents, update_shardings=update_sh,
         mesh=mesh,
     )
+    state_sh = state_shardings(axes, param_shapes, optimizer, mesh, rules, fsdp=step_cfg.fsdp)
+    state_shapes = IplsTrainState(
+        step=TensorSpec((), torch.int32), params=_tensor_specs(param_shapes),
+        opt_state=_tensor_specs(optimizer.init(param_shapes)), eps=TensorSpec((), torch.float32))
+    metrics_sh = dict.fromkeys(("loss", "grad_norm", "participation", "eps"), ())
 
     def train_step(state, batch):
         local = shard_batch(batch, batch_sh, mesh)
         with activation_sharding(mesh, rules):
             return raw_step(state, local)
 
-    return BuiltStep(fn=train_step, mesh=mesh, rules=rules, update_shardings=update_sh,
-                     optimizer=optimizer)
+    return BuiltStep(fn=train_step, mesh=mesh, rules=rules, in_shardings=(state_sh, batch_sh),
+                     out_shardings=(state_sh, metrics_sh), arg_shapes=(state_shapes, specs),
+                     update_shardings=update_sh, optimizer=optimizer)
+
+
+def _cache_shapes_and_axes(model, shape: ShapeSpec):
+    """The cache of a shape's batch and sequence (whisper: as many encoder
+    frames): its ``TensorSpec`` tree and its axes tree."""
+    B, S = shape.global_batch, shape.seq_len
+    if isinstance(model, WhisperModel):
+        defs = model.cache_defs(B, S, S)
+    else:
+        defs = model.cache_defs(B, S)
+    return _tensor_specs(defs), axes_tree(defs)
+
+
+def build_prefill_step(model, mesh, shape: ShapeSpec,
+                       extra_rules: Optional[dict] = None) -> BuiltStep:
+    """The prefill of ``model`` on ``mesh`` for a prefill ``shape``: ``fn(batch)``
+    runs this process's rows of the global batch (tokens, and whisper's
+    frames or M-RoPE's positions3; an optional host int ``cache_len``, the
+    prompt length by default) and returns (last-token logits, cache). The
+    cache's specs are in the decode layout, as the reference stores it."""
+    cfg = model.cfg
+    rules = _rules(mesh, cfg, "prefill", extra_rules=extra_rules)
+    param_shapes = model.param_shapes()
+    param_sh = tree_shardings(model.axes(), param_shapes, mesh, rules)
+    batch_specs = input_specs(cfg, shape)
+    batch_sh = _batch_shardings(batch_specs, mesh, rules)
+    cache_shapes, cache_axes = _cache_shapes_and_axes(model, shape)
+    decode_rules = _rules(mesh, cfg, "decode", shape.seq_len > 100_000)
+    cache_sh = tree_shardings(cache_axes, cache_shapes, mesh, decode_rules)
+    logits_sh = (rules.get("batch"), None, None)
+
+    def prefill_step(batch):
+        local = shard_batch(batch, batch_sh, mesh)
+        with activation_sharding(mesh, rules):
+            return model.prefill(local)
+
+    return BuiltStep(fn=prefill_step, mesh=mesh, rules=rules, in_shardings=(param_sh, batch_sh),
+                     out_shardings=(logits_sh, cache_sh),
+                     arg_shapes=(_tensor_specs(param_shapes), batch_specs))
+
+
+def build_decode_step(model, mesh, shape: ShapeSpec, extra_rules: Optional[dict] = None,
+                      graph: bool = False) -> BuiltStep:
+    """One decode step of ``model`` on ``mesh`` for a decode ``shape``:
+    ``fn(cache, batch)`` takes this process's cache (a prefill's, or
+    ``init_cache``'s) and the global batch (``token`` (B, 1), ``pos`` an int
+    or a 0-d int32 tensor) and returns (logits (B_local, 1, V), cache), the
+    cache written in place. With ``graph`` the step runs through a
+    ``DecodeGraph`` (``decode_graph``, one per cache: a call with another
+    cache captures anew): the first call eagerly, then, on a CUDA device,
+    each call one replay, its logits the graph's buffer, overwritten by the
+    next call."""
+    cfg = model.cfg
+    rules = _rules(mesh, cfg, "decode", shape.seq_len > 100_000, extra_rules)
+    param_shapes = model.param_shapes()
+    param_sh = tree_shardings(model.axes(), param_shapes, mesh, rules)
+    cache_shapes, cache_axes = _cache_shapes_and_axes(model, shape)
+    cache_sh = tree_shardings(cache_axes, cache_shapes, mesh, rules)
+    batch_specs = input_specs(cfg, shape)
+    batch_sh = _batch_shardings(batch_specs, mesh, rules)
+    logits_sh = (rules.get("batch") if shape.global_batch > 1 else None, None, None)
+
+    slot = [None]
+
+    def context():
+        return activation_sharding(mesh, rules)
+
+    def decode_step(cache, batch):
+        local = shard_batch(batch, batch_sh, mesh)
+        if not graph:
+            with context():
+                return model.decode_step(cache, local)
+        g = slot[0]
+        if g is None or g.cache is not cache:
+            if g is not None:
+                g.close()
+            g = slot[0] = DecodeGraph(model, cache, local["token"], local["pos"], context=context)
+        else:
+            g.set_inputs(local["token"], local["pos"])
+        return g.step(), cache
+
+    return BuiltStep(fn=decode_step, mesh=mesh, rules=rules,
+                     in_shardings=(param_sh, cache_sh, batch_sh),
+                     out_shardings=(logits_sh, cache_sh),
+                     arg_shapes=(_tensor_specs(param_shapes), cache_shapes, batch_specs),
+                     graph_slot=slot if graph else None)
 
 
 def build_step(model, mesh, shape: ShapeSpec, **kw) -> BuiltStep:
     if shape.kind == "train":
         return build_train_step(model, mesh, shape, **kw)
-    raise NotImplementedError(
-        f"the {shape.kind} step builder is not ported yet (ROADMAP.md queue 1); "
-        "serve through repro_torch.serve_lm"
-    )
+    if shape.kind == "prefill":
+        return build_prefill_step(model, mesh, shape, **kw)
+    return build_decode_step(model, mesh, shape, **kw)
+
+
+class DecodeGraph:
+    """A model's decode step on one cache, its inputs in static device
+    buffers, run as one CUDA-graph replay: the counterpart of the
+    reference's jitted ``decode_step``.
+
+    ``token`` (B, 1) int32 and ``pos`` (0-d int32) hold the step's inputs
+    (``set_inputs``). ``step()`` runs ``model.decode_step`` on them, under
+    ``context()`` if given (a built step's mesh context), then
+    ``after(logits, self)`` if given (``serve_lm.generate``: the greedy
+    token written into its output and into ``token``, and ``pos += 1``),
+    and returns the logits. The first ``step()`` runs eagerly: a real step,
+    and the warm-up of what a capture must not do (building the kernel
+    libraries, reading the SM count, filling the layers' cached device
+    tensors under the key the capture uses). On a CUDA device it then
+    captures one step into a ``kernels/_build.Graph``, which counts the
+    kernels of every replay, and each later ``step()`` is one replay that
+    returns the captured logits buffer (overwritten by the next replay). A
+    capture or a replay that fails raises; nothing carries on eagerly. On
+    the CPU, or with ``use_graph=False``, every step runs eagerly. The
+    graph replays what the capture saw: a step reads the model's weights and
+    config as they were then. ``close()`` frees the graph and its memory
+    pool."""
+
+    def __init__(self, model, cache, token, pos, after: Optional[Callable] = None,
+                 context: Optional[Callable] = None, use_graph: bool = True):
+        dev = model.device
+        self.model, self.cache, self.after = model, cache, after
+        self.context = context or contextlib.nullcontext
+        self.token = torch.zeros(tuple(token.shape), dtype=torch.int32, device=dev)
+        self.pos = torch.zeros((), dtype=torch.int32, device=dev)
+        self.set_inputs(token, pos)
+        self.use_graph = use_graph and dev.type == "cuda"
+        self.graph: Optional[Graph] = None
+        self.logits: Optional[torch.Tensor] = None
+        self.capture_s = 0.0
+
+    def set_inputs(self, token, pos) -> None:
+        """Copy a step's token and pos (an int or a tensor) into the buffers."""
+        self.token.copy_(token)
+        if isinstance(pos, torch.Tensor):
+            self.pos.copy_(pos)
+        else:
+            self.pos.fill_(int(pos))
+
+    @property
+    def replays(self) -> int:
+        return 0 if self.graph is None else self.graph.replays
+
+    @property
+    def launches(self) -> Dict[Callable, int]:
+        """Kernel launches a replay makes, by wrapper ({} before the capture)."""
+        return {} if self.graph is None else dict(self.graph.launches)
+
+    def _run(self) -> torch.Tensor:
+        with self.context():
+            logits, _ = self.model.decode_step(self.cache, {"token": self.token, "pos": self.pos})
+        if self.after is not None:
+            self.after(logits, self)
+        return logits
+
+    def step(self) -> torch.Tensor:
+        if self.graph is not None:
+            self.graph.replay()
+            return self.logits
+        logits = self._run()
+        if self.use_graph:
+            torch.cuda.synchronize(self.token.device)
+            t0 = time.perf_counter()
+            g = Graph()
+            with torch.no_grad(), g.capture():
+                self.logits = self._run()
+            torch.cuda.synchronize(self.token.device)
+            self.capture_s = time.perf_counter() - t0
+            self.graph = g
+        return logits
+
+    def close(self) -> None:
+        """Free the graph and its memory pool (the captured logits go with it)."""
+        if self.graph is not None:
+            self.graph.graph.reset()
+        self.graph = self.logits = None

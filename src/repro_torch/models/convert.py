@@ -8,6 +8,8 @@ port's modules. bfloat16 arrays (numpy dtype ``bfloat16`` from
 ``ml_dtypes``, which ``torch.from_numpy`` refuses) cross as their 16-bit
 patterns; every other dtype as it is, so a float32 tree loads as float32.
 
+``load_jax_cache`` carries a reference serving cache (a prefill's) across in
+the same way, so that the port's decode step can start from it.
 ``load_jax_state`` carries a whole reference ``IplsTrainState`` across in
 the same way (params, the optimizer state unstacked per layer as the
 params are, step and eps), and ``to_reference_layout`` stacks a port state
@@ -23,6 +25,7 @@ from repro_torch.core.sharded import IplsTrainState
 from repro_torch.models.param_defs import ParamTree
 from repro_torch.models.whisper import WhisperModel
 from repro_torch.optim.optimizers import AdamLeaf
+from repro_torch.tree import tree_map
 
 
 def to_torch(arr: np.ndarray) -> torch.Tensor:
@@ -96,6 +99,35 @@ def load_jax_params(model, tree: dict):
     for key in shared:
         _assign(getattr(model, key), tree[key], path=f"/{key}")
     return model
+
+
+def _keys(tree):
+    return {k: _keys(v) for k, v in tree.items()} if isinstance(tree, dict) else None
+
+
+def load_jax_cache(model, cache: dict) -> dict:
+    """The reference's serving cache (a nested dict of numpy arrays, each
+    group's layers, and whisper's ``dec`` layers, stacked on a leading axis)
+    in the port's layout on the model's device, bit for bit: a list of
+    per-layer dicts in each ``g{gi}`` (``b{bi}`` / ``s{bi}``) or in ``dec``,
+    and for whisper ``enc_last`` (S_enc - 1), which the reference does not
+    keep. Raises ``KeyError`` where the entries differ from the model's
+    ``cache_defs``."""
+    dev = model.device
+    if isinstance(model, WhisperModel):
+        want = {"dec": model.cache_defs(1, 1, 1)["dec"][0]}
+        stacked = {"dec": (cache.get("dec"), model.cfg.dec_layers)} if "dec" in cache else {}
+    else:
+        want = {k: v[0] for k, v in model.cache_defs(1, 1).items()}
+        stacked = {k: (v, model.cfg.groups[int(k[1:])].repeat) for k, v in cache.items()}
+    got = {k: v for k, (v, _) in stacked.items()}
+    if _keys(got) != _keys(want):
+        raise KeyError(f"cache has {_keys(got)}, the model's is {_keys(want)}")
+    out = {k: [tree_map(lambda a, i=i: to_torch(np.asarray(a)[i]).to(dev), tree) for i in range(n)]
+           for k, (tree, n) in stacked.items()}
+    if isinstance(model, WhisperModel):
+        out["enc_last"] = model._enc_last(out["dec"][0]["ek"].shape[1])
+    return out
 
 
 def _opt_leaf(x, layer, device):

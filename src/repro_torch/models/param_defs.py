@@ -62,9 +62,12 @@ def stack_defs(defs, n: int):
 
 
 def axes_tree(defs):
-    """The tree of logical-axis tuples matching ``defs``."""
+    """The tree of logical-axis tuples matching ``defs`` (dicts and, in the
+    port's per-layer layouts, lists)."""
     if isinstance(defs, ParamDef):
         return defs.axes
+    if isinstance(defs, list):
+        return [axes_tree(v) for v in defs]
     return {k: axes_tree(v) for k, v in defs.items()}
 
 

@@ -519,21 +519,26 @@ class TransformerLM(nn.Module):
         return per_ex, {"lb_loss": aux}
 
     # -- serving ---------------------------------------------------------------
-    def init_cache(self, batch: int, cache_len: int, dtype=None):
-        """Zero caches: KV and MLA caches, Mamba2 convolution histories and
-        RWKV6 ``x_prev`` in the model's dtype (the reference's default is
-        bfloat16 whatever the weights; the port's decode needs them in the
-        activations' dtype), Mamba2 and RWKV6 states in float32."""
+    def cache_defs(self, batch: int, cache_len: int, dtype=None) -> Dict[str, Any]:
+        """The cache's declaration in the port's layout (the reference's
+        ``cache_defs`` with each group's layers unstacked): ``g{gi}`` a list
+        of per-layer dicts of ``ParamDef``s under ``b{bi}`` / ``s{bi}``, for
+        the blocks that keep a cache. KV and MLA caches, Mamba2 convolution
+        histories and RWKV6 ``x_prev`` in ``dtype`` (the model's by default:
+        the reference's is bfloat16 whatever the weights, the port's decode
+        needs the activations' dtype), Mamba2 and RWKV6 states in float32."""
         dtype = dtype or self.dtype
-        caches: Dict[str, Any] = {}
+        defs: Dict[str, Any] = {}
         for gi, li, key, b, _ in self._layers():
-            defs = block_cache_defs(b, batch, cache_len, dtype)
-            if defs is not None:
-                self._put(caches, gi, li, key, {
-                    n: torch.zeros(d.shape, dtype=d.dtype, device=self.device)
-                    for n, d in defs.items()
-                })
-        return caches
+            entry = block_cache_defs(b, batch, cache_len, dtype)
+            if entry is not None:
+                self._put(defs, gi, li, key, entry)
+        return defs
+
+    def init_cache(self, batch: int, cache_len: int, dtype=None):
+        """Zero caches of ``cache_defs``, on the model's device."""
+        return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype, device=self.device),
+                        self.cache_defs(batch, cache_len, dtype))
 
     @torch.no_grad()
     def prefill(self, batch):

@@ -45,6 +45,7 @@ from repro_torch.models.param_defs import (
     unstack,
     unstack_axes,
 )
+from repro_torch.tree import tree_map
 
 _TRAIN = "whisper training is not ported yet: this slice serves it (ROADMAP.md queue 1)"
 
@@ -172,6 +173,20 @@ class WhisperModel(nn.Module):
     def axes(self) -> Dict[str, Any]:
         return whisper_axes(self.cfg)
 
+    def params(self) -> Dict[str, Any]:
+        """The parameters as a tree (the module's own tensors, no copies):
+        ``embed``, ``pos_dec``, ``enc_ln``, ``dec_ln`` and a list of
+        per-layer dicts in ``enc`` and ``dec``."""
+        out: Dict[str, Any] = {k: getattr(self, k).as_dict() for k in ("embed", "enc_ln", "dec_ln")}
+        out["pos_dec"] = self.pos_dec
+        out["enc"] = [p.as_dict() for p in self.enc]
+        out["dec"] = [p.as_dict() for p in self.dec]
+        return out
+
+    def param_shapes(self) -> Dict[str, Any]:
+        """``params()`` as meta tensors: shapes and dtypes, no storage."""
+        return tree_map(lambda p: torch.empty_like(p, device="meta"), self.params())
+
     def num_params(self) -> int:
         return count_params(self.param_defs())
 
@@ -263,19 +278,31 @@ class WhisperModel(nn.Module):
         return (L.layer_norm(self.dec_ln, x) @ self.embed.table.t()).to(torch.bfloat16)
 
     # -- serving ---------------------------------------------------------------------
-    def init_cache(self, batch: int, cache_len: int, enc_len: int, dtype=None):
-        """A zero cache: per decoder layer k, v (B, cache_len, KV, hd) and
-        ek, ev (B, enc_len, KV, hd) in the model's dtype, and ``enc_last``."""
+    def cache_defs(self, batch: int, cache_len: int, enc_len: int, dtype=None) -> Dict[str, Any]:
+        """The cache's declaration in the port's layout (the reference's
+        ``cache_defs`` with its ``dec`` layers unstacked): per decoder layer
+        k, v (B, cache_len, KV, hd) and ek, ev (B, enc_len, KV, hd) in
+        ``dtype`` (the model's by default), and the 0-d int32 ``enc_last``
+        (``init_cache`` sets it to enc_len - 1)."""
         dtype = dtype or self.dtype
         cfg = self.cfg
+        axes = ("batch", "kv_seq", "kv_heads", None)
 
-        def zeros(n):
-            return torch.zeros((batch, n, cfg.kv_heads, cfg.head_dim), dtype=dtype,
-                               device=self.device)
+        def kv(n):
+            return ParamDef((batch, n, cfg.kv_heads, cfg.head_dim), axes, init="zeros",
+                            dtype=dtype)
 
-        return {"dec": [{"k": zeros(cache_len), "v": zeros(cache_len), "ek": zeros(enc_len),
-                         "ev": zeros(enc_len)} for _ in range(cfg.dec_layers)],
-                "enc_last": self._enc_last(enc_len)}
+        return {"dec": [{"k": kv(cache_len), "v": kv(cache_len), "ek": kv(enc_len),
+                         "ev": kv(enc_len)} for _ in range(cfg.dec_layers)],
+                "enc_last": ParamDef((), (), init="zeros", dtype=torch.int32)}
+
+    def init_cache(self, batch: int, cache_len: int, enc_len: int, dtype=None):
+        """A zero cache of ``cache_defs`` on the model's device, ``enc_last``
+        holding enc_len - 1."""
+        defs = self.cache_defs(batch, cache_len, enc_len, dtype)
+        dec = [{n: torch.zeros(d.shape, dtype=d.dtype, device=self.device)
+                for n, d in layer.items()} for layer in defs["dec"]]
+        return {"dec": dec, "enc_last": self._enc_last(enc_len)}
 
     def _enc_last(self, enc_len: int) -> torch.Tensor:
         return torch.tensor(enc_len - 1, dtype=torch.int32, device=self.device)

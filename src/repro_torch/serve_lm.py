@@ -48,12 +48,13 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, build_model, get_config
+from repro_torch.launch.steps import DecodeGraph
 from repro_torch.models.whisper import WhisperConfig
 
 
@@ -114,17 +115,53 @@ def request_inputs(cfg, batch: int, length: int, seed: int, enc_len: Optional[in
     return {}
 
 
+def greedy(out: torch.Tensor, P: int, kept: Optional[torch.Tensor] = None) -> Callable:
+    """The greedy tail of a decode step after a P-token prompt, as
+    ``DecodeGraph``'s ``after``: the step's token (the argmax of its logits)
+    into column pos - P + 1 of ``out`` (B, n_new) int32 and into the next
+    step's input, its logits into row pos - P of ``kept`` if given, and pos
+    + 1; all on the device, indexed by the device's pos (so a graph of the
+    step replays at every position)."""
+    def after(step_logits: torch.Tensor, g) -> None:
+        nxt = step_logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
+        out.index_copy_(1, (g.pos - (P - 1)).long().reshape(1), nxt)
+        if kept is not None:
+            kept.index_copy_(0, (g.pos - P).long().reshape(1), step_logits[None])
+        g.token.copy_(nxt)
+        g.pos.add_(1)
+
+    return after
+
+
 def generate(model, tokens: torch.Tensor, n_new: int, enc_embeds: Optional[torch.Tensor] = None,
-             positions3: Optional[torch.Tensor] = None) -> Dict[str, object]:
+             positions3: Optional[torch.Tensor] = None, graph: bool = True,
+             keep_logits: bool = False) -> Dict[str, object]:
     """Prefill ``tokens`` (B, P), then decode greedily until each sequence
     has ``n_new`` new tokens (the first from the prefill's logits, then
     n_new - 1 decode steps at pos P, P+1, ...). ``enc_embeds`` (B, S_enc, d)
     go to an encoder-decoder's encoder; ``positions3`` (3, B, P) are an
     M-RoPE model's prompt positions (decode positions stay the cache slot,
-    on all three components, as in the reference). Returns the new tokens
-    (B, n_new) int32 on the host, the prefill's and the first decode step's
-    logits (B, 1, V) bf16, the cache, and the prefill and decode wall times
-    (host clock around work ended by a device synchronize)."""
+    on all three components, as in the reference).
+
+    A decode step is ``model.decode_step``, the greedy argmax, the token's
+    write into a (B, n_new) int32 buffer on the device and ``pos += 1``
+    (``launch.steps.DecodeGraph`` with ``greedy``). With ``graph`` (the
+    default) on a CUDA device, the first step runs eagerly as the warm-up,
+    then one step is captured into a CUDA graph and every later step is one
+    replay of it: the counterpart of the reference's jitted
+    ``decode_step``. The graph
+    and its memory pool are freed before this returns. ``graph=False``
+    runs every step eagerly (the same work, for comparisons); on the CPU
+    every step runs eagerly either way. The model runs meshless (an MoE
+    layer's grouped path).
+
+    Returns the new tokens (B, n_new) int32 on the host, the prefill's and
+    the first decode step's logits (B, 1, V) bf16 (a copy), with
+    ``keep_logits`` every decode step's logits (n_new - 1, B, 1, V) on the
+    device, the cache, the prefill and decode wall times (host clock around
+    work ended by a device synchronize; the decode time counts the eager
+    first step and leaves out the capture), the capture's seconds, the
+    graph's replays and its kernel launches a replay (wrapper -> count)."""
     if n_new < 1:
         raise ValueError("n_new must be at least 1")
     dev = model.device
@@ -136,26 +173,31 @@ def generate(model, tokens: torch.Tensor, n_new: int, enc_embeds: Optional[torch
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = model.prefill(batch)
-    tok = logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
+    out = torch.empty((B, n_new), dtype=torch.int32, device=dev)
+    out[:, :1] = logits[:, -1].argmax(dim=-1, keepdim=True)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 
-    out = [tok]
-    first_step = None
-    pos = torch.tensor(P, dtype=torch.int32, device=dev)  # advanced on the device
+    steps = n_new - 1
+    kept = (torch.empty((steps, B, 1, logits.shape[-1]), dtype=logits.dtype, device=dev)
+            if keep_logits else None)
+    first_step, capture_s, replays, launches = None, 0.0, 0, {}
     t0 = time.perf_counter()
-    for _ in range(n_new - 1):
-        step_logits, cache = model.decode_step(cache, {"token": tok, "pos": pos})
-        tok = step_logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
-        out.append(tok)
-        first_step = step_logits if first_step is None else first_step
-        pos += 1
+    if steps:
+        dg = DecodeGraph(model, cache, out[:, :1], P, after=greedy(out, P, kept),
+                         use_graph=graph and steps > 1)
+        first_step = dg.step().clone()
+        for _ in range(steps - 1):
+            dg.step()
+        _sync(dev)
+        capture_s, replays, launches = dg.capture_s, dg.replays, dg.launches
+        dg.close()
     _sync(dev)
-    decode_s = time.perf_counter() - t0
+    decode_s = time.perf_counter() - t0 - capture_s
     return {
-        "tokens": torch.cat(out, dim=1).cpu(), "prefill_logits": logits,
-        "first_step_logits": first_step, "cache": cache, "prefill_s": prefill_s,
-        "decode_s": decode_s,
+        "tokens": out.cpu(), "prefill_logits": logits, "first_step_logits": first_step,
+        "step_logits": kept, "cache": cache, "prefill_s": prefill_s, "decode_s": decode_s,
+        "capture_s": capture_s, "graph_replays": replays, "graph_launches": launches,
     }
 
 
@@ -185,6 +227,9 @@ def main(argv=None) -> Dict[str, object]:
     if steps:
         print(f"decode {steps} steps x {B} sequences: {res['decode_s'] / steps * 1e3:.3f} ms/step, "
               f"{B * steps / res['decode_s']:.1f} tokens/s")
+    if res["graph_replays"]:
+        print(f"decode graph: captured in {res['capture_s']:.3f} s, "
+              f"{res['graph_replays']} replays")
     print("first sequence:", res["tokens"][0, :16].tolist(), "...")
     return res
 

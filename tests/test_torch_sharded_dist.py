@@ -14,7 +14,9 @@ of Adam with clipping and ``accum_steps=2``, and without clipping;
 internlm2-reduced in float32, one step through ``build_train_step`` with
 SGD and clipping, and with AdamW, clipping and ``accum_steps=2``; each with
 every agent participating and with the agents of data-parallel rank 1
-dropped.
+dropped. And qwen2-vl-reduced (M-RoPE) on (data=2, model=1): one AdamW
+step through ``build_train_step``, its positions3 split over the ranks on
+dim 1.
 """
 import json
 
@@ -44,4 +46,19 @@ def test_mesh_step_equals_one_process(world, tmp_path):
     assert all(g.keys() == gaps[0].keys() for g in gaps) and len(gaps[0]) == 8
     worst = max(v for g in gaps for v in g.values())
     print(f"world {world}: max |d| {worst:.3g}", gaps[0])
+    assert worst <= worker.TOL
+
+
+def test_mrope_train_step_equals_one_process(tmp_path):
+    """qwen2-vl-reduced through build_train_step on a gloo mesh of two
+    processes: each rank takes its half of positions3's dim 1 (the batch),
+    and the step equals one process's over the whole batch."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(worker.run_mrope, args=(2, str(tmp_path)), nprocs=2, join=True,
+                       start_method="spawn")
+    gaps = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in range(2)]
+    assert all(g.keys() == {"mrope"} for g in gaps)
+    worst = max(g["mrope"] for g in gaps)
+    print(f"mrope: max |d| {worst:.3g}")
     assert worst <= worker.TOL

@@ -2,7 +2,8 @@
 
 - ``loss`` and its gradients, float32 weights carried across bit for bit
   (``load_jax_params``), on the same tokens (numpy seed), for the dense
-  family at ``reduced=True``: the per-example loss within 1e-5 (measured
+  family and qwen2-vl (M-RoPE, with an image's positions3) at
+  ``reduced=True``: the per-example loss within 1e-5 (measured
   at most 1.5e-6), every gradient leaf within 2e-3 of that leaf's largest
   |gradient| (measured 6.0e-4 of it, on the embedding table and the
   attention projections). That is float32 noise, which the reduced
@@ -21,6 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import serve_lm
 from repro_torch.configs import (
     ARCH_IDS,
     ShapeSpec,
@@ -78,11 +80,13 @@ def _ref_model(arch, dtype="float32"):
     return model, jax.tree.map(lambda a: a.astype(getattr(jnp, dtype)), model.init(0))
 
 
-def _grads_by_name(model, params, tokens):
-    """Per-example loss and the gradients of its mean, by reference name."""
+def _grads_by_name(model, params, tokens, extra=None):
+    """Per-example loss and the gradients of its mean, by reference name
+    (``extra``: M-RoPE's positions3)."""
     leaves = tree_leaves(params)
     alias = [p.detach().requires_grad_(True) for p in leaves]
-    per_ex, _ = model.loss(tree_unflatten(params, alias), {"tokens": torch.from_numpy(tokens)})
+    per_ex, _ = model.loss(tree_unflatten(params, alias),
+                           {"tokens": torch.from_numpy(tokens), **(extra or {})})
     grads = torch.autograd.grad(per_ex.mean(), alias)
     from repro_torch.core.sharded import IplsTrainState
 
@@ -91,17 +95,25 @@ def _grads_by_name(model, params, tokens):
     return per_ex.detach(), dict(named_leaves(to_reference_layout(tree).params))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def _extra(arch):
+    """qwen2-vl's positions3: a 3 x 4-patch image after 5 text tokens."""
+    if arch != "qwen2-vl-72b":
+        return {}
+    return {"positions3": serve_lm.image_positions3(B, S, 5, (3, 4))}
+
+
+@pytest.mark.parametrize("arch", DENSE + ("qwen2-vl-72b",))
 def test_loss_and_grads_match_reference(arch):
     jax, jnp = _jax()
     jmodel, jparams = _ref_model(arch)
     tokens = _tokens()
-    batch = {"tokens": jnp.asarray(tokens)}
+    extra = _extra(arch)
+    batch = {"tokens": jnp.asarray(tokens), **{k: jnp.asarray(v.numpy()) for k, v in extra.items()}}
     j_per_ex = jax.jit(lambda p: jmodel.loss(p, batch)[0])(jparams)
     j_grads = jax.jit(jax.grad(lambda p: jmodel.loss(p, batch)[0].mean()))(jparams)
     model = load_jax_params(build_model(get_config(arch, reduced=True), device="cpu"),
                             jax.tree.map(np.asarray, jparams))
-    per_ex, grads = _grads_by_name(model, model.params(), tokens)
+    per_ex, grads = _grads_by_name(model, model.params(), tokens, extra)
     assert per_ex.shape == (B,) and per_ex.dtype == torch.float32
     d_loss = float(np.abs(per_ex.numpy() - np.asarray(j_per_ex)).max())
     assert d_loss <= 1e-5, d_loss

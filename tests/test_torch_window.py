@@ -299,15 +299,16 @@ def _launches():
 def _replayed_kernels(graph):
     """The kernels one replay of ``graph`` runs on the card, counted by
     symbol in a profile of the replay. A profile can lose its first device
-    events late in a process, so it starts with 32 throwaway spin kernels
+    events late in a process, so it starts with 512 throwaway spin kernels
     of about 10 us each, left out of the count (one of them must have been
-    kept)."""
+    kept). 32 were too few once the ``-m cuda`` run had more graph tests
+    before this one: on an H100 the ``deep`` case's profile lost all 32."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
-        for _ in range(32):
+        for _ in range(512):
             torch.cuda._sleep(20_000)
         torch.cuda.synchronize()
         graph.replay()

@@ -3,7 +3,8 @@ on a gloo mesh of several CPU processes against the same step on one
 process. Imports neither JAX nor a test file, so that spawned workers
 start fast.
 
-``run(world, out_dir)`` is the spawn entry: each rank joins a gloo group
+``run(world, out_dir)`` is the spawn entry (``run_mrope`` the same for
+qwen2-vl's M-RoPE case alone): each rank joins a gloo group
 through a file store in ``out_dir`` (no port), builds the mesh (data=2, model=1)
 for a world of 2 or (pod=2, data=2, model=1) for 4, runs every case, checks
 it, and writes its largest gaps to ``out_dir/rank{r}.json``.
@@ -22,6 +23,7 @@ from repro_torch.core import sharded as psh
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import build_train_step
 from repro_torch.optim import adam, adamw, sgd
+from repro_torch.serve_lm import image_positions3
 from repro_torch.tree import named_leaves, tree_leaves
 
 # float32 sums over ranks in another order than one process's batch sums
@@ -162,7 +164,34 @@ def _lm_cases(mesh, gaps):
                 assert float(metrics["participation"]) == 1 - 1 / dp_size
 
 
-def run(rank: int, world: int, out_dir: str) -> None:
+def _mrope_case(mesh, gaps):
+    """qwen2-vl-reduced in float32 (M-RoPE: positions3 (3, B, S) with an
+    image, which ``shard_batch`` splits over the data ranks on its dim 1),
+    one AdamW step through build_train_step on the mesh, against
+    make_train_step on one process over the global batch."""
+    rank_d, D = mesh.get_local_rank("data"), psh.mesh_axis_size(mesh, "data")
+    _, dp_size = _dp(mesh)
+    cfg = get_config("qwen2-vl-72b", reduced=True)
+    B, S = 2 * dp_size, 16
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S), dtype=np.int32))
+    p3 = image_positions3(B, S, 3, (2, 3))
+    p3[:, B // 2:] = image_positions3(B // 2, S, 6, (3, 2))  # the ranks' rows differ
+    batch = {"tokens": tokens, "positions3": p3, "participation": torch.ones(B)}
+    model = build_model(cfg, device="cpu", seed=2).float()
+    built = build_train_step(model, mesh, ShapeSpec("t", S, B, "train"), optimizer=adamw(1e-3))
+    st = built.init_state(model.params())
+    one = build_model(cfg, device="cpu", seed=2).float()
+    opt1 = adamw(1e-3)
+    step1 = psh.make_train_step(one.loss, opt1, psh.IplsStepConfig(), num_agents=dp_size)
+    st1 = psh.init_state(one.params(), opt1)
+    st, metrics = built.fn(st, batch)
+    st1, metrics1 = step1(st1, batch)
+    _check_state("mrope", st, st1, built.update_shardings, rank_d, D, gaps)
+    _metric_gaps("mrope", metrics, metrics1, gaps)
+
+
+def _run(rank: int, world: int, out_dir: str, cases) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{os.path.join(out_dir, 'store')}",
                             rank=rank, world_size=world)
@@ -172,9 +201,17 @@ def run(rank: int, world: int, out_dir: str) -> None:
         else:
             mesh = make_mesh((2, 2, 1), ("pod", "data", "model"), device="cpu")
         gaps: dict = {}
-        _tiny_cases(mesh, gaps)
-        _lm_cases(mesh, gaps)
+        for case in cases:
+            case(mesh, gaps)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(gaps, f)
     finally:
         dist.destroy_process_group()
+
+
+def run(rank: int, world: int, out_dir: str) -> None:
+    _run(rank, world, out_dir, (_tiny_cases, _lm_cases))
+
+
+def run_mrope(rank: int, world: int, out_dir: str) -> None:
+    _run(rank, world, out_dir, (_mrope_case,))
