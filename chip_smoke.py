@@ -121,21 +121,47 @@ exits non-zero:
               params and every grad norm: the card at most twice as far
               from it as the CPU's float32 step); checkpointed after step
               2 and restored into a fresh model, bit for bit the
-              uninterrupted run; no kernel launched;
+              uninterrupted run; no kernel launched. Then one SGD step
+              (0.5, clip 1.0) of each other family's reduced config in
+              float32 (granite-moe, gemma3, zamba2, rwkv6, whisper with 64
+              frames a clip) on the card, without a mesh and through
+              build_train_step on the smoke mesh (bit for bit, but MoE,
+              whose mesh path sizes capacity by the rank's tokens), against
+              the same step on the CPU: the loss within 1e-5 of max(1,
+              |loss|), params and grad norm no farther from the CPU's
+              float64 step than twice its float32 step (+1e-7), step and
+              eps exactly;
   train     — the LM training path at full width: internlm2-1.8b
               (1,889,110,016 bf16 parameters, nothing cut) through
               build_model, make_smoke_mesh and build_train_step with the
               default AdamW and IplsStepConfig() (eps on, clip 1.0), global
               batch 2 x 4,096 tokens from synth_tokens (train_4k's sequence,
-              its batch of 256 cut to 2), 5 steps: each step's seconds,
-              the median of steps 2-5, tokens/s, model FLOP/s (6 x the
-              matrix parameters x tokens) and its share of the 989 TFLOP/s
-              bf16 peak, peak memory, losses, grad norms and eps (the
-              recursion's values exactly, step 5 at the end, finite, no
-              kernel launched); then one step split by a syncing phase
-              timer (forward, backward with the recompute, update with
-              the collectives), one under torch.profiler, and the plain
-              attention alone at a layer's shapes (its share of a step);
+              its batch of 256 cut to 2), 5 steps: build seconds, each
+              step's seconds, the median of the steps after the first,
+              tokens/s, model FLOP/s (6 x the active parameters x tokens)
+              and its share of the 989 TFLOP/s bf16 peak, peak memory over
+              the phase's base, losses, grad norms and eps (the
+              recursion's values exactly, step 5 at the end, finite, the
+              first layer's matrices changed, no kernel launched); then one
+              step split by a syncing phase timer (forward, backward with
+              the recompute, update with the collectives), one under
+              torch.profiler (the shares of the named ranges: their
+              forward and recompute kernels), and the plain pieces alone
+              at a layer's shapes, forward and with backward (the
+              training attention by kind, the chunked scans), with their
+              share of a step;
+  train_moe, train_gemma3, train_zamba2, train_whisper, train_rwkv —
+              the same for each other family that trains on one card,
+              3 steps each at 4,096 tokens: granite-moe-3b-a800m
+              (3,298,793,472 parameters) at batch 2, gemma3-1b
+              (999,826,048; vocab 262,144) at 2, zamba2-1.2b
+              (1,104,937,856; Mamba2 through the chunked SSD scan, the
+              shared blocks after each period) at 2, whisper-base
+              (116,792,832; 2 x 4,096 frames drawn from the seed) at 2,
+              and rwkv6-7b at batch 1 at full width on 13 of its 32 layers
+              (3,379,679,232 parameters: the whole model's weights,
+              gradients and AdamW moments, about 90 GB, exceed one card;
+              the time mix through the plain chunked scan, chunks of 16);
   serve     — the LM main path at full width: internlm2-1.8b
               (1,889,110,016 parameters, bf16) through build_model and
               serve_lm.generate, batch 4, a 4,096-token prompt from the seed,
@@ -459,11 +485,16 @@ SERVE_DECODE_VS_PREFILL_F32 = 0.1
 # the LM training path (phase train): internlm2-1.8b at full width through
 # build_train_step on the smoke mesh (one card), default_optimizer (AdamW,
 # cosine warm-up), IplsStepConfig() (eps on, clip 1.0); train_4k's sequence
-# of 4,096 with its global batch of 256 cut to 2 for one card
-TRAIN = dict(arch="internlm2-1.8b", batch=2, seq_len=4096, steps=5, seed=0)
+# of 4,096 with its global batch of 256 cut to 2 for one card. The other
+# families' cells: TRAIN_CELLS.
+TRAIN = dict(phase="train", arch="internlm2-1.8b", batch=2, seq_len=4096, steps=5, seed=0)
 # phase train_agree: internlm2-reduced in float32, 3 steps of SGD 0.5 with
-# clip 1.0, then 3 of AdamW with accum_steps=2, on the card's smoke mesh
+# clip 1.0, then 3 of AdamW with accum_steps=2, on the card's smoke mesh;
+# then one SGD step of each other family's reduced config (whisper with 64
+# frames a clip from the seed), card against CPU
 TRAIN_AGREE = dict(batch=4, seq_len=64, steps=3, seed=0)
+TRAIN_AGREE_FAMILIES = ("granite-moe-3b-a800m", "gemma3-1b", "zamba2-1.2b", "rwkv6-7b",
+                        "whisper-base")
 TRAIN_AGREE_ADAMW_LR = 1e-3
 # A step on the CPU from the card's state before it (float32 products in
 # other orders, TF32 off), in float32 and in float64. The reduced model's
@@ -646,15 +677,38 @@ SERVE_STEPS = (dict(arch="internlm2-1.8b", batch=4, prompt_len=4096, tokens=32, 
                dict(arch="rwkv6-7b", batch=4, prompt_len=4096, tokens=32, seed=0),
                dict(arch="whisper-base", batch=16, prompt_len=4, enc_len=1500, tokens=32,
                     seed=0))
-# the profiler ranges of the MoE, MLA and Mamba2 layers (models/layers.py
-# ``_span``)
+# the profiler ranges of the MoE, MLA and Mamba2 layers and of the training
+# attention and RWKV6 scan (models/layers.py ``_span``)
 SPANS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine", "moe.shared", "mla",
-         "mamba2.in", "mamba2.ssd", "mamba2.out")
+         "mamba2.in", "mamba2.ssd", "mamba2.out", "sdpa", "rwkv6.chunked")
 # host syncs a decode step must not have (a device value read on the host)
 HOST_SYNCS = ("cudaStreamSynchronize", "aten::_local_scalar_dense")
 # the RWKV6 path: rwkv6-7b at full width, serving
 SERVE_RWKV = dict(arch="rwkv6-7b", batch=4, prompt_len=4096, tokens=128, seed=0)
 SERVE_RWKV_PARAMS = 7_534_546_944
+# the train cells beside `train` (phase_train), each at full width at
+# train_4k's 4,096 tokens with its global batch of 256 cut to fit one card:
+# granite-moe (3,298,793,472 bf16 parameters) at 2 (its peak at 2 stays under
+# ~75 GB), gemma3-1b at 2 (vocab 262,144: the bf16 logits alone are 4.3 GB),
+# zamba2-1.2b at 2, whisper-base at 2 (2 x 4,096 frames of d_model 512 drawn
+# from the seed, bf16), rwkv6-7b at 1 and cut in depth: its 32 layers' bf16
+# weights and gradients and float32 AdamW moments (about 90 GB) exceed one
+# card, so the cell runs the first TRAIN_RWKV_LAYERS at full width, the most
+# whose peak stays under ~72 GB. 3 steps each (the median of steps 2-3).
+TRAIN_RWKV_LAYERS = 13  # 69.6 GB at its peak on an H100; 14 layers 74.0 GB
+TRAIN_CELLS = (
+    dict(phase="train_moe", arch="granite-moe-3b-a800m", batch=2, steps=3),
+    dict(phase="train_gemma3", arch="gemma3-1b", batch=2, steps=3),
+    dict(phase="train_zamba2", arch="zamba2-1.2b", batch=2, steps=3),
+    dict(phase="train_whisper", arch="whisper-base", batch=2, steps=3),
+    dict(phase="train_rwkv", arch="rwkv6-7b", batch=1, steps=3, layers=TRAIN_RWKV_LAYERS),
+)
+# each cell's parameters (nothing cut but rwkv6's depth: its embedding, head
+# and final norm, and 218,677,248 a layer)
+TRAIN_PARAMS = {"internlm2-1.8b": SERVE_PARAMS, "granite-moe-3b-a800m": SERVE_MOE_PARAMS[0],
+                "gemma3-1b": SERVE_GEMMA3_PARAMS[0], "zamba2-1.2b": SERVE_ZAMBA2_PARAMS[0],
+                "whisper-base": SERVE_WHISPER_PARAMS[0],
+                "rwkv6-7b": SERVE_RWKV_PARAMS - (32 - TRAIN_RWKV_LAYERS) * 218_677_248}
 # decode at pos 4,096 vs the last-token logits of a 4,097-token prefill. The
 # recurrence's step is float32 on both paths (decode in PyTorch from the
 # kernel's final state; the kernel's last, ragged chunk), so the gap comes
@@ -2483,6 +2537,62 @@ def _load_state(tree, state, host) -> None:
             dst.copy_(src)
 
 
+def _family_step_agree(tr, arch):
+    """One SGD step (0.5, clip 1.0) of ``arch``'s reduced config in float32
+    on the card, against the same step on the CPU from the same weights
+    (drawn on the CPU from the seed) in float32 and in float64. The card's
+    step runs without a mesh (``make_train_step``) and through
+    ``build_train_step`` on the smoke mesh: the two bit for bit, but for
+    MoE, whose mesh path sizes its capacity by the rank's tokens where the
+    step without a mesh takes the grouped path. Returns the gaps: params
+    (largest |d| over the leaves), loss and grad norm (relative), each of
+    the card and of the CPU's float32 step against the float64 step, the
+    loss card vs CPU, and step and eps equal."""
+    import torch
+
+    configs, sharded, steps, optim, tree = (tr[k] for k in
+                                            ("configs", "sharded", "steps", "optim", "tree"))
+    cfg = configs.get_config(arch, reduced=True)
+    B, S = TRAIN_AGREE["batch"], TRAIN_AGREE["seq_len"]
+    rng = np.random.default_rng(TRAIN_AGREE["seed"])
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S), dtype=np.int32)),
+             "participation": torch.ones(B)}
+    if hasattr(cfg, "enc_layers"):
+        batch["enc_embeds"] = torch.from_numpy(
+            rng.standard_normal((B, S, cfg.d_model), dtype=np.float32))
+    scfg = sharded.IplsStepConfig(grad_clip=1.0)
+
+    def step(device, dtype, on_mesh=False):
+        model = configs.build_model(cfg, device="cpu", seed=TRAIN_AGREE["seed"]).to(dtype)
+        model = model.to(device)
+        opt = optim.sgd(0.5)
+        if on_mesh:
+            built = steps.build_train_step(
+                model, tr["mesh"].make_smoke_mesh("cuda"),
+                configs.ShapeSpec("train_agree", S, B, "train"), optimizer=opt, step_cfg=scfg)
+            state, m = built.fn(built.init_state(model.params()), batch)
+        else:
+            fn = sharded.make_train_step(model.loss, opt, scfg, num_agents=1)
+            state, m = fn(sharded.init_state(model.params(), opt), batch)
+        return dict(tree.named_leaves(_host_state(tree, state))), {k: float(v)
+                                                                   for k, v in m.items()}
+
+    card, m_card = step("cuda", torch.float32)
+    built, m_built = step("cuda", torch.float32, on_mesh=True)
+    cpu, m_cpu = step("cpu", torch.float32)
+    f64, m_64 = step("cpu", torch.float64)
+    bitwise = all(_bits_equal(card[k], built[k]) for k in card) and m_card == m_built
+    out = {"built_step_bitwise": bitwise, "loss": m_card["loss"],
+           "exact": all(_bits_equal(card[k], cpu[k]) for k in (".step", ".eps"))}
+    for who, st, m in (("card", card, m_card), ("cpu", cpu, m_cpu)):
+        out[f"{who}_params"] = max(float((st[k].double() - f64[k]).abs().max())
+                                   for k in f64 if k.startswith(".params"))
+        for k in ("loss", "grad_norm"):
+            out[f"{who}_{k}"] = abs(m[k] - m_64[k]) / max(1.0, abs(m_64[k]))
+    out["loss_card_vs_cpu"] = abs(m_card["loss"] - m_cpu["loss"]) / max(1.0, abs(m_cpu["loss"]))
+    return out
+
+
 def phase_train_agree(tr, kmods):
     """The train step on the card's smoke mesh (internlm2-reduced, float32):
     bit for bit the card's step without a mesh; each step, from the card's
@@ -2496,6 +2606,7 @@ def phase_train_agree(tr, kmods):
 
     configs, sharded, steps, optim, tree = (tr[k] for k in
                                             ("configs", "sharded", "steps", "optim", "tree"))
+    t_phase = time.perf_counter()
     cfg = configs.get_config(TRAIN["arch"], reduced=True)
     B, S, n = TRAIN_AGREE["batch"], TRAIN_AGREE["seq_len"], TRAIN_AGREE["steps"]
     rng = np.random.default_rng(TRAIN_AGREE["seed"])
@@ -2620,6 +2731,7 @@ def phase_train_agree(tr, kmods):
         ckpt_bitwise = at == 2 and all(
             _bits_equal(a, b) for a, b in zip(tree.tree_leaves(_host_state(tree, state2)),
                                                tree.tree_leaves(mesh_run[2][2])))
+    families = {arch: _family_step_agree(tr, arch) for arch in TRAIN_AGREE_FAMILIES}
     launched = {k: fn.LAUNCHES - launches0[k] for k, fn in kmods.items()}
     tol, f64 = TRAIN_AGREE_TOL, gaps["vs_float64"]
     bound = {what: tol["float64_ratio"] * f64[f"cpu_{what}"] + tol["float64_floor"]
@@ -2629,7 +2741,7 @@ def phase_train_agree(tr, kmods):
            "steps_per_leg": n, "legs": [x[0] for x in legs], "losses": losses,
            "bitwise_mesh_vs_no_mesh": bitwise, "checkpoint_restore_bitwise": ckpt_bitwise,
            "cpu_vs_card_max": gaps, "float64_bounds": bound, "tolerance": TRAIN_AGREE_TOL,
-           "launches": launched})
+           "families": families, "launches": launched, "phase_s": time.perf_counter() - t_phase})
     _require(bitwise, "train_agree: the mesh step differs from the step without a mesh")
     _require(ckpt_bitwise, "train_agree: the restored run differs from the uninterrupted one")
     _require(all(v == 0 for v in launched.values()), f"train_agree: kernels launched {launched}")
@@ -2644,63 +2756,157 @@ def phase_train_agree(tr, kmods):
              and gaps["metrics"]["participation"] == gaps["metrics"]["eps"] == 0.0,
              f"train_agree: {gaps}")
     _require(all(np.isfinite(v).all() for v in losses.values()), "train_agree: loss not finite")
+    for arch, f in families.items():  # each family's one step, by the same yardsticks
+        moe = arch.startswith("granite")
+        _require((f["built_step_bitwise"] or moe) and f["exact"] and np.isfinite(f["loss"])
+                 and f["loss_card_vs_cpu"] <= tol["loss"]
+                 and all(f[f"card_{k}"] <= tol["float64_ratio"] * f[f"cpu_{k}"]
+                         + tol["float64_floor"] for k in ("params", "grad_norm")),
+                 f"train_agree: {arch} {f}")
 
 
-def _sdpa_ms(layers, B, S, H, KV, D):
-    """The training attention (``layers._sdpa``, plain PyTorch) at one
-    layer's shapes in bf16: forward alone (as the checkpointed forward
-    runs it) and forward plus backward (the recompute and the backward)."""
+def _plain_ms(fn, *args):
+    """A plain piece of the training forward at one layer's shapes:
+    ``fn(*args)`` alone (no grad, as the checkpointed forward runs it) and
+    with its backward against a random output gradient (the recompute and
+    the backward), ms (CUDA events). The floating-point args take the
+    gradients."""
     import torch
 
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn(B, S, H, D, device="cuda", generator=g, dtype=torch.bfloat16)
-    k = torch.randn(B, S, KV, D, device="cuda", generator=g, dtype=torch.bfloat16)
-    v = torch.randn(B, S, KV, D, device="cuda", generator=g, dtype=torch.bfloat16)
-    mask = layers.causal_mask(S, S, device="cuda")
+    def out(y):
+        return y[0] if isinstance(y, tuple) else y
+
     with torch.no_grad():
-        fwd = _time_ms(lambda: layers._sdpa(q, k, v, mask, H // KV), iters=3, warmup=1)
-    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
-    dout = torch.randn(B, S, H, D, device="cuda", generator=g, dtype=torch.bfloat16)
+        fwd = _time_ms(lambda: fn(*args), iters=3, warmup=1)
+    wrt = [a.requires_grad_(True) for a in args
+           if isinstance(a, torch.Tensor) and a.is_floating_point()]
+    dout = torch.randn_like(out(fn(*args)))
 
     def fwd_bwd():
-        torch.autograd.grad(layers._sdpa(q, k, v, mask, H // KV), (q, k, v), dout)
+        torch.autograd.grad(out(fn(*args)), wrt, dout)
 
     return fwd, _time_ms(fwd_bwd, iters=3, warmup=1)
 
 
-def phase_train(tr, kmods):
-    """The LM training path at full width through the user's entry points:
+def _train_pieces(tr, cfg, B, S):
+    """The plain pieces that lead a cell's step, each timed alone at one
+    layer's shapes in bf16 (``_plain_ms``) beside its count in a step: the
+    training attention ``_sdpa`` by kind (causal, over a window, without a
+    mask: whisper's encoder and cross-attention), Mamba2's ``ssd_chunked``
+    and RWKV6's chunked scan. Each piece's seconds a step: count x (forward
+    + forward with backward)."""
+    import torch
+
+    layers, ssm, sref = tr["layers"], tr["ssm"], tr["scan_ref"]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    f32 = torch.float32
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device="cuda", generator=g, dtype=dtype)
+
+    counts, calls = collections.Counter(), {}  # name -> count; name -> (fn, args)
+
+    def attention(name, H, KV, D, window=None, causal=True, n=1):
+        counts[name] += n
+        if name not in calls:
+            mask = layers.causal_mask(S, S, window, device="cuda") if causal else None
+            calls[name] = (lambda q, k, v: layers._sdpa(q, k, v, mask, H // KV),
+                           (randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)))
+
+    if hasattr(cfg, "enc_layers"):  # whisper: every attention at S positions
+        H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+        attention("sdpa non-causal", H, KV, D, causal=False, n=cfg.enc_layers + cfg.dec_layers)
+        attention("sdpa causal", H, KV, D, n=cfg.dec_layers)
+    for b in [] if hasattr(cfg, "enc_layers") else [
+            b for grp in cfg.groups for b in (grp.blocks + grp.shared) * grp.repeat]:
+        if b.kind == "attn":
+            a = b.attn
+            attention("sdpa causal" if a.window is None else f"sdpa window {a.window}",
+                      a.n_heads, a.kv_heads, a.head_dim, a.window)
+        elif b.kind == "mamba2":
+            counts["ssd_chunked"] += 1
+            if "ssd_chunked" not in calls:  # every Mamba2 block of a config has one spec
+                m = b.mamba
+                calls["ssd_chunked"] = (
+                    lambda xh, dt, A, Bm, Cm, Q=m.chunk: ssm.ssd_chunked(xh, dt, A, Bm, Cm, Q),
+                    (randn(B, S, m.n_heads, m.head_dim),
+                     torch.nn.functional.softplus(randn(B, S, m.n_heads, dtype=f32)),
+                     -torch.exp(0.5 * randn(m.n_heads, dtype=f32)),
+                     randn(B, S, m.d_state), randn(B, S, m.d_state)))
+        elif b.kind == "rwkv6_time":
+            counts["rwkv6_chunked"] += 1
+            if "rwkv6_chunked" not in calls:
+                r = b.rwkv
+                H, K = r.n_heads, r.head_dim
+                calls["rwkv6_chunked"] = (
+                    lambda rr, kk, vv, lw, u, Q=r.chunk: sref.rwkv6_chunked(rr, kk, vv, lw, u, Q),
+                    (0.1 * randn(B, S, H, K), 0.1 * randn(B, S, H, K), randn(B, S, H, K),
+                     -torch.exp(randn(B, S, H, K, dtype=f32).clamp(*LOG_DECAY_CLIP)),
+                     0.1 * randn(H, K, dtype=f32)))
+    out = {}
+    for name, (fn, args) in calls.items():
+        fwd, fb = _plain_ms(fn, *args)
+        out[name] = {"count": counts[name], "forward_ms": fwd, "forward_backward_ms": fb,
+                     "s_per_step": counts[name] * (fwd + fb) / 1e3}
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_config(configs, cell):
+    """A cell's config at full width; with ``layers``, its one group's
+    period repeated that many times (a depth cut)."""
+    cfg = configs.get_config(cell["arch"])
+    if "layers" in cell:
+        _require(len(cfg.groups) == 1, f"{cell['arch']}: a depth cut of one group only")
+        cfg = dataclasses.replace(cfg, groups=(dataclasses.replace(cfg.groups[0],
+                                                                   repeat=cell["layers"]),))
+    return cfg
+
+
+def phase_train(tr, kmods, cell):
+    """A train cell at full width through the user's entry points:
     build_model, make_smoke_mesh, build_train_step (default optimizer,
-    IplsStepConfig()), TRAIN["steps"] steps on synth_tokens. Seconds a
-    step (host clock after a sync), tokens/s, model FLOP/s and MFU, peak
-    memory, a phase split of one more step (forward, backward with the
-    recompute, update with the collectives: a syncing PhaseTimer), a
-    profile of one more step, and the plain attention's share (``_sdpa``
-    timed alone at the layer's shapes, times the layers)."""
+    IplsStepConfig()), cell["steps"] steps on synth_tokens (whisper: and
+    frames drawn from the seed). Build seconds, seconds a step (host clock
+    after a sync; the median of the steps after the first), tokens/s, model
+    FLOP/s (6 x active parameters x tokens: the attention's and the chunked
+    scans' own FLOPs left out) and MFU, peak memory over the phase's base,
+    every loss (finite), grad norm and eps (the recursion's values), the
+    state's step, the first layer's matrices changed; then one step split by
+    a syncing PhaseTimer (forward, backward with the recompute, update with
+    the collectives), one under torch.profiler (the named ranges' share:
+    their forward and recompute kernels, since autograd runs the backward
+    outside them), and the leading plain pieces timed alone
+    (``_train_pieces``) with their share of a step. No kernel launched."""
     import statistics
 
     import torch
 
-    configs, sharded, steps = (tr[k] for k in ("configs", "sharded", "steps"))
-    cfg = configs.get_config(TRAIN["arch"])
-    B, S, n = TRAIN["batch"], TRAIN["seq_len"], TRAIN["steps"]
+    configs, sharded, steps, tree = (tr[k] for k in ("configs", "sharded", "steps", "tree"))
+    name, B, n = cell["phase"], cell["batch"], cell["steps"]
+    S, seed = cell.get("seq_len", TRAIN["seq_len"]), cell.get("seed", TRAIN["seed"])
+    cfg = _train_config(configs, cell)
     torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = configs.build_model(cfg, device="cuda", seed=TRAIN["seed"])
+    model = configs.build_model(cfg, device="cuda", seed=seed)
     mesh = tr["mesh"].make_smoke_mesh("cuda")
-    built = steps.build_train_step(model, mesh, configs.ShapeSpec("train_4k_cut", S, B, "train"))
+    built = steps.build_train_step(model, mesh, configs.ShapeSpec(f"{name}_4k_cut", S, B, "train"))
     state = built.init_state(model.params())
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    _require(n_params == SERVE_PARAMS, f"train: {n_params} parameters")
-    # the matrices the step multiplies by: every 2-D+ weight but the
-    # embedding table (a gather); the unembedding is one
-    n_matmul = sum(p.numel() for name, p in model.named_parameters()
-                   if p.dim() >= 2 and not name.startswith("embed."))
-    tokens = tr["data"].synth_tokens(B, S, cfg.vocab, seed=TRAIN["seed"])
-    batch = {"tokens": torch.from_numpy(tokens), "participation": torch.ones(B)}
+    _require(n_params == TRAIN_PARAMS[cell["arch"]], f"{name}: {n_params} parameters")
+    n_active = model.num_active_params()
+    batch = {"tokens": torch.from_numpy(tr["data"].synth_tokens(B, S, cfg.vocab, seed=seed)),
+             "participation": torch.ones(B)}
+    if hasattr(cfg, "enc_layers"):
+        batch["enc_embeds"] = tr["serve_lm"].frame_embeds(cfg.d_model, B, S, seed)
+    # the first layer of each per-layer list, to see the steps change it
+    first = {k: v[0] for k, v in state.params.items() if isinstance(v, list)}
+    watched = [(k, t.detach().clone()) for k, t in tree.named_leaves(first)]
 
     _reset_launches(kmods)
     step_s, losses, gnorms, epss = [], [], [], []
@@ -2714,15 +2920,23 @@ def phase_train(tr, kmods):
         gnorms.append(float(m["grad_norm"]))
         epss.append(float(m["eps"]))
     launches = {k: fn.LAUNCHES for k, fn in kmods.items()}
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - base
     step_after = int(state.step)
+    now = dict(tree.named_leaves(first))
+    unchanged = [k for k, t in watched if torch.equal(t, now[k])]
+    unchanged_matrices = [k for k in unchanged if now[k].dim() >= 2]
+    # the warm-up's first learning rates (1.5e-6, 3e-6, ...) move a bf16
+    # weight only where its ulp is that small: a share of the elements
+    changed = sum(int((t != now[k]).sum()) for k, t in watched) / sum(t.numel()
+                                                                    for _, t in watched)
+    del watched, now
     # eps <- alpha eps + (1 - alpha) / r in float32, one agent, all in (r = 1)
     want_eps, e = [], np.float32(1.0)
     for _ in range(n):
         e = np.float32(np.float32(0.5) * e + np.float32(0.5) / np.float32(1.0))
         want_eps.append(float(e))
     median = statistics.median(step_s[1:])
-    model_flops = 6 * n_matmul * B * S
+    model_flops = 6 * n_active * B * S
 
     # one more step with a syncing phase timer (the same pieces)
     timer = tr["telemetry"].PhaseTimer()
@@ -2737,32 +2951,34 @@ def phase_train(tr, kmods):
     split = {k: v["total_s"] for k, v in timer.summary().items()}
     # and one under torch.profiler
     _, prof = _profile(lambda: built.fn(state, batch))
-    del state, built, model, timed
+    spans = {k: {"forward_and_recompute_ms": ms,
+                 "share_of_device_time": _span_share(prof, [k])}
+             for k, (ms, _) in prof["spans_ms"].items()}
+    del state, built, model, timed, first
     torch.cuda.empty_cache()
-    spec = next(b.attn for g in cfg.groups for b in g.blocks if b.kind == "attn")
-    fwd_ms, fb_ms = _sdpa_ms(tr["layers"], B, S, spec.n_heads, spec.kv_heads, spec.head_dim)
-    # per layer: the forward, then in the backward the recompute and the backward
-    attn_s = _count_kinds(cfg, "attn") * (fwd_ms + fb_ms) / 1e3
+    pieces = _train_pieces(tr, cfg, B, S)
+    for v in pieces.values():
+        v["share_of_step"] = v["s_per_step"] / median
     torch.cuda.empty_cache()
     out = {
-        "phase": "train", "arch": cfg.name, "params": n_params, "matmul_params": n_matmul,
-        "global_batch": B, "seq_len": S, "steps": n, "launches": launches,
-        "build_s": build_s, "step_s": step_s, "step_s_median_2_to_5": median,
-        "tokens_per_s": B * S / median, "model_flops_per_step": model_flops,
-        "model_flops_per_s": model_flops / median,
+        "phase": name, "arch": cfg.name, "params": n_params, "active_params": n_active,
+        "layers_cut_to": cell.get("layers"), "global_batch": B, "seq_len": S, "steps": n,
+        "launches": launches, "build_s": build_s, "step_s": step_s,
+        "step_s_median_after_first": median, "tokens_per_s": B * S / median,
+        "model_flops_per_step": model_flops, "model_flops_per_s": model_flops / median,
         "mfu_of_bf16_peak": model_flops / median / BF16_FLOPS_PER_S,
-        "max_memory_allocated": peak, "losses": losses, "grad_norms": gnorms, "eps": epss,
+        "peak_bytes_over_base": peak, "losses": losses, "grad_norms": gnorms, "eps": epss,
         "phase_split_step_s": timed_s, "phase_split_s": split,
-        "profile_step": prof,
-        "sdpa_ms_per_layer": {"forward": fwd_ms, "forward_backward": fb_ms},
-        "attention_share_of_step": attn_s / median,
-        "step_after_steps": step_after,
+        "profile_step": prof, "span_shares": spans, "plain_pieces": pieces,
+        "step_after_steps": step_after, "first_layer_leaves_unchanged": unchanged,
+        "first_layer_elements_changed": changed, "phase_s": time.perf_counter() - t_phase,
     }
     _emit(out)  # the numbers first, so that a failing check shows them
-    _require(all(v == 0 for v in launches.values()), f"train: kernels launched {launches}")
-    _require(all(np.isfinite(losses)) and all(np.isfinite(gnorms)), "train: not finite")
-    _require(epss == want_eps, f"train: eps {epss}, the recursion gives {want_eps}")
-    _require(step_after == n, f"train: step {step_after} after {n} steps")
+    _require(all(v == 0 for v in launches.values()), f"{name}: kernels launched {launches}")
+    _require(all(np.isfinite(losses)) and all(np.isfinite(gnorms)), f"{name}: not finite")
+    _require(epss == want_eps, f"{name}: eps {epss}, the recursion gives {want_eps}")
+    _require(step_after == n, f"{name}: step {step_after} after {n} steps")
+    _require(not unchanged_matrices, f"{name}: matrices unchanged {unchanged_matrices}")
     return out
 
 
@@ -2772,9 +2988,17 @@ def _profile(fn):
     it; None where the profiler shows no device time. Also the device time
     of the kernels launched inside each of the model's named ranges
     (``SPANS``; ms and calls) and the count of each host sync in
-    ``HOST_SYNCS``."""
+    ``HOST_SYNCS``. Read from the profiler's trace as its C++ exporter
+    writes it (JSON), not from the profiler's Python events: a training
+    step holds about 10^5 events, whose processing took 10-40 s. A kernel
+    counts in a range when the runtime call that launched it (matched by
+    correlation id) lies inside the range on the same thread: in a
+    training step the forward's and the recompute's kernels (autograd runs
+    the backward outside the model's ranges)."""
+    import bisect
+    import tempfile
+
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2782,27 +3006,43 @@ def _profile(fn):
         value = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_kernel = {}  # device activities only (kernels, copies): host ops would count twice
-    spans = {}  # the ranges' host events, with the device time of their kernels
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(f"{d}/trace.json")
+        with open(f"{d}/trace.json") as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     syncs = dict.fromkeys(HOST_SYNCS, 0)
-    for e in prof.key_averages():
-        if e.key in syncs:
-            syncs[e.key] += e.count
-        if e.key in SPANS:  # its device-side copy (a GPU annotation) is no kernel
-            if e.device_type != DeviceType.CUDA:
-                spans[e.key] = [e.device_time_total / 1e3, e.count]
-            continue
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us, n = by_kernel.get(e.key[:80], (0.0, 0))
-        by_kernel[e.key[:80]] = (us + e.self_device_time_total, n + e.count)
+    launched, ranges, device = {}, collections.defaultdict(list), []
+    for e in events:
+        cat, name = e.get("cat", ""), e.get("name", "")
+        if name in syncs:
+            syncs[name] += 1
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.append(e)
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
+            launched[e["args"]["correlation"]] = (e["tid"], e["ts"])
+        elif cat == "user_annotation" and name in SPANS:
+            ranges[e["tid"]].append((e["ts"], e["ts"] + e["dur"], name))
+    for r in ranges.values():
+        r.sort()
+    starts = {tid: [a for a, _, _ in r] for tid, r in ranges.items()}
+    by_kernel, spans = {}, {name: [0.0, 0] for r in ranges.values() for _, _, name in r}
+    for r in ranges.values():
+        for _, _, name in r:
+            spans[name][1] += 1
+    for e in device:
+        us, n = by_kernel.get(e["name"][:80], (0.0, 0))
+        by_kernel[e["name"][:80]] = (us + e["dur"], n + 1)
+        tid, ts = launched.get(e.get("args", {}).get("correlation"), (None, None))
+        i = bisect.bisect_right(starts.get(tid, []), ts) - 1 if tid is not None else -1
+        if i >= 0 and ts <= ranges[tid][i][1]:
+            spans[ranges[tid][i][2]][0] += e["dur"] / 1e3
     total_us = sum(us for us, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
     return value, {
         "wall_s": wall, "device_s": total_us / 1e6 if total_us else None,
         "device_busy_share": total_us / 1e6 / wall if total_us else None,
         "top_kernels_ms": {k: [us / 1e3, n] for k, (us, n) in top},
-        "spans_ms": spans, "host_syncs": syncs,
+        "spans_ms": spans, "host_syncs": syncs, "events": len(events),
     }
 
 
@@ -3919,7 +4159,7 @@ def main() -> int:
     from repro_torch.kernels.quantize import ops as qops
     from repro_torch.kernels.quantize import ref as qref
     from repro_torch.launch import mesh, steps
-    from repro_torch.models import layers, mlp_mnist
+    from repro_torch.models import layers, mlp_mnist, ssm
     from repro_torch.p2p import network
 
     mods = {"data": data, "fl": fl, "telemetry": telemetry, "network": network,
@@ -3937,7 +4177,7 @@ def main() -> int:
           "steps": steps, "build": _build, "mesh": mesh}
     tr = {"configs": configs, "sharded": sharded, "steps": steps, "mesh": mesh, "optim": optim,
           "checkpoint": checkpoint, "tree": tree, "data": data, "layers": layers,
-          "telemetry": telemetry}
+          "telemetry": telemetry, "ssm": ssm, "scan_ref": sref, "serve_lm": serve_lm}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -4009,9 +4249,10 @@ def main() -> int:
     _memory("lm_agree")
     phase_train_agree(tr, kmods)
     _memory("train_agree")
-    phase_train(tr, kmods)
+    for cell in (TRAIN,) + TRAIN_CELLS:
+        phase_train(tr, kmods, cell)
+        _memory(cell["phase"])
     torch.distributed.destroy_process_group()  # the smoke mesh's one-process group
-    _memory("train")
     serve = phase_serve(lm, kmods, "serve", SERVE, SERVE_PARAMS,
                         (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32))
     _memory("serve")

@@ -49,8 +49,15 @@ def rwkv6_ref(r, k, v, logw, u, init_state=None):
 
 def rwkv6_chunked(r, k, v, logw, u, chunk: int, init_state=None):
     """The recurrence chunk by chunk (chunk length ``min(chunk, T)``), in
-    float32. The chunk length bounds the (B, Q, Q, H, K) pair tensor of one
-    chunk; it does not change the function."""
+    float32. Each chunk's own terms (the pair-weighted products within it,
+    the bonus, its summary k v^T) are independent of the carried state, so
+    they are formed for all chunks at once, batched over the chunk axis;
+    only the state's recurrence between chunks, one multiply-add a chunk,
+    is a loop (then the carried state's readout, batched again). Every
+    term is the reference's per-chunk arithmetic, in its order; the loop
+    over chunks launches two kernels a chunk where a loop over the whole
+    body launched about twenty. The chunk length sizes the (B, nc, Q, Q,
+    H, K) pair tensor; it does not change the function."""
     B, T, H, K = r.shape
     Q = min(chunk, T)
     if T % Q:
@@ -60,33 +67,28 @@ def rwkv6_chunked(r, k, v, logw, u, chunk: int, init_state=None):
                                  u, chunk, init_state)
         return y[:, :T], final
     nc = T // Q
-
-    def to_chunks(x):  # (B, T, H, K) -> (nc, B, Q, H, K)
-        return x.float().reshape(B, nc, Q, H, K).movedim(1, 0)
-
-    rc, kc, vc, lwc = (to_chunks(a) for a in (r, k, v, logw))
-    u32 = u.float()
+    rc, kc, vc, lwc = (a.float().reshape(B, nc, Q, H, K) for a in (r, k, v, logw))
     ii = torch.arange(Q, device=r.device)
     strictly = (ii[:, None] > ii[None, :])[:, :, None, None]  # (Q, Q, 1, 1)
+    L = torch.cumsum(lwc, dim=2)  # inclusive, within each chunk
+    Lx = L - lwc  # exclusive
+    # pair decays exp(Lx_i - L_j) for j < i (<= 0, exact); the clamp keeps
+    # masked (j >= i) entries finite
+    diff = torch.clamp(Lx[:, :, :, None] - L[:, :, None, :], max=0.0)  # (B, nc, Q, Q, H, K)
+    w_pair = torch.where(strictly, torch.exp(diff), 0.0)
+    att = torch.einsum("bcihk,bcijhk,bcjhk->bchij", rc, w_pair, kc)
+    y = torch.einsum("bchij,bcjhv->bcihv", att, vc)
+    y = y + torch.einsum("bcihk,hk,bcihk->bcih", rc, u.float(), kc)[..., None] * vc  # bonus
+    last = L[:, :, -1:]  # (B, nc, 1, H, K)
+    kv = torch.einsum("bcjhk,bcjhv->bchkv", kc * torch.exp(last - L), vc)
+    decay = torch.exp(last[:, :, 0])[..., None]  # (B, nc, H, K, 1)
     S = _zero_state(r, init_state)
-    ys = []
-    for rq, kq, vq, lwq in zip(rc, kc, vc, lwc):  # (B, Q, H, K) each
-        L = torch.cumsum(lwq, dim=1)  # inclusive
-        Lx = L - lwq  # exclusive
-        # pair decays exp(Lx_i - L_j) for j < i (<= 0, exact); the clamp keeps
-        # masked (j >= i) entries finite
-        diff = torch.clamp(Lx[:, :, None] - L[:, None, :], max=0.0)  # (B, Q, Q, H, K)
-        w_pair = torch.where(strictly, torch.exp(diff), 0.0)
-        att = torch.einsum("bihk,bijhk,bjhk->bhij", rq, w_pair, kq)
-        y = torch.einsum("bhij,bjhv->bihv", att, vq)
-        y = y + torch.einsum("bihk,hk,bihk->bih", rq, u32, kq)[..., None] * vq  # bonus
-        y = y + torch.einsum("bihk,bhkv->bihv", rq * torch.exp(Lx), S)  # carried state
-        last = L[:, -1:]  # (B, 1, H, K)
-        S = S * torch.exp(last[:, 0])[..., None] + torch.einsum(
-            "bjhk,bjhv->bhkv", kq * torch.exp(last - L), vq
-        )
-        ys.append(y)
-    return torch.stack(ys, dim=1).reshape(B, T, H, K), S
+    prevs = []
+    for c in range(nc):  # the state entering each chunk
+        prevs.append(S)
+        S = S * decay[:, c] + kv[:, c]
+    y = y + torch.einsum("bcihk,bchkv->bcihv", rc * torch.exp(Lx), torch.stack(prevs, dim=1))
+    return y.reshape(B, T, H, K), S
 
 
 CHUNK_STEPS = 16  # the kernel's chunk (csrc: kSteps)

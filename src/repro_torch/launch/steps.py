@@ -170,8 +170,11 @@ def build_train_step(
     extra_rules: Optional[dict] = None,
 ) -> BuiltStep:
     """The IPLS train step of ``model`` on ``mesh`` for a train ``shape``.
-    Its ``fn`` updates the state's params (the model's own tensors when the
-    state holds ``model.params()``) and optimizer state in place."""
+    Its ``fn`` takes the global batch of ``input_specs`` (tokens,
+    participation, and whisper's ``enc_embeds`` or M-RoPE's ``positions3``,
+    each split by ``shard_batch``) and updates the state's params (the
+    model's own tensors when the state holds ``model.params()``) and
+    optimizer state in place."""
     cfg = model.cfg
     optimizer = optimizer or default_optimizer()
     num_agents = 1
@@ -181,9 +184,6 @@ def build_train_step(
     rules = _rules(mesh, cfg, "train", extra_rules=extra_rules)
 
     specs = input_specs(cfg, shape)
-    if "enc_embeds" in specs:
-        raise NotImplementedError(
-            f"{cfg.name}: training encoder-decoder models is not ported yet (ROADMAP.md queue 1)")
     batch_sh = _batch_shardings(specs, mesh, rules)
     if shape.global_batch % num_agents:
         raise ValueError(

@@ -146,24 +146,31 @@ def _opt_tree(tree, layer, device):
     return _opt_leaf(tree, layer, device)
 
 
+def _stacked(model) -> dict:
+    """The keys of a model's params tree that the reference stacks on a
+    leading ``layers`` axis, with their layer counts: each group ``g{gi}``
+    (a group's shared blocks ``g{gi}_shared`` are not stacked), whisper's
+    ``enc`` and ``dec``."""
+    if isinstance(model, WhisperModel):
+        return {"enc": model.cfg.enc_layers, "dec": model.cfg.dec_layers}
+    return {f"g{gi}": g.repeat for gi, g in enumerate(model.cfg.groups)}
+
+
 def load_jax_state(model, state):
     """A reference ``IplsTrainState`` (fields step, params, opt_state, eps;
     leaves numpy arrays) as the port's: its params loaded into ``model``
     (``load_jax_params``) and the state's params the model's own tensors
     (``model.params()``), the optimizer state (empty for SGD, a float32
     array per parameter for momentum, an AdamLeaf per parameter for
-    Adam/AdamW) unstacked per layer, step and eps as 0-d tensors; all on
-    the model's device."""
+    Adam/AdamW) unstacked per layer as the params are, step and eps as 0-d
+    tensors; all on the model's device."""
     load_jax_params(model, state.params)
     dev = model.device
     opt = state.opt_state
     if not (isinstance(opt, tuple) and len(opt) == 0):
-        groups = len(model.cfg.groups)
-        opt = dict(
-            {k: _opt_tree(v, None, dev) for k, v in opt.items() if not k.startswith("g")},
-            **{f"g{gi}": [_opt_tree(opt[f"g{gi}"], li, dev)
-                          for li in range(model.cfg.groups[gi].repeat)] for gi in range(groups)},
-        )
+        stacked = _stacked(model)
+        opt = {k: ([_opt_tree(v, li, dev) for li in range(stacked[k])] if k in stacked
+                   else _opt_tree(v, None, dev)) for k, v in opt.items()}
     return IplsTrainState(step=to_torch(np.asarray(state.step)).to(dev),
                           params=model.params(), opt_state=opt,
                           eps=to_torch(np.asarray(state.eps)).to(dev))
@@ -190,9 +197,10 @@ def _host(x):
 
 def to_reference_layout(state: IplsTrainState) -> IplsTrainState:
     """A port state in the reference's layout, as CPU tensors: every
-    group's per-layer list stacked on a leading ``layers`` axis (params and
-    optimizer state alike). Its ``named_leaves`` are the names
-    ``jax.tree_util.keystr`` gives the reference state's leaves."""
+    per-layer list (a group's, whisper's ``enc`` and ``dec``) stacked on a
+    leading ``layers`` axis (params and optimizer state alike). Its
+    ``named_leaves`` are the names ``jax.tree_util.keystr`` gives the
+    reference state's leaves."""
     opt = state.opt_state
     return IplsTrainState(step=_host(state.step), params=_host(state.params),
                           opt_state=opt if opt == () else _host(opt), eps=_host(state.eps))

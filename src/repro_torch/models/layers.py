@@ -298,10 +298,11 @@ def causal_mask(S: int, T: int, window: Optional[int] = None, offset: int = 0,
 
 def apply_attention(params, s: AttnSpec, x: torch.Tensor, positions: torch.Tensor,
                     mask: Optional[torch.Tensor] = None):
-    """Full-sequence causal self-attention for training, differentiable:
-    ``_sdpa``, never a kernel. The activations take the reference's
-    sequence-parallel layout (q sharded over the sequence, k and v
-    gathered): the identity on a mesh whose model axis is 1
+    """Full-sequence self-attention for training, differentiable: causal
+    (over the layer's window if it has one) or, for an encoder (``s.causal``
+    False), bidirectional; ``_sdpa``, never a kernel. The activations take
+    the reference's sequence-parallel layout (q sharded over the sequence,
+    k and v gathered): the identity on a mesh whose model axis is 1
     (``sharding_hooks``)."""
     _check_spec(s)
     S = x.shape[1]
@@ -310,9 +311,10 @@ def apply_attention(params, s: AttnSpec, x: torch.Tensor, positions: torch.Tenso
     q = shard_act(q, ("batch", "act_seq", None, None))
     k = shard_act(k, ("batch", None, None, None))
     v = shard_act(v, ("batch", None, None, None))
-    if mask is None:
+    if mask is None and s.causal:
         mask = causal_mask(S, S, s.window, device=x.device)
-    out = _sdpa(q, k, v, mask, s.n_heads // s.kv_heads)
+    with _span("sdpa"):
+        out = _sdpa(q, k, v, mask, s.n_heads // s.kv_heads)
     return _out_proj(out, params["wo"])
 
 

@@ -34,6 +34,26 @@ def activation_sharding(mesh, rules: Optional[dict] = None):
         _CTX.reset(token)
 
 
+def remat_context():
+    """A ``context_fn`` for ``torch.utils.checkpoint`` (non-reentrant),
+    called at the forward: its recompute runs under the forward's sharding
+    context. The autograd engine runs a CUDA backward, and with it the
+    recompute, on its own device thread, where the step's context (a
+    ContextVar) is unset: an MoE layer would recompute on the grouped path
+    after a forward on the mesh path."""
+    ctx = _CTX.get()
+
+    @contextlib.contextmanager
+    def recompute():
+        token = _CTX.set(ctx)
+        try:
+            yield
+        finally:
+            _CTX.reset(token)
+
+    return contextlib.nullcontext(), recompute()
+
+
 def shard_act(x: torch.Tensor, names: tuple) -> torch.Tensor:
     ctx = _CTX.get()
     if ctx is None:

@@ -21,16 +21,23 @@ dtype, as the reference's fused XLA computations do: rounding each op of
 them to bfloat16 left the port's bf16 logits twice as far from float32 as
 the reference's.
 
+Training differentiates the same forms under autograd (per layer under
+``torch.utils.checkpoint``, ``models/transformer.py``). The scan's
+elementwise chain over its (B, nc, Q, Q, H) weights runs in place only
+where autograd is off (the prefill's peak); with grad enabled it takes the
+same ops in the same order out of place, so both give the same bits.
+
 RWKV6: a linear recurrence with a data-dependent decay per channel (the
 time mix) and a channel mix. The prefill runs the recurrence through the
 linear-scan wrapper (``kernels/linear_scan``): on CUDA tensors the
 hand-written kernel, on CPU tensors the plain port of the reference's
-chunked scan. Decode is one recurrent step in plain PyTorch, as in the
-reference. The reference's arithmetic is kept where it is unusual: every
-``mu_*`` leaf is initialised to ones (its ``init_leaf`` ignores ``scale``),
-and the time mix's output is ``einsum("btd,de->btd", y, wo)``, which sums
-``wo`` over ``e`` and scales y elementwise (``y * wo.sum(-1)``), not
-``y @ wo`` (ROADMAP.md queue 3).
+chunked scan. Training (``train_rwkv6_time``) differentiates that chunked
+scan, ``ref.rwkv6_chunked``, on either device. Decode is one recurrent step
+in plain PyTorch, as in the reference. The reference's arithmetic is kept
+where it is unusual: every ``mu_*`` leaf is initialised to ones (its
+``init_leaf`` ignores ``scale``), and the time mix's output is
+``einsum("btd,de->btd", y, wo)``, which sums ``wo`` over ``e`` and scales y
+elementwise (``y * wo.sum(-1)``), not ``y @ wo`` (ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.linear_scan import ops as scan_ops
+from repro_torch.kernels.linear_scan import ref as scan_ref
 from repro_torch.models.layers import _span, init_rmsnorm, rms_norm
 from repro_torch.models.param_defs import ParamDef
 
@@ -131,11 +139,14 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
 
     g = torch.cumsum(dtc * A, dim=2)  # (B, nc, Q, H) cumulative log-decay, float32
     CB = torch.einsum("bcin,bcjn->bcij", Cc, Bc)  # (B, nc, Q, Q)
-    # att = (CB * where(causal, exp(min(g_i - g_j, 0)), 0)) * dt_j, in place
-    att = (g[:, :, :, None, :] - g[:, :, None, :, :]).clamp_max_(0.0).exp_()
-    causal = torch.ones(Q, Q, dtype=torch.bool, device=xh.device).tril()
-    att.masked_fill_(~causal[None, None, :, :, None], 0.0)
-    att.mul_(CB[..., None]).mul_(dtc[:, :, None, :, :])
+    # att = (CB * where(causal, exp(min(g_i - g_j, 0)), 0)) * dt_j
+    att = g[:, :, :, None, :] - g[:, :, None, :, :]
+    masked = ~torch.ones(Q, Q, dtype=torch.bool, device=xh.device).tril()[None, None, :, :, None]
+    if torch.is_grad_enabled():  # autograd keeps exp's output: no op may overwrite it
+        att = att.clamp_max(0.0).exp().masked_fill(masked, 0.0) * CB[..., None] * dtc[:, :, None]
+    else:  # the same ops in the same order, in one buffer (the prefill's peak)
+        att.clamp_max_(0.0).exp_().masked_fill_(masked, 0.0)
+        att.mul_(CB[..., None]).mul_(dtc[:, :, None])
     y = torch.einsum("bcijh,bcjhp->bcihp", att.to(xh.dtype), xc)
     del att, CB
 
@@ -266,7 +277,7 @@ class RWKV6Spec:
     d_model: int
     head_dim: int = 64
     decay_lora: int = 64
-    chunk: int = 128  # chunk length of the CPU path's chunked scan (the kernel ignores it)
+    chunk: int = 128  # the chunked scan's: CPU prefill and training (the kernel ignores it)
 
     @property
     def n_heads(self) -> int:
@@ -342,6 +353,23 @@ def apply_rwkv6_time(params, s: RWKV6Spec, x: torch.Tensor, init_state=None, x_p
         s.chunk, init_state,
     )  # y in x's dtype: the float32 result rounded once
     return _time_out(params, y.reshape(B, T, D), g), final, x[:, -1:]
+
+
+def train_rwkv6_time(params, s: RWKV6Spec, x: torch.Tensor) -> torch.Tensor:
+    """The time mix's training forward over x (B, T, D) from a zero state,
+    differentiable: the reference's ``apply_rwkv6_time`` through its chunked
+    scan (``scan_ref.rwkv6_chunked``, chunks of ``s.chunk``) under autograd,
+    then the gate, the norm and ``wo`` as ``_time_out``. The prefill's scan
+    kernel has no backward; the chunked form is what the reference trains
+    through, the same choice as the plain ``_sdpa`` for attention."""
+    B, T, D = x.shape
+    H, K = s.n_heads, s.head_dim
+    r, k, v, g, logw = _time_inputs(params, x, _token_shift(x))
+    u = params["u"].float().reshape(H, K)
+    with _span("rwkv6.chunked"):
+        y, _ = scan_ref.rwkv6_chunked(*(a.reshape(B, T, H, K) for a in (r, k, v, logw)), u,
+                                      s.chunk)
+    return _time_out(params, y.reshape(B, T, D).to(x.dtype), g)
 
 
 def decode_rwkv6_time(params, s: RWKV6Spec, x, state, x_prev):

@@ -2,7 +2,7 @@
 gemma3's sliding windows and qwen2-vl's M-RoPE), the MoE family (attention
 or MLA + routed experts), RWKV6 (time-mix + channel-mix blocks) and
 zamba2's hybrid (Mamba2 blocks + shared attention and MLP blocks), for
-serving and, but RWKV6, Mamba2 and shared blocks, for training.
+serving and training.
 
 Port of the reference's ``models/transformer.py``. A model is a sequence of
 GROUPS; each group is a PERIOD of blocks repeated ``repeat`` times, then,
@@ -30,11 +30,14 @@ the block's last normed input (B, 1, D)) for the RWKV6 time mix,
 Training (``loss``) takes the params as a tree (``params()``: the module's
 own parameters, one dict per layer in ``g{gi}``'s list, a shared block's in
 ``g{gi}_shared``), runs each layer under ``torch.utils.checkpoint`` (the
-reference's remat) with the plain attention ``layers.apply_attention``, and
-returns the per-example next-token cross entropy over bfloat16 logits plus
-the MoE layers' load-balance loss. RWKV6 and Mamba2 training and shared
-blocks' training belong to later slices. The encoder-decoder (whisper) is
-``models/whisper.py``.
+reference's remat) and returns the per-example next-token cross entropy
+over bfloat16 logits plus the MoE layers' load-balance loss. No kernel runs
+there, as none runs in the reference's training: attention is the plain
+``layers.apply_attention``, Mamba2 the chunked SSD scan, RWKV6's time mix
+the plain chunked scan (``ssm.train_rwkv6_time``). A group's shared blocks
+follow its period's blocks inside the layer's checkpoint, with the one
+``g{gi}_shared`` tree, so their gradient sums over the applications. The
+encoder-decoder (whisper) is ``models/whisper.py``.
 """
 from __future__ import annotations
 
@@ -60,7 +63,7 @@ from repro_torch.models.param_defs import (
     unstack,
     unstack_axes,
 )
-from repro_torch.models.sharding_hooks import shard_act
+from repro_torch.models.sharding_hooks import remat_context, shard_act
 from repro_torch.tree import tree_map
 
 SUPPORTED_KINDS = ("attn", "mla", "mlp", "moe", "mamba2", "rwkv6_time", "rwkv6_channel")
@@ -187,20 +190,12 @@ def apply_block_train(b: BlockSpec, p, x, ctx: dict):
         y, moe_aux = L.apply_moe(p["moe"], b.moe, h)
         aux = moe_aux["lb_loss"]
     elif b.kind == "mamba2":
-        raise NotImplementedError(_MAMBA_TRAIN)
+        y, _ = S.apply_mamba2(p["mamba"], b.mamba, h)
+    elif b.kind == "rwkv6_time":
+        y = S.train_rwkv6_time(p["rwkv"], b.rwkv, h)
     else:
-        raise NotImplementedError(_RWKV_TRAIN)
+        y, _ = S.apply_rwkv6_channel(p["rwkv_ffn"], h)
     return shard_act(x + y, ("batch", "act_seq", "embed")), aux
-
-
-_RWKV_TRAIN = (
-    "RWKV6 training is not ported yet: its time mix launches the forward-only scan "
-    "kernel (ROADMAP.md queue 1)"
-)
-_MAMBA_TRAIN = (
-    "training of Mamba2 blocks and shared blocks (zamba2) is not ported yet: this slice serves "
-    "them (ROADMAP.md queue 1)"
-)
 
 
 def block_cache_defs(b: BlockSpec, batch: int, seq_len: int, dtype) -> Optional[Dict[str, Any]]:
@@ -475,21 +470,28 @@ class TransformerLM(nn.Module):
 
     # -- training ----------------------------------------------------------------
     def _stack_apply_train(self, params, x, ctx):
-        """Every layer's blocks in order, and the sum of their aux losses;
-        with ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
-        (its activations recomputed in the backward pass, the reference's
-        ``jax.checkpoint`` of its scan body)."""
+        """Every layer's blocks in order, then its group's shared blocks
+        (``g{gi}_shared``, the same tree in every layer), and the sum of
+        their aux losses; with ``cfg.remat`` each layer runs under
+        ``torch.utils.checkpoint`` (its activations recomputed in the
+        backward pass, the reference's ``jax.checkpoint`` of its scan
+        body), the recompute under the forward's sharding context."""
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for gi, g in enumerate(self.cfg.groups):
+            shared = params.get(f"g{gi}_shared")
             for lp in params[f"g{gi}"]:
-                def layer(x, aux, blocks=g.blocks, lp=lp):
-                    for bi, b in enumerate(blocks):
+                def layer(x, aux, g=g, lp=lp, shared=shared):
+                    for bi, b in enumerate(g.blocks):
                         x, a = apply_block_train(b, lp[f"b{bi}"], x, ctx)
+                        aux = aux + a
+                    for bi, b in enumerate(g.shared):
+                        x, a = apply_block_train(b, shared[f"b{bi}"], x, ctx)
                         aux = aux + a
                     return x, aux
 
                 if self.cfg.remat:
-                    x, aux_total = checkpoint(layer, x, aux_total, use_reentrant=False)
+                    x, aux_total = checkpoint(layer, x, aux_total, use_reentrant=False,
+                                              context_fn=remat_context)
                 else:
                     x, aux_total = layer(x, aux_total)
         return x, aux_total
@@ -502,11 +504,6 @@ class TransformerLM(nn.Module):
         tree as ``params()`` gives). M-RoPE takes ``batch["positions3"]``
         as ``prefill`` does. The logits are bfloat16 (a
         float32-accumulated product), the CE in float32."""
-        for g in self.cfg.groups:
-            if any(b.kind.startswith("rwkv6") for b in g.blocks):
-                raise NotImplementedError(_RWKV_TRAIN)
-            if g.shared or any(b.kind == "mamba2" for b in g.blocks):
-                raise NotImplementedError(_MAMBA_TRAIN)
         tokens = batch["tokens"].to(self.device).long()
         ctx = self._ctx(batch, tokens)
         x = shard_act(self._embed_in(tokens, params), ("batch", "act_seq", "embed"))

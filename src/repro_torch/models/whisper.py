@@ -1,4 +1,5 @@
-"""Whisper-style encoder-decoder backbone (arXiv:2212.04356), for serving.
+"""Whisper-style encoder-decoder backbone (arXiv:2212.04356), for serving
+and training.
 
 Port of the reference's ``models/whisper.py``. The convolutional mel
 frontend is a stub, as there: the encoder takes precomputed frame
@@ -22,6 +23,12 @@ S_enc encoder keys (prefill) and the flash-decode kernel over all of them
 in the reference, and, once, ``enc_last``: a 0-d int32 device tensor
 holding S_enc - 1, the decode kernel's last key, so a step needs no host
 sync. Decode writes the self-attention cache in place.
+
+Training (``loss``) reads the params as a tree (``params()``), not the
+module: ``train_encode`` and ``decode_stack`` are the reference's encoder and
+teacher-forced decoder with its plain attention (``layers.apply_attention``
+and ``_sdpa`` for the cross-attention; no kernel, as in the reference's
+training), each layer under ``torch.utils.checkpoint`` when ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -45,9 +53,9 @@ from repro_torch.models.param_defs import (
     unstack,
     unstack_axes,
 )
+from repro_torch.models.sharding_hooks import remat_context, shard_act
+from repro_torch.models.transformer import _sharded_ce
 from repro_torch.tree import tree_map
-
-_TRAIN = "whisper training is not ported yet: this slice serves it (ROADMAP.md queue 1)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +69,7 @@ class WhisperConfig:
     enc_layers: int = 6
     dec_layers: int = 6
     max_positions: int = 4096
-    remat: bool = True  # the reference's field; read once whisper's training is ported
+    remat: bool = True  # training: each layer under torch.utils.checkpoint
     subquadratic: bool = False
     mrope: bool = False
     sharding_overrides: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -338,5 +346,76 @@ class WhisperModel(nn.Module):
             x = self.dec_block_decode(p, x, entry, pos, cache["enc_last"])
         return self._logits(x), cache
 
-    def loss(self, params, batch):
-        raise NotImplementedError(_TRAIN)
+    # -- training --------------------------------------------------------------------
+    def _layer(self, fn, x, p):
+        """``fn(x, p)``, under ``torch.utils.checkpoint`` when ``cfg.remat``
+        (its activations recomputed in the backward pass, under the
+        forward's sharding context)."""
+        if not self.cfg.remat:
+            return fn(x, p)
+        return checkpoint(fn, x, p, use_reentrant=False, context_fn=remat_context)
+
+    def train_encode(self, params, enc_embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder's training forward (the reference's ``encode``) over
+        ``params``, differentiable: the sinusoid added in the frames' dtype,
+        then per layer ``ln1``, bidirectional plain attention, ``ln2`` and
+        the MLP, each pre-norm residual, then ``enc_ln``. A layer norm's
+        output takes the weights' dtype before its products, as ``encode``."""
+        cfg = self.cfg
+        x = enc_embeds.to(self.device)
+        B, S, D = x.shape
+        x = shard_act(x + _sinusoid_on(S, D, x.device, x.dtype), ("batch", "act_seq", "embed"))
+        spec, mlp = _attn_spec(cfg, causal=False), _mlp_spec(cfg)
+        wdtype = params["embed"]["table"].dtype
+
+        def layer(x, p):
+            h = L.layer_norm(p["ln1"], x).to(wdtype)
+            x = x + L.apply_attention(p["attn"], spec, h, None)
+            h = L.layer_norm(p["ln2"], x).to(wdtype)
+            return shard_act(x + L.apply_mlp(p["mlp"], mlp, h), ("batch", "act_seq", "embed"))
+
+        for p in params["enc"]:
+            x = self._layer(layer, x, p)
+        return L.layer_norm(params["enc_ln"], x)
+
+    def decode_stack(self, params, tokens: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+        """The decoder's training forward with teacher forcing (the
+        reference's ``decode_stack``) over ``params``: the tokens'
+        embeddings plus ``pos_dec``'s rows 0..S-1 rounded to bfloat16, per
+        layer causal self-attention, cross-attention of every row over every
+        encoder frame (the encoder's keys and values with their biases,
+        ``_sdpa`` with no mask) and the MLP, each pre-norm residual, then
+        ``dec_ln``."""
+        cfg = self.cfg
+        S = tokens.shape[1]
+        x = L.embed(params["embed"], tokens) + params["pos_dec"][:S].to(torch.bfloat16)
+        x = shard_act(x, ("batch", "act_seq", "embed"))
+        spec, mlp = _attn_spec(cfg, causal=True), _mlp_spec(cfg)
+
+        def layer(x, p):
+            h = L.layer_norm(p["ln1"], x)
+            x = x + L.apply_attention(p["self_attn"], spec, h, None)
+            h = L.layer_norm(p["ln2"], x)
+            ek, ev = L.cross_kv(p["cross_attn"], spec, enc_out)
+            with L._span("sdpa"):
+                out = L._sdpa(L._cross_q(p["cross_attn"], spec, h), ek, ev, None,
+                              spec.n_heads // spec.kv_heads)
+            x = x + L._out_proj(out, p["cross_attn"]["wo"])
+            h = L.layer_norm(p["ln3"], x)
+            return shard_act(x + L.apply_mlp(p["mlp"], mlp, h), ("batch", "act_seq", "embed"))
+
+        for p in params["dec"]:
+            x = self._layer(layer, x, p)
+        return L.layer_norm(params["dec_ln"], x)
+
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross entropy of the decoder over the encoded frames
+        (the reference's ``loss``). batch: tokens (B, S) int and enc_embeds
+        (B, S_enc, d). Returns (per_example_loss (B,) float32, {}),
+        differentiable in ``params`` (a tree as ``params()`` gives): tied
+        logits of a float32-accumulated product rounded to bfloat16, the CE
+        in float32 on ``tokens[:, 1:]``, averaged per example."""
+        tokens = batch["tokens"].to(self.device).long()
+        x = self.decode_stack(params, tokens, self.train_encode(params, batch["enc_embeds"]))
+        logits = (x[:, :-1] @ params["embed"]["table"].t()).to(torch.bfloat16)
+        return _sharded_ce(logits, tokens[:, 1:]).mean(dim=-1), {}

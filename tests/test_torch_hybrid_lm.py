@@ -42,6 +42,7 @@ from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.models.convert import load_jax_params, to_torch
 from repro_torch.models.param_defs import count_params
 from repro_torch.models.transformer import lm_active_params, lm_param_defs
+from repro_torch.tree import named_leaves, tree_leaves, tree_unflatten
 
 HYBRID = ("gemma3-1b", "zamba2-1.2b")
 B, S, CL, STEPS = 2, 20, 40, 8
@@ -323,9 +324,20 @@ def test_logit_softcap_matches_jax(jax_models):
 
 
 def test_training_mamba2_and_shared_blocks_raises():
+    """Mamba2 and shared blocks train since their slice (the name is the
+    earlier slice's, when the loss raised): the loss runs, finite, with a
+    gradient on every leaf, the shared blocks' among them; its values and
+    gradients against the reference's: tests/test_torch_train_zamba2.py."""
     port = build_model(get_config("zamba2-1.2b", reduced=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="Mamba2"):
-        port.loss(port.params(), {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
+    params = port.params()
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    per_ex, aux = port.loss(tree_unflatten(params, leaves),
+                            {"tokens": torch.arange(1, 41, dtype=torch.int32).reshape(2, 20)})
+    assert per_ex.shape == (2,) and torch.isfinite(per_ex).all() and float(aux["lb_loss"]) == 0
+    grads = dict(zip([n for n, _ in named_leaves(params)],
+                     torch.autograd.grad(per_ex.sum(), leaves)))
+    assert all(torch.isfinite(g).all() for g in grads.values())
+    assert all(float(g.abs().max()) > 0 for n, g in grads.items() if n.startswith("['g0_shared']"))
 
 
 def test_gemma3_loss_matches_jax(jax_models):

@@ -34,6 +34,7 @@ from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.linear_scan import ops as sops
 from repro_torch.models.convert import load_jax_params, to_torch
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 DENSE = ("minitron-4b", "phi4-mini-3.8b", "internlm2-1.8b")  # rwkv6-7b: test_torch_rwkv.py
 B, S, CL, STEPS = 2, 16, 32, 4
@@ -216,12 +217,13 @@ def test_decode_writes_the_cache_in_place():
 
 
 def test_unported_parts_raise():
-    """What later slices port raises: block kinds the port does not run,
-    Mamba2 and shared blocks in training, and whisper's training. Sliding
-    windows and Mamba2 serve since their slice (tests/test_torch_sliding.py,
-    test_torch_hybrid_lm.py): a windowed layer's cache is its ring; M-RoPE
-    and whisper since theirs (tests/test_torch_mrope.py,
-    test_torch_whisper.py)."""
+    """What later slices port raises: block kinds the port does not run.
+    Sliding windows and Mamba2 serve since their slice
+    (tests/test_torch_sliding.py, test_torch_hybrid_lm.py): a windowed
+    layer's cache is its ring; M-RoPE and whisper since theirs
+    (tests/test_torch_mrope.py, test_torch_whisper.py). Mamba2 and shared
+    blocks, and whisper, train since theirs (tests/test_torch_train_*.py):
+    each loss runs, finite, with a gradient on every leaf."""
     cfg = get_config("internlm2-1.8b", reduced=True)
     blocks = cfg.groups[0].blocks
     windowed = dataclasses.replace(blocks[0], attn=dataclasses.replace(blocks[0].attn, window=8))
@@ -234,12 +236,15 @@ def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="later slice"):
         build_model(dataclasses.replace(cfg, groups=(dataclasses.replace(
             cfg.groups[0], blocks=(blocks[0], cross)),)), device="cpu")
-    zamba = build_model(get_config("zamba2-1.2b", reduced=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        zamba.loss(zamba.params(), {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-    whisper = build_model(get_config("whisper-base", reduced=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="training"):
-        whisper.loss(None, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    tokens = torch.arange(1, 9, dtype=torch.int32)[None]
+    for arch, extra in (("zamba2-1.2b", {}),
+                        ("whisper-base", {"enc_embeds": torch.randn(1, 8, 64).bfloat16()})):
+        model = build_model(get_config(arch, reduced=True), device="cpu")
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(model.params())]
+        per_ex, _ = model.loss(tree_unflatten(model.params(), leaves), {"tokens": tokens, **extra})
+        assert per_ex.shape == (1,) and torch.isfinite(per_ex).all(), arch
+        grads = torch.autograd.grad(per_ex.sum(), leaves, allow_unused=True)
+        assert all(g is not None and torch.isfinite(g).all() for g in grads), arch
 
 
 def test_param_count_of_the_serve_config():

@@ -16,7 +16,7 @@ the JAX package's, in one process on the CPU.
 - The same step without a mesh, on the smoke mesh, and with the ZeRO-1
   specs on the smoke mesh give the same bits.
 - What is not ported raises: a "model" axis above 1, ``fsdp=True`` on a
-  mesh, RWKV6 training.
+  mesh (RWKV6 training, which raised too, now runs).
 
 The multi-rank meshes run in ``test_torch_sharded_dist.py``.
 """
@@ -40,7 +40,7 @@ from repro_torch.launch.mesh import dp_axes, make_rules, make_smoke_mesh
 from repro_torch.models.transformer import lm_axes
 from repro_torch.models.whisper import WhisperConfig, whisper_axes
 from repro_torch.optim import adam, sgd
-from repro_torch.tree import named_leaves, tree_map
+from repro_torch.tree import named_leaves, tree_leaves, tree_map, tree_unflatten
 
 STEP_TOL = 1e-6
 
@@ -374,7 +374,13 @@ def test_unported_modes_raise(mesh):
     from repro_torch.launch.steps import build_step
 
     model = build_model(get_config("rwkv6-7b", reduced=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="RWKV6 training"):
-        model.loss(model.params(), {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
+    # RWKV6 trains since its slice (tests/test_torch_train_rwkv.py): the
+    # loss runs, finite, with a gradient on every leaf
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(model.params())]
+    per_ex, _ = model.loss(tree_unflatten(model.params(), leaves),
+                           {"tokens": torch.arange(1, 9, dtype=torch.int32)[None]})
+    assert torch.isfinite(per_ex).all()
+    grads = torch.autograd.grad(per_ex.sum(), leaves)
+    assert all(torch.isfinite(g).all() for g in grads)
     built = build_step(model, mesh, SHAPES["prefill_32k"])  # ported: specs, nothing allocated
     assert built.arg_shapes[1]["tokens"].shape == (32, 32768) and callable(built.fn)

@@ -13,9 +13,13 @@
   float64 ones on these inputs, the port's 2.3e-4.
 - ``input_specs`` and ``shape_applicable``; the entry points' default device; and, on a card
   (``-m cuda``), one train step on the card's smoke mesh against the same
-  step on the CPU.
+  step on the CPU, for internlm2, gemma3, zamba2, rwkv6 and whisper
+  (reduced; measured on an H100: params within 2.7e-5, 5.4e-7, 3.2e-6,
+  3.4e-7 and 1.3e-4), no kernel launched.
 
-The train step against the reference's: ``test_torch_train_step.py``.
+The other families' losses and gradients: ``test_torch_train_{gemma3,
+zamba2,rwkv,whisper}.py``; the train step against the reference's:
+``test_torch_train_step.py``.
 """
 import numpy as np
 import pytest
@@ -163,20 +167,37 @@ def test_entry_points_default_to_cuda():
         make_smoke_mesh()
 
 
+# card vs CPU, params after one SGD step: whisper-reduced's init amplifies
+# float32 rounding (test_torch_train_whisper.py), as against the reference
+CUDA_STEP_PARAMS_TOL = {"whisper-base": 5e-4}
+
+
 @pytest.mark.cuda
-def test_cuda_train_step_matches_cpu():
+@pytest.mark.parametrize("arch", ("internlm2-1.8b", "gemma3-1b", "zamba2-1.2b", "rwkv6-7b",
+                                  "whisper-base"))
+def test_cuda_train_step_matches_cpu(arch):
     """One step on the card's smoke mesh (NCCL, a world of one) against the
     same step on the CPU, float32 weights from one seed, SGD 0.5 with clip
     1.0 and accum_steps=2: params within 1e-4 (the grads agree to float32
-    noise, products in other orders with TF32 off), step and eps exactly,
-    metrics within 1e-3 of max(1, |value|)."""
+    noise, products in other orders with TF32 off; whisper 5e-4), step and
+    eps exactly, metrics within 1e-3 of max(1, |value|); no kernel
+    launched."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run with -m cuda on a GPU host)")
-    cfg = get_config("internlm2-1.8b", reduced=True)
-    tokens = torch.from_numpy(_tokens(cfg.vocab))
-    batch = {"tokens": tokens, "participation": torch.ones(B)}
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.linear_scan import ops as sops
+
+    wrappers = (fops.attention, dops.decode, sops.rwkv6_scan)
+    cfg = get_config(arch, reduced=True)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(_tokens(cfg.vocab)), "participation": torch.ones(B)}
+    if arch == "whisper-base":
+        batch["enc_embeds"] = torch.from_numpy(rng.standard_normal((B, S, cfg.d_model))
+                                               .astype(np.float32))
     step_cfg = IplsStepConfig(grad_clip=1.0, accum_steps=2)
     runs = []
+    launches = [w.LAUNCHES for w in wrappers]
     for device in ("cpu", "cuda"):
         # drawn on the CPU (a CUDA generator draws other numbers), then moved
         model = build_model(cfg, device="cpu", seed=0).float().to(device)
@@ -188,10 +209,15 @@ def test_cuda_train_step_matches_cpu():
                                      optimizer=sgd(0.5), step_cfg=step_cfg)
             state, metrics = built.fn(built.init_state(model.params()), batch)
         runs.append((dict(named_leaves(state)), {k: float(v) for k, v in metrics.items()}))
+    assert [w.LAUNCHES for w in wrappers] == launches
     (cpu, mc), (gpu, mg) = runs
     assert cpu.keys() == gpu.keys()
+    tol = CUDA_STEP_PARAMS_TOL.get(arch, 1e-4)
+    worst = 0.0
     for k in cpu:
         d = float((gpu[k].cpu().float() - cpu[k].float()).abs().max())
-        assert d <= (1e-4 if k.startswith(".params") else 0.0), (k, d)
+        worst = max(worst, d) if k.startswith(".params") else worst
+        assert d <= (tol if k.startswith(".params") else 0.0), (k, d)
     for k in mc:
         assert abs(mg[k] - mc[k]) <= 1e-3 * max(1.0, abs(mc[k])), k
+    print(f"{arch}: card vs CPU params max |d| {worst:.3g}")

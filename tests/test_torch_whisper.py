@@ -28,6 +28,7 @@ from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.models.convert import load_jax_params, to_torch
 from repro_torch.models.param_defs import count_params
 from repro_torch.models.whisper import whisper_active_params, whisper_axes, whisper_param_defs
+from repro_torch.tree import named_leaves, tree_leaves, tree_unflatten
 
 ARCH = "whisper-base"
 B, S_ENC, P, CL, STEPS = 2, 24, 5, 16, 8
@@ -326,9 +327,25 @@ def test_param_counts_and_axes_match_reference():
 
 
 def test_loss_raises():
+    """whisper trains since its slice (the name is the earlier slice's,
+    when the loss raised): ``loss`` over the params tree, not the module,
+    runs, finite, with a gradient on every leaf; its values and gradients
+    against the reference's: tests/test_torch_train_whisper.py."""
     port = build_model(get_config(ARCH, reduced=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="training"):
-        port.loss(None, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    params = port.params()
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    batch = {"tokens": torch.arange(1, 13, dtype=torch.int32).reshape(2, 6),
+             "enc_embeds": torch.randn(2, 10, 64, generator=torch.Generator().manual_seed(0))
+             .to(torch.bfloat16)}
+    per_ex, aux = port.loss(tree_unflatten(params, leaves), batch)
+    assert per_ex.shape == (2,) and per_ex.dtype == torch.float32 and aux == {}
+    assert torch.isfinite(per_ex).all()
+    grads = dict(zip([n for n, _ in named_leaves(params)],
+                     torch.autograd.grad(per_ex.sum(), leaves)))
+    assert all(torch.isfinite(g).all() for g in grads.values())
+    # the key biases' exact gradient is 0 (the softmax cancels q . bk)
+    assert all(float(g.float().abs().max()) > 0 for n, g in grads.items()
+               if not n.endswith("['bk']"))
 
 
 def test_serve_lm_main_draws_frames():
