@@ -269,6 +269,27 @@ exits non-zero:
               granite-moe's (the MoE mesh path: one group, capacity from
               the rank's tokens) bit for bit its built step run eagerly,
               the gap to generate's grouped path reported;
+  long_gemma3, long_zamba2, long_rwkv — the registry's long_500k shape
+              (batch 1, 524,288 cache slots) for gemma3-1b, zamba2-1.2b and
+              rwkv6-7b at full width in bf16 through build_decode_step
+              (graph=True; the long-context rules) on the smoke mesh:
+              gemma3 after a real 524,280-token prefill (its seconds and
+              peak), zamba2 and rwkv6 on caches drawn from the seed at a
+              4,096-token prefill's per-leaf scale; 8 decode steps to pos
+              524,287 (the first eager, then replays): decode_attention's
+              launches the model's count x 8, the same steps run eagerly
+              from a copy of the start cache bit for bit (logits and
+              caches); replayed and eager ms a step; the decode kernel on
+              the cell's own first full-length cache at pos 524,287 against
+              its plain version (one bf16 ulp + 2e-5) and timed against its
+              bound and SDPA; gemma3: decode at 524,280 against a
+              524,281-token prefill (within 0.5), RoPE's cos and sin on the
+              card at 524,287 and 4,096 against float64;
+  roofline  — one line a measured cell (every train*, serve* decode step
+              and long cell): its roofline on one H100 (repro_torch.roofline,
+              counted on fake tensors by ``python -m repro_torch.roofline``
+              on the host's CPU, started with the run) beside the measured
+              step, and the roofline's share of it;
   kernel    — the f32 aggregation kernel against its plain PyTorch version,
               bit for bit, at the main path's shape (K=20, R=51, S=44361),
               ragged cases and the single-partition form; kernel (device
@@ -331,11 +352,12 @@ exits non-zero:
 Each main phase sets every kernel's launch count to 0 before it runs and
 requires the counts its path must give. After each phase a memory line
 gives the device memory it left allocated. Then the kernels line, the
-nvidia-smi line and, last, the result line. Imports nothing of JAX or of the
+run's seconds, the nvidia-smi line and, last, the result line. Imports nothing of JAX or of the
 JAX package.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import dataclasses
 import json
@@ -363,8 +385,9 @@ MAIN_SHAPE = (20, 51, 44361)  # its kernel shape (K_inst, R_cap, S)
 MAIN_Q_SHAPE = (20, 198, 45056)
 DELTA_PLANE = 100 * 10 * 45056  # values the int8 path quantizes per round
 VALUE_PLANE = 20 * 45056  # values of one qdq_rows call (the instance plane)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# the card's rates (H100 SXM data sheet: HBM, float32 outside the tensor
+# cores, bf16 tensor cores dense): repro_torch.roofline.HW, set in main()
+HW = None
 WEIGHT_TOL = 1e-4  # engine agreement: f32 GEMM sums in other orders
 # full width, round 0: each holder applies eps = 0.51 to a sum of r = 51
 # deltas, which amplifies the per-delta GEMM-order noise up to 26-fold
@@ -440,7 +463,6 @@ KERNEL_SYMBOLS = {
 # the LM main path: internlm2-1.8b at full width, serving
 SERVE = dict(arch="internlm2-1.8b", batch=4, prompt_len=4096, tokens=256, seed=0)
 SERVE_PARAMS = 1_889_110_016
-BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 LM_AGREE_CASES = ((16, 32), (100, 128))  # (prompt length, cache_len)
 LM_AGREE_STEPS = 8
 # bf16 logits, card vs CPU: both sides run the port's own code, so only the
@@ -720,6 +742,63 @@ TRAIN_PARAMS = {"internlm2-1.8b": SERVE_PARAMS, "granite-moe-3b-a800m": SERVE_MO
 # logits by their whole scale.
 SERVE_RWKV_DECODE_VS_PREFILL_BF16 = 0.4
 SERVE_RWKV_DECODE_VS_PREFILL_F32 = 0.1
+# every serve phase in the order it runs (and the roofline of its decode
+# step): (phase, spec, parameter counts, decode-vs-prefill bounds (bf16,
+# float32), phase_serve's other arguments)
+_SERVE_BOUNDS = (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32)
+SERVE_PHASES = (
+    ("serve", SERVE, SERVE_PARAMS, _SERVE_BOUNDS, {}),
+    ("serve_rwkv", SERVE_RWKV, SERVE_RWKV_PARAMS,
+     (SERVE_RWKV_DECODE_VS_PREFILL_BF16, SERVE_RWKV_DECODE_VS_PREFILL_F32), {}),
+    ("serve_moe", SERVE_MOE, SERVE_MOE_PARAMS, _SERVE_BOUNDS,
+     dict(witnessed=SERVE_MOE_WITNESSED)),
+    ("serve_mla", SERVE_MLA, SERVE_MLA_PARAMS, _SERVE_BOUNDS,
+     dict(check_batch=SERVE_MLA_CHECK_BATCH, witnessed=SERVE_MLA_WITNESSED)),
+    ("serve_gemma3", SERVE_GEMMA3, SERVE_GEMMA3_PARAMS, _SERVE_BOUNDS, {}),
+    ("serve_zamba2", SERVE_ZAMBA2, SERVE_ZAMBA2_PARAMS, _SERVE_BOUNDS,
+     dict(witnessed=SERVE_ZAMBA2_WITNESSED)),
+    ("serve_whisper", SERVE_WHISPER, SERVE_WHISPER_PARAMS, _SERVE_BOUNDS, {}),
+    ("serve_qwen2_vl", SERVE_QWEN2_VL, SERVE_QWEN2_VL_PARAMS, _SERVE_BOUNDS,
+     dict(check_batch=SERVE_QWEN2_VL_CHECK_BATCH)),
+    ("serve_phi4_mini", SERVE_PHI4, SERVE_PHI4_PARAMS, _SERVE_BOUNDS,
+     dict(witnessed=SERVE_DENSE_LARGE_WITNESSED, float32_checks=False)),
+    ("serve_minitron", SERVE_MINITRON, SERVE_MINITRON_PARAMS, _SERVE_BOUNDS,
+     dict(witnessed=SERVE_DENSE_LARGE_WITNESSED, float32_checks=False)),
+)
+# the long_500k cells (configs/registry.py SHAPES["long_500k"]: batch 1,
+# 524,288 cache slots, the long-context rules), for the three archs that
+# shape_applicable admits, at full width in bf16 through build_decode_step
+# (graph=True) on the one-card smoke mesh: LONG_STEPS decode steps at
+# positions LONG_PROMPT .. 524,287 (the first eager, then one replay each).
+# gemma3's cache is a real prefill of LONG_PROMPT tokens (4 global caches
+# of 524,288 slots, 22 rings of 512); zamba2's and rwkv6's are drawn from
+# the seed at the scale of a LONG_SCALE_PROMPT-token prefill's caches
+# (zamba2's 6 shared-attention caches filled for positions 0 .. 524,279):
+# a 524k prefill through the plain SSD would hold float32 tensors of
+# 4,096 chunks x 64 heads x 128 x 128 (17 GB each)
+LONG_PROMPT = 524_280
+LONG_STEPS = 8
+LONG_SCALE_PROMPT = 4096
+LONG_CELLS = (dict(phase="long_gemma3", arch="gemma3-1b", seed=0, fill="prefill"),
+              dict(phase="long_zamba2", arch="zamba2-1.2b", seed=0, fill="seeded"),
+              dict(phase="long_rwkv", arch="rwkv6-7b", seed=0, fill="seeded"))
+LONG_TIMED_REPLAYS = 20
+LONG_TIMED_EAGER = 3
+# RoPE on the card at the longest position against float64 on the host
+# (the same float32 angles): (head_dim, theta) of gemma3's global and local
+# layers
+LONG_ROPE = ((256, 1_000_000.0), (256, 10_000.0))
+# the bf16 flash kernel at long_gemma3's prefill shape (B, H, KV, S, D:
+# LONG_PROMPT queries and keys, causal in the 4 global layers and over the
+# FLASH_WINDOW-key window in the 22 local layers), held against the plain
+# version on query tiles of LONG_FLASH_ROWS (a CTA's rows, kTileRows in
+# csrc/flash_attention.cu) at these starts: the first, one in the middle and
+# the last (120 rows: 524,280 is no multiple of 128); the plain version of
+# all rows would hold (B, H, S, S) float32 scores
+LONG_FLASH_SHAPE = (1, 4, 1, LONG_PROMPT, 256)
+LONG_FLASH_ROWS = 128
+LONG_FLASH_TILES = (0, LONG_PROMPT // 2 // LONG_FLASH_ROWS * LONG_FLASH_ROWS,
+                    (LONG_PROMPT - 1) // LONG_FLASH_ROWS * LONG_FLASH_ROWS)
 # the linear-scan kernel against its plain versions: float32 sums in other
 # orders, held against the output's scale max(1, max |want|). Measured 6.0e-6
 # on an H100 (against the chunked scan; its own error against a float64
@@ -781,12 +860,12 @@ def _device_ms(fn, launches: int = 20, replays: int = 10) -> dict:
     return {"ms": ms, "call_ms": call_ms}
 
 
-def _bound(moved_bytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S) -> dict:
+def _bound(moved_bytes: float, flops: float, flops_per_s: float = None) -> dict:
     """The least time the card could take: bytes over the memory rate or
     operations over the given rate (float32 by default), whichever is
-    larger."""
-    bytes_ms = moved_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / flops_per_s * 1e3
+    larger (``HW``, the H100's data sheet)."""
+    bytes_ms = moved_bytes / HW.hbm_bw * 1e3
+    ops_ms = flops / (flops_per_s or HW.f32_flops) * 1e3
     return {
         "bytes_moved": moved_bytes, "flops": flops, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -2966,7 +3045,7 @@ def phase_train(tr, kmods, cell):
         "launches": launches, "build_s": build_s, "step_s": step_s,
         "step_s_median_after_first": median, "tokens_per_s": B * S / median,
         "model_flops_per_step": model_flops, "model_flops_per_s": model_flops / median,
-        "mfu_of_bf16_peak": model_flops / median / BF16_FLOPS_PER_S,
+        "mfu_of_bf16_peak": model_flops / median / HW.peak_flops,
         "peak_bytes_over_base": peak, "losses": losses, "grad_norms": gnorms, "eps": epss,
         "phase_split_step_s": timed_s, "phase_split_s": split,
         "profile_step": prof, "span_shares": spans, "plain_pieces": pieces,
@@ -3616,6 +3695,400 @@ def phase_serve_steps(lm, kmods, specs):
     return out
 
 
+def _seeded_long_cache(model, serve_lm, cfg, seed, T, P):
+    """``init_cache(1, T)`` with every leaf drawn from ``seed`` at the
+    scale (std) of the same leaf after a LONG_SCALE_PROMPT-token prefill:
+    attention keys and values in slots 0 .. P - 1 (the rest zero, for the
+    decode steps), Mamba2 states and convolution histories, RWKV6 states
+    and last inputs. Returns the cache and the scales by leaf name."""
+    import torch
+    from repro_torch.tree import named_leaves
+
+    prompt = serve_lm.prompt_tokens(cfg.vocab, 1, LONG_SCALE_PROMPT, seed)
+    _, short = model.prefill({"tokens": prompt.to(model.device)})
+    scale = {name: t.float().std().item() for name, t in named_leaves(short)}
+    del short
+    cache = model.init_cache(1, T)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for name, t in named_leaves(cache):
+        x = t[:, :P] if name.endswith(("['k']", "['v']")) else t
+        x.copy_(torch.randn(x.shape, generator=g, device="cuda").mul_(scale[name]))
+    return cache, scale
+
+
+def _rope_on_card(layers, T):
+    """cos and sin of RoPE's float32 angles on the card at positions 4,096
+    and T - 1, against float64 on the host of the same angles: the
+    largest error of each, per (head_dim, theta) of LONG_ROPE."""
+    import torch
+
+    out = {}
+    for hd, theta in LONG_ROPE:
+        freqs = torch.from_numpy(layers.rope_freqs(hd, theta))
+        for p in (4096, T - 1):
+            ang = (torch.tensor([p], dtype=torch.int32)[..., None].float() * freqs).cuda()
+            exact = ang.cpu().double()
+            err = max((torch.cos(ang).cpu().double() - exact.cos()).abs().max().item(),
+                      (torch.sin(ang).cpu().double() - exact.sin()).abs().max().item())
+            out[f"hd{hd}_theta{theta:g}_pos{p}"] = {"max_angle": ang.max().item(),
+                                                     "max_err": err}
+    return out
+
+
+def _first_long_attention(model, cache, T):
+    """The cache entry (k, v: (1, T, KV, D)) and spec of the first attention
+    block whose cache holds all T slots."""
+    for gi, li, key, b, _ in model._layers():
+        if b.kind == "attn":
+            entry = cache[f"g{gi}"][li][key]
+            if entry["k"].shape[1] == T:
+                return entry, b.attn
+    return None, None
+
+
+def _flash_long_check(fops, fref, window, seed, what):
+    """The bf16 flash kernel at LONG_FLASH_SHAPE (causal; over ``window``
+    keys if given) on seeded q, k, v laid out as the model passes them,
+    held against the plain version (``flash_attention_ref``'s arithmetic
+    and mask, ``fref.masked`` of the tile's rows) on the query tiles of
+    LONG_FLASH_TILES, every key, by ``_flash_bf16_check``'s bound: 2**-7 *
+    attn(q, k, |v|) + one bf16 ulp of the larger magnitude + 2e-5,
+    elementwise. Returns the call's ms (CUDA events, one call) against the
+    bound (``_flash_timing``'s: the pairs the mask keeps, q, k, v and o
+    once) and, causal, one SDPA call on the same inputs (flash or
+    memory-efficient backend; with the window SDPA would need an (S, S)
+    mask, 275 GB: none); max |d| and the largest share of the error bound.
+    The plain version of all S rows is not timed: its scores would be
+    (B, H, S, S) float32."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    B, H, KV, S, D = LONG_FLASH_SHAPE
+    q, k, v = _attn_inputs(B, H, KV, S, D, dtype=torch.bfloat16, seed=seed)
+
+    def one_call_ms(fn):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        res = fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return res, t0.elapsed_time(t1)
+
+    got, ms = one_call_ms(lambda: fops.attention(q, k, v, causal=True, window=window))
+    _require(bool(torch.isfinite(got.float()).all()), f"{what}: not finite")
+    w = min(window or S, S)
+    pairs = w * (w + 1) / 2 + (S - w) * w
+    out = {"shape": list(LONG_FLASH_SHAPE), "window": window, "ms": ms,
+           **_bound((2 * B * H * S * D + 2 * B * KV * S * D) * 2, 4 * B * H * D * pairs,
+                    HW.peak_flops),
+           "library": None, "library_ms": None, "plain_ms": None,
+           "tiles": list(LONG_FLASH_TILES), "max_abs_err": 0.0, "err_share_of_bound": 0.0}
+    out["share_of_bound"] = out["bound_ms"] / ms
+    rep = H // KV
+    if window is None:
+        kh, vh = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+            _, out["library_ms"] = one_call_ms(
+                lambda: F.scaled_dot_product_attention(q, kh, vh, is_causal=True))
+        out["library"] = "scaled_dot_product_attention(is_causal=True), k and v repeated"
+        del kh, vh
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    cols = torch.arange(S, device="cuda")
+    for a in LONG_FLASH_TILES:
+        rows = torch.arange(a, min(a + LONG_FLASH_ROWS, S), device="cuda")
+        logits = torch.einsum("bhsd,bhtd->bhst", q[:, :, a:a + len(rows)].float(), kf) * (
+            1.0 / math.sqrt(D))
+        logits.masked_fill_(fref.masked(S, True, window, "cuda", rows=rows, cols=cols),
+                            fref.NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        del logits
+        want = torch.einsum("bhst,bhtd->bhsd", probs, vf).to(torch.bfloat16).float()
+        attn_abs = torch.einsum("bhst,bhtd->bhsd", probs, vf.abs())
+        del probs
+        g = got[:, :, a:a + len(rows)].float()
+        d = (g - want).abs()
+        bound = FLASH_BF16_P_ROUNDING * attn_abs + _bf16_ulp(torch.maximum(g.abs(), want.abs()))
+        share = (d / (bound + ATTN_F32_TOL)).max().item()
+        _require(share <= 1.0, f"{what}: rows {a}.. kernel != plain version, max |d| "
+                               f"{d.max().item()}, {share} of the bound")
+        out["max_abs_err"] = max(out["max_abs_err"], d.max().item())
+        out["err_share_of_bound"] = max(out["err_share_of_bound"], share)
+        del want, attn_abs, g, d, bound
+    del q, k, v, got, kf, vf
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_long(lm, kmods, dops, dref, fops, fref, cell, roof):
+    """A long_500k cell (``LONG_CELLS``) at full width, bf16, batch 1, on
+    524,288 cache slots through the user's entry points: build_model,
+    make_smoke_mesh (a one-process NCCL group, destroyed after),
+    build_decode_step(SHAPES["long_500k"], graph=True), which takes the
+    long-context rules (kv_seq over ("data", "model"), the identity on one
+    card). gemma3: build_prefill_step of a LONG_PROMPT-token prompt (its
+    seconds and peak; the flash kernel's launches the model's count a
+    prefill), then the flash kernel at that prompt's shapes, causal and
+    windowed (``_flash_long_check``); zamba2, rwkv6: ``_seeded_long_cache``.
+    Then
+    LONG_STEPS decode steps on the prompt's next tokens (the first eager,
+    then one replay each): the decode kernel's launches the model's count a
+    step x LONG_STEPS; the same steps run eagerly (graph=False) from a copy
+    of the start cache give the same logits and caches bit for bit. Timed:
+    LONG_TIMED_REPLAYS replays and LONG_TIMED_EAGER eager steps at pos
+    524,287 (each rewrites that slot with the same token). The decode
+    kernel on the cell's own first full-length cache at pos 524,287 against
+    its plain version (one bf16 ulp + 2e-5), timed against its bound and
+    SDPA. gemma3: decode at LONG_PROMPT against a prefill of LONG_PROMPT + 1
+    tokens (SERVE_DECODE_VS_PREFILL_BF16), and RoPE's cos and sin on the
+    card at the longest position. The roofline step time beside the
+    replayed one."""
+    import torch
+
+    configs, serve_lm, steps_mod = lm["configs"], lm["serve_lm"], lm["steps"]
+    from repro_torch.tree import named_leaves, tree_map
+
+    name, seed = cell["phase"], cell["seed"]
+    shape = configs.SHAPES["long_500k"]
+    T, B, P = shape.seq_len, shape.global_batch, LONG_PROMPT
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config(cell["arch"])
+    _require(configs.shape_applicable(cell["arch"], "long_500k")[0], f"{name}: not applicable")
+    model = configs.build_model(cfg, device="cuda", seed=seed)
+    mesh = lm["mesh"].make_smoke_mesh("cuda")
+    out = {"phase": name, "arch": cfg.name, "params": model.num_params(), "batch": B,
+           "cache_slots": T, "fill": cell["fill"]}
+    split, mark = {}, [t_phase]  # seconds of each part of the phase, since the last mark
+
+    def lap(part):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[part], mark[0] = now - mark[0], now
+    try:
+        dec = steps_mod.build_decode_step(model, mesh, shape, graph=True)
+        eager = steps_mod.build_decode_step(model, mesh, shape, graph=False)
+        out["rules_kv_seq"] = dec.rules["kv_seq"]
+        _require(dec.rules["kv_seq"] == ("data", "model"), f"{name}: {dec.rules}")
+        tokens = serve_lm.prompt_tokens(cfg.vocab, B, T, seed)
+        if cell["fill"] == "prefill":
+            pre = steps_mod.build_prefill_step(model, mesh,
+                                               configs.ShapeSpec("long_prefill", P, B, "prefill"))
+            prompt = tokens[:, :P].cuda()
+            by_shape = collections.defaultdict(collections.Counter)
+            _reset_launches(kmods)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _launches_by_shape(lm["layers"], by_shape):
+                first, cache = pre.fn({"tokens": prompt, "cache_len": T})
+            torch.cuda.synchronize()
+            out["prefill_tokens"] = P
+            out["prefill_s"] = time.perf_counter() - t0
+            out["prefill_peak_bytes_over_base"] = torch.cuda.max_memory_allocated() - base
+            # the main path's prefill: one flash launch an attention layer,
+            # causal in the global layers and windowed in the local ones
+            launches = {k: fn.LAUNCHES for k, fn in kmods.items()}
+            want = dict.fromkeys(kmods, 0)
+            want.update(model.kernel_launches()["prefill"])
+            windows = collections.Counter(
+                "causal" if b.attn.window is None else f"window {b.attn.window}"
+                for _, _, _, b, _ in model._layers() if b.kind == "attn")
+            out.update(prefill_launches=launches, prefill_expected_launches=want,
+                       prefill_flash_by_mask=dict(by_shape["flash_attention"]))
+            _require(launches == want, f"{name}: prefill launches {launches}, expected {want}")
+            _require(by_shape["flash_attention"] == windows,
+                     f"{name}: prefill flash by mask {by_shape['flash_attention']}, "
+                     f"expected {windows}")
+            _require(bool(torch.isfinite(first.float()).all()), f"{name}: prefill not finite")
+            del first, prompt
+            lap("build_and_prefill")
+            # the flash kernel at the prefill's own shapes (outside the count)
+            out["flash_kernel"] = {
+                kind: dict(_flash_long_check(fops, fref, window, seed, f"{name}: flash {kind}"),
+                           launches=by_shape["flash_attention"][kind])
+                for kind, window in (("causal", None), (f"window {FLASH_WINDOW}", FLASH_WINDOW))}
+            lap("flash_kernel")
+        else:
+            cache, out["seeded_scales"] = _seeded_long_cache(model, serve_lm, cfg, seed, T, P)
+            lap("build_and_fill")
+        torch.cuda.empty_cache()
+        out["cache_bytes"] = sum(t.numel() * t.element_size() for _, t in named_leaves(cache))
+        start = tree_map(lambda t: t.clone(), cache)
+        step_toks = [tokens[:, P + i:P + i + 1].cuda() for i in range(LONG_STEPS)]
+
+        # the main path: LONG_STEPS steps of the built step, its graph
+        _reset_launches(kmods)
+        kept = []
+        for i, tok in enumerate(step_toks):
+            logits, cache = dec.fn(cache, {"token": tok, "pos": P + i})
+            kept.append(logits.clone())  # the graph's buffer is overwritten by the next replay
+        torch.cuda.synchronize()
+        launches = {k: fn.LAUNCHES for k, fn in kmods.items()}
+        g = dec.decode_graph
+        per_step = model.kernel_launches()["decode_step"]["decode_attention"]
+        want = dict.fromkeys(kmods, 0)
+        want["decode_attention"] = per_step * LONG_STEPS
+        out.update(launches=launches, expected_launches=want, graph_replays=g.replays,
+                   graph_launches_per_replay={fn.__name__: n for fn, n in g.launches.items()})
+        _require(launches == want, f"{name}: launches {launches}, expected {want}")
+        _require(g.replays == LONG_STEPS - 1, f"{name}: {g.replays} replays")
+        graph_logits = torch.stack(kept)
+        _require(bool(torch.isfinite(graph_logits.float()).all()), f"{name}: logits not finite")
+
+        # the same steps eagerly from the start cache: bit for bit
+        cache_e = start
+        eager_logits = []
+        for i, tok in enumerate(step_toks):
+            logits, cache_e = eager.fn(cache_e, {"token": tok, "pos": P + i})
+            eager_logits.append(logits)
+        eager_logits = torch.stack(eager_logits)
+        same_cache = all(torch.equal(a, b) for (_, a), (_, b)
+                         in zip(named_leaves(cache), named_leaves(cache_e)))
+        out["graph_vs_eager"] = {"steps": LONG_STEPS,
+                                 "logits_bitwise": _bits_equal(graph_logits, eager_logits),
+                                 "caches_bitwise": same_cache}
+        _require(out["graph_vs_eager"]["logits_bitwise"] and same_cache,
+                 f"{name}: graph != eager {out['graph_vs_eager']}")
+        del start, cache_e
+        torch.cuda.empty_cache()
+        lap("steps_graph_and_eager")
+
+        # timed: replays and eager steps at the last position
+        last = {"token": step_toks[-1], "pos": T - 1}
+        g.set_inputs(last["token"], last["pos"])
+        g.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LONG_TIMED_REPLAYS):
+            g.step()
+        torch.cuda.synchronize()
+        out["replayed_ms_per_step"] = (time.perf_counter() - t0) / LONG_TIMED_REPLAYS * 1e3
+        t0 = time.perf_counter()
+        for _ in range(LONG_TIMED_EAGER):
+            eager.fn(cache, last)
+        torch.cuda.synchronize()
+        out["eager_ms_per_step"] = (time.perf_counter() - t0) / LONG_TIMED_EAGER * 1e3
+        g.close()
+        out["peak_bytes_over_base"] = torch.cuda.max_memory_allocated() - base
+        lap("timed_steps")
+
+        # the decode kernel on this cell's own long cache
+        entry, spec = _first_long_attention(model, cache, T)
+        if entry is not None:
+            gq = torch.Generator(device="cuda").manual_seed(seed)
+            q = torch.randn((B, spec.n_heads, spec.head_dim), generator=gq,
+                            device="cuda").to(torch.bfloat16)
+            k, v = entry["k"].transpose(1, 2), entry["v"].transpose(1, 2)
+            pos = torch.tensor(T - 1, dtype=torch.int32, device="cuda")
+            got = dops.decode(q, k, v, pos)
+            torch.cuda.synchronize()
+            err = _attn_check(got, dref.decode_ref(q, k, v, pos), torch.bfloat16,
+                              f"{name}: decode kernel at {T} slots")
+            out["decode_kernel"] = {"max_abs_err": err, **_decode_times(dops, dref, q, k, v,
+                                                                        T - 1)}
+            torch.cuda.empty_cache()
+            lap("decode_kernel")
+
+        if cell["fill"] == "prefill":
+            # decode at LONG_PROMPT against the last logits of a prefill of
+            # LONG_PROMPT + 1 tokens
+            del cache
+            torch.cuda.empty_cache()
+            pre1 = steps_mod.build_prefill_step(
+                model, mesh, configs.ShapeSpec("long_prefill_next", P + 1, B, "prefill"))
+            want_logits, c1 = pre1.fn({"tokens": tokens[:, :P + 1].cuda()})
+            del c1
+            d = (graph_logits[0].float() - want_logits.float()).abs().max().item()
+            out["decode_vs_prefill"] = {"max_abs": d, "bound": SERVE_DECODE_VS_PREFILL_BF16,
+                                        "same_argmax": _same_argmax(graph_logits[0],
+                                                                    want_logits)}
+            _require(d <= SERVE_DECODE_VS_PREFILL_BF16,
+                     f"{name}: decode vs prefill {d} > {SERVE_DECODE_VS_PREFILL_BF16}")
+            out["rope_on_card"] = _rope_on_card(lm["layers"], T)
+            lap("decode_vs_prefill")
+        roof_row = roof.get(name)
+        out["roofline"] = _roofline_line(roof_row, out["replayed_ms_per_step"] * 1e-3)
+    finally:
+        torch.distributed.destroy_process_group()
+    del model
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["split_s"] = split
+    _emit(out)
+    return out
+
+
+def _roofline_line(row, measured_s):
+    """A cell's roofline on one H100 (``repro_torch.roofline``, counted on
+    fake tensors) beside its measured step: the roofline's step time, its
+    terms and bottleneck, and its share of the measured time (roofline /
+    measured: 1 at the roofline)."""
+    return {"hw": row["hw"], "roofline_ms": row["step_time_s"] * 1e3,
+            "compute_ms": row["compute_s"] * 1e3, "memory_ms": row["memory_s"] * 1e3,
+            "collective_ms": row["collective_s"] * 1e3, "bottleneck": row["bottleneck"],
+            "flops": row["hlo_flops"], "bytes": row["hlo_bytes"], "model_flops": row["model_flops"],
+            "measured_ms": measured_s * 1e3, "roofline_share": row["step_time_s"] / measured_s}
+
+
+class _Roofline:
+    """The roofline counts of the measured cells: ``python -m
+    repro_torch.roofline --cells -`` on the host's CPU (no card: fake
+    tensors), started at the beginning of the run and read at its first
+    ``get``; its output and errors go to temporary files."""
+
+    def __init__(self, src: Path, cells: list):
+        import os
+        import tempfile
+
+        self.out, self.err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        env = dict(os.environ, PYTHONPATH=str(src), CUDA_VISIBLE_DEVICES="",
+                   OMP_NUM_THREADS="1")
+        self.proc = subprocess.Popen([sys.executable, "-m", "repro_torch.roofline", "--cells", "-"],
+                                     stdin=subprocess.PIPE, stdout=self.out, stderr=self.err,
+                                     text=True, env=env)
+        self.proc.stdin.write(json.dumps(cells))
+        self.proc.stdin.close()
+        self.rows = None
+
+    def get(self, cell: str) -> dict:
+        if self.rows is None:
+            rc = self.proc.wait(timeout=600)
+            self.out.seek(0)
+            self.err.seek(0)
+            _require(rc == 0, f"roofline counts failed ({rc}):\n{self.err.read()[-4000:]}")
+            self.rows = {r["cell"]: r for r in map(json.loads, self.out.read().splitlines())}
+            self.out.close()
+            self.err.close()
+        return self.rows[cell]
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _roofline_cells(configs):
+    """The cells whose step time the run measures, as ``python -m
+    repro_torch.roofline --cells`` takes them: every train cell (a step at
+    its batch and 4,096 tokens), every serve phase's decode step (its batch,
+    its prompt plus new tokens of cache; whisper's 1,500 frames of cross
+    cache) and the long_500k cells."""
+    cells = [dict(cell=c["phase"], arch=c["arch"], kind="train", batch=c["batch"],
+                  seq_len=c.get("seq_len", TRAIN["seq_len"]), layers=c.get("layers"))
+             for c in (TRAIN,) + TRAIN_CELLS]
+    cells += [dict(cell=name, arch=spec["arch"], kind="decode", batch=spec["batch"],
+                   seq_len=spec["prompt_len"] + spec["tokens"], layers=spec.get("layers"),
+                   enc_len=spec.get("enc_len"))
+              for name, spec, *_ in SERVE_PHASES]
+    long = configs.SHAPES["long_500k"]
+    cells += [dict(cell=c["phase"], arch=c["arch"], kind="decode", batch=long.global_batch,
+                   seq_len=long.seq_len) for c in LONG_CELLS]
+    return cells
+
+
 def _attn_inputs(B, H, KV, S, D, dtype, seed, qscale=1.0, Sk=None):
     """q (B, H, S, D) and k, v (B, KV, Sk, D) (Sk = S by default) as
     transposed views of (B, S, heads, D) tensors, as the model passes them;
@@ -3882,7 +4355,7 @@ def _flash_timing(fops, fref, shape, window=None, causal=True):
                                                               window=window), iters=3, warmup=1),
         "library": library, "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
         **_bound((2 * B * H * Sq * D + 2 * B * KV * Sk * D) * 2, 4 * B * H * D * pairs,
-                 BF16_FLOPS_PER_S),
+                 HW.peak_flops),
     }
     flash["achieved_tflop_s"] = flash["flops"] / (flash["ms"] * 1e-3) / 1e12
     flash["share_of_bound"] = flash["bound_ms"] / flash["ms"]
@@ -3893,15 +4366,23 @@ def _flash_timing(fops, fref, shape, window=None, causal=True):
 def _decode_timing(dops, dref, shape, p=None):
     """The bf16 decode kernel at a serve shape and pos ``p`` (T - 1 by
     default; past T on a sliding window's ring, where every slot counts):
-    device and call times, the plain version's, SDPA's (key mask, GQA), the
-    bound (the valid keys' bytes), and the other split count's time."""
+    ``_decode_times`` on inputs drawn from a seed."""
+    import torch
+
+    q, k, v = _attn_inputs(*shape, dtype=torch.bfloat16, seed=1)
+    return _decode_times(dops, dref, q[:, :, 0], k, v, shape[3] - 1 if p is None else p)
+
+
+def _decode_times(dops, dref, q, k, v, p):
+    """The bf16 decode kernel on q (B, H, D) and a cache k, v (B, KV, T, D)
+    at pos ``p``: device and call times, the plain version's, SDPA's (key
+    mask, GQA), the bound (the valid keys' bytes), and the other split
+    count's time."""
     import torch
     import torch.nn.functional as F
 
-    B, H, KV, T, D = shape
-    q, k, v = _attn_inputs(*shape, dtype=torch.bfloat16, seed=1)
-    q = q[:, :, 0]
-    p = T - 1 if p is None else p
+    B, H, D = q.shape
+    KV, T = k.shape[1], k.shape[2]
     n_keys = min(p, T - 1) + 1
     pos = torch.tensor(p, dtype=torch.int32, device="cuda")
     mask = (torch.arange(T, device="cuda") <= p)[None, None, None, :]
@@ -3913,12 +4394,12 @@ def _decode_timing(dops, dref, shape, p=None):
     n_splits = dops.choose_splits(B, KV, n_sm)
     alt = dops.choose_splits(B, KV, n_sm, ctas_per_sm=3 - dops.CTAS_PER_SM)
     decode = {
-        "shape": list(shape), "pos": p, **_device_ms(lambda: dops.decode(q, k, v, pos)),
+        "shape": [B, H, KV, T, D], "pos": p, **_device_ms(lambda: dops.decode(q, k, v, pos)),
         "plain_ms": _time_ms(lambda: dref.decode_ref(q, k, v, pos), iters=5),
         "library": "scaled_dot_product_attention(attn_mask=keys <= pos, enable_gqa=True)",
         "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
         **_bound((2 * B * KV * n_keys * D + 2 * B * H * D) * 2, 4 * B * H * n_keys * D,
-                 BF16_FLOPS_PER_S),
+                 HW.peak_flops),
         "n_splits": n_splits, "sm_count": n_sm, "other_n_splits": alt,
         "other_n_splits_ms": _device_ms(lambda: dops.decode(q, k, v, pos, n_splits=alt))["ms"],
     }
@@ -4136,6 +4617,7 @@ def _memory(after: str) -> None:
 
 
 def main() -> int:
+    t_run = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -4146,7 +4628,9 @@ def main() -> int:
         print(f"chip_smoke: {src / 'repro_torch'} not found; run from a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    global HW
     from repro_torch import checkpoint, configs, data, device, fl, optim, serve_lm, telemetry, tree
+    from repro_torch.roofline import HW
     from repro_torch.core import sharded
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops as dops
@@ -4178,6 +4662,8 @@ def main() -> int:
     tr = {"configs": configs, "sharded": sharded, "steps": steps, "mesh": mesh, "optim": optim,
           "checkpoint": checkpoint, "tree": tree, "data": data, "layers": layers,
           "telemetry": telemetry, "ssm": ssm, "scan_ref": sref, "serve_lm": serve_lm}
+    roof = _Roofline(src, _roofline_cells(configs))  # on the CPU, beside the phases
+    atexit.register(roof.close)  # stopped however the run ends
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -4249,47 +4735,25 @@ def main() -> int:
     _memory("lm_agree")
     phase_train_agree(tr, kmods)
     _memory("train_agree")
+    measured = {}  # each cell's measured step, seconds: beside its roofline
     for cell in (TRAIN,) + TRAIN_CELLS:
-        phase_train(tr, kmods, cell)
+        measured[cell["phase"]] = phase_train(tr, kmods, cell)["step_s_median_after_first"]
         _memory(cell["phase"])
     torch.distributed.destroy_process_group()  # the smoke mesh's one-process group
-    serve = phase_serve(lm, kmods, "serve", SERVE, SERVE_PARAMS,
-                        (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32))
-    _memory("serve")
-    serve_rwkv = phase_serve(lm, kmods, "serve_rwkv", SERVE_RWKV, SERVE_RWKV_PARAMS,
-                             (SERVE_RWKV_DECODE_VS_PREFILL_BF16, SERVE_RWKV_DECODE_VS_PREFILL_F32))
-    _memory("serve_rwkv")
-    serve_moe = phase_serve(lm, kmods, "serve_moe", SERVE_MOE, SERVE_MOE_PARAMS,
-                            (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32),
-                            witnessed=SERVE_MOE_WITNESSED)
-    _memory("serve_moe")
-    phase_serve(lm, kmods, "serve_mla", SERVE_MLA, SERVE_MLA_PARAMS,
-                (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32),
-                check_batch=SERVE_MLA_CHECK_BATCH, witnessed=SERVE_MLA_WITNESSED)
-    _memory("serve_mla")
-    serve_gemma3 = phase_serve(lm, kmods, "serve_gemma3", SERVE_GEMMA3, SERVE_GEMMA3_PARAMS,
-                               (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32))
-    _memory("serve_gemma3")
-    phase_serve(lm, kmods, "serve_zamba2", SERVE_ZAMBA2, SERVE_ZAMBA2_PARAMS,
-                (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32),
-                witnessed=SERVE_ZAMBA2_WITNESSED)
-    _memory("serve_zamba2")
-    serve_whisper = phase_serve(lm, kmods, "serve_whisper", SERVE_WHISPER, SERVE_WHISPER_PARAMS,
-                                (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32))
-    _memory("serve_whisper")
-    serve_qwen2_vl = phase_serve(lm, kmods, "serve_qwen2_vl", SERVE_QWEN2_VL,
-                                 SERVE_QWEN2_VL_PARAMS,
-                                 (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32),
-                                 check_batch=SERVE_QWEN2_VL_CHECK_BATCH)
-    _memory("serve_qwen2_vl")
-    for name, spec, n_params in (("serve_phi4_mini", SERVE_PHI4, SERVE_PHI4_PARAMS),
-                                 ("serve_minitron", SERVE_MINITRON, SERVE_MINITRON_PARAMS)):
-        phase_serve(lm, kmods, name, spec, n_params,
-                    (SERVE_DECODE_VS_PREFILL_BF16, SERVE_DECODE_VS_PREFILL_F32),
-                    witnessed=SERVE_DENSE_LARGE_WITNESSED, float32_checks=False)
+    served = {}
+    for name, spec, n_params, bounds, kw in SERVE_PHASES:
+        served[name] = phase_serve(lm, kmods, name, spec, n_params, bounds, **kw)
         _memory(name)
+    measured.update((name, o["decode_ms_per_step"] * 1e-3) for name, o in served.items())
     phase_serve_steps(lm, kmods, SERVE_STEPS)
     _memory("serve_steps")
+    longs = {}
+    for cell in LONG_CELLS:
+        longs[cell["phase"]] = phase_long(lm, kmods, dops, dref, fops, fref, cell, roof)
+        measured[cell["phase"]] = longs[cell["phase"]]["replayed_ms_per_step"] * 1e-3
+        _memory(cell["phase"])
+    for cell, seconds in measured.items():  # each measured step beside its roofline
+        _emit({"phase": "roofline", "cell": cell, **_roofline_line(roof.get(cell), seconds)})
     kern = phase_kernel(ops, ref)
     kern_q = phase_kernel_q(qops, qref, ops, ref)
     kern_attn = phase_kernel_attn(fops, fref, dops, dref)
@@ -4311,33 +4775,33 @@ def main() -> int:
     fa = kern_attn["max_abs_err"]["flash_attention"]
     ta = kern_attn["timings"]
 
-    def reading(key, name, path, kind=None):
+    def reading(key, name, phase, kind=None):
         """A kernel's reading at another served shape, beside its row: its
-        launches on that path (those of one ``kind`` of call where the path
-        has several: flash by window, decode by cache slots), its times and
-        bound."""
-        tm = ta[key]
+        launches on that serve phase's path (those of one ``kind`` of call
+        where the path has several: flash by window, decode by cache slots),
+        its times and bound."""
+        tm, path = ta[key], served[phase]
         n = path["launches"][name] if kind is None else path["launches_by_shape"][name][kind]
         return {"launches": n, "path": path["phase"],
                 **{k: tm[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms", "share_of_bound")}}
 
-    # the other served shapes' readings: (the path, the kind of call)
+    # the other served shapes' readings: (the serve phase, the kind of call)
     shape_paths = {
-        "flash_attention_d64": (serve_moe, None),
-        "flash_attention_d256": (serve_gemma3, "causal"),
-        "flash_attention_d256_window": (serve_gemma3, f"window {FLASH_WINDOW}"),
-        "flash_attention_whisper_encoder": (serve_whisper, "non-causal"),
-        "flash_attention_whisper_self": (serve_whisper, "causal"),
-        "flash_attention_whisper_cross": (serve_whisper, "cross"),
-        "flash_attention_qwen2_vl": (serve_qwen2_vl, None),
-        "decode_attention_d64": (serve_moe, None),
-        "decode_attention_d256": (serve_gemma3, f"{DECODE_D256_SHAPE[3]} slots"),
-        "decode_attention_d256_ring": (serve_gemma3, f"{DECODE_RING_SHAPE[3]} slots"),
-        "decode_attention_whisper_self": (serve_whisper, f"{DECODE_WHISPER_SELF_SHAPE[3]} slots"),
-        "decode_attention_whisper_cross": (serve_whisper,
+        "flash_attention_d64": ("serve_moe", None),
+        "flash_attention_d256": ("serve_gemma3", "causal"),
+        "flash_attention_d256_window": ("serve_gemma3", f"window {FLASH_WINDOW}"),
+        "flash_attention_whisper_encoder": ("serve_whisper", "non-causal"),
+        "flash_attention_whisper_self": ("serve_whisper", "causal"),
+        "flash_attention_whisper_cross": ("serve_whisper", "cross"),
+        "flash_attention_qwen2_vl": ("serve_qwen2_vl", None),
+        "decode_attention_d64": ("serve_moe", None),
+        "decode_attention_d256": ("serve_gemma3", f"{DECODE_D256_SHAPE[3]} slots"),
+        "decode_attention_d256_ring": ("serve_gemma3", f"{DECODE_RING_SHAPE[3]} slots"),
+        "decode_attention_whisper_self": ("serve_whisper", f"{DECODE_WHISPER_SELF_SHAPE[3]} slots"),
+        "decode_attention_whisper_cross": ("serve_whisper",
                                            f"{DECODE_WHISPER_CROSS_SHAPE[3]} slots"),
-        "decode_attention_qwen2_vl": (serve_qwen2_vl, None),
+        "decode_attention_qwen2_vl": ("serve_qwen2_vl", None),
     }
 
     def other_shapes(key, name):
@@ -4353,20 +4817,30 @@ def main() -> int:
     rows += [
         # flash: its bf16 cases (the served and timed dtype) against the plain version
         ("flash_attention", "flash_attention/csrc/flash_attention.cu",
-         "kernels/flash_attention/flash_attention.py:74", serve, fa["bfloat16"],
+         "kernels/flash_attention/flash_attention.py:74", served["serve"], fa["bfloat16"],
          ta["flash_attention"],
          {"max_abs_err_of": "bfloat16", "err_share_of_tolerance": fa["bfloat16_share_of_bound"],
-          **other_shapes("flash_attention", "flash_attention")}),
+          **other_shapes("flash_attention", "flash_attention"),
+          # at the long_500k prefill's shapes (long_gemma3): launches by mask
+          **{f"{name}_{kind}": {"path": name, **fk}
+             for name, o in longs.items() for kind, fk in o.get("flash_kernel", {}).items()}}),
         # decode: its float32 cases (the bf16 ones within one bf16 ulp)
         ("decode_attention", "decode_attention/csrc/decode_attention.cu",
-         "kernels/decode_attention/decode_attention.py:67", serve,
+         "kernels/decode_attention/decode_attention.py:67", served["serve"],
          kern_attn["max_abs_err"]["decode_attention"]["float32"],
          ta["decode_attention"],
          {"max_abs_err_of": "float32", "share_of_bound": ta["decode_attention"]["share_of_bound"],
-          **other_shapes("decode_attention", "decode_attention")}),
+          **other_shapes("decode_attention", "decode_attention"),
+          # on the long_500k cells' own caches at pos 524,287
+          **{name: {"launches": o["launches"]["decode_attention"], "path": name,
+                    "max_abs_err": o["decode_kernel"]["max_abs_err"],
+                    **{k: o["decode_kernel"][k] for k in ("shape", "ms", "call_ms", "plain_ms",
+                                                          "bound_ms", "bound_by", "library_ms",
+                                                          "share_of_bound")}}
+             for name, o in longs.items() if "decode_kernel" in o}}),
     ]
     rows.append(("rwkv6_scan", "linear_scan/csrc/linear_scan.cu",
-                 "kernels/linear_scan/linear_scan.py:77", serve_rwkv,
+                 "kernels/linear_scan/linear_scan.py:77", served["serve_rwkv"],
                  kern_scan["max_err"]["float32"]["max_abs"], kern_scan["timings"]["rwkv6_scan"]))
     _emit({"kernels": [{
         "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/{source}",
@@ -4380,6 +4854,7 @@ def main() -> int:
             path.get("decode_graph", {}).get("launches_counted", {}).get(name, 0),
         **dict(*extra),
     } for name, source, replaces, path, err, tm, *extra in rows]})
+    _emit({"phase": "run", "seconds": time.perf_counter() - t_run})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})

@@ -73,6 +73,18 @@ def launch(name: str, fn, *args, device: torch.device) -> None:
 
 
 _capturing: List["Graph"] = []  # the Graph being captured, innermost last
+# hooks that run a wrapper's plain version in their place, innermost last:
+# (name, fn, args, kwargs) -> fn's result (``roofline/cost.py`` counts the
+# call as the kernel's one pass)
+plain_hooks: List[Callable] = []
+
+
+def plain(name: str, fn: Callable, *args, **kwargs):
+    """A kernel wrapper's plain version on CPU tensors, ``fn(*args,
+    **kwargs)``, through the innermost ``plain_hooks`` entry if any."""
+    if plain_hooks:
+        return plain_hooks[-1](name, fn, args, kwargs)
+    return fn(*args, **kwargs)
 
 
 def forbid_grad(name: str, *tensors) -> None:

@@ -13,7 +13,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import build_library, count_launch, forbid_grad, launch
+from repro_torch.kernels._build import build_library, count_launch, forbid_grad, launch, plain
 from repro_torch.kernels.decode_attention import ref
 from repro_torch.kernels.flash_attention.ops import DTYPES, check_attention_args
 
@@ -73,7 +73,7 @@ def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
     if T < 1:
         raise ValueError("empty cache")
     if q.device.type == "cpu":
-        return ref.decode_ref(q, k, v, pos)
+        return plain("decode_attention", ref.decode_ref, q, k, v, pos)
     if H // KV > MAX_GROUP:
         raise ValueError(f"H / KV = {H // KV} exceeds {MAX_GROUP} query heads per kv head")
     size = k.element_size()

@@ -15,7 +15,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import build_library, count_launch, forbid_grad, launch
+from repro_torch.kernels._build import build_library, count_launch, forbid_grad, launch, plain
 from repro_torch.kernels.flash_attention import ref
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -103,7 +103,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
         raise ValueError("empty sequence")
     ref.check_lengths(q.shape[2], k.shape[2], causal, window)
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return plain("flash_attention", ref.flash_attention_ref, q, k, v, causal=causal,
+                     window=window)
     B, H, S, D = q.shape
     Sk = k.shape[2]
     if B * H > 65535:

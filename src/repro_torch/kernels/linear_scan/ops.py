@@ -13,7 +13,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import build_library, count_launch, forbid_grad, launch
+from repro_torch.kernels._build import build_library, count_launch, forbid_grad, launch, plain
 from repro_torch.kernels.flash_attention.ops import DTYPES
 from repro_torch.kernels.linear_scan import ref
 
@@ -82,7 +82,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Te
     forbid_grad("rwkv6_scan", r, k, v, logw, u, init_state)
     _check(r, k, v, logw, u, chunk, init_state)
     if r.device.type == "cpu":
-        out, state = ref.rwkv6_chunked(r, k, v, logw, u, chunk, init_state)
+        out, state = plain("rwkv6_scan", ref.rwkv6_chunked, r, k, v, logw, u, chunk, init_state)
         return out.to(r.dtype), state
     B, T, H, K = r.shape
     if K != HEAD_SIZE:

@@ -1,0 +1,104 @@
+"""The roofline of built steps on the CPU, counted on fake tensors.
+
+    python -m repro_torch.roofline --arch gemma3-1b --shape long_500k
+    python -m repro_torch.roofline --arch internlm2-1.8b --kind train \\
+        --batch 2 --seq-len 4096 [--layers N] [--mesh 4,1]
+    python -m repro_torch.roofline --cells - < cells.json
+
+One JSON line per step: the report's ``row()``, its ``step_time_s``, the
+counted bytes, collectives, kernel wrapper calls and the operations that
+moved the most bytes. A shape
+of the registry (``--shape``) or a kind with a batch and a sequence length
+(a decode step's cache slots); ``--layers`` cuts the first group's period
+to that many repeats (the widths as published); ``--enc-len`` gives
+whisper's encoder frames (its cross caches), the sequence length by
+default. ``--cells -`` reads a JSON list of such cells from standard
+input (keys ``cell``, ``arch``, ``kind``, ``batch``, ``seq_len``,
+optional ``layers``, ``enc_len``, ``mesh``). Nothing is allocated and no
+card is used.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+
+from repro_torch.configs import build_model, get_config
+from repro_torch.configs.registry import SHAPES, ShapeSpec, TensorSpec
+from repro_torch.launch import steps
+from repro_torch.models.whisper import WhisperConfig
+from repro_torch.roofline.analysis import model_flops_for
+from repro_torch.roofline.cost import analyze_step, count_step, fake_world
+from repro_torch.tree import tree_map
+
+
+def _config(arch: str, layers=None):
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, groups=(dataclasses.replace(cfg.groups[0], repeat=layers),)
+                                  + tuple(cfg.groups[1:]))
+    return cfg
+
+
+def count_cell(cell: dict) -> dict:
+    """One cell's report row, step time and counts (see the module
+    docstring for the keys)."""
+    t0 = time.perf_counter()
+    cfg = _config(cell["arch"], cell.get("layers"))
+    shape = ShapeSpec(cell.get("cell", "cell"), cell["seq_len"], cell["batch"], cell["kind"])
+    mesh = tuple(cell.get("mesh", (1, 1)))
+    with fake_world(mesh) as fake_mesh:
+        model = build_model(cfg, device="cpu")
+        built = steps.build_step(model, fake_mesh, shape)
+        enc_len = cell.get("enc_len")
+        if isinstance(cfg, WhisperConfig) and shape.kind == "decode" and enc_len:
+            cache = tree_map(lambda d: TensorSpec(tuple(d.shape), d.dtype),
+                             model.cache_defs(shape.global_batch, shape.seq_len, enc_len))
+            built = dataclasses.replace(built, arg_shapes=(built.arg_shapes[0], cache,
+                                                           built.arg_shapes[2]))
+        mf = model_flops_for(model, shape.kind, shape.seq_len, shape.global_batch)
+        cost = count_step(built)
+        report = analyze_step(built, arch=cell["arch"], shape=shape.name, model_flops=mf,
+                              cost=cost)
+    return {"cell": shape.name, **report.row(), "step_time_s": report.step_time_s,
+            "hlo_bytes": report.hlo_bytes, "collective_bytes": report.collective_bytes,
+            "kernel_calls": dict(cost.kernel_calls),
+            "bytes_top_ops": dict(sorted(cost.bytes_by_op.items(), key=lambda kv: -kv[1])[:6]),
+            "input_bytes": cost.input_bytes, "hw": report.hw.name,
+            "count_s": time.perf_counter() - t0}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch")
+    ap.add_argument("--shape", choices=sorted(SHAPES))
+    ap.add_argument("--kind", choices=("train", "prefill", "decode"))
+    ap.add_argument("--batch", type=int)
+    ap.add_argument("--seq-len", type=int)
+    ap.add_argument("--layers", type=int)
+    ap.add_argument("--enc-len", type=int)
+    ap.add_argument("--mesh", default="1,1", help="mesh shape, e.g. 4,1 or 2,2,1")
+    ap.add_argument("--cells", choices=("-",),
+                    help="'-': read a JSON list of cells from standard input")
+    args = ap.parse_args(argv)
+    if args.cells:
+        cells = json.load(sys.stdin)
+    else:
+        if not args.arch or not (args.shape or args.kind):
+            ap.error("give --arch and --shape (or --kind, --batch, --seq-len), or --cells -")
+        s = SHAPES.get(args.shape) if args.shape else None
+        cells = [{"cell": args.shape or args.kind, "arch": args.arch,
+                  "kind": s.kind if s else args.kind,
+                  "batch": args.batch or (s.global_batch if s else 1),
+                  "seq_len": args.seq_len or (s.seq_len if s else 4096),
+                  "layers": args.layers, "enc_len": args.enc_len,
+                  "mesh": [int(n) for n in args.mesh.split(",")]}]
+    for cell in cells:
+        print(json.dumps(count_cell(cell)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
