@@ -268,7 +268,10 @@ exits non-zero:
               serve_lm.generate's on the same weights and prompt;
               granite-moe's (the MoE mesh path: one group, capacity from
               the rank's tokens) bit for bit its built step run eagerly,
-              the gap to generate's grouped path reported;
+              the gap to generate's grouped path reported; the sha256 of
+              each arch's built prefill and step logits and tokens, for
+              comparing two commits bit for bit (train's losses print
+              exactly, as Python floats);
   long_gemma3, long_zamba2, long_rwkv — the registry's long_500k shape
               (batch 1, 524,288 cache slots) for gemma3-1b, zamba2-1.2b and
               rwkv6-7b at full width in bf16 through build_decode_step
@@ -338,6 +341,30 @@ exits non-zero:
               (4, 64, 8, 4224, 128)); the same checks, graph replays at the
               cross and qwen2-vl shapes, and times at every served shape
               against the bound and SDPA;
+  tp_kernels — the kernel forms of a "model" mesh axis above 1 (tensor
+              parallelism, which one card cannot run across ranks: the
+              gloo tests hold the paths), at full width in bf16: flash-
+              decode's partial form on serve's and phi4-mini's caches (4,
+              16 | 24, 8, 4352, 128) at pos 4,351 split into 2, 4 and 16
+              slices, and at pos 255 into 16 (15 of them empty), each
+              slice against the plain partial (output within
+              2e-5 of its scale, log-sum-exp within 2e-5; an empty slice 0
+              and -inf exactly), the merge (ops.merge_partials, the
+              context-parallel decode's) of the kernel's partials against
+              the plain merge of the plain ones (within 2e-6 of the
+              output's scale, float32) and, rounded to bf16,
+              against one whole call (one bf16 ulp + 2e-5) and decode_ref;
+              one slice's time at 16 beside its bound and SDPA over the
+              same slice; flash's query offset at phi4-mini's sequence-
+              parallel prefill (q (4, 24, 256, 128) against k, v (4, 8,
+              4096, 128), causal, offsets r * 256 for r = 0, 7, 15): the
+              rows bit for bit those of one full causal call (the same key
+              tiles in the same order), and within the bf16 flash bound of
+              the plain version on each offset's two 128-row query tiles;
+              the r = 15
+              call's time beside its bound (the operations over 989
+              TFLOP/s) and SDPA with the same mask; the launches are the
+              forms' own counters over the phase;
   kernel_scan — the linear-scan kernel against three plain versions (step
               oracle, chunked scan, the kernel's split order) at the serve
               shape (4, 4096, 64, 64) in float32 and bf16, T = 1, 17, 100,
@@ -360,6 +387,7 @@ from __future__ import annotations
 import atexit
 import collections
 import dataclasses
+import hashlib
 import json
 import math
 import re
@@ -578,6 +606,19 @@ DECODE_RING_SHAPE = (4, 4, 1, 512, 256)
 DECODE_RING_POS = (4223, 300)  # wrapped, and not yet
 DECODE_D64_SHAPE = (4, 24, 8, 4352, 64)  # granite-moe's decode (serve_moe)
 DECODE_POS = (0, 255, 4095, 4351)
+# tp_kernels: the kernels' forms for a "model" mesh axis above 1, at full
+# width. Flash-decode's partial form on a cache split over the sequence (the
+# context-parallel decode) into TP_SPLITS slices, the last the production
+# model axis of 16: serve's cache and phi4-mini's (24 query heads, 8 kv);
+# flash's query offset: phi4-mini's sequence-parallel prefill at 16 (each
+# rank's 256 query rows of 4,096 against every key), at offsets r * 256
+TP_DECODE_SHAPES = (DECODE_SHAPE, (4, 24, 8, 4352, 128))
+TP_SPLITS = (2, 4, 16)
+TP_FLASH_SHAPE = (4, 24, 8, 4096, 128)
+TP_FLASH_M = 16
+TP_FLASH_RANKS = (0, 7, 15)
+TP_MERGE_TOL = 2e-6  # merged partials against the plain merge, of the output's scale
+TP_EMPTY_POS = 255  # at 16 slices of 272 slots every slice but the first holds no valid key
 # whisper-base's attention (serve_whisper): the encoder's self-attention
 # (B, H, KV, S, D, non-causal), the decoder's causal self-attention over
 # the 4-token prompt, its cross-attention (B, H, KV, Sq, Sk, D: the
@@ -881,6 +922,17 @@ def _bits_equal(a, b) -> bool:
     elif a.dtype == torch.bfloat16:
         a, b = a.view(torch.int16), b.view(torch.int16)
     return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _digest(t) -> str:
+    """The sha256 of a tensor's bytes (bf16 as its 16-bit patterns): two
+    runs' tensors are bit for bit equal where their digests are."""
+    import torch
+
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()
 
 
 def _kernel_inputs(K, R, S, seed, zero_row=True):
@@ -3665,7 +3717,9 @@ def phase_serve_steps(lm, kmods, specs):
                  "generate_decode_ms_per_step": gen["decode_s"] / (n - 1) * 1e3,
                  "gap_to_generate": (built["step_logits"].float()
                                      - gen["step_logits"].float()).abs().max().item(),
-                 "same_tokens_as_generate": bool(torch.equal(built["tokens"], gen["tokens"]))}
+                 "same_tokens_as_generate": bool(torch.equal(built["tokens"], gen["tokens"])),
+                 "sha256": {key: _digest(built[key])
+                            for key in ("prefill_logits", "step_logits", "tokens")}}
             if moe:
                 eager = _built_greedy(lm, model, mesh, prompt, n, extra, graph=False)
                 r.update(against="the built decode step run eagerly",
@@ -4318,6 +4372,153 @@ def phase_kernel_attn(fops, fref, dops, dref):
     return res
 
 
+def phase_tp_kernels(fops, fref, dops, dref):
+    """The decode kernel's partial form and the flash kernel's query offset
+    at full width (see the module docstring): checks, times and bounds.
+    ``launches``: the forms' own counters (``decode.PARTIAL_LAUNCHES``,
+    ``attention.OFFSET_LAUNCHES``), set to 0 at the start and read at the
+    end: the model-axis-1 path the other phases drive takes neither."""
+    import torch
+    import torch.nn.functional as F
+
+    t0 = time.perf_counter()
+    err = {"decode_attention_partial": {}, "flash_attention_q_offset": {}}
+    timings = {}
+    dops.decode.PARTIAL_LAUNCHES = fops.attention.OFFSET_LAUNCHES = 0
+    # (a) the partial form over each split of the cache
+    for shape in TP_DECODE_SHAPES:
+        B, H, KV, T, D = shape
+        q, k, v = _attn_inputs(*shape, dtype=torch.bfloat16, seed=31 + H)
+        q = q[:, :, 0]
+        key = f"{H}x{KV}"
+        for p, M in [(T - 1, M) for M in TP_SPLITS] + [(TP_EMPTY_POS, TP_SPLITS[-1])]:
+            pos = torch.tensor(p, dtype=torch.int32, device="cuda")
+            whole = dops.decode(q, k, v, pos)
+            ref32 = dref.decode_ref(q.float(), k.float(), v.float(), pos)
+            Tl = T // M
+            parts, plain = [], []
+            for r in range(M):
+                ks, vs = k[:, :, r * Tl:(r + 1) * Tl], v[:, :, r * Tl:(r + 1) * Tl]
+                parts.append(dops.decode(q, ks, vs, pos, slot0=r * Tl, return_lse=True))
+                plain.append(dref.decode_partial_ref(q, ks, vs, pos, r * Tl))
+            torch.cuda.synchronize()
+            worst_o = worst_l = 0.0
+            for (o, lse), (po, plse) in zip(parts, plain):
+                if bool(torch.isneginf(plse).all()):
+                    _require(torch.equal(o, po) and bool(torch.isneginf(lse).all()),
+                             f"decode partial {key} M={M}: an empty slice is not 0 and -inf")
+                    continue
+                worst_o = max(worst_o, ((o - po).abs().max() / po.abs().max()).item())
+                worst_l = max(worst_l, (lse - plse).abs().max().item())
+            merged = dops.merge_partials(torch.stack([o for o, _ in parts]),
+                                         torch.stack([lse for _, lse in parts]), torch.float32)
+            plain_merged = dref.merge_partials([o for o, _ in plain], [lse for _, lse in plain])
+            m_gap = ((merged - plain_merged).abs().max() / plain_merged.abs().max()).item()
+            r_gap = ((merged - ref32.float()).abs().max() / ref32.float().abs().max()).item()
+            rounded = merged.to(torch.bfloat16).float()
+            w_gap, ok = _gap(rounded, whole.float(), ATTN_F32_TOL, ulp=True)
+            err["decode_attention_partial"][f"{key}_M{M}_pos{p}"] = {
+                "slice_out_of_scale": worst_o, "slice_lse_abs": worst_l,
+                "merged_vs_plain_merge_of_scale": m_gap, "merged_vs_decode_ref_of_scale": r_gap,
+                "merged_bf16_vs_whole_call": w_gap}
+            _require(worst_o <= ATTN_F32_TOL and worst_l <= ATTN_F32_TOL,
+                     f"decode partial {key} M={M}: slice != plain, {worst_o}, {worst_l}")
+            _require(m_gap <= TP_MERGE_TOL, f"decode partial {key} M={M}: merge {m_gap}")
+            _require(r_gap <= ATTN_F32_TOL, f"decode partial {key} M={M}: vs decode_ref {r_gap}")
+            _require(ok, f"decode partial {key} M={M}: merged, rounded, vs one call {w_gap}")
+            del parts, plain, whole, ref32
+        # one slice at the production model axis: the last rank's, every slot valid
+        p = T - 1
+        pos = torch.tensor(p, dtype=torch.int32, device="cuda")
+        Tl = T // TP_SPLITS[-1]
+        r = TP_SPLITS[-1] - 1
+        ks, vs = k[:, :, r * Tl:], v[:, :, r * Tl:]
+        n_keys = min(p - r * Tl, Tl - 1) + 1
+        lib = _device_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], ks, vs,
+                                                                  enable_gqa=True))
+        dev = _device_ms(lambda: dops.decode(q, ks, vs, pos, slot0=r * Tl, return_lse=True))
+        tm = {
+            "shape": [B, H, KV, Tl, D], "slot0": r * Tl, "pos": p, "M": TP_SPLITS[-1], **dev,
+            "plain_ms": _time_ms(lambda: dref.decode_partial_ref(q, ks, vs, pos, r * Tl), iters=5),
+            "library": "scaled_dot_product_attention(enable_gqa=True) over the same slots",
+            "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
+            **_bound(2 * B * KV * n_keys * D * 2 + B * H * D * 2 + B * H * (D + 1) * 4,
+                     4 * B * H * n_keys * D, HW.peak_flops),
+        }
+        tm["share_of_bound"] = tm["bound_ms"] / tm["ms"]
+        timings[f"decode_attention_partial_{key}"] = tm
+        del q, k, v
+    # (b) the query offset: the rows of one full causal call
+    B, H, KV, S, D = TP_FLASH_SHAPE
+    q, k, v = _attn_inputs(B, H, KV, S, D, dtype=torch.bfloat16, seed=41)
+    full = fops.attention(q, k, v)
+    Sl = S // TP_FLASH_M
+    for r in TP_FLASH_RANKS:
+        qr = q[:, :, r * Sl:(r + 1) * Sl]
+        got = fops.attention(qr, k, v, q_offset=r * Sl)
+        torch.cuda.synchronize()
+        bitwise = _bits_equal(got, full[:, :, r * Sl:(r + 1) * Sl])
+        _require(bitwise, f"flash q_offset {r * Sl}: rows differ from the full call's")
+        # the plain version on the rank's two query tiles of 128 rows
+        checks = {}
+        for t in (0, 1):
+            rows = slice(t * 128, (t + 1) * 128)
+            qt = qr[:, :, rows]
+            c = _flash_bf16_check_offset(got[:, :, rows], qt, k, v, fref, r * Sl + t * 128,
+                                         f"flash q_offset {r * Sl} tile {t}")
+            checks[f"tile{t}"] = c
+        err["flash_attention_q_offset"][f"r{r}"] = {"bitwise_vs_full_call": bitwise, **checks}
+    r = TP_FLASH_RANKS[-1]
+    qr = q[:, :, r * Sl:(r + 1) * Sl]
+    i = torch.arange(Sl, device="cuda")[:, None] + r * Sl
+    mask = torch.arange(S, device="cuda")[None, :] <= i
+    lib = _device_ms(lambda: F.scaled_dot_product_attention(qr, k, v, attn_mask=mask,
+                                                              enable_gqa=True), 5, 3)
+    dev = _device_ms(lambda: fops.attention(qr, k, v, q_offset=r * Sl), 5, 3)
+    pairs = Sl * (r * Sl) + Sl * (Sl + 1) / 2
+    tm = {
+        "shape": [B, H, KV, Sl, S, D], "q_offset": r * Sl, **dev,
+        "plain_ms": _time_ms(lambda: fref.flash_attention_ref(qr, k, v, causal=True,
+                                                              q_offset=r * Sl), iters=2, warmup=1),
+        "library": "scaled_dot_product_attention(attn_mask=the rows' causal mask, enable_gqa=True)",
+        "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
+        **_bound((2 * B * H * Sl * D + 2 * B * KV * S * D) * 2, 4 * B * H * D * pairs,
+                 HW.peak_flops),
+    }
+    tm["share_of_bound"] = tm["bound_ms"] / tm["ms"]
+    timings["flash_attention_q_offset"] = tm
+    launches = {"decode_attention_partial": dops.decode.PARTIAL_LAUNCHES,
+                "flash_attention_q_offset": fops.attention.OFFSET_LAUNCHES}
+    res = {"phase": "tp_kernels", "max_abs_err": err, "timings": timings, "launches": launches,
+           "tolerance": {"slice": "2e-5 of the output's scale; lse 2e-5",
+                         "merge": f"{TP_MERGE_TOL} of the output's scale vs the plain merge",
+                         "merged_bf16": "one bf16 ulp + 2e-5 of one whole call",
+                         "flash_q_offset": "bit for bit the full call's rows; "
+                                           "2**-7 * attn(q, k, |v|) + one bf16 ulp + 2e-5"},
+           "seconds": time.perf_counter() - t0}
+    _emit(res)
+    _require(all(launches.values()), f"tp_kernels: a form was never launched: {launches}")
+    return res
+
+
+def _flash_bf16_check_offset(got, q, k, v, fref, q_offset, what):
+    """The bf16 flash kernel's rows at ``q_offset`` against the plain
+    version: |got - want| <= 2**-7 * attn(q, k, |v|) + one bf16 ulp + 2e-5.
+    Returns (max |d|, the largest share of the bound)."""
+    import torch
+
+    g = got.float()
+    w = fref.flash_attention_ref(q, k, v, causal=True, q_offset=q_offset).float()
+    attn_abs = fref.flash_attention_ref(q.float(), k.float(), v.float().abs(), causal=True,
+                                        q_offset=q_offset)
+    ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    d = (g - w).abs()
+    share = (d / (FLASH_BF16_P_ROUNDING * attn_abs + ulp + ATTN_F32_TOL)).max().item()
+    _require(share <= 1.0, f"{what}: kernel != plain version, max |d| {d.max().item()}, "
+                           f"{share} of the bound")
+    return {"max_abs_err": d.max().item(), "share_of_bound": share}
+
+
 def _flash_timing(fops, fref, shape, window=None, causal=True):
     """The bf16 flash kernel at a served shape ((B, H, KV, S, D), or (B, H,
     KV, Sq, Sk, D) for cross-attention), causal, over a sliding ``window``
@@ -4757,6 +4958,7 @@ def main() -> int:
     kern = phase_kernel(ops, ref)
     kern_q = phase_kernel_q(qops, qref, ops, ref)
     kern_attn = phase_kernel_attn(fops, fref, dops, dref)
+    kern_tp = phase_tp_kernels(fops, fref, dops, dref)
     kern_scan = phase_kernel_scan(sops, sref)
 
     t = kern_q["timings"]
@@ -4839,6 +5041,27 @@ def main() -> int:
                                                           "share_of_bound")}}
              for name, o in longs.items() if "decode_kernel" in o}}),
     ]
+    # the forms of a "model" axis above 1 (tp_kernels: their launches are that
+    # phase's, as the model-axis-1 paths above take neither)
+    tpe, tpt = kern_tp["max_abs_err"], kern_tp["timings"]
+    rows += [
+        ("decode_attention_partial", "decode_attention/csrc/decode_attention.cu",
+         "kernels/decode_attention/decode_attention.py:67", kern_tp,
+         max(e["merged_bf16_vs_whole_call"] for e in tpe["decode_attention_partial"].values()),
+         tpt["decode_attention_partial_16x8"],
+         {"max_abs_err_of": "the merged partials rounded to bf16 against one whole call",
+          "share_of_bound": tpt["decode_attention_partial_16x8"]["share_of_bound"],
+          "phi4_mini": tpt["decode_attention_partial_24x8"],
+          "checks": tpe["decode_attention_partial"]}),
+        ("flash_attention_q_offset", "flash_attention/csrc/flash_attention.cu",
+         "kernels/flash_attention/flash_attention.py:74", kern_tp,
+         max(t["max_abs_err"] for e in tpe["flash_attention_q_offset"].values()
+             for k, t in e.items() if k.startswith("tile")),
+         tpt["flash_attention_q_offset"],
+         {"max_abs_err_of": "bfloat16 rows against the plain version",
+          "share_of_bound": tpt["flash_attention_q_offset"]["share_of_bound"],
+          "checks": tpe["flash_attention_q_offset"]}),
+    ]
     rows.append(("rwkv6_scan", "linear_scan/csrc/linear_scan.cu",
                  "kernels/linear_scan/linear_scan.py:77", served["serve_rwkv"],
                  kern_scan["max_err"]["float32"]["max_abs"], kern_scan["timings"]["rwkv6_scan"]))
@@ -4848,7 +5071,7 @@ def main() -> int:
         "launches": path["launches"][name], "max_abs_err": err, "ms": tm["ms"],
         "call_ms": tm["call_ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
-        "window_launches": {w["phase"]: w["launches"][name]
+        "window_launches": {w["phase"]: w["launches"].get(name, 0)
                             for w in (main_w, main_qw, main_churn, main_tel)},
         "launches_through_decode_graph_replays":
             path.get("decode_graph", {}).get("launches_counted", {}).get(name, 0),

@@ -14,8 +14,8 @@ each from its own copy under that module's (git-ignored) build/variants/:
                     design before kWindow).
 With ``--other``, a flash_attention.cu of another commit too (its C entry
 point with or without the window argument, with one sequence length or with
-the query's and the keys' apart; left out at a head size it refuses), for a
-comparison in one call.
+the query's and the keys' apart, with or without the query offset; left out
+at a head size it refuses), for a comparison in one call.
 Each runs the full causal attention at the served shapes of earlier slices
 (B=4, S=4096, bf16: H=16, KV=8, D=128 of ``serve``; H=24, KV=8, D=64 of
 ``serve_moe``) and gemma3's (H=4, KV=1, D=256), and ``kernel`` also with
@@ -75,10 +75,12 @@ def main() -> int:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     windowed = {}  # whether a library's entry point takes the window argument
     two_lengths = {}  # whether it takes the query's and the keys' lengths apart
+    offset = {}  # whether it takes the causal query offset
     for name, lib in libs.items():
-        windowed[name] = "int window, const int64_t* strides" in texts[name]
+        offset[name] = "int window, int q_off, const int64_t* strides" in texts[name]
+        windowed[name] = offset[name] or "int window, const int64_t* strides" in texts[name]
         two_lengths[name] = "int Sq, int Sk, int D" in texts[name]
-        n_ints = 7 + windowed[name] + two_lengths[name]
+        n_ints = 7 + windowed[name] + two_lengths[name] + offset[name]
         lib.flash_attention_fwd.argtypes = [ptr] * 4 + [i32] * n_ints + [ptr, ptr]
         lib.flash_attention_fwd.restype = ctypes.c_int
 
@@ -89,7 +91,7 @@ def main() -> int:
         st = (ctypes.c_int64 * 12)(*(s for t in (out, q, k, v) for s in t.stride()[:3]))
         B, H, S, D = q.shape
         lengths = [S, k.shape[2]] if two_lengths[name] else [S]
-        extra = [window] if windowed[name] else []
+        extra = ([window] if windowed[name] else []) + ([0] if offset[name] else [])
         return libs[name].flash_attention_fwd(
             out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), 1, B, H, k.shape[1],
             *lengths, D, 1, *extra, ctypes.cast(st, ptr), torch.cuda.current_stream().cuda_stream)

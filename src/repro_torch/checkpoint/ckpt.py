@@ -15,7 +15,11 @@ writes restores in the other, bit for bit:
 
 Partition-aware: each data rank writes its own shard (``shard_id`` = its
 rank on the "data" axis, ``num_shards`` = that axis's size), so writes
-scale out with the ranks. ``CheckpointManager.save_async`` copies to host
+scale out with the ranks. On a "model" axis above 1 (``mesh`` and the
+tree's ``specs`` given) a save gathers every leaf over "model" and the
+axis's rank 0 writes it, so a checkpoint holds whole leaves, as the
+reference's and a one-process run's do; a restore slices each leaf to this
+rank's shard. (Writing owned slices instead is queued: ROADMAP.md.) ``CheckpointManager.save_async`` copies to host
 memory before returning (the train step updates its tensors in place),
 then writes in a background thread.
 """
@@ -30,6 +34,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.sharded import gather_tree, model_size, shard_tree
 from repro_torch.tree import named_leaves, tree_map, tree_unflatten
 
 
@@ -63,9 +68,16 @@ def _from_bytes(blob: bytes, meta: dict) -> torch.Tensor:
 
 
 def save_checkpoint(directory: str, tree: Any, step: int, shard_id: int = 0,
-                    num_shards: int = 1) -> str:
-    """Write one shard of a checkpoint. Returns the final directory path."""
+                    num_shards: int = 1, mesh=None, specs=None) -> str:
+    """Write one shard of a checkpoint. Returns the final directory path.
+    With ``mesh`` (a "model" axis above 1) and ``specs`` (the tree's), the
+    leaves are gathered over "model" (every rank of the axis calls this)
+    and only its rank 0 writes."""
     final = os.path.join(directory, f"step_{step:08d}")
+    if model_size(mesh) > 1:
+        tree = gather_tree(tree, specs, mesh)
+        if mesh.get_local_rank("model") != 0:
+            return final
     tmp = final + f".tmp{shard_id}"
     os.makedirs(tmp, exist_ok=True)
     index: Dict[str, Any] = {"step": step, "num_shards": num_shards, "arrays": {}}
@@ -109,10 +121,17 @@ def latest_step(directory: str, num_shards: int = 1) -> Optional[int]:
 
 
 def restore_checkpoint(directory: str, like: Any, step: Optional[int] = None,
-                       shard_id: int = 0, num_shards: int = 1) -> "tuple[Any, int]":
+                       shard_id: int = 0, num_shards: int = 1, mesh=None,
+                       specs=None) -> "tuple[Any, int]":
     """Restore (a shard of) the tree. ``like`` gives the structure; each leaf
     becomes the stored array as a tensor of the stored dtype, on the like
-    leaf's device if that is a tensor (else the CPU). Shapes are checked."""
+    leaf's device if that is a tensor (else the CPU). Shapes are checked.
+    With ``mesh`` (a "model" axis above 1) and ``specs``, ``like`` holds
+    this rank's shards: each stored whole leaf is sliced to it."""
+    if model_size(mesh) > 1:
+        whole = map_like(like, specs, mesh)
+        tree, step = restore_checkpoint(directory, whole, step, shard_id, num_shards)
+        return tree_map(lambda t: t.contiguous(), shard_tree(tree, specs, mesh)), step
     if step is None:
         step = latest_step(directory, num_shards)
         if step is None:
@@ -130,11 +149,27 @@ def restore_checkpoint(directory: str, like: Any, step: Optional[int] = None,
         want = tuple(leaf.shape) if hasattr(leaf, "shape") else None
         if want is not None and tuple(stored.shape) != want:
             raise ValueError(f"{name}: checkpoint shape {tuple(stored.shape)} != expected {want}")
-        if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, (torch.Tensor, _Like)):
             stored = stored.to(leaf.device)
         leaves.append(stored)
     tree = tree_unflatten(like, leaves)
     return tree, step
+
+
+def map_like(like, specs, mesh):
+    """Meta tensors of the whole leaves of a tree of shards (the shapes a
+    restore checks), on each leaf's device."""
+    from repro_torch.core.sharded import global_shape, map_specs
+
+    return map_specs(lambda t, sp: _Like(global_shape(t.shape, sp, mesh, ("model",)), t.device),
+                     like, specs)
+
+
+class _Like:
+    """A leaf of ``like``: its shape and the device to restore onto."""
+
+    def __init__(self, shape, device):
+        self.shape, self.device = tuple(shape), device
 
 
 class CheckpointManager:

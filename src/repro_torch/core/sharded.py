@@ -24,9 +24,19 @@ ZeRO-1 adds "data" on the first free, divisible dim. A spec is a tuple with
 one entry per dim: None (replicated), a mesh axis name, or a tuple of them
 (the counterpart of a ``PartitionSpec``).
 
-Tensor parallelism (a "model" axis above 1) and FSDP (parameters stored
-sharded, gathered per layer) are not ported: they raise
-``NotImplementedError`` (ROADMAP.md). Their spec functions are ported.
+Tensor parallelism: on a "model" axis above 1 every rank holds the local
+shard of each parameter leaf that its spec gives over "model" (heads, ffn
+columns and rows, vocab rows; a dim that does not divide the axis leaves
+the leaf replicated, as in the reference), ``shard`` / ``gather`` /
+``local_shape`` being the layout of a spec. The model's activations carry
+the explicit layout changes (``models/sharding_hooks.py``); here the
+gradient of a leaf replicated over "model" is all-reduced over it (every
+such rank's gradient is a partial sum: it saw its own rows of the
+sequence, or its own heads), ZeRO-1's owned slices are cut inside the
+rank's "model" shard, and the clip's global norm counts each element once.
+FSDP (parameters stored sharded over "data", gathered per layer) is not
+ported: ``fsdp=True`` raises ``NotImplementedError`` (ROADMAP.md); its spec
+functions are ported.
 """
 from __future__ import annotations
 
@@ -168,7 +178,7 @@ def tree_shardings(axes_tree, shape_tree, mesh, rules: Optional[dict] = None,
 
 class IplsTrainState(NamedTuple):
     step: torch.Tensor       # () int32
-    params: Any              # tree, compute layout (full on every rank)
+    params: Any              # tree, compute layout (this rank's "model" shards)
     opt_state: Any           # tree, ZeRO-1: each rank's owned slices
     eps: torch.Tensor        # () float32 staleness weight (paper's epsilon)
 
@@ -192,12 +202,127 @@ def owned_dim(spec) -> Optional[int]:
     return None
 
 
-def _check_mesh(mesh) -> None:
-    if "model" in mesh.mesh_dim_names and mesh_axis_size(mesh, "model") > 1:
-        raise NotImplementedError(
-            "a 'model' mesh axis above 1 (tensor parallelism) is not ported yet "
-            "(ROADMAP.md queue 1)"
-        )
+# ---------------------------------------------------------------------------
+# the local-shard layout of a spec
+# ---------------------------------------------------------------------------
+
+
+def _split_axes(entry, axes) -> tuple:
+    """The mesh axes of a spec entry that split a dim among ``axes`` (None:
+    all of them): its leading members in ``axes``. A member in ``axes``
+    after one that is not would cut the dim into strided pieces, which no
+    layout here uses."""
+    members = _members(entry) if entry is not None else ()
+    taken = []
+    for i, a in enumerate(members):
+        if axes is not None and a not in axes:
+            if any(b in axes for b in members[i + 1:]):
+                raise NotImplementedError(f"spec entry {entry}: {axes} is not a leading part")
+            break
+        taken.append(a)
+    return tuple(taken)
+
+
+def _axis_rank(mesh, axes: tuple) -> int:
+    """This process's row-major index over ``axes`` (a composite entry's
+    first axis the major one, as a PartitionSpec orders devices)."""
+    rank = 0
+    for a in axes:
+        rank = rank * mesh_axis_size(mesh, a) + mesh.get_local_rank(a)
+    return rank
+
+
+def local_shape(shape, spec, mesh, axes=None) -> tuple:
+    """The shape of this rank's shard of a leaf of ``shape`` under ``spec``,
+    counting only the mesh axes in ``axes`` (None: every axis of the spec)."""
+    out = list(shape)
+    for i, entry in enumerate(spec or ()):
+        n = mesh_axis_size(mesh, _split_axes(entry, axes))
+        if out[i] % n:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not split {n} ways (spec {spec})")
+        out[i] //= n
+    return tuple(out)
+
+
+def global_shape(shape, spec, mesh, axes=None) -> tuple:
+    """The whole leaf's shape from a shard's (``local_shape``'s inverse)."""
+    return tuple(n * mesh_axis_size(mesh, _split_axes(e, axes))
+                 for n, e in zip(shape, tuple(spec or ()) + (None,) * len(shape)))
+
+
+def shard(x: torch.Tensor, spec, mesh, axes=None) -> torch.Tensor:
+    """This rank's shard (a view) of a whole leaf ``x`` under ``spec``, over
+    the mesh axes in ``axes`` (None: all)."""
+    for i, entry in enumerate(spec or ()):
+        split = _split_axes(entry, axes)
+        if split:
+            n = x.shape[i] // mesh_axis_size(mesh, split)
+            x = x.narrow(i, _axis_rank(mesh, split) * n, n)
+    return x
+
+
+def call_collective(fn, *args, **kw) -> None:
+    """A ``torch.distributed`` call (newer torch renames these calls and
+    warns; both names work)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        fn(*args, **kw)
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """The ``n`` ranks' pieces of ``x`` concatenated along ``dim`` in rank
+    order (one ``all_gather_into_tensor``)."""
+    moved = x.movedim(dim, 0).contiguous()
+    out = moved.new_empty((moved.shape[0] * n,) + tuple(moved.shape[1:]))
+    call_collective(dist.all_gather_into_tensor, out, moved, group=group)
+    return out.movedim(0, dim)
+
+
+def gather(x: torch.Tensor, spec, mesh, axes=None) -> torch.Tensor:
+    """The whole leaf (over the mesh axes in ``axes``, None: all) from every
+    rank's shard ``x`` under ``spec``: all-gathers over each splitting axis,
+    the minor one first. Every rank of those axes must call it."""
+    for i, entry in enumerate(spec or ()):
+        for a in reversed(_split_axes(entry, axes)):
+            n = mesh_axis_size(mesh, a)
+            if n > 1:
+                x = all_gather_dim(x, i, mesh.get_group(a), n)
+    return x
+
+
+def _splits_over(spec, axis: str) -> bool:
+    return any(e is not None and axis in _members(e) for e in (spec or ()))
+
+
+def map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree (dicts, lists, tuples such as a train
+    state or an ``AdamLeaf``) and its spec tree (leaves: tuples of mesh
+    axes per dim), into a tree of the same structure."""
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, tree[k], specs[k]) for k in tree}
+    if isinstance(tree, list):
+        return [map_specs(fn, t, s) for t, s in zip(tree, specs)]
+    if isinstance(tree, tuple):
+        out = [map_specs(fn, t, s) for t, s in zip(tree, specs)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return fn(tree, specs)
+
+
+def shard_tree(tree, specs, mesh, axes=("model",)):
+    """Every leaf's shard (``shard``) over ``axes``."""
+    return map_specs(lambda x, s: shard(x, s, mesh, axes), tree, specs)
+
+
+def gather_tree(tree, specs, mesh, axes=("model",)):
+    """Every leaf whole over ``axes`` (``gather``; collective on every rank)."""
+    return map_specs(lambda x, s: gather(x, s, mesh, axes), tree, specs)
+
+
+def model_size(mesh) -> int:
+    """The size of a mesh's "model" axis (1 without a mesh or the axis)."""
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return 1
+    return mesh_axis_size(mesh, "model")
 
 
 class _Plane:
@@ -206,14 +331,20 @@ class _Plane:
 
     ``dims`` is each leaf's owned dim (in ``tree_leaves`` order), None
     for a leaf with no dim over "data" (reduced and updated whole on every
-    rank)."""
+    rank). On a "model" axis above 1 (``model`` its group), ``split`` says
+    which leaves it shards (the others' gradients are partial sums over
+    it); the owned slice is cut inside the rank's "model" shard."""
 
     def __init__(self, mesh, specs, n_leaves: int):
         self.D, self.d, self.P, self.p = 1, 0, 1, 0
-        self.data = self.pod = None
+        self.data = self.pod = self.model = None
+        self.split = [False] * n_leaves
         if mesh is not None:
             names = mesh.mesh_dim_names
-            _check_mesh(mesh)
+            if model_size(mesh) > 1:
+                self.model = mesh.get_group("model")
+                if specs is not None:
+                    self.split = [_splits_over(s, "model") for s in specs]
             self.data = mesh.get_group("data")
             self.D, self.d = mesh_axis_size(mesh, "data"), mesh.get_local_rank("data")
             if "pod" in names:
@@ -229,11 +360,7 @@ class _Plane:
     def dp_size(self) -> int:
         return self.P * self.D
 
-    @staticmethod
-    def _call(fn, *args, group):
-        with warnings.catch_warnings():  # newer torch renames these calls; both work
-            warnings.simplefilter("ignore", FutureWarning)
-            fn(*args, group=group)
+    _call = staticmethod(call_collective)
 
     def all_reduce_dp(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over every data-parallel rank (data, then pod), in place."""
@@ -249,11 +376,14 @@ class _Plane:
         n = p.shape[k] // self.D
         return p.narrow(k, self.d * n, n)
 
-    def reduce_grad(self, g: torch.Tensor, k: Optional[int]) -> torch.Tensor:
+    def reduce_grad(self, g: torch.Tensor, k: Optional[int], split: bool = True) -> torch.Tensor:
         """UpdateModel: this rank's owned slice of the sum over ranks of
         ``g`` (reduce-scatter over "data", all-reduce over "pod"), or the
-        whole sum for a leaf with no owned dim. Contiguous, in the leaf's
-        layout."""
+        whole sum for a leaf with no owned dim; a leaf that the "model"
+        axis does not ``split`` is first summed over it. Contiguous, in the
+        leaf's layout."""
+        if self.model is not None and not split:
+            self._call(dist.all_reduce, g, group=self.model)
         if k is None:
             return self.all_reduce_dp(g)
         moved = g.movedim(k, 0).contiguous() if k else g
@@ -357,7 +487,12 @@ def make_train_step(
     to the parameter's dtype, and LoadModel (all-gather of the updated
     slices). ``update_shardings`` (the ZeRO-1 specs of the params) says
     which slice each rank owns; without it every leaf is reduced and
-    updated whole.
+    updated whole. On a "model" axis above 1 the params are this rank's
+    "model" shards (``loss_fn`` runs under the step's mesh context, every
+    rank of the axis returning the whole loss), the gradient of a leaf the
+    axis does not split is first summed over it, the owned slice is cut
+    inside the shard, and the clip's norm sums the split leaves' squares
+    over the axis too.
 
     The parameters are updated IN PLACE (the state's ``params`` tensors are
     the returned state's), and so is the optimizer state. With
@@ -367,8 +502,6 @@ def make_train_step(
     and ``update`` (everything after the gradients: the collectives, the
     clip, the optimizer, the apply), synchronized at each phase's end.
     """
-    if mesh is not None:
-        _check_mesh(mesh)
     if cfg.fsdp and mesh is not None:
         raise NotImplementedError(
             "fsdp=True (parameters stored sharded, gathered per layer) is not ported yet "
@@ -431,18 +564,20 @@ def make_train_step(
         # UpdateModel: each rank keeps the sum over ranks of its owned slices
         owned_g = []
         for i, k in enumerate(plane.dims):
-            g = plane.reduce_grad(grads[i].contiguous(), k)
+            g = plane.reduce_grad(grads[i].contiguous(), k, plane.split[i])
             grads[i] = None
             owned_g.append(fdiv(g, A) if A > 1 else g)
 
-        # the global norm: owned slices' squares summed over "data"
+        # the global norm: owned slices' squares summed over "data", and
+        # over "model" for the leaves it splits (each element counted once)
         sq = [g.float().square().sum() for g in owned_g]
-        owned_ix = [i for i, k in enumerate(plane.dims) if k is not None]
-        if plane.data is not None and owned_ix:
-            summed = torch.stack([sq[i] for i in owned_ix])
-            plane._call(dist.all_reduce, summed, group=plane.data)
-            for n, i in enumerate(owned_ix):
-                sq[i] = summed[n]
+        for group, ix in ((plane.data, [i for i, k in enumerate(plane.dims) if k is not None]),
+                          (plane.model, [i for i, s in enumerate(plane.split) if s])):
+            if group is not None and ix:
+                summed = torch.stack([sq[i] for i in ix])
+                plane._call(dist.all_reduce, summed, group=group)
+                for n, i in enumerate(ix):
+                    sq[i] = summed[n]
         gnorm = torch.sqrt(sum_in_order(sq))
         if cfg.grad_clip is not None:
             scale = clip_scale(gnorm, cfg.grad_clip)

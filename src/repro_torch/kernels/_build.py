@@ -4,7 +4,8 @@ Every kernel of the port is a ``.cu`` file with a plain C interface under
 its module's ``csrc/``, compiled at first use (never at import) into
 ``build/`` beside it and loaded with ``ctypes``. The library is named by a
 hash of its source and flags, so an edited source is rebuilt and a stale
-one never loaded. Each wrapper counts its launches in its ``LAUNCHES``
+one never loaded. Each wrapper counts its launches in its ``LAUNCHES`` (a
+form of a kernel that only some callers take, in a counter of its own)
 through ``count_launch``; kernels captured into a CUDA graph are counted at
 every replay of a ``Graph``.
 """
@@ -17,7 +18,7 @@ import shutil
 import subprocess
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Tuple, Union
 
 import torch
 
@@ -102,15 +103,17 @@ def forbid_grad(name: str, *tensors) -> None:
         )
 
 
-def count_launch(wrapper: Callable) -> None:
-    """Count one launch of ``wrapper``'s kernel in ``wrapper.LAUNCHES``. A
-    call under CUDA-graph capture launches nothing: it is recorded in the
-    ``Graph`` being captured, whose every replay counts it."""
+def count_launch(wrapper: Callable, counter: str = "LAUNCHES") -> None:
+    """Count one launch of ``wrapper``'s kernel in its attribute ``counter``
+    (``LAUNCHES``, or the counter of one form of the kernel). A call under
+    CUDA-graph capture launches nothing: it is recorded in the ``Graph``
+    being captured, whose every replay counts it."""
     if not torch.cuda.is_current_stream_capturing():
-        wrapper.LAUNCHES += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
     elif _capturing:
+        key = wrapper if counter == "LAUNCHES" else (wrapper, counter)
         tally = _capturing[-1].launches
-        tally[wrapper] = tally.get(wrapper, 0) + 1
+        tally[key] = tally.get(key, 0) + 1
     else:
         raise RuntimeError(
             f"{wrapper.__name__} captured outside a _build.Graph: its replays would go uncounted"
@@ -120,12 +123,13 @@ def count_launch(wrapper: Callable) -> None:
 class Graph:
     """A CUDA graph that counts the kernel launches it replays: the
     wrappers called under ``capture()`` record their kernels in
-    ``launches`` (wrapper -> launches per replay), and each ``replay()``
-    adds those to the wrappers' counters."""
+    ``launches`` (wrapper, or (wrapper, counter) for a form's own counter,
+    -> launches per replay), and each ``replay()`` adds those to the
+    wrappers' counters."""
 
     def __init__(self):
         self.graph = torch.cuda.CUDAGraph()
-        self.launches: Dict[Callable, int] = {}
+        self.launches: Dict[Union[Callable, Tuple[Callable, str]], int] = {}
         self.replays = 0
 
     @contextmanager
@@ -142,5 +146,6 @@ class Graph:
     def replay(self) -> None:
         self.graph.replay()
         self.replays += 1
-        for wrapper, n in self.launches.items():
-            wrapper.LAUNCHES += n
+        for key, n in self.launches.items():
+            wrapper, counter = key if isinstance(key, tuple) else (key, "LAUNCHES")
+            setattr(wrapper, counter, getattr(wrapper, counter) + n)

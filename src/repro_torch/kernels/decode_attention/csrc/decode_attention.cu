@@ -60,6 +60,14 @@
 //   run to run, and writes output columns [D*r/S, D*(r+1)/S) of the G heads. A second
 //   cluster sync keeps every CTA alive until its peers have read it. No global scratch,
 //   no second launch.
+// - The partial form (decode_attention_partial_fwd), for a cache split over the sequence
+//   among the ranks of a context-parallel decode: local slot j holds global key
+//   slot0 + j, so the valid keys are n = min(pos - slot0, T-1) + 1 (none when pos <
+//   slot0: every split is empty, no tile is loaded, the output is 0). It writes the
+//   normalised output in float32 and, from rank 0 of the cluster, the log-sum-exp of the
+//   scaled scores, ln 2 * (M + log2 l) in the merge's base-2 terms, -inf for an empty
+//   slice, so that the ranks' partials merge by it. slot0 = 0 without the log-sum-exp is
+//   the plain call, bit for bit.
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
@@ -185,7 +193,8 @@ template <typename T, int D, int kG>
 __global__ void __launch_bounds__(kThreads)
 decode_attn(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
             T* __restrict__ out, const T* __restrict__ q, const int* __restrict__ pos_p,
-            int64_t sqb, int64_t sqh, int H, int G, int T_len, float scale_log2) {
+            int64_t sqb, int64_t sqh, int H, int G, int T_len, float scale_log2, int slot0,
+            float* __restrict__ out32, float* __restrict__ lse_out) {
   using S = Shape<T, D, kG>;
   constexpr int V = S::V, CPL = S::CPL, LPK = S::LPK, NG = S::NG, KT = S::KT, KPG = S::KPG;
   extern __shared__ unsigned char smem_raw[];
@@ -202,8 +211,8 @@ decode_attn(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CU
   const int part = lane % LPK, grp = warp * (32 / LPK) + lane / LPK;
   const int h0 = kvh * G;
 
-  // this split's balanced share of keys 0..min(pos, T-1)
-  const int64_t n_keys = max(min(*pos_p, T_len - 1), -1) + 1;
+  // this split's balanced share of local keys 0..min(pos - slot0, T-1)
+  const int64_t n_keys = max(min(*pos_p - slot0, T_len - 1), -1) + 1;
   const int lo = static_cast<int>(n_keys * split / n_splits);
   const int hi = static_cast<int>(n_keys * (split + 1) / n_splits);
   const int n_tiles = (hi - lo + KT - 1) / KT;
@@ -408,7 +417,15 @@ decode_attn(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CU
       lsum = fmaf(ml[1], w, lsum);
       a = fmaf(cluster.map_shared_rank(&ex_acc[g][0], r)[d], w, a);
     }
-    store(out + (static_cast<int64_t>(b) * H + h0 + g) * D + d, a / fmaxf(lsum, 1e-30f));
+    const int64_t o = (static_cast<int64_t>(b) * H + h0 + g) * D + d;
+    if (out32 != nullptr) {
+      out32[o] = a / fmaxf(lsum, 1e-30f);
+      if (lse_out != nullptr && d == 0)  // rank 0's first column: once per head
+        lse_out[static_cast<int64_t>(b) * H + h0 + g] =
+            lsum > 0.0f ? (mx + log2f(lsum)) * 0.69314718055994531f : __int_as_float(0xff800000u);  // -inf
+    } else {
+      store(out + o, a / fmaxf(lsum, 1e-30f));
+    }
   }
   cluster.sync();  // no CTA exits while a peer may still read its shared memory
 }
@@ -483,9 +500,18 @@ bool cache_map(CUtensorMap* map, const void* base, int elem, int D, int T_len, i
   return true;
 }
 
+// the partial form's extras: global index of local slot 0, the float32 output and the
+// log-sum-exp (nullptr for the plain call)
+struct Partial {
+  int slot0;
+  float* out32;
+  float* lse;
+};
+
 template <typename T, int D, int kG>
 int launch(void* out, const void* q, const void* k, const void* v, const int* pos, int B,
-           int H, int KV, int T_len, int n_splits, const int64_t* st, cudaStream_t stream) {
+           int H, int KV, int T_len, int n_splits, const int64_t* st, cudaStream_t stream,
+           Partial part) {
   auto kernel = decode_attn<T, D, kG>;
   static unsigned sized = 0;  // devices on which the ring's shared memory was allowed
   int dev = 0;
@@ -516,32 +542,49 @@ int launch(void* out, const void* q, const void* k, const void* v, const int* po
   const float scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D)));
   err = cudaLaunchKernelEx(&cfg, kernel, kmap, vmap, static_cast<T*>(out),
                            static_cast<const T*>(q), pos, st[0], st[1], H, H / KV,
-                           T_len, scale_log2);
+                           T_len, scale_log2, part.slot0, part.out32, part.lse);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
 int dispatch_g(void* out, const void* q, const void* k, const void* v, const int* pos, int B,
-               int H, int KV, int T_len, int n_splits, const int64_t* st, cudaStream_t stream) {
+               int H, int KV, int T_len, int n_splits, const int64_t* st, cudaStream_t stream,
+               Partial p) {
   const int G = H / KV;  // accumulators for 1, 2, 4 or 8 heads: G rounded up
-  if (G == 1) return launch<T, D, 1>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream);
-  if (G == 2) return launch<T, D, 2>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream);
-  if (G <= 4) return launch<T, D, 4>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream);
-  return launch<T, D, 8>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream);
+  if (G == 1) return launch<T, D, 1>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream, p);
+  if (G == 2) return launch<T, D, 2>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream, p);
+  if (G <= 4) return launch<T, D, 4>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream, p);
+  return launch<T, D, 8>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream, p);
 }
 
 template <typename T>
 int dispatch_d(void* out, const void* q, const void* k, const void* v, const int* pos, int B,
                int H, int KV, int T_len, int D, int n_splits, const int64_t* st,
-               cudaStream_t stream) {
+               cudaStream_t stream, Partial p) {
   switch (D) {
-    case 16: return dispatch_g<T, 16>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream);
-    case 64: return dispatch_g<T, 64>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream);
-    case 128: return dispatch_g<T, 128>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream);
-    case 256: return dispatch_g<T, 256>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream);
+    case 16: return dispatch_g<T, 16>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream, p);
+    case 64: return dispatch_g<T, 64>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream, p);
+    case 128:
+      return dispatch_g<T, 128>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream, p);
+    case 256:
+      return dispatch_g<T, 256>(out, q, k, v, pos, B, H, KV, T_len, n_splits, st, stream, p);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+int dispatch(void* out, const void* q, const void* k, const void* v, const int* pos, int dtype,
+             int B, int H, int KV, int T_len, int D, int n_splits, const int64_t* strides,
+             cudaStream_t stream, Partial p) {
+  if (H % KV != 0 || H / KV > kMaxG || n_splits < 1 || n_splits > kMaxSplits || T_len < 1 ||
+      p.slot0 < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return dispatch_d<float>(out, q, k, v, pos, B, H, KV, T_len, D, n_splits, strides, stream, p);
+  if (dtype == 1)
+    return dispatch_d<__nv_bfloat16>(out, q, k, v, pos, B, H, KV, T_len, D, n_splits, strides,
+                                     stream, p);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -558,14 +601,22 @@ extern "C" int decode_attention_fwd(void* out, const void* q, const void* k, con
                                     const int* pos, int dtype, int B, int H, int KV, int T_len,
                                     int D, int n_splits, const int64_t* strides,
                                     cudaStream_t stream) {
-  if (H % KV != 0 || H / KV > kMaxG || n_splits < 1 || n_splits > kMaxSplits || T_len < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return dispatch_d<float>(out, q, k, v, pos, B, H, KV, T_len, D, n_splits, strides, stream);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(out, q, k, v, pos, B, H, KV, T_len, D, n_splits, strides,
-                                     stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(out, q, k, v, pos, dtype, B, H, KV, T_len, D, n_splits, strides, stream,
+                  Partial{0, nullptr, nullptr});
+}
+
+// The partial form: as decode_attention_fwd, but local slot j of k and v is global key
+// slot0 + j (slot0 >= 0, a host int), keys with global index <= pos attended; out32:
+// (B, H, D) float32 contiguous, the slice's normalised output (0 where no key is valid);
+// lse: (B, H) float32 contiguous, the log-sum-exp of the slice's scaled scores (-inf
+// where no key is valid).
+extern "C" int decode_attention_partial_fwd(float* out32, float* lse, const void* q,
+                                            const void* k, const void* v, const int* pos,
+                                            int slot0, int dtype, int B, int H, int KV,
+                                            int T_len, int D, int n_splits,
+                                            const int64_t* strides, cudaStream_t stream) {
+  return dispatch(nullptr, q, k, v, pos, dtype, B, H, KV, T_len, D, n_splits, strides, stream,
+                  Partial{slot0, out32, lse});
 }
 
 // Dynamic shared memory of every instantiation (the TMA ring and its alignment), in bytes.

@@ -33,6 +33,8 @@ def build() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.decode_attention_fwd.argtypes = [ptr] * 5 + [i32] * 7 + [ptr, ptr]
         lib.decode_attention_fwd.restype = ctypes.c_int
+        lib.decode_attention_partial_fwd.argtypes = [ptr] * 6 + [i32] * 8 + [ptr, ptr]
+        lib.decode_attention_partial_fwd.restype = ctypes.c_int
         lib.decode_attention_smem_bytes.argtypes = []
         lib.decode_attention_smem_bytes.restype = ctypes.c_int
         _lib = lib
@@ -48,7 +50,7 @@ def choose_splits(B: int, KV: int, n_sm: int, ctas_per_sm: int = CTAS_PER_SM) ->
 
 
 def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
-           n_splits: int | None = None):
+           n_splits: int | None = None, slot0: int = 0, return_lse: bool = False):
     """One query per (batch, head) against a KV cache: q (B, H, D); k, v
     (B, KV, T, D) with H % KV == 0 and H / KV <= 8, any strides with D
     contiguous, float32 or bfloat16; ``pos`` a 0-d int32 tensor on q's
@@ -57,7 +59,19 @@ def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
     device (no host sync), and k and v must be 16-byte aligned, with strides
     of whole 16-byte units. ``n_splits`` (1..8) sets the CTAs of each
     (batch, kv head); None takes ``choose_splits`` for the card. The result
-    does not depend on it beyond float32 rounding."""
+    does not depend on it beyond float32 rounding.
+
+    The partial form, for a cache split over the sequence (one rank's
+    slice of a context-parallel decode): local slot j holds global key
+    ``slot0 + j`` (a host int), and the keys whose global index is at most
+    ``pos`` are attended. With ``return_lse`` it returns (out, lse), both
+    float32: the slice's normalised output (B, H, D) and the (B, H)
+    log-sum-exp of its scaled scores, merged over the kernel's splits; a
+    slice with no valid key gives 0 and -inf and reads none of its memory.
+    ``merge_partials`` merges the ranks' partials. With slot0 = 0 and no
+    ``return_lse`` the call is the plain one above. Launches of the partial
+    form count in ``decode.PARTIAL_LAUNCHES``, the others in
+    ``decode.LAUNCHES``."""
     forbid_grad("decode", q, k, v)
     check_attention_args(q, k, v, kv_name="the cache")
     if q.dim() != 3 or k.dim() != 4:
@@ -68,12 +82,19 @@ def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
         raise ValueError(f"pos is on {pos.device}, q is on {q.device}")
     if n_splits is not None and not 1 <= n_splits <= MAX_SPLITS:
         raise ValueError(f"n_splits must be in 1..{MAX_SPLITS}, got {n_splits}")
+    slot0 = int(slot0)
+    if slot0 < 0:
+        raise ValueError(f"slot0 must be at least 0, got {slot0}")
+    partial = return_lse or slot0 != 0
     B, H, D = q.shape
     KV, T = k.shape[1], k.shape[2]
     if T < 1:
         raise ValueError("empty cache")
     if q.device.type == "cpu":
-        return plain("decode_attention", ref.decode_ref, q, k, v, pos)
+        if not partial:
+            return plain("decode_attention", ref.decode_ref, q, k, v, pos)
+        out, lse = plain("decode_attention", ref.decode_partial_ref, q, k, v, pos, slot0)
+        return (out, lse) if return_lse else out.to(q.dtype)
     if H // KV > MAX_GROUP:
         raise ValueError(f"H / KV = {H // KV} exceeds {MAX_GROUP} query heads per kv head")
     size = k.element_size()
@@ -86,15 +107,39 @@ def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
         if dev not in _sm_counts:
             _sm_counts[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
         n_splits = choose_splits(B, KV, _sm_counts[dev])
-    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 8)(*q.stride()[:2], *k.stride()[:3], *v.stride()[:3])
+    if not partial:
+        out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+        launch(
+            "decode_attention", lib.decode_attention_fwd, out.data_ptr(), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), pos.data_ptr(), DTYPES[q.dtype], B, H, KV, T, D,
+            n_splits, ctypes.cast(strides, ctypes.c_void_p), device=q.device,
+        )
+        count_launch(decode)
+        return out
+    out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
     launch(
-        "decode_attention", lib.decode_attention_fwd, out.data_ptr(), q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), pos.data_ptr(), DTYPES[q.dtype], B, H, KV, T, D, n_splits,
-        ctypes.cast(strides, ctypes.c_void_p), device=q.device,
+        "decode_attention", lib.decode_attention_partial_fwd, out.data_ptr(), lse.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), slot0, DTYPES[q.dtype], B, H,
+        KV, T, D, n_splits, ctypes.cast(strides, ctypes.c_void_p), device=q.device,
     )
-    count_launch(decode)
-    return out
+    count_launch(decode, "PARTIAL_LAUNCHES")
+    return (out, lse) if return_lse else out.to(q.dtype)
 
 
 decode.LAUNCHES = 0  # wrapper calls that launched the kernel (one launch each)
+decode.PARTIAL_LAUNCHES = 0  # the same, of the partial form
+
+
+def merge_partials(outs: torch.Tensor, lses: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The ranks' partials of ``decode(..., return_lse=True)`` over the
+    slices of one cache merged by their log-sum-exp: outs (M, B, H, D) and
+    lses (M, B, H), float32. With L the largest lse (0 where every slice is
+    empty), w_r = exp(lse_r - L) and out = sum_r w_r out_r / sum_r w_r, in
+    float32, cast to ``dtype`` once. ``ref.merge_partials`` is the plain
+    version it is held against."""
+    top = lses.amax(0)
+    w = torch.exp(lses - torch.where(torch.isinf(top), 0.0, top))
+    num = (outs * w[..., None]).sum(0)
+    return (num / w.sum(0).clamp_min(1e-30)[..., None]).to(dtype)

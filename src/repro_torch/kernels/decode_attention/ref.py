@@ -9,6 +9,15 @@ port and the tests use it; on the card the CUDA kernel is held against it.
 ``decode_split_ref`` is the kernel's arithmetic (per-split softmax states
 merged in rank order), on no path: the tests hold it, and the kernel, to
 the same bounds.
+
+The partial form (``decode_partial_ref``) is one rank's share of a cache
+split over the sequence (a context-parallel decode): local slot j holds
+global key ``slot0 + j``, keys up to ``pos`` are attended, and it returns
+the slice's normalised output and the log-sum-exp of its scaled scores,
+both float32 (0 and -inf for a slice with no valid key).
+``merge_partials`` merges the ranks' partials by their log-sum-exp in rank
+order, in float32, rounded to the output dtype once: the plain version of
+``ops.merge_partials``, which the context-parallel decode calls.
 """
 from __future__ import annotations
 
@@ -73,3 +82,41 @@ def decode_split_ref(q, k, v, pos, n_splits: int) -> torch.Tensor:
         l_sum = l_sum + l * w
         acc = acc + a * w
     return (acc / l_sum.clamp_min(1e-30)).to(q.dtype)
+
+
+def decode_partial_ref(q, k, v, pos, slot0: int = 0):
+    """One slice of a sequence-split cache: q (B, H, D); k, v (B, KV, T, D)
+    holding global keys slot0..slot0+T-1; keys whose global index is at
+    most ``pos`` attended. Returns (out (B, H, D), lse (B, H)), float32:
+    the slice's normalised output and ln sum_t exp(s_t) of its scaled
+    scores s_t; a slice with no valid key gives 0 and -inf."""
+    rep = q.shape[1] // k.shape[1]
+    k = k.repeat_interleave(rep, dim=1).float()
+    v = v.repeat_interleave(rep, dim=1).float()
+    T = k.shape[2]
+    s = torch.einsum("bhd,bhtd->bht", q.float(), k) * (1.0 / math.sqrt(q.shape[-1]))
+    glob = torch.arange(T, device=q.device) + int(slot0)
+    valid = glob <= torch.as_tensor(pos, device=q.device)
+    s = s.masked_fill(~valid, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.where(valid, torch.exp(s - torch.where(torch.isinf(lse), 0.0, lse)[..., None]), 0.0)
+    return torch.einsum("bht,bhtd->bhd", p, v), lse
+
+
+def merge_partials(outs, lses, dtype=torch.float32) -> torch.Tensor:
+    """The ranks' partials (``decode_partial_ref``'s or the kernel's) of
+    one query merged by their log-sum-exp, in rank order: outs (M, B, H, D)
+    and lses (M, B, H) float32 (or sequences of them). With L = max lse,
+    w_r = exp(lse_r - L), o = sum_r w_r out_r / sum_r w_r, in float32, cast
+    to ``dtype`` once."""
+    outs = torch.stack(list(outs)) if not isinstance(outs, torch.Tensor) else outs
+    lses = torch.stack(list(lses)) if not isinstance(lses, torch.Tensor) else lses
+    mx = lses.amax(0)
+    mx = torch.where(torch.isinf(mx), 0.0, mx)
+    num = torch.zeros_like(outs[0])
+    den = torch.zeros_like(lses[0])
+    for r in range(outs.shape[0]):  # rank order
+        w = torch.exp(lses[r] - mx)
+        num = num + outs[r] * w[..., None]
+        den = den + w
+    return (num / den.clamp_min(1e-30)[..., None]).to(dtype)

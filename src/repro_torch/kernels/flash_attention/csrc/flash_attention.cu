@@ -8,9 +8,13 @@
 //         with a sliding window W (gemma3's local layers), where j <= i - W
 //   o_i = sum_j softmax(s)_j v_j
 //
-// Sq and Sk differ only without a mask (whisper's cross-attention: 4 decoder rows against
-// 1,500 encoder frames); a mask needs Sq == Sk. The grid, the Q tile and the store guard
-// follow Sq; the key tiles, the ragged-end mask and the K and V tensor maps follow Sk.
+// Sq and Sk differ without a mask (whisper's cross-attention: 4 decoder rows against
+// 1,500 encoder frames), or with a causal query offset: q_off puts query row i at
+// position q_off + i (a sequence-parallel rank's rows of a prefill, q_off = r * Sq), so
+// the causal mask, the last key tile a query tile visits and the tiles it masks follow
+// the rows' positions, and q_off = 0 with Sq == Sk is the plain causal call.
+// The grid, the Q tile and the store guard follow Sq; the key tiles, the ragged-end mask
+// and the K and V tensor maps follow Sk.
 //
 // with a float32 online softmax (running max m, sum l, accumulator acc), l clamped at
 // 1e-30 and the output cast to the input type, as the TPU kernel does. A masked score
@@ -103,7 +107,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, Strides so, Strides sq, Strides sk, Strides sv, int H,
-          int group, int Sq, int Sk, float scale, int causal, int window) {
+          int group, int Sq, int Sk, float scale, int causal, int window, int q_off) {
   constexpr int kLd = D + 1;    // padded row of q_s and kv_s
   constexpr int kPLd = kBK + 1;  // padded row of p_s
   constexpr int kDc = D / 16;   // output columns per thread
@@ -133,8 +137,9 @@ flash_fwd(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kDc; ++c) acc[i][c] = 0.0f;
   }
 
-  const int k_end = causal ? min(Sk, q0 + kBQ) : Sk;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  const int p0 = q0 + q_off;  // the position of the tile's first row
+  const int k_end = causal ? min(Sk, p0 + kBQ) : Sk;
+  const int k_begin = window > 0 ? max(0, p0 - window + 1) / kBK * kBK : 0;
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // q_s is written; the previous tile's V and P reads are done
     for (int i = tid; i < kBK * D; i += kThreads) {
@@ -169,7 +174,7 @@ flash_fwd(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
         const float x = s[i][j] * scale;
-        s[i][j] = hidden(col, row, Sk, causal, window) ? kNegInf : x;
+        s[i][j] = hidden(col, row + q_off, Sk, causal, window) ? kNegInf : x;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -226,7 +231,7 @@ flash_fwd(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(void* out, const void* q, const void* k, const void* v, int B, int H, int KV, int Sq,
-           int Sk, int causal, int window, const int64_t* st, cudaStream_t stream) {
+           int Sk, int causal, int window, int q_off, const int64_t* st, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
   static bool configured = false;  // once per instantiation, before any graph capture
   if (!configured) {
@@ -241,7 +246,7 @@ int launch(void* out, const void* q, const void* k, const void* v, int B, int H,
       static_cast<T*>(out), static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, H, H / KV, Sq, Sk, scale,
-      causal, window);
+      causal, window, q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -503,7 +508,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
                 Strides so, int H, int group, int Sq, int Sk, float scale_log2, int causal,
-                int window_arg) {
+                int window_arg, int q_off) {
   const int window = kWindow ? window_arg : 0;  // a constant 0 folds every window test away
   using L = Layout<D>;
   using QT = typename L::QT;
@@ -524,12 +529,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
   const int q0 = qt * kTileRows;
+  const int p0 = q0 + q_off;  // the position of the tile's first row
   const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / group;
   // key tiles [t_lo, t_lo + n_tiles): from the first that meets the rows' windows to the
-  // last at or before the diagonal (causal) or the end
+  // last at or before the diagonal (causal: the tile of the last row's position) or the end
   const int t_all = (Sk + KR - 1) / KR;
-  const int t_lo = window > 0 ? max(0, q0 - window + 1) / KR : 0;
-  const int n_tiles = (causal ? min(t_all, (q0 + kTileRows) / KR) : t_all) - t_lo;
+  const int t_lo = window > 0 ? max(0, p0 - window + 1) / KR : 0;
+  const int n_tiles = (causal ? min(t_all, (p0 + kTileRows + KR - 1) / KR) : t_all) - t_lo;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -616,9 +622,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     auto softmax = [&](int i) {
       if (lane == 0) mbar_arrive(k_empty(i & 1));
       const int k0 = (t_lo + i) * KR;
-      if (k0 + KR > Sk || (causal && k0 + KR - 1 > q0) ||
-          (window > 0 && k0 <= q0 + kTileRows - 1 - window))
-        mask_tile(s, k0, col0, row0, Sk, causal, window);
+      if (k0 + KR > Sk || (causal && k0 + KR - 1 > p0) ||
+          (window > 0 && k0 <= p0 + kTileRows - 1 - window))
+        mask_tile(s, k0, col0, row0 + q_off, Sk, causal, window);
       sm.step(s, scale_log2);
     };
     // the m64nKR accumulator's 16-key slices are the m64k16 A operand's layout
@@ -749,7 +755,7 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int S, int heads
 
 template <int D, bool kWindow>
 int launch_wgmma(void* out, const void* q, const void* k, const void* v, int B, int H, int KV,
-                 int Sq, int Sk, int causal, int window, const int64_t* st,
+                 int Sq, int Sk, int causal, int window, int q_off, const int64_t* st,
                  cudaStream_t stream) {
   using L = Layout<D>;
   const EncodeTiled fn = tensor_map_encoder();
@@ -770,17 +776,41 @@ int launch_wgmma(void* out, const void* q, const void* k, const void* v, int B, 
   const float scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D)));
   flash_fwd_wgmma<D, kWindow><<<grid, kWsThreads, L::kSmem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), Strides{st[0], st[1], st[2]}, H,
-      H / KV, Sq, Sk, scale_log2, causal, window);
+      H / KV, Sq, Sk, scale_log2, causal, window, q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The bf16 kernel with a window, or without one.
 template <int D>
 int launch_bf16(void* out, const void* q, const void* k, const void* v, int B, int H, int KV,
-                int Sq, int Sk, int causal, int window, const int64_t* st, cudaStream_t stream) {
-  return window > 0
-             ? launch_wgmma<D, true>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, st, stream)
-             : launch_wgmma<D, false>(out, q, k, v, B, H, KV, Sq, Sk, causal, 0, st, stream);
+                int Sq, int Sk, int causal, int window, int q_off, const int64_t* st,
+                cudaStream_t stream) {
+  return window > 0 ? launch_wgmma<D, true>(out, q, k, v, B, H, KV, Sq, Sk, causal, window,
+                                            q_off, st, stream)
+                    : launch_wgmma<D, false>(out, q, k, v, B, H, KV, Sq, Sk, causal, 0, q_off,
+                                             st, stream);
+}
+
+// Both paths by dtype and D, after the entry points' checks.
+int dispatch(void* out, const void* q, const void* k, const void* v, int dtype, int B, int H,
+             int KV, int Sq, int Sk, int D, int causal, int window, int q_off,
+             const int64_t* st, cudaStream_t stream) {
+  if (dtype == 0) {
+    if (D == 16) return launch<float, 16>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, q_off, st, stream);
+    if (D == 64) return launch<float, 64>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, q_off, st, stream);
+    if (D == 128)
+      return launch<float, 128>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, q_off, st, stream);
+    if (D == 256)
+      return launch<float, 256>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, q_off, st, stream);
+  } else if (dtype == 1) {
+    if (D == 16) return launch_bf16<16>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, q_off, st, stream);
+    if (D == 64) return launch_bf16<64>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, q_off, st, stream);
+    if (D == 128)
+      return launch_bf16<128>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, q_off, st, stream);
+    if (D == 256)
+      return launch_bf16<256>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, q_off, st, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -789,34 +819,23 @@ int launch_bf16(void* out, const void* q, const void* k, const void* v, int B, i
 // device pointers of one type (dtype 0 = float32, 1 = bfloat16), the last dimension
 // contiguous; `strides` holds 12 host int64 element strides (b, h, s) of out, q, k, v
 // in that order. H % KV == 0, D in {16, 64, 128, 256} (the ported configs' head sizes),
-// Sq, Sk >= 1, Sq == Sk when causal; `window` 0 (none) or, with causal, the keys each row
-// sees (i - window < j <= i); for bfloat16 the base pointers and strides are multiples of
-// 16 bytes (TMA). float32
-// runs flash_fwd on the CUDA cores, bfloat16 flash_fwd_wgmma on the tensor cores. The
-// launch goes on `stream` and does not synchronise. Returns the CUDA error after the
-// launch (0 = launched).
+// Sq, Sk >= 1. Causal: query row i sits at position q_off + i (q_off >= 0, q_off + Sq <=
+// Sk; q_off > 0 is a sequence-parallel rank's rows against every key of the prefill,
+// q_off = 0 with Sq == Sk the plain causal call); `window` 0 (none) or, with Sq == Sk and
+// q_off = 0, the keys each row sees (i - window < j <= i). Not causal: window and q_off
+// 0. For bfloat16 the base pointers and strides are multiples of 16 bytes
+// (TMA). float32 runs flash_fwd on the CUDA cores, bfloat16 flash_fwd_wgmma on the tensor
+// cores. The launch goes on `stream` and does not synchronise. Returns the CUDA error
+// after the launch (0 = launched).
 extern "C" int flash_attention_fwd(void* out, const void* q, const void* k, const void* v,
                                    int dtype, int B, int H, int KV, int Sq, int Sk, int D,
-                                   int causal, int window, const int64_t* strides,
+                                   int causal, int window, int q_off, const int64_t* strides,
                                    cudaStream_t stream) {
-  if (window < 0 || (window > 0 && !causal) || (causal && Sq != Sk) || Sq < 1 || Sk < 1)
+  if (Sq < 1 || Sk < 1 || window < 0 || q_off < 0 || (!causal && (window > 0 || q_off > 0)) ||
+      (causal && q_off + Sq > Sk) || (window > 0 && (Sq != Sk || q_off > 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) {
-    if (D == 16) return launch<float, 16>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, strides, stream);
-    if (D == 64) return launch<float, 64>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, strides, stream);
-    if (D == 128)
-      return launch<float, 128>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, strides, stream);
-    if (D == 256)
-      return launch<float, 256>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, strides, stream);
-  } else if (dtype == 1) {
-    if (D == 16) return launch_bf16<16>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, strides, stream);
-    if (D == 64) return launch_bf16<64>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, strides, stream);
-    if (D == 128)
-      return launch_bf16<128>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, strides, stream);
-    if (D == 256)
-      return launch_bf16<256>(out, q, k, v, B, H, KV, Sq, Sk, causal, window, strides, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(out, q, k, v, dtype, B, H, KV, Sq, Sk, D, causal, window, q_off, strides,
+                  stream);
 }
 
 // Dynamic shared memory of the kernel that `dtype` and D select, in bytes (0 if none).

@@ -30,7 +30,7 @@ def build() -> ctypes.CDLL:
     if _lib is None:
         lib = build_library(_SRC)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_fwd.argtypes = [ptr] * 4 + [i32] * 9 + [ptr, ptr]
+        lib.flash_attention_fwd.argtypes = [ptr] * 4 + [i32] * 10 + [ptr, ptr]
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib.flash_attention_smem_bytes.argtypes = [i32, i32]
         lib.flash_attention_smem_bytes.restype = ctypes.c_int
@@ -79,7 +79,7 @@ def check_tma_layout(*tensors) -> None:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
-              window: int | None = None):
+              window: int | None = None, q_offset: int | None = None):
     """Softmax attention, causal by default: q (B, H, Sq, D), k and v
     (B, KV, Sk, D) with H % KV == 0, any strides with D contiguous (bfloat16
     on CUDA: 16-byte aligned, ``check_tma_layout``), float32 or bfloat16,
@@ -87,9 +87,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
     i sees keys j <= i) or with a ``window`` (causal only: row i sees keys
     i - window < j <= i, the reference's sliding window) needs Sq == Sk,
     else ValueError; ``causal=False`` sees every key, and Sq and Sk may
-    differ (cross-attention). Returns (B, H, Sq, D) in q's dtype; on CUDA
-    with q's strides, so for a transposed (B, S, H, D) q the result
-    transposes back to a contiguous tensor."""
+    differ (cross-attention). A causal ``q_offset`` (a host int, no window)
+    puts query row i at position q_offset + i against keys 0..Sk-1, which
+    must hold them (q_offset + Sq <= Sk): a sequence-parallel rank's rows
+    of a prefill; query tiles skip the key tiles past their last row.
+    Launches at an offset count in ``attention.OFFSET_LAUNCHES``, the others
+    in ``attention.LAUNCHES``. Returns (B, H, Sq, D) in q's dtype; on CUDA with q's strides, so for a
+    transposed (B, S, H, D) q the result transposes back to a contiguous
+    tensor."""
     forbid_grad("attention", q, k, v)
     check_attention_args(q, k, v)
     if window is not None:
@@ -101,10 +106,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
         raise ValueError(f"q, k, v must be 4-D, got {tuple(q.shape)}, {tuple(k.shape)}")
     if q.shape[2] < 1 or k.shape[2] < 1:
         raise ValueError("empty sequence")
-    ref.check_lengths(q.shape[2], k.shape[2], causal, window)
+    if q_offset is not None:
+        q_offset = int(q_offset)
+    ref.check_lengths(q.shape[2], k.shape[2], causal, window, q_offset)
     if q.device.type == "cpu":
         return plain("flash_attention", ref.flash_attention_ref, q, k, v, causal=causal,
-                     window=window)
+                     window=window, q_offset=q_offset)
     B, H, S, D = q.shape
     Sk = k.shape[2]
     if B * H > 65535:
@@ -117,13 +124,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
         *(s for t in (out, q, k, v) for s in t.stride()[:3])
     )
     launch(
-        "flash_attention", lib.flash_attention_fwd, out.data_ptr(), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), DTYPES[q.dtype], B, H, k.shape[1], S, Sk, D, int(causal),
-        min(int(window), S) if window is not None else 0, ctypes.cast(strides, ctypes.c_void_p),
-        device=q.device,
+        "flash_attention", lib.flash_attention_fwd, out.data_ptr(), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), DTYPES[q.dtype], B, H, k.shape[1], S, Sk, D, int(causal),
+        min(int(window), S) if window is not None else 0, q_offset or 0,
+        ctypes.cast(strides, ctypes.c_void_p), device=q.device,
     )
-    count_launch(attention)
+    count_launch(attention, "LAUNCHES" if q_offset is None else "OFFSET_LAUNCHES")
     return out
 
 
 attention.LAUNCHES = 0  # kernel launches, counted where they happen
+attention.OFFSET_LAUNCHES = 0  # the same, of calls at a causal query offset

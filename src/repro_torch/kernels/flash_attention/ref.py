@@ -7,7 +7,9 @@ diagonal (and, with a sliding ``window``, at and below ``window`` keys back:
 key j is seen by row i when i - window < j <= i, the reference's
 ``causal_mask``), a float32 softmax and a float32 product with V, cast to
 q's dtype at the end. Without a mask the query and key lengths may differ
-(whisper's cross-attention: every row sees every key). The CPU path of the
+(whisper's cross-attention: every row sees every key). With a causal
+``q_offset`` they may differ too: query row i is at position q_offset + i
+against keys 0..Sk-1 (a sequence-parallel rank's rows of a prefill). The CPU path of the
 port and the tests use it; on the card the CUDA kernel is held against it.
 """
 from __future__ import annotations
@@ -26,9 +28,18 @@ def key_tile(D: int) -> int:
     return TILE_D256 if D == 256 else TILE
 
 
-def check_lengths(Sq: int, Sk: int, causal: bool, window) -> None:
+def check_lengths(Sq: int, Sk: int, causal: bool, window, q_offset=None) -> None:
     """A mask (causal or a window) pairs query row i with key i: raise
-    ValueError unless Sq == Sk there."""
+    ValueError unless Sq == Sk there. With a ``q_offset`` (causal, no
+    window) row i is at position q_offset + i: the rows must lie within
+    the Sk keys."""
+    if q_offset is not None:
+        if not causal or window is not None:
+            raise ValueError("a query offset needs causal attention without a window")
+        if q_offset < 0 or q_offset + Sq > Sk:
+            raise ValueError(f"query rows at {q_offset}..{q_offset + Sq - 1} lie outside "
+                             f"the {Sk} keys")
+        return
     if (causal or window is not None) and Sq != Sk:
         raise ValueError(f"causal or windowed attention needs as many queries as keys, "
                          f"got {Sq} and {Sk}")
@@ -48,23 +59,31 @@ def masked(S: int, causal: bool, window, device, rows=None, cols=None) -> torch.
     return out
 
 
-def flash_attention_ref(q, k, v, causal: bool = True, window=None) -> torch.Tensor:
+def _rows(S: int, q_offset, device):
+    return torch.arange(S, device=device) + (q_offset or 0)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True, window=None, q_offset=None) -> torch.Tensor:
     """q: (B, H, Sq, D); k, v: (B, KV, Sk, D) with H % KV == 0 (Sq == Sk
-    when causal or windowed); ``window`` None (full causal) or the keys each
+    when causal or windowed, but for a causal ``q_offset``: row i at
+    position q_offset + i); ``window`` None (full causal) or the keys each
     row sees. Returns (B, H, Sq, D) in q's dtype."""
     S = q.shape[2]
-    check_lengths(S, k.shape[2], causal, window)
+    check_lengths(S, k.shape[2], causal, window, q_offset)
     rep = q.shape[1] // k.shape[1]
     k = k.repeat_interleave(rep, dim=1).float()
     v = v.repeat_interleave(rep, dim=1).float()
     logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k) * (1.0 / math.sqrt(q.shape[-1]))
     if causal or window is not None:
-        logits = logits.masked_fill(masked(S, causal, window, q.device), NEG_INF)
+        logits = logits.masked_fill(
+            masked(S, causal, window, q.device, _rows(S, q_offset, q.device),
+                   torch.arange(k.shape[2], device=q.device)), NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", probs, v).to(q.dtype)
 
 
-def flash_attention_tiled_ref(q, k, v, causal: bool = True, window=None) -> torch.Tensor:
+def flash_attention_tiled_ref(q, k, v, causal: bool = True, window=None,
+                              q_offset=None) -> torch.Tensor:
     """The bf16 CUDA kernel's arithmetic in plain PyTorch, on no path: keys
     in tiles of ``key_tile(D)`` with a running float32 max m, sum l and
     accumulator; per tile p = exp(s - m) in float32, l from that float32 p,
@@ -77,11 +96,11 @@ def flash_attention_tiled_ref(q, k, v, causal: bool = True, window=None) -> torc
     relative 2**-8), so every output is within 2**-8 * attn(q, k, |v|).
     Its float32 p differ from the kernel's in their last bits, so some
     entries of P round one bf16 ulp apart: against the kernel it is exact
-    only up to the same 2**-8, from each side. Shapes as
-    ``flash_attention_ref``."""
+    only up to the same 2**-8, from each side. Shapes (and ``q_offset``)
+    as ``flash_attention_ref``."""
     B, H, S, D = q.shape
     Sk = k.shape[2]
-    check_lengths(S, Sk, causal, window)
+    check_lengths(S, Sk, causal, window, q_offset)
     rep = q.shape[1] // k.shape[1]
     k = k.repeat_interleave(rep, dim=1).float()
     v = v.repeat_interleave(rep, dim=1).float()
@@ -89,7 +108,7 @@ def flash_attention_tiled_ref(q, k, v, causal: bool = True, window=None) -> torc
     m = torch.full((B, H, S, 1), NEG_INF, device=q.device)
     l = torch.zeros((B, H, S, 1), device=q.device)
     acc = torch.zeros((B, H, S, D), device=q.device)
-    rows = torch.arange(S, device=q.device)
+    rows = _rows(S, q_offset, q.device)
     tile = key_tile(D)
     for k0 in range(0, Sk, tile):
         s = torch.einsum("bhsd,bhtd->bhst", qf, k[:, :, k0 : k0 + tile])

@@ -26,6 +26,14 @@ meshless and takes the grouped path, so the two differ in capacity by
 design. ``build_decode_step(graph=True)`` runs each step on a CUDA device
 as one replay of a ``DecodeGraph``: the counterpart of jitting the step.
 
+On a "model" axis above 1 (tensor parallelism, the dense family) the
+model must be built on the mesh (``build_model(cfg, mesh=mesh)``: this
+rank's shards of the parameters); the specs are the reference's, of the
+whole leaves, and ``arg_shapes`` give this rank's parameters, state and
+cache (its batch rows and its slots of the cache). A built decode step
+runs eagerly there: ``graph=True`` raises (its collectives would be
+captured into the graph, which no single card can check).
+
 ``lower_step`` (JAX's ahead-of-time lowering) has no counterpart here, and
 the per-arch train overrides (``TRAIN_OVERRIDES``) wait for the dry run,
 their only reader (ROADMAP.md).
@@ -45,8 +53,11 @@ from repro_torch.core.sharded import (
     IplsStepConfig,
     IplsTrainState,
     init_state,
+    local_shape,
     make_train_step,
+    map_specs,
     mesh_axis_size,
+    model_size,
     state_shardings,
     tree_shardings,
 )
@@ -147,6 +158,34 @@ def _tensor_specs(tree):
     return tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype), tree)
 
 
+def _local_specs(tree, specs, mesh, axes=None):
+    """``TensorSpec``s of this rank's shards of a tree under its specs."""
+    return map_specs(lambda t, sp: TensorSpec(local_shape(t.shape, sp, mesh, axes), t.dtype),
+                     tree, specs)
+
+
+def _shapes(model):
+    """(whole, this rank's) parameter shapes: the specs follow the whole
+    leaves, the arguments the rank's shards."""
+    local = model.param_shapes()
+    whole = model.global_param_shapes() if hasattr(model, "global_param_shapes") else local
+    return whole, local
+
+
+def _check_tp(model, mesh, long_context: bool = False) -> None:
+    """A step on a "model" axis above 1 needs the model built on its mesh,
+    and the long-context layout (``kv_seq`` over data and model) is not
+    ported there yet."""
+    if model_size(mesh) == 1:
+        return
+    if getattr(model, "mesh", None) is not mesh:
+        raise ValueError("a step on a 'model' mesh axis above 1 needs the model built on that "
+                         "mesh: build_model(cfg, mesh=mesh)")
+    if long_context:
+        raise NotImplementedError("kv_seq over ('data', 'model') for long_500k on a 'model' "
+                                  "axis above 1 is not ported yet (ROADMAP.md queue 1)")
+
+
 def _rules(mesh, cfg, kind: str, long_context: bool = False,
            extra_rules: Optional[dict] = None) -> dict:
     """The logical -> mesh rules of a step: the defaults, the mesh's for the
@@ -196,7 +235,7 @@ def build_train_step(
     # ZeRO-1 (partition-owned) layout of the in-step update: each rank
     # updates its slices and the LoadModel all-gather moves the parameters'
     # dtype, after the cast
-    axes, param_shapes = model.axes(), model.param_shapes()
+    axes, (param_shapes, local_shapes) = model.axes(), _shapes(model)
     update_sh = tree_shardings(axes, param_shapes, mesh, rules, "data")
     raw_step = make_train_step(
         loss_fn, optimizer, step_cfg, num_agents=num_agents, update_shardings=update_sh,
@@ -204,11 +243,12 @@ def build_train_step(
     )
     state_sh = state_shardings(axes, param_shapes, optimizer, mesh, rules, fsdp=step_cfg.fsdp)
     state_shapes = IplsTrainState(
-        step=TensorSpec((), torch.int32), params=_tensor_specs(param_shapes),
-        opt_state=_tensor_specs(optimizer.init(param_shapes)), eps=TensorSpec((), torch.float32))
+        step=TensorSpec((), torch.int32), params=_tensor_specs(local_shapes),
+        opt_state=_tensor_specs(optimizer.init(local_shapes)), eps=TensorSpec((), torch.float32))
     metrics_sh = dict.fromkeys(("loss", "grad_norm", "participation", "eps"), ())
 
     def train_step(state, batch):
+        _check_tp(model, mesh)
         local = shard_batch(batch, batch_sh, mesh)
         with activation_sharding(mesh, rules):
             return raw_step(state, local)
@@ -238,7 +278,7 @@ def build_prefill_step(model, mesh, shape: ShapeSpec,
     cache's specs are in the decode layout, as the reference stores it."""
     cfg = model.cfg
     rules = _rules(mesh, cfg, "prefill", extra_rules=extra_rules)
-    param_shapes = model.param_shapes()
+    param_shapes, local_shapes = _shapes(model)
     param_sh = tree_shardings(model.axes(), param_shapes, mesh, rules)
     batch_specs = input_specs(cfg, shape)
     batch_sh = _batch_shardings(batch_specs, mesh, rules)
@@ -248,13 +288,14 @@ def build_prefill_step(model, mesh, shape: ShapeSpec,
     logits_sh = (rules.get("batch"), None, None)
 
     def prefill_step(batch):
+        _check_tp(model, mesh, shape.seq_len > 100_000)
         local = shard_batch(batch, batch_sh, mesh)
         with activation_sharding(mesh, rules):
             return model.prefill(local)
 
     return BuiltStep(fn=prefill_step, mesh=mesh, rules=rules, in_shardings=(param_sh, batch_sh),
                      out_shardings=(logits_sh, cache_sh),
-                     arg_shapes=(_tensor_specs(param_shapes), batch_specs))
+                     arg_shapes=(_tensor_specs(local_shapes), batch_specs))
 
 
 def build_decode_step(model, mesh, shape: ShapeSpec, extra_rules: Optional[dict] = None,
@@ -267,10 +308,17 @@ def build_decode_step(model, mesh, shape: ShapeSpec, extra_rules: Optional[dict]
     ``DecodeGraph`` (``decode_graph``, one per cache: a call with another
     cache captures anew): the first call eagerly, then, on a CUDA device,
     each call one replay, its logits the graph's buffer, overwritten by the
-    next call."""
+    next call. The cache's ``arg_shapes`` are this rank's (its batch rows
+    and, on a "model" axis above 1, its slots); there ``graph`` raises."""
     cfg = model.cfg
-    rules = _rules(mesh, cfg, "decode", shape.seq_len > 100_000, extra_rules)
-    param_shapes = model.param_shapes()
+    long_context = shape.seq_len > 100_000
+    if graph and model_size(mesh) > 1:
+        raise NotImplementedError(
+            "a decode graph on a 'model' mesh axis above 1 is not ported: its collectives "
+            "would be captured into the CUDA graph, which no single card can check; run the "
+            "step eagerly (graph=False) (ROADMAP.md queue 3)")
+    rules = _rules(mesh, cfg, "decode", long_context, extra_rules)
+    param_shapes, local_shapes = _shapes(model)
     param_sh = tree_shardings(model.axes(), param_shapes, mesh, rules)
     cache_shapes, cache_axes = _cache_shapes_and_axes(model, shape)
     cache_sh = tree_shardings(cache_axes, cache_shapes, mesh, rules)
@@ -284,6 +332,7 @@ def build_decode_step(model, mesh, shape: ShapeSpec, extra_rules: Optional[dict]
         return activation_sharding(mesh, rules)
 
     def decode_step(cache, batch):
+        _check_tp(model, mesh, long_context)
         local = shard_batch(batch, batch_sh, mesh)
         if not graph:
             with context():
@@ -300,7 +349,8 @@ def build_decode_step(model, mesh, shape: ShapeSpec, extra_rules: Optional[dict]
     return BuiltStep(fn=decode_step, mesh=mesh, rules=rules,
                      in_shardings=(param_sh, cache_sh, batch_sh),
                      out_shardings=(logits_sh, cache_sh),
-                     arg_shapes=(_tensor_specs(param_shapes), cache_shapes, batch_specs),
+                     arg_shapes=(_tensor_specs(local_shapes),
+                                 _local_specs(cache_shapes, cache_sh, mesh), batch_specs),
                      graph_slot=slot if graph else None)
 
 

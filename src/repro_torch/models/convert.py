@@ -8,6 +8,11 @@ port's modules. bfloat16 arrays (numpy dtype ``bfloat16`` from
 ``ml_dtypes``, which ``torch.from_numpy`` refuses) cross as their 16-bit
 patterns; every other dtype as it is, so a float32 tree loads as float32.
 
+On a tensor-parallel mesh (a model built with a "model" axis above 1)
+``load_jax_params`` keeps each leaf's shard for this rank (its spec's
+slice, ``core/sharded.py`` ``shard``), and ``gather_params`` gathers the
+shards back into whole leaves, bit for bit.
+
 ``load_jax_cache`` carries a reference serving cache (a prefill's) across in
 the same way, so that the port's decode step can start from it.
 ``load_jax_state`` carries a whole reference ``IplsTrainState`` across in
@@ -21,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.sharded import IplsTrainState
+from repro_torch.core.sharded import IplsTrainState, gather_tree, shard
 from repro_torch.models.param_defs import ParamTree
 from repro_torch.models.whisper import WhisperModel
 from repro_torch.optim.optimizers import AdamLeaf
@@ -36,18 +41,23 @@ def to_torch(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def _assign(tree: ParamTree, values: dict, layer=None, path: str = "") -> None:
+def _assign(tree: ParamTree, values: dict, layer=None, path: str = "", specs=None,
+            mesh=None) -> None:
     """Replace every parameter of ``tree`` by the matching leaf of ``values``
-    (its slice ``layer`` of the stacked axis, if given). The two trees must
-    have the same leaves."""
+    (its slice ``layer`` of the stacked axis, if given; with ``specs``, the
+    tree's specs on ``mesh``, this rank's "model" shard of it). The two
+    trees must have the same leaves."""
     names = set(tree._parameters) | set(tree._modules)
     if names != set(values):
         raise KeyError(f"{path or '/'}: port has {sorted(names)}, params have {sorted(values)}")
     for name, v in values.items():
         if isinstance(v, dict):
-            _assign(tree[name], v, layer, f"{path}/{name}")
+            _assign(tree[name], v, layer, f"{path}/{name}",
+                    None if specs is None else specs[name], mesh)
             continue
         t = to_torch(v if layer is None else np.asarray(v)[layer])
+        if specs is not None:
+            t = shard(t, specs[name], mesh, ("model",)).contiguous()
         old = tree._parameters[name]
         if tuple(t.shape) != tuple(old.shape):
             raise ValueError(f"{path}/{name}: shape {tuple(t.shape)}, port has {tuple(old.shape)}")
@@ -79,9 +89,18 @@ def load_jax_params(model, tree: dict):
     ``model`` (a port ``TransformerLM`` or ``WhisperModel``), in place;
     returns the model. Each parameter takes the array's dtype, on the
     model's device. A group's shared blocks (``g{gi}_shared``, unstacked)
-    load into the model's one copy of them."""
+    load into the model's one copy of them. A model built on a
+    tensor-parallel mesh keeps this rank's shard of each leaf."""
     if isinstance(model, WhisperModel):
         return _load_whisper(model, tree)
+    specs = getattr(model, "param_specs", None)
+    mesh = getattr(model, "mesh", None)
+
+    def sub(key, li=None):
+        if specs is None:
+            return {}
+        return {"specs": specs[key] if li is None else specs[key][li], "mesh": mesh}
+
     groups = model.cfg.groups
     shared = [f"g{gi}_shared" for gi, g in enumerate(groups) if g.shared]
     expected = {"embed", "final_norm", *shared} | {f"g{gi}" for gi in range(len(groups))}
@@ -89,16 +108,25 @@ def load_jax_params(model, tree: dict):
         expected.add("lm_head")
     if set(tree) != expected:
         raise KeyError(f"params have {sorted(tree)}, expected {sorted(expected)}")
-    _assign(model.embed, tree["embed"], path="/embed")
-    _assign(model.final_norm, tree["final_norm"], path="/final_norm")
+    _assign(model.embed, tree["embed"], path="/embed", **sub("embed"))
+    _assign(model.final_norm, tree["final_norm"], path="/final_norm", **sub("final_norm"))
     if not model.cfg.tie_embeddings:
-        _assign(model.lm_head, tree["lm_head"], path="/lm_head")
+        _assign(model.lm_head, tree["lm_head"], path="/lm_head", **sub("lm_head"))
     for gi, layers in enumerate(model.groups):
         for li, p in enumerate(layers):
-            _assign(p, tree[f"g{gi}"], layer=li, path=f"/g{gi}[{li}]")
+            _assign(p, tree[f"g{gi}"], layer=li, path=f"/g{gi}[{li}]", **sub(f"g{gi}", li))
     for key in shared:
-        _assign(getattr(model, key), tree[key], path=f"/{key}")
+        _assign(getattr(model, key), tree[key], path=f"/{key}", **sub(key))
     return model
+
+
+def gather_params(model) -> dict:
+    """The model's parameters as whole leaves (``params()``'s layout): on a
+    tensor-parallel mesh gathered over "model" (a collective: every rank
+    of the axis calls it), else ``params()`` itself."""
+    if getattr(model, "mesh", None) is None:
+        return model.params()
+    return gather_tree(model.params(), model.param_specs, model.mesh)
 
 
 def _keys(tree):

@@ -21,6 +21,17 @@ which the attention kernels do not take). Whisper's encoder attention is
 the flash kernel without the causal mask, its cross-attention the flash
 kernel with the encoder's keys (query and key lengths differ) in the
 prefill and the flash-decode kernel over all of them in decode.
+
+On a "model" mesh axis above 1 (tensor parallelism, the dense attention
+and MLP blocks) a layer holds its rank's shards and its layout follows
+them: attention whose query heads divide the axis is head-parallel (the
+block input whole over the sequence, the rank's heads, a partial output
+that the caller reduces), otherwise sequence-parallel (the rank's query
+rows at their offset, k and v gathered over the sequence); the MLP's
+columns then rows are split over ``ffn`` where it divides; decode attends
+over the rank's slots of a sequence-split KV cache through the decode
+kernel's partial form and merges the ranks' partials by their log-sum-exp
+(``decode_attention``). The layout changes are ``sharding_hooks``'s.
 """
 from __future__ import annotations
 
@@ -180,14 +191,30 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * k)).view(*x.shape[:-1], h, k)
 
 
-def _proj_qkv(params, s: AttnSpec, x: torch.Tensor):
+def _pick(w: torch.Tensor, kv, dim: int) -> torch.Tensor:
+    """Heads ``kv`` (a slice or an index tensor) of ``w`` along ``dim``."""
+    if isinstance(kv, slice):
+        return w.narrow(dim, kv.start, kv.stop - kv.start)
+    return w.index_select(dim, kv)
+
+
+def _proj_qkv(params, s: AttnSpec, x: torch.Tensor, kv=None):
+    """q, k, v of x (B, S, D) on the heads that the parameters hold (a
+    rank's shard on a tensor-parallel mesh); ``kv`` (a slice or an index
+    tensor) takes only those kv heads of whole k and v weights."""
+    wk, wv = params["wk"], params["wv"]
+    if kv is not None:
+        wk, wv = _pick(wk, kv, 1), _pick(wv, kv, 1)
     q = _heads(x, params["wq"])
-    k = _heads(x, params["wk"])
-    v = _heads(x, params["wv"])
+    k = _heads(x, wk)
+    v = _heads(x, wv)
     if s.bias:
+        bk, bv = params["bk"], params["bv"]
+        if kv is not None:
+            bk, bv = _pick(bk, kv, 0), _pick(bv, kv, 0)
         q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
+        k = k + bk
+        v = v + bv
     if s.qk_norm:
         q = rms_norm(params["q_norm"], q)
         k = rms_norm(params["k_norm"], k)
@@ -212,12 +239,14 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return out.reshape(*out.shape[:-2], h * k) @ wo.reshape(h * k, d)
 
 
-def _flash(q, k, v, causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+def _flash(q, k, v, causal: bool = True, window: Optional[int] = None,
+           q_offset: Optional[int] = None) -> torch.Tensor:
     """The flash-attention wrapper on (B, H, S, hd) views of (B, S, heads,
     hd) tensors: no copy, no repeat of the KV heads. Returns (B, Sq, H, hd)
     laid out contiguously."""
+    kw = {} if q_offset is None else {"q_offset": q_offset}
     out = flash_ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              causal=causal, window=window)
+                              causal=causal, window=window, **kw)
     return out.transpose(1, 2)  # the kernel's output has q's (B, S, H, hd) strides
 
 
@@ -225,8 +254,13 @@ def prefill_attention(params, s: AttnSpec, x: torch.Tensor, positions: torch.Ten
     """Full-sequence self-attention: causal (over the layer's window if it
     has one) or, for an encoder (``s.causal`` False), bidirectional.
     Returns (y (B, S, D), k, v), k and v (B, S, KV, hd) for the cache. The
-    attention itself is one call of the flash-attention wrapper."""
+    attention itself is one call of the flash-attention wrapper. On a
+    tensor-parallel mesh (``_prefill_attention_tp``) y is the rank's part
+    and k, v are whole (every kv head, every position)."""
     _check_spec(s)
+    tp = sharding_hooks.tensor_parallel()
+    if tp is not None:
+        return _prefill_attention_tp(params, s, x, positions, tp)
     q, k, v = _proj_qkv(params, s, x)
     q, k = _rope_qk(s, q, k, positions)
     out = _flash(q, k, v, causal=s.causal, window=s.window)
@@ -296,6 +330,82 @@ def causal_mask(S: int, T: int, window: Optional[int] = None, offset: int = 0,
     return m[None, None]
 
 
+def _head_layout(params, s: AttnSpec, tp):
+    """On a tensor-parallel mesh: None where the query heads are whole
+    (sequence-parallel attention), else (kv, n_rep) for the rank's heads:
+    ``kv`` None when the kv heads are split too (the rank's own), else the
+    kv heads its query heads read from whole k and v weights (a slice, or
+    an index tensor where its heads straddle groups unevenly), and the
+    query heads per kv head among them."""
+    Hl = params["wq"].shape[1]
+    if Hl == s.n_heads:
+        return None
+    if params["wk"].shape[1] < s.kv_heads:
+        return None, Hl // params["wk"].shape[1]
+    # the kv heads are whole only where the axis does not divide them, so
+    # the rank's Hl query heads never span whole groups of n_rep
+    n_rep = s.n_heads // s.kv_heads
+    h0 = tp.rank * Hl
+    if n_rep % Hl == 0:
+        return slice(h0 // n_rep, h0 // n_rep + 1), Hl
+    return torch.arange(h0, h0 + Hl, device=params["wq"].device) // n_rep, 1
+
+
+def _apply_attention_tp(params, s: AttnSpec, x, positions, tp):
+    """Training attention on a tensor-parallel mesh. Head-parallel: x (B,
+    S, D) whole over the sequence, ``positions`` (B, S); returns the
+    rank's heads' part of the output projection (the caller
+    reduce-scatters it). Sequence-parallel: x the rank's rows (B, S/M, D)
+    at ``positions``; k and v gathered over the sequence, the causal mask
+    at the rows' offset; returns the rows' output."""
+    heads = _head_layout(params, s, tp)
+    if heads is None:
+        Sl = x.shape[1]
+        q, k, v = _proj_qkv(params, s, x)
+        q, k = _rope_qk(s, q, k, positions)
+        k = sharding_hooks.gather_seq(k, tp)
+        v = sharding_hooks.gather_seq(v, tp)
+        mask = (causal_mask(Sl, k.shape[1], s.window, offset=tp.rank * Sl, device=x.device)
+                if s.causal else None)
+        n_rep = s.n_heads // s.kv_heads
+    else:
+        kv, n_rep = heads
+        q, k, v = _proj_qkv(params, s, x, kv)
+        q, k = _rope_qk(s, q, k, positions)
+        mask = causal_mask(x.shape[1], x.shape[1], s.window, device=x.device) if s.causal else None
+    with _span("sdpa"):
+        out = _sdpa(q, k, v, mask, n_rep)
+    return _out_proj(out, params["wo"])
+
+
+def _prefill_attention_tp(params, s: AttnSpec, x, positions, tp):
+    """``prefill_attention`` on a tensor-parallel mesh, as
+    ``_apply_attention_tp`` lays it out, through the flash kernel: the
+    rank's heads over the whole sequence, or its query rows at their
+    offset (``q_offset``) against the gathered keys. Returns (y, k, v) with
+    k and v whole for the cache."""
+    heads = _head_layout(params, s, tp)
+    if heads is None:
+        Sl = x.shape[1]
+        q, k, v = _proj_qkv(params, s, x)
+        q, k = _rope_qk(s, q, k, positions)
+        k = sharding_hooks.gather_model(k, tp, 1)
+        v = sharding_hooks.gather_model(v, tp, 1)
+        out = _flash(q, k, v, causal=s.causal, window=s.window, q_offset=tp.rank * Sl)
+        return _out_proj(out, params["wo"]), k, v
+    kv, _ = heads
+    q, k, v = _proj_qkv(params, s, x)  # every kv head the weights hold
+    q, k = _rope_qk(s, q, k, positions)
+    if kv is None:  # the rank's own kv heads; the cache takes all of them
+        ka, va = k, v
+        k = sharding_hooks.gather_model(k, tp, 2)
+        v = sharding_hooks.gather_model(v, tp, 2)
+    else:
+        ka, va = _pick(k, kv, 2), _pick(v, kv, 2)
+    out = _flash(q, ka, va, causal=s.causal, window=s.window)
+    return _out_proj(out, params["wo"]), k, v
+
+
 def apply_attention(params, s: AttnSpec, x: torch.Tensor, positions: torch.Tensor,
                     mask: Optional[torch.Tensor] = None):
     """Full-sequence self-attention for training, differentiable: causal
@@ -303,8 +413,11 @@ def apply_attention(params, s: AttnSpec, x: torch.Tensor, positions: torch.Tenso
     False), bidirectional; ``_sdpa``, never a kernel. The activations take
     the reference's sequence-parallel layout (q sharded over the sequence,
     k and v gathered): the identity on a mesh whose model axis is 1
-    (``sharding_hooks``)."""
+    (``sharding_hooks``); above 1, ``_apply_attention_tp``."""
     _check_spec(s)
+    tp = sharding_hooks.tensor_parallel()
+    if tp is not None and mask is None:
+        return _apply_attention_tp(params, s, x, positions, tp)
     S = x.shape[1]
     q, k, v = _proj_qkv(params, s, x)
     q, k = _rope_qk(s, q, k, positions)
@@ -352,8 +465,12 @@ def decode_attention(
     ``pos`` stays on the device: the cache write, RoPE and the kernel read
     it there, so the step needs no host sync. M-RoPE rotates the token at
     ``pos`` on all three components, as the reference does (a text token's
-    positions advance together)."""
+    positions advance together). On a tensor-parallel mesh the cache is
+    split over its slots (``_decode_attention_cp``)."""
     _check_spec(s)
+    tp = sharding_hooks.tensor_parallel()
+    if tp is not None:
+        return _decode_attention_cp(params, s, x, cache, pos, tp)
     B = x.shape[0]
     q, k_new, v_new = _proj_qkv(params, s, x)
     positions = pos.reshape(1, 1).expand(B, 1)
@@ -368,6 +485,46 @@ def decode_attention(
     vc.index_copy_(1, slot, v_new)
     out = decode_ops.decode(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), pos)  # (B, H, hd)
     return _out_proj(out[:, None], params["wo"]), cache
+
+
+def _decode_attention_cp(params, s: AttnSpec, x, cache, pos, tp):
+    """Context-parallel decode: rank r holds slots [r T, (r+1) T) of a
+    cache of M T slots (k, v (B, T, KV, hd), every kv head). The token's q,
+    k and v are gathered over the heads (small tensors), the rank that owns
+    slot ``pos`` writes k and v there (the others write back what they
+    hold: no host sync), each rank runs the decode kernel's partial form
+    over its slots, and the ranks' partials are merged by their log-sum-exp
+    in rank order (float32, rounded to q's dtype once). Returns the
+    output projection of the rank's heads (a partial sum the caller
+    all-reduces) or, where the heads are whole, of all of them."""
+    B = x.shape[0]
+    q, k_new, v_new = _proj_qkv(params, s, x)
+    q, k_new = _rope_qk(s, q, k_new, pos.reshape(1, 1).expand(B, 1))
+    if q.shape[2] < s.n_heads:
+        q = sharding_hooks.gather_model(q, tp, 2)
+    if k_new.shape[2] < s.kv_heads:
+        k_new = sharding_hooks.gather_model(k_new, tp, 2)
+        v_new = sharding_hooks.gather_model(v_new, tp, 2)
+    kc, vc = cache["k"], cache["v"]
+    if kc.dtype != q.dtype:
+        raise ValueError(f"cache dtype {kc.dtype} != activation dtype {q.dtype}")
+    T = kc.shape[1]
+    slot0 = tp.rank * T
+    local = pos.reshape(1).long() - slot0
+    own = ((local >= 0) & (local < T)).reshape(1, 1, 1, 1)
+    slot = local.clamp(0, T - 1)
+    kc.index_copy_(1, slot, torch.where(own, k_new, kc.index_select(1, slot)))
+    vc.index_copy_(1, slot, torch.where(own, v_new, vc.index_select(1, slot)))
+    out, lse = decode_ops.decode(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), pos,
+                                 slot0=slot0, return_lse=True)
+    outs = sharding_hooks.gather_model(out[None], tp, 0)
+    lses = sharding_hooks.gather_model(lse[None], tp, 0)
+    merged = decode_ops.merge_partials(outs, lses, q.dtype)  # (B, H, hd)
+    wo = params["wo"]
+    Hl = wo.shape[0]
+    if Hl < s.n_heads:
+        merged = merged[:, tp.rank * Hl:(tp.rank + 1) * Hl]
+    return _out_proj(merged[:, None], wo), cache
 
 
 # ---------------------------------------------------------------------------
@@ -747,3 +904,19 @@ def init_embedding(vocab: int, d_model: int) -> Dict[str, Any]:
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return params["table"][tokens]
+
+
+def embed_vocab_parallel(params, tokens: torch.Tensor, tp, seq_split: bool) -> torch.Tensor:
+    """The lookup of a table whose rows (the vocab) are split over "model":
+    each rank looks up the tokens of its rows (0 for the others), and the
+    ranks' lookups are summed over the axis, into the rank's rows of the
+    sequence (``seq_split``: a reduce-scatter, the sequence-parallel
+    residual) or whole (an all-reduce: decode's one token). Exactly one
+    rank holds each token, so the sum is the lookup, bit for bit."""
+    table = params["table"]
+    Vl = table.shape[0]
+    idx = tokens.long() - tp.rank * Vl
+    own = (idx >= 0) & (idx < Vl)
+    e = torch.where(own[..., None], table[idx.clamp(0, Vl - 1)],
+                    torch.zeros((), dtype=table.dtype, device=table.device))
+    return sharding_hooks.scatter_seq(e, tp) if seq_split else sharding_hooks.sum_model(e, tp)

@@ -117,15 +117,21 @@ def _leaves(defs, prefix=()):
         yield from _leaves(defs[k], prefix + (k,))
 
 
-def init_values(defs, gen: torch.Generator, device) -> dict:
+def init_values(defs, gen: torch.Generator, device, cut=None) -> dict:
     """Draw every leaf of ``defs`` (in sorted-key order) into a nested dict
-    of tensors."""
+    of tensors. With ``cut(path, tensor)`` (a rank's shard of a leaf, on a
+    tensor-parallel mesh) each leaf keeps only what ``cut`` returns, in
+    storage of its own: the generator's stream has no skip, so a leaf is
+    drawn whole (one leaf at a time) and its shard has the bits of the same
+    slice of the one-process draw."""
     out: dict = {}
     for path, d in _leaves(defs):
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = init_leaf(d, gen, device)
+        value = init_leaf(d, gen, device)
+        node[path[-1]] = value if cut is None else cut(path, value).clone()
+        del value
     return out
 
 

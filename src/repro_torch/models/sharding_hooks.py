@@ -1,25 +1,41 @@
-"""Activation-sharding hook.
+"""Activation sharding: the layout changes of the "model" mesh axis.
 
 Port of the reference's ``models/sharding_hooks.py``. Models call
 ``shard_act(x, ("batch", "act_seq", "embed"))`` at block boundaries.
 Outside a mesh context it is the identity. Inside the step builder's
 context (``activation_sharding``) the reference constrains the activation
-to the layout that the logical -> mesh rules give; in the port each data
-rank runs as its own process and already holds its batch rows, so on a
-mesh whose "model" axis is 1 (the only one ported) every such layout is
-the identity too. A "model" axis above 1 would split sequences or heads
-across processes: tensor parallelism, which raises ``NotImplementedError``
-(ROADMAP.md).
+to the layout that the logical -> mesh rules give and lets GSPMD insert the
+collectives. In the port each rank runs as its own process and already
+holds its batch rows (the data axes), so only the "model" axis changes a
+layout, and the change is an explicit collective on its process group.
+On a "model" axis above 1 the residual stream between blocks is
+sequence-parallel (``act_seq``: rank r holds rows [r S/M, (r+1) S/M)),
+and the models call the layout changes as ``torch.autograd.Function``s:
+
+* ``gather_seq``: a sequence-split tensor whole on every rank (all-gather
+  forward; reduce-scatter backward, the ranks' gradients being partial);
+* ``scatter_seq``: the rank's rows of the sum over ranks of a partial
+  whole tensor (reduce-scatter forward, all-gather backward): the
+  row-parallel output projections and the vocab-parallel lookup;
+* ``sum_model``: the sum over ranks (all-reduce forward, the identity
+  backward: every rank goes on with the same value, so each takes the
+  gradient of its own part), for decode's row-parallel outputs and the
+  vocab-parallel cross entropy.
+
+``shard_act`` itself stays the identity (it checks the names' count): the
+models call these changes where their layouts change
+(``models/transformer.py``, ``models/layers.py``).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.core.sharded import DEFAULT_RULES, mesh_axis_size
+from repro_torch.core.sharded import DEFAULT_RULES, all_gather_dim, call_collective, model_size
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar("act_sharding_ctx", default=None)
 
@@ -54,24 +70,108 @@ def remat_context():
     return contextlib.nullcontext(), recompute()
 
 
+class TP(NamedTuple):
+    """The "model" axis of the active context: its process group, size and
+    this process's rank along it."""
+    group: object
+    size: int
+    rank: int
+
+
+def tensor_parallel() -> Optional[TP]:
+    """The active context's "model" axis when it is above 1, else None."""
+    ctx = _CTX.get()
+    if ctx is None:
+        return None
+    mesh, _ = ctx
+    M = model_size(mesh)
+    if M == 1:
+        return None
+    return TP(mesh.get_group("model"), M, mesh.get_local_rank("model"))
+
+
+def _gather(x: torch.Tensor, dim: int, tp: TP) -> torch.Tensor:
+    return all_gather_dim(x, dim, tp.group, tp.size)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, tp: TP) -> torch.Tensor:
+    moved = x.movedim(dim, 0).contiguous()
+    if moved.shape[0] % tp.size:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {tp.size} ranks")
+    out = moved.new_empty((moved.shape[0] // tp.size,) + tuple(moved.shape[1:]))
+    call_collective(dist.reduce_scatter_tensor, out, moved, group=tp.group)
+    return out.movedim(0, dim)
+
+
+def _all_reduce(x: torch.Tensor, tp: TP, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    x = x.contiguous().clone()
+    call_collective(dist.all_reduce, x, op=op, group=tp.group)
+    return x
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return _gather(x, dim, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter(grad, ctx.dim, ctx.tp), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return _reduce_scatter(x, dim, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather(grad, ctx.dim, ctx.tp), None, None
+
+
+class _SumModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return _all_reduce(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def gather_seq(x: torch.Tensor, tp: TP, dim: int = 1) -> torch.Tensor:
+    """The ranks' pieces of ``x`` along ``dim`` (the sequence) concatenated
+    in rank order, on every rank."""
+    return _GatherSeq.apply(x, dim, tp)
+
+
+def scatter_seq(x: torch.Tensor, tp: TP, dim: int = 1) -> torch.Tensor:
+    """This rank's piece along ``dim`` of the sum over ranks of ``x``."""
+    return _ScatterSeq.apply(x, dim, tp)
+
+
+def sum_model(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """The sum over the ranks of ``x``, the same on every rank."""
+    return _SumModel.apply(x, tp)
+
+
+def max_model(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """The elementwise max over the ranks (no gradient)."""
+    return _all_reduce(x.detach(), tp, dist.ReduceOp.MAX)
+
+
+def gather_model(x: torch.Tensor, tp: TP, dim: int) -> torch.Tensor:
+    """The ranks' pieces along ``dim`` concatenated, without a gradient
+    (serving: heads, vocab columns, a prompt's last row)."""
+    return _gather(x, dim, tp)
+
+
 def shard_act(x: torch.Tensor, names: tuple) -> torch.Tensor:
     ctx = _CTX.get()
     if ctx is None:
         return x
     if len(names) != x.dim():
         raise ValueError(f"axes {names} vs shape {tuple(x.shape)}")
-    if act_mesh_axis_size("model") > 1:
-        raise NotImplementedError(
-            "activations split over a 'model' mesh axis (tensor parallelism) are not "
-            "ported yet (ROADMAP.md queue 1)"
-        )
     return x
-
-
-def act_mesh_axis_size(name: str) -> int:
-    """Size of a mesh axis in the active sharding context (1 if none)."""
-    ctx = _CTX.get()
-    if ctx is None:
-        return 1
-    mesh, _ = ctx
-    return mesh_axis_size(mesh, name) if name in mesh.mesh_dim_names else 1

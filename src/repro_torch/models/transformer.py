@@ -38,6 +38,20 @@ the plain chunked scan (``ssm.train_rwkv6_time``). A group's shared blocks
 follow its period's blocks inside the layer's checkpoint, with the one
 ``g{gi}_shared`` tree, so their gradient sums over the applications. The
 encoder-decoder (whisper) is ``models/whisper.py``.
+
+Tensor parallelism (a "model" mesh axis above 1, the dense family without
+windows or M-RoPE: ``check_tensor_parallel``): a model built on such a mesh
+(``TransformerLM(cfg, mesh=mesh)``) holds its rank's shards of every leaf
+(``lm_param_specs``). Under the step's mesh context the residual stream is
+sequence-parallel; a block whose heads or ffn divide the axis gathers its
+input over the sequence and reduce-scatters its row-parallel output
+(``_gatherable``, the reference's Megatron-SP layout), the others run on
+the rank's rows (sequence-parallel attention). The embedding, the logits
+and the cross entropy are vocab-parallel where the vocab divides the axis
+(a masked lookup reduced over "model"; the max, the sum of exponents and
+the target logit each reduced over it), else computed on the rank's rows.
+A prefill returns its caches in the decode layout (``kv_seq`` over
+"model"), and decode attends context-parallel (``layers.decode_attention``).
 """
 from __future__ import annotations
 
@@ -50,8 +64,17 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.sharded import (
+    DEFAULT_RULES,
+    global_shape,
+    map_specs,
+    model_size,
+    shard,
+    spec_for_leaf,
+)
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import sharding_hooks as SH
 from repro_torch.models import ssm as S
 from repro_torch.models.param_defs import (
     ParamDef,
@@ -172,16 +195,79 @@ def _sharded_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return lse - tgt
 
 
+def _vocab_parallel_ce(logits: torch.Tensor, targets: torch.Tensor, v0: int, tp) -> torch.Tensor:
+    """``_sharded_ce`` of logits whose vocab is split over "model" (this
+    rank's columns v0.. of ``logits``): the max, the sum of exponents and
+    the target logit each reduced over the axis (the max without a
+    gradient: the logsumexp's derivative in it is 0)."""
+    l32 = logits.float()
+    m = SH.max_model(l32.amax(dim=-1), tp)
+    lse = m + torch.log(SH.sum_model(torch.exp(l32 - m[..., None]).sum(dim=-1), tp))
+    vocab = torch.arange(logits.shape[-1], device=logits.device) + v0
+    tgt = SH.sum_model(torch.where(vocab == targets[..., None], l32, 0.0).sum(dim=-1), tp)
+    return lse - tgt
+
+
+TP_KINDS = ("attn", "mlp")
+
+
+def check_tensor_parallel(cfg: "ArchConfig") -> None:
+    """Raise ``NotImplementedError`` unless a config runs on a "model" axis
+    above 1: blocks of ``TP_KINDS`` only, attention without windows, shared
+    blocks or M-RoPE (ROADMAP.md queue 1 lists the rest)."""
+    for g in cfg.groups:
+        for b in g.blocks + g.shared:
+            bad = (b.kind not in TP_KINDS or bool(g.shared)
+                   or (b.kind == "attn" and (b.attn.window is not None or b.attn.rope != "std"
+                                             or not b.attn.causal)))
+            if bad:
+                raise NotImplementedError(
+                    f"{cfg.name}: a 'model' mesh axis above 1 is ported for the dense attention "
+                    f"and MLP blocks (no windows, shared blocks or M-RoPE); block {b.kind!r} "
+                    f"is not yet (ROADMAP.md queue 1)")
+
+
+def _gatherable(b: BlockSpec, M: int) -> bool:
+    """The reference's rule: a block gathers its input over the sequence
+    (Megatron-SP) when its parallel dim divides the model axis; otherwise
+    its weights are replicated and it runs on the rank's rows."""
+    if M == 1:
+        return False
+    if b.kind == "mlp":
+        return b.mlp.d_ff % M == 0
+    if b.kind == "attn":
+        return b.attn.n_heads % M == 0
+    return False
+
+
+def _tp_ctx(ctx: dict, S: int) -> dict:
+    """Add the active "model" axis to a pass's ctx, with the rank's rows'
+    positions; a sequence that does not split over it raises."""
+    tp = SH.tensor_parallel()
+    if tp is None:
+        return ctx
+    if S % tp.size:
+        raise ValueError(f"a sequence of {S} does not split over a model axis of {tp.size}")
+    Sl = S // tp.size
+    return dict(ctx, tp=tp, positions_local=ctx["positions"][:, tp.rank * Sl:(tp.rank + 1) * Sl])
+
+
 def apply_block_train(b: BlockSpec, p, x, ctx: dict):
     """A block's training forward: (``x + f(norm(x))``, its aux loss, 0
     but for MoE), differentiable. The reference gathers a block's input
     over the sequence (Megatron-SP) when its heads or ffn divide a model
-    axis above 1; on the ported meshes (model axis 1) it never does, and
-    its attention runs sequence-parallel."""
+    axis above 1 (``_gatherable``), and reduce-scatters its row-parallel
+    output back; otherwise the block runs on the rank's rows, its
+    attention sequence-parallel. On a model axis of 1 neither happens."""
     h = _norm_apply(b.norm, p["norm"], x)
+    tp = ctx.get("tp")
+    gather = tp is not None and _gatherable(b, tp.size)
+    if gather:
+        h = SH.gather_seq(h, tp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if b.kind == "attn":
-        y = L.apply_attention(p["attn"], b.attn, h, _attn_positions(b, ctx))
+        pos = ctx["positions_local"] if tp is not None and not gather else _attn_positions(b, ctx)
+        y = L.apply_attention(p["attn"], b.attn, h, pos)
     elif b.kind == "mla":
         y = L.apply_mla(p["mla"], b.mla, h, ctx["positions"])
     elif b.kind == "mlp":
@@ -195,6 +281,8 @@ def apply_block_train(b: BlockSpec, p, x, ctx: dict):
         y = S.train_rwkv6_time(p["rwkv"], b.rwkv, h)
     else:
         y, _ = S.apply_rwkv6_channel(p["rwkv_ffn"], h)
+    if gather:
+        y = SH.scatter_seq(y, tp)
     return shard_act(x + y, ("batch", "act_seq", "embed")), aux
 
 
@@ -217,8 +305,38 @@ def block_cache_defs(b: BlockSpec, batch: int, seq_len: int, dtype) -> Optional[
             "x_prev": x_prev}
 
 
+def _apply_block_prefill_tp(b: BlockSpec, p, x, ctx, tp):
+    """``apply_block_prefill`` on a tensor-parallel mesh (attention and MLP
+    blocks): the layout of ``apply_block_train``; an attention block's
+    cache in the decode layout, the rank's slots of the whole cache."""
+    h = _norm_apply(b.norm, p["norm"], x)
+    gather = _gatherable(b, tp.size)
+    if gather:
+        h = SH.gather_seq(h, tp)
+    if b.kind == "mlp":
+        y, entry = L.apply_mlp(p["mlp"], b.mlp, h), None
+    else:
+        pos = ctx["positions"] if gather else ctx["positions_local"]
+        y, k, v = L.prefill_attention(p["attn"], b.attn, h, pos)
+        T = ctx["cache_len"]
+        if T % tp.size:
+            raise ValueError(f"a cache of {T} slots does not split over a model axis of "
+                             f"{tp.size}")
+        Tl = T // tp.size
+
+        def local(t):
+            return _cache_fill(t, T)[:, tp.rank * Tl:(tp.rank + 1) * Tl].clone()
+
+        entry = {"k": local(k), "v": local(v)}
+    if gather:
+        y = SH.scatter_seq(y, tp)
+    return x + y, entry
+
+
 def apply_block_prefill(b: BlockSpec, p, x, ctx):
     """Returns (y, cache_entry)."""
+    if "tp" in ctx:
+        return _apply_block_prefill_tp(b, p, x, ctx, ctx["tp"])
     h = _norm_apply(b.norm, p["norm"], x)
     if b.kind == "mlp":
         return x + L.apply_mlp(p["mlp"], b.mlp, h), None
@@ -260,7 +378,16 @@ def _cache_fill(t: torch.Tensor, T: int, ring: bool = False) -> torch.Tensor:
 
 def apply_block_decode(b: BlockSpec, p, x, cache, pos):
     """One token through a block; attention and RWKV6 caches are updated
-    in place."""
+    in place. On a tensor-parallel mesh a block with split weights sums its
+    row-parallel output over "model"."""
+    tp = SH.tensor_parallel()
+    if tp is not None and _gatherable(b, tp.size):
+        h = _norm_apply(b.norm, p["norm"], x)
+        if b.kind == "mlp":
+            y = L.apply_mlp(p["mlp"], b.mlp, h)
+        else:
+            y, cache = L.decode_attention(p["attn"], b.attn, h, cache, pos)
+        return x + SH.sum_model(y, tp), cache
     h = _norm_apply(b.norm, p["norm"], x)
     if b.kind == "mlp":
         return x + L.apply_mlp(p["mlp"], b.mlp, h), cache
@@ -304,6 +431,35 @@ def lm_param_defs(cfg: ArchConfig) -> Dict[str, Any]:
     return defs
 
 
+def _def_map(fn, tree):
+    """``fn`` over the leaves of a tree of ``ParamDef``s (or, ``fn`` taking
+    them, of spec tuples under dicts)."""
+    if isinstance(tree, dict):
+        return {k: _def_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_param_specs(cfg: ArchConfig, mesh, rules: Optional[dict] = None,
+                   stacked: bool = False) -> Dict[str, Any]:
+    """The spec of every parameter leaf on ``mesh`` (the reference's
+    ``spec_for_leaf`` with ``DEFAULT_RULES``, the config's overrides and
+    ``rules``): in the layout of ``params()`` (a list per group), or with
+    ``stacked`` in the declaration's (each group's period stacked on a
+    leading ``layers`` axis, replicated)."""
+    merged = dict(DEFAULT_RULES, **cfg.sharding_overrides, **(rules or {}))
+    specs = _def_map(lambda d: spec_for_leaf(d.axes, d.shape, mesh, merged), lm_param_defs(cfg))
+    if stacked:
+        return specs
+    out: Dict[str, Any] = {}
+    for k, v in specs.items():
+        if k.startswith("g") and not k.endswith("_shared"):
+            layer = _def_map(lambda sp: sp[1:], v)
+            out[k] = [layer for _ in range(cfg.groups[int(k[1:])].repeat)]
+        else:
+            out[k] = v
+    return out
+
+
 def lm_axes(cfg: ArchConfig) -> Dict[str, Any]:
     """The logical axes of a model's ``params()``: the reference's, per
     layer (its stacked ``layers`` axis removed). Nothing is allocated."""
@@ -338,17 +494,32 @@ class TransformerLM(nn.Module):
     ``device``, frozen (``ParamTree``): one per layer in ``groups``, and a
     group's shared blocks in the attribute ``g{gi}_shared``.
     The device is CUDA by default and raises when there is none; pass
-    ``device="cpu"`` to run on the CPU."""
+    ``device="cpu"`` to run on the CPU. Built with a ``mesh`` whose "model"
+    axis is above 1, it keeps only this rank's shard of each leaf
+    (``param_specs``), bit for bit the same slice of the one-process draw
+    from the same seed, and its steps must run on that mesh."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda", seed: int = 0):
+    def __init__(self, cfg: ArchConfig, device="cuda", seed: int = 0, mesh=None):
         super().__init__()
         for g in cfg.groups:
             for b in g.blocks + g.shared:
                 _check_kind(b)
         device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh if model_size(mesh) > 1 else None
+        cut = None
+        if self.mesh is not None:
+            check_tensor_parallel(cfg)
+            stacked = lm_param_specs(cfg, mesh, stacked=True)
+
+            def cut(path, value):
+                spec = stacked
+                for k in path:
+                    spec = spec[k]
+                return shard(value, spec, mesh, ("model",))
+
         gen = torch.Generator(device=device).manual_seed(seed)
-        values = init_values(self.param_defs(), gen, device)
+        values = init_values(self.param_defs(), gen, device, cut)
         self.embed = ParamTree(values["embed"])
         self.groups = nn.ModuleList(
             nn.ModuleList(ParamTree(p) for p in unstack(values.pop(f"g{gi}"), g.repeat))
@@ -382,8 +553,25 @@ class TransformerLM(nn.Module):
         return lm_axes(self.cfg)
 
     def param_shapes(self) -> Dict[str, Any]:
-        """``params()`` as meta tensors: shapes and dtypes, no storage."""
+        """``params()`` as meta tensors: shapes and dtypes, no storage (on a
+        tensor-parallel mesh, this rank's shards)."""
         return tree_map(lambda p: torch.empty_like(p, device="meta"), self.params())
+
+    @property
+    def param_specs(self) -> Optional[Dict[str, Any]]:
+        """The specs of ``params()`` on the model's mesh (None without one)."""
+        return None if self.mesh is None else lm_param_specs(self.cfg, self.mesh)
+
+    def global_param_shapes(self) -> Dict[str, Any]:
+        """The whole leaves' shapes as meta tensors (``param_shapes`` but
+        for a model built on a tensor-parallel mesh)."""
+        local = self.param_shapes()
+        if self.mesh is None:
+            return local
+        return map_specs(
+            lambda t, sp: torch.empty(global_shape(t.shape, sp, self.mesh, ("model",)),
+                                      dtype=t.dtype, device="meta"),
+            local, self.param_specs)
 
     def num_params(self) -> int:
         return count_params(self.param_defs())
@@ -428,11 +616,48 @@ class TransformerLM(nn.Module):
             logits = (torch.tanh(logits.float() / c) * c).to(torch.bfloat16)
         return logits
 
-    def _embed_in(self, tokens, params=None):
+    def _tensor_parallel(self):
+        """The active "model" axis (above 1) of the step's mesh context, or
+        None; a model built on such a mesh runs only under its context, and
+        a model built without one never under it."""
+        tp = SH.tensor_parallel()
+        if (tp is None) != (self.mesh is None):
+            raise RuntimeError(
+                "a model built on a mesh with a 'model' axis above 1 runs under that mesh's "
+                "step context (launch/steps.py), and only such a model does: build it with "
+                "build_model(cfg, mesh=mesh)")
+        return tp
+
+    def _vocab_split(self, params=None) -> bool:
+        """Whether the unembedding table's rows are split over "model"."""
+        key = "embed" if self.cfg.tie_embeddings else "lm_head"
+        table = getattr(self, key).table if params is None else params[key]["table"]
+        return table.shape[0] < self.cfg.vocab
+
+    def _logits_whole(self, x, tp):
+        """``_logits`` with every vocab column on every rank (serving)."""
+        logits = self._logits(x)
+        if tp is not None and self._vocab_split():
+            logits = SH.gather_model(logits, tp, logits.dim() - 1)
+        return logits
+
+    def _embed_in(self, tokens, params=None, tp=None, seq_split: bool = True):
         """The tokens' embeddings (of ``params`` or of the module); with
         ``embed_scale``, times sqrt(d_model) rounded to their dtype first,
-        as the reference multiplies (a host float: no device copy)."""
-        x = L.embed(self.embed if params is None else params["embed"], tokens)
+        as the reference multiplies (a host float: no device copy). On a
+        tensor-parallel mesh (``tp``), the rank's rows of the sequence
+        (``seq_split``) or the whole of it: vocab-parallel where the table
+        is split, else a lookup of those tokens."""
+        table = self.embed if params is None else params["embed"]
+        if tp is None:
+            x = L.embed(table, tokens)
+        elif table["table"].shape[0] < self.cfg.vocab:
+            x = L.embed_vocab_parallel(table, tokens, tp, seq_split)
+        else:
+            if seq_split:
+                Sl = tokens.shape[1] // tp.size
+                tokens = tokens[:, tp.rank * Sl:(tp.rank + 1) * Sl]
+            x = L.embed(table, tokens)
         if self.cfg.embed_scale:
             x = x * _embed_scale(self.cfg.d_model, x.dtype)
         return x
@@ -506,6 +731,9 @@ class TransformerLM(nn.Module):
         float32-accumulated product), the CE in float32."""
         tokens = batch["tokens"].to(self.device).long()
         ctx = self._ctx(batch, tokens)
+        tp = self._tensor_parallel()
+        if tp is not None:
+            return self._loss_tp(params, tokens, _tp_ctx(ctx, tokens.shape[1]), tp)
         x = shard_act(self._embed_in(tokens, params), ("batch", "act_seq", "embed"))
         x, aux = self._stack_apply_train(params, x, ctx)
         x = _norm_apply(self.cfg.final_norm, params["final_norm"], x)
@@ -513,6 +741,29 @@ class TransformerLM(nn.Module):
         logits = shard_act(self._logits(x[:, :-1], params), ("batch", None, "vocab"))
         nll = _sharded_ce(logits, tokens[:, 1:])
         per_ex = nll.mean(dim=-1) + self.cfg.lb_loss_weight * aux / max(self.cfg.n_layers, 1)
+        return per_ex, {"lb_loss": aux}
+
+    def _loss_tp(self, params, tokens, ctx, tp):
+        """``loss`` on a tensor-parallel mesh: the sequence-parallel stack,
+        then, with the vocab split, the final rows gathered over the
+        sequence and the vocab-parallel CE; else each rank's rows'
+        logits and CE, their sum reduced over "model". Every rank returns
+        the whole loss."""
+        S = tokens.shape[1]
+        x = self._embed_in(tokens, params, tp)
+        x, aux = self._stack_apply_train(params, x, ctx)
+        x = _norm_apply(self.cfg.final_norm, params["final_norm"], x)
+        if self._vocab_split(params):
+            x = SH.gather_seq(x, tp)
+            logits = self._logits(x[:, :-1], params)
+            nll = _vocab_parallel_ce(logits, tokens[:, 1:], tp.rank * logits.shape[-1], tp)
+            total = nll.mean(dim=-1)
+        else:
+            lo = tp.rank * x.shape[1]
+            tgt = tokens[:, lo + 1:lo + x.shape[1] + 1]
+            nll = _sharded_ce(self._logits(x[:, :tgt.shape[1]], params), tgt)
+            total = SH.sum_model(nll.sum(dim=-1), tp) / (S - 1)
+        per_ex = total + self.cfg.lb_loss_weight * aux / max(self.cfg.n_layers, 1)
         return per_ex, {"lb_loss": aux}
 
     # -- serving ---------------------------------------------------------------
@@ -548,14 +799,18 @@ class TransformerLM(nn.Module):
         block's final state and last normed input."""
         tokens = batch["tokens"].to(self.device)
         ctx = self._ctx(batch, tokens, batch.get("cache_len", tokens.shape[1]))
-        x = self._embed_in(tokens)
+        tp = self._tensor_parallel()
+        if tp is not None:
+            ctx = _tp_ctx(ctx, tokens.shape[1])
+        x = self._embed_in(tokens, tp=tp)
         caches: Dict[str, Any] = {}
         for gi, li, key, b, p in self._layers():
             x, c = apply_block_prefill(b, p, x, ctx)
             if c is not None:
                 self._put(caches, gi, li, key, c)
-        x = _norm_apply(self.cfg.final_norm, self.final_norm, x[:, -1:])
-        return self._logits(x), caches
+        last = x[:, -1:] if tp is None else SH.gather_model(x[:, -1:], tp, 1)[:, -1:]
+        x = _norm_apply(self.cfg.final_norm, self.final_norm, last)
+        return self._logits_whole(x, tp), caches
 
     @torch.no_grad()
     def decode_step(self, cache, batch):
@@ -568,9 +823,10 @@ class TransformerLM(nn.Module):
         with the logits (B, 1, V) bf16."""
         token = batch["token"].to(self.device)
         pos = torch.as_tensor(batch["pos"], dtype=torch.int32, device=self.device)
-        x = self._embed_in(token)
+        tp = self._tensor_parallel()
+        x = self._embed_in(token, tp=tp, seq_split=False)
         for gi, li, key, b, p in self._layers():
             entry = cache[f"g{gi}"][li].get(key) if f"g{gi}" in cache else None
             x, _ = apply_block_decode(b, p, x, entry, pos)
         x = _norm_apply(self.cfg.final_norm, self.final_norm, x)
-        return self._logits(x), cache
+        return self._logits_whole(x, tp), cache

@@ -50,7 +50,8 @@ def count_cell(cell: dict) -> dict:
     shape = ShapeSpec(cell.get("cell", "cell"), cell["seq_len"], cell["batch"], cell["kind"])
     mesh = tuple(cell.get("mesh", (1, 1)))
     with fake_world(mesh) as fake_mesh:
-        model = build_model(cfg, device="cpu")
+        # on a "model" axis above 1 the model holds this rank's shards
+        model = build_model(cfg, device="cpu", mesh=fake_mesh if mesh[-1] > 1 else None)
         built = steps.build_step(model, fake_mesh, shape)
         enc_len = cell.get("enc_len")
         if isinstance(cfg, WhisperConfig) and shape.kind == "decode" and enc_len:

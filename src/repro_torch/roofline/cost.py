@@ -119,6 +119,8 @@ class StepCost:
     bytes: float = 0.0                # read and written
     collective_bytes: Dict[str, float] = dataclasses.field(
         default_factory=lambda: defaultdict(float))
+    # each collective call's (kind, group size, in bytes, out bytes), in order
+    collective_log: list = dataclasses.field(default_factory=list)
     input_bytes: float = 0.0          # the step's inputs, alive throughout
     peak_bytes: float = 0.0           # input_bytes plus the most the step held at once
     kernel_calls: Dict[str, int] = dataclasses.field(default_factory=lambda: defaultdict(int))
@@ -248,8 +250,9 @@ class CostMode(TorchDispatchMode):
             ins = outs = _tensors(args[:1])
         else:  # (output, input, group, ...)
             outs, ins = _tensors(args[:1]), _tensors(args[1:2])
-        self.cost.collective_bytes[kind] += collective_bytes(
-            kind, sum(_nbytes(t) for t in ins), sum(_nbytes(t) for t in outs))
+        in_b, out_b = sum(_nbytes(t) for t in ins), sum(_nbytes(t) for t in outs)
+        self.cost.collective_bytes[kind] += collective_bytes(kind, in_b, out_b)
+        self.cost.collective_log.append((kind, dist.ProcessGroup.unbox(group).size(), in_b, out_b))
         return out
 
 

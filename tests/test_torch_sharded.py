@@ -363,11 +363,6 @@ def test_cuda_smoke_mesh_refuses_gloo_group(mesh):
 
 
 def test_unported_modes_raise(mesh):
-    class TPMesh(_Names):
-        pass
-
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        psh.make_train_step(tiny_loss, sgd(0.1), mesh=TPMesh(("data", "model"), (1, 2)))
     with pytest.raises(NotImplementedError, match="fsdp"):
         psh.make_train_step(tiny_loss, sgd(0.1), psh.IplsStepConfig(fsdp=True), mesh=mesh)
     from repro_torch.configs import SHAPES, build_model
