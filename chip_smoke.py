@@ -758,20 +758,60 @@ SERVE_RWKV_PARAMS = 7_534_546_944
 # weights and gradients and float32 AdamW moments (about 90 GB) exceed one
 # card, so the cell runs the first TRAIN_RWKV_LAYERS at full width, the most
 # whose peak stays under ~72 GB. 3 steps each (the median of steps 2-3).
+# train_mla: deepseek-v2-lite-16b (arXiv:2405.04434) at 2, with the
+# reference's TRAIN_OVERRIDES (fsdp=True: on the one-card smoke mesh a layout,
+# each stored "data" shard the whole leaf), cut in depth to its dense layer
+# and TRAIN_MLA_MOE_LAYERS of its 26 MoE layers (15.7 B parameters in all: its
+# bf16 weights alone would fill 31 GB, its AdamW moments 126 GB). Every cell
+# builds its step with IplsStepConfig(**TRAIN_OVERRIDES.get(arch, {})).
 TRAIN_RWKV_LAYERS = 13  # 69.6 GB at its peak on an H100; 14 layers 74.0 GB
+TRAIN_MLA_MOE_LAYERS = 5
 TRAIN_CELLS = (
     dict(phase="train_moe", arch="granite-moe-3b-a800m", batch=2, steps=3),
     dict(phase="train_gemma3", arch="gemma3-1b", batch=2, steps=3),
     dict(phase="train_zamba2", arch="zamba2-1.2b", batch=2, steps=3),
     dict(phase="train_whisper", arch="whisper-base", batch=2, steps=3),
     dict(phase="train_rwkv", arch="rwkv6-7b", batch=1, steps=3, layers=TRAIN_RWKV_LAYERS),
+    dict(phase="train_mla", arch="deepseek-v2-lite-16b", batch=2, steps=3,
+         layers=TRAIN_MLA_MOE_LAYERS),
 )
 # each cell's parameters (nothing cut but rwkv6's depth: its embedding, head
 # and final norm, and 218,677,248 a layer)
 TRAIN_PARAMS = {"internlm2-1.8b": SERVE_PARAMS, "granite-moe-3b-a800m": SERVE_MOE_PARAMS[0],
                 "gemma3-1b": SERVE_GEMMA3_PARAMS[0], "zamba2-1.2b": SERVE_ZAMBA2_PARAMS[0],
                 "whisper-base": SERVE_WHISPER_PARAMS[0],
-                "rwkv6-7b": SERVE_RWKV_PARAMS - (32 - TRAIN_RWKV_LAYERS) * 218_677_248}
+                "rwkv6-7b": SERVE_RWKV_PARAMS - (32 - TRAIN_RWKV_LAYERS) * 218_677_248,
+                # the dense layer and 5 MoE layers: 706,243,584 active
+                "deepseek-v2-lite-16b": 3_424_678_912}
+# train_agree's fsdp legs: fsdp=True against fsdp=False from one host copy of
+# the state, one step each, on the smoke mesh (a gather over a world of one is
+# the identity: bit for bit): every family's reduced config, and deepseek at
+# full width on its dense layer and FSDP_AGREE_MOE_LAYERS MoE layer
+FSDP_AGREE_ARCHS = ("internlm2-1.8b",) + TRAIN_AGREE_FAMILIES + ("deepseek-v2-lite-16b",)
+FSDP_AGREE_MOE_LAYERS = 1
+# phase moe_ep: one routed MoE layer at full width rank by rank at the
+# production model axis (M = 16), each rank's float32 part from its weight
+# slices (layers.moe_rank_partial), summed in rank order and cast, against the
+# model-axis-1 mesh path on the same tokens (one data rank's 2 x 4,096, bf16,
+# drawn from the seed): granite ffn-parallel (d_expert 512 = 16 x 32) and
+# deepseek expert-parallel (4 of 64 experts a rank, its 2 shared experts'
+# hidden dim 2,816 = 16 x 176 column- then row-parallel). The routing equal;
+# each output within MOE_EP_ROW_ULPS bf16 ulps of its token row's largest
+# magnitude plus 1e-5. Not of its own magnitude: each rank rounds its part of
+# every expert output to bf16 (as the reference's shard_map does; ffn mode: a
+# sixteenth of each output's hidden sum, so 16 roundings where the layer makes
+# one), and a gate-weighted sum of K such terms that cancels to a small output
+# keeps the terms' roundings. On an H100 (H100 80GB HBM3, 700 W) granite's ffn
+# mode lay 2.0 row ulps from the layer (99.99% of its outputs within 1; 24%
+# beyond one ulp of their own magnitude), deepseek's expert mode 1.0 (0.29%);
+# 16 half-ulp roundings of a part bound the sum at 8 ulps of the part: the
+# bound is 4, which a wrong slice or expert offset (an error of the output's
+# own scale, 64 or more row ulps) exceeds by far. Both counts are printed.
+MOE_EP_ROW_ULPS = 4.0
+MOE_EP = (dict(arch="granite-moe-3b-a800m", mode="ffn"),
+          dict(arch="deepseek-v2-lite-16b", mode="expert"))
+MOE_EP_M = 16
+MOE_EP_TOKENS = (2, 4096)
 # decode at pos 4,096 vs the last-token logits of a 4,097-token prefill. The
 # recurrence's step is float32 on both paths (decode in PyTorch from the
 # kernel's final state; the kernel's last, ragged chunk), so the gap comes
@@ -2724,6 +2764,55 @@ def _family_step_agree(tr, arch):
     return out
 
 
+def _fsdp_step_agree(tr, arch):
+    """One built step with fsdp=True against one with fsdp=False on the
+    card's smoke mesh, each from the same host copy of the parameters (a
+    gather over a world of one is the identity, and the update writes the
+    stored slice in place of a LoadModel): the states and metrics bit for
+    bit. The reduced config in float32 at TRAIN_AGREE's batch; deepseek at
+    full width (bf16) on its dense layer and FSDP_AGREE_MOE_LAYERS MoE
+    layer, at TRAIN's 2 x 4,096 tokens. Default optimizer (AdamW)."""
+    import torch
+
+    configs, sharded, steps, tree = (tr[k] for k in ("configs", "sharded", "steps", "tree"))
+    full = arch == "deepseek-v2-lite-16b"
+    if full:
+        cfg = _train_config(configs, dict(arch=arch, layers=FSDP_AGREE_MOE_LAYERS))
+        B, S = TRAIN["batch"], TRAIN["seq_len"]
+    else:
+        cfg = configs.get_config(arch, reduced=True)
+        B, S = TRAIN_AGREE["batch"], TRAIN_AGREE["seq_len"]
+    t0 = time.perf_counter()
+    model = configs.build_model(cfg, device="cuda", seed=TRAIN_AGREE["seed"])
+    if not full:
+        model = model.float()
+    rng = np.random.default_rng(TRAIN_AGREE["seed"])
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S), dtype=np.int32)),
+             "participation": torch.ones(B)}
+    if hasattr(cfg, "enc_layers"):
+        batch["enc_embeds"] = torch.from_numpy(
+            rng.standard_normal((B, S, cfg.d_model), dtype=np.float32)).to(model.dtype)
+    host = _host_state(tree, model.params())
+    mesh = tr["mesh"].make_smoke_mesh("cuda")
+    runs = []
+    for fsdp in (False, True):
+        _load_state(tree, model.params(), host)
+        built = steps.build_train_step(model, mesh, configs.ShapeSpec("fsdp_agree", S, B, "train"),
+                                       step_cfg=sharded.IplsStepConfig(fsdp=fsdp))
+        state, m = built.fn(built.init_state(model.params()), batch)
+        runs.append(([t.detach().clone() for t in tree.tree_leaves(state)], m))
+        del state, built
+    (s0, m0), (s1, m1) = runs
+    out = {"bitwise": all(_bits_equal(a, b) for a, b in zip(s0, s1))
+           and all(_bits_equal(m0[k], m1[k]) for k in m0),
+           "loss": float(m1["loss"]), "leaves": len(s0), "seconds": time.perf_counter() - t0}
+    if full:
+        out.update(params=sum(p.numel() for p in model.parameters()), batch=B, seq_len=S)
+    del runs, s0, s1, model, host
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_train_agree(tr, kmods):
     """The train step on the card's smoke mesh (internlm2-reduced, float32):
     bit for bit the card's step without a mesh; each step, from the card's
@@ -2863,6 +2952,7 @@ def phase_train_agree(tr, kmods):
             _bits_equal(a, b) for a, b in zip(tree.tree_leaves(_host_state(tree, state2)),
                                                tree.tree_leaves(mesh_run[2][2])))
     families = {arch: _family_step_agree(tr, arch) for arch in TRAIN_AGREE_FAMILIES}
+    fsdp = {arch: _fsdp_step_agree(tr, arch) for arch in FSDP_AGREE_ARCHS}
     launched = {k: fn.LAUNCHES - launches0[k] for k, fn in kmods.items()}
     tol, f64 = TRAIN_AGREE_TOL, gaps["vs_float64"]
     bound = {what: tol["float64_ratio"] * f64[f"cpu_{what}"] + tol["float64_floor"]
@@ -2872,8 +2962,11 @@ def phase_train_agree(tr, kmods):
            "steps_per_leg": n, "legs": [x[0] for x in legs], "losses": losses,
            "bitwise_mesh_vs_no_mesh": bitwise, "checkpoint_restore_bitwise": ckpt_bitwise,
            "cpu_vs_card_max": gaps, "float64_bounds": bound, "tolerance": TRAIN_AGREE_TOL,
-           "families": families, "launches": launched, "phase_s": time.perf_counter() - t_phase})
+           "families": families, "fsdp_vs_no_fsdp": fsdp, "launches": launched,
+           "phase_s": time.perf_counter() - t_phase})
     _require(bitwise, "train_agree: the mesh step differs from the step without a mesh")
+    _require(all(f["bitwise"] and np.isfinite(f["loss"]) for f in fsdp.values()),
+             f"train_agree: fsdp=True differs from fsdp=False {fsdp}")
     _require(ckpt_bitwise, "train_agree: the restored run differs from the uninterrupted one")
     _require(all(v == 0 for v in launched.values()), f"train_agree: kernels launched {launched}")
     for what in f64_keys:
@@ -2894,6 +2987,123 @@ def phase_train_agree(tr, kmods):
                  and all(f[f"card_{k}"] <= tol["float64_ratio"] * f[f"cpu_{k}"]
                          + tol["float64_floor"] for k in ("params", "grad_norm")),
                  f"train_agree: {arch} {f}")
+
+
+class _OneRank:
+    """A (1, 1) mesh's names and shape: the model-axis-1 mesh path of the
+    MoE layer (``activation_sharding``) without a process group."""
+    mesh_dim_names, shape = ("data", "model"), (1, 1)
+
+
+def _moe_slices(p, mode: str, r: int, M: int) -> dict:
+    """Rank r's contiguous weight slices of a MoE layer's whole weights for
+    a mode (``layers.moe_mode``), as a model built on the mesh holds them:
+    "expert" its E / M experts, "ffn" every expert's hidden columns r; the
+    router whole (gathered before routing); the shared experts' hidden dim
+    split as the rules split "ffn"."""
+    out = {"router": p["router"]}
+    if mode == "expert":
+        n = p["wg"].shape[0] // M
+        out.update({k: p[k][r * n:(r + 1) * n].contiguous() for k in ("wg", "wu", "wd")})
+    else:
+        n = p["wg"].shape[2] // M
+        out.update(wg=p["wg"][:, :, r * n:(r + 1) * n].contiguous(),
+                   wu=p["wu"][:, :, r * n:(r + 1) * n].contiguous(),
+                   wd=p["wd"][:, r * n:(r + 1) * n].contiguous())
+    if "shared" in p:
+        sh, n = p["shared"], p["shared"]["wu"].shape[1] // M
+        out["shared"] = {"wg": sh["wg"][:, r * n:(r + 1) * n].contiguous(),
+                         "wu": sh["wu"][:, r * n:(r + 1) * n].contiguous(),
+                         "wd": sh["wd"][r * n:(r + 1) * n].contiguous()}
+    return out
+
+
+def phase_moe_ep(tr):
+    """The routed MoE layer at full width over the production model axis
+    (``MOE_EP``): its weights drawn from the seed as the model draws them
+    (bf16), one data rank's 2 x 4,096 tokens (bf16, unit scale: a normed
+    input); each of the 16 ranks' float32 parts from its slices
+    (``layers.moe_rank_partial``, the function the mesh path runs on each
+    rank, its collective outside), summed in rank order and cast, against
+    the model-axis-1 mesh path (``apply_moe`` under a (1, 1) mesh context)
+    on the same tokens: every rank's choices equal the layer's, each output
+    within MOE_EP_ROW_ULPS bf16 ulps of its token row's largest magnitude
+    plus 1e-5 (the elements beyond one ulp of their own magnitude, and those
+    that differ at all, counted). Times (CUDA events): the whole layer, each
+    rank's part (the median and the largest), their ratio."""
+    import statistics
+
+    import torch
+
+    configs, layers = tr["configs"], tr["layers"]
+    from repro_torch.core.sharded import DEFAULT_RULES
+    from repro_torch.models.param_defs import init_values
+    from repro_torch.models.sharding_hooks import activation_sharding
+
+    t_phase = time.perf_counter()
+    B, S = MOE_EP_TOKENS
+    M = MOE_EP_M
+    out = {"phase": "moe_ep", "model_axis": M, "tokens": [B, S], "cases": {}}
+    for case in MOE_EP:
+        cfg = configs.get_config(case["arch"])
+        s = next(b.moe for g in cfg.groups for b in g.blocks if b.kind == "moe")
+        mode = layers.moe_mode(s, dict(DEFAULT_RULES, **cfg.sharding_overrides), M)
+        _require(mode == case["mode"], f"moe_ep: {case['arch']} takes {mode}")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        p = init_values(layers.init_moe(s), gen, "cuda")
+        x = torch.randn((B, S, s.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+        T, C = B * S, layers.moe_capacity(s, B * S)
+        ctx = activation_sharding(_OneRank(), {"batch": "data"})
+        slices = [_moe_slices(p, mode, r, M) for r in range(M)]
+        with torch.no_grad():
+            with ctx:
+                want = layers.apply_moe(p, s, x, with_lb=False)[0]
+            _, _, want_i = layers.moe_route(p, s, x.reshape(1, T, s.d_model))
+            total = torch.zeros((B, S, s.d_model), dtype=torch.float32, device="cuda")
+            same_routing = True
+            for r in range(M):
+                part, _, top_i = layers.moe_rank_partial(slices[r], s, x, C, mode, r, M,
+                                                         with_lb=False)
+                same_routing &= torch.equal(top_i, want_i[0])
+                total += part
+            got = total.to(torch.bfloat16)
+
+            def whole():
+                with activation_sharding(_OneRank(), {"batch": "data"}):
+                    layers.apply_moe(p, s, x, with_lb=False)
+
+            whole_ms = _time_ms(whole, iters=5, warmup=2)
+            rank_ms = [_time_ms(lambda r=r: layers.moe_rank_partial(slices[r], s, x, C, mode, r, M,
+                                                                    with_lb=False),
+                                iters=3, warmup=1) for r in range(M)]
+        g, w = got.float(), want.float()
+        d = (g - w).abs()
+        ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
+        in_rows = d / (_bf16_ulp(w.abs().amax(dim=-1, keepdim=True)) + 1e-5)
+        median = statistics.median(rank_ms)
+        out["cases"][case["arch"]] = {
+            "mode": mode, "experts": s.num_experts, "top_k": s.top_k, "d_expert": s.d_expert,
+            "shared_hidden": s.d_shared if s.num_shared else 0, "capacity": C,
+            "routing_equal": bool(same_routing), "max_abs_err": d.max().item(),
+            "max_abs_output": w.abs().max().item(),
+            "max_err_in_ulps": (d / (ulp + 1e-5)).max().item(),
+            "beyond_one_ulp": int((d > ulp + 1e-5).sum()),
+            "roundings": int((d > 1e-5).sum()), "elements": d.numel(),
+            "whole_layer_ms": whole_ms, "median_rank_partial_ms": median,
+            "slowest_rank_partial_ms": max(rank_ms),
+            "rank_partial_over_whole": median / whole_ms,
+            "max_err_in_row_ulps": in_rows.max().item(),
+            "beyond_one_row_ulp": int((in_rows > 1).sum())}
+        del p, x, slices, want, total, got, g, w, d, ulp, in_rows
+        torch.cuda.empty_cache()
+    out["tolerance"] = {"row_ulps": MOE_EP_ROW_ULPS, "of": "the token row's largest |output|",
+                        "plus": 1e-5}
+    out["phase_s"] = time.perf_counter() - t_phase
+    _emit(out)
+    for arch, c in out["cases"].items():
+        _require(c["routing_equal"] and c["max_err_in_row_ulps"] <= MOE_EP_ROW_ULPS,
+                 f"moe_ep: {arch}'s 16 rank parts against the layer: {c}")
+    return out
 
 
 def _plain_ms(fn, *args):
@@ -2984,20 +3194,21 @@ def _train_pieces(tr, cfg, B, S):
 
 
 def _train_config(configs, cell):
-    """A cell's config at full width; with ``layers``, its one group's
-    period repeated that many times (a depth cut)."""
+    """A cell's config at full width; with ``layers``, its last group's
+    period repeated that many times (a depth cut: rwkv6's one group,
+    deepseek's MoE layers after its dense one)."""
     cfg = configs.get_config(cell["arch"])
     if "layers" in cell:
-        _require(len(cfg.groups) == 1, f"{cell['arch']}: a depth cut of one group only")
-        cfg = dataclasses.replace(cfg, groups=(dataclasses.replace(cfg.groups[0],
-                                                                   repeat=cell["layers"]),))
+        last = dataclasses.replace(cfg.groups[-1], repeat=cell["layers"])
+        cfg = dataclasses.replace(cfg, groups=tuple(cfg.groups[:-1]) + (last,))
     return cfg
 
 
 def phase_train(tr, kmods, cell):
     """A train cell at full width through the user's entry points:
     build_model, make_smoke_mesh, build_train_step (default optimizer,
-    IplsStepConfig()), cell["steps"] steps on synth_tokens (whisper: and
+    IplsStepConfig(**TRAIN_OVERRIDES.get(arch, {})): deepseek's fsdp=True),
+    cell["steps"] steps on synth_tokens (whisper: and
     frames drawn from the seed). Build seconds, seconds a step (host clock
     after a sync; the median of the steps after the first), tokens/s, model
     FLOP/s (6 x active parameters x tokens: the attention's and the chunked
@@ -3024,7 +3235,9 @@ def phase_train(tr, kmods, cell):
     t0 = time.perf_counter()
     model = configs.build_model(cfg, device="cuda", seed=seed)
     mesh = tr["mesh"].make_smoke_mesh("cuda")
-    built = steps.build_train_step(model, mesh, configs.ShapeSpec(f"{name}_4k_cut", S, B, "train"))
+    step_cfg = sharded.IplsStepConfig(**steps.TRAIN_OVERRIDES.get(cell["arch"], {}))
+    built = steps.build_train_step(model, mesh, configs.ShapeSpec(f"{name}_4k_cut", S, B, "train"),
+                                   step_cfg=step_cfg)
     state = built.init_state(model.params())
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -3071,7 +3284,7 @@ def phase_train(tr, kmods, cell):
 
     # one more step with a syncing phase timer (the same pieces)
     timer = tr["telemetry"].PhaseTimer()
-    timed = sharded.make_train_step(model.loss, built.optimizer, sharded.IplsStepConfig(),
+    timed = sharded.make_train_step(model.loss, built.optimizer, step_cfg,
                                     num_agents=1, update_shardings=built.update_shardings,
                                     mesh=mesh, timer=timer)
     torch.cuda.synchronize()
@@ -3093,7 +3306,9 @@ def phase_train(tr, kmods, cell):
     torch.cuda.empty_cache()
     out = {
         "phase": name, "arch": cfg.name, "params": n_params, "active_params": n_active,
-        "layers_cut_to": cell.get("layers"), "global_batch": B, "seq_len": S, "steps": n,
+        "layers_cut_to": cell.get("layers"), "layers": (sum(g.repeat for g in cfg.groups) if hasattr(cfg, "groups")
+                                                    else cfg.n_layers),
+        "fsdp": step_cfg.fsdp, "global_batch": B, "seq_len": S, "steps": n,
         "launches": launches, "build_s": build_s, "step_s": step_s,
         "step_s_median_after_first": median, "tokens_per_s": B * S / median,
         "model_flops_per_step": model_flops, "model_flops_per_s": model_flops / median,
@@ -4124,14 +4339,15 @@ class _Roofline:
             self.proc.wait()
 
 
-def _roofline_cells(configs):
+def _roofline_cells(configs, overrides):
     """The cells whose step time the run measures, as ``python -m
     repro_torch.roofline --cells`` takes them: every train cell (a step at
-    its batch and 4,096 tokens), every serve phase's decode step (its batch,
-    its prompt plus new tokens of cache; whisper's 1,500 frames of cross
-    cache) and the long_500k cells."""
+    its batch and 4,096 tokens, with its arch's fsdp override), every serve
+    phase's decode step (its batch, its prompt plus new tokens of cache;
+    whisper's 1,500 frames of cross cache) and the long_500k cells."""
     cells = [dict(cell=c["phase"], arch=c["arch"], kind="train", batch=c["batch"],
-                  seq_len=c.get("seq_len", TRAIN["seq_len"]), layers=c.get("layers"))
+                  seq_len=c.get("seq_len", TRAIN["seq_len"]), layers=c.get("layers"),
+                  fsdp=overrides.get(c["arch"], {}).get("fsdp", False))
              for c in (TRAIN,) + TRAIN_CELLS]
     cells += [dict(cell=name, arch=spec["arch"], kind="decode", batch=spec["batch"],
                    seq_len=spec["prompt_len"] + spec["tokens"], layers=spec.get("layers"),
@@ -4863,7 +5079,7 @@ def main() -> int:
     tr = {"configs": configs, "sharded": sharded, "steps": steps, "mesh": mesh, "optim": optim,
           "checkpoint": checkpoint, "tree": tree, "data": data, "layers": layers,
           "telemetry": telemetry, "ssm": ssm, "scan_ref": sref, "serve_lm": serve_lm}
-    roof = _Roofline(src, _roofline_cells(configs))  # on the CPU, beside the phases
+    roof = _Roofline(src, _roofline_cells(configs, steps.TRAIN_OVERRIDES))  # CPU, beside the phases
     atexit.register(roof.close)  # stopped however the run ends
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4940,6 +5156,8 @@ def main() -> int:
     for cell in (TRAIN,) + TRAIN_CELLS:
         measured[cell["phase"]] = phase_train(tr, kmods, cell)["step_s_median_after_first"]
         _memory(cell["phase"])
+    phase_moe_ep(tr)
+    _memory("moe_ep")
     torch.distributed.destroy_process_group()  # the smoke mesh's one-process group
     served = {}
     for name, spec, n_params, bounds, kw in SERVE_PHASES:

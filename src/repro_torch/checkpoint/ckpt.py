@@ -19,7 +19,11 @@ scale out with the ranks. On a "model" axis above 1 (``mesh`` and the
 tree's ``specs`` given) a save gathers every leaf over "model" and the
 axis's rank 0 writes it, so a checkpoint holds whole leaves, as the
 reference's and a one-process run's do; a restore slices each leaf to this
-rank's shard. (Writing owned slices instead is queued: ROADMAP.md.) ``CheckpointManager.save_async`` copies to host
+rank's shard. ``axes=("model", "data")`` does the same over "data" too: an
+fsdp state (params stored as "data" shards) and its optimizer slices are
+gathered whole and written once (shard 0, by the ranks that are 0 on both
+axes), and a restore slices them back. (Writing owned slices instead is
+queued: ROADMAP.md.) ``CheckpointManager.save_async`` copies to host
 memory before returning (the train step updates its tensors in place),
 then writes in a background thread.
 """
@@ -34,7 +38,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.sharded import gather_tree, model_size, shard_tree
+from repro_torch.core.sharded import gather_tree, mesh_axis_size, shard_tree
 from repro_torch.tree import named_leaves, tree_map, tree_unflatten
 
 
@@ -67,16 +71,22 @@ def _from_bytes(blob: bytes, meta: dict) -> torch.Tensor:
     return torch.from_numpy(arr.reshape(shape).copy())
 
 
+def _split(mesh, axes) -> bool:
+    """Whether any of ``axes`` has more than one rank on ``mesh``."""
+    return mesh is not None and any(a in mesh.mesh_dim_names and mesh_axis_size(mesh, a) > 1
+                                    for a in axes)
+
+
 def save_checkpoint(directory: str, tree: Any, step: int, shard_id: int = 0,
-                    num_shards: int = 1, mesh=None, specs=None) -> str:
+                    num_shards: int = 1, mesh=None, specs=None, axes=("model",)) -> str:
     """Write one shard of a checkpoint. Returns the final directory path.
-    With ``mesh`` (a "model" axis above 1) and ``specs`` (the tree's), the
-    leaves are gathered over "model" (every rank of the axis calls this)
-    and only its rank 0 writes."""
+    With ``mesh`` (one of ``axes`` above 1) and ``specs`` (the tree's), the
+    leaves are gathered over ``axes`` (every rank of them calls this) and
+    only their rank 0 writes."""
     final = os.path.join(directory, f"step_{step:08d}")
-    if model_size(mesh) > 1:
-        tree = gather_tree(tree, specs, mesh)
-        if mesh.get_local_rank("model") != 0:
+    if _split(mesh, axes):
+        tree = gather_tree(tree, specs, mesh, axes)
+        if any(a in mesh.mesh_dim_names and mesh.get_local_rank(a) != 0 for a in axes):
             return final
     tmp = final + f".tmp{shard_id}"
     os.makedirs(tmp, exist_ok=True)
@@ -122,16 +132,17 @@ def latest_step(directory: str, num_shards: int = 1) -> Optional[int]:
 
 def restore_checkpoint(directory: str, like: Any, step: Optional[int] = None,
                        shard_id: int = 0, num_shards: int = 1, mesh=None,
-                       specs=None) -> "tuple[Any, int]":
+                       specs=None, axes=("model",)) -> "tuple[Any, int]":
     """Restore (a shard of) the tree. ``like`` gives the structure; each leaf
     becomes the stored array as a tensor of the stored dtype, on the like
     leaf's device if that is a tensor (else the CPU). Shapes are checked.
-    With ``mesh`` (a "model" axis above 1) and ``specs``, ``like`` holds
-    this rank's shards: each stored whole leaf is sliced to it."""
-    if model_size(mesh) > 1:
-        whole = map_like(like, specs, mesh)
+    With ``mesh`` (one of ``axes`` above 1) and ``specs``, ``like`` holds
+    this rank's shards over ``axes``: each stored whole leaf is sliced to
+    it."""
+    if _split(mesh, axes):
+        whole = map_like(like, specs, mesh, axes)
         tree, step = restore_checkpoint(directory, whole, step, shard_id, num_shards)
-        return tree_map(lambda t: t.contiguous(), shard_tree(tree, specs, mesh)), step
+        return tree_map(lambda t: t.contiguous(), shard_tree(tree, specs, mesh, axes)), step
     if step is None:
         step = latest_step(directory, num_shards)
         if step is None:
@@ -156,12 +167,12 @@ def restore_checkpoint(directory: str, like: Any, step: Optional[int] = None,
     return tree, step
 
 
-def map_like(like, specs, mesh):
-    """Meta tensors of the whole leaves of a tree of shards (the shapes a
-    restore checks), on each leaf's device."""
+def map_like(like, specs, mesh, axes=("model",)):
+    """Meta tensors of the whole leaves of a tree of shards over ``axes``
+    (the shapes a restore checks), on each leaf's device."""
     from repro_torch.core.sharded import global_shape, map_specs
 
-    return map_specs(lambda t, sp: _Like(global_shape(t.shape, sp, mesh, ("model",)), t.device),
+    return map_specs(lambda t, sp: _Like(global_shape(t.shape, sp, mesh, axes), t.device),
                      like, specs)
 
 

@@ -34,13 +34,22 @@ gradient of a leaf replicated over "model" is all-reduced over it (every
 such rank's gradient is a partial sum: it saw its own rows of the
 sequence, or its own heads), ZeRO-1's owned slices are cut inside the
 rank's "model" shard, and the clip's global norm counts each element once.
-FSDP (parameters stored sharded over "data", gathered per layer) is not
-ported: ``fsdp=True`` raises ``NotImplementedError`` (ROADMAP.md); its spec
-functions are ported.
+
+FSDP (``IplsStepConfig(fsdp=True)``, the paper's storage mode: an agent
+stores only its partitions and loads the model on demand): the state's
+params hold this rank's "data" shard of every leaf whose fsdp spec splits
+it, which is exactly its ZeRO-1 owned slice (``store_shards``); the loss
+runs under ``sharding_hooks.stored_params``, and the models gather each
+layer's leaves over "data" inside the layer's checkpoint (the backward
+reduce-scatters their gradients: UpdateModel happens there), so no
+LoadModel all-gather follows the update. A leaf with no dim that divides
+"data" stays whole and takes the ZeRO-1 path.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import warnings
 from collections.abc import Mapping
 from typing import Any, Callable, List, NamedTuple, Optional
@@ -187,7 +196,7 @@ class IplsTrainState(NamedTuple):
 class IplsStepConfig:
     alpha: float = 0.5        # eps smoothing (paper)
     use_eps: bool = True      # False => plain data-parallel training (eps == 1)
-    fsdp: bool = False        # store params sharded over "data" (not ported)
+    fsdp: bool = False        # store params sharded over "data", gathered per layer
     grad_clip: Optional[float] = 1.0
     accum_steps: int = 1      # microbatch accumulation
 
@@ -333,9 +342,12 @@ class _Plane:
     for a leaf with no dim over "data" (reduced and updated whole on every
     rank). On a "model" axis above 1 (``model`` its group), ``split`` says
     which leaves it shards (the others' gradients are partial sums over
-    it); the owned slice is cut inside the rank's "model" shard."""
+    it); the owned slice is cut inside the rank's "model" shard. With
+    ``stored`` (fsdp) a leaf with an owned dim is its owned slice already,
+    and its gradient arrives summed over "data"."""
 
-    def __init__(self, mesh, specs, n_leaves: int):
+    def __init__(self, mesh, specs, n_leaves: int, stored: bool = False):
+        self.stored = stored
         self.D, self.d, self.P, self.p = 1, 0, 1, 0
         self.data = self.pod = self.model = None
         self.split = [False] * n_leaves
@@ -369,9 +381,17 @@ class _Plane:
                 self._call(dist.all_reduce, x, group=g)
         return x
 
+    @property
+    def data_axis(self):
+        """The "data" axis as ``sharding_hooks.TP`` takes it (group, size,
+        rank), or None on a data axis of 1."""
+        from repro_torch.models.sharding_hooks import TP
+
+        return None if self.data is None or self.D == 1 else TP(self.data, self.D, self.d)
+
     def owned(self, p: torch.Tensor, k: Optional[int]) -> torch.Tensor:
-        """This rank's slice of a full leaf (a view)."""
-        if k is None:
+        """This rank's slice of a full leaf (a view); a stored leaf is it."""
+        if k is None or self.stored:
             return p
         n = p.shape[k] // self.D
         return p.narrow(k, self.d * n, n)
@@ -380,12 +400,18 @@ class _Plane:
         """UpdateModel: this rank's owned slice of the sum over ranks of
         ``g`` (reduce-scatter over "data", all-reduce over "pod"), or the
         whole sum for a leaf with no owned dim; a leaf that the "model"
-        axis does not ``split`` is first summed over it. Contiguous, in the
+        axis does not ``split`` is first summed over it. A stored leaf's
+        ``g`` is its slice summed over "data" already (the backward of its
+        gather), which only "model" and "pod" still sum. Contiguous, in the
         leaf's layout."""
         if self.model is not None and not split:
             self._call(dist.all_reduce, g, group=self.model)
         if k is None:
             return self.all_reduce_dp(g)
+        if self.stored:
+            if self.pod is not None:
+                self._call(dist.all_reduce, g, group=self.pod)
+            return g
         moved = g.movedim(k, 0).contiguous() if k else g
         out = moved.new_empty((moved.shape[0] // self.D,) + tuple(moved.shape[1:]))
         if self.data is not None:
@@ -398,8 +424,9 @@ class _Plane:
 
     def load(self, p: torch.Tensor, new: torch.Tensor, k: Optional[int]) -> None:
         """LoadModel: write every rank's updated slice into the full leaf
-        ``p`` (all-gather over "data", in ``p``'s dtype)."""
-        if k is None or self.data is None:
+        ``p`` (all-gather over "data", in ``p``'s dtype); a stored leaf
+        takes its slice and nothing is gathered."""
+        if k is None or self.data is None or self.stored:
             p.copy_(new)
             return
         if k == 0 and p.is_contiguous():
@@ -416,13 +443,32 @@ def _device_of(params) -> torch.device:
     return leaves[0].device if leaves else torch.device("cpu")
 
 
-def init_state(params, optimizer: Optimizer, update_shardings=None, mesh=None) -> IplsTrainState:
+def store_shards(params, update_shardings, mesh) -> None:
+    """fsdp storage, IN PLACE: every leaf of ``params`` (this rank's
+    "model" shards) with an owned dim under its ZeRO-1 spec
+    (``update_shardings``) keeps only its owned slice, its tensor's data
+    replaced by a copy of that slice (``p.data = ...``), so the whole leaf
+    is freed once nothing else holds it and a module whose parameters these
+    are holds the shards. On a data axis of 1 nothing changes."""
+    leaves = tree_leaves(params)
+    plane = _Plane(mesh, tree_leaves_of_specs(update_shardings, params), len(leaves))
+    if plane.D == 1:
+        return
+    for p, k in zip(leaves, plane.dims):
+        if k is not None:
+            p.data = plane.owned(p.data, k).clone()
+
+
+def init_state(params, optimizer: Optimizer, update_shardings=None, mesh=None,
+               fsdp: bool = False) -> IplsTrainState:
     """The train state of ``params`` (kept, not copied: the step updates
     them in place). With ``update_shardings`` (the ZeRO-1 specs) and a
-    mesh, the optimizer state holds only this rank's owned slices."""
+    mesh, the optimizer state holds only this rank's owned slices; with
+    ``fsdp`` the params are the stored slices (``store_shards``)
+    already."""
     leaves = tree_leaves(params)
     specs = tree_leaves_of_specs(update_shardings, params) if update_shardings is not None else None
-    plane = _Plane(mesh, specs, len(leaves))
+    plane = _Plane(mesh, specs, len(leaves), stored=fsdp and mesh is not None)
     owned = tree_unflatten(params, [plane.owned(p, k) for p, k in zip(leaves, plane.dims)])
     dev = _device_of(params)
     return IplsTrainState(
@@ -497,17 +543,26 @@ def make_train_step(
     The parameters are updated IN PLACE (the state's ``params`` tensors are
     the returned state's), and so is the optimizer state. With
     ``mesh=None`` every collective is skipped; on a mesh of one device they
-    run on a world of one and give the same bits. ``timer`` (a
+    run on a world of one and give the same bits.
+
+    With ``cfg.fsdp`` on a mesh the state's params are the stored "data"
+    shards (``store_shards``, ``init_state(..., fsdp=True)``) and
+    ``loss_fn`` runs under ``sharding_hooks.stored_params``: the model
+    gathers each stored leaf where it uses it, and the backward of that
+    gather reduce-scatters the leaf's gradient over "data" in the
+    gradient's dtype (the parameter's), before the float32 accumulation of
+    A > 1 pieces, as the reference accumulates sharded gradients. The
+    update then adds no reduce-scatter (only the all-reduces over "pod" and,
+    for leaves it does not split, "model"), and writes ``p32 - eps * u``
+    into the stored shard, with no all-gather. On a data axis of 1 the
+    gathers are the identity and the step is bit for bit the one without
+    fsdp. ``timer`` (a
     ``telemetry.PhaseTimer``) times the phases ``forward``, ``backward``
     and ``update`` (everything after the gradients: the collectives, the
     clip, the optimizer, the apply), synchronized at each phase's end.
     """
-    if cfg.fsdp and mesh is not None:
-        raise NotImplementedError(
-            "fsdp=True (parameters stored sharded, gathered per layer) is not ported yet "
-            "(ROADMAP.md queue 1)"
-        )
     A = cfg.accum_steps
+    stored = cfg.fsdp and mesh is not None
 
     def gradients(params, leaves, batch, plane, dev):
         """This rank's gradient of its rows (a float32 sum over its pieces
@@ -531,9 +586,15 @@ def make_train_step(
 
         alias = [p.detach().requires_grad_(True) for p in leaves]
         alias_tree = tree_unflatten(params, alias)
+        storage = contextlib.nullcontext
+        if plane.stored and plane.data_axis is not None:
+            from repro_torch.models.sharding_hooks import stored_params
+
+            dims = {id(a): k for a, k in zip(alias, plane.dims) if k is not None}
+            storage = functools.partial(stored_params, dims, plane.data_axis)
         for j in range(A):
             piece = _microbatch(batch, j, mb) if A > 1 else batch
-            with device_phase(timer, "forward", dev):
+            with device_phase(timer, "forward", dev), storage():
                 per_ex, _aux = loss_fn(alias_tree, piece)
                 m = piece["participation"].to(per_ex.dtype)
                 piece_loss = torch.sum(per_ex * m) / counts[ref_mb[j]].clamp_min(1.0)
@@ -621,7 +682,7 @@ def make_train_step(
         leaves = tree_leaves(params)
         specs = (tree_leaves_of_specs(update_shardings, params)
                  if update_shardings is not None else None)
-        plane = _Plane(mesh, specs, len(leaves))
+        plane = _Plane(mesh, specs, len(leaves), stored=stored)
         dev = _device_of(params)
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         grads, loss_acc, counts, glob_mb = gradients(params, leaves, batch, plane, dev)
@@ -653,6 +714,8 @@ def state_shardings(axes_tree, params_shapes, optimizer: Optimizer, mesh,
     meta tensors (``model.param_shapes()``)."""
     param_sh = tree_shardings(axes_tree, params_shapes, mesh, rules, "data" if fsdp else None)
     zero1 = tree_shardings(axes_tree, params_shapes, mesh, rules, "data")
+    # fsdp stores each rank's owned slice: the two layouts are one
+    assert not fsdp or param_sh == zero1, "the fsdp specs differ from the ZeRO-1 specs"
     meta = tree_map(lambda t: torch.empty(_shape(t), device="meta"), params_shapes)
     opt_state = optimizer.init(meta)
     opt_sh = () if opt_state == () else _opt_specs(opt_state, zero1)

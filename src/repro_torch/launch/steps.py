@@ -5,7 +5,8 @@ Port of the reference's ``launch/steps.py``. The IPLS mapping of the train
 step (``core/sharded.py``):
     grads   -> reduce-scattered over "data" (UpdateModel)
     opt     -> sharded over "data" (responsible-agent update, ZeRO-1)
-    params  -> replicated over "data" (all-gather: LoadModel)
+    params  -> replicated over "data" (all-gather: LoadModel), or sharded
+               when fsdp=True (lightweight storage; per-layer gather)
     pod axis-> replica consensus (all-reduce of the gradients)
 
 A ``BuiltStep``'s ``fn`` takes the GLOBAL batch and runs this process's rows
@@ -34,9 +35,13 @@ cache (its batch rows and its slots of the cache). A built decode step
 runs eagerly there: ``graph=True`` raises (its collectives would be
 captured into the graph, which no single card can check).
 
-``lower_step`` (JAX's ahead-of-time lowering) has no counterpart here, and
-the per-arch train overrides (``TRAIN_OVERRIDES``) wait for the dry run,
-their only reader (ROADMAP.md).
+With ``IplsStepConfig(fsdp=True)`` (``TRAIN_OVERRIDES`` asks it for the
+archs the reference trains so) the state's params are this rank's "data"
+shards: ``arg_shapes`` give those, and ``BuiltStep.init_state`` stores a
+model's parameters as them in place (``core/sharded.py``
+``store_shards``), which frees the whole tensors the shards replace.
+
+``lower_step`` (JAX's ahead-of-time lowering) has no counterpart here.
 """
 from __future__ import annotations
 
@@ -56,6 +61,7 @@ from repro_torch.core.sharded import (
     local_shape,
     make_train_step,
     map_specs,
+    store_shards,
     mesh_axis_size,
     model_size,
     state_shardings,
@@ -68,7 +74,7 @@ from repro_torch.models.sharding_hooks import activation_sharding
 from repro_torch.models.whisper import WhisperModel
 from repro_torch.optim.optimizers import Optimizer, adamw
 from repro_torch.optim.schedules import cosine_warmup
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -81,6 +87,7 @@ class BuiltStep:
     arg_shapes: tuple             # TensorSpec trees of the same arguments
     update_shardings: Any = None  # train: the params' ZeRO-1 specs (owned slices)
     optimizer: Any = None         # train
+    fsdp: bool = False            # train: the state's params are the stored "data" shards
     # decode with graph=True: [the current DecodeGraph], shared with ``fn``
     # (which holds no reference to this object: a cycle would keep the
     # model's weights alive until Python's cyclic collector ran)
@@ -93,8 +100,18 @@ class BuiltStep:
 
     def init_state(self, params):
         """The train state of ``params`` on this mesh: the optimizer state
-        holds this rank's owned slices only."""
-        return init_state(params, self.optimizer, self.update_shardings, self.mesh)
+        holds this rank's owned slices only. With ``fsdp`` the params are
+        stored as this rank's "data" shards: leaves still of the model's
+        shapes are cut IN PLACE (``store_shards``: each tensor's data
+        replaced by its shard, so ``model.params()`` gives the state's
+        params and the whole tensors are freed); leaves of the stored
+        shapes (``arg_shapes``) are kept."""
+        if self.fsdp:
+            want = [s.shape for s in tree_leaves(self.arg_shapes[0].params)]
+            if any(tuple(p.shape) != w for p, w in zip(tree_leaves(params), want)):
+                store_shards(params, self.update_shardings, self.mesh)
+        return init_state(params, self.optimizer, self.update_shardings, self.mesh,
+                          fsdp=self.fsdp)
 
 
 def _batch_shardings(specs: Dict[str, Any], mesh, rules) -> Dict[str, tuple]:
@@ -200,6 +217,16 @@ def default_optimizer(total_steps: int = 10000) -> Optimizer:
     return adamw(cosine_warmup(3e-4, 200, total_steps), wd=0.1)
 
 
+# Per-arch training-step configuration (the reference's, memory-driven): the
+# IPLS lightweight-storage (FSDP) mode, params stored partition-sharded over
+# "data" and gathered per layer, the paper's "agents store only their own
+# partitions + LoadModel on demand". ``IplsStepConfig(**TRAIN_OVERRIDES[arch])``.
+TRAIN_OVERRIDES: Dict[str, dict] = {
+    "qwen2-vl-72b": {"fsdp": True},
+    "deepseek-v2-lite-16b": {"fsdp": True},
+}
+
+
 def build_train_step(
     model,
     mesh,
@@ -242,8 +269,12 @@ def build_train_step(
         mesh=mesh,
     )
     state_sh = state_shardings(axes, param_shapes, optimizer, mesh, rules, fsdp=step_cfg.fsdp)
+    # the params as the state stores them: the "model" shards, and with fsdp
+    # the "data" shard of each of them
+    stored = (_local_specs(param_shapes, state_sh.params, mesh) if step_cfg.fsdp
+              else _tensor_specs(local_shapes))
     state_shapes = IplsTrainState(
-        step=TensorSpec((), torch.int32), params=_tensor_specs(local_shapes),
+        step=TensorSpec((), torch.int32), params=stored,
         opt_state=_tensor_specs(optimizer.init(local_shapes)), eps=TensorSpec((), torch.float32))
     metrics_sh = dict.fromkeys(("loss", "grad_norm", "participation", "eps"), ())
 
@@ -255,7 +286,7 @@ def build_train_step(
 
     return BuiltStep(fn=train_step, mesh=mesh, rules=rules, in_shardings=(state_sh, batch_sh),
                      out_shardings=(state_sh, metrics_sh), arg_shapes=(state_shapes, specs),
-                     update_shardings=update_sh, optimizer=optimizer)
+                     update_shardings=update_sh, optimizer=optimizer, fsdp=step_cfg.fsdp)
 
 
 def _cache_shapes_and_axes(model, shape: ShapeSpec):

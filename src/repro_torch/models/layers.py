@@ -31,7 +31,11 @@ rows at their offset, k and v gathered over the sequence); the MLP's
 columns then rows are split over ``ffn`` where it divides; decode attends
 over the rank's slots of a sequence-split KV cache through the decode
 kernel's partial form and merges the ranks' partials by their log-sum-exp
-(``decode_attention``). The layout changes are ``sharding_hooks``'s.
+(``decode_attention``). The layout changes are ``sharding_hooks``'s. The
+MoE block takes the reference's three modes (``moe_mode``: expert-parallel,
+ffn-parallel, replicated) on the data rank's whole sequence: each rank's
+float32 part (``moe_rank_partial``) summed over the axis into its rows
+(``_apply_moe_tp``).
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from repro_torch.core.sharded import model_size
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import sharding_hooks
@@ -766,10 +771,18 @@ def moe_slots(top_i: torch.Tensor, num_experts: int, C: int) -> torch.Tensor:
 
 
 def _moe_routed(params, s: MoESpec, xg: torch.Tensor, C: int, f32_combine: bool,
-                with_lb: bool = True):
+                with_lb: bool = True, experts: Optional[Tuple[int, int]] = None,
+                cast: bool = True):
     """The routed experts of tokens xg (G, Tg, D), C slots an expert in each
     group. Returns (y (G, Tg, D) in xg's dtype, the Switch load-balance loss
-    of these tokens, or None without ``with_lb``: serving drops it).
+    of these tokens, or None without ``with_lb``: serving drops it, and the
+    choices (G, Tg, K)).
+
+    ``experts`` = (e0, n): the weights hold experts e0 .. e0 + n - 1 only
+    (expert parallelism): the slots of the others' choices are not kept
+    (they take the parking row, as the reference's), so y is this rank's
+    part of the output. With ``cast=False`` (and ``f32_combine``) y stays
+    float32: a part that a sum over ranks completes.
 
     Dispatch is a permutation: each kept choice's token row is copied into
     its slot of an (E, G * C) slot plane (one extra parking row takes the
@@ -780,6 +793,7 @@ def _moe_routed(params, s: MoESpec, xg: torch.Tensor, C: int, f32_combine: bool,
     float32 (the mesh path's scatter-add, here a sum over the K choices)."""
     G, Tg, D = xg.shape
     E, K = s.num_experts, s.top_k
+    e0, n_local = experts if experts is not None else (0, E)
     with _span("moe.route"):
         gates, top_v, top_i = moe_route(params, s, xg)
         lb = None
@@ -791,12 +805,16 @@ def _moe_routed(params, s: MoESpec, xg: torch.Tensor, C: int, f32_combine: bool,
     with _span("moe.dispatch"):
         pos = moe_slots(top_i, E, C)
         kept = pos < C
-        park = E * G * C
+        local = top_i
+        if experts is not None:  # only this rank's experts' choices
+            local = top_i - e0
+            kept = kept & (local >= 0) & (local < n_local)
+        park = n_local * G * C
         g_idx = torch.arange(G, device=xg.device)[:, None, None]
-        row = torch.where(kept, (top_i * G + g_idx) * C + pos, park)  # (G, Tg, K)
+        row = torch.where(kept, (local * G + g_idx) * C + pos, park)  # (G, Tg, K)
         contrib = xg[:, :, None, :].expand(G, Tg, K, D).reshape(-1, D)
         buf = xg.new_zeros((park + 1, D)).index_copy_(0, row.reshape(-1), contrib)
-        xe = buf[:park].view(E, G * C, D)
+        xe = buf[:park].view(n_local, G * C, D)
     with _span("moe.experts"):
         h = (_act(s.activation, xe @ params["wg"]) * (xe @ params["wu"])) @ params["wd"]
     with _span("moe.combine"):
@@ -804,10 +822,11 @@ def _moe_routed(params, s: MoESpec, xg: torch.Tensor, C: int, f32_combine: bool,
         picked = torch.where(kept[..., None], h.reshape(park, D)[row.clamp_max(park - 1)], 0)
         w = top_v.to(xg.dtype)
         if f32_combine:
-            y = (picked * w[..., None]).float().sum(dim=2).to(xg.dtype)
+            y = (picked * w[..., None]).float().sum(dim=2)
+            y = y.to(xg.dtype) if cast else y
         else:
             y = torch.einsum("gtkd,gtk->gtd", picked, w)
-    return y, lb
+    return y, lb, top_i
 
 
 def _span(name: str):
@@ -816,14 +835,20 @@ def _span(name: str):
     return record_function(name) if torch.autograd._profiler_enabled() else nullcontext()
 
 
-def apply_moe(params, s: MoESpec, x: torch.Tensor,
-              with_lb: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def apply_moe(params, s: MoESpec, x: torch.Tensor, with_lb: bool = True,
+              seq_split: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Routed MoE (+ shared experts) of x (B, S, D). Returns (y, {"lb_loss"}),
     the loss None without ``with_lb`` (prefill and decode: nothing reads it).
     Inside a mesh context (``sharding_hooks.activation_sharding``) the mesh
     path runs, as the reference's ``shard_map`` schedule; outside it the
-    grouped path. The two differ in their capacities by design."""
+    grouped path. The two differ in their capacities by design. On a
+    "model" axis above 1 x is the data rank's whole sequence (gathered by
+    the block) and y this rank's rows of the output (``seq_split``; a
+    decode token's whole row without it): ``_apply_moe_tp``."""
     ctx = sharding_hooks._CTX.get()
+    tp = sharding_hooks.tensor_parallel() if ctx is not None else None
+    if tp is not None:
+        return _apply_moe_tp(params, s, x, ctx, tp, with_lb, seq_split)
     if ctx is not None:
         y, lb = _apply_moe_mesh(params, s, x, ctx, with_lb)
     else:
@@ -841,34 +866,140 @@ def _apply_moe_grouped(params, s: MoESpec, x: torch.Tensor, with_lb: bool = True
     B, S, D = x.shape
     G = moe_groups(s, B * S)
     Tg = B * S // G
-    y, lb = _moe_routed(params, s, x.reshape(G, Tg, D), moe_capacity(s, Tg), f32_combine=False,
-                        with_lb=with_lb)
+    y, lb, _ = _moe_routed(params, s, x.reshape(G, Tg, D), moe_capacity(s, Tg),
+                           f32_combine=False, with_lb=with_lb)
     return y.reshape(B, S, D), lb
 
 
 def _apply_moe_mesh(params, s: MoESpec, x: torch.Tensor, ctx, with_lb: bool = True):
     """The reference's mesh path (``_apply_moe_shardmap``) on this process's
-    rows: each data rank dispatches its own T_loc = B_loc S tokens, in one
-    group with capacity from T_loc, combines in float32, and the
-    load-balance loss is the mean over the data-parallel ranks (``pmean``:
-    ``_MeanOverGroups``). On a model axis of 1 the reference's expert- and
-    ffn-parallel modes are this same arithmetic; a model axis above 1
-    raises."""
+    rows, on a model axis of 1: each data rank dispatches its own T_loc =
+    B_loc S tokens, in one group with capacity from T_loc, combines in
+    float32, and the load-balance loss is the mean over the data-parallel
+    ranks (``pmean``: ``_MeanOverGroups``). The reference's expert- and
+    ffn-parallel modes are this same arithmetic there; a model axis above 1
+    is ``_apply_moe_tp``'s."""
+    mesh, rules = ctx
+    if model_size(mesh) > 1:
+        raise ValueError("a 'model' axis above 1 takes _apply_moe_tp (apply_moe picks it)")
+    B, S, D = x.shape
+    y, lb, _ = _moe_routed(params, s, x.reshape(1, B * S, D), moe_capacity(s, B * S),
+                           f32_combine=True, with_lb=with_lb)
+    return y.reshape(B, S, D), _mean_over_dp(lb, ctx)
+
+
+def _mean_over_dp(lb, ctx):
+    """The load-balance loss's mean over the data-parallel ranks (the
+    reference's ``pmean``; None stays None)."""
     mesh, rules = ctx
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            "experts over a 'model' mesh axis above 1 are not ported yet (ROADMAP.md queue 1)")
-    B, S, D = x.shape
-    y, lb = _moe_routed(params, s, x.reshape(1, B * S, D), moe_capacity(s, B * S),
-                        f32_combine=True, with_lb=with_lb)
     dp = rules.get("batch")
     axes = [a for a in (dp if isinstance(dp, tuple) else (dp,) if dp else ())
             if sizes.get(a, 1) > 1]
-    if axes and with_lb:
+    if axes and lb is not None:
         n = int(np.prod([sizes[a] for a in axes]))
         lb = _MeanOverGroups.apply(lb, [mesh.get_group(a) for a in axes], n)
-    return y.reshape(B, S, D), lb
+    return lb
+
+
+def moe_mode(s: MoESpec, rules: dict, M: int) -> str:
+    """The reference's mode of the routed experts on a "model" axis of M:
+    "expert" (the rules put ``experts`` on "model" and E % M == 0: each rank
+    holds E / M experts), "ffn" (else ``expert_ffn`` on "model" and d_expert
+    % M == 0: each rank holds a slice of every expert's hidden dim) or
+    "replicated". ``spec_for_leaf`` cuts the weights by the same rules."""
+    if M > 1 and rules.get("experts") == "model" and s.num_experts % M == 0:
+        return "expert"
+    if M > 1 and rules.get("expert_ffn") == "model" and s.d_expert % M == 0:
+        return "ffn"
+    return "replicated"
+
+
+def moe_rank_partial(params, s: MoESpec, x: torch.Tensor, C: int, mode: str, rank: int,
+                     M: int, with_lb: bool = True):
+    """One "model" rank's float32 part of the MoE block over the data
+    rank's tokens x (B, S, D), as a function of its weight slices: the sum
+    of the M ranks' parts is the block's output (before its cast). Returns
+    (part (B, S, D) float32, the load-balance loss, the choices (B S, K)).
+
+    ``params`` hold the whole router (every rank routes alike) and this
+    rank's slices for ``mode`` (``moe_mode``): "expert" its E / M experts,
+    whose choices alone it computes (another rank's expert takes the
+    parking slot); "ffn" every expert's hidden columns of this rank (``wg``
+    and ``wu`` columns, ``wd`` rows: a partial product); "replicated" whole
+    weights, counted on rank 0 only. The shared experts likewise: column-
+    then row-parallel where their hidden dim is split, else on rank 0. The
+    capacity C is the data rank's (from B S tokens), the same on every
+    rank. No collective runs here, and the buffers' shapes depend on nothing
+    but the mode: a rank that no token chose runs the same operations."""
+    B, S, D = x.shape
+    E_loc = s.num_experts // M if mode == "expert" else s.num_experts
+    experts = (rank * E_loc, E_loc) if mode == "expert" else None
+    y, lb, top_i = _moe_routed(params, s, x.reshape(1, B * S, D), C, f32_combine=True,
+                               with_lb=with_lb, experts=experts, cast=False)
+    if mode == "replicated" and rank != 0:
+        y = torch.zeros_like(y)
+    part = y.reshape(B, S, D)
+    if s.num_shared > 0:
+        with _span("moe.shared"):
+            sh = params["shared"]
+            if sh["wu"].shape[1] < s.d_shared or rank == 0:
+                part = part + apply_mlp(sh, MLPSpec(s.d_model, sh["wu"].shape[1], s.activation),
+                                        x).float()
+    return part, lb, top_i[0]
+
+
+def _check_moe_slices(params, s: MoESpec, mode: str, M: int) -> None:
+    """The weights' shapes must be those of ``mode``'s slices."""
+    E, F = params["wg"].shape[0], params["wg"].shape[2]
+    want = {"expert": (s.num_experts // M, s.d_expert), "ffn": (s.num_experts, s.d_expert // M),
+            "replicated": (s.num_experts, s.d_expert)}[mode]
+    if (E, F) != want:
+        raise ValueError(f"MoE weights of {E} experts x {F} hidden on a model axis of {M}: "
+                         f"{mode} mode holds {want[0]} x {want[1]} (build the model on the mesh)")
+
+
+def _apply_moe_tp(params, s: MoESpec, x: torch.Tensor, ctx, tp, with_lb: bool,
+                  seq_split: bool):
+    """The reference's mesh path on a "model" axis above 1: x (B, S, D) is
+    the data rank's whole sequence on every rank of the axis. In expert-
+    and ffn-parallel mode (or with split shared experts) each rank's float32
+    part (``moe_rank_partial``) is summed over the axis and cast: a
+    reduce-scatter into the rank's rows (``seq_split``), or an all-reduce
+    (decode's one token a row). In replicated mode with whole shared
+    experts there is no sum: every rank computes the block as a model axis
+    of 1 does and keeps its rows. An expert-parallel router (its columns
+    split over the axis) is gathered first, so every rank routes alike;
+    the load-balance loss, alike on every rank, counts once in the
+    gradients (``once_over_model``), then takes its mean over the data
+    ranks."""
+    mesh, rules = ctx
+    B, S, D = x.shape
+    mode = moe_mode(s, rules, tp.size)
+    _check_moe_slices(params, s, mode, tp.size)
+    C = moe_capacity(s, B * S)
+    p = {k: params[k] for k in ("router", "wg", "wu", "wd") + (("shared",) if s.num_shared else ())}
+    if p["router"].shape[1] < s.num_experts:
+        p["router"] = sharding_hooks.gather_seq(p["router"], tp, dim=1)
+    split_shared = s.num_shared > 0 and p["shared"]["wu"].shape[1] < s.d_shared
+    if mode == "replicated" and not split_shared:
+        y, lb, _ = _moe_routed(p, s, x.reshape(1, B * S, D), C, f32_combine=True,
+                               with_lb=with_lb)
+        y = y.reshape(B, S, D)
+        if s.num_shared > 0:
+            with _span("moe.shared"):
+                y = y + apply_mlp(p["shared"], MLPSpec(s.d_model, s.d_shared, s.activation), x)
+        if seq_split:
+            Sl = S // tp.size
+            y = y[:, tp.rank * Sl:(tp.rank + 1) * Sl]
+    else:
+        part, lb, _ = moe_rank_partial(p, s, x, C, mode, tp.rank, tp.size, with_lb)
+        summed = (sharding_hooks.scatter_seq(part, tp) if seq_split
+                  else sharding_hooks.sum_model(part, tp))
+        y = summed.to(x.dtype)
+    if lb is not None:
+        lb = sharding_hooks.once_over_model(lb, tp)
+    return y, {"lb_loss": _mean_over_dp(lb, ctx)}
 
 
 def _sum_over(x: torch.Tensor, groups) -> torch.Tensor:

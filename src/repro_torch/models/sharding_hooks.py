@@ -20,7 +20,18 @@ and the models call the layout changes as ``torch.autograd.Function``s:
 * ``sum_model``: the sum over ranks (all-reduce forward, the identity
   backward: every rank goes on with the same value, so each takes the
   gradient of its own part), for decode's row-parallel outputs and the
-  vocab-parallel cross entropy.
+  vocab-parallel cross entropy;
+* ``once_over_model``: the identity forward, whose gradient only the
+  axis's rank 0 keeps: a term every rank computes alike (the MoE
+  load-balance loss) counts once in the gradients the ranks sum.
+
+FSDP (``IplsStepConfig(fsdp=True)``): the train step stores each split
+parameter leaf as this rank's "data" shard and runs the loss under
+``stored_params``; the models call ``gather_stored`` on each layer's tree
+inside the layer's checkpoint (and on the embedding, norms and heads where
+they use them), which all-gathers such a leaf over "data" (forward) and
+reduce-scatters its gradient as a sum (backward): the reference's
+per-layer gather in its scan.
 
 ``shard_act`` itself stays the identity (it checks the names' count): the
 models call these changes where their layouts change
@@ -36,8 +47,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.sharded import DEFAULT_RULES, all_gather_dim, call_collective, model_size
+from repro_torch.tree import tree_map
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar("act_sharding_ctx", default=None)
+# the train step's stored shards under fsdp: ({id(leaf): its dim over "data"}, the axis)
+_STORED: contextvars.ContextVar = contextvars.ContextVar("fsdp_stored", default=None)
 
 
 @contextlib.contextmanager
@@ -50,21 +64,35 @@ def activation_sharding(mesh, rules: Optional[dict] = None):
         _CTX.reset(token)
 
 
+@contextlib.contextmanager
+def stored_params(dims: dict, axis: "TP"):
+    """The train step's fsdp storage for the block: ``dims`` maps the
+    ``id`` of each stored leaf (the tensors the loss receives) to its dim
+    over "data"; ``axis`` is the "data" axis (group, size, rank)."""
+    token = _STORED.set((dims, axis))
+    try:
+        yield
+    finally:
+        _STORED.reset(token)
+
+
 def remat_context():
     """A ``context_fn`` for ``torch.utils.checkpoint`` (non-reentrant),
     called at the forward: its recompute runs under the forward's sharding
-    context. The autograd engine runs a CUDA backward, and with it the
-    recompute, on its own device thread, where the step's context (a
-    ContextVar) is unset: an MoE layer would recompute on the grouped path
-    after a forward on the mesh path."""
-    ctx = _CTX.get()
+    context and fsdp storage. The autograd engine runs a CUDA backward, and
+    with it the recompute, on its own device thread, where the step's
+    contexts (ContextVars) are unset: an MoE layer would recompute on the
+    grouped path after a forward on the mesh path, and a layer would not
+    gather its stored weights."""
+    ctx, stored = _CTX.get(), _STORED.get()
 
     @contextlib.contextmanager
     def recompute():
-        token = _CTX.set(ctx)
+        token, token_s = _CTX.set(ctx), _STORED.set(stored)
         try:
             yield
         finally:
+            _STORED.reset(token_s)
             _CTX.reset(token)
 
     return contextlib.nullcontext(), recompute()
@@ -141,6 +169,17 @@ class _SumModel(torch.autograd.Function):
         return grad, None
 
 
+class _OnceOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.keep = tp.rank == 0
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad if ctx.keep else torch.zeros_like(grad)), None
+
+
 def gather_seq(x: torch.Tensor, tp: TP, dim: int = 1) -> torch.Tensor:
     """The ranks' pieces of ``x`` along ``dim`` (the sequence) concatenated
     in rank order, on every rank."""
@@ -155,6 +194,30 @@ def scatter_seq(x: torch.Tensor, tp: TP, dim: int = 1) -> torch.Tensor:
 def sum_model(x: torch.Tensor, tp: TP) -> torch.Tensor:
     """The sum over the ranks of ``x``, the same on every rank."""
     return _SumModel.apply(x, tp)
+
+
+def once_over_model(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """``x``, whose gradient counts on the axis's rank 0 only: for a value
+    that every rank computes alike from whole inputs, so that the sum of
+    the ranks' gradients holds its gradient once, not ``tp.size`` times."""
+    return _OnceOverModel.apply(x, tp)
+
+
+def gather_stored(tree):
+    """``tree`` with each leaf that the train step stores as its "data"
+    shard (``stored_params``) all-gathered whole over "data" (its gradient
+    reduce-scattered back as a sum over the ranks); every other leaf as it
+    is. The identity outside an fsdp step."""
+    stored = _STORED.get()
+    if stored is None:
+        return tree
+    dims, axis = stored
+
+    def use(x):
+        k = dims.get(id(x))
+        return x if k is None else _GatherSeq.apply(x, k, axis)
+
+    return tree_map(use, tree)
 
 
 def max_model(x: torch.Tensor, tp: TP) -> torch.Tensor:

@@ -39,8 +39,8 @@ follow its period's blocks inside the layer's checkpoint, with the one
 ``g{gi}_shared`` tree, so their gradient sums over the applications. The
 encoder-decoder (whisper) is ``models/whisper.py``.
 
-Tensor parallelism (a "model" mesh axis above 1, the dense family without
-windows or M-RoPE: ``check_tensor_parallel``): a model built on such a mesh
+Tensor parallelism (a "model" mesh axis above 1, the dense and MoE blocks
+without windows, MLA or M-RoPE: ``check_tensor_parallel``): a model built on such a mesh
 (``TransformerLM(cfg, mesh=mesh)``) holds its rank's shards of every leaf
 (``lm_param_specs``). Under the step's mesh context the residual stream is
 sequence-parallel; a block whose heads or ffn divide the axis gathers its
@@ -52,6 +52,13 @@ and the cross entropy are vocab-parallel where the vocab divides the axis
 the target logit each reduced over it), else computed on the rank's rows.
 A prefill returns its caches in the decode layout (``kv_seq`` over
 "model"), and decode attends context-parallel (``layers.decode_attention``).
+The MoE block gathers its input over the sequence and hands back its
+rows (``layers.apply_moe``); in decode its parts are summed over "model".
+
+Under an fsdp train step (``IplsStepConfig(fsdp=True)``) ``loss`` gathers
+each stored leaf where it uses it (``sharding_hooks.gather_stored``): a
+layer's inside its checkpoint, the embedding, final norm and head at the
+ends.
 """
 from __future__ import annotations
 
@@ -208,36 +215,41 @@ def _vocab_parallel_ce(logits: torch.Tensor, targets: torch.Tensor, v0: int, tp)
     return lse - tgt
 
 
-TP_KINDS = ("attn", "mlp")
+TP_KINDS = ("attn", "mlp", "moe")
 
 
 def check_tensor_parallel(cfg: "ArchConfig") -> None:
     """Raise ``NotImplementedError`` unless a config runs on a "model" axis
-    above 1: blocks of ``TP_KINDS`` only, attention without windows, shared
-    blocks or M-RoPE (ROADMAP.md queue 1 lists the rest)."""
+    above 1: blocks of ``TP_KINDS`` only (MLA, Mamba2 and RWKV6 not yet),
+    attention without windows, shared blocks or M-RoPE (ROADMAP.md queue 1
+    lists the rest)."""
     for g in cfg.groups:
         for b in g.blocks + g.shared:
             bad = (b.kind not in TP_KINDS or bool(g.shared)
                    or (b.kind == "attn" and (b.attn.window is not None or b.attn.rope != "std"
                                              or not b.attn.causal)))
             if bad:
+                what = "MLA" if b.kind == "mla" else repr(b.kind)
                 raise NotImplementedError(
-                    f"{cfg.name}: a 'model' mesh axis above 1 is ported for the dense attention "
-                    f"and MLP blocks (no windows, shared blocks or M-RoPE); block {b.kind!r} "
+                    f"{cfg.name}: a 'model' mesh axis above 1 is ported for the dense attention, "
+                    f"MLP and MoE blocks (no windows, shared blocks or M-RoPE); block {what} "
                     f"is not yet (ROADMAP.md queue 1)")
 
 
 def _gatherable(b: BlockSpec, M: int) -> bool:
     """The reference's rule: a block gathers its input over the sequence
     (Megatron-SP) when its parallel dim divides the model axis; otherwise
-    its weights are replicated and it runs on the rank's rows."""
+    its weights are replicated and it runs on the rank's rows. The MoE
+    block always gathers: its dispatch takes the data rank's whole
+    sequence, as the reference's shard_map does, and hands the rank's rows
+    back itself (``layers.apply_moe``)."""
     if M == 1:
         return False
     if b.kind == "mlp":
         return b.mlp.d_ff % M == 0
     if b.kind == "attn":
         return b.attn.n_heads % M == 0
-    return False
+    return b.kind == "moe"
 
 
 def _tp_ctx(ctx: dict, S: int) -> dict:
@@ -281,7 +293,7 @@ def apply_block_train(b: BlockSpec, p, x, ctx: dict):
         y = S.train_rwkv6_time(p["rwkv"], b.rwkv, h)
     else:
         y, _ = S.apply_rwkv6_channel(p["rwkv_ffn"], h)
-    if gather:
+    if gather and b.kind != "moe":  # the MoE block hands back the rank's rows
         y = SH.scatter_seq(y, tp)
     return shard_act(x + y, ("batch", "act_seq", "embed")), aux
 
@@ -306,13 +318,16 @@ def block_cache_defs(b: BlockSpec, batch: int, seq_len: int, dtype) -> Optional[
 
 
 def _apply_block_prefill_tp(b: BlockSpec, p, x, ctx, tp):
-    """``apply_block_prefill`` on a tensor-parallel mesh (attention and MLP
-    blocks): the layout of ``apply_block_train``; an attention block's
-    cache in the decode layout, the rank's slots of the whole cache."""
+    """``apply_block_prefill`` on a tensor-parallel mesh (attention, MLP
+    and MoE blocks): the layout of ``apply_block_train``; an attention
+    block's cache in the decode layout, the rank's slots of the whole
+    cache."""
     h = _norm_apply(b.norm, p["norm"], x)
     gather = _gatherable(b, tp.size)
     if gather:
         h = SH.gather_seq(h, tp)
+    if b.kind == "moe":  # its input gathered, its output the rank's rows
+        return x + L.apply_moe(p["moe"], b.moe, h, with_lb=False)[0], None
     if b.kind == "mlp":
         y, entry = L.apply_mlp(p["mlp"], b.mlp, h), None
     else:
@@ -379,9 +394,10 @@ def _cache_fill(t: torch.Tensor, T: int, ring: bool = False) -> torch.Tensor:
 def apply_block_decode(b: BlockSpec, p, x, cache, pos):
     """One token through a block; attention and RWKV6 caches are updated
     in place. On a tensor-parallel mesh a block with split weights sums its
-    row-parallel output over "model"."""
+    row-parallel output over "model" (the MoE block inside ``apply_moe``,
+    whose one token a row is whole on every rank)."""
     tp = SH.tensor_parallel()
-    if tp is not None and _gatherable(b, tp.size):
+    if tp is not None and _gatherable(b, tp.size) and b.kind != "moe":
         h = _norm_apply(b.norm, p["norm"], x)
         if b.kind == "mlp":
             y = L.apply_mlp(p["mlp"], b.mlp, h)
@@ -391,8 +407,8 @@ def apply_block_decode(b: BlockSpec, p, x, cache, pos):
     h = _norm_apply(b.norm, p["norm"], x)
     if b.kind == "mlp":
         return x + L.apply_mlp(p["mlp"], b.mlp, h), cache
-    if b.kind == "moe":
-        return x + L.apply_moe(p["moe"], b.moe, h, with_lb=False)[0], cache
+    if b.kind == "moe":  # on a model axis above 1 its parts summed over the axis
+        return x + L.apply_moe(p["moe"], b.moe, h, with_lb=False, seq_split=False)[0], cache
     if b.kind == "mla":
         y, cache = L.decode_mla(p["mla"], b.mla, h, cache, pos)
         return x + y, cache
@@ -603,12 +619,22 @@ class TransformerLM(nn.Module):
         return self.embed.table.dtype
 
     # -- pieces ---------------------------------------------------------------
+    def _head_key(self) -> str:
+        return "embed" if self.cfg.tie_embeddings else "lm_head"
+
+    @staticmethod
+    def _top(params, *keys) -> Dict[str, Any]:
+        """Top-level leaves of ``params`` as the loss uses them: under an
+        fsdp step each stored one gathered whole (``gather_stored``), once
+        for each use (a tied table twice: lookup and logits)."""
+        return SH.gather_stored({k: params[k] for k in keys})
+
     def _logits(self, x, params=None):
         """bfloat16 logits of a float32-accumulated product with the
         (tied or separate) unembedding table, of ``params`` (a tree) or of
         the module; with ``logit_softcap`` c, c tanh(logits / c) in float32,
         rounded to bfloat16 again."""
-        key = "embed" if self.cfg.tie_embeddings else "lm_head"
+        key = self._head_key()
         table = getattr(self, key).table if params is None else params[key]["table"]
         logits = (x @ table.t()).to(torch.bfloat16)
         c = self.cfg.logit_softcap
@@ -630,7 +656,7 @@ class TransformerLM(nn.Module):
 
     def _vocab_split(self, params=None) -> bool:
         """Whether the unembedding table's rows are split over "model"."""
-        key = "embed" if self.cfg.tie_embeddings else "lm_head"
+        key = self._head_key()
         table = getattr(self, key).table if params is None else params[key]["table"]
         return table.shape[0] < self.cfg.vocab
 
@@ -700,12 +726,17 @@ class TransformerLM(nn.Module):
         their aux losses; with ``cfg.remat`` each layer runs under
         ``torch.utils.checkpoint`` (its activations recomputed in the
         backward pass, the reference's ``jax.checkpoint`` of its scan
-        body), the recompute under the forward's sharding context."""
+        body), the recompute under the forward's sharding context. Under an
+        fsdp step each layer gathers its stored leaves inside its
+        checkpoint, so no layer's whole weights outlive it."""
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for gi, g in enumerate(self.cfg.groups):
             shared = params.get(f"g{gi}_shared")
             for lp in params[f"g{gi}"]:
                 def layer(x, aux, g=g, lp=lp, shared=shared):
+                    # fsdp: the layer's stored leaves (and its period's shared
+                    # blocks) whole for this layer only, again in the recompute
+                    lp, shared = SH.gather_stored(lp), SH.gather_stored(shared)
                     for bi, b in enumerate(g.blocks):
                         x, a = apply_block_train(b, lp[f"b{bi}"], x, ctx)
                         aux = aux + a
@@ -734,11 +765,13 @@ class TransformerLM(nn.Module):
         tp = self._tensor_parallel()
         if tp is not None:
             return self._loss_tp(params, tokens, _tp_ctx(ctx, tokens.shape[1]), tp)
-        x = shard_act(self._embed_in(tokens, params), ("batch", "act_seq", "embed"))
+        x = shard_act(self._embed_in(tokens, self._top(params, "embed")),
+                      ("batch", "act_seq", "embed"))
         x, aux = self._stack_apply_train(params, x, ctx)
-        x = _norm_apply(self.cfg.final_norm, params["final_norm"], x)
+        head = self._top(params, "final_norm", self._head_key())
+        x = _norm_apply(self.cfg.final_norm, head["final_norm"], x)
         x = shard_act(x, ("batch", None, "embed"))
-        logits = shard_act(self._logits(x[:, :-1], params), ("batch", None, "vocab"))
+        logits = shard_act(self._logits(x[:, :-1], head), ("batch", None, "vocab"))
         nll = _sharded_ce(logits, tokens[:, 1:])
         per_ex = nll.mean(dim=-1) + self.cfg.lb_loss_weight * aux / max(self.cfg.n_layers, 1)
         return per_ex, {"lb_loss": aux}
@@ -750,18 +783,19 @@ class TransformerLM(nn.Module):
         logits and CE, their sum reduced over "model". Every rank returns
         the whole loss."""
         S = tokens.shape[1]
-        x = self._embed_in(tokens, params, tp)
+        x = self._embed_in(tokens, self._top(params, "embed"), tp)
         x, aux = self._stack_apply_train(params, x, ctx)
-        x = _norm_apply(self.cfg.final_norm, params["final_norm"], x)
-        if self._vocab_split(params):
+        head = self._top(params, "final_norm", self._head_key())
+        x = _norm_apply(self.cfg.final_norm, head["final_norm"], x)
+        if self._vocab_split(head):
             x = SH.gather_seq(x, tp)
-            logits = self._logits(x[:, :-1], params)
+            logits = self._logits(x[:, :-1], head)
             nll = _vocab_parallel_ce(logits, tokens[:, 1:], tp.rank * logits.shape[-1], tp)
             total = nll.mean(dim=-1)
         else:
             lo = tp.rank * x.shape[1]
             tgt = tokens[:, lo + 1:lo + x.shape[1] + 1]
-            nll = _sharded_ce(self._logits(x[:, :tgt.shape[1]], params), tgt)
+            nll = _sharded_ce(self._logits(x[:, :tgt.shape[1]], head), tgt)
             total = SH.sum_model(nll.sum(dim=-1), tp) / (S - 1)
         per_ex = total + self.cfg.lb_loss_weight * aux / max(self.cfg.n_layers, 1)
         return per_ex, {"lb_loss": aux}

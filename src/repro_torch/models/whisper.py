@@ -29,6 +29,9 @@ module: ``train_encode`` and ``decode_stack`` are the reference's encoder and
 teacher-forced decoder with its plain attention (``layers.apply_attention``
 and ``_sdpa`` for the cross-attention; no kernel, as in the reference's
 training), each layer under ``torch.utils.checkpoint`` when ``cfg.remat``.
+Under an fsdp train step each layer gathers its stored leaves inside its
+checkpoint, and the embedding (twice: lookup and logits), ``pos_dec`` and
+the final norms are gathered where they are used.
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ from repro_torch.models.param_defs import (
     unstack,
     unstack_axes,
 )
-from repro_torch.models.sharding_hooks import remat_context, shard_act
+from repro_torch.models.sharding_hooks import gather_stored, remat_context, shard_act
 from repro_torch.models.transformer import _sharded_ce
 from repro_torch.tree import tree_map
 
@@ -369,6 +372,7 @@ class WhisperModel(nn.Module):
         wdtype = params["embed"]["table"].dtype
 
         def layer(x, p):
+            p = gather_stored(p)  # fsdp: this layer's leaves whole, in its checkpoint
             h = L.layer_norm(p["ln1"], x).to(wdtype)
             x = x + L.apply_attention(p["attn"], spec, h, None)
             h = L.layer_norm(p["ln2"], x).to(wdtype)
@@ -376,7 +380,7 @@ class WhisperModel(nn.Module):
 
         for p in params["enc"]:
             x = self._layer(layer, x, p)
-        return L.layer_norm(params["enc_ln"], x)
+        return L.layer_norm(gather_stored(params["enc_ln"]), x)
 
     def decode_stack(self, params, tokens: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
         """The decoder's training forward with teacher forcing (the
@@ -388,11 +392,13 @@ class WhisperModel(nn.Module):
         ``dec_ln``."""
         cfg = self.cfg
         S = tokens.shape[1]
-        x = L.embed(params["embed"], tokens) + params["pos_dec"][:S].to(torch.bfloat16)
+        top = gather_stored({"embed": params["embed"], "pos_dec": params["pos_dec"]})
+        x = L.embed(top["embed"], tokens) + top["pos_dec"][:S].to(torch.bfloat16)
         x = shard_act(x, ("batch", "act_seq", "embed"))
         spec, mlp = _attn_spec(cfg, causal=True), _mlp_spec(cfg)
 
         def layer(x, p):
+            p = gather_stored(p)
             h = L.layer_norm(p["ln1"], x)
             x = x + L.apply_attention(p["self_attn"], spec, h, None)
             h = L.layer_norm(p["ln2"], x)
@@ -406,7 +412,7 @@ class WhisperModel(nn.Module):
 
         for p in params["dec"]:
             x = self._layer(layer, x, p)
-        return L.layer_norm(params["dec_ln"], x)
+        return L.layer_norm(gather_stored(params["dec_ln"]), x)
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token cross entropy of the decoder over the encoded frames
@@ -417,5 +423,6 @@ class WhisperModel(nn.Module):
         in float32 on ``tokens[:, 1:]``, averaged per example."""
         tokens = batch["tokens"].to(self.device).long()
         x = self.decode_stack(params, tokens, self.train_encode(params, batch["enc_embeds"]))
-        logits = (x[:, :-1] @ params["embed"]["table"].t()).to(torch.bfloat16)
+        table = gather_stored(params["embed"])["table"]  # the tied table's second use
+        logits = (x[:, :-1] @ table.t()).to(torch.bfloat16)
         return _sharded_ce(logits, tokens[:, 1:]).mean(dim=-1), {}

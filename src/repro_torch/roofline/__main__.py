@@ -2,7 +2,7 @@
 
     python -m repro_torch.roofline --arch gemma3-1b --shape long_500k
     python -m repro_torch.roofline --arch internlm2-1.8b --kind train \\
-        --batch 2 --seq-len 4096 [--layers N] [--mesh 4,1]
+        --batch 2 --seq-len 4096 [--layers N] [--mesh 4,1] [--fsdp]
     python -m repro_torch.roofline --cells - < cells.json
 
 One JSON line per step: the report's ``row()``, its ``step_time_s``, the
@@ -12,10 +12,13 @@ of the registry (``--shape``) or a kind with a batch and a sequence length
 (a decode step's cache slots); ``--layers`` cuts the first group's period
 to that many repeats (the widths as published); ``--enc-len`` gives
 whisper's encoder frames (its cross caches), the sequence length by
-default. ``--cells -`` reads a JSON list of such cells from standard
-input (keys ``cell``, ``arch``, ``kind``, ``batch``, ``seq_len``,
-optional ``layers``, ``enc_len``, ``mesh``). Nothing is allocated and no
-card is used.
+default; ``--fsdp`` counts a train step with ``IplsStepConfig(fsdp=True)``
+(parameters stored as "data" shards, gathered per layer). ``--layers``
+cuts the last group when the first is a single layer (deepseek's dense
+layer before its MoE layers). ``--cells -`` reads a JSON list of such cells
+from standard input (keys ``cell``, ``arch``, ``kind``, ``batch``,
+``seq_len``, optional ``layers``, ``enc_len``, ``mesh``, ``fsdp``).
+Nothing is allocated and no card is used.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import time
 
 from repro_torch.configs import build_model, get_config
 from repro_torch.configs.registry import SHAPES, ShapeSpec, TensorSpec
+from repro_torch.core.sharded import IplsStepConfig
 from repro_torch.launch import steps
 from repro_torch.models.whisper import WhisperConfig
 from repro_torch.roofline.analysis import model_flops_for
@@ -35,10 +39,15 @@ from repro_torch.tree import tree_map
 
 
 def _config(arch: str, layers=None):
+    """The arch's config; with ``layers``, its first group's period repeated
+    that many times, or, where the first group is one layer and others
+    follow (deepseek's dense layer), its last group's."""
     cfg = get_config(arch)
     if layers:
-        cfg = dataclasses.replace(cfg, groups=(dataclasses.replace(cfg.groups[0], repeat=layers),)
-                                  + tuple(cfg.groups[1:]))
+        groups = list(cfg.groups)
+        gi = len(groups) - 1 if len(groups) > 1 and groups[0].repeat == 1 else 0
+        groups[gi] = dataclasses.replace(groups[gi], repeat=layers)
+        cfg = dataclasses.replace(cfg, groups=tuple(groups))
     return cfg
 
 
@@ -52,7 +61,8 @@ def count_cell(cell: dict) -> dict:
     with fake_world(mesh) as fake_mesh:
         # on a "model" axis above 1 the model holds this rank's shards
         model = build_model(cfg, device="cpu", mesh=fake_mesh if mesh[-1] > 1 else None)
-        built = steps.build_step(model, fake_mesh, shape)
+        kw = {"step_cfg": IplsStepConfig(fsdp=True)} if cell.get("fsdp") else {}
+        built = steps.build_step(model, fake_mesh, shape, **kw)
         enc_len = cell.get("enc_len")
         if isinstance(cfg, WhisperConfig) and shape.kind == "decode" and enc_len:
             cache = tree_map(lambda d: TensorSpec(tuple(d.shape), d.dtype),
@@ -81,6 +91,7 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int)
     ap.add_argument("--enc-len", type=int)
     ap.add_argument("--mesh", default="1,1", help="mesh shape, e.g. 4,1 or 2,2,1")
+    ap.add_argument("--fsdp", action="store_true", help="a train step with fsdp=True")
     ap.add_argument("--cells", choices=("-",),
                     help="'-': read a JSON list of cells from standard input")
     args = ap.parse_args(argv)
@@ -94,7 +105,7 @@ def main(argv=None) -> int:
                   "kind": s.kind if s else args.kind,
                   "batch": args.batch or (s.global_batch if s else 1),
                   "seq_len": args.seq_len or (s.seq_len if s else 4096),
-                  "layers": args.layers, "enc_len": args.enc_len,
+                  "layers": args.layers, "enc_len": args.enc_len, "fsdp": args.fsdp,
                   "mesh": [int(n) for n in args.mesh.split(",")]}]
     for cell in cells:
         print(json.dumps(count_cell(cell)), flush=True)

@@ -234,10 +234,43 @@ def test_mesh_path_on_two_processes_equals_each_half(mesh, tmp_path):
 
 
 def test_model_axis_above_one_raises():
+    """A model axis above 1, once refused, is ported: the model-axis-1 path
+    refuses it (``apply_moe`` takes ``_apply_moe_tp`` there), and on a
+    model axis of 2 each mode's two rank partials (``moe_rank_partial``:
+    expert-parallel, ffn-parallel, replicated) summed in rank order give the
+    model-axis-1 layer within 1e-6 on the same routing (the T = 4 case,
+    where the capacity floor keeps every choice). The gloo meshes run in
+    ``test_torch_tp_moe.py``."""
     class _Mesh:
         mesh_dim_names, shape = ("data", "model"), (1, 2)
 
+    class _One:
+        mesh_dim_names, shape = ("data", "model"), (1, 1)
+
     spec, params, x = _case("reduced_T4_min_capacity")
-    with pytest.raises(NotImplementedError, match="model"):
-        L._apply_moe_mesh(_torch(params), L.MoESpec(**spec), torch.from_numpy(x),
-                          (_Mesh(), {"batch": "data"}))
+    s, p, xt = L.MoESpec(**spec), _torch(params), torch.from_numpy(x)
+    with pytest.raises(ValueError, match="model"):
+        L._apply_moe_mesh(p, s, xt, (_Mesh(), {"batch": "data"}))
+    want, _ = L._apply_moe_mesh(p, s, xt, (_One(), {"batch": "data"}))
+    if s.num_shared:
+        want = want + L.apply_mlp(p["shared"], L.MLPSpec(s.d_model, s.d_shared, s.activation), xt)
+    C = L.moe_capacity(s, xt.shape[0] * xt.shape[1])
+    for mode, cut in (("expert", lambda w, r: w[r * (w.shape[0] // 2):(r + 1) * (w.shape[0] // 2)]),
+                      ("ffn", None), ("replicated", lambda w, r: w)):
+        total = torch.zeros(want.shape, dtype=torch.float32)
+        for r in range(2):
+            q = dict(p)
+            if mode == "ffn":
+                F = p["wg"].shape[2] // 2
+                q.update(wg=p["wg"][..., r * F:(r + 1) * F], wu=p["wu"][..., r * F:(r + 1) * F],
+                         wd=p["wd"][:, r * F:(r + 1) * F])
+            else:
+                q.update({k: cut(p[k], r) for k in ("wg", "wu", "wd")})
+            if s.num_shared:
+                n = s.d_shared // 2
+                sh = p["shared"]
+                q["shared"] = {"wg": sh["wg"][:, r * n:(r + 1) * n],
+                               "wu": sh["wu"][:, r * n:(r + 1) * n], "wd": sh["wd"][r * n:(r + 1) * n]}
+            total += L.moe_rank_partial(q, s, xt, C, mode, r, 2)[0]
+        gap = float((total.to(want.dtype).float() - want.float()).abs().max())
+        assert gap <= 1e-6, (mode, gap)

@@ -15,8 +15,9 @@ the JAX package's, in one process on the CPU.
   on the same leaves.
 - The same step without a mesh, on the smoke mesh, and with the ZeRO-1
   specs on the smoke mesh give the same bits.
-- What is not ported raises: a "model" axis above 1, ``fsdp=True`` on a
-  mesh (RWKV6 training, which raised too, now runs).
+- ``fsdp=True`` on the smoke mesh (a gather over a world of one is the
+  identity) gives the bits of ``fsdp=False`` (RWKV6 training, which once
+  raised, runs).
 
 The multi-rank meshes run in ``test_torch_sharded_dist.py``.
 """
@@ -363,8 +364,24 @@ def test_cuda_smoke_mesh_refuses_gloo_group(mesh):
 
 
 def test_unported_modes_raise(mesh):
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        psh.make_train_step(tiny_loss, sgd(0.1), psh.IplsStepConfig(fsdp=True), mesh=mesh)
+    """fsdp=True, once refused, runs: on the gloo smoke mesh three AdamW
+    steps with two microbatches give the bits of fsdp=False (the stored
+    shard of a data axis of 1 is the whole leaf)."""
+    params, batch = make_inputs()
+    specs = {"w": psh.spec_for_leaf(("embed", "ffn"), (4, 4), mesh, psh.DEFAULT_RULES, "data")}
+    runs = []
+    for fsdp in (False, True):
+        opt = adam(1e-2)
+        cfg = psh.IplsStepConfig(grad_clip=0.5, accum_steps=2, fsdp=fsdp)
+        step = psh.make_train_step(tiny_loss, opt, cfg, num_agents=1, update_shardings=specs,
+                                   mesh=mesh)
+        st = psh.init_state(_t(params), opt, specs, mesh, fsdp=fsdp)
+        for _ in range(3):
+            st, metrics = step(st, _t(batch))
+        runs.append((_snapshot(st), {k: v.clone() for k, v in metrics.items()}))
+    (s0, m0), (s1, m1) = runs
+    assert s0.keys() == s1.keys() and all(torch.equal(s1[k], s0[k]) for k in s0)
+    assert all(torch.equal(m1[k], m0[k]) for k in m0)
     from repro_torch.configs import SHAPES, build_model
     from repro_torch.launch.steps import build_step
 

@@ -112,15 +112,16 @@ class _Mesh:
 
 def test_unported_tensor_parallel_modes_raise():
     """On a model axis above 1: a decode graph, the families other than the
-    dense attention and MLP blocks (sliding windows, MoE, RWKV6, whisper)
-    raise NotImplementedError; a step of a model not built on the mesh
-    raises ValueError before it runs."""
+    dense attention, MLP and MoE blocks (sliding windows, MLA, RWKV6,
+    whisper) raise NotImplementedError, deepseek's naming MLA; a step of a
+    model not built on the mesh raises ValueError before it runs. (The MoE
+    family's granite runs: ``test_torch_tp_moe.py``.)"""
     from repro_torch.configs import SHAPES, build_model, get_config
     from repro_torch.launch.steps import build_decode_step, build_prefill_step
 
     mesh = _Mesh((1, 2))
-    for arch in ("gemma3-1b", "granite-moe-3b-a800m", "rwkv6-7b", "whisper-base"):
-        with pytest.raises(NotImplementedError):
+    for arch in ("gemma3-1b", "deepseek-v2-lite-16b", "rwkv6-7b", "whisper-base"):
+        with pytest.raises(NotImplementedError, match="MLA" if arch.startswith("deep") else None):
             build_model(get_config(arch, reduced=True), device="cpu", mesh=mesh)
     model = build_model(get_config("internlm2-1.8b", reduced=True), device="cpu")
     with pytest.raises(NotImplementedError, match="decode graph"):
