@@ -363,8 +363,19 @@ exits non-zero:
               the plain version on each offset's two 128-row query tiles;
               the r = 15
               call's time beside its bound (the operations over 989
-              TFLOP/s) and SDPA with the same mask; the launches are the
-              forms' own counters over the phase;
+              TFLOP/s) and SDPA with the same mask; gemma3-1b's forms at
+              the same axis (its 4 heads do not divide 16): flash at a
+              query offset over the 512-key window (q (4, 4, 256, 256)
+              against k, v (4, 1, 4096, 256), r = 0, 7, 15: bit for bit
+              the whole windowed call's rows, within the bf16 flash bound
+              of the plain version; r = 15 timed beside its bound, which
+              counts the pairs and keys the window keeps, and SDPA with
+              the rows' mask) and flash-decode's partial form on the
+              512-slot ring (4, 4, 1, 512, 256) cut into 16 slices of 32
+              at pos 4,223, merged against the whole ring call and the
+              plain merge; the launches are the forms' own counters over
+              the phase (the moe_ep and mla_cp phases, which run after the
+              train cells, are described with their constants);
   kernel_scan — the linear-scan kernel against three plain versions (step
               oracle, chunked scan, the kernel's split order) at the serve
               shape (4, 4096, 64, 64) in float32 and bf16, T = 1, 17, 100,
@@ -619,6 +630,15 @@ TP_FLASH_M = 16
 TP_FLASH_RANKS = (0, 7, 15)
 TP_MERGE_TOL = 2e-6  # merged partials against the plain merge, of the output's scale
 TP_EMPTY_POS = 255  # at 16 slices of 272 slots every slice but the first holds no valid key
+# gemma3-1b on a model axis of 16, which its 4 heads do not divide: its local
+# layers' sequence-parallel prefill (each rank's 256 query rows of 4,096 at
+# their offset over the 512-key window: flash at a query offset with a
+# window) and its local layers' context-parallel decode (the 512-slot ring
+# cut into 16 slices of 32, at the wrapped pos 4,223)
+TP_FLASH_WINDOW_SHAPE = (4, 4, 1, 4096, 256)
+TP_FLASH_WINDOW = 512
+TP_RING_SHAPE = DECODE_RING_SHAPE
+TP_RING_POS = 4223
 # whisper-base's attention (serve_whisper): the encoder's self-attention
 # (B, H, KV, S, D, non-causal), the decoder's causal self-attention over
 # the 4-token prompt, its cross-attention (B, H, KV, Sq, Sk, D: the
@@ -812,6 +832,25 @@ MOE_EP = (dict(arch="granite-moe-3b-a800m", mode="ffn"),
           dict(arch="deepseek-v2-lite-16b", mode="expert"))
 MOE_EP_M = 16
 MOE_EP_TOKENS = (2, 4096)
+# phase mla_cp: deepseek-v2-lite-16b's MLA decode context-parallel at full
+# width over the production model axis (M = 16, one of its 16 heads a rank):
+# one layer's weights and a batch-4 latent cache of 4,224 slots (the serve
+# decode's 4,096 + 128) drawn from the seed, the token at pos 4,223; each
+# rank's float32 partial over its 264 slots for every head
+# (layers.mla_partial), merged in rank order by log-sum-exp
+# (decode_ops.merge_partials) and rounded to bf16 once, then its head's wuv
+# and wo, the 16 parts summed in float32 and cast, against the one-card
+# decode_mla, which rounds its probabilities and its latent output to bf16
+# before wuv (the reference's form). Each output within MLA_CP_ROW_ULPS bf16
+# ulps of its token row's largest |output| plus 1e-5, as moe_ep: the
+# reference's bf16 probabilities (each within 2**-9 of its float32 value)
+# and 16 rank parts, each rounded to bf16, where the layer rounds one
+# product; a wrong slice, slot offset or head is off by the output's own
+# scale.
+MLA_CP_M = 16
+MLA_CP_BATCH = 4
+MLA_CP_SLOTS = 4224
+MLA_CP_ROW_ULPS = 4.0
 # decode at pos 4,096 vs the last-token logits of a 4,097-token prefill. The
 # recurrence's step is float32 on both paths (decode in PyTorch from the
 # kernel's final state; the kernel's last, ragged chunk), so the gap comes
@@ -3106,6 +3145,102 @@ def phase_moe_ep(tr):
     return out
 
 
+def phase_mla_cp(tr):
+    """deepseek-v2-lite-16b's MLA decode context-parallel at full width,
+    rank by rank (``MLA_CP_*``; the function each rank runs,
+    ``layers._decode_mla_cp``, with its collectives outside): the 16 rank
+    parts summed against the one-card ``decode_mla`` on the same weights,
+    cache and token, each output within MLA_CP_ROW_ULPS bf16 ulps of its
+    token row's largest magnitude plus 1e-5 (the elements beyond one ulp of
+    their own magnitude counted). Times (CUDA events): the whole layer's
+    decode, a rank's part (its head's q, its slots' partial, the merge of
+    the 16 partials, its head's wuv and wo; the median and the largest)."""
+    import statistics
+
+    import torch
+
+    configs, layers = tr["configs"], tr["layers"]
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.models.param_defs import init_values
+
+    t_phase = time.perf_counter()
+    cfg = configs.get_config("deepseek-v2-lite-16b")
+    s = next(b.mla for g in cfg.groups for b in g.blocks if b.kind == "mla")
+    M, B, T = MLA_CP_M, MLA_CP_BATCH, MLA_CP_SLOTS
+    H, Tl = s.n_heads, T // M
+    Hl = H // M
+    _require(H % M == 0 and T % M == 0, f"mla_cp: {H} heads, {T} slots over {M}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = init_values(layers.init_mla(s), gen, "cuda")
+    x = torch.randn((B, 1, s.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    cache = {"latent": torch.randn((B, T, s.kv_lora), generator=gen, device="cuda"),
+             "k_rope": torch.randn((B, T, s.qk_rope), generator=gen, device="cuda")}
+    cache = {k: v.to(torch.bfloat16) for k, v in cache.items()}
+    pos = torch.tensor(T - 1, dtype=torch.int32, device="cuda")
+    heads = ("wq", "wuk", "wuv")
+
+    def rank_slices(r):
+        out = dict(p, wo=p["wo"][r * Hl:(r + 1) * Hl].contiguous())
+        out.update({k: p[k][:, r * Hl:(r + 1) * Hl].contiguous() for k in heads})
+        return out
+
+    slices = [rank_slices(r) for r in range(M)]
+    with torch.no_grad():
+        whole = {k: v.clone() for k, v in cache.items()}
+        want, _ = layers.decode_mla(p, s, x, whole, pos)
+        # every rank's q over its head, gathered (here: concatenated in rank order)
+        qs = [layers.mla_decode_inputs(slices[r], s, x, pos) for r in range(M)]
+        q_lat = torch.cat([q[0] for q in qs], dim=2)
+        q_rope = torch.cat([q[1] for q in qs], dim=2)
+        latent_new, k_rope_new = qs[0][2], qs[0][3]
+        for k, new in (("latent", latent_new), ("k_rope", k_rope_new)):
+            cache[k][:, T - 1] = new[:, 0].to(cache[k].dtype)
+            _require(torch.equal(cache[k], whole[k]), f"mla_cp: the token's {k} differs")
+        parts = [layers.mla_partial(s, q_lat, q_rope, cache["latent"][:, r * Tl:(r + 1) * Tl],
+                                    cache["k_rope"][:, r * Tl:(r + 1) * Tl], pos, r * Tl)
+                 for r in range(M)]
+        outs = torch.stack([o for o, _ in parts])
+        lses = torch.stack([lse for _, lse in parts])
+        merged = decode_ops.merge_partials(outs, lses, x.dtype)
+        total = torch.zeros((B, 1, s.d_model), dtype=torch.float32, device="cuda")
+        for r in range(M):
+            total += layers.mla_heads_out(slices[r],
+                                          merged[:, None, r * Hl:(r + 1) * Hl]).float()
+        got = total.to(torch.bfloat16)
+
+        def rank_part(r):
+            ql, qr, _, _ = layers.mla_decode_inputs(slices[r], s, x, pos)
+            layers.mla_partial(s, q_lat, q_rope, cache["latent"][:, r * Tl:(r + 1) * Tl],
+                               cache["k_rope"][:, r * Tl:(r + 1) * Tl], pos, r * Tl)
+            m = decode_ops.merge_partials(outs, lses, x.dtype)
+            return layers.mla_heads_out(slices[r], m[:, None, r * Hl:(r + 1) * Hl])
+
+        whole_ms = _time_ms(lambda: layers.decode_mla(p, s, x, whole, pos), iters=20, warmup=3)
+        rank_ms = [_time_ms(lambda r=r: rank_part(r), iters=20, warmup=3) for r in range(M)]
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    in_rows = d / (_bf16_ulp(w.abs().amax(dim=-1, keepdim=True)) + 1e-5)
+    median = statistics.median(rank_ms)
+    out = {"phase": "mla_cp", "arch": "deepseek-v2-lite-16b", "model_axis": M,
+           "batch": B, "slots": T, "slots_a_rank": Tl, "heads_a_rank": Hl, "pos": T - 1,
+           "kv_lora": s.kv_lora, "max_abs_err": d.max().item(),
+           "max_abs_output": w.abs().max().item(),
+           "max_err_in_ulps": (d / (ulp + 1e-5)).max().item(),
+           "beyond_one_ulp": int((d > ulp + 1e-5).sum()), "roundings": int((d > 1e-5).sum()),
+           "elements": d.numel(), "max_err_in_row_ulps": in_rows.max().item(),
+           "beyond_one_row_ulp": int((in_rows > 1).sum()),
+           "whole_layer_ms": whole_ms, "median_rank_part_ms": median,
+           "slowest_rank_part_ms": max(rank_ms), "rank_part_over_whole": median / whole_ms,
+           "tolerance": {"row_ulps": MLA_CP_ROW_ULPS,
+                         "of": "the token row's largest |output|", "plus": 1e-5},
+           "phase_s": time.perf_counter() - t_phase}
+    _emit(out)
+    _require(out["max_err_in_row_ulps"] <= MLA_CP_ROW_ULPS,
+             f"mla_cp: the 16 rank parts against decode_mla: {out}")
+    return out
+
+
 def _plain_ms(fn, *args):
     """A plain piece of the training forward at one layer's shapes:
     ``fn(*args)`` alone (no grad, as the checkpointed forward runs it) and
@@ -4588,18 +4723,150 @@ def phase_kernel_attn(fops, fref, dops, dref):
     return res
 
 
+def _tp_partial_case(dops, dref, q, k, v, p, M, what):
+    """The decode kernel's partial form over M slices of a cache k, v (B,
+    KV, T, D) at pos ``p`` (a ring's too: its global slot j is valid when
+    j <= p, every slot once it has wrapped): each slice against the plain
+    partial (an empty one 0 and -inf exactly), the merge of the kernel's
+    partials against the plain merge of the plain ones and decode_ref, and,
+    rounded to bf16, against one whole call. Returns the gaps."""
+    import torch
+
+    T = k.shape[2]
+    pos = torch.tensor(p, dtype=torch.int32, device="cuda")
+    whole = dops.decode(q, k, v, pos)
+    ref32 = dref.decode_ref(q.float(), k.float(), v.float(), pos)
+    Tl = T // M
+    parts, plain = [], []
+    for r in range(M):
+        ks, vs = k[:, :, r * Tl:(r + 1) * Tl], v[:, :, r * Tl:(r + 1) * Tl]
+        parts.append(dops.decode(q, ks, vs, pos, slot0=r * Tl, return_lse=True))
+        plain.append(dref.decode_partial_ref(q, ks, vs, pos, r * Tl))
+    torch.cuda.synchronize()
+    worst_o = worst_l = 0.0
+    for (o, lse), (po, plse) in zip(parts, plain):
+        if bool(torch.isneginf(plse).all()):
+            _require(torch.equal(o, po) and bool(torch.isneginf(lse).all()),
+                     f"{what}: an empty slice is not 0 and -inf")
+            continue
+        worst_o = max(worst_o, ((o - po).abs().max() / po.abs().max()).item())
+        worst_l = max(worst_l, (lse - plse).abs().max().item())
+    merged = dops.merge_partials(torch.stack([o for o, _ in parts]),
+                                 torch.stack([lse for _, lse in parts]), torch.float32)
+    plain_merged = dref.merge_partials([o for o, _ in plain], [lse for _, lse in plain])
+    m_gap = ((merged - plain_merged).abs().max() / plain_merged.abs().max()).item()
+    r_gap = ((merged - ref32.float()).abs().max() / ref32.float().abs().max()).item()
+    w_gap, ok = _gap(merged.to(torch.bfloat16).float(), whole.float(), ATTN_F32_TOL, ulp=True)
+    _require(worst_o <= ATTN_F32_TOL and worst_l <= ATTN_F32_TOL,
+             f"{what}: slice != plain, {worst_o}, {worst_l}")
+    _require(m_gap <= TP_MERGE_TOL, f"{what}: merge {m_gap}")
+    _require(r_gap <= ATTN_F32_TOL, f"{what}: vs decode_ref {r_gap}")
+    _require(ok, f"{what}: merged, rounded, vs one call {w_gap}")
+    return {"slice_out_of_scale": worst_o, "slice_lse_abs": worst_l,
+            "merged_vs_plain_merge_of_scale": m_gap, "merged_vs_decode_ref_of_scale": r_gap,
+            "merged_bf16_vs_whole_call": w_gap}
+
+
+def _tp_partial_timing(dops, dref, q, k, v, p, M):
+    """The last of M slices of a cache at pos ``p`` through the partial
+    form: device and call times, the plain partial's, SDPA's over the same
+    slots (no mask: every slot of the last slice is valid at the pos
+    given) and the bound (the valid keys' bytes, the outputs in float32)."""
+    import torch
+    import torch.nn.functional as F
+
+    B, H, D = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    pos = torch.tensor(p, dtype=torch.int32, device="cuda")
+    Tl, r = T // M, M - 1
+    ks, vs = k[:, :, r * Tl:], v[:, :, r * Tl:]
+    n_keys = min(p - r * Tl, Tl - 1) + 1
+    _require(n_keys == Tl, f"the last of {M} slices holds {n_keys} of {Tl} valid keys")
+    lib = _device_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], ks, vs,
+                                                              enable_gqa=True))
+    dev = _device_ms(lambda: dops.decode(q, ks, vs, pos, slot0=r * Tl, return_lse=True))
+    tm = {
+        "shape": [B, H, KV, Tl, D], "slot0": r * Tl, "pos": p, "M": M, **dev,
+        "plain_ms": _time_ms(lambda: dref.decode_partial_ref(q, ks, vs, pos, r * Tl), iters=5),
+        "library": "scaled_dot_product_attention(enable_gqa=True) over the same slots",
+        "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
+        **_bound(2 * B * KV * n_keys * D * 2 + B * H * D * 2 + B * H * (D + 1) * 4,
+                 4 * B * H * n_keys * D, HW.peak_flops),
+    }
+    tm["share_of_bound"] = tm["bound_ms"] / tm["ms"]
+    return tm
+
+
+def _tp_offset_case(fops, fref, q, k, v, r, Sl, window, what):
+    """Flash at rank r's query offset (its Sl rows, a whole number of
+    128-row tiles), causal or over a ``window``: bit for bit those rows of
+    one whole call (the same key tiles in the same order), and each 128-row
+    tile within the bf16 flash bound of the plain version."""
+    import torch
+
+    full = fops.attention(q, k, v, window=window)
+    qr = q[:, :, r * Sl:(r + 1) * Sl]
+    got = fops.attention(qr, k, v, window=window, q_offset=r * Sl)
+    torch.cuda.synchronize()
+    bitwise = _bits_equal(got, full[:, :, r * Sl:(r + 1) * Sl])
+    _require(bitwise, f"{what} {r * Sl}: rows differ from the whole call's")
+    del full
+    checks = {}
+    for t in range(Sl // 128):
+        rows = slice(t * 128, (t + 1) * 128)
+        checks[f"tile{t}"] = _flash_bf16_check_offset(got[:, :, rows], qr[:, :, rows], k, v, fref,
+                                                      r * Sl + t * 128, f"{what} {r * Sl} tile {t}",
+                                                      window=window)
+    return {"bitwise_vs_full_call": bitwise, **checks}
+
+
+def _tp_offset_timing(fops, fref, q, k, v, r, Sl, window=None):
+    """Flash at rank r's query offset, causal or over a ``window``: device
+    and call times, the plain version's, SDPA's with the rows' mask, and
+    the bound: the pairs the mask keeps (operations over 989 TFLOP/s) and
+    the bytes of q, o and the keys and values the rows reach."""
+    import torch
+    import torch.nn.functional as F
+
+    B, H, _, D = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    qr = q[:, :, r * Sl:(r + 1) * Sl]
+    i = torch.arange(Sl, device="cuda")[:, None] + r * Sl
+    j = torch.arange(S, device="cuda")[None, :]
+    mask = (j <= i) & (j > i - window) if window is not None else j <= i
+    pairs = int(mask.sum().item())
+    keys = int(mask.any(dim=0).sum().item())
+    lib = _device_ms(lambda: F.scaled_dot_product_attention(qr, k, v, attn_mask=mask,
+                                                              enable_gqa=True), 5, 3)
+    dev = _device_ms(lambda: fops.attention(qr, k, v, window=window, q_offset=r * Sl), 5, 3)
+    tm = {
+        "shape": [B, H, KV, Sl, S, D], "q_offset": r * Sl, "window": window, **dev,
+        "plain_ms": _time_ms(lambda: fref.flash_attention_ref(qr, k, v, causal=True, window=window,
+                                                              q_offset=r * Sl), iters=2, warmup=1),
+        "library": "scaled_dot_product_attention(attn_mask=the rows' mask, enable_gqa=True)",
+        "library_ms": lib["ms"], "library_call_ms": lib["call_ms"], "pairs": pairs,
+        "keys_reached": keys,
+        **_bound((2 * B * H * Sl * D + 2 * B * KV * keys * D) * 2, 4 * B * H * D * pairs,
+                 HW.peak_flops),
+    }
+    tm["share_of_bound"] = tm["bound_ms"] / tm["ms"]
+    return tm
+
+
 def phase_tp_kernels(fops, fref, dops, dref):
     """The decode kernel's partial form and the flash kernel's query offset
     at full width (see the module docstring): checks, times and bounds.
     ``launches``: the forms' own counters (``decode.PARTIAL_LAUNCHES``,
     ``attention.OFFSET_LAUNCHES``), set to 0 at the start and read at the
-    end: the model-axis-1 path the other phases drive takes neither."""
+    end: the model-axis-1 path the other phases drive takes neither. By
+    form: serve's and phi4-mini's (the partial slices, the causal offset)
+    and gemma3-1b's (the ring's slices, the offset over a window)."""
     import torch
-    import torch.nn.functional as F
 
     t0 = time.perf_counter()
     err = {"decode_attention_partial": {}, "flash_attention_q_offset": {}}
     timings = {}
+    by_form = {}
     dops.decode.PARTIAL_LAUNCHES = fops.attention.OFFSET_LAUNCHES = 0
     # (a) the partial form over each split of the cache
     for shape in TP_DECODE_SHAPES:
@@ -4608,104 +4875,51 @@ def phase_tp_kernels(fops, fref, dops, dref):
         q = q[:, :, 0]
         key = f"{H}x{KV}"
         for p, M in [(T - 1, M) for M in TP_SPLITS] + [(TP_EMPTY_POS, TP_SPLITS[-1])]:
-            pos = torch.tensor(p, dtype=torch.int32, device="cuda")
-            whole = dops.decode(q, k, v, pos)
-            ref32 = dref.decode_ref(q.float(), k.float(), v.float(), pos)
-            Tl = T // M
-            parts, plain = [], []
-            for r in range(M):
-                ks, vs = k[:, :, r * Tl:(r + 1) * Tl], v[:, :, r * Tl:(r + 1) * Tl]
-                parts.append(dops.decode(q, ks, vs, pos, slot0=r * Tl, return_lse=True))
-                plain.append(dref.decode_partial_ref(q, ks, vs, pos, r * Tl))
-            torch.cuda.synchronize()
-            worst_o = worst_l = 0.0
-            for (o, lse), (po, plse) in zip(parts, plain):
-                if bool(torch.isneginf(plse).all()):
-                    _require(torch.equal(o, po) and bool(torch.isneginf(lse).all()),
-                             f"decode partial {key} M={M}: an empty slice is not 0 and -inf")
-                    continue
-                worst_o = max(worst_o, ((o - po).abs().max() / po.abs().max()).item())
-                worst_l = max(worst_l, (lse - plse).abs().max().item())
-            merged = dops.merge_partials(torch.stack([o for o, _ in parts]),
-                                         torch.stack([lse for _, lse in parts]), torch.float32)
-            plain_merged = dref.merge_partials([o for o, _ in plain], [lse for _, lse in plain])
-            m_gap = ((merged - plain_merged).abs().max() / plain_merged.abs().max()).item()
-            r_gap = ((merged - ref32.float()).abs().max() / ref32.float().abs().max()).item()
-            rounded = merged.to(torch.bfloat16).float()
-            w_gap, ok = _gap(rounded, whole.float(), ATTN_F32_TOL, ulp=True)
-            err["decode_attention_partial"][f"{key}_M{M}_pos{p}"] = {
-                "slice_out_of_scale": worst_o, "slice_lse_abs": worst_l,
-                "merged_vs_plain_merge_of_scale": m_gap, "merged_vs_decode_ref_of_scale": r_gap,
-                "merged_bf16_vs_whole_call": w_gap}
-            _require(worst_o <= ATTN_F32_TOL and worst_l <= ATTN_F32_TOL,
-                     f"decode partial {key} M={M}: slice != plain, {worst_o}, {worst_l}")
-            _require(m_gap <= TP_MERGE_TOL, f"decode partial {key} M={M}: merge {m_gap}")
-            _require(r_gap <= ATTN_F32_TOL, f"decode partial {key} M={M}: vs decode_ref {r_gap}")
-            _require(ok, f"decode partial {key} M={M}: merged, rounded, vs one call {w_gap}")
-            del parts, plain, whole, ref32
+            err["decode_attention_partial"][f"{key}_M{M}_pos{p}"] = _tp_partial_case(
+                dops, dref, q, k, v, p, M, f"decode partial {key} M={M}")
         # one slice at the production model axis: the last rank's, every slot valid
-        p = T - 1
-        pos = torch.tensor(p, dtype=torch.int32, device="cuda")
-        Tl = T // TP_SPLITS[-1]
-        r = TP_SPLITS[-1] - 1
-        ks, vs = k[:, :, r * Tl:], v[:, :, r * Tl:]
-        n_keys = min(p - r * Tl, Tl - 1) + 1
-        lib = _device_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], ks, vs,
-                                                                  enable_gqa=True))
-        dev = _device_ms(lambda: dops.decode(q, ks, vs, pos, slot0=r * Tl, return_lse=True))
-        tm = {
-            "shape": [B, H, KV, Tl, D], "slot0": r * Tl, "pos": p, "M": TP_SPLITS[-1], **dev,
-            "plain_ms": _time_ms(lambda: dref.decode_partial_ref(q, ks, vs, pos, r * Tl), iters=5),
-            "library": "scaled_dot_product_attention(enable_gqa=True) over the same slots",
-            "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
-            **_bound(2 * B * KV * n_keys * D * 2 + B * H * D * 2 + B * H * (D + 1) * 4,
-                     4 * B * H * n_keys * D, HW.peak_flops),
-        }
-        tm["share_of_bound"] = tm["bound_ms"] / tm["ms"]
-        timings[f"decode_attention_partial_{key}"] = tm
+        timings[f"decode_attention_partial_{key}"] = _tp_partial_timing(
+            dops, dref, q, k, v, T - 1, TP_SPLITS[-1])
         del q, k, v
+    by_form["decode_attention_partial"] = dops.decode.PARTIAL_LAUNCHES
     # (b) the query offset: the rows of one full causal call
     B, H, KV, S, D = TP_FLASH_SHAPE
     q, k, v = _attn_inputs(B, H, KV, S, D, dtype=torch.bfloat16, seed=41)
-    full = fops.attention(q, k, v)
     Sl = S // TP_FLASH_M
     for r in TP_FLASH_RANKS:
-        qr = q[:, :, r * Sl:(r + 1) * Sl]
-        got = fops.attention(qr, k, v, q_offset=r * Sl)
-        torch.cuda.synchronize()
-        bitwise = _bits_equal(got, full[:, :, r * Sl:(r + 1) * Sl])
-        _require(bitwise, f"flash q_offset {r * Sl}: rows differ from the full call's")
-        # the plain version on the rank's two query tiles of 128 rows
-        checks = {}
-        for t in (0, 1):
-            rows = slice(t * 128, (t + 1) * 128)
-            qt = qr[:, :, rows]
-            c = _flash_bf16_check_offset(got[:, :, rows], qt, k, v, fref, r * Sl + t * 128,
-                                         f"flash q_offset {r * Sl} tile {t}")
-            checks[f"tile{t}"] = c
-        err["flash_attention_q_offset"][f"r{r}"] = {"bitwise_vs_full_call": bitwise, **checks}
-    r = TP_FLASH_RANKS[-1]
-    qr = q[:, :, r * Sl:(r + 1) * Sl]
-    i = torch.arange(Sl, device="cuda")[:, None] + r * Sl
-    mask = torch.arange(S, device="cuda")[None, :] <= i
-    lib = _device_ms(lambda: F.scaled_dot_product_attention(qr, k, v, attn_mask=mask,
-                                                              enable_gqa=True), 5, 3)
-    dev = _device_ms(lambda: fops.attention(qr, k, v, q_offset=r * Sl), 5, 3)
-    pairs = Sl * (r * Sl) + Sl * (Sl + 1) / 2
-    tm = {
-        "shape": [B, H, KV, Sl, S, D], "q_offset": r * Sl, **dev,
-        "plain_ms": _time_ms(lambda: fref.flash_attention_ref(qr, k, v, causal=True,
-                                                              q_offset=r * Sl), iters=2, warmup=1),
-        "library": "scaled_dot_product_attention(attn_mask=the rows' causal mask, enable_gqa=True)",
-        "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
-        **_bound((2 * B * H * Sl * D + 2 * B * KV * S * D) * 2, 4 * B * H * D * pairs,
-                 HW.peak_flops),
-    }
-    tm["share_of_bound"] = tm["bound_ms"] / tm["ms"]
-    timings["flash_attention_q_offset"] = tm
+        err["flash_attention_q_offset"][f"r{r}"] = _tp_offset_case(
+            fops, fref, q, k, v, r, Sl, None, "flash q_offset")
+    timings["flash_attention_q_offset"] = _tp_offset_timing(fops, fref, q, k, v,
+                                                            TP_FLASH_RANKS[-1], Sl)
+    del q, k, v
+    by_form["flash_attention_q_offset"] = fops.attention.OFFSET_LAUNCHES
+    # (c) gemma3-1b's local layers at M = 16: the offset over the window
+    B, H, KV, S, D = TP_FLASH_WINDOW_SHAPE
+    q, k, v = _attn_inputs(B, H, KV, S, D, dtype=torch.bfloat16, seed=43)
+    Sl = S // TP_FLASH_M
+    for r in TP_FLASH_RANKS:
+        err["flash_attention_q_offset"][f"window{TP_FLASH_WINDOW}_r{r}"] = _tp_offset_case(
+            fops, fref, q, k, v, r, Sl, TP_FLASH_WINDOW, "flash q_offset window")
+    timings["flash_attention_q_offset_window"] = _tp_offset_timing(
+        fops, fref, q, k, v, TP_FLASH_RANKS[-1], Sl, TP_FLASH_WINDOW)
+    del q, k, v
+    by_form["flash_attention_q_offset_window"] = (fops.attention.OFFSET_LAUNCHES
+                                                  - by_form["flash_attention_q_offset"])
+    # (d) gemma3-1b's ring cut into the axis's slices, wrapped
+    M = TP_SPLITS[-1]
+    q, k, v = _attn_inputs(*TP_RING_SHAPE, dtype=torch.bfloat16, seed=47)
+    q = q[:, :, 0]
+    err["decode_attention_partial"][f"ring{TP_RING_SHAPE[3]}_M{M}_pos{TP_RING_POS}"] = \
+        _tp_partial_case(dops, dref, q, k, v, TP_RING_POS, M, f"decode partial ring M={M}")
+    timings["decode_attention_partial_ring"] = _tp_partial_timing(dops, dref, q, k, v,
+                                                                  TP_RING_POS, M)
+    del q, k, v
+    by_form["decode_attention_partial_ring"] = (dops.decode.PARTIAL_LAUNCHES
+                                                - by_form["decode_attention_partial"])
     launches = {"decode_attention_partial": dops.decode.PARTIAL_LAUNCHES,
                 "flash_attention_q_offset": fops.attention.OFFSET_LAUNCHES}
     res = {"phase": "tp_kernels", "max_abs_err": err, "timings": timings, "launches": launches,
+           "launches_by_form": by_form,
            "tolerance": {"slice": "2e-5 of the output's scale; lse 2e-5",
                          "merge": f"{TP_MERGE_TOL} of the output's scale vs the plain merge",
                          "merged_bf16": "one bf16 ulp + 2e-5 of one whole call",
@@ -4713,20 +4927,21 @@ def phase_tp_kernels(fops, fref, dops, dref):
                                            "2**-7 * attn(q, k, |v|) + one bf16 ulp + 2e-5"},
            "seconds": time.perf_counter() - t0}
     _emit(res)
-    _require(all(launches.values()), f"tp_kernels: a form was never launched: {launches}")
+    _require(all(by_form.values()), f"tp_kernels: a form was never launched: {by_form}")
     return res
 
 
-def _flash_bf16_check_offset(got, q, k, v, fref, q_offset, what):
-    """The bf16 flash kernel's rows at ``q_offset`` against the plain
-    version: |got - want| <= 2**-7 * attn(q, k, |v|) + one bf16 ulp + 2e-5.
-    Returns (max |d|, the largest share of the bound)."""
+def _flash_bf16_check_offset(got, q, k, v, fref, q_offset, what, window=None):
+    """The bf16 flash kernel's rows at ``q_offset`` (over a ``window``
+    where there is one) against the plain version: |got - want| <= 2**-7 *
+    attn(q, k, |v|) + one bf16 ulp + 2e-5. Returns (max |d|, the largest
+    share of the bound)."""
     import torch
 
     g = got.float()
-    w = fref.flash_attention_ref(q, k, v, causal=True, q_offset=q_offset).float()
+    w = fref.flash_attention_ref(q, k, v, causal=True, window=window, q_offset=q_offset).float()
     attn_abs = fref.flash_attention_ref(q.float(), k.float(), v.float().abs(), causal=True,
-                                        q_offset=q_offset)
+                                        window=window, q_offset=q_offset)
     ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
     d = (g - w).abs()
     share = (d / (FLASH_BF16_P_ROUNDING * attn_abs + ulp + ATTN_F32_TOL)).max().item()
@@ -5158,6 +5373,8 @@ def main() -> int:
         _memory(cell["phase"])
     phase_moe_ep(tr)
     _memory("moe_ep")
+    phase_mla_cp(tr)
+    _memory("mla_cp")
     torch.distributed.destroy_process_group()  # the smoke mesh's one-process group
     served = {}
     for name, spec, n_params, bounds, kw in SERVE_PHASES:
@@ -5261,7 +5478,7 @@ def main() -> int:
     ]
     # the forms of a "model" axis above 1 (tp_kernels: their launches are that
     # phase's, as the model-axis-1 paths above take neither)
-    tpe, tpt = kern_tp["max_abs_err"], kern_tp["timings"]
+    tpe, tpt, tp_forms = kern_tp["max_abs_err"], kern_tp["timings"], kern_tp["launches_by_form"]
     rows += [
         ("decode_attention_partial", "decode_attention/csrc/decode_attention.cu",
          "kernels/decode_attention/decode_attention.py:67", kern_tp,
@@ -5270,6 +5487,8 @@ def main() -> int:
          {"max_abs_err_of": "the merged partials rounded to bf16 against one whole call",
           "share_of_bound": tpt["decode_attention_partial_16x8"]["share_of_bound"],
           "phi4_mini": tpt["decode_attention_partial_24x8"],
+          "gemma3_ring": {"launches": tp_forms["decode_attention_partial_ring"],
+                          **tpt["decode_attention_partial_ring"]},
           "checks": tpe["decode_attention_partial"]}),
         ("flash_attention_q_offset", "flash_attention/csrc/flash_attention.cu",
          "kernels/flash_attention/flash_attention.py:74", kern_tp,
@@ -5278,6 +5497,8 @@ def main() -> int:
          tpt["flash_attention_q_offset"],
          {"max_abs_err_of": "bfloat16 rows against the plain version",
           "share_of_bound": tpt["flash_attention_q_offset"]["share_of_bound"],
+          "gemma3_window": {"launches": tp_forms["flash_attention_q_offset_window"],
+                            **tpt["flash_attention_q_offset_window"]},
           "checks": tpe["flash_attention_q_offset"]}),
     ]
     rows.append(("rwkv6_scan", "linear_scan/csrc/linear_scan.cu",

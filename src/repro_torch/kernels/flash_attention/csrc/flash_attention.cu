@@ -12,7 +12,10 @@
 // 1,500 encoder frames), or with a causal query offset: q_off puts query row i at
 // position q_off + i (a sequence-parallel rank's rows of a prefill, q_off = r * Sq), so
 // the causal mask, the last key tile a query tile visits and the tiles it masks follow
-// the rows' positions, and q_off = 0 with Sq == Sk is the plain causal call.
+// the rows' positions, and q_off = 0 with Sq == Sk is the plain causal call. A window
+// at an offset (gemma3's local layers on a model axis that its 4 heads do not divide)
+// follows the positions too: the first key tile a query tile visits is the one that
+// holds key p0 - window + 1, p0 its first row's position, wherever p0 lies in a tile.
 // The grid, the Q tile and the store guard follow Sq; the key tiles, the ragged-end mask
 // and the K and V tensor maps follow Sk.
 //
@@ -821,9 +824,8 @@ int dispatch(void* out, const void* q, const void* k, const void* v, int dtype, 
 // in that order. H % KV == 0, D in {16, 64, 128, 256} (the ported configs' head sizes),
 // Sq, Sk >= 1. Causal: query row i sits at position q_off + i (q_off >= 0, q_off + Sq <=
 // Sk; q_off > 0 is a sequence-parallel rank's rows against every key of the prefill,
-// q_off = 0 with Sq == Sk the plain causal call); `window` 0 (none) or, with Sq == Sk and
-// q_off = 0, the keys each row sees (i - window < j <= i). Not causal: window and q_off
-// 0. For bfloat16 the base pointers and strides are multiples of 16 bytes
+// q_off = 0 with Sq == Sk the plain causal call); `window` 0 (none) or the keys each row
+// sees (q_off + i - window < j <= q_off + i). Not causal: window and q_off 0. For bfloat16 the base pointers and strides are multiples of 16 bytes
 // (TMA). float32 runs flash_fwd on the CUDA cores, bfloat16 flash_fwd_wgmma on the tensor
 // cores. The launch goes on `stream` and does not synchronise. Returns the CUDA error
 // after the launch (0 = launched).
@@ -832,7 +834,7 @@ extern "C" int flash_attention_fwd(void* out, const void* q, const void* k, cons
                                    int causal, int window, int q_off, const int64_t* strides,
                                    cudaStream_t stream) {
   if (Sq < 1 || Sk < 1 || window < 0 || q_off < 0 || (!causal && (window > 0 || q_off > 0)) ||
-      (causal && q_off + Sq > Sk) || (window > 0 && (Sq != Sk || q_off > 0)))
+      (causal && q_off + Sq > Sk))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(out, q, k, v, dtype, B, H, KV, Sq, Sk, D, causal, window, q_off, strides,
                   stream);

@@ -87,12 +87,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
     i sees keys j <= i) or with a ``window`` (causal only: row i sees keys
     i - window < j <= i, the reference's sliding window) needs Sq == Sk,
     else ValueError; ``causal=False`` sees every key, and Sq and Sk may
-    differ (cross-attention). A causal ``q_offset`` (a host int, no window)
-    puts query row i at position q_offset + i against keys 0..Sk-1, which
-    must hold them (q_offset + Sq <= Sk): a sequence-parallel rank's rows
-    of a prefill; query tiles skip the key tiles past their last row.
-    Launches at an offset count in ``attention.OFFSET_LAUNCHES``, the others
-    in ``attention.LAUNCHES``. Returns (B, H, Sq, D) in q's dtype; on CUDA with q's strides, so for a
+    differ (cross-attention). A causal ``q_offset`` (a host int) puts query
+    row i at position q_offset + i against keys 0..Sk-1, which must hold
+    them (q_offset + Sq <= Sk): a sequence-parallel rank's rows of a
+    prefill; with a ``window`` too, row i sees keys q_offset + i - window <
+    j <= q_offset + i (gemma3's local layers on a model axis that its heads
+    do not divide). Query tiles skip the key tiles past their last row and
+    before their first row's window. Launches at an offset count in
+    ``attention.OFFSET_LAUNCHES``, the others in ``attention.LAUNCHES``. Returns (B, H, Sq, D) in q's dtype; on CUDA with q's strides, so for a
     transposed (B, S, H, D) q the result transposes back to a contiguous
     tensor."""
     forbid_grad("attention", q, k, v)
@@ -126,7 +128,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
     launch(
         "flash_attention", lib.flash_attention_fwd, out.data_ptr(), q.data_ptr(),
         k.data_ptr(), v.data_ptr(), DTYPES[q.dtype], B, H, k.shape[1], S, Sk, D, int(causal),
-        min(int(window), S) if window is not None else 0, q_offset or 0,
+        min(int(window), Sk) if window is not None else 0, q_offset or 0,
         ctypes.cast(strides, ctypes.c_void_p), device=q.device,
     )
     count_launch(attention, "LAUNCHES" if q_offset is None else "OFFSET_LAUNCHES")

@@ -9,8 +9,11 @@ key j is seen by row i when i - window < j <= i, the reference's
 q's dtype at the end. Without a mask the query and key lengths may differ
 (whisper's cross-attention: every row sees every key). With a causal
 ``q_offset`` they may differ too: query row i is at position q_offset + i
-against keys 0..Sk-1 (a sequence-parallel rank's rows of a prefill). The CPU path of the
-port and the tests use it; on the card the CUDA kernel is held against it.
+against keys 0..Sk-1 (a sequence-parallel rank's rows of a prefill), over
+the window q_offset + i - window < j <= q_offset + i where there is one
+(the reference's ``causal_mask(Sq, Sk, window, offset)``). The CPU path of
+the port and the tests use it; on the card the CUDA kernel is held against
+it.
 """
 from __future__ import annotations
 
@@ -30,12 +33,12 @@ def key_tile(D: int) -> int:
 
 def check_lengths(Sq: int, Sk: int, causal: bool, window, q_offset=None) -> None:
     """A mask (causal or a window) pairs query row i with key i: raise
-    ValueError unless Sq == Sk there. With a ``q_offset`` (causal, no
-    window) row i is at position q_offset + i: the rows must lie within
-    the Sk keys."""
+    ValueError unless Sq == Sk there. With a ``q_offset`` (causal, with or
+    without a window) row i is at position q_offset + i: the rows must lie
+    within the Sk keys."""
     if q_offset is not None:
-        if not causal or window is not None:
-            raise ValueError("a query offset needs causal attention without a window")
+        if not causal:
+            raise ValueError("a query offset needs causal attention")
         if q_offset < 0 or q_offset + Sq > Sk:
             raise ValueError(f"query rows at {q_offset}..{q_offset + Sq - 1} lie outside "
                              f"the {Sk} keys")
@@ -67,7 +70,7 @@ def flash_attention_ref(q, k, v, causal: bool = True, window=None, q_offset=None
     """q: (B, H, Sq, D); k, v: (B, KV, Sk, D) with H % KV == 0 (Sq == Sk
     when causal or windowed, but for a causal ``q_offset``: row i at
     position q_offset + i); ``window`` None (full causal) or the keys each
-    row sees. Returns (B, H, Sq, D) in q's dtype."""
+    row sees (with an offset too). Returns (B, H, Sq, D) in q's dtype."""
     S = q.shape[2]
     check_lengths(S, k.shape[2], causal, window, q_offset)
     rep = q.shape[1] // k.shape[1]

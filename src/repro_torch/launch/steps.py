@@ -55,6 +55,7 @@ import torch
 from repro_torch.configs.registry import ShapeSpec, TensorSpec, input_specs
 from repro_torch.core.sharded import (
     DEFAULT_RULES,
+    _splits_over,
     IplsStepConfig,
     IplsTrainState,
     init_state,
@@ -201,6 +202,26 @@ def _check_tp(model, mesh, long_context: bool = False) -> None:
     if long_context:
         raise NotImplementedError("kv_seq over ('data', 'model') for long_500k on a 'model' "
                                   "axis above 1 is not ported yet (ROADMAP.md queue 1)")
+
+
+def _check_cache_split(cache_axes, cache_sh) -> None:
+    """A context-parallel decode takes each rank's cache as its share of
+    the slots (``kv_seq``): raise ValueError, before a decode step runs on
+    a "model" axis above 1, for a cache whose slots do not split over it (a
+    full cache's or a sliding-window ring's), as the prefill does, rather
+    than read whole caches as shares. The step's specs still build."""
+    def walk(axes, spec):
+        if isinstance(axes, dict):
+            for k in axes:
+                walk(axes[k], spec[k])
+        elif isinstance(axes, list):
+            for a, sp in zip(axes, spec):
+                walk(a, sp)
+        elif "kv_seq" in axes and not _splits_over((spec[axes.index("kv_seq")],), "model"):
+            raise ValueError(f"a cache of axes {axes} and spec {spec} does not split its slots "
+                             "over the 'model' axis: its slots must be a multiple of the axis")
+
+    walk(cache_axes, cache_sh)
 
 
 def _rules(mesh, cfg, kind: str, long_context: bool = False,
@@ -364,6 +385,8 @@ def build_decode_step(model, mesh, shape: ShapeSpec, extra_rules: Optional[dict]
 
     def decode_step(cache, batch):
         _check_tp(model, mesh, long_context)
+        if model_size(mesh) > 1:
+            _check_cache_split(cache_axes, cache_sh)
         local = shard_batch(batch, batch_sh, mesh)
         if not graph:
             with context():

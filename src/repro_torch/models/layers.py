@@ -22,19 +22,24 @@ the flash kernel without the causal mask, its cross-attention the flash
 kernel with the encoder's keys (query and key lengths differ) in the
 prefill and the flash-decode kernel over all of them in decode.
 
-On a "model" mesh axis above 1 (tensor parallelism, the dense attention
-and MLP blocks) a layer holds its rank's shards and its layout follows
-them: attention whose query heads divide the axis is head-parallel (the
-block input whole over the sequence, the rank's heads, a partial output
-that the caller reduces), otherwise sequence-parallel (the rank's query
-rows at their offset, k and v gathered over the sequence); the MLP's
-columns then rows are split over ``ffn`` where it divides; decode attends
-over the rank's slots of a sequence-split KV cache through the decode
-kernel's partial form and merges the ranks' partials by their log-sum-exp
-(``decode_attention``). The layout changes are ``sharding_hooks``'s. The
-MoE block takes the reference's three modes (``moe_mode``: expert-parallel,
-ffn-parallel, replicated) on the data rank's whole sequence: each rank's
-float32 part (``moe_rank_partial``) summed over the axis into its rows
+On a "model" mesh axis above 1 (tensor parallelism) a layer holds its
+rank's shards and its layout follows them: attention (causal, over a
+sliding window, with RoPE or M-RoPE) and MLA whose query heads divide the
+axis are head-parallel (the block input whole over the sequence, the
+rank's heads, a partial output that the caller reduces; MLA's latent and
+rope key computed whole on every rank), otherwise sequence-parallel (the
+rank's query rows at their offset against k and v, or MLA's latent and
+rope key, gathered over the sequence; the prefill through the flash
+kernel at a query offset, over the window too); the MLP's columns then
+rows are split over ``ffn`` where it divides. Decode attends over the
+rank's slots of a sequence-split cache (a full cache, a window's ring, or
+MLA's latent cache) and merges the ranks' partials by their log-sum-exp:
+attention through the decode kernel's partial form
+(``_decode_attention_cp``), MLA in plain PyTorch (``_decode_mla_cp``).
+The layout changes are ``sharding_hooks``'s. The MoE block takes the
+reference's three modes (``moe_mode``: expert-parallel, ffn-parallel,
+replicated) on the data rank's whole sequence: each rank's float32 part
+(``moe_rank_partial``) summed over the axis into its rows
 (``_apply_moe_tp``).
 """
 from __future__ import annotations
@@ -454,6 +459,14 @@ def init_attn_cache(s: AttnSpec, batch: int, seq_len: int, dtype=torch.bfloat16)
     }
 
 
+def _decode_positions(s: AttnSpec, pos: torch.Tensor, B: int) -> torch.Tensor:
+    """The decode token's positions for ``_rope_qk``: ``pos`` as (B, 1) or,
+    for M-RoPE, on all three components (3, B, 1), as the reference rotates
+    a text token."""
+    positions = pos.reshape(1, 1).expand(B, 1)
+    return positions[None].expand(3, B, 1) if s.rope == "mrope" else positions
+
+
 def decode_attention(
     params,
     s: AttnSpec,
@@ -476,12 +489,8 @@ def decode_attention(
     tp = sharding_hooks.tensor_parallel()
     if tp is not None:
         return _decode_attention_cp(params, s, x, cache, pos, tp)
-    B = x.shape[0]
     q, k_new, v_new = _proj_qkv(params, s, x)
-    positions = pos.reshape(1, 1).expand(B, 1)
-    if s.rope == "mrope":
-        positions = positions[None].expand(3, B, 1)
-    q, k_new = _rope_qk(s, q, k_new, positions)
+    q, k_new = _rope_qk(s, q, k_new, _decode_positions(s, pos, x.shape[0]))
     kc, vc = cache["k"], cache["v"]
     if kc.dtype != q.dtype:
         raise ValueError(f"cache dtype {kc.dtype} != activation dtype {q.dtype}")
@@ -492,19 +501,42 @@ def decode_attention(
     return _out_proj(out[:, None], params["wo"]), cache
 
 
+def _owned_slot(pos: torch.Tensor, T: int, tp, ring: bool):
+    """The token's slot in a cache of M T slots split over the ranks (rank r
+    slots [r T, (r+1) T)): slot ``pos`` of a full cache, ``pos % (M T)`` of
+    a ring. Returns (this rank's slot of it, clamped into 0..T-1: a (1,)
+    index, and whether this rank owns it), both on the device: no host
+    sync."""
+    glob = pos.reshape(1).long()
+    if ring:
+        glob = glob % (tp.size * T)
+    local = glob - tp.rank * T
+    return local.clamp(0, T - 1), (local >= 0) & (local < T)
+
+
+def _write_owned(cache: torch.Tensor, slot, own, new: torch.Tensor) -> None:
+    """``new`` into ``cache``'s ``slot`` along dim 1 where this rank owns
+    it, else what the slot holds back (every rank runs the same ops)."""
+    own = own.reshape((1,) * cache.dim())
+    cache.index_copy_(1, slot, torch.where(own, new.to(cache.dtype), cache.index_select(1, slot)))
+
+
 def _decode_attention_cp(params, s: AttnSpec, x, cache, pos, tp):
     """Context-parallel decode: rank r holds slots [r T, (r+1) T) of a
-    cache of M T slots (k, v (B, T, KV, hd), every kv head). The token's q,
-    k and v are gathered over the heads (small tensors), the rank that owns
-    slot ``pos`` writes k and v there (the others write back what they
-    hold: no host sync), each rank runs the decode kernel's partial form
-    over its slots, and the ranks' partials are merged by their log-sum-exp
-    in rank order (float32, rounded to q's dtype once). Returns the
+    cache of M T slots (k, v (B, T, KV, hd), every kv head): a full cache
+    or a sliding-window layer's ring. The token's q, k and v are gathered
+    over the heads (small tensors), the rank that owns its slot (``pos``,
+    or ``pos % (M T)`` on a ring) writes k and v there (the others write
+    back what they hold: no host sync), each rank runs the decode kernel's
+    partial form over its slots (global slot ``r T + j`` attended when it
+    is at most ``pos``: on a ring, every slot once it has wrapped, as
+    ``decode_attention``), and the ranks' partials are merged by their
+    log-sum-exp in rank order (float32, rounded to q's dtype once). M-RoPE
+    rotates the token at ``pos`` on all three components. Returns the
     output projection of the rank's heads (a partial sum the caller
     all-reduces) or, where the heads are whole, of all of them."""
-    B = x.shape[0]
     q, k_new, v_new = _proj_qkv(params, s, x)
-    q, k_new = _rope_qk(s, q, k_new, pos.reshape(1, 1).expand(B, 1))
+    q, k_new = _rope_qk(s, q, k_new, _decode_positions(s, pos, x.shape[0]))
     if q.shape[2] < s.n_heads:
         q = sharding_hooks.gather_model(q, tp, 2)
     if k_new.shape[2] < s.kv_heads:
@@ -514,14 +546,11 @@ def _decode_attention_cp(params, s: AttnSpec, x, cache, pos, tp):
     if kc.dtype != q.dtype:
         raise ValueError(f"cache dtype {kc.dtype} != activation dtype {q.dtype}")
     T = kc.shape[1]
-    slot0 = tp.rank * T
-    local = pos.reshape(1).long() - slot0
-    own = ((local >= 0) & (local < T)).reshape(1, 1, 1, 1)
-    slot = local.clamp(0, T - 1)
-    kc.index_copy_(1, slot, torch.where(own, k_new, kc.index_select(1, slot)))
-    vc.index_copy_(1, slot, torch.where(own, v_new, vc.index_select(1, slot)))
+    slot, own = _owned_slot(pos, T, tp, ring=s.window is not None)
+    _write_owned(kc, slot, own, k_new)
+    _write_owned(vc, slot, own, v_new)
     out, lse = decode_ops.decode(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), pos,
-                                 slot0=slot0, return_lse=True)
+                                 slot0=tp.rank * T, return_lse=True)
     outs = sharding_hooks.gather_model(out[None], tp, 0)
     lses = sharding_hooks.gather_model(lse[None], tp, 0)
     merged = decode_ops.merge_partials(outs, lses, q.dtype)  # (B, H, hd)
@@ -586,21 +615,41 @@ def _masked_softmax(logits, valid, dtype, scale):
     return torch.softmax(l32, dim=-1).to(dtype)
 
 
+def _mla_scale(s: MLASpec) -> float:
+    return 1.0 / np.sqrt(s.qk_nope + s.qk_rope)
+
+
 def prefill_mla(params, s: MLASpec, x: torch.Tensor, positions: torch.Tensor):
     """Training / prefill MLA in the plain (expanded) form. Returns
-    (y (B, S, D), latent, k_rope), the last two for the cache."""
+    (y (B, S, D), latent, k_rope), the last two for the cache, whole over
+    the sequence.
+
+    On a tensor-parallel mesh (the reference's specs: ``wq``, ``wuk``,
+    ``wuv`` and ``wo`` split over "heads", ``wdkv``, ``wk_rope`` and
+    ``kv_norm`` whole) the layout follows the weights: where the heads are
+    split (head-parallel) x is whole over the sequence and y is the rank's
+    heads' part of the output projection (the caller reduce-scatters it);
+    where they are whole (sequence-parallel) x is the rank's rows at
+    ``positions``, the latent and k_rope are gathered over the sequence and
+    the causal mask sits at the rows' offset."""
+    tp = sharding_hooks.tensor_parallel()
     with _span("mla"):
-        S = x.shape[1]
+        Sl, offset = x.shape[1], 0
         q_nope, q_rope = _mla_q(params, s, x, positions)
         latent, k_rope = _mla_kv(params, s, x, positions)
+        if tp is not None and params["wq"].shape[1] == s.n_heads:
+            latent = sharding_hooks.gather_seq(latent, tp)
+            k_rope = sharding_hooks.gather_seq(k_rope, tp)
+            offset = tp.rank * Sl
+        S = latent.shape[1]
         k_nope = torch.einsum("bsl,lhk->bshk", latent, params["wuk"])
         val = torch.einsum("bsl,lhk->bshk", latent, params["wuv"])
         # the rope part's key is shared by the heads: the reference's broadcast
         logits = torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
         logits += torch.einsum("bshk,btk->bhst", q_rope, k_rope)
         del k_nope
-        probs = _masked_softmax(logits, causal_mask(S, S, device=x.device), x.dtype,
-                                1.0 / np.sqrt(s.qk_nope + s.qk_rope))
+        probs = _masked_softmax(logits, causal_mask(Sl, S, offset=offset, device=x.device),
+                                x.dtype, _mla_scale(s))
         del logits
         out = torch.einsum("bhst,bthk->bshk", probs, val)
         return _out_proj(out, params["wo"]), latent, k_rope
@@ -619,29 +668,103 @@ def init_mla_cache(s: MLASpec, batch: int, seq_len: int, dtype=torch.bfloat16):
     }
 
 
+def mla_decode_inputs(params, s: MLASpec, x, pos):
+    """What an absorbed MLA decode step computes of its token x (B, 1, D)
+    at ``pos``: q_lat (B, 1, H, kv_lora), the query taken into the latent
+    space (q_nope wuk), and the rotated q_rope (B, 1, H, qk_rope), on the
+    heads the weights hold; the token's normed latent (B, 1, kv_lora) and
+    k_rope (B, 1, qk_rope) for the cache."""
+    positions = pos.reshape(1, 1).expand(x.shape[0], 1)
+    q_nope, q_rope = _mla_q(params, s, x, positions)
+    latent_new, k_rope_new = _mla_kv(params, s, x, positions)
+    q_lat = torch.einsum("bshk,lhk->bshl", q_nope, params["wuk"])
+    return q_lat, q_rope, latent_new, k_rope_new
+
+
+def mla_heads_out(params, o_lat: torch.Tensor) -> torch.Tensor:
+    """The output projection of o_lat (B, 1, H, kv_lora) on the heads the
+    weights hold: (o_lat wuv) wo, (B, 1, D)."""
+    out = torch.einsum("bshl,lhk->bshk", o_lat, params["wuv"])
+    return _out_proj(out, params["wo"])
+
+
 def decode_mla(params, s: MLASpec, x, cache, pos):
     """Absorbed-form MLA decode: the query is taken into the latent space
     (q_nope wuk) and scored against the latent cache directly, a step
     costing O(T (kv_lora + qk_rope) H) instead of re-expanding K and V.
     As ``decode_attention``, the token's latent and k_rope are written into
-    ``cache`` IN PLACE at slot ``pos`` (a 0-d device tensor: no host sync)."""
+    ``cache`` IN PLACE at slot ``pos`` (a 0-d device tensor: no host sync).
+    On a tensor-parallel mesh the cache is split over its slots
+    (``_decode_mla_cp``)."""
+    tp = sharding_hooks.tensor_parallel()
+    if tp is not None:
+        return _decode_mla_cp(params, s, x, cache, pos, tp)
     with _span("mla"):
-        B = x.shape[0]
-        positions = pos.reshape(1, 1).expand(B, 1)
-        q_nope, q_rope = _mla_q(params, s, x, positions)
-        latent_new, k_rope_new = _mla_kv(params, s, x, positions)
+        q_lat, q_rope, latent_new, k_rope_new = mla_decode_inputs(params, s, x, pos)
         latent, k_rope = cache["latent"], cache["k_rope"]
         slot = pos.reshape(1).long()
         latent.index_copy_(1, slot, latent_new.to(latent.dtype))
         k_rope.index_copy_(1, slot, k_rope_new.to(k_rope.dtype))
-        q_lat = torch.einsum("bshk,lhk->bshl", q_nope, params["wuk"])  # (B, 1, H, L)
         logits = torch.einsum("bshl,btl->bhst", q_lat, latent)
         logits += torch.einsum("bshk,btk->bhst", q_rope, k_rope)
         valid = torch.arange(latent.shape[1], device=x.device) <= pos
-        probs = _masked_softmax(logits, valid, x.dtype, 1.0 / np.sqrt(s.qk_nope + s.qk_rope))
+        probs = _masked_softmax(logits, valid, x.dtype, _mla_scale(s))
         o_lat = torch.einsum("bhst,btl->bshl", probs, latent)
-        out = torch.einsum("bshl,lhk->bshk", o_lat, params["wuv"])
-        return _out_proj(out, params["wo"]), cache
+        return mla_heads_out(params, o_lat), cache
+
+
+def mla_partial(s: MLASpec, q_lat, q_rope, latent, k_rope, pos, slot0: int):
+    """One slice of a sequence-split MLA cache (a rank's share of a
+    context-parallel decode), plain PyTorch as the reference's MLA: q_lat
+    (B, 1, H, kv_lora), q_rope (B, 1, H, qk_rope); latent (B, T, kv_lora)
+    and k_rope (B, T, qk_rope) holding global slots slot0..slot0+T-1, those
+    at most ``pos`` attended. The scores as ``decode_mla``'s (products in
+    the activations' dtype, then float32, scaled); returns (o_lat (B, H,
+    kv_lora), lse (B, H)), float32: the slice's normalised latent output
+    and the log-sum-exp of its scores, 0 and -inf for a slice with no valid
+    slot (the decode kernel's partial form), which
+    ``decode_ops.merge_partials`` merges."""
+    logits = torch.einsum("bshl,btl->bhst", q_lat, latent)
+    logits += torch.einsum("bshk,btk->bhst", q_rope, k_rope)
+    s32 = logits[:, :, 0].float() * _mla_scale(s)
+    valid = torch.arange(latent.shape[1], device=latent.device) + int(slot0) <= pos
+    s32 = s32.masked_fill(~valid, float("-inf"))
+    lse = torch.logsumexp(s32, dim=-1)
+    p = torch.exp(s32 - torch.where(torch.isinf(lse), 0.0, lse)[..., None])
+    return torch.einsum("bht,btl->bhl", p, latent.float()), lse
+
+
+def _decode_mla_cp(params, s: MLASpec, x, cache, pos, tp):
+    """Context-parallel absorbed MLA decode: rank r holds slots [r T, (r+1)
+    T) of latent and k_rope caches of M T slots. Each rank computes q_lat
+    and q_rope of its heads, gathered over "model" (small tensors); the
+    token's latent and k_rope (whole weights) are written by the rank that
+    owns slot ``pos`` (no host sync); each rank's float32 partial over its
+    slots for every head (``mla_partial``) is gathered and merged in rank
+    order by log-sum-exp (``decode_ops.merge_partials``), rounded to the
+    activations' dtype once; then ``wuv`` and ``wo`` of the rank's heads:
+    a partial sum the caller all-reduces (or, where the heads are whole,
+    the output). The reference rounds its probabilities to the
+    activations' dtype before the product with the latent; the merge of
+    float32 partials rounds once, at the end."""
+    with _span("mla"):
+        q_lat, q_rope, latent_new, k_rope_new = mla_decode_inputs(params, s, x, pos)
+        Hl = q_lat.shape[2]
+        if Hl < s.n_heads:
+            q_lat = sharding_hooks.gather_model(q_lat, tp, 2)
+            q_rope = sharding_hooks.gather_model(q_rope, tp, 2)
+        latent, k_rope = cache["latent"], cache["k_rope"]
+        T = latent.shape[1]
+        slot, own = _owned_slot(pos, T, tp, ring=False)
+        _write_owned(latent, slot, own, latent_new)
+        _write_owned(k_rope, slot, own, k_rope_new)
+        o_lat, lse = mla_partial(s, q_lat, q_rope, latent, k_rope, pos, tp.rank * T)
+        outs = sharding_hooks.gather_model(o_lat[None], tp, 0)
+        lses = sharding_hooks.gather_model(lse[None], tp, 0)
+        merged = decode_ops.merge_partials(outs, lses, x.dtype)  # (B, H, kv_lora)
+        if Hl < s.n_heads:
+            merged = merged[:, tp.rank * Hl:(tp.rank + 1) * Hl]
+        return mla_heads_out(params, merged[:, None]), cache
 
 
 # ---------------------------------------------------------------------------

@@ -39,21 +39,25 @@ follow its period's blocks inside the layer's checkpoint, with the one
 ``g{gi}_shared`` tree, so their gradient sums over the applications. The
 encoder-decoder (whisper) is ``models/whisper.py``.
 
-Tensor parallelism (a "model" mesh axis above 1, the dense and MoE blocks
-without windows, MLA or M-RoPE: ``check_tensor_parallel``): a model built on such a mesh
+Tensor parallelism (a "model" mesh axis above 1: attention with windows
+and M-RoPE, MLA, MLP and MoE blocks; not yet shared blocks, Mamba2 or RWKV6:
+``check_tensor_parallel``): a model built on such a mesh
 (``TransformerLM(cfg, mesh=mesh)``) holds its rank's shards of every leaf
 (``lm_param_specs``). Under the step's mesh context the residual stream is
 sequence-parallel; a block whose heads or ffn divide the axis gathers its
 input over the sequence and reduce-scatters its row-parallel output
 (``_gatherable``, the reference's Megatron-SP layout), the others run on
-the rank's rows (sequence-parallel attention). The embedding, the logits
-and the cross entropy are vocab-parallel where the vocab divides the axis
-(a masked lookup reduced over "model"; the max, the sum of exponents and
-the target logit each reduced over it), else computed on the rank's rows.
-A prefill returns its caches in the decode layout (``kv_seq`` over
-"model"), and decode attends context-parallel (``layers.decode_attention``).
-The MoE block gathers its input over the sequence and hands back its
-rows (``layers.apply_moe``); in decode its parts are summed over "model".
+the rank's rows (sequence-parallel attention and MLA, at the rows'
+positions: ``positions_local``, M-RoPE's ``positions3_local``). The
+embedding, the logits and the cross entropy are vocab-parallel where the
+vocab divides the axis (a masked lookup reduced over "model"; the max, the
+sum of exponents and the target logit each reduced over it), else computed
+on the rank's rows. A prefill returns its caches in the decode layout
+(``kv_seq`` over "model": the rank's slots of each full cache, window ring
+and MLA latent cache), and decode attends context-parallel
+(``layers.decode_attention``, ``layers.decode_mla``). The MoE block gathers
+its input over the sequence and hands back its rows (``layers.apply_moe``);
+in decode its parts are summed over "model".
 
 Under an fsdp train step (``IplsStepConfig(fsdp=True)``) ``loss`` gathers
 each stored leaf where it uses it (``sharding_hooks.gather_stored``): a
@@ -165,9 +169,12 @@ def _check_kind(b: BlockSpec) -> None:
         )
 
 
-def _attn_positions(b: BlockSpec, ctx: dict) -> torch.Tensor:
-    """An attention block's positions: (3, B, S) for M-RoPE, else (B, S)."""
-    return ctx["positions3"] if b.attn.rope == "mrope" else ctx["positions"]
+def _attn_positions(b: BlockSpec, ctx: dict, local: bool = False) -> torch.Tensor:
+    """An attention or MLA block's positions: (3, B, S) for M-RoPE, else
+    (B, S); with ``local``, those of the rank's rows on a tensor-parallel
+    mesh (``_tp_ctx``)."""
+    key = "positions3" if b.kind == "attn" and b.attn.rope == "mrope" else "positions"
+    return ctx[key + "_local" if local else key]
 
 
 def block_defs(b: BlockSpec, d_model: int) -> Dict[str, Any]:
@@ -215,25 +222,25 @@ def _vocab_parallel_ce(logits: torch.Tensor, targets: torch.Tensor, v0: int, tp)
     return lse - tgt
 
 
-TP_KINDS = ("attn", "mlp", "moe")
+TP_KINDS = ("attn", "mla", "mlp", "moe")
 
 
 def check_tensor_parallel(cfg: "ArchConfig") -> None:
     """Raise ``NotImplementedError`` unless a config runs on a "model" axis
-    above 1: blocks of ``TP_KINDS`` only (MLA, Mamba2 and RWKV6 not yet),
-    attention without windows, shared blocks or M-RoPE (ROADMAP.md queue 1
-    lists the rest)."""
+    above 1: blocks of ``TP_KINDS`` only (causal attention, with sliding
+    windows and M-RoPE too; MLA; MLP; MoE), and no group's shared blocks.
+    Mamba2, RWKV6 and shared blocks (zamba2) are not yet, nor whisper,
+    which ``build_model`` refuses (ROADMAP.md queue 1 lists the rest)."""
     for g in cfg.groups:
         for b in g.blocks + g.shared:
             bad = (b.kind not in TP_KINDS or bool(g.shared)
-                   or (b.kind == "attn" and (b.attn.window is not None or b.attn.rope != "std"
-                                             or not b.attn.causal)))
+                   or (b.kind == "attn" and not b.attn.causal))
             if bad:
-                what = "MLA" if b.kind == "mla" else repr(b.kind)
+                what = "shared" if g.shared else repr(b.kind)
                 raise NotImplementedError(
-                    f"{cfg.name}: a 'model' mesh axis above 1 is ported for the dense attention, "
-                    f"MLP and MoE blocks (no windows, shared blocks or M-RoPE); block {what} "
-                    f"is not yet (ROADMAP.md queue 1)")
+                    f"{cfg.name}: a 'model' mesh axis above 1 is ported for attention (sliding "
+                    f"windows and M-RoPE too), MLA, MLP and MoE blocks; {what} blocks are not "
+                    f"yet (shared blocks, Mamba2 and RWKV6: ROADMAP.md queue 1)")
 
 
 def _gatherable(b: BlockSpec, M: int) -> bool:
@@ -249,19 +256,26 @@ def _gatherable(b: BlockSpec, M: int) -> bool:
         return b.mlp.d_ff % M == 0
     if b.kind == "attn":
         return b.attn.n_heads % M == 0
+    if b.kind == "mla":
+        return b.mla.n_heads % M == 0
     return b.kind == "moe"
 
 
 def _tp_ctx(ctx: dict, S: int) -> dict:
     """Add the active "model" axis to a pass's ctx, with the rank's rows'
-    positions; a sequence that does not split over it raises."""
+    positions (and M-RoPE's positions3); a sequence that does not split
+    over it raises."""
     tp = SH.tensor_parallel()
     if tp is None:
         return ctx
     if S % tp.size:
         raise ValueError(f"a sequence of {S} does not split over a model axis of {tp.size}")
     Sl = S // tp.size
-    return dict(ctx, tp=tp, positions_local=ctx["positions"][:, tp.rank * Sl:(tp.rank + 1) * Sl])
+    rows = slice(tp.rank * Sl, (tp.rank + 1) * Sl)
+    out = dict(ctx, tp=tp, positions_local=ctx["positions"][:, rows])
+    if "positions3" in ctx:
+        out["positions3_local"] = ctx["positions3"][:, :, rows]
+    return out
 
 
 def apply_block_train(b: BlockSpec, p, x, ctx: dict):
@@ -277,11 +291,11 @@ def apply_block_train(b: BlockSpec, p, x, ctx: dict):
     if gather:
         h = SH.gather_seq(h, tp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    local = tp is not None and not gather  # the rank's rows
     if b.kind == "attn":
-        pos = ctx["positions_local"] if tp is not None and not gather else _attn_positions(b, ctx)
-        y = L.apply_attention(p["attn"], b.attn, h, pos)
+        y = L.apply_attention(p["attn"], b.attn, h, _attn_positions(b, ctx, local))
     elif b.kind == "mla":
-        y = L.apply_mla(p["mla"], b.mla, h, ctx["positions"])
+        y = L.apply_mla(p["mla"], b.mla, h, _attn_positions(b, ctx, local))
     elif b.kind == "mlp":
         y = L.apply_mlp(p["mlp"], b.mlp, h)
     elif b.kind == "moe":
@@ -318,10 +332,10 @@ def block_cache_defs(b: BlockSpec, batch: int, seq_len: int, dtype) -> Optional[
 
 
 def _apply_block_prefill_tp(b: BlockSpec, p, x, ctx, tp):
-    """``apply_block_prefill`` on a tensor-parallel mesh (attention, MLP
-    and MoE blocks): the layout of ``apply_block_train``; an attention
-    block's cache in the decode layout, the rank's slots of the whole
-    cache."""
+    """``apply_block_prefill`` on a tensor-parallel mesh (attention, MLA,
+    MLP and MoE blocks): the layout of ``apply_block_train``; an attention
+    or MLA block's cache in the decode layout, the rank's slots of the
+    whole cache (a sliding-window layer's: of its ring, filled first)."""
     h = _norm_apply(b.norm, p["norm"], x)
     gather = _gatherable(b, tp.size)
     if gather:
@@ -331,18 +345,20 @@ def _apply_block_prefill_tp(b: BlockSpec, p, x, ctx, tp):
     if b.kind == "mlp":
         y, entry = L.apply_mlp(p["mlp"], b.mlp, h), None
     else:
-        pos = ctx["positions"] if gather else ctx["positions_local"]
-        y, k, v = L.prefill_attention(p["attn"], b.attn, h, pos)
-        T = ctx["cache_len"]
+        pos = _attn_positions(b, ctx, local=not gather)
+        if b.kind == "mla":
+            y, latent, k_rope = L.prefill_mla(p["mla"], b.mla, h, pos)
+            whole, T, ring = {"latent": latent, "k_rope": k_rope}, ctx["cache_len"], False
+        else:
+            y, k, v = L.prefill_attention(p["attn"], b.attn, h, pos)
+            whole = {"k": k, "v": v}
+            T, ring = L.attn_cache_len(b.attn, ctx["cache_len"]), b.attn.window is not None
         if T % tp.size:
-            raise ValueError(f"a cache of {T} slots does not split over a model axis of "
-                             f"{tp.size}")
+            raise ValueError(f"a cache of {T} slots{' (a ring)' if ring else ''} does not "
+                             f"split over a model axis of {tp.size}")
         Tl = T // tp.size
-
-        def local(t):
-            return _cache_fill(t, T)[:, tp.rank * Tl:(tp.rank + 1) * Tl].clone()
-
-        entry = {"k": local(k), "v": local(v)}
+        entry = {k: _cache_fill(t, T, ring)[:, tp.rank * Tl:(tp.rank + 1) * Tl].clone()
+                 for k, t in whole.items()}
     if gather:
         y = SH.scatter_seq(y, tp)
     return x + y, entry
@@ -401,6 +417,8 @@ def apply_block_decode(b: BlockSpec, p, x, cache, pos):
         h = _norm_apply(b.norm, p["norm"], x)
         if b.kind == "mlp":
             y = L.apply_mlp(p["mlp"], b.mlp, h)
+        elif b.kind == "mla":
+            y, cache = L.decode_mla(p["mla"], b.mla, h, cache, pos)
         else:
             y, cache = L.decode_attention(p["attn"], b.attn, h, cache, pos)
         return x + SH.sum_model(y, tp), cache

@@ -44,9 +44,11 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _spawn(shape, tmp_path, ref_path=None):
+def _spawn(shape, tmp_path, ref_path=None, module=worker):
+    """``module.run`` on a gloo mesh of ``shape``; the worst of the ranks'
+    gaps by key."""
     world = shape[0] * shape[1]
-    mp.start_processes(worker.run, args=(world, shape, str(tmp_path), ref_path), nprocs=world,
+    mp.start_processes(module.run, args=(world, shape, str(tmp_path), ref_path), nprocs=world,
                        join=True, start_method="spawn")
     gaps = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in range(world)]
     worst = {k: max(g[k] for g in gaps) for k in gaps[0]}
@@ -111,17 +113,18 @@ class _Mesh:
 
 
 def test_unported_tensor_parallel_modes_raise():
-    """On a model axis above 1: a decode graph, the families other than the
-    dense attention, MLP and MoE blocks (sliding windows, MLA, RWKV6,
-    whisper) raise NotImplementedError, deepseek's naming MLA; a step of a
-    model not built on the mesh raises ValueError before it runs. (The MoE
-    family's granite runs: ``test_torch_tp_moe.py``.)"""
+    """On a model axis above 1: a decode graph, and the families other than
+    the attention (windows and M-RoPE too), MLA, MLP and MoE blocks (zamba2's
+    Mamba2 and shared blocks, RWKV6, whisper) raise NotImplementedError; a
+    step of a model not built on the mesh raises ValueError before it runs.
+    (deepseek, gemma3 and qwen2-vl run: ``test_torch_tp_attn.py``; the MoE
+    family's granite: ``test_torch_tp_moe.py``.)"""
     from repro_torch.configs import SHAPES, build_model, get_config
     from repro_torch.launch.steps import build_decode_step, build_prefill_step
 
     mesh = _Mesh((1, 2))
-    for arch in ("gemma3-1b", "deepseek-v2-lite-16b", "rwkv6-7b", "whisper-base"):
-        with pytest.raises(NotImplementedError, match="MLA" if arch.startswith("deep") else None):
+    for arch, what in (("zamba2-1.2b", "shared"), ("rwkv6-7b", "rwkv6"), ("whisper-base", None)):
+        with pytest.raises(NotImplementedError, match=what):
             build_model(get_config(arch, reduced=True), device="cpu", mesh=mesh)
     model = build_model(get_config("internlm2-1.8b", reduced=True), device="cpu")
     with pytest.raises(NotImplementedError, match="decode graph"):

@@ -85,11 +85,14 @@ def emulated_loss(model, D: int):
     the mesh's ``pmean`` gives it to every rank."""
     c = model.cfg.lb_loss_weight / max(model.cfg.n_layers, 1)
 
+    def rank_rows(batch, d, rows):  # M-RoPE's positions3 (3, B, S) on its dim 1
+        sl = slice(d * rows, (d + 1) * rows)
+        return {k: v[:, sl] if k == "positions3" else v[sl] for k, v in batch.items()}
+
     def loss(params, batch):
         rows = batch["tokens"].shape[0] // D
         with activation_sharding(OneRank(), {"batch": "data"}):
-            outs = [model.loss(params, {k: v[d * rows:(d + 1) * rows] for k, v in batch.items()})
-                    for d in range(D)]
+            outs = [model.loss(params, rank_rows(batch, d, rows)) for d in range(D)]
         aux = [o[1]["lb_loss"] for o in outs]
         mean = sum(aux) / D
         return torch.cat([pe + c * (mean - a) for (pe, _), a in zip(outs, aux)]), {"lb_loss": mean}

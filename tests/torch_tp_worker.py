@@ -103,14 +103,17 @@ def _logit_gap(got, want, gaps, key) -> None:
 
 
 def _attn64(q, k, v, causal=True, window=None, q_offset=None):
-    """Plain attention in q's dtype (float64 here): the oracle of the
-    float64 run, whose kernels' plain versions compute in float32."""
+    """Plain attention in q's dtype (float64 here), causal over a sliding
+    ``window`` where there is one: the oracle of the float64 run, whose
+    kernels' plain versions compute in float32."""
     rep_ = q.shape[1] // k.shape[1]
     k, v = k.repeat_interleave(rep_, dim=1), v.repeat_interleave(rep_, dim=1)
     s = torch.einsum("bhsd,bhtd->bhst", q, k) / np.sqrt(q.shape[-1])
     if causal:
         i = torch.arange(q.shape[2])[:, None] + (q_offset or 0)
-        s = s.masked_fill(torch.arange(k.shape[2])[None, :] > i, float("-inf"))
+        j = torch.arange(k.shape[2])[None, :]
+        hidden = (j > i) | (j <= i - window) if window is not None else j > i
+        s = s.masked_fill(hidden, float("-inf"))
     return torch.einsum("bhst,bhtd->bhsd", torch.softmax(s, dim=-1), v)
 
 
