@@ -374,8 +374,13 @@ exits non-zero:
               512-slot ring (4, 4, 1, 512, 256) cut into 16 slices of 32
               at pos 4,223, merged against the whole ring call and the
               plain merge; the launches are the forms' own counters over
-              the phase (the moe_ep and mla_cp phases, which run after the
-              train cells, are described with their constants);
+              the phase (the moe_ep, mla_cp and ssm_tp phases, which run
+              after the train cells, are described with their constants);
+              zamba2-1.2b's shared attention at the same axis: flash
+              head-parallel at 2 of its 32 heads (4, 2, 2, 4096, 64) against
+              the plain version, timed beside its bound and SDPA, and
+              flash-decode's partial form on its (4, 32, 32, 4224, 64)
+              cache cut into 16 slices of 264 at pos 4,223;
   kernel_scan — the linear-scan kernel against three plain versions (step
               oracle, chunked scan, the kernel's split order) at the serve
               shape (4, 4096, 64, 64) in float32 and bf16, T = 1, 17, 100,
@@ -639,6 +644,11 @@ TP_FLASH_WINDOW_SHAPE = (4, 4, 1, 4096, 256)
 TP_FLASH_WINDOW = 512
 TP_RING_SHAPE = DECODE_RING_SHAPE
 TP_RING_POS = 4223
+# zamba2-1.2b's shared attention on a model axis of 16: its head-parallel
+# prefill (2 of its 32 heads a rank, the whole 4,096-token sequence) and its
+# context-parallel decode (one rank's 264 of the serve decode's 4,224 slots)
+TP_ZAMBA2_FLASH_SHAPE = (4, 2, 2, 4096, 64)
+TP_ZAMBA2_DECODE_SHAPE = (4, 32, 32, 4224, 64)
 # whisper-base's attention (serve_whisper): the encoder's self-attention
 # (B, H, KV, S, D, non-causal), the decoder's causal self-attention over
 # the 4-token prompt, its cross-attention (B, H, KV, Sq, Sk, D: the
@@ -851,6 +861,32 @@ MLA_CP_M = 16
 MLA_CP_BATCH = 4
 MLA_CP_SLOTS = 4224
 MLA_CP_ROW_ULPS = 4.0
+# phase ssm_tp: the recurrent blocks at full width over the production model
+# axis (M = 16), rank by rank: rwkv6-7b's time mix (64 heads, 4 a rank: the
+# scan kernel at (4, 4,096, 4, 64) on each rank's heads) and channel mix
+# (d_ff 14,336, 896 a rank), zamba2-1.2b's Mamba2 layer (64 heads, 4 a
+# rank) in a prefill and one decode step. Weights drawn from seed 0 as the
+# models draw them (bf16), RWKV6's mu_*, u and w0 and Mamba2's A_log, D and
+# dt_bias redrawn (the reference inits them to constants, which would hide
+# a wrong column or head offset), one data rank's 4 x 4,096 tokens (bf16,
+# unit scale). Each rank's part is the function the mesh path runs on it
+# (ssm.rwkv6_time_heads / rwkv6_time_out, rwkv6_channel_part,
+# mamba2_heads / mamba2_norm_out, decode_mamba2_heads), its collectives
+# emulated in rank order: the norm's float32 squares summed, the
+# row-parallel parts summed in float32 and cast once, the time mix's
+# columns side by side. Each output within SSM_TP_ROW_ULPS bf16 ulps of its
+# token row's largest |output| plus 1e-5 of the model-axis-1 layer, as
+# moe_ep (16 rank parts each rounded to bf16 where the layer rounds one
+# product); each rank's scan launch within SCAN_TOL of the scale (+ one bf16
+# ulp) of the plain chunked scan on its inputs.
+SSM_TP_M = 16
+SSM_TP_TOKENS = (4, 4096)
+SSM_TP_ROW_ULPS = 4.0
+# the ranks' final states (float32) against the layer's, of the state's
+# scale: a rank's r, k and v are bf16 products of its weight columns, which
+# may round one bf16 ulp apart from the whole product's (on the CPU at 64
+# tokens, 2e-4)
+SSM_TP_STATE_TOL = 2.0 ** -8
 # decode at pos 4,096 vs the last-token logits of a 4,097-token prefill. The
 # recurrence's step is float32 on both paths (decode in PyTorch from the
 # kernel's final state; the kernel's last, ragged chunk), so the gap comes
@@ -3057,6 +3093,36 @@ def _moe_slices(p, mode: str, r: int, M: int) -> dict:
     return out
 
 
+def _row_ulp_gap(got, want) -> dict:
+    """bf16 outputs against the layer's: max |d|, |d| in bf16 ulps of each
+    element's own magnitude and of its token row's largest |output| (plus
+    1e-5), and the counts beyond one ulp of each."""
+    import torch
+
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    in_rows = d / (_bf16_ulp(w.abs().amax(dim=-1, keepdim=True)) + 1e-5)
+    return {"max_abs_err": d.max().item(), "max_abs_output": w.abs().max().item(),
+            "max_err_in_ulps": (d / (ulp + 1e-5)).max().item(),
+            "beyond_one_ulp": int((d > ulp + 1e-5).sum()), "roundings": int((d > 1e-5).sum()),
+            "elements": d.numel(), "max_err_in_row_ulps": in_rows.max().item(),
+            "beyond_one_row_ulp": int((in_rows > 1).sum())}
+
+
+def _rank_times(whole, parts) -> dict:
+    """Times (CUDA events, 20 calls after 3) of the whole layer and of each
+    rank's part: the median and the largest part, their ratio to the
+    whole."""
+    import statistics
+
+    whole_ms = _time_ms(whole, iters=20, warmup=3)
+    rank_ms = [_time_ms(part, iters=20, warmup=3) for part in parts]
+    median = statistics.median(rank_ms)
+    return {"whole_layer_ms": whole_ms, "median_rank_part_ms": median,
+            "slowest_rank_part_ms": max(rank_ms), "rank_part_over_whole": median / whole_ms}
+
+
 def phase_moe_ep(tr):
     """The routed MoE layer at full width over the production model axis
     (``MOE_EP``): its weights drawn from the seed as the model draws them
@@ -3070,8 +3136,6 @@ def phase_moe_ep(tr):
     plus 1e-5 (the elements beyond one ulp of their own magnitude, and those
     that differ at all, counted). Times (CUDA events): the whole layer, each
     rank's part (the median and the largest), their ratio."""
-    import statistics
-
     import torch
 
     configs, layers = tr["configs"], tr["layers"]
@@ -3111,29 +3175,14 @@ def phase_moe_ep(tr):
                 with activation_sharding(_OneRank(), {"batch": "data"}):
                     layers.apply_moe(p, s, x, with_lb=False)
 
-            whole_ms = _time_ms(whole, iters=5, warmup=2)
-            rank_ms = [_time_ms(lambda r=r: layers.moe_rank_partial(slices[r], s, x, C, mode, r, M,
-                                                                    with_lb=False),
-                                iters=3, warmup=1) for r in range(M)]
-        g, w = got.float(), want.float()
-        d = (g - w).abs()
-        ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
-        in_rows = d / (_bf16_ulp(w.abs().amax(dim=-1, keepdim=True)) + 1e-5)
-        median = statistics.median(rank_ms)
+            times = _rank_times(whole, [
+                lambda r=r: layers.moe_rank_partial(slices[r], s, x, C, mode, r, M, with_lb=False)
+                for r in range(M)])
         out["cases"][case["arch"]] = {
             "mode": mode, "experts": s.num_experts, "top_k": s.top_k, "d_expert": s.d_expert,
             "shared_hidden": s.d_shared if s.num_shared else 0, "capacity": C,
-            "routing_equal": bool(same_routing), "max_abs_err": d.max().item(),
-            "max_abs_output": w.abs().max().item(),
-            "max_err_in_ulps": (d / (ulp + 1e-5)).max().item(),
-            "beyond_one_ulp": int((d > ulp + 1e-5).sum()),
-            "roundings": int((d > 1e-5).sum()), "elements": d.numel(),
-            "whole_layer_ms": whole_ms, "median_rank_partial_ms": median,
-            "slowest_rank_partial_ms": max(rank_ms),
-            "rank_partial_over_whole": median / whole_ms,
-            "max_err_in_row_ulps": in_rows.max().item(),
-            "beyond_one_row_ulp": int((in_rows > 1).sum())}
-        del p, x, slices, want, total, got, g, w, d, ulp, in_rows
+            "routing_equal": bool(same_routing), **_row_ulp_gap(got, want), **times}
+        del p, x, slices, want, total, got
         torch.cuda.empty_cache()
     out["tolerance"] = {"row_ulps": MOE_EP_ROW_ULPS, "of": "the token row's largest |output|",
                         "plus": 1e-5}
@@ -3155,8 +3204,6 @@ def phase_mla_cp(tr):
     their own magnitude counted). Times (CUDA events): the whole layer's
     decode, a rank's part (its head's q, its slots' partial, the merge of
     the 16 partials, its head's wuv and wo; the median and the largest)."""
-    import statistics
-
     import torch
 
     configs, layers = tr["configs"], tr["layers"]
@@ -3215,29 +3262,221 @@ def phase_mla_cp(tr):
             m = decode_ops.merge_partials(outs, lses, x.dtype)
             return layers.mla_heads_out(slices[r], m[:, None, r * Hl:(r + 1) * Hl])
 
-        whole_ms = _time_ms(lambda: layers.decode_mla(p, s, x, whole, pos), iters=20, warmup=3)
-        rank_ms = [_time_ms(lambda r=r: rank_part(r), iters=20, warmup=3) for r in range(M)]
-    g, w = got.float(), want.float()
-    d = (g - w).abs()
-    ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
-    in_rows = d / (_bf16_ulp(w.abs().amax(dim=-1, keepdim=True)) + 1e-5)
-    median = statistics.median(rank_ms)
+        times = _rank_times(lambda: layers.decode_mla(p, s, x, whole, pos),
+                            [lambda r=r: rank_part(r) for r in range(M)])
     out = {"phase": "mla_cp", "arch": "deepseek-v2-lite-16b", "model_axis": M,
            "batch": B, "slots": T, "slots_a_rank": Tl, "heads_a_rank": Hl, "pos": T - 1,
-           "kv_lora": s.kv_lora, "max_abs_err": d.max().item(),
-           "max_abs_output": w.abs().max().item(),
-           "max_err_in_ulps": (d / (ulp + 1e-5)).max().item(),
-           "beyond_one_ulp": int((d > ulp + 1e-5).sum()), "roundings": int((d > 1e-5).sum()),
-           "elements": d.numel(), "max_err_in_row_ulps": in_rows.max().item(),
-           "beyond_one_row_ulp": int((in_rows > 1).sum()),
-           "whole_layer_ms": whole_ms, "median_rank_part_ms": median,
-           "slowest_rank_part_ms": max(rank_ms), "rank_part_over_whole": median / whole_ms,
+           "kv_lora": s.kv_lora, **_row_ulp_gap(got, want), **times,
            "tolerance": {"row_ulps": MLA_CP_ROW_ULPS,
                          "of": "the token row's largest |output|", "plus": 1e-5},
            "phase_s": time.perf_counter() - t_phase}
     _emit(out)
     _require(out["max_err_in_row_ulps"] <= MLA_CP_ROW_ULPS,
              f"mla_cp: the 16 rank parts against decode_mla: {out}")
+    return out
+
+
+def _redraw(p, names, gen, scale, shift=0.0):
+    """Leaves ``names`` of ``p`` drawn anew (normal, ``scale``, ``shift``)."""
+    import torch
+
+    for k in names:
+        p[k] = (torch.randn(p[k].shape, generator=gen, device="cuda") * scale
+                + shift).to(p[k].dtype)
+
+
+@contextmanager
+def _recorded_scans(S, seen):
+    """The scan wrapper's calls from ``ssm`` recorded into ``seen`` (its
+    arguments and outputs), the wrapper itself (and its count) untouched."""
+    ops = S.scan_ops
+
+    def recorded(*args):
+        res = ops.rwkv6_scan(*args)
+        seen.append((args, res))
+        return res
+
+    S.scan_ops = types.SimpleNamespace(rwkv6_scan=recorded)
+    try:
+        yield
+    finally:
+        S.scan_ops = ops
+
+
+def phase_ssm_tp(tr, sops, sref):
+    """The recurrent blocks at full width over the production model axis,
+    rank by rank (``SSM_TP_*``): rwkv6-7b's time and channel mix and
+    zamba2-1.2b's Mamba2 layer (prefill and one decode step), the 16 rank
+    parts combined as the collectives combine them (the norm's float32
+    squares summed; the time mix's columns concatenated; the row-parallel
+    parts, each rounded to bf16 by its product, summed in float32 in rank
+    order and cast once, as the mesh path's float32 reduce-scatter and
+    all-reduce do), against the
+    model-axis-1 layer on the same weights and tokens. Each rank's scan
+    launch held to the plain chunked scan; the scan kernel at the rank's
+    shape timed beside its bound and the plain version. Times (CUDA
+    events): the whole layer, each rank's part, their ratio. ``launches``:
+    the scan wrapper's count over the rank parts (the layers' own launches
+    apart)."""
+    import torch
+
+    S, configs = tr["ssm"], tr["configs"]
+    from repro_torch.models.param_defs import init_values
+    from repro_torch.models.sharding_hooks import TP
+
+    t_phase = time.perf_counter()
+    M, (B, T) = SSM_TP_M, SSM_TP_TOKENS
+    bf16 = torch.bfloat16
+    out = {"phase": "ssm_tp", "model_axis": M, "tokens": [B, T], "cases": {}}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    # rwkv6-7b: the time mix, 4 of its 64 heads a rank
+    cfg = configs.get_config("rwkv6-7b")
+    tm, cm = cfg.groups[0].blocks
+    s, D = tm.rwkv, cfg.d_model
+    Dl, Hl = D // M, s.n_heads // M
+    p = init_values(S.init_rwkv6_time(s), gen, "cuda")
+    _redraw(p, [f"mu_{n}" for n in "rkvwg"], gen, 0.3, 0.5)
+    _redraw(p, ["u", "w0"], gen, 0.5)
+    x = torch.randn((B, T, D), generator=gen, device="cuda").to(bf16)
+    xs = S._token_shift(x)
+
+    def rank_params(r):
+        cols = slice(r * Dl, (r + 1) * Dl)
+        local = dict(p, **{k: p[k][:, cols].contiguous() for k in ("wr", "wk", "wv", "wg", "w2")},
+                     wo=p["wo"][cols].contiguous())
+        return S.rwkv6_rank_params(local, TP(None, M, r))
+
+    ranks = [rank_params(r) for r in range(M)]
+    with torch.no_grad():
+        want, want_final, _ = S.apply_rwkv6_time(p, s, x)
+        before = sops.rwkv6_scan.LAUNCHES
+        parts, scan_worst, scan_ok, seen = [], [0.0, 0.0], True, []
+        with _recorded_scans(S, seen):
+            for pr in ranks:
+                parts.append(S.rwkv6_time_heads(pr, s, x, xs))
+                # this rank's launch against the plain chunked scan on its inputs
+                (r_, k_, v_, logw, u, chunk, init), (y, st) = seen[-1]
+                plain, plain_s = sref.rwkv6_chunked(r_, k_, v_, logw, u, chunk, init)
+                d_abs, d_rel, ok = _scan_gap(y, st, plain, plain_s)
+                scan_ok &= ok
+                scan_worst = [max(scan_worst[0], d_abs), max(scan_worst[1], d_rel)]
+                del plain, plain_s
+        launches = sops.rwkv6_scan.LAUNCHES - before
+        ss = sum(S.sum_squares(yg) for yg, _ in parts)  # float32, rank order
+        got = torch.cat([S.rwkv6_time_out(pr, yg, ss, D) for pr, (yg, _) in zip(ranks, parts)],
+                        dim=-1)
+        finals = torch.cat([f for _, f in parts], dim=1)
+        state_gap = ((finals - want_final).abs().max()
+                     / want_final.abs().max().clamp_min(1.0)).item()
+        times = _rank_times(lambda: S.apply_rwkv6_time(p, s, x),
+                            [lambda pr=pr: S.rwkv6_time_out(pr, S.rwkv6_time_heads(pr, s, x, xs)[0],
+                                                            ss, D) for pr in ranks])
+        # the scan kernel at the rank's shape, rank 0's inputs
+        heads, u = seen[0][0][:4], seen[0][0][4]
+        del seen
+        n = B * T * Hl * s.head_dim
+        scan = {"shape": [B, T, Hl, s.head_dim],
+                **_device_ms(lambda: sops.rwkv6_scan(*heads, u, 16), 5, 3),
+                "plain_ms": _time_ms(lambda: sref.rwkv6_chunked(*heads, u, 16), iters=2,
+                                     warmup=1),
+                "plain": "ref.rwkv6_chunked, chunks of 16 (the CPU path)",
+                "library_ms": None,
+                "library": "none: no single PyTorch call computes the RWKV6 recurrence",
+                **_bound(4 * n * 2 + n * 4 + Hl * s.head_dim * 4 + B * Hl * s.head_dim ** 2 * 4,
+                         B * T * Hl * (5 * s.head_dim ** 2 + 5 * s.head_dim)),
+                "launches": launches, "max_abs_err": scan_worst[0],
+                "max_err_over_scale": scan_worst[1], "all_within_tolerance": scan_ok}
+        scan["share_of_bound"] = scan["bound_ms"] / scan["ms"]
+    out["cases"]["rwkv6_time"] = {"heads_a_rank": Hl, "columns_a_rank": Dl,
+                                  **_row_ulp_gap(got, want), "state_over_scale": state_gap,
+                                  **times}
+    out["scan_kernel"] = scan
+    del parts, got, want, want_final, finals, ranks, p, heads
+    torch.cuda.empty_cache()
+
+    # rwkv6-7b: the channel mix, 896 of its 14,336 columns a rank
+    F_ = cm.rwkv_ffn
+    Fl = F_ // M
+    p = init_values(S.init_rwkv6_channel(cm.rwkv, F_), gen, "cuda")
+    _redraw(p, ["mu_k", "mu_r"], gen, 0.3, 0.5)
+    slices = [dict(p, wk=p["wk"][:, r * Fl:(r + 1) * Fl].contiguous(),
+                   wv=p["wv"][r * Fl:(r + 1) * Fl].contiguous()) for r in range(M)]
+    with torch.no_grad():
+        want, _ = S.apply_rwkv6_channel(p, x)
+        kv = torch.zeros((B, T, D), dtype=torch.float32, device="cuda")
+        for pr in slices:  # apply_rwkv6_channel_tp's float32 reduce-scatter
+            kv += S.rwkv6_channel_part(pr, x, xs).float()
+        got = S.rwkv6_channel_gate(p, x, xs, kv.to(bf16))
+        times = _rank_times(lambda: S.apply_rwkv6_channel(p, x),
+                            [lambda pr=pr: S.rwkv6_channel_part(pr, x, xs) for pr in slices])
+    out["cases"]["rwkv6_channel"] = {"columns_a_rank": Fl, **_row_ulp_gap(got, want), **times}
+    del slices, p, kv, got, want, x, xs
+    torch.cuda.empty_cache()
+
+    # zamba2-1.2b: one Mamba2 layer, 4 of its 64 heads a rank, prefill and decode
+    cfg = configs.get_config("zamba2-1.2b")
+    s = cfg.groups[0].blocks[0].mamba
+    di, P = s.d_inner, s.head_dim
+    Hl = s.n_heads // M
+    p = init_values(S.init_mamba2(s), gen, "cuda")
+    _redraw(p, ["A_log", "D", "dt_bias"], gen, 0.5)
+    x = torch.randn((B, T, cfg.d_model), generator=gen, device="cuda").to(bf16)
+    tok = torch.randn((B, 1, cfg.d_model), generator=gen, device="cuda").to(bf16)
+
+    def cols(r):
+        return slice(r * Hl * P, (r + 1) * Hl * P)
+
+    with torch.no_grad():
+        want, final, xBC_in = S.prefill_mamba2(p, s, x)
+        gs = [S.mamba2_heads(p, s, x, r * Hl, Hl)[0] for r in range(M)]
+        ss = sum(S.sum_squares(g) for g in gs)
+        total = torch.zeros_like(want, dtype=torch.float32)
+        for r, g in enumerate(gs):
+            total += S.mamba2_norm_out(p["norm"]["scale"][cols(r)], p["w_out"][cols(r)], g, ss,
+                                       di, bf16).float()
+        got = total.to(bf16)
+        prefill = _row_ulp_gap(got, want)
+        times = _rank_times(lambda: S.prefill_mamba2(p, s, x), [
+            lambda r=r: S.mamba2_norm_out(p["norm"]["scale"][cols(r)], p["w_out"][cols(r)],
+                                          S.mamba2_heads(p, s, x, r * Hl, Hl)[0], ss, di, bf16)
+            for r in range(M)])
+        del gs, total, got, want
+        # one decode step from the layer's caches: each rank its heads' state
+        tail = S.mamba2_conv_tail(s, xBC_in)
+        cache = {"conv": tail.clone(), "ssm": final.float()}
+        want_d, _ = S.decode_mamba2(p, s, tok, cache, None)
+        proj = tok @ p["w_in"]
+        caches = [{"conv": tail.clone(), "ssm": final[:, r * Hl:(r + 1) * Hl].float()}
+                  for r in range(M)]
+        gs = [S.decode_mamba2_heads(p, s, proj, c, r * Hl, Hl) for r, c in enumerate(caches)]
+        ss = sum(S.sum_squares(g) for g in gs)
+        total = torch.zeros_like(want_d, dtype=torch.float32)
+        for r, g in enumerate(gs):
+            total += S.mamba2_norm_out(p["norm"]["scale"][cols(r)], p["w_out"][cols(r)], g, ss,
+                                       di, bf16).float()
+        decode = _row_ulp_gap(total.to(bf16), want_d)
+        states = torch.cat([c["ssm"] for c in caches], dim=1)
+        decode["state_over_scale"] = ((states - cache["ssm"]).abs().max()
+                                      / cache["ssm"].abs().max().clamp_min(1.0)).item()
+        decode["conv_history_equal"] = all(torch.equal(c["conv"], cache["conv"]) for c in caches)
+    out["cases"]["mamba2_prefill"] = {"heads_a_rank": Hl, **prefill, **times}
+    out["cases"]["mamba2_decode"] = {"heads_a_rank": Hl, **decode}
+    out["tolerance"] = {"row_ulps": SSM_TP_ROW_ULPS, "of": "the token row's largest |output|",
+                        "plus": 1e-5, "scan": f"{SCAN_TOL} of the scale (+ one bf16 ulp)",
+                        "states": f"{SSM_TP_STATE_TOL} of the state's scale"}
+    out["phase_s"] = time.perf_counter() - t_phase
+    _emit(out)
+    for name, c in out["cases"].items():
+        _require(c["max_err_in_row_ulps"] <= SSM_TP_ROW_ULPS,
+                 f"ssm_tp: {name}'s 16 rank parts against the layer: {c}")
+    _require(out["cases"]["mamba2_decode"]["conv_history_equal"],
+             "ssm_tp: a rank's convolution history differs from the layer's")
+    for name in ("rwkv6_time", "mamba2_decode"):
+        _require(out["cases"][name]["state_over_scale"] <= SSM_TP_STATE_TOL,
+                 f"ssm_tp: {name}'s states of the ranks' heads against the layer's")
+    _require(scan["all_within_tolerance"] and scan["launches"] == M,
+             f"ssm_tp: the scan kernel on the ranks' heads: {scan}")
     return out
 
 
@@ -4916,8 +5155,30 @@ def phase_tp_kernels(fops, fref, dops, dref):
     del q, k, v
     by_form["decode_attention_partial_ring"] = (dops.decode.PARTIAL_LAUNCHES
                                                 - by_form["decode_attention_partial"])
+    # (e) zamba2-1.2b's shared attention at M = 16: flash head-parallel at 2
+    # of its 32 heads, and the partial form over one rank's 264 slots
+    B, H, KV, S, D = TP_ZAMBA2_FLASH_SHAPE
+    q, k, v = _attn_inputs(B, H, KV, S, D, dtype=torch.bfloat16, seed=53)
+    before = fops.attention.LAUNCHES
+    err["flash_attention_zamba2_head_parallel"] = _flash_bf16_check(
+        fops.attention(q, k, v), q, k, v, True, fref, "flash zamba2 head-parallel")
+    by_form["flash_attention_zamba2_head_parallel"] = fops.attention.LAUNCHES - before
+    timings["flash_attention_zamba2_head_parallel"] = _flash_timing(fops, fref,
+                                                                    TP_ZAMBA2_FLASH_SHAPE)
+    del q, k, v
+    before = dops.decode.PARTIAL_LAUNCHES
+    q, k, v = _attn_inputs(*TP_ZAMBA2_DECODE_SHAPE, dtype=torch.bfloat16, seed=59)
+    q = q[:, :, 0]
+    T = TP_ZAMBA2_DECODE_SHAPE[3]
+    err["decode_attention_partial"][f"zamba2_M{M}_pos{T - 1}"] = _tp_partial_case(
+        dops, dref, q, k, v, T - 1, M, f"decode partial zamba2 M={M}")
+    timings["decode_attention_partial_zamba2"] = _tp_partial_timing(dops, dref, q, k, v, T - 1, M)
+    del q, k, v
+    by_form["decode_attention_partial_zamba2"] = dops.decode.PARTIAL_LAUNCHES - before
     launches = {"decode_attention_partial": dops.decode.PARTIAL_LAUNCHES,
-                "flash_attention_q_offset": fops.attention.OFFSET_LAUNCHES}
+                "flash_attention_q_offset": fops.attention.OFFSET_LAUNCHES,
+                "flash_attention_zamba2_head_parallel":
+                    by_form["flash_attention_zamba2_head_parallel"]}
     res = {"phase": "tp_kernels", "max_abs_err": err, "timings": timings, "launches": launches,
            "launches_by_form": by_form,
            "tolerance": {"slice": "2e-5 of the output's scale; lse 2e-5",
@@ -5375,6 +5636,8 @@ def main() -> int:
     _memory("moe_ep")
     phase_mla_cp(tr)
     _memory("mla_cp")
+    ssm_tp = phase_ssm_tp(tr, sops, sref)
+    _memory("ssm_tp")
     torch.distributed.destroy_process_group()  # the smoke mesh's one-process group
     served = {}
     for name, spec, n_params, bounds, kw in SERVE_PHASES:
@@ -5489,6 +5752,8 @@ def main() -> int:
           "phi4_mini": tpt["decode_attention_partial_24x8"],
           "gemma3_ring": {"launches": tp_forms["decode_attention_partial_ring"],
                           **tpt["decode_attention_partial_ring"]},
+          "zamba2": {"launches": tp_forms["decode_attention_partial_zamba2"],
+                     **tpt["decode_attention_partial_zamba2"]},
           "checks": tpe["decode_attention_partial"]}),
         ("flash_attention_q_offset", "flash_attention/csrc/flash_attention.cu",
          "kernels/flash_attention/flash_attention.py:74", kern_tp,
@@ -5499,11 +5764,17 @@ def main() -> int:
           "share_of_bound": tpt["flash_attention_q_offset"]["share_of_bound"],
           "gemma3_window": {"launches": tp_forms["flash_attention_q_offset_window"],
                             **tpt["flash_attention_q_offset_window"]},
+          "zamba2_head_parallel": {
+              "launches": tp_forms["flash_attention_zamba2_head_parallel"],
+              "max_abs_err": tpe["flash_attention_zamba2_head_parallel"]["plain"][0],
+              **tpt["flash_attention_zamba2_head_parallel"]},
           "checks": tpe["flash_attention_q_offset"]}),
     ]
     rows.append(("rwkv6_scan", "linear_scan/csrc/linear_scan.cu",
                  "kernels/linear_scan/linear_scan.py:77", served["serve_rwkv"],
-                 kern_scan["max_err"]["float32"]["max_abs"], kern_scan["timings"]["rwkv6_scan"]))
+                 kern_scan["max_err"]["float32"]["max_abs"], kern_scan["timings"]["rwkv6_scan"],
+                 # on a rank's 4 of 64 heads over the model axis of 16 (ssm_tp)
+                 {"model_axis_rank": {"path": "ssm_tp", **ssm_tp["scan_kernel"]}}))
     _emit({"kernels": [{
         "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/{source}",
         "replaces": f"src/repro/{replaces}", "path": path["phase"],

@@ -70,7 +70,9 @@ def build_model(arch_or_cfg, device="cuda", seed: int = 0,
     if isinstance(cfg, WhisperConfig):
         if model_size(mesh) > 1:
             raise NotImplementedError(
-                "whisper on a 'model' mesh axis above 1 is not ported yet (ROADMAP.md queue 1)")
+                "whisper on a 'model' mesh axis above 1 is not ported yet: its encoder's "
+                "non-causal attention, its cross-attention and its tied vocabulary of 51,865 "
+                "rows come in the next slice (ROADMAP.md queue 1)")
         return WhisperModel(cfg, device=device, seed=seed)
     return TransformerLM(cfg, device=device, seed=seed, mesh=mesh)
 

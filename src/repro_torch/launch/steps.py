@@ -27,7 +27,7 @@ meshless and takes the grouped path, so the two differ in capacity by
 design. ``build_decode_step(graph=True)`` runs each step on a CUDA device
 as one replay of a ``DecodeGraph``: the counterpart of jitting the step.
 
-On a "model" axis above 1 (tensor parallelism, the dense family) the
+On a "model" axis above 1 (tensor parallelism: every family but whisper) the
 model must be built on the mesh (``build_model(cfg, mesh=mesh)``: this
 rank's shards of the parameters); the specs are the reference's, of the
 whole leaves, and ``arg_shapes`` give this rank's parameters, state and
@@ -201,7 +201,8 @@ def _check_tp(model, mesh, long_context: bool = False) -> None:
                          "mesh: build_model(cfg, mesh=mesh)")
     if long_context:
         raise NotImplementedError("kv_seq over ('data', 'model') for long_500k on a 'model' "
-                                  "axis above 1 is not ported yet (ROADMAP.md queue 1)")
+                                  "axis above 1 is not ported yet; it comes in the next slice, "
+                                  "with whisper (ROADMAP.md queue 1)")
 
 
 def _check_cache_split(cache_axes, cache_sh) -> None:

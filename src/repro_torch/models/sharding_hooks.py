@@ -23,7 +23,15 @@ and the models call the layout changes as ``torch.autograd.Function``s:
   vocab-parallel cross entropy;
 * ``once_over_model``: the identity forward, whose gradient only the
   axis's rank 0 keeps: a term every rank computes alike (the MoE
-  load-balance loss) counts once in the gradients the ranks sum.
+  load-balance loss) counts once in the gradients the ranks sum;
+* ``sum_parts``: the sum over ranks of parts of a value that each rank
+  then uses for its own part of the output (a norm's squares over a width
+  split over the axis): all-reduce forward and backward, each rank's
+  gradient of the sum being partial;
+* ``cols_to_rows``: whole rows of the rank's columns (B, S, D/M) to the
+  rank's rows of every column (B, S/M, D), one all-to-all (backward: the
+  reverse all-to-all): RWKV6's time mix, whose output projection
+  contracts nothing over its split dim.
 
 FSDP (``IplsStepConfig(fsdp=True)``): the train step stores each split
 parameter leaf as this rank's "data" shard and runs the loss under
@@ -137,6 +145,30 @@ def _all_reduce(x: torch.Tensor, tp: TP, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return x
 
 
+def _all_to_all(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """x (M, ...): piece q to rank q; returns (M, ...), piece q from rank q."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    call_collective(dist.all_to_all_single, out, x, group=tp.group)
+    return out
+
+
+def _cols_to_rows(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    B, S, Dl = x.shape
+    if S % tp.size:
+        raise ValueError(f"a sequence of {S} does not split over {tp.size} ranks")
+    Sl = S // tp.size
+    got = _all_to_all(x.reshape(B, tp.size, Sl, Dl).movedim(1, 0), tp)  # rank q's columns
+    return got.permute(1, 2, 0, 3).reshape(B, Sl, tp.size * Dl)
+
+
+def _rows_to_cols(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    B, Sl, D = x.shape
+    Dl = D // tp.size
+    got = _all_to_all(x.reshape(B, Sl, tp.size, Dl).permute(2, 0, 1, 3), tp)  # rank q's rows
+    return got.movedim(0, 1).reshape(B, tp.size * Sl, Dl)
+
+
 class _GatherSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, tp):
@@ -169,6 +201,28 @@ class _SumModel(torch.autograd.Function):
         return grad, None
 
 
+class _SumParts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _all_reduce(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.tp), None
+
+
+class _ColsToRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _cols_to_rows(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _rows_to_cols(grad, ctx.tp), None
+
+
 class _OnceOverModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp):
@@ -194,6 +248,20 @@ def scatter_seq(x: torch.Tensor, tp: TP, dim: int = 1) -> torch.Tensor:
 def sum_model(x: torch.Tensor, tp: TP) -> torch.Tensor:
     """The sum over the ranks of ``x``, the same on every rank."""
     return _SumModel.apply(x, tp)
+
+
+def sum_parts(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """The sum over the ranks of ``x``, where each rank goes on to use the
+    sum for its own part of a partial output (``sum_model`` is for a sum
+    that the ranks then use alike): its gradient is summed over the ranks
+    too."""
+    return _SumParts.apply(x, tp)
+
+
+def cols_to_rows(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """x (B, S, D/M), whole rows of this rank's columns (the ranks' in
+    rank order make D), as (B, S/M, D): this rank's rows of every column."""
+    return _ColsToRows.apply(x, tp)
 
 
 def once_over_model(x: torch.Tensor, tp: TP) -> torch.Tensor:

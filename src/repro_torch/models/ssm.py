@@ -27,6 +27,11 @@ elementwise chain over its (B, nc, Q, Q, H) weights runs in place only
 where autograd is off (the prefill's peak); with grad enabled it takes the
 same ops in the same order out of place, so both give the same bits.
 
+On a "model" mesh axis above 1 (the last section) each block runs on the
+rank's heads where they divide the axis: the one-process functions above
+are those pieces over every head (``mamba2_heads``, ``rwkv6_time_heads``,
+``rwkv6_channel_part``, ...) with the norm over the whole width.
+
 RWKV6: a linear recurrence with a data-dependent decay per channel (the
 time mix) and a channel mix. The prefill runs the recurrence through the
 linear-scan wrapper (``kernels/linear_scan``): on CUDA tensors the
@@ -49,6 +54,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.linear_scan import ops as scan_ops
 from repro_torch.kernels.linear_scan import ref as scan_ref
+from repro_torch.models import sharding_hooks as SH
 from repro_torch.models.layers import _span, init_rmsnorm, rms_norm
 from repro_torch.models.param_defs import ParamDef
 
@@ -177,32 +183,63 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
     return y.to(ct).add_(y_inter).reshape(Bsz, T, H, P), state
 
 
-def prefill_mamba2(params, s: Mamba2Spec, x: torch.Tensor):
-    """``apply_mamba2``, and the convolution's input (B, T, conv_dim), whose
-    last d_conv - 1 rows the decode cache keeps."""
-    di, ns = s.d_inner, s.d_state
+def _inproj_cols(s: Mamba2Spec, h0: int, Hl: int):
+    """The in-projection's columns that heads [h0, h0 + Hl) read, in the
+    order [x, B, C, z, dt] (all of them for every head)."""
+    di, ns, P = s.d_inner, s.d_state, s.head_dim
+    return ((h0 * P, (h0 + Hl) * P), (di, di + 2 * ns),
+            (di + 2 * ns + h0 * P, di + 2 * ns + (h0 + Hl) * P),
+            (2 * di + 2 * ns + h0, 2 * di + 2 * ns + h0 + Hl))
+
+
+def mamba2_heads(params, s: Mamba2Spec, x: torch.Tensor, h0: int, Hl: int):
+    """Mamba2 over heads [h0, h0 + Hl) of x (B, T, D), whole over the
+    sequence, up to the norm (every head: ``prefill_mamba2``; a rank's heads
+    on a model axis above 1): the in-projection columns of those heads of
+    the whole ``w_in`` (their x, z and dt; B and C whole), the convolution
+    over their channels, the SSD scan of the heads and the skip and gate.
+    ``params`` hold ``w_in`` whole and the replicated leaves. Returns (g
+    (B, T, Hl P) float32, the input of the norm; the final state (B, Hl, N, P) in x's dtype; the convolution's
+    input of its channels (B, T, Hl P + 2 N))."""
+    ns, P = s.d_state, s.head_dim
+    w_in, conv_w, conv_b = params["w_in"], params["conv_w"], params["conv_b"]
+    if Hl < s.n_heads:
+        cols = _inproj_cols(s, h0, Hl)
+        w_in = torch.cat([w_in[:, a:b] for a, b in cols], dim=1)
+        chans = torch.cat([torch.arange(a, b, device=x.device) for a, b in cols[:2]])
+        conv_w, conv_b = conv_w[:, chans], conv_b[chans]
+    heads = slice(h0, h0 + Hl)
     with _span("mamba2.in"):
-        xi, Bm, Cm, z, dt = _split_inproj(s, x @ params["w_in"])
+        proj = x @ w_in
+        w = Hl * P
+        xi, Bm, Cm = proj[..., :w], proj[..., w:w + ns], proj[..., w + ns:w + 2 * ns]
+        z, dt = proj[..., w + 2 * ns:2 * w + 2 * ns], proj[..., 2 * w + 2 * ns:]
         xBC_in = torch.cat([xi, Bm, Cm], dim=-1)
-        xBC = _causal_conv(xBC_in, params["conv_w"], params["conv_b"])
-        xi, Bm, Cm = xBC[..., :di], xBC[..., di:di + ns], xBC[..., di + ns:]
-        xh = xi.reshape(*xi.shape[:2], s.n_heads, s.head_dim)
-        dt = F.softplus(dt.float() + params["dt_bias"].float())
-        A = -torch.exp(params["A_log"].float())
+        xBC = _causal_conv(xBC_in, conv_w, conv_b)
+        xi, Bm, Cm = xBC[..., :w], xBC[..., w:w + ns], xBC[..., w + ns:]
+        xh = xi.reshape(*xi.shape[:2], Hl, P)
+        dt = F.softplus(dt.float() + params["dt_bias"][heads].float())
+        A = -torch.exp(params["A_log"][heads].float())
     with _span("mamba2.ssd"):
         y, final = ssd_chunked(xh, dt, A, Bm, Cm, s.chunk)
+    with _span("mamba2.out"):  # the skip and the gate, in float32
+        h = y.float().add_(params["D"][heads].to(z.dtype).float()[:, None] * xh.float())
+        return h.reshape(*z.shape[:-1], -1).mul_(F.silu(z.float())), final, xBC_in
+
+
+def prefill_mamba2(params, s: Mamba2Spec, x: torch.Tensor):
+    """``apply_mamba2``, and the convolution's input (B, T, conv_dim), whose
+    last d_conv - 1 rows the decode cache keeps: every head of
+    ``mamba2_heads``, then the norm and the output projection."""
+    g, final, xBC_in = mamba2_heads(params, s, x, 0, s.n_heads)
     with _span("mamba2.out"):
-        out = _gated_out(params, y, xh, z, x.dtype)
-        return out, final, xBC_in
+        return _norm_out(params, g, x.dtype), final, xBC_in
 
 
-def _gated_out(params, y, xh, z, dtype):
-    """The skip, the gate, the norm and the output projection: (y + D xh)
-    silu(z), normed, in float32, rounded once to ``dtype`` (the block
-    input's) before ``w_out``."""
-    h = y.float().add_(params["D"].to(z.dtype).float()[:, None] * xh.float())
-    h = h.reshape(*z.shape[:-1], -1).mul_(F.silu(z.float()))
-    return rms_norm(params["norm"], h).to(dtype) @ params["w_out"].to(dtype)
+def _norm_out(params, g, dtype):
+    """The gated norm's RMS norm of g (float32, the skip and gate applied),
+    rounded once to ``dtype`` (the block input's) before ``w_out``."""
+    return rms_norm(params["norm"], g).to(dtype) @ params["w_out"].to(dtype)
 
 
 def apply_mamba2(params, s: Mamba2Spec, x: torch.Tensor):
@@ -233,38 +270,60 @@ def init_mamba2_cache(s: Mamba2Spec, batch: int, dtype=torch.bfloat16):
     }
 
 
-def decode_mamba2(params, s: Mamba2Spec, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos):
-    """One token x (B, 1, D). Unlike the reference, which returns a new
-    cache, this updates ``cache`` IN PLACE: the convolution history
-    (B, d_conv - 1, conv_dim) shifts by one row, and the float32 SSM state
-    (B, H, N, P) takes ``state * exp(dt A) + dt B x^T``; the readout uses
-    the new state. ``pos`` is unused (the state carries the position).
-    Returns (y (B, 1, D), cache)."""
-    B = x.shape[0]
-    di, ns, H, P = s.d_inner, s.d_state, s.n_heads, s.head_dim
+def _decode_conv(params, s: Mamba2Spec, conv: torch.Tensor, xBC_new: torch.Tensor):
+    """One token's convolution: the history (B, d_conv - 1, conv_dim) takes
+    ``xBC_new`` (B, 1, conv_dim) IN PLACE; returns the convolution and its
+    SiLU (B, conv_dim) in float32 (the reference's fused step rounds
+    none of them)."""
+    hist = torch.cat([conv, xBC_new.to(conv.dtype)], dim=1)
+    w = params["conv_w"].float()
+    out = hist[:, 0].float() * w[0]
+    for i in range(1, s.d_conv):
+        out += hist[:, i].float() * w[i]
+    conv.copy_(hist[:, 1:])
+    return F.silu(out.add_(params["conv_b"].float()))
+
+
+def decode_mamba2_heads(params, s: Mamba2Spec, proj: torch.Tensor, cache, h0: int, Hl: int):
+    """A decode step over heads [h0, h0 + Hl) up to the norm (every head:
+    ``decode_mamba2``; a rank's heads on a model axis above 1): ``proj``
+    (B, 1, N) the token's whole in-projection. The convolution history
+    (whole) takes every channel; the float32 state of the heads
+    (B, Hl, N, P) takes ``state * exp(dt A) + dt B x^T`` and is read out
+    by C. Both IN PLACE. Returns g (B, 1, Hl P) float32."""
+    B = proj.shape[0]
+    di, ns, P = s.d_inner, s.d_state, s.head_dim
+    heads = slice(h0, h0 + Hl)
     with _span("mamba2.in"):
-        xi, Bm, Cm, z, dt = _split_inproj(s, x @ params["w_in"])
-        conv = cache["conv"]
-        hist = torch.cat([conv, torch.cat([xi, Bm, Cm], dim=-1).to(conv.dtype)], dim=1)
-        # the convolution, its SiLU and the state's inputs in float32: the
-        # reference's fused step rounds none of them
-        w = params["conv_w"].float()
-        out = hist[:, 0].float() * w[0]
-        for i in range(1, s.d_conv):
-            out += hist[:, i].float() * w[i]
-        xBC = F.silu(out.add_(params["conv_b"].float()))
-        conv.copy_(hist[:, 1:])
-        xh = xBC[:, :di].reshape(B, H, P)
+        xi, Bm, Cm, z, dt = _split_inproj(s, proj)
+        xBC = _decode_conv(params, s, cache["conv"], torch.cat([xi, Bm, Cm], dim=-1))
+        xh = xBC[:, h0 * P:(h0 + Hl) * P].reshape(B, Hl, P)
         Bm, Cm = xBC[:, di:di + ns], xBC[:, di + ns:]
-        dt1 = F.softplus(dt[:, 0].float() + params["dt_bias"].float())  # (B, H)
-        A = -torch.exp(params["A_log"].float())
+        dt1 = F.softplus(dt[:, 0, heads].float() + params["dt_bias"][heads].float())
+        A = -torch.exp(params["A_log"][heads].float())
     with _span("mamba2.ssd"):
         state = cache["ssm"]
         state.mul_(torch.exp(dt1 * A)[..., None, None]).add_(
             Bm[:, None, :, None] * (xh * dt1[..., None])[:, :, None, :])
         y = torch.einsum("bn,bhnp->bhp", Cm, state)
+    with _span("mamba2.out"):  # the skip and the gate, in float32
+        h = y.float().add_(params["D"][heads].to(z.dtype).float()[:, None] * xh.float())
+        return h.reshape(B, 1, -1).mul_(F.silu(z[..., h0 * P:(h0 + Hl) * P].float()))
+
+
+def decode_mamba2(params, s: Mamba2Spec, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos):
+    """One token x (B, 1, D). Unlike the reference, which returns a new
+    cache, this updates ``cache`` IN PLACE: the convolution history
+    (B, d_conv - 1, conv_dim) shifts by one row, and the float32 SSM state
+    (B, H, N, P) takes ``state * exp(dt A) + dt B x^T``; the readout uses
+    the new state (every head of ``decode_mamba2_heads``). ``pos`` is
+    unused (the state carries the position). Returns (y (B, 1, D),
+    cache)."""
+    with _span("mamba2.in"):
+        proj = x @ params["w_in"]
+    g = decode_mamba2_heads(params, s, proj, cache, 0, s.n_heads)
     with _span("mamba2.out"):
-        return _gated_out(params, y, xh, z, x.dtype), cache
+        return _norm_out(params, g, x.dtype), cache
 
 
 # ---------------------------------------------------------------------------
@@ -334,58 +393,79 @@ def _time_inputs(params, x: torch.Tensor, xs: torch.Tensor):
     return r, k, v, g, logw
 
 
-def _time_out(params, y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Gate, normalise and apply ``wo`` as the reference does (ssm.py:355):
-    the subscripts sum ``wo`` over e, so this scales y by ``wo.sum(-1)``."""
-    y = rms_norm(params["ln_out"], y * g)
-    return torch.einsum("btd,de->btd", y, params["wo"])
+def _time_out(params, yg: torch.Tensor) -> torch.Tensor:
+    """Normalise the gated output yg and apply ``wo`` as the reference does
+    (ssm.py:355): the subscripts sum ``wo`` over e, so this scales the
+    normed yg by ``wo.sum(-1)``."""
+    return torch.einsum("btd,de->btd", rms_norm(params["ln_out"], yg), params["wo"])
+
+
+def rwkv6_time_heads(params, s: RWKV6Spec, x: torch.Tensor, xs: torch.Tensor,
+                     init_state=None, train: bool = False):
+    """The time mix up to its norm over the heads its leaves hold (every
+    head with whole leaves; a rank's with ``rwkv6_rank_params``): x (B, T,
+    D) and its shifted stream xs, whole; r, k, v, the gate and the
+    log-decays of those columns, the recurrence of those heads through the
+    scan wrapper (``train``: the plain chunked scan under autograd), times
+    the gate. Returns (yg (B, T, Dl) in x's dtype, the
+    norm's input; the float32 final state (B, Hl, K, K), None in
+    training)."""
+    B, T, _ = x.shape
+    K = s.head_dim
+    r, k, v, g, logw = _time_inputs(params, x, xs)
+    Hl = r.shape[-1] // K
+    u = params["u"].float().reshape(Hl, K)
+    heads = [a.reshape(B, T, Hl, K) for a in (r, k, v, logw)]
+    if train:
+        with _span("rwkv6.chunked"):
+            y, final = scan_ref.rwkv6_chunked(*heads, u, s.chunk)
+        y, final = y.to(x.dtype), None
+    else:
+        y, final = scan_ops.rwkv6_scan(*heads, u, s.chunk, init_state)
+    return y.reshape(B, T, -1) * g, final
+
+
+def rwkv6_time_decode_heads(params, s: RWKV6Spec, x, x_prev, state):
+    """A decode step of the time mix up to its norm over the heads its
+    leaves hold: the readout from the old state, then the state of those
+    heads (B, Hl, K, K) updated IN PLACE. Returns yg (B, 1, Dl)."""
+    B = x.shape[0]
+    K = s.head_dim
+    r, k, v, g, logw = _time_inputs(params, x, x_prev)
+    Hl = r.shape[-1] // K
+    w = torch.exp(logw).reshape(B, Hl, K)
+    u = params["u"].float().reshape(Hl, K)
+    r32, k32, v32 = (a.reshape(B, Hl, K).float() for a in (r, k, v))
+    out = torch.einsum("bhk,bhkv->bhv", r32, state) + (r32 * u * k32).sum(-1, keepdim=True) * v32
+    state.mul_(w[..., None]).add_(k32[..., :, None] * v32[..., None, :])
+    return out.reshape(B, 1, -1).to(x.dtype) * g
 
 
 def apply_rwkv6_time(params, s: RWKV6Spec, x: torch.Tensor, init_state=None, x_prev=None):
-    """Prefill over x (B, T, D). Returns (y (B, T, D), the float32 final
-    state (B, H, K, K), x's last token (B, 1, D), a view)."""
-    B, T, D = x.shape
-    H, K = s.n_heads, s.head_dim
-    r, k, v, g, logw = _time_inputs(params, x, _token_shift(x, x_prev))
-    u = params["u"].float().reshape(H, K)
-    y, final = scan_ops.rwkv6_scan(
-        r.view(B, T, H, K), k.view(B, T, H, K), v.view(B, T, H, K), logw.view(B, T, H, K), u,
-        s.chunk, init_state,
-    )  # y in x's dtype: the float32 result rounded once
-    return _time_out(params, y.reshape(B, T, D), g), final, x[:, -1:]
+    """Prefill over x (B, T, D): every head of ``rwkv6_time_heads`` through
+    the scan wrapper, then the norm and ``wo``. Returns (y (B, T, D), the
+    float32 final state (B, H, K, K), x's last token (B, 1, D), a view)."""
+    yg, final = rwkv6_time_heads(params, s, x, _token_shift(x, x_prev), init_state)
+    return _time_out(params, yg), final, x[:, -1:]
 
 
 def train_rwkv6_time(params, s: RWKV6Spec, x: torch.Tensor) -> torch.Tensor:
     """The time mix's training forward over x (B, T, D) from a zero state,
     differentiable: the reference's ``apply_rwkv6_time`` through its chunked
     scan (``scan_ref.rwkv6_chunked``, chunks of ``s.chunk``) under autograd,
-    then the gate, the norm and ``wo`` as ``_time_out``. The prefill's scan
-    kernel has no backward; the chunked form is what the reference trains
-    through, the same choice as the plain ``_sdpa`` for attention."""
-    B, T, D = x.shape
-    H, K = s.n_heads, s.head_dim
-    r, k, v, g, logw = _time_inputs(params, x, _token_shift(x))
-    u = params["u"].float().reshape(H, K)
-    with _span("rwkv6.chunked"):
-        y, _ = scan_ref.rwkv6_chunked(*(a.reshape(B, T, H, K) for a in (r, k, v, logw)), u,
-                                      s.chunk)
-    return _time_out(params, y.reshape(B, T, D).to(x.dtype), g)
+    then the gate, the norm and ``wo``. The prefill's scan kernel has no
+    backward; the chunked form is what the reference trains through, the
+    same choice as the plain ``_sdpa`` for attention."""
+    return _time_out(params, rwkv6_time_heads(params, s, x, _token_shift(x), train=True)[0])
 
 
 def decode_rwkv6_time(params, s: RWKV6Spec, x, state, x_prev):
     """One token. x, x_prev: (B, 1, D); state: (B, H, K, K) float32. Unlike
     the reference, which returns a new state, this updates ``state`` IN
-    PLACE: the readout uses the old state, then ``state.mul_(w).add_(k v^T)``.
-    Returns (y (B, 1, D), state, x)."""
-    B, _, D = x.shape
-    H, K = s.n_heads, s.head_dim
-    r, k, v, g, logw = _time_inputs(params, x, x_prev)
-    w = torch.exp(logw).reshape(B, H, K)
-    u = params["u"].float().reshape(H, K)
-    r32, k32, v32 = (a.reshape(B, H, K).float() for a in (r, k, v))
-    out = torch.einsum("bhk,bhkv->bhv", r32, state) + (r32 * u * k32).sum(-1, keepdim=True) * v32
-    state.mul_(w[..., None]).add_(k32[..., :, None] * v32[..., None, :])
-    return _time_out(params, out.reshape(B, 1, D).to(x.dtype), g), state, x
+    PLACE: the readout uses the old state, then ``state.mul_(w).add_(k v^T)``
+    (every head of ``rwkv6_time_decode_heads``). Returns (y (B, 1, D),
+    state, x)."""
+    return _time_out(params, rwkv6_time_decode_heads(params, s, x, x_prev, state)), state, x
 
 
 def init_rwkv6_channel(s: RWKV6Spec, d_ff: int) -> Dict[str, Any]:
@@ -399,11 +479,234 @@ def init_rwkv6_channel(s: RWKV6Spec, d_ff: int) -> Dict[str, Any]:
     }
 
 
+def rwkv6_channel_part(params, x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """A rank's part of the channel mix's value path: relu(xk wk)^2 wv over
+    its ``wk`` columns and ``wv`` rows (a partial sum where they are
+    split). x, xs (B, T, D) whole."""
+    xk = _mix(x, xs, params["mu_k"].to(x.dtype))
+    return F.relu(xk @ params["wk"]).square() @ params["wv"]
+
+
+def rwkv6_channel_gate(params, x: torch.Tensor, xs: torch.Tensor, kv: torch.Tensor):
+    """The receptance gate of rows x (their shifted stream xs) on the summed
+    value path kv: sigmoid(xr wr) kv, ``wr`` whole."""
+    return torch.sigmoid(_mix(x, xs, params["mu_r"].to(x.dtype)) @ params["wr"]) * kv
+
+
 def apply_rwkv6_channel(params, x: torch.Tensor, x_prev=None):
     """Squared-ReLU channel mix over x (B, T, D), the token shift from
     x_prev (decode) or zeros. Returns (y, x's last token (B, 1, D), a view)."""
     xs = _token_shift(x, x_prev)
-    xk = _mix(x, xs, params["mu_k"].to(x.dtype))
-    xr = _mix(x, xs, params["mu_r"].to(x.dtype))
-    kv = F.relu(xk @ params["wk"]).square() @ params["wv"]
-    return torch.sigmoid(xr @ params["wr"]) * kv, x[:, -1:]
+    return rwkv6_channel_gate(params, x, xs, rwkv6_channel_part(params, x, xs)), x[:, -1:]
+
+
+# ---------------------------------------------------------------------------
+# a "model" mesh axis above 1
+# ---------------------------------------------------------------------------
+#
+# Each block takes its normed input whole over the sequence (the block
+# gathers it: recurrent over time) and hands back the rank's rows. A rank
+# runs its heads where the heads divide the axis: ``mamba2_heads``,
+# ``decode_mamba2_heads``, ``rwkv6_time_heads``, ``rwkv6_time_decode_heads``
+# and ``rwkv6_channel_part`` above, then the norm over the whole width
+# below (``mamba2_norm_out``, ``rwkv6_time_out``), the collectives outside
+# them, so that one process can run every rank's part and combine them as
+# the collectives do. Elsewhere (a layout whose split does not hold whole
+# heads) every split leaf is gathered whole and every rank runs the block
+# whole, keeping its rows: the one-process result on any layout the specs
+# give.
+
+
+def sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """The float32 squares of x summed over its last dim (keepdim): a
+    rank's share of an RMS norm's mean over a width split over the axis."""
+    return x.float().square().sum(dim=-1, keepdim=True)
+
+
+def rms_norm_parts(scale: torch.Tensor, x: torch.Tensor, ss: torch.Tensor, width: int,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """``layers.rms_norm`` of the columns ``x`` of a row of ``width``
+    columns, given the float32 sum of squares ``ss`` of the whole row and
+    ``scale`` at x's columns; in float32, cast back to x's dtype."""
+    y = x.float() * torch.rsqrt(ss / width + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def _tree(params) -> Dict[str, Any]:
+    """A block's parameters as a dict (a module's ``ParamTree`` or a train
+    step's dict), to take replaced leaves."""
+    return params.as_dict() if hasattr(params, "as_dict") else dict(params)
+
+
+def _whole(t: torch.Tensor, dim: int, full: int, tp) -> torch.Tensor:
+    """A leaf whole: gathered over "model" along ``dim`` where it is split
+    (its gradient reduce-scattered back as a sum over the ranks)."""
+    return t if t.shape[dim] == full else SH.gather_seq(t, tp, dim)
+
+
+def _rows(t: torch.Tensor, tp) -> torch.Tensor:
+    Sl = t.shape[1] // tp.size
+    return t[:, tp.rank * Sl:(tp.rank + 1) * Sl]
+
+
+def mamba2_norm_out(scale: torch.Tensor, w_out: torch.Tensor, g: torch.Tensor, ss: torch.Tensor,
+                    width: int, dtype) -> torch.Tensor:
+    """The gated RMS norm and the output projection of the columns ``g`` of
+    the norm's input (``ss`` the float32 squares of the whole width summed;
+    ``scale`` and ``w_out``'s rows at g's columns), rounded to ``dtype``
+    before ``w_out``: a partial sum of the block's output where g is a
+    share of the width."""
+    return rms_norm_parts(scale, g, ss, width).to(dtype) @ w_out.to(dtype)
+
+
+def _mamba2_layout(s: Mamba2Spec, tp):
+    """(first head, heads) of this rank: its share where the heads divide
+    the axis, else every head."""
+    if s.n_heads % tp.size == 0:
+        Hl = s.n_heads // tp.size
+        return tp.rank * Hl, Hl
+    return 0, s.n_heads
+
+
+def _mamba2_out(params, s: Mamba2Spec, g, tp, dtype):
+    """The norm and output projection of a rank's g: (the output, whether it
+    is a partial sum over the ranks). On the rank's heads the squares are
+    summed over the axis; on every head (g whole) the rank's rows of
+    ``w_out`` take its columns of g where ``w_out`` is split."""
+    di = s.d_inner
+    ss = sum_squares(g)
+    wl = params["w_out"].shape[0]
+    if g.shape[-1] < di:
+        ss = SH.sum_parts(ss, tp)
+        c0 = tp.rank * wl
+    else:
+        c0 = tp.rank * wl if wl < di else 0
+        g = g[..., c0:c0 + wl]
+    scale = params["norm"]["scale"][c0:c0 + wl]
+    return mamba2_norm_out(scale, params["w_out"], g, ss, di, dtype), wl < di
+
+
+def apply_mamba2_tp(params, s: Mamba2Spec, x: torch.Tensor, tp, with_cache: bool = False):
+    """Mamba2 on a "model" axis above 1, differentiable: x (B, T, D) whole
+    over the sequence on every rank. ``w_in`` is gathered whole (its
+    columns split without regard to heads; the weight, 2 d_model N bytes,
+    is smaller than its output over the data rank's tokens), each rank
+    runs its heads (``mamba2_heads``), the norm's squares are summed over
+    the axis (``sum_parts``) and the row-parallel output (the rank's part
+    rounded once to x's dtype by its product) reduce-scattered in float32
+    into the rank's rows, then cast: the parts summed as
+    ``moe_rank_partial``'s are, one rounding after the sum. Returns (y
+    (B, T/M, D), and with ``with_cache`` the final state of the rank's
+    heads (B, Hl, N, P) and the convolution history (B, d_conv - 1,
+    conv_dim), whole on every rank)."""
+    N = 2 * s.d_inner + 2 * s.d_state + s.n_heads
+    p = dict(_tree(params), w_in=_whole(params["w_in"], 1, N, tp))
+    h0, Hl = _mamba2_layout(s, tp)
+    g, final, _ = mamba2_heads(p, s, x, h0, Hl)
+    y, partial = _mamba2_out(p, s, g, tp, x.dtype)
+    y = SH.scatter_seq(y.float(), tp).to(x.dtype) if partial else _rows(y, tp)
+    if not with_cache:
+        return y
+    conv_dim = s.d_inner + 2 * s.d_state
+    tail = mamba2_conv_tail(s, x[:, -(s.d_conv - 1):] @ p["w_in"][:, :conv_dim])
+    return y, final, tail
+
+
+def decode_mamba2_tp(params, s: Mamba2Spec, x: torch.Tensor, cache, tp) -> torch.Tensor:
+    """``decode_mamba2`` on a "model" axis above 1 (no gradient): the
+    token's in-projection columns gathered (a token's are fewer bytes than
+    the weight), the rank's heads (``decode_mamba2_heads``), the norm's
+    squares and the row-parallel output summed over the axis (in float32,
+    then cast, as in ``apply_mamba2_tp``). The cache
+    holds the rank's heads' state and the whole convolution history.
+    Returns y (B, 1, D), whole on every rank."""
+    N = 2 * s.d_inner + 2 * s.d_state + s.n_heads
+    proj = x @ params["w_in"]
+    if proj.shape[-1] < N:
+        proj = SH.gather_model(proj, tp, proj.dim() - 1)
+    g = decode_mamba2_heads(params, s, proj, cache, *_mamba2_layout(s, tp))
+    y, partial = _mamba2_out(params, s, g, tp, x.dtype)
+    return SH.sum_model(y.float(), tp).to(x.dtype) if partial else y
+
+
+def rwkv6_rank_params(params, tp) -> Dict[str, Any]:
+    """A rank's time-mix leaves where its heads divide the axis: the column
+    slices it holds of ``wr``, ``wk``, ``wv``, ``wg``, ``w2`` and the rows
+    of ``wo``, with the replicated ``w0``, ``u`` and ``ln_out`` cut to its
+    columns (the ``mu_*`` and ``w1`` act on the whole input)."""
+    Dl = params["wr"].shape[1]
+    cols = slice(tp.rank * Dl, (tp.rank + 1) * Dl)
+    return dict(_tree(params), w0=params["w0"][cols], u=params["u"][cols],
+                ln_out={"scale": params["ln_out"]["scale"][cols]})
+
+
+def rwkv6_time_out(params, yg: torch.Tensor, ss: torch.Tensor, width: int) -> torch.Tensor:
+    """The time mix's norm (``ss`` the float32 squares of the whole width
+    summed) and ``wo`` of a rank's columns yg: ``wo``'s rows of those
+    columns summed over its output dim, so the result is the rank's columns
+    of the block's output, whole."""
+    y = rms_norm_parts(params["ln_out"]["scale"], yg, ss, width)
+    return torch.einsum("btd,de->btd", y, params["wo"])
+
+
+def _rwkv6_whole(params, s: RWKV6Spec, tp):
+    """The time mix's leaves whole (each split one gathered over "model")."""
+    D = s.d_model
+    return dict(_tree(params), wo=_whole(params["wo"], 0, D, tp),
+                **{k: _whole(params[k], 1, D, tp) for k in ("wr", "wk", "wv", "wg", "w2")})
+
+
+def apply_rwkv6_time_tp(params, s: RWKV6Spec, x: torch.Tensor, tp, train: bool = False):
+    """The time mix on a "model" axis above 1: x (B, T, D) whole over the
+    sequence on every rank. Where the heads divide the axis, the rank's
+    heads (``rwkv6_time_heads``; the prefill's scan kernel at (B, T, H/M,
+    K)), the norm's squares summed over the axis (``sum_parts``), the
+    rank's columns of the output, whole rows, laid out as the rank's rows
+    by one all-to-all (``cols_to_rows``; ``wo`` contracts nothing over its
+    split dim, so no reduce-scatter of a sum applies). Otherwise the leaves
+    gathered whole and the block run whole, the rank's rows kept. Returns
+    (y (B, T/M, D), the final state of the rank's heads (every head where
+    they do not divide), None in ``train``)."""
+    if s.n_heads % tp.size:
+        p = _rwkv6_whole(params, s, tp)
+        if train:
+            return _rows(train_rwkv6_time(p, s, x), tp), None
+        y, final, _ = apply_rwkv6_time(p, s, x)
+        return _rows(y, tp), final
+    p = rwkv6_rank_params(params, tp)
+    yg, final = rwkv6_time_heads(p, s, x, _token_shift(x), train=train)
+    y = rwkv6_time_out(p, yg, SH.sum_parts(sum_squares(yg), tp), s.d_model)
+    return SH.cols_to_rows(y, tp), final
+
+
+def decode_rwkv6_time_tp(params, s: RWKV6Spec, x, state, x_prev, tp) -> torch.Tensor:
+    """``decode_rwkv6_time`` on a "model" axis above 1 (no gradient): the
+    rank's heads, their state (B, H/M, K, K) updated in place, the norm's
+    squares summed over the axis and the ranks' columns gathered; where the
+    heads do not divide, the leaves gathered whole and the step run whole
+    (the state whole). Returns y (B, 1, D), whole on every rank."""
+    if s.n_heads % tp.size:
+        return decode_rwkv6_time(_rwkv6_whole(params, s, tp), s, x, state, x_prev)[0]
+    p = rwkv6_rank_params(params, tp)
+    yg = rwkv6_time_decode_heads(p, s, x, x_prev, state)
+    y = rwkv6_time_out(p, yg, SH.sum_parts(sum_squares(yg), tp), s.d_model)
+    return SH.gather_model(y, tp, y.dim() - 1)
+
+
+def apply_rwkv6_channel_tp(params, d_ff: int, x: torch.Tensor, tp, x_prev=None):
+    """The channel mix on a "model" axis above 1: x (B, T, D) whole over the
+    sequence on every rank (its token shift reads the row before each
+    rank's first). Where ``wk`` and ``wv`` are split, the rank's part is
+    reduce-scattered into its rows (a decode step, ``x_prev`` given: summed
+    over the axis), in float32 and then cast, as ``apply_mamba2_tp``'s;
+    else the whole value path, the rank's rows kept. The
+    gate on the rank's rows (``wr`` replicated). Returns the rank's rows
+    (B, T/M, D), or in decode the token's whole row."""
+    xs = _token_shift(x, x_prev)
+    kv = rwkv6_channel_part(params, x, xs)
+    split = params["wk"].shape[1] < d_ff
+    if x_prev is not None:
+        return rwkv6_channel_gate(params, x, xs,
+                                  SH.sum_model(kv.float(), tp).to(x.dtype) if split else kv)
+    kv = SH.scatter_seq(kv.float(), tp).to(x.dtype) if split else _rows(kv, tp)
+    return rwkv6_channel_gate(params, _rows(x, tp), _rows(xs, tp), kv)

@@ -39,9 +39,10 @@ follow its period's blocks inside the layer's checkpoint, with the one
 ``g{gi}_shared`` tree, so their gradient sums over the applications. The
 encoder-decoder (whisper) is ``models/whisper.py``.
 
-Tensor parallelism (a "model" mesh axis above 1: attention with windows
-and M-RoPE, MLA, MLP and MoE blocks; not yet shared blocks, Mamba2 or RWKV6:
-``check_tensor_parallel``): a model built on such a mesh
+Tensor parallelism (a "model" mesh axis above 1: every block kind and a
+group's shared blocks; not yet non-causal attention, whisper's encoder,
+which comes with whisper in the next slice: ``check_tensor_parallel``): a
+model built on such a mesh
 (``TransformerLM(cfg, mesh=mesh)``) holds its rank's shards of every leaf
 (``lm_param_specs``). Under the step's mesh context the residual stream is
 sequence-parallel; a block whose heads or ffn divide the axis gathers its
@@ -57,7 +58,11 @@ on the rank's rows. A prefill returns its caches in the decode layout
 and MLA latent cache), and decode attends context-parallel
 (``layers.decode_attention``, ``layers.decode_mla``). The MoE block gathers
 its input over the sequence and hands back its rows (``layers.apply_moe``);
-in decode its parts are summed over "model".
+in decode its parts are summed over "model". So do the recurrent blocks
+(Mamba2, RWKV6's time and channel mix: ``ssm.apply_mamba2_tp``,
+``apply_rwkv6_time_tp``, ``apply_rwkv6_channel_tp``), each rank on its
+heads where they divide the axis (their state split by heads), the norm's
+squares summed over it; elsewhere the block runs whole on every rank.
 
 Under an fsdp train step (``IplsStepConfig(fsdp=True)``) ``loss`` gathers
 each stored leaf where it uses it (``sharding_hooks.gather_stored``): a
@@ -222,25 +227,24 @@ def _vocab_parallel_ce(logits: torch.Tensor, targets: torch.Tensor, v0: int, tp)
     return lse - tgt
 
 
-TP_KINDS = ("attn", "mla", "mlp", "moe")
+# the recurrent blocks: their input gathered whole over the sequence, their
+# rows handed back by the block itself
+RECURRENT_KINDS = ("mamba2", "rwkv6_time", "rwkv6_channel")
 
 
 def check_tensor_parallel(cfg: "ArchConfig") -> None:
     """Raise ``NotImplementedError`` unless a config runs on a "model" axis
-    above 1: blocks of ``TP_KINDS`` only (causal attention, with sliding
-    windows and M-RoPE too; MLA; MLP; MoE), and no group's shared blocks.
-    Mamba2, RWKV6 and shared blocks (zamba2) are not yet, nor whisper,
-    which ``build_model`` refuses (ROADMAP.md queue 1 lists the rest)."""
+    above 1: every block kind does, a group's shared blocks too, but
+    non-causal attention (an encoder's, whisper's, which ``build_model``
+    refuses as a whole) is not yet: it comes with whisper in the next slice
+    (ROADMAP.md queue 1)."""
     for g in cfg.groups:
         for b in g.blocks + g.shared:
-            bad = (b.kind not in TP_KINDS or bool(g.shared)
-                   or (b.kind == "attn" and not b.attn.causal))
-            if bad:
-                what = "shared" if g.shared else repr(b.kind)
+            if b.kind == "attn" and not b.attn.causal:
                 raise NotImplementedError(
-                    f"{cfg.name}: a 'model' mesh axis above 1 is ported for attention (sliding "
-                    f"windows and M-RoPE too), MLA, MLP and MoE blocks; {what} blocks are not "
-                    f"yet (shared blocks, Mamba2 and RWKV6: ROADMAP.md queue 1)")
+                    f"{cfg.name}: non-causal attention on a 'model' mesh axis above 1 is not "
+                    f"ported yet; it comes with whisper's encoder-decoder in the next slice "
+                    f"(ROADMAP.md queue 1)")
 
 
 def _gatherable(b: BlockSpec, M: int) -> bool:
@@ -249,9 +253,12 @@ def _gatherable(b: BlockSpec, M: int) -> bool:
     its weights are replicated and it runs on the rank's rows. The MoE
     block always gathers: its dispatch takes the data rank's whole
     sequence, as the reference's shard_map does, and hands the rank's rows
-    back itself (``layers.apply_moe``)."""
+    back itself (``layers.apply_moe``); so do the recurrent blocks, which
+    need the whole sequence anyway (``RECURRENT_KINDS``)."""
     if M == 1:
         return False
+    if b.kind in RECURRENT_KINDS:
+        return True
     if b.kind == "mlp":
         return b.mlp.d_ff % M == 0
     if b.kind == "attn":
@@ -302,12 +309,17 @@ def apply_block_train(b: BlockSpec, p, x, ctx: dict):
         y, moe_aux = L.apply_moe(p["moe"], b.moe, h)
         aux = moe_aux["lb_loss"]
     elif b.kind == "mamba2":
-        y, _ = S.apply_mamba2(p["mamba"], b.mamba, h)
+        y = (S.apply_mamba2_tp(p["mamba"], b.mamba, h, tp) if gather
+             else S.apply_mamba2(p["mamba"], b.mamba, h)[0])
     elif b.kind == "rwkv6_time":
-        y = S.train_rwkv6_time(p["rwkv"], b.rwkv, h)
+        y = (S.apply_rwkv6_time_tp(p["rwkv"], b.rwkv, h, tp, train=True)[0] if gather
+             else S.train_rwkv6_time(p["rwkv"], b.rwkv, h))
+    elif gather:
+        y = S.apply_rwkv6_channel_tp(p["rwkv_ffn"], b.rwkv_ffn, h, tp)
     else:
         y, _ = S.apply_rwkv6_channel(p["rwkv_ffn"], h)
-    if gather and b.kind != "moe":  # the MoE block hands back the rank's rows
+    # the MoE and recurrent blocks hand back the rank's rows themselves
+    if gather and b.kind not in ("moe",) + RECURRENT_KINDS:
         y = SH.scatter_seq(y, tp)
     return shard_act(x + y, ("batch", "act_seq", "embed")), aux
 
@@ -332,16 +344,27 @@ def block_cache_defs(b: BlockSpec, batch: int, seq_len: int, dtype) -> Optional[
 
 
 def _apply_block_prefill_tp(b: BlockSpec, p, x, ctx, tp):
-    """``apply_block_prefill`` on a tensor-parallel mesh (attention, MLA,
-    MLP and MoE blocks): the layout of ``apply_block_train``; an attention
-    or MLA block's cache in the decode layout, the rank's slots of the
-    whole cache (a sliding-window layer's: of its ring, filled first)."""
+    """``apply_block_prefill`` on a tensor-parallel mesh: the layout of
+    ``apply_block_train``; an attention or MLA block's cache in the decode
+    layout, the rank's slots of the whole cache (a sliding-window layer's:
+    of its ring, filled first); a recurrent block's state that of the
+    rank's heads (every head where they do not divide the axis), its
+    convolution history and last input whole."""
     h = _norm_apply(b.norm, p["norm"], x)
     gather = _gatherable(b, tp.size)
     if gather:
         h = SH.gather_seq(h, tp)
     if b.kind == "moe":  # its input gathered, its output the rank's rows
         return x + L.apply_moe(p["moe"], b.moe, h, with_lb=False)[0], None
+    if b.kind == "mamba2":
+        y, final, tail = S.apply_mamba2_tp(p["mamba"], b.mamba, h, tp, with_cache=True)
+        return x + y, {"conv": tail, "ssm": final.float()}
+    if b.kind == "rwkv6_time":
+        y, final = S.apply_rwkv6_time_tp(p["rwkv"], b.rwkv, h, tp)
+        return x + y, {"state": final, "x_prev": h[:, -1:].clone()}
+    if b.kind == "rwkv6_channel":
+        y = S.apply_rwkv6_channel_tp(p["rwkv_ffn"], b.rwkv_ffn, h, tp)
+        return x + y, {"x_prev": h[:, -1:].clone()}
     if b.kind == "mlp":
         y, entry = L.apply_mlp(p["mlp"], b.mlp, h), None
     else:
@@ -411,8 +434,20 @@ def apply_block_decode(b: BlockSpec, p, x, cache, pos):
     """One token through a block; attention and RWKV6 caches are updated
     in place. On a tensor-parallel mesh a block with split weights sums its
     row-parallel output over "model" (the MoE block inside ``apply_moe``,
-    whose one token a row is whole on every rank)."""
+    whose one token a row is whole on every rank; the recurrent blocks
+    inside their ``*_tp`` steps)."""
     tp = SH.tensor_parallel()
+    if tp is not None and b.kind in RECURRENT_KINDS:
+        h = _norm_apply(b.norm, p["norm"], x)
+        if b.kind == "mamba2":
+            y = S.decode_mamba2_tp(p["mamba"], b.mamba, h, cache, tp)
+        elif b.kind == "rwkv6_time":
+            y = S.decode_rwkv6_time_tp(p["rwkv"], b.rwkv, h, cache["state"], cache["x_prev"], tp)
+        else:
+            y = S.apply_rwkv6_channel_tp(p["rwkv_ffn"], b.rwkv_ffn, h, tp, cache["x_prev"])
+        if "x_prev" in cache:
+            cache["x_prev"].copy_(h)
+        return x + y, cache
     if tp is not None and _gatherable(b, tp.size) and b.kind != "moe":
         h = _norm_apply(b.norm, p["norm"], x)
         if b.kind == "mlp":

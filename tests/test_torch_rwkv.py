@@ -220,7 +220,7 @@ def test_time_mix_output_is_the_reference_einsum():
     y = torch.randn(2, 3, 8, dtype=torch.float64)
     wo = torch.randn(8, 8, dtype=torch.float64)
     p = {"ln_out": {"scale": torch.zeros(8, dtype=torch.float64)}, "wo": wo}
-    got = ssm._time_out(p, y, torch.ones_like(y))
+    got = ssm._time_out(p, y)  # the gated output (a gate of ones)
     normed = y * torch.rsqrt(y.square().mean(-1, keepdim=True) + 1e-6)
     assert torch.allclose(got, normed * wo.sum(-1))
     assert not torch.allclose(got, normed @ wo)

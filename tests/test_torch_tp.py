@@ -113,19 +113,32 @@ class _Mesh:
 
 
 def test_unported_tensor_parallel_modes_raise():
-    """On a model axis above 1: a decode graph, and the families other than
-    the attention (windows and M-RoPE too), MLA, MLP and MoE blocks (zamba2's
-    Mamba2 and shared blocks, RWKV6, whisper) raise NotImplementedError; a
-    step of a model not built on the mesh raises ValueError before it runs.
-    (deepseek, gemma3 and qwen2-vl run: ``test_torch_tp_attn.py``; the MoE
-    family's granite: ``test_torch_tp_moe.py``.)"""
-    from repro_torch.configs import SHAPES, build_model, get_config
+    """On a model axis above 1: a decode graph, whisper and non-causal
+    attention (its encoder's, the next slice) raise NotImplementedError
+    naming the next slice; every other family passes the check (zamba2's
+    Mamba2 and shared blocks and RWKV6 run: ``test_torch_tp_ssm.py``;
+    deepseek, gemma3 and qwen2-vl: ``test_torch_tp_attn.py``; the MoE
+    family's granite: ``test_torch_tp_moe.py``); a step of a model not
+    built on the mesh raises ValueError before it runs."""
+    import dataclasses
+
+    from repro_torch.configs import ARCH_IDS, SHAPES, build_model, get_config
     from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models.transformer import check_tensor_parallel
 
     mesh = _Mesh((1, 2))
-    for arch, what in (("zamba2-1.2b", "shared"), ("rwkv6-7b", "rwkv6"), ("whisper-base", None)):
-        with pytest.raises(NotImplementedError, match=what):
-            build_model(get_config(arch, reduced=True), device="cpu", mesh=mesh)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        build_model(get_config("whisper-base", reduced=True), device="cpu", mesh=mesh)
+    for arch in ARCH_IDS:
+        if arch != "whisper-base":
+            check_tensor_parallel(get_config(arch))
+    cfg = get_config("internlm2-1.8b", reduced=True)
+    encoder = dataclasses.replace(cfg, groups=tuple(
+        dataclasses.replace(g, blocks=tuple(
+            dataclasses.replace(b, attn=dataclasses.replace(b.attn, causal=False))
+            if b.kind == "attn" else b for b in g.blocks)) for g in cfg.groups))
+    with pytest.raises(NotImplementedError, match="non-causal attention.*next slice"):
+        build_model(encoder, device="cpu", mesh=mesh)
     model = build_model(get_config("internlm2-1.8b", reduced=True), device="cpu")
     with pytest.raises(NotImplementedError, match="decode graph"):
         build_decode_step(model, mesh, SHAPES["decode_32k"], graph=True)

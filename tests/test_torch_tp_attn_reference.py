@@ -31,23 +31,31 @@ import torch_tp_attn_worker as worker  # noqa: E402
 from test_torch_tp import _spawn, one_torch_thread  # noqa: E402,F401
 
 
-def _drawn_params(name):
+def _drawn_params(name, cfg=None, redraw=None):
     """float32 params in the reference's layout (a numpy tree), drawn by
     the port from seed 0 (the reference's init, without its per-leaf
-    compiles: deepseek-reduced's ``init`` takes 14 s on the CPU)."""
+    compiles: deepseek-reduced's ``init`` takes 14 s on the CPU); ``cfg``
+    by default ``worker.config(name, lossless=True)``; ``redraw(model)``
+    may overwrite leaves first."""
     from repro_torch.configs import build_model
     from repro_torch.core.sharded import IplsTrainState
     from repro_torch.models.convert import to_reference_layout
 
-    one = build_model(worker.config(name, lossless=True), device="cpu", seed=0).float()
+    one = build_model(cfg or worker.config(name, lossless=True), device="cpu", seed=0).float()
+    if redraw is not None:
+        redraw(one)
     state = IplsTrainState(step=torch.zeros((), dtype=torch.int32), params=one.params(),
                            opt_state=(), eps=torch.ones(()))
     return worker.tw._numpy_tree(to_reference_layout(state).params)
 
 
-def _reference(name):
+def _reference(name, config=None, drawn=None, float64=False):
     """The reference's float32 params (a numpy tree), its train step from
-    them, and its prefill's and 8 decode steps' logits."""
+    them, and its prefill's and 8 decode steps' logits; with ``float64``
+    also those logits from the params in float64 (``prefill_logits64``,
+    ``decode_logits64``). ``config(get)`` gives the config from a package's
+    ``get_config`` (by default ``worker.config(name, lossless=True)``);
+    ``drawn`` the params (by default ``_drawn_params(name)``)."""
     jax = pytest.importorskip("jax")
     jnp = jax.numpy
     from repro.configs import build_model as jax_build
@@ -56,9 +64,9 @@ def _reference(name):
     from repro.optim import adamw as jadamw
 
     B, S, T, STEPS = worker.B, worker.S, worker.T, worker.STEPS
-    cfg = worker.config(name, lossless=True, get=jax_config)
+    cfg = (config or (lambda get: worker.config(name, lossless=True, get=get)))(jax_config)
     model = jax_build(cfg)
-    params = jax.tree.map(jnp.asarray, _drawn_params(name))
+    params = jax.tree.map(jnp.asarray, drawn if drawn is not None else _drawn_params(name))
     rng = np.random.default_rng(11)
     tokens = rng.integers(0, 256, (B, S)).astype(np.int32)
     opt = jadamw(worker.LR, wd=0.1)
@@ -74,21 +82,30 @@ def _reference(name):
              worker.serve_batch(cfg, torch.from_numpy(serve_tokens)).items()}
     cache_len = serve.pop("cache_len")
     prefill = jax.jit(lambda p, b: model.prefill(p, dict(b, cache_len=cache_len)))
-    logits, cache = prefill(params, serve)
     decode = jax.jit(model.decode_step)
-    dec_logits = []
-    for t in range(STEPS):
-        lg, cache = decode(params, cache, {"token": jnp.asarray(steps[t]),
-                                           "pos": jnp.asarray(S + t, jnp.int32)})
-        dec_logits.append(np.asarray(lg.astype(jnp.float32)))
-    return {
+
+    def serve_logits(params, out_dtype):
+        logits, cache = prefill(params, serve)
+        dec_logits = []
+        for t in range(STEPS):
+            lg, cache = decode(params, cache, {"token": jnp.asarray(steps[t]),
+                                               "pos": jnp.asarray(S + t, jnp.int32)})
+            dec_logits.append(np.asarray(lg.astype(out_dtype)))
+        return np.asarray(logits.astype(out_dtype)), np.stack(dec_logits)
+
+    prefill_logits, decode_logits = serve_logits(params, jnp.float32)
+    out = {
         "params": jax.tree.map(np.asarray, params),
         "tokens": tokens, "loss": float(m["loss"]),
         "state": {n: np.asarray(v) for n, v in named_leaves(jax.tree.map(np.asarray, state))},
         "serve_tokens": serve_tokens, "steps": steps,
-        "prefill_logits": np.asarray(logits.astype(jnp.float32)),
-        "decode_logits": np.stack(dec_logits),
+        "prefill_logits": prefill_logits, "decode_logits": decode_logits,
     }
+    if float64:
+        with jax.enable_x64(True):
+            p64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), out["params"])
+            out["prefill_logits64"], out["decode_logits64"] = serve_logits(p64, jnp.float64)
+    return out
 
 
 NAMES = ("gemma3-1b", "gemma3-window6", "qwen2-vl-72b")

@@ -191,13 +191,16 @@ def check_against_no_fsdp(arch, mesh, gaps):
         _note(gaps, f"{arch}/vs_no_fsdp", _gap(a, b), TOL)
 
 
-def _noise_bound(got, one, one64, gaps, key) -> None:
+def _noise_bound(got, one, one64, gaps, key, floor: float = 0.0) -> None:
     """The mesh's value no farther from the one-process step with float64
     weights than NOISE times the one-process float32 step (at least TOL);
-    its gap to the float32 step is recorded as ``key``."""
+    its gap to the float32 step is recorded as ``key``. ``floor``: a noise
+    the two float32 steps are known to carry beside the float64 step's
+    (``torch_tp_worker._noise_bound``)."""
+    noise = max(_gap(one, one64), floor)
     _note(gaps, key, _gap(got, one))
-    _note(gaps, key + "_noise", _gap(one, one64))
-    _note(gaps, key + "_vs_float64", _gap(got, one64), max(TOL, NOISE * _gap(one, one64)))
+    _note(gaps, key + "_noise", noise)
+    _note(gaps, key + "_vs_float64", _gap(got, one64), max(TOL, NOISE * noise))
 
 
 def check_against_one_process(arch, mesh, gaps, accum, mask=None, key="one"):

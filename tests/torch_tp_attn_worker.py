@@ -57,6 +57,7 @@ and the sequence-parallel windowed path runs on a copy with a 6-slot window
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -156,8 +157,11 @@ def _one_ctx():
     return activation_sharding(fw.OneRank(), make_rules(fw.OneRank(), "train"))
 
 
-def check_init(name, mesh, gaps):
-    cfg = config(name)
+def check_init(name, mesh, gaps, cfg=None):
+    """The rank's shards: the same slices of the one-process draw, bit for
+    bit (``cfg``: the config, by default ``config(name)``); the count of
+    leaves "model" splits."""
+    cfg = cfg or config(name)
     one = build_model(cfg, device="cpu", seed=0)
     tp = build_model(cfg, device="cpu", seed=0, mesh=mesh)
     want = psh.shard_tree(one.params(), tp.param_specs, mesh)
@@ -167,19 +171,27 @@ def check_init(name, mesh, gaps):
         a.numel() < b.numel() for a, b in zip(tree_leaves(tp.params()), tree_leaves(one.params())))
 
 
-def check_train(name, mesh, gaps):
+def check_train(name, mesh, gaps, cfg=None, step_cfg=None, flips=None, key=None):
     """One AdamW step on the mesh against the one-process step (the
     model-axis-1 mesh path, each data rank's rows), gathered: the bounds
-    with which ``torch_tp_worker._train_case`` holds the dense LMs."""
-    cfg = config(name)
+    with which ``torch_tp_worker._train_case`` holds the dense LMs
+    (``cfg`` and ``step_cfg`` by default ``config(name)`` and
+    ``step_config(name)``; the gaps under ``key``, by default
+    ``name + "/train"``). ``flips`` (``torch_tp_ssm_worker.LogitGradients``)
+    records the gradients in the bf16 logits of both float32 steps, and
+    the gradients' noise rule takes their measured difference
+    (``flips.share``) as a floor of the noise beside the float64 run's."""
+    cfg = cfg or config(name)
     D = psh.mesh_axis_size(mesh, "data")
     opt = adamw(LR, wd=0.1)
-    step_cfg = step_config(name)
+    step_cfg = step_cfg or step_config(name)
     batch = train_batch(cfg, tw._tokens(256, 1, (B, S)))
     tp = build_model(cfg, device="cpu", seed=0, mesh=mesh).float()
     built = build_train_step(tp, mesh, ShapeSpec("t", S, B, "train"), optimizer=opt,
                              step_cfg=step_cfg)
-    state, m = built.fn(built.init_state(tp.params()), batch)
+    record = flips.recording if flips is not None else (lambda side: contextlib.nullcontext())
+    with record("mesh"):
+        state, m = built.fn(built.init_state(tp.params()), batch)
 
     def one_step(dtype):
         one = build_model(cfg, device="cpu", seed=0).to(dtype)
@@ -189,10 +201,17 @@ def check_train(name, mesh, gaps):
                                    num_agents=D)
         return step(psh.init_state(one.params(), opt), batch)
 
-    (one_state, one_m), (state64, m64) = one_step(torch.float32), one_step(torch.float64)
-    key = f"{name}/train"
-    for k in one_m:
-        fw._noise_bound(m[k], one_m[k], m64[k], gaps, f"{key}/metric_{k}")
+    with record("one"):
+        one_state, one_m = one_step(torch.float32)
+    with tw._Float64Attention():  # RWKV6's scan in float64 too
+        state64, m64 = one_step(torch.float64)
+    key = key or f"{name}/train"
+    share = flips.share(mesh) if flips is not None else 0.0
+    if flips is not None:
+        gaps[f"{key}/logit_gradient_flip_share"] = share
+    for k in one_m:  # the gradient's norm moves with the gradients
+        fw._noise_bound(m[k], one_m[k], m64[k], gaps, f"{key}/metric_{k}",
+                        floor=share if k == "grad_norm" else 0.0)
     # the first moments, gathered whole over every axis
     whole_m = psh.gather_tree(state.opt_state,
                               psh._opt_specs(state.opt_state, built.update_shardings), mesh,
@@ -204,7 +223,7 @@ def check_train(name, mesh, gaps):
     scale = max(float(b.abs().max()) for _, _, b, _ in rows)
     for _, a, b, c in rows:
         assert a.shape == b.shape
-        tw._noise_bound(a / scale, b / scale, c / scale, gaps, f"{key}/gradients")
+        tw._noise_bound(a / scale, b / scale, c / scale, gaps, f"{key}/gradients", floor=share)
         own = max(float(b.abs().max()), 1e-30)
         tw._note(gaps, f"{key}/gradients_of_leaf", tw._gap(a / own, b / own), tw.GRAD_LEAF_TOL)
     params = psh.gather_tree(state.params, built.update_shardings, mesh, ("model", "data")) \
@@ -226,8 +245,11 @@ def check_train(name, mesh, gaps):
         gaps[f"{key}/params_noise"] = max(gaps.get(f"{key}/params_noise", 0.0), tw._gap(b, c))
 
 
-def check_serve(name, mesh, gaps):
-    cfg = config(name)
+def check_serve(name, mesh, gaps, cfg=None):
+    """A prefill and 8 decode steps on the mesh against the one-process
+    model (``cfg``: by default ``config(name)``): logits, and the caches
+    gathered over "model" by the float32 noise rule."""
+    cfg = cfg or config(name)
     one = build_model(cfg, device="cpu", seed=0).float()
     one64 = build_model(cfg, device="cpu", seed=0).double()
     tp = build_model(cfg, device="cpu", seed=0, mesh=mesh).float()
@@ -279,13 +301,15 @@ def check_ring_split(mesh, gaps):
         gaps["gemma3-ring8/ring_split_raises_in_decode"] = 1
 
 
-def check_reference(name, mesh, ref, gaps):
+def check_reference(name, mesh, ref, gaps, cfg=None, step_cfg=None):
     """The reference's params in the rank's shards; its one-device train
-    step, prefill and decode logits (float32) against the mesh's."""
+    step, prefill and decode logits (float32) against the mesh's (``cfg``
+    and ``step_cfg`` by default ``config(name, lossless=True)`` and
+    ``step_config(name)``)."""
     r = ref[name]
-    cfg = config(name, lossless=True)
+    cfg = cfg or config(name, lossless=True)
     opt = adamw(LR, wd=0.1)
-    step_cfg = step_config(name)
+    step_cfg = step_cfg or step_config(name)
     tp = load_jax_params(build_model(cfg, device="cpu", seed=0, mesh=mesh).float(), r["params"])
     built = build_train_step(tp, mesh, ShapeSpec("t", S, B, "train"), optimizer=opt,
                              step_cfg=step_cfg)
@@ -328,8 +352,20 @@ def check_reference(name, mesh, ref, gaps):
     for t in range(STEPS):
         logits, cache = dec.fn(cache, {"token": torch.from_numpy(r["steps"][t]), "pos": S + t})
         ulps.append(("decode", logits, r["decode_logits"][t]))
-    for what, got_l, want in ulps:
+    for i, (what, got_l, want) in enumerate(ulps):
         want = torch.from_numpy(want).double()
+        if "prefill_logits64" in r:
+            # the float64 rule (zamba2: its blocks amplify float32 rounding
+            # past one bf16 ulp between any two float32 runs, ROADMAP.md
+            # queue 3): no farther from the reference's float64 run than its
+            # own float32 run, plus one bf16 ulp of the step's largest and 1e-5
+            w64 = torch.from_numpy(r["prefill_logits64"] if i == 0
+                                   else r["decode_logits64"][i - 1]).double()
+            bound = (float((want - w64).abs().max()) + float(tw._ulp_bf16(w64.abs().max()))
+                     + 1e-5)
+            tw._note(gaps, f"{name}/ref_{what}_logits_of_float64_bound",
+                     float((got_l.double() - w64).abs().max()) / bound, 1.0)
+            continue
         tw._note(gaps, f"{name}/ref_{what}_logits_ulps",
                  float(((got_l.double() - want).abs() / (tw._ulp_bf16(want) + 1e-5)).max()), 1.0)
 

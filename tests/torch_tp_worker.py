@@ -130,27 +130,56 @@ def _decode64(q, k, v, pos, n_splits=None, slot0=0, return_lse=False):
     return (out, lse) if return_lse else out
 
 
+def _scan64(r, k, v, logw, u, chunk=None, init_state=None):
+    """The RWKV6 recurrence step by step in float64 (differentiable): the
+    float64 run's scan, whose wrapper and chunked plain version compute in
+    float32. Returns (out (B, T, H, K) float64, the final state in float32,
+    the cache's dtype)."""
+    B, T, H, K = r.shape
+    r, k, v, w, u = (a.double() for a in (r, k, v, torch.exp(logw.double()), u))
+    S = (torch.zeros((B, H, K, K), dtype=torch.float64) if init_state is None
+         else init_state.double())
+    outs = []
+    for t in range(T):
+        rt, kt, vt = r[:, t], k[:, t], v[:, t]
+        outs.append(torch.einsum("bhk,bhkv->bhv", rt, S)
+                    + (rt * u * kt).sum(-1, keepdim=True) * vt)
+        S = S * w[:, t, ..., None] + kt[..., :, None] * vt[..., None, :]
+    return torch.stack(outs, dim=1), S.float()
+
+
 class _Float64Attention:
-    """The models' attention wrappers replaced by ``_attn64``/``_decode64``."""
+    """The models' attention wrappers replaced by ``_attn64``/``_decode64``,
+    and for float64 inputs the RWKV6 scan's wrapper and chunked form by
+    ``_scan64``."""
 
     def __enter__(self):
-        from repro_torch.models import layers
+        from repro_torch.models import layers, ssm
 
-        self.saved = layers.flash_ops.attention, layers.decode_ops.decode
+        self.saved = (layers.flash_ops.attention, layers.decode_ops.decode,
+                      ssm.scan_ops.rwkv6_scan, ssm.scan_ref.rwkv6_chunked)
+        scan, chunked = self.saved[2:]
         layers.flash_ops.attention, layers.decode_ops.decode = _attn64, _decode64
+        ssm.scan_ops.rwkv6_scan = lambda r, *a: (_scan64 if r.dtype == torch.float64
+                                                 else scan)(r, *a)
+        ssm.scan_ref.rwkv6_chunked = lambda r, *a: (_scan64 if r.dtype == torch.float64
+                                                    else chunked)(r, *a)
 
     def __exit__(self, *exc):
-        from repro_torch.models import layers
+        from repro_torch.models import layers, ssm
 
-        layers.flash_ops.attention, layers.decode_ops.decode = self.saved
+        (layers.flash_ops.attention, layers.decode_ops.decode, ssm.scan_ops.rwkv6_scan,
+         ssm.scan_ref.rwkv6_chunked) = self.saved
 
 
-def _noise_bound(got, one, one64, gaps, key) -> None:
+def _noise_bound(got, one, one64, gaps, key, floor: float = 0.0) -> None:
     """A float32 leaf of the mesh no farther from the one-process run with
     float64 weights than NOISE times the one-process float32 run (at least
-    TOL); its gap to the one-process float32 run is recorded too."""
+    TOL); its gap to the one-process float32 run is recorded too. ``floor``:
+    a noise the two float32 runs are known to carry beside the float64
+    run's (the bf16 logits' flips, ``torch_tp_ssm_worker``)."""
     gap = _gap
-    noise = gap(one, one64)
+    noise = max(gap(one, one64), floor)
     gaps[key + "_vs_one"] = max(gaps.get(key + "_vs_one", 0.0), gap(got, one))
     gaps[key + "_noise"] = max(gaps.get(key + "_noise", 0.0), noise)
     _note(gaps, key + "_vs_float64", gap(got, one64), max(TOL, NOISE * noise))
