@@ -887,6 +887,26 @@ SSM_TP_ROW_ULPS = 4.0
 # may round one bf16 ulp apart from the whole product's (on the CPU at 64
 # tokens, 2e-4)
 SSM_TP_STATE_TOL = 2.0 ** -8
+# whisper_tp: whisper-base at full width over the production model axis, rank
+# by rank: 16 clips of 1,500 frames and a 4-token prompt, a self cache of
+# 144 slots (9 a rank: its slots split; 1,500 frames and 8 kv heads divide
+# nothing, so ek and ev are whole), one decode step at pos 100 (the slots
+# of ranks 12-15 hold no valid key). The encoder output, the prefill's and
+# the decode step's logits within WHISPER_TP_ROW_ULPS bf16 ulps of each
+# row's largest |value| (plus 1e-5): the rank parts' float32 sums of the
+# MLP (d_ff 2,048 split) and the merge of the self-attention's partials
+# round apart from the one-card products.
+WHISPER_TP = dict(arch="whisper-base", M=16, batch=16, frames=1500, prompt=4, slots=144,
+                  pos=100, seed=0)
+WHISPER_TP_ROW_ULPS = 4.0
+# long_gemma3, long_zamba2: the long cache's slices over the 256 ranks of
+# ("data", "model") on the production mesh (16, 16): each slice's partial
+# at pos 524,287 (gemma3's 512-slot rings: 2 slots a slice), merged in
+# rank order, against one whole-cache call, within LONG_CP_ROW_ULPS bf16
+# ulps of each (batch, head) row's largest (plus 1e-5); the first, middle
+# and last slices against the plain partial
+LONG_CP_GROUP = 256
+LONG_CP_ROW_ULPS = 4.0
 # decode at pos 4,096 vs the last-token logits of a 4,097-token prefill. The
 # recurrence's step is float32 on both paths (decode in PyTorch from the
 # kernel's final state; the kernel's last, ragged chunk), so the gap comes
@@ -3480,6 +3500,255 @@ def phase_ssm_tp(tr, sops, sref):
     return out
 
 
+def _partial_vs_plain(dops, dref, q, k, v, pos, slot0, got):
+    """A slice's kernel partial (``got``: out, lse) against the plain
+    partial on its inputs: an empty slice 0 and -inf exactly, else (the
+    output's gap over its scale, the lse's absolute gap)."""
+    import torch
+
+    po, plse = dref.decode_partial_ref(q, k, v, pos, slot0)
+    o, lse = got
+    if bool(torch.isneginf(plse).all()):
+        _require(torch.equal(o, po) and bool(torch.isneginf(lse).all()),
+                 "an empty slice is not 0 and -inf")
+        return 0.0, 0.0
+    return ((o - po).abs().max() / po.abs().max()).item(), (lse - plse).abs().max().item()
+
+
+def phase_whisper_tp(tr, dops, dref, fops):
+    """whisper-base at full width over the production model axis, rank by
+    rank (``WHISPER_TP``), its weights drawn from the seed as
+    ``build_model`` draws them (bf16), its layers' weight matrices scaled
+    as ``lm_agree``'s bf16 leg scales them (``_unit_gain``: at the
+    reference's init the softmax is all but one-hot and one bf16 rounding
+    moves the logits by half their scale; without it the rank parts' sums
+    put the prefill's logits 175 row ulps from the model's on an H100),
+    against the model-axis-1 model on the same weights and inputs
+    (``encode``, ``prefill``, ``decode_step``).
+
+    At 16 ranks the layout of ``models/whisper.py``'s mesh path: 1,500
+    frames and a 4-token prompt do not split (every rank runs every row),
+    8 heads and the 51,865-row table do not divide (attention and logits
+    whole on every rank), d_ff does (each rank's 128 columns and rows: its
+    part ``layers.apply_mlp`` of its slices, the 16 parts summed in float32
+    in rank order and cast once, as ``whisper._reduce`` sums them); the
+    self cache of 144 slots is split 9 a rank (each rank's slice written
+    where it owns the token's slot, ``layers._owned_slot`` and
+    ``_write_owned``, and its partial through the decode kernel's partial
+    form, the 16 merged by ``merge_partials``), the 1,500 frames' ek, ev
+    whole. Slots 4-143 of every layer's self cache hold values drawn from
+    the seed (those past pos 100 hidden).
+
+    Checks: each layer of the encoder, the prompt's prefill and the decode
+    step, from the model's own input to it, within WHISPER_TP_ROW_ULPS bf16
+    ulps of each row's largest (``blockwise``); the rank parts end to end
+    (the encoder output, the prefill's and the decode step's logits)
+    within WHISPER_TP_ROW_ULPS for each layer they cross (the parts' sums
+    round apart from one product in every layer, and the roundings carry);
+    the ranks' self-cache slices, whole again, the model's bit for bit;
+    every rank's partial launch against the plain partial; the launches of
+    each form; one rank's partial timed beside its bound and SDPA."""
+    import torch
+
+    configs, L = tr["configs"], tr["layers"]
+    from repro_torch.models import whisper as W
+    from repro_torch.models.sharding_hooks import TP
+
+    t_phase = time.perf_counter()
+    c = WHISPER_TP
+    M, B, S_enc, P, T, p_dec = c["M"], c["batch"], c["frames"], c["prompt"], c["slots"], c["pos"]
+    Tl = T // M
+    cfg = configs.get_config(c["arch"])
+    model = configs.build_model(cfg, device="cuda", seed=c["seed"])
+    _unit_gain(model)
+    layouts = (W.cache_layout(T, cfg.kv_heads, M), W.cache_layout(S_enc, cfg.kv_heads, M))
+    _require(layouts == ("slots", "whole") and cfg.d_ff % M == 0 and cfg.n_heads % M
+             and cfg.vocab % M, f"whisper_tp: the layout at {M} ranks is {layouts}")
+    bf16 = model.dtype
+    gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+    frames = torch.randn((B, S_enc, cfg.d_model), generator=gen, device="cuda").to(bf16)
+    tokens = torch.randint(0, cfg.vocab, (B, P), generator=gen, device="cuda")
+    token = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device="cuda")
+    fill = [torch.randn((2, B, T - P, cfg.kv_heads, cfg.head_dim), generator=gen,
+                        device="cuda").to(bf16) for _ in model.dec]
+    pos = torch.tensor(p_dec, dtype=torch.int32, device="cuda")
+    Fl = cfg.d_ff // M
+    enc_spec, dec_spec, mlp = W._attn_spec(cfg, False), W._attn_spec(cfg, True), W._mlp_spec(cfg)
+
+    def mlp_slices(p):
+        return [{"wg": p["wg"][:, r * Fl:(r + 1) * Fl].contiguous(),
+                 "wu": p["wu"][:, r * Fl:(r + 1) * Fl].contiguous(),
+                 "wd": p["wd"][r * Fl:(r + 1) * Fl].contiguous()} for r in range(M)]
+
+    enc_mlp = [mlp_slices(p["mlp"]) for p in model.enc]
+    dec_mlp = [mlp_slices(p["mlp"]) for p in model.dec]
+
+    def mlp_out(p, sl, h):
+        """The model's MLP (``sl`` None) or the ranks' parts summed."""
+        if sl is None:
+            return L.apply_mlp(p["mlp"], mlp, h)
+        total = torch.zeros(h.shape[:-1] + (cfg.d_model,), dtype=torch.float32, device="cuda")
+        for pr in sl:
+            total += L.apply_mlp(pr, mlp, h).float()
+        return total.to(h.dtype)
+
+    def enc_layer(p, sl, x):
+        h = L.layer_norm(p["ln1"], x).to(bf16)
+        x = x + L.prefill_attention_whole(p["attn"], enc_spec, h, None)[0]
+        return x + mlp_out(p, sl, L.layer_norm(p["ln2"], x).to(bf16))
+
+    def dec_layer(p, sl, x, enc):
+        h = L.layer_norm(p["ln1"], x)
+        y, k, v = L.prefill_attention_whole(p["self_attn"], dec_spec, h, None)
+        x = x + y
+        ek, ev = L.cross_kv(p["cross_attn"], dec_spec, enc)
+        x = x + L.cross_attention(p["cross_attn"], dec_spec, L.layer_norm(p["ln2"], x), ek, ev)
+        return x + mlp_out(p, sl, L.layer_norm(p["ln3"], x)), (k, v, ek, ev)
+
+    worst = [0.0, 0.0]
+
+    def step_layer(p, sl, x, ranks, ek, ev, enc_last):
+        """The decode step's layer on the ranks' self-cache slices."""
+        h = L.layer_norm(p["ln1"], x)
+        ps = p["self_attn"]
+        q, k_new, v_new = L._proj_qkv(ps, dec_spec, h)
+        parts = []
+        for r in range(M):
+            slot, own = L._owned_slot(pos, Tl, TP(None, M, r), ring=False)
+            L._write_owned(ranks["k"][r], slot, own, k_new)
+            L._write_owned(ranks["v"][r], slot, own, v_new)
+            kr, vr = ranks["k"][r].transpose(1, 2), ranks["v"][r].transpose(1, 2)
+            parts.append(dops.decode(q[:, 0], kr, vr, pos, slot0=r * Tl, return_lse=True))
+            d_o, d_l = _partial_vs_plain(dops, dref, q[:, 0], kr, vr, pos, r * Tl, parts[-1])
+            worst[0], worst[1] = max(worst[0], d_o), max(worst[1], d_l)
+        merged = dops.merge_partials(torch.stack([o for o, _ in parts]),
+                                     torch.stack([lse for _, lse in parts]), q.dtype)
+        x = x + L._out_proj(merged[:, None], ps["wo"])
+        x = x + L.decode_cross_attention(p["cross_attn"], dec_spec, L.layer_norm(p["ln2"], x),
+                                         ek, ev, enc_last)
+        return x + mlp_out(p, sl, L.layer_norm(p["ln3"], x))
+
+    def rank_slices(kv):
+        """Each rank's 9 slots of a whole self cache (B, T, KV, hd) pair."""
+        return {n: [t[:, r * Tl:(r + 1) * Tl].clone() for r in range(M)]
+                for n, t in zip(("k", "v"), kv)}
+
+    blockwise = collections.defaultdict(float)
+
+    def block(name, got, want):
+        blockwise[name] = max(blockwise[name], _row_ulp_gap(got, want)["max_err_in_row_ulps"])
+
+    out = {"phase": "whisper_tp", "arch": cfg.name, "model_axis": M, "batch": B,
+           "frames": S_enc, "prompt": P, "self_slots": T, "slots_a_rank": Tl, "pos": p_dec,
+           "layouts": {"self_cache": layouts[0], "cross_cache": layouts[1],
+                       "encoder_rows": "whole", "prompt_rows": "whole", "heads": "whole",
+                       "ffn": f"{Fl} a rank", "vocab": "whole"}}
+    with torch.no_grad():
+        # the model-axis-1 model through its entry points
+        want_enc = model.encode(frames)
+        want_pre, cache = model.prefill({"tokens": tokens, "enc_embeds": frames,
+                                         "cache_len": T})
+        for e, f in zip(cache["dec"], fill):
+            e["k"][:, P:], e["v"][:, P:] = f[0], f[1]
+        blocks = [rank_slices((e["k"], e["v"])) for e in cache["dec"]]
+
+        # the encoder: every layer from the model's input, and the parts' chain
+        before = {"flash": fops.attention.LAUNCHES}
+        x0 = frames + W._sinusoid_on(S_enc, cfg.d_model, frames.device, bf16)
+        xw, xp = x0, x0
+        for p, sl in zip(model.enc, enc_mlp):
+            yw = enc_layer(p, None, xw)
+            block("encoder_layer", enc_layer(p, sl, xw), yw)
+            xw, xp = yw, enc_layer(p, sl, xp)
+        enc_w, enc_p = L.layer_norm(model.enc_ln, xw), L.layer_norm(model.enc_ln, xp)
+        # the prompt's prefill, every row on every rank; the cross keys whole
+        x0 = L.embed(model.embed, tokens) + model.pos_dec[:P].to(torch.bfloat16)
+        xw, xp, kept = x0, x0, []
+        for p, sl in zip(model.dec, dec_mlp):
+            yw, _ = dec_layer(p, None, xw, enc_w)
+            block("prefill_decoder_layer", dec_layer(p, sl, xw, enc_w)[0], yw)
+            xw, (xp, kv) = yw, dec_layer(p, sl, xp, enc_p)
+            kept.append(kv)
+        got_pre = model._logits(xp[:, -1:])
+        # the model's chain is its entry points' arithmetic, bit for bit
+        chain_is_model = torch.equal(enc_w, want_enc) and torch.equal(
+            model._logits(xw[:, -1:]), want_pre)
+        prefill_launches = {"flash_attention": fops.attention.LAUNCHES - before["flash"]}
+        # the ranks' caches of their own prefill: the self slices and ek, ev
+        parts_cache = []
+        for (k, v, ek, ev), f in zip(kept, fill):
+            kc = torch.cat([k, f[0]], dim=1)
+            vc = torch.cat([v, f[1]], dim=1)
+            parts_cache.append((rank_slices((kc, vc)), ek, ev))
+        # one decode step at pos: each layer from the model's input (the
+        # model's cache and the ranks' slices of it written alike), and the
+        # parts' chain on their own caches
+        dops.decode.PARTIAL_LAUNCHES = 0
+        before["decode"] = dops.decode.LAUNCHES
+        x0 = L.embed(model.embed, token) + model.pos_dec.index_select(
+            0, pos.reshape(1).long()).to(torch.bfloat16)
+        xw, xp = x0, x0
+        for p, sl, e, ranks, (ranks_p, ek, ev) in zip(model.dec, dec_mlp, cache["dec"], blocks,
+                                                       parts_cache):
+            got = step_layer(p, sl, xw, ranks, e["ek"], e["ev"], cache["enc_last"])
+            yw = model.dec_block_decode(p, xw, e, pos, cache["enc_last"])
+            block("decode_layer", got, yw)
+            xw, xp = yw, step_layer(p, sl, xp, ranks_p, ek, ev, cache["enc_last"])
+        want_dec = model._logits(xw)
+        got_dec = model._logits(xp)
+        torch.cuda.synchronize()
+        decode_launches = {"decode_attention_partial": dops.decode.PARTIAL_LAUNCHES,
+                           "decode_attention": dops.decode.LAUNCHES - before["decode"]}
+        same_cache = all(torch.equal(torch.cat(ranks[n], dim=1), e[n])
+                         for ranks, e in zip(blocks, cache["dec"]) for n in ("k", "v"))
+        # one rank's partial at the decode's shape, every slot valid: the last
+        # of 16 slices of layer 0's cache at pos 143
+        k0 = torch.cat(blocks[0]["k"], dim=1).transpose(1, 2)
+        v0 = torch.cat(blocks[0]["v"], dim=1).transpose(1, 2)
+        q0 = L._proj_qkv(model.dec[0]["self_attn"], dec_spec,
+                         L.layer_norm(model.dec[0]["ln1"], x0))[0][:, 0]
+        timing = _tp_partial_timing(dops, dref, q0, k0, v0, T - 1, M)
+        timing["launches"] = decode_launches["decode_attention_partial"]
+    layers_crossed = {"encoder_output": cfg.enc_layers,
+                      "prefill_logits": cfg.enc_layers + cfg.dec_layers,
+                      "decode_logits": cfg.enc_layers + 2 * cfg.dec_layers}
+    end_to_end = {"encoder_output": _row_ulp_gap(enc_p, want_enc),
+                  "prefill_logits": _row_ulp_gap(got_pre, want_pre),
+                  "decode_logits": _row_ulp_gap(got_dec, want_dec)}
+    out.update(blockwise=dict(blockwise), end_to_end=end_to_end, layers_crossed=layers_crossed,
+               chain_is_the_model=chain_is_model, self_cache_slices_bitwise=same_cache,
+               partial_vs_plain={"out_of_scale": worst[0], "lse_abs": worst[1]},
+               launches_by_form={**prefill_launches, **decode_launches},
+               decode_attention_partial=timing,
+               tolerance={"blockwise_row_ulps": WHISPER_TP_ROW_ULPS,
+                          "end_to_end_row_ulps": f"{WHISPER_TP_ROW_ULPS} a layer crossed",
+                          "of": "each row's largest |value|", "plus": 1e-5,
+                          "partial": f"{ATTN_F32_TOL} of the scale; lse {ATTN_F32_TOL}"},
+               phase_s=time.perf_counter() - t_phase)
+    _emit(out)
+    for name, gap in blockwise.items():
+        _require(gap <= WHISPER_TP_ROW_ULPS,
+                 f"whisper_tp: a {name} of the 16 rank parts against the model's: {gap}")
+    for name, ch in end_to_end.items():
+        _require(ch["max_err_in_row_ulps"] <= WHISPER_TP_ROW_ULPS * layers_crossed[name],
+                 f"whisper_tp: {name} of the 16 rank parts against the model: {ch}")
+    _require(chain_is_model, "whisper_tp: the model's chain is not its encode and prefill")
+    _require(same_cache, "whisper_tp: the ranks' self-cache slices differ from the model's")
+    _require(worst[0] <= ATTN_F32_TOL and worst[1] <= ATTN_F32_TOL,
+             f"whisper_tp: a rank's partial against the plain partial: {worst}")
+    # three passes a layer (the model's, the parts from its input, the
+    # parts' chain); the model's decode layer attends its whole self and
+    # cross caches, the parts' layers their cross caches
+    want_launches = {"flash_attention": 3 * (cfg.enc_layers + 2 * cfg.dec_layers),
+                     "decode_attention_partial": 2 * M * cfg.dec_layers,
+                     "decode_attention": 4 * cfg.dec_layers}
+    _require(out["launches_by_form"] == want_launches,
+             f"whisper_tp: launches {out['launches_by_form']}, expected {want_launches}")
+    del model, cache, blocks, parts_cache, kept, enc_mlp, dec_mlp, frames, fill
+    torch.cuda.empty_cache()
+    return out
+
+
 def _plain_ms(fn, *args):
     """A plain piece of the training forward at one layer's shapes:
     ``fn(*args)`` alone (no grad, as the checkpointed forward runs it) and
@@ -4389,6 +4658,15 @@ def _first_long_attention(model, cache, T):
     return None, None
 
 
+def _first_ring_attention(model, cache):
+    """The cache entry and spec of the first sliding-window attention block
+    (its ring), or (None, None)."""
+    for gi, li, key, b, _ in model._layers():
+        if b.kind == "attn" and b.attn.window is not None:
+            return cache[f"g{gi}"][li][key], b.attn
+    return None, None
+
+
 def _flash_long_check(fops, fref, window, seed, what):
     """The bf16 flash kernel at LONG_FLASH_SHAPE (causal; over ``window``
     keys if given) on seeded q, k, v laid out as the model passes them,
@@ -4462,6 +4740,46 @@ def _flash_long_check(fops, fref, window, seed, what):
     del q, k, v, got, kf, vf
     torch.cuda.empty_cache()
     return out
+
+
+def _long_cp_slices(dops, dref, q, k, v, p, G, what):
+    """A long cache k, v (B, KV, T, D) cut into the G slices of the
+    production mesh's ("data", "model") group: each slice's partial at pos
+    ``p`` (the kernel's partial form), merged in rank order, against one
+    whole-cache call (``_row_ulp_gap``: bf16 ulps of each (batch, head)
+    row's largest, the elements beyond one ulp of their own magnitude
+    counted); the first, middle and last slices against the plain partial;
+    the last slice timed beside its bound and SDPA (``_tp_partial_timing``).
+    ``launches``: the partial form's launches of the G slices."""
+    import torch
+
+    T = k.shape[2]
+    Tl = T // G
+    pos = torch.tensor(p, dtype=torch.int32, device="cuda")
+    whole = dops.decode(q, k, v, pos)
+    before = dops.decode.PARTIAL_LAUNCHES
+    parts = [dops.decode(q, k[:, :, r * Tl:(r + 1) * Tl], v[:, :, r * Tl:(r + 1) * Tl], pos,
+                         slot0=r * Tl, return_lse=True) for r in range(G)]
+    launches = dops.decode.PARTIAL_LAUNCHES - before
+    merged = dops.merge_partials(torch.stack([o for o, _ in parts]),
+                                 torch.stack([lse for _, lse in parts]), q.dtype)
+    torch.cuda.synchronize()
+    plain = {}
+    for r in (0, G // 2, G - 1):
+        sl = slice(r * Tl, (r + 1) * Tl)
+        plain[f"slice{r}"] = dict(zip(("out_of_scale", "lse_abs"), _partial_vs_plain(
+            dops, dref, q, k[:, :, sl], v[:, :, sl], pos, r * Tl, parts[r])))
+    del parts
+    res = {"group": G, "slots_a_slice": Tl, "pos": p, "launches": launches,
+           "merged_vs_whole_call": _row_ulp_gap(merged, whole), "plain_checks": plain,
+           "timing": _tp_partial_timing(dops, dref, q, k, v, p, G)}
+    _require(launches == G, f"{what}: {launches} partial launches for {G} slices")
+    _require(res["merged_vs_whole_call"]["max_err_in_row_ulps"] <= LONG_CP_ROW_ULPS,
+             f"{what}: the {G} slices merged against one call: {res['merged_vs_whole_call']}")
+    for r, e in plain.items():
+        _require(e["out_of_scale"] <= ATTN_F32_TOL and e["lse_abs"] <= ATTN_F32_TOL,
+                 f"{what}: {r} against the plain partial: {e}")
+    return res
 
 
 def phase_long(lm, kmods, dops, dref, fops, fref, cell, roof):
@@ -4634,6 +4952,19 @@ def phase_long(lm, kmods, dops, dref, fops, fref, cell, roof):
                                                                         T - 1)}
             torch.cuda.empty_cache()
             lap("decode_kernel")
+            # the same cache over the production mesh's 256-rank group, and a
+            # sliding window's ring (2 slots a slice), at pos 524,287
+            out["cp_slices"] = {"full": _long_cp_slices(dops, dref, q, k, v, T - 1,
+                                                        LONG_CP_GROUP, f"{name}: cp slices")}
+            ring, rspec = _first_ring_attention(model, cache)
+            if ring is not None:
+                qr = torch.randn((B, rspec.n_heads, rspec.head_dim), generator=gq,
+                                 device="cuda").to(torch.bfloat16)
+                out["cp_slices"]["ring"] = _long_cp_slices(
+                    dops, dref, qr, ring["k"].transpose(1, 2), ring["v"].transpose(1, 2), T - 1,
+                    LONG_CP_GROUP, f"{name}: cp ring slices")
+            torch.cuda.empty_cache()
+            lap("cp_slices")
 
         if cell["fill"] == "prefill":
             # decode at LONG_PROMPT against the last logits of a prefill of
@@ -5638,6 +5969,8 @@ def main() -> int:
     _memory("mla_cp")
     ssm_tp = phase_ssm_tp(tr, sops, sref)
     _memory("ssm_tp")
+    whisper_tp = phase_whisper_tp(tr, dops, dref, fops)
+    _memory("whisper_tp")
     torch.distributed.destroy_process_group()  # the smoke mesh's one-process group
     served = {}
     for name, spec, n_params, bounds, kw in SERVE_PHASES:
@@ -5754,6 +6087,17 @@ def main() -> int:
                           **tpt["decode_attention_partial_ring"]},
           "zamba2": {"launches": tp_forms["decode_attention_partial_zamba2"],
                      **tpt["decode_attention_partial_zamba2"]},
+          # whisper-base's self cache over 16 ranks (whisper_tp: every rank's
+          # launch in its decode step), and the long caches over the 256 ranks
+          # of ("data", "model") (long_gemma3, long_zamba2: each slice)
+          "whisper_self": {"path": "whisper_tp",
+                           "max_abs_err": whisper_tp["partial_vs_plain"]["out_of_scale"],
+                           **whisper_tp["decode_attention_partial"]},
+          **{f"{name}_{kind}": {"path": name, "launches": cp["launches"],
+                                "max_err_in_row_ulps":
+                                    cp["merged_vs_whole_call"]["max_err_in_row_ulps"],
+                                **cp["timing"]}
+             for name, o in longs.items() for kind, cp in o.get("cp_slices", {}).items()},
           "checks": tpe["decode_attention_partial"]}),
         ("flash_attention_q_offset", "flash_attention/csrc/flash_attention.cu",
          "kernels/flash_attention/flash_attention.py:74", kern_tp,

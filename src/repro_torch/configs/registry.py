@@ -14,7 +14,6 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.core.sharded import model_size
 from repro_torch.models.transformer import ArchConfig, TransformerLM
 from repro_torch.models.whisper import WhisperConfig, WhisperModel
 
@@ -64,16 +63,11 @@ def build_model(arch_or_cfg, device="cuda", seed: int = 0,
                 mesh=None) -> Union[TransformerLM, WhisperModel]:
     """The model of an arch id or config, its weights drawn from ``seed`` on
     ``device`` (CUDA by default; raises when there is none). On a ``mesh``
-    whose "model" axis is above 1 it holds this rank's shards
-    (``TransformerLM``; whisper raises ``NotImplementedError``)."""
+    whose "model" axis is above 1 it holds this rank's shards (a
+    ``TransformerLM`` or a ``WhisperModel``)."""
     cfg = get_config(arch_or_cfg) if isinstance(arch_or_cfg, str) else arch_or_cfg
     if isinstance(cfg, WhisperConfig):
-        if model_size(mesh) > 1:
-            raise NotImplementedError(
-                "whisper on a 'model' mesh axis above 1 is not ported yet: its encoder's "
-                "non-causal attention, its cross-attention and its tied vocabulary of 51,865 "
-                "rows come in the next slice (ROADMAP.md queue 1)")
-        return WhisperModel(cfg, device=device, seed=seed)
+        return WhisperModel(cfg, device=device, seed=seed, mesh=mesh)
     return TransformerLM(cfg, device=device, seed=seed, mesh=mesh)
 
 

@@ -27,13 +27,18 @@ meshless and takes the grouped path, so the two differ in capacity by
 design. ``build_decode_step(graph=True)`` runs each step on a CUDA device
 as one replay of a ``DecodeGraph``: the counterpart of jitting the step.
 
-On a "model" axis above 1 (tensor parallelism: every family but whisper) the
-model must be built on the mesh (``build_model(cfg, mesh=mesh)``: this
-rank's shards of the parameters); the specs are the reference's, of the
-whole leaves, and ``arg_shapes`` give this rank's parameters, state and
-cache (its batch rows and its slots of the cache). A built decode step
-runs eagerly there: ``graph=True`` raises (its collectives would be
-captured into the graph, which no single card can check).
+On a "model" axis above 1 (tensor parallelism: every family) the model
+must be built on the mesh (``build_model(cfg, mesh=mesh)``: this rank's
+shards of the parameters); the specs are the reference's, of the whole
+leaves, and ``arg_shapes`` give this rank's parameters, state and cache
+(its batch rows and its share of the cache). A decode step's
+context-parallel group is the mesh axes over which its cache specs split
+the slots (``kv_seq``): "model", or, past 100,000 slots (the long-context
+rules), ("data", "model"), one pod's data x model ranks, a "model" axis of
+1 included; a prefill's caches are cut into that layout. A built decode
+step whose "model" axis or group is above 1 runs eagerly: ``graph=True``
+raises (its collectives would be captured into the graph, which no single
+card can check).
 
 With ``IplsStepConfig(fsdp=True)`` (``TRAIN_OVERRIDES`` asks it for the
 archs the reference trains so) the state's params are this rank's "data"
@@ -55,17 +60,18 @@ import torch
 from repro_torch.configs.registry import ShapeSpec, TensorSpec, input_specs
 from repro_torch.core.sharded import (
     DEFAULT_RULES,
-    _splits_over,
     IplsStepConfig,
     IplsTrainState,
+    gather,
     init_state,
     local_shape,
     make_train_step,
     map_specs,
-    store_shards,
     mesh_axis_size,
     model_size,
+    shard,
     state_shardings,
+    store_shards,
     tree_shardings,
 )
 from repro_torch.kernels._build import Graph
@@ -190,39 +196,78 @@ def _shapes(model):
     return whole, local
 
 
-def _check_tp(model, mesh, long_context: bool = False) -> None:
-    """A step on a "model" axis above 1 needs the model built on its mesh,
-    and the long-context layout (``kv_seq`` over data and model) is not
-    ported there yet."""
+def _check_tp(model, mesh) -> None:
+    """A step on a "model" axis above 1 needs the model built on its mesh."""
     if model_size(mesh) == 1:
         return
     if getattr(model, "mesh", None) is not mesh:
         raise ValueError("a step on a 'model' mesh axis above 1 needs the model built on that "
                          "mesh: build_model(cfg, mesh=mesh)")
-    if long_context:
-        raise NotImplementedError("kv_seq over ('data', 'model') for long_500k on a 'model' "
-                                  "axis above 1 is not ported yet; it comes in the next slice, "
-                                  "with whisper (ROADMAP.md queue 1)")
 
 
-def _check_cache_split(cache_axes, cache_sh) -> None:
-    """A context-parallel decode takes each rank's cache as its share of
-    the slots (``kv_seq``): raise ValueError, before a decode step runs on
-    a "model" axis above 1, for a cache whose slots do not split over it (a
-    full cache's or a sliding-window ring's), as the prefill does, rather
-    than read whole caches as shares. The step's specs still build."""
-    def walk(axes, spec):
-        if isinstance(axes, dict):
-            for k in axes:
-                walk(axes[k], spec[k])
-        elif isinstance(axes, list):
-            for a, sp in zip(axes, spec):
+def _members(entry) -> tuple:
+    return () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+
+
+def _kv_seq_entries(cache_axes, cache_sh) -> set:
+    """The distinct mesh axes (tuples) of the ``kv_seq`` dims of a cache's
+    specs."""
+    out = set()
+
+    def walk(leaf_axes, spec):
+        if isinstance(leaf_axes, dict):
+            for k in leaf_axes:
+                walk(leaf_axes[k], spec[k])
+        elif isinstance(leaf_axes, list):
+            for a, sp in zip(leaf_axes, spec):
                 walk(a, sp)
-        elif "kv_seq" in axes and not _splits_over((spec[axes.index("kv_seq")],), "model"):
-            raise ValueError(f"a cache of axes {axes} and spec {spec} does not split its slots "
-                             "over the 'model' axis: its slots must be a multiple of the axis")
+        elif "kv_seq" in leaf_axes:
+            out.add(_members(spec[leaf_axes.index("kv_seq")]))
 
     walk(cache_axes, cache_sh)
+    return out
+
+
+def _cache_group(cache_axes, cache_sh, mesh):
+    """A decode step's context-parallel group: the mesh axes over which its
+    cache specs split every cache's slots (``kv_seq``: "model", or
+    ("data", "model") under the long-context rules; () where no cache
+    splits them: where the batch takes "data", or the slots do not divide,
+    the reference's specs keep the slots whole on every rank, each rank
+    holding its kv heads or all of them). Returns (axes, error): ``error``
+    the ValueError's message for caches that split their slots over
+    different axes (a full cache whose slots divide the group beside a ring
+    whose slots do not), which a decode step raises before it runs rather
+    than read whole caches as shares. Size-1 axes count as none."""
+    entries = {tuple(a for a in e if mesh_axis_size(mesh, a) > 1)
+               for e in _kv_seq_entries(cache_axes, cache_sh)}
+    if len(entries) > 1:
+        return (), (f"a cache does not split its slots over the axes the others do "
+                    f"({sorted(entries)}): its slots must be a multiple of their size")
+    return (entries.pop() if entries else ()), None
+
+
+def _relayout_cache(cache, cache_axes, have, want, mesh):
+    """A prefill's cache, whose slots the model splits over "model"
+    (``have``), in the decode layout ``want`` where it differs (the
+    long-context rules: ``kv_seq`` over ("data", "model"), or kept whole
+    where the batch takes "data"): each such leaf gathered whole over
+    "model", then cut into this rank's share (its batch rows stay)."""
+    def effective(spec):
+        return tuple(tuple(a for a in _members(e) if mesh_axis_size(mesh, a) > 1)
+                     for e in spec)
+
+    def walk(leaf_axes, t, old, new):
+        if isinstance(leaf_axes, dict):
+            return {k: walk(leaf_axes[k], t[k], old[k], new[k]) for k in leaf_axes}
+        if isinstance(leaf_axes, list):
+            return [walk(*z) for z in zip(leaf_axes, t, old, new)]
+        if "kv_seq" not in leaf_axes or effective(old) == effective(new):
+            return t
+        cut = tuple(None if a == "batch" else e for a, e in zip(leaf_axes, new))
+        return shard(gather(t, old, mesh, ("model",)), cut, mesh).clone()
+
+    return walk(cache_axes, cache, have, want)
 
 
 def _rules(mesh, cfg, kind: str, long_context: bool = False,
@@ -338,13 +383,21 @@ def build_prefill_step(model, mesh, shape: ShapeSpec,
     cache_shapes, cache_axes = _cache_shapes_and_axes(model, shape)
     decode_rules = _rules(mesh, cfg, "decode", shape.seq_len > 100_000)
     cache_sh = tree_shardings(cache_axes, cache_shapes, mesh, decode_rules)
+    # the model returns its caches split over "model"; the long-context
+    # rules split them over ("data", "model")
+    model_sh = tree_shardings(cache_axes, cache_shapes, mesh, _rules(mesh, cfg, "decode"))
+    relayout = (shape.seq_len > 100_000 and not isinstance(model, WhisperModel)
+                and mesh.size() > 1)
     logits_sh = (rules.get("batch"), None, None)
 
     def prefill_step(batch):
-        _check_tp(model, mesh, shape.seq_len > 100_000)
+        _check_tp(model, mesh)
         local = shard_batch(batch, batch_sh, mesh)
         with activation_sharding(mesh, rules):
-            return model.prefill(local)
+            logits, cache = model.prefill(local)
+        if relayout:
+            cache = _relayout_cache(cache, cache_axes, model_sh, cache_sh, mesh)
+        return logits, cache
 
     return BuiltStep(fn=prefill_step, mesh=mesh, rules=rules, in_shardings=(param_sh, batch_sh),
                      out_shardings=(logits_sh, cache_sh),
@@ -361,20 +414,34 @@ def build_decode_step(model, mesh, shape: ShapeSpec, extra_rules: Optional[dict]
     ``DecodeGraph`` (``decode_graph``, one per cache: a call with another
     cache captures anew): the first call eagerly, then, on a CUDA device,
     each call one replay, its logits the graph's buffer, overwritten by the
-    next call. The cache's ``arg_shapes`` are this rank's (its batch rows
-    and, on a "model" axis above 1, its slots); there ``graph`` raises."""
+    next call. The cache's ``arg_shapes`` are this rank's: its batch rows
+    and, where the step's context-parallel group (the axes of ``kv_seq``:
+    "model", or ("data", "model") past 100,000 slots) is above 1, its share
+    of the slots; there ``graph`` raises. A whisper model's caches follow
+    their specs one by one (split where their slots divide the group),
+    and its step takes the whole caches' sizes as the batch's host ints
+    ``cache_len`` and ``enc_len`` (by default the shape's ``seq_len``, as
+    the declared cache)."""
     cfg = model.cfg
     long_context = shape.seq_len > 100_000
-    if graph and model_size(mesh) > 1:
-        raise NotImplementedError(
-            "a decode graph on a 'model' mesh axis above 1 is not ported: its collectives "
-            "would be captured into the CUDA graph, which no single card can check; run the "
-            "step eagerly (graph=False) (ROADMAP.md queue 3)")
     rules = _rules(mesh, cfg, "decode", long_context, extra_rules)
     param_shapes, local_shapes = _shapes(model)
     param_sh = tree_shardings(model.axes(), param_shapes, mesh, rules)
     cache_shapes, cache_axes = _cache_shapes_and_axes(model, shape)
     cache_sh = tree_shardings(cache_axes, cache_shapes, mesh, rules)
+    whisper = isinstance(model, WhisperModel)
+    # whisper's caches take their layouts one by one (models/whisper.py)
+    cp_axes, split_error = ((), None) if whisper else _cache_group(cache_axes, cache_sh, mesh)
+    cp_size = mesh_axis_size(mesh, cp_axes) if cp_axes else 1
+    if graph and (model_size(mesh) > 1 or cp_size > 1):
+        raise NotImplementedError(
+            f"a decode graph on a mesh whose 'model' axis or context-parallel group "
+            f"({cp_axes}) is above 1 is not ported: its collectives would be captured into "
+            f"the CUDA graph, which no single card can check; run the step eagerly "
+            f"(graph=False) (ROADMAP.md queue 3)")
+    # the step's context: its rules with ``kv_seq`` the group its caches take
+    step_rules = dict(rules, kv_seq=(cp_axes if len(cp_axes) > 1 else
+                                     cp_axes[0] if cp_axes else None))
     batch_specs = input_specs(cfg, shape)
     batch_sh = _batch_shardings(batch_specs, mesh, rules)
     logits_sh = (rules.get("batch") if shape.global_batch > 1 else None, None, None)
@@ -382,13 +449,15 @@ def build_decode_step(model, mesh, shape: ShapeSpec, extra_rules: Optional[dict]
     slot = [None]
 
     def context():
-        return activation_sharding(mesh, rules)
+        return activation_sharding(mesh, step_rules)
 
     def decode_step(cache, batch):
-        _check_tp(model, mesh, long_context)
-        if model_size(mesh) > 1:
-            _check_cache_split(cache_axes, cache_sh)
+        _check_tp(model, mesh)
+        if split_error is not None:
+            raise ValueError(split_error)
         local = shard_batch(batch, batch_sh, mesh)
+        if whisper and model_size(mesh) > 1:
+            local = {"cache_len": shape.seq_len, "enc_len": shape.seq_len, **local}
         if not graph:
             with context():
                 return model.decode_step(cache, local)

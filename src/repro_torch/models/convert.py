@@ -67,20 +67,29 @@ def _assign(tree: ParamTree, values: dict, layer=None, path: str = "", specs=Non
 def _load_whisper(model, tree: dict):
     """A reference ``WhisperModel``'s params into a port one: ``enc`` and
     ``dec`` unstacked per layer, ``embed``, ``pos_dec``, ``enc_ln`` and
-    ``dec_ln`` as they are."""
+    ``dec_ln`` as they are (on a tensor-parallel mesh, this rank's shards)."""
     expected = {"embed", "pos_dec", "enc", "dec", "enc_ln", "dec_ln"}
     if set(tree) != expected:
         raise KeyError(f"params have {sorted(tree)}, expected {sorted(expected)}")
+    specs, mesh = model.param_specs, model.mesh
+
+    def sub(key, li=None):
+        if specs is None:
+            return {}
+        return {"specs": specs[key] if li is None else specs[key][li], "mesh": mesh}
+
     for key in ("embed", "enc_ln", "dec_ln"):
-        _assign(getattr(model, key), tree[key], path=f"/{key}")
+        _assign(getattr(model, key), tree[key], path=f"/{key}", **sub(key))
     pos = to_torch(tree["pos_dec"])
+    if specs is not None:
+        pos = shard(pos, specs["pos_dec"], mesh, ("model",)).contiguous()
     if tuple(pos.shape) != tuple(model.pos_dec.shape):
         raise ValueError(f"/pos_dec: shape {tuple(pos.shape)}, port has "
                          f"{tuple(model.pos_dec.shape)}")
     model.pos_dec = torch.nn.Parameter(pos.to(model.pos_dec.device), requires_grad=False)
     for key in ("enc", "dec"):
         for li, p in enumerate(getattr(model, key)):
-            _assign(p, tree[key], layer=li, path=f"/{key}[{li}]")
+            _assign(p, tree[key], layer=li, path=f"/{key}[{li}]", **sub(key, li))
     return model
 
 

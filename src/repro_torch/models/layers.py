@@ -36,6 +36,10 @@ rank's slots of a sequence-split cache (a full cache, a window's ring, or
 MLA's latent cache) and merges the ranks' partials by their log-sum-exp:
 attention through the decode kernel's partial form
 (``_decode_attention_cp``), MLA in plain PyTorch (``_decode_mla_cp``).
+The ranks of that merge are the decode step's context-parallel group
+(``sharding_hooks.context_parallel``): the "model" axis, or under the
+long-context rules the data x model ranks of a pod, a "model" axis of 1
+included; the heads' gathers stay on "model".
 The layout changes are ``sharding_hooks``'s. The MoE block takes the
 reference's three modes (``moe_mode``: expert-parallel, ffn-parallel,
 replicated) on the data rank's whole sequence: each rank's float32 part
@@ -271,6 +275,13 @@ def prefill_attention(params, s: AttnSpec, x: torch.Tensor, positions: torch.Ten
     tp = sharding_hooks.tensor_parallel()
     if tp is not None:
         return _prefill_attention_tp(params, s, x, positions, tp)
+    return prefill_attention_whole(params, s, x, positions)
+
+
+def prefill_attention_whole(params, s: AttnSpec, x: torch.Tensor, positions: torch.Tensor):
+    """``prefill_attention`` over every row of x and every head the weights
+    hold, whatever the mesh: one process's, or a tensor-parallel rank's
+    where the rows do not split (whisper)."""
     q, k, v = _proj_qkv(params, s, x)
     q, k = _rope_qk(s, q, k, positions)
     out = _flash(q, k, v, causal=s.causal, window=s.window)
@@ -401,7 +412,9 @@ def _prefill_attention_tp(params, s: AttnSpec, x, positions, tp):
         q, k = _rope_qk(s, q, k, positions)
         k = sharding_hooks.gather_model(k, tp, 1)
         v = sharding_hooks.gather_model(v, tp, 1)
-        out = _flash(q, k, v, causal=s.causal, window=s.window, q_offset=tp.rank * Sl)
+        # an encoder's rows see every key: no offset
+        out = _flash(q, k, v, causal=s.causal, window=s.window,
+                     q_offset=tp.rank * Sl if s.causal else None)
         return _out_proj(out, params["wo"]), k, v
     kv, _ = heads
     q, k, v = _proj_qkv(params, s, x)  # every kv head the weights hold
@@ -428,6 +441,14 @@ def apply_attention(params, s: AttnSpec, x: torch.Tensor, positions: torch.Tenso
     tp = sharding_hooks.tensor_parallel()
     if tp is not None and mask is None:
         return _apply_attention_tp(params, s, x, positions, tp)
+    return attention_whole(params, s, x, positions, mask)
+
+
+def attention_whole(params, s: AttnSpec, x: torch.Tensor, positions: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None):
+    """``apply_attention`` over every row of x and every head the weights
+    hold, whatever the mesh: one process's, or a tensor-parallel rank's
+    where the rows do not split (whisper)."""
     S = x.shape[1]
     q, k, v = _proj_qkv(params, s, x)
     q, k = _rope_qk(s, q, k, positions)
@@ -483,15 +504,33 @@ def decode_attention(
     ``pos`` stays on the device: the cache write, RoPE and the kernel read
     it there, so the step needs no host sync. M-RoPE rotates the token at
     ``pos`` on all three components, as the reference does (a text token's
-    positions advance together). On a tensor-parallel mesh the cache is
-    split over its slots (``_decode_attention_cp``)."""
+    positions advance together). Under a decode step whose context-parallel
+    group is above 1 (``sharding_hooks.context_parallel``: "model", or
+    ("data", "model") under the long-context rules) the cache is that
+    rank's share of the slots (``_decode_attention_cp``)."""
     _check_spec(s)
-    tp = sharding_hooks.tensor_parallel()
-    if tp is not None:
-        return _decode_attention_cp(params, s, x, cache, pos, tp)
+    cp = sharding_hooks.context_parallel()
+    if cp is not None:
+        return _decode_attention_cp(params, s, x, cache, pos,
+                                    sharding_hooks.tensor_parallel(), cp)
+    return decode_attention_local(params, s, x, cache, pos)
+
+
+def decode_attention_local(params, s: AttnSpec, x, cache, pos):
+    """``decode_attention`` over a cache that this rank holds whole over
+    its slots, on the heads its weights hold: all of them, or on a
+    tensor-parallel mesh its own, over its own kv heads' cache or a whole
+    cache of one kv head (where the reference's specs keep the slots
+    whole: the step's batch takes "data", or the slots do not divide)."""
     q, k_new, v_new = _proj_qkv(params, s, x)
     q, k_new = _rope_qk(s, q, k_new, _decode_positions(s, pos, x.shape[0]))
     kc, vc = cache["k"], cache["v"]
+    n_rep = s.n_heads // s.kv_heads
+    if q.shape[2] != kc.shape[2] * n_rep and kc.shape[2] != 1:
+        raise NotImplementedError(
+            f"a decode of {q.shape[2]} query heads over a cache of {kc.shape[2]} kv heads "
+            f"(of {s.kv_heads}, {n_rep} query heads each): the rank's query heads straddle "
+            f"the whole cache's kv heads, which is not ported")
     if kc.dtype != q.dtype:
         raise ValueError(f"cache dtype {kc.dtype} != activation dtype {q.dtype}")
     slot = (pos % kc.shape[1] if s.window is not None else pos).reshape(1).long()
@@ -501,16 +540,16 @@ def decode_attention(
     return _out_proj(out[:, None], params["wo"]), cache
 
 
-def _owned_slot(pos: torch.Tensor, T: int, tp, ring: bool):
-    """The token's slot in a cache of M T slots split over the ranks (rank r
-    slots [r T, (r+1) T)): slot ``pos`` of a full cache, ``pos % (M T)`` of
-    a ring. Returns (this rank's slot of it, clamped into 0..T-1: a (1,)
-    index, and whether this rank owns it), both on the device: no host
-    sync."""
+def _owned_slot(pos: torch.Tensor, T: int, cp, ring: bool):
+    """The token's slot in a cache of N T slots split over the N ranks of
+    the context-parallel group ``cp`` (rank r slots [r T, (r+1) T)): slot
+    ``pos`` of a full cache, ``pos % (N T)`` of a ring. Returns (this
+    rank's slot of it, clamped into 0..T-1: a (1,) index, and whether this
+    rank owns it), both on the device: no host sync."""
     glob = pos.reshape(1).long()
     if ring:
-        glob = glob % (tp.size * T)
-    local = glob - tp.rank * T
+        glob = glob % (cp.size * T)
+    local = glob - cp.rank * T
     return local.clamp(0, T - 1), (local >= 0) & (local < T)
 
 
@@ -521,20 +560,23 @@ def _write_owned(cache: torch.Tensor, slot, own, new: torch.Tensor) -> None:
     cache.index_copy_(1, slot, torch.where(own, new.to(cache.dtype), cache.index_select(1, slot)))
 
 
-def _decode_attention_cp(params, s: AttnSpec, x, cache, pos, tp):
-    """Context-parallel decode: rank r holds slots [r T, (r+1) T) of a
-    cache of M T slots (k, v (B, T, KV, hd), every kv head): a full cache
-    or a sliding-window layer's ring. The token's q, k and v are gathered
-    over the heads (small tensors), the rank that owns its slot (``pos``,
-    or ``pos % (M T)`` on a ring) writes k and v there (the others write
-    back what they hold: no host sync), each rank runs the decode kernel's
-    partial form over its slots (global slot ``r T + j`` attended when it
-    is at most ``pos``: on a ring, every slot once it has wrapped, as
-    ``decode_attention``), and the ranks' partials are merged by their
-    log-sum-exp in rank order (float32, rounded to q's dtype once). M-RoPE
-    rotates the token at ``pos`` on all three components. Returns the
-    output projection of the rank's heads (a partial sum the caller
-    all-reduces) or, where the heads are whole, of all of them."""
+def _decode_attention_cp(params, s: AttnSpec, x, cache, pos, tp, cp):
+    """Context-parallel decode over the N ranks of ``cp`` (the "model" axis,
+    or ("data", "model") flattened under the long-context rules): rank r
+    holds slots [r T, (r+1) T) of a cache of N T slots (k, v (B, T, KV,
+    hd), every kv head): a full cache or a sliding-window layer's ring. The
+    token's q, k and v are gathered over the heads where ``tp`` (the
+    "model" axis, None when it is 1) splits them (small tensors), the rank
+    that owns its slot (``pos``, or ``pos % (N T)`` on a ring) writes k and
+    v there (the others write back what they hold: no host sync), each
+    rank runs the decode kernel's partial form over its slots (global slot
+    ``r T + j`` attended when it is at most ``pos``: on a ring, every slot
+    once it has wrapped, as ``decode_attention``), and the ranks' partials
+    are merged by their log-sum-exp in rank order (float32, rounded to q's
+    dtype once). M-RoPE rotates the token at ``pos`` on all three
+    components. Returns the output projection of the rank's heads (a
+    partial sum the caller all-reduces over "model") or, where the heads
+    are whole, of all of them."""
     q, k_new, v_new = _proj_qkv(params, s, x)
     q, k_new = _rope_qk(s, q, k_new, _decode_positions(s, pos, x.shape[0]))
     if q.shape[2] < s.n_heads:
@@ -546,19 +588,26 @@ def _decode_attention_cp(params, s: AttnSpec, x, cache, pos, tp):
     if kc.dtype != q.dtype:
         raise ValueError(f"cache dtype {kc.dtype} != activation dtype {q.dtype}")
     T = kc.shape[1]
-    slot, own = _owned_slot(pos, T, tp, ring=s.window is not None)
+    slot, own = _owned_slot(pos, T, cp, ring=s.window is not None)
     _write_owned(kc, slot, own, k_new)
     _write_owned(vc, slot, own, v_new)
-    out, lse = decode_ops.decode(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), pos,
-                                 slot0=tp.rank * T, return_lse=True)
-    outs = sharding_hooks.gather_model(out[None], tp, 0)
-    lses = sharding_hooks.gather_model(lse[None], tp, 0)
-    merged = decode_ops.merge_partials(outs, lses, q.dtype)  # (B, H, hd)
+    merged = merge_over(cp, *decode_ops.decode(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2),
+                                               pos, slot0=cp.rank * T, return_lse=True),
+                        q.dtype)  # (B, H, hd)
     wo = params["wo"]
     Hl = wo.shape[0]
     if Hl < s.n_heads:
         merged = merged[:, tp.rank * Hl:(tp.rank + 1) * Hl]
     return _out_proj(merged[:, None], wo), cache
+
+
+def merge_over(cp, out: torch.Tensor, lse: torch.Tensor, dtype) -> torch.Tensor:
+    """The N ranks' float32 partials (out (B, H, D), lse (B, H)) of one
+    cache, gathered over ``cp`` and merged in rank order by their
+    log-sum-exp, cast to ``dtype`` once (``decode_ops.merge_partials``)."""
+    outs = sharding_hooks.gather_model(out[None], cp, 0)
+    lses = sharding_hooks.gather_model(lse[None], cp, 0)
+    return decode_ops.merge_partials(outs, lses, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -694,11 +743,11 @@ def decode_mla(params, s: MLASpec, x, cache, pos):
     costing O(T (kv_lora + qk_rope) H) instead of re-expanding K and V.
     As ``decode_attention``, the token's latent and k_rope are written into
     ``cache`` IN PLACE at slot ``pos`` (a 0-d device tensor: no host sync).
-    On a tensor-parallel mesh the cache is split over its slots
-    (``_decode_mla_cp``)."""
-    tp = sharding_hooks.tensor_parallel()
-    if tp is not None:
-        return _decode_mla_cp(params, s, x, cache, pos, tp)
+    Under a decode step whose context-parallel group is above 1 the cache
+    is that rank's share of the slots (``_decode_mla_cp``)."""
+    cp = sharding_hooks.context_parallel()
+    if cp is not None:
+        return _decode_mla_cp(params, s, x, cache, pos, sharding_hooks.tensor_parallel(), cp)
     with _span("mla"):
         q_lat, q_rope, latent_new, k_rope_new = mla_decode_inputs(params, s, x, pos)
         latent, k_rope = cache["latent"], cache["k_rope"]
@@ -734,10 +783,11 @@ def mla_partial(s: MLASpec, q_lat, q_rope, latent, k_rope, pos, slot0: int):
     return torch.einsum("bht,btl->bhl", p, latent.float()), lse
 
 
-def _decode_mla_cp(params, s: MLASpec, x, cache, pos, tp):
-    """Context-parallel absorbed MLA decode: rank r holds slots [r T, (r+1)
-    T) of latent and k_rope caches of M T slots. Each rank computes q_lat
-    and q_rope of its heads, gathered over "model" (small tensors); the
+def _decode_mla_cp(params, s: MLASpec, x, cache, pos, tp, cp):
+    """Context-parallel absorbed MLA decode over the N ranks of ``cp``: rank
+    r holds slots [r T, (r+1) T) of latent and k_rope caches of N T slots.
+    Each rank computes q_lat and q_rope of its heads, gathered over
+    "model" where ``tp`` splits them (small tensors); the
     token's latent and k_rope (whole weights) are written by the rank that
     owns slot ``pos`` (no host sync); each rank's float32 partial over its
     slots for every head (``mla_partial``) is gathered and merged in rank
@@ -755,13 +805,11 @@ def _decode_mla_cp(params, s: MLASpec, x, cache, pos, tp):
             q_rope = sharding_hooks.gather_model(q_rope, tp, 2)
         latent, k_rope = cache["latent"], cache["k_rope"]
         T = latent.shape[1]
-        slot, own = _owned_slot(pos, T, tp, ring=False)
+        slot, own = _owned_slot(pos, T, cp, ring=False)
         _write_owned(latent, slot, own, latent_new)
         _write_owned(k_rope, slot, own, k_rope_new)
-        o_lat, lse = mla_partial(s, q_lat, q_rope, latent, k_rope, pos, tp.rank * T)
-        outs = sharding_hooks.gather_model(o_lat[None], tp, 0)
-        lses = sharding_hooks.gather_model(lse[None], tp, 0)
-        merged = decode_ops.merge_partials(outs, lses, x.dtype)  # (B, H, kv_lora)
+        merged = merge_over(cp, *mla_partial(s, q_lat, q_rope, latent, k_rope, pos, cp.rank * T),
+                            x.dtype)  # (B, H, kv_lora)
         if Hl < s.n_heads:
             merged = merged[:, tp.rank * Hl:(tp.rank + 1) * Hl]
         return mla_heads_out(params, merged[:, None]), cache

@@ -31,7 +31,18 @@ and the models call the layout changes as ``torch.autograd.Function``s:
 * ``cols_to_rows``: whole rows of the rank's columns (B, S, D/M) to the
   rank's rows of every column (B, S/M, D), one all-to-all (backward: the
   reverse all-to-all): RWKV6's time mix, whose output projection
-  contracts nothing over its split dim.
+  contracts nothing over its split dim;
+* ``to_parts``: the identity forward on a value that is the same on every
+  rank (a sequence that does not split over the axis, whole everywhere)
+  and that each rank uses for its own part (its heads, its ffn columns,
+  its rows' queries), all-reduce backward (Megatron's f);
+* ``gather_alike``: a sequence-split tensor whole on every rank, which
+  every rank then uses alike (all-gather forward; backward the rank's
+  piece of a gradient that is the same on every rank).
+
+Decode's context-parallel group (``context_parallel``) is the axes the
+step's rules give ``kv_seq``: "model", or ("data", "model") under the
+long-context rules, one pod's data x model ranks flattened row-major.
 
 FSDP (``IplsStepConfig(fsdp=True)``): the train step stores each split
 parameter leaf as this rank's "data" shard and runs the loss under
@@ -53,8 +64,15 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
-from repro_torch.core.sharded import DEFAULT_RULES, all_gather_dim, call_collective, model_size
+from repro_torch.core.sharded import (
+    DEFAULT_RULES,
+    all_gather_dim,
+    call_collective,
+    mesh_axis_size,
+    model_size,
+)
 from repro_torch.tree import tree_map
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar("act_sharding_ctx", default=None)
@@ -124,6 +142,34 @@ def tensor_parallel() -> Optional[TP]:
     if M == 1:
         return None
     return TP(mesh.get_group("model"), M, mesh.get_local_rank("model"))
+
+
+def context_parallel() -> Optional[TP]:
+    """The active context's context-parallel group of a decode step's
+    caches, when it is above 1, else None: the mesh axes that its rules
+    give ``kv_seq``. That is "model" (the same group as
+    ``tensor_parallel``) or, under the long-context rules, ("data",
+    "model"): one pod's data x model ranks flattened, rank (d, m) at
+    d M + m, which holds slots [(d M + m) T, (d M + m + 1) T) of the
+    cache."""
+    ctx = _CTX.get()
+    if ctx is None:
+        return None
+    mesh, rules = ctx
+    axes = rules.get("kv_seq")
+    if axes is None:
+        return None
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    size = mesh_axis_size(mesh, axes)
+    if size == 1:
+        return None
+    if len(axes) == 1:
+        return TP(mesh.get_group(axes[0]), size, mesh.get_local_rank(axes[0]))
+    # the mesh caches its flattened group; a fake world's mesh builds it
+    # from real tensors
+    with unset_fake_temporarily():
+        flat = mesh[axes]._flatten()
+    return TP(flat.get_group(), size, flat.get_local_rank())
 
 
 def _gather(x: torch.Tensor, dim: int, tp: TP) -> torch.Tensor:
@@ -223,6 +269,29 @@ class _ColsToRows(torch.autograd.Function):
         return _rows_to_cols(grad, ctx.tp), None
 
 
+class _ToParts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.tp), None
+
+
+class _GatherAlike(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp, ctx.n = dim, tp, x.shape[dim]
+        return _gather(x, dim, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        piece = grad.narrow(ctx.dim, ctx.tp.rank * ctx.n, ctx.n).contiguous()
+        return piece, None, None
+
+
 class _OnceOverModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp):
@@ -262,6 +331,20 @@ def cols_to_rows(x: torch.Tensor, tp: TP) -> torch.Tensor:
     """x (B, S, D/M), whole rows of this rank's columns (the ranks' in
     rank order make D), as (B, S/M, D): this rank's rows of every column."""
     return _ColsToRows.apply(x, tp)
+
+
+def to_parts(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """``x``, the same on every rank, entering a region where each rank
+    computes its own part of a result from it: its gradient, partial on
+    each rank, summed over the axis."""
+    return _ToParts.apply(x, tp)
+
+
+def gather_alike(x: torch.Tensor, tp: TP, dim: int = 1) -> torch.Tensor:
+    """``gather_seq`` for a whole tensor that every rank then uses alike
+    (each rank's gradient of it the same): backward, the rank's piece of
+    that gradient, not a sum over the ranks."""
+    return _GatherAlike.apply(x, dim, tp)
 
 
 def once_over_model(x: torch.Tensor, tp: TP) -> torch.Tensor:

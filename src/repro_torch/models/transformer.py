@@ -40,8 +40,7 @@ follow its period's blocks inside the layer's checkpoint, with the one
 encoder-decoder (whisper) is ``models/whisper.py``.
 
 Tensor parallelism (a "model" mesh axis above 1: every block kind and a
-group's shared blocks; not yet non-causal attention, whisper's encoder,
-which comes with whisper in the next slice: ``check_tensor_parallel``): a
+group's shared blocks; whisper's encoder-decoder in ``models/whisper.py``): a
 model built on such a mesh
 (``TransformerLM(cfg, mesh=mesh)``) holds its rank's shards of every leaf
 (``lm_param_specs``). Under the step's mesh context the residual stream is
@@ -232,21 +231,6 @@ def _vocab_parallel_ce(logits: torch.Tensor, targets: torch.Tensor, v0: int, tp)
 RECURRENT_KINDS = ("mamba2", "rwkv6_time", "rwkv6_channel")
 
 
-def check_tensor_parallel(cfg: "ArchConfig") -> None:
-    """Raise ``NotImplementedError`` unless a config runs on a "model" axis
-    above 1: every block kind does, a group's shared blocks too, but
-    non-causal attention (an encoder's, whisper's, which ``build_model``
-    refuses as a whole) is not yet: it comes with whisper in the next slice
-    (ROADMAP.md queue 1)."""
-    for g in cfg.groups:
-        for b in g.blocks + g.shared:
-            if b.kind == "attn" and not b.attn.causal:
-                raise NotImplementedError(
-                    f"{cfg.name}: non-causal attention on a 'model' mesh axis above 1 is not "
-                    f"ported yet; it comes with whisper's encoder-decoder in the next slice "
-                    f"(ROADMAP.md queue 1)")
-
-
 def _gatherable(b: BlockSpec, M: int) -> bool:
     """The reference's rule: a block gathers its input over the sequence
     (Megatron-SP) when its parallel dim divides the model axis; otherwise
@@ -268,10 +252,24 @@ def _gatherable(b: BlockSpec, M: int) -> bool:
     return b.kind == "moe"
 
 
+def seq_rows(S: int, tp) -> Optional[slice]:
+    """The rows that a rank holds of a sequence of S on a tensor-parallel
+    mesh (``tp``): its share where S divides the axis, as ``_tp_ctx`` cuts
+    them, else None: the reference's ``spec_for_leaf`` leaves a dim that
+    does not divide the axis replicated, so every rank holds and computes
+    the whole sequence (whisper's 1,500 encoder frames or a short prompt
+    over 16 ranks)."""
+    if tp is None or S % tp.size:
+        return None
+    Sl = S // tp.size
+    return slice(tp.rank * Sl, (tp.rank + 1) * Sl)
+
+
 def _tp_ctx(ctx: dict, S: int) -> dict:
     """Add the active "model" axis to a pass's ctx, with the rank's rows'
     positions (and M-RoPE's positions3); a sequence that does not split
-    over it raises."""
+    over it raises (the decoder-only families; whisper runs such a
+    sequence whole on every rank, ``seq_rows``: ROADMAP.md queue 1)."""
     tp = SH.tensor_parallel()
     if tp is None:
         return ctx
@@ -578,7 +576,6 @@ class TransformerLM(nn.Module):
         self.mesh = mesh if model_size(mesh) > 1 else None
         cut = None
         if self.mesh is not None:
-            check_tensor_parallel(cfg)
             stacked = lm_param_specs(cfg, mesh, stacked=True)
 
             def cut(path, value):

@@ -32,20 +32,49 @@ training), each layer under ``torch.utils.checkpoint`` when ``cfg.remat``.
 Under an fsdp train step each layer gathers its stored leaves inside its
 checkpoint, and the embedding (twice: lookup and logits), ``pos_dec`` and
 the final norms are gathered where they are used.
+
+On a "model" mesh axis above 1 (``WhisperModel(cfg, mesh=mesh)``: this
+rank's shards under the reference's ``spec_for_leaf``) each leaf, sequence
+and cache takes the reference's rule: split where it divides the axis,
+whole on every rank where it does not. Attention is head-parallel where
+the heads divide (its input whole over the sequence, its part reduced),
+else on the rank's rows against k and v gathered (the encoder's rows
+without a mask, the decoder's causal at their offset, cross-attention's
+against the encoder output whole), else, on a sequence that does not
+split, every row on every rank alike; the MLP column- then row-parallel
+where d_ff divides, its parts summed in float32; the tied logits and the
+CE vocab-parallel where the vocab divides, else each rank's rows against
+the whole table with their targets one token on. The prefill returns its
+caches in the decode layout (``cache_layout``: the self cache and ek, ev
+split by slots, else by kv heads, else whole) and decode attends
+context-parallel over split slots (``layers._decode_attention_cp``,
+``_cross_decode_cp``). whisper-base at 16 ranks: 8 heads, 51,865 vocab
+rows, 1,500 frames and short prompts whole; d_ff 2,048 and 4,096- or
+32,768-token sequences split.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.sharded import (
+    DEFAULT_RULES,
+    global_shape,
+    map_specs,
+    model_size,
+    shard,
+    spec_for_leaf,
+)
 from repro_torch.device import resolve_device
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.models import layers as L
+from repro_torch.models import sharding_hooks as SH
 from repro_torch.models.param_defs import (
     ParamDef,
     ParamTree,
@@ -57,7 +86,13 @@ from repro_torch.models.param_defs import (
     unstack_axes,
 )
 from repro_torch.models.sharding_hooks import gather_stored, remat_context, shard_act
-from repro_torch.models.transformer import _sharded_ce
+from repro_torch.models.transformer import (
+    TransformerLM,
+    _def_map,
+    _sharded_ce,
+    _vocab_parallel_ce,
+    seq_rows,
+)
 from repro_torch.tree import tree_map
 
 
@@ -153,6 +188,168 @@ def whisper_axes(cfg: WhisperConfig) -> Dict[str, Any]:
     return out
 
 
+def whisper_param_specs(cfg: WhisperConfig, mesh, rules=None, stacked: bool = False):
+    """The spec of every parameter leaf on ``mesh`` (the reference's
+    ``spec_for_leaf`` with ``DEFAULT_RULES``, the config's overrides and
+    ``rules``): in the layout of ``params()`` (a list per stack), or with
+    ``stacked`` in the declaration's (``enc`` and ``dec`` stacked on a
+    leading ``layers`` axis, replicated)."""
+    merged = dict(DEFAULT_RULES, **cfg.sharding_overrides, **(rules or {}))
+    specs = _def_map(lambda d: spec_for_leaf(d.axes, d.shape, mesh, merged),
+                     whisper_param_defs(cfg))
+    if stacked:
+        return specs
+    out = {k: v for k, v in specs.items() if k not in ("enc", "dec")}
+    for key, n in (("enc", cfg.enc_layers), ("dec", cfg.dec_layers)):
+        layer = _def_map(lambda sp: sp[1:], specs[key])
+        out[key] = [layer for _ in range(n)]
+    return out
+
+
+def cache_layout(T: int, kv_heads: int, M: int) -> str:
+    """Where a (B, T, KV, hd) cache of whole length T lies over a model axis
+    of M, as the reference's ``spec_for_leaf`` gives its ("batch",
+    "kv_seq", "kv_heads", None) axes: "slots" (each rank T / M of them)
+    where T divides M, else "heads" (each rank its kv heads) where they
+    do, else "whole" on every rank."""
+    return "slots" if T % M == 0 else "heads" if kv_heads % M == 0 else "whole"
+
+
+def _cut_cache(t: torch.Tensor, layout: str, tp) -> torch.Tensor:
+    """This rank's share of a whole cache leaf (B, T, KV, hd) in ``layout``."""
+    if layout == "whole":
+        return t
+    d = 1 if layout == "slots" else 2
+    n = t.shape[d] // tp.size
+    return t.narrow(d, tp.rank * n, n).clone()
+
+
+def _reduce(y: torch.Tensor, rows, tp) -> torch.Tensor:
+    """A row-parallel part (its heads' or ffn columns' share of the output
+    projection) summed over "model" in float32 and cast once: into the
+    rank's ``rows`` (a reduce-scatter), or whole (an all-reduce) where the
+    sequence does not split."""
+    out = (SH.scatter_seq if rows is not None else SH.sum_model)(y.float(), tp)
+    return out.to(y.dtype)
+
+
+def _whole_in(h: torch.Tensor, rows, tp) -> torch.Tensor:
+    """A block's input whole over the sequence, for the rank's part of its
+    heads or ffn columns: gathered where the rows split, else every rank's
+    own copy entering the parts (``SH.to_parts``)."""
+    return SH.gather_seq(h, tp) if rows is not None else SH.to_parts(h, tp)
+
+
+def _once_whole(tree, defs, tp):
+    """The leaves of ``tree`` that "model" does not split (the shapes of
+    their ``defs``), each marked so that only the axis's rank 0 keeps its
+    gradient (``SH.once_over_model``): for a block that every rank computes
+    alike on a sequence that does not split, whose replicated leaves the
+    train step's all-reduce over "model" would otherwise count M times."""
+    if isinstance(tree, dict):
+        return {k: _once_whole(tree[k], defs[k], tp) for k in tree}
+    return SH.once_over_model(tree, tp) if tuple(tree.shape) == tuple(defs.shape) else tree
+
+
+def _heads_split(p, s: L.AttnSpec) -> bool:
+    return p["wq"].shape[1] < s.n_heads
+
+
+def _pos_bf16(rows: torch.Tensor) -> torch.Tensor:
+    """Training's ``pos_dec`` rows, rounded to bfloat16 before the add, as
+    the reference adds them."""
+    return rows.to(torch.bfloat16)
+
+
+def _tied_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Training's logits: a float32-accumulated product with the tied
+    table, rounded to bfloat16."""
+    return (x @ table.t()).to(torch.bfloat16)
+
+
+def _cross_sdpa(p, s: L.AttnSpec, h: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
+    """Training cross-attention: every row of h over every frame of enc (the
+    encoder's keys and values with their biases, ``_sdpa`` with no mask),
+    on the heads the weights hold."""
+    ek, ev = L.cross_kv(p, s, enc)
+    with L._span("sdpa"):
+        out = L._sdpa(L._cross_q(p, s, h), ek, ev, None, s.n_heads // s.kv_heads)
+    return L._out_proj(out, p["wo"])
+
+
+def _attention_train(p, s: L.AttnSpec, h, rows, tp):
+    """Training self-attention on a tensor-parallel mesh: head-parallel
+    where the heads divide the axis (h whole over the sequence, the
+    rank's heads, its part reduced), else on the rank's ``rows`` against k
+    and v gathered over the sequence (``layers._apply_attention_tp``:
+    the causal mask at the rows' offset, none for the encoder), else, where
+    the sequence does not split, every row on every rank alike."""
+    if _heads_split(p, s):
+        return _reduce(L.apply_attention(p, s, _whole_in(h, rows, tp), None), rows, tp)
+    if rows is not None:
+        return L.apply_attention(p, s, h, None)
+    return L.attention_whole(p, s, h, None)
+
+
+def _attention_prefill(p, s: L.AttnSpec, h, rows, tp):
+    """``_attention_train``'s layout through the flash kernel: (y, k, v),
+    k and v whole (every row, every head) for the cache."""
+    if _heads_split(p, s):
+        y, k, v = L.prefill_attention(p, s, _whole_in(h, rows, tp), None)
+        return _reduce(y, rows, tp), k, v
+    if rows is not None:
+        return L.prefill_attention(p, s, h, None)
+    return L.prefill_attention_whole(p, s, h, None)
+
+
+def _cross_train(p, s: L.AttnSpec, h, enc, rows, enc_rows, tp):
+    """Training cross-attention on a tensor-parallel mesh: the decoder's
+    rows (``rows``, or all of them) against the encoder output whole (its
+    ``enc_rows`` gathered, or its copy where they do not split), on the
+    rank's heads where they divide the axis (its part reduced), else all
+    heads. The gathers and copies pick their gradient's reduction by
+    whether the ranks' uses of the whole are parts (``gather_seq``,
+    ``to_parts``) or alike (``gather_alike``, none)."""
+    if _heads_split(p, s):
+        y = _cross_sdpa(p, s, _whole_in(h, rows, tp), _whole_in(enc, enc_rows, tp))
+        return _reduce(y, rows, tp)
+    if enc_rows is None:
+        return _cross_sdpa(p, s, h, enc if rows is None else SH.to_parts(enc, tp))
+    return _cross_sdpa(p, s, h, SH.gather_seq(enc, tp) if rows is not None
+                       else SH.gather_alike(enc, tp))
+
+
+def _mlp_part(p, s: L.MLPSpec, h, rows, tp):
+    """The MLP on a tensor-parallel mesh: column- then row-parallel where
+    its ffn divides the axis (h whole over the sequence, the part reduced
+    in float32), else on the rows the rank holds."""
+    if p["wd"].shape[0] < s.d_ff:
+        return _reduce(L.apply_mlp(p, s, _whole_in(h, rows, tp)), rows, tp)
+    return L.apply_mlp(p, s, h)
+
+
+def _cross_decode_cp(p, s: L.AttnSpec, h, ek, ev, last, tp):
+    """One decoder token against a cross cache whose frames are split over
+    the ranks (``cache_layout`` "slots": rank r holds frames [r T, (r+1)
+    T), every head): q gathered over the heads where they are split, the
+    decode kernel's partial form over the rank's frames (every one valid:
+    ``last`` holds S_enc - 1), the partials merged in rank order, the
+    output projection of the rank's heads (a part the caller reduces) or
+    of all of them."""
+    q = L._cross_q(p, s, h)
+    if q.shape[2] < s.n_heads:
+        q = SH.gather_model(q, tp, 2)
+    T = ek.shape[1]
+    merged = L.merge_over(tp, *decode_ops.decode(q[:, 0], ek.transpose(1, 2), ev.transpose(1, 2),
+                                                 last, slot0=tp.rank * T, return_lse=True),
+                          q.dtype)
+    wo = p["wo"]
+    Hl = wo.shape[0]
+    if Hl < s.n_heads:
+        merged = merged[:, tp.rank * Hl:(tp.rank + 1) * Hl]
+    return L._out_proj(merged[:, None], wo)
+
+
 def whisper_active_params(cfg: WhisperConfig) -> int:
     """The reference's count: the layers and the embedding table (once, for
     the tied unembedding product); the position table is a gather."""
@@ -163,14 +360,32 @@ def whisper_active_params(cfg: WhisperConfig) -> int:
 class WhisperModel(nn.Module):
     """The encoder-decoder. Parameters are drawn at construction from
     ``seed`` on ``device`` (CUDA by default; raises when there is none),
-    frozen (``ParamTree``): one per layer in ``enc`` and ``dec``."""
+    frozen (``ParamTree``): one per layer in ``enc`` and ``dec``. Built
+    with a ``mesh`` whose "model" axis is above 1 it keeps this rank's
+    shard of each leaf (``param_specs``), bit for bit the same slice of
+    the one-process draw, and runs only under that mesh's step context."""
 
-    def __init__(self, cfg: WhisperConfig, device="cuda", seed: int = 0):
+    def __init__(self, cfg: WhisperConfig, device="cuda", seed: int = 0, mesh=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh if model_size(mesh) > 1 else None
+        cut = None
+        if self.mesh is not None:
+            if cfg.kv_heads != cfg.n_heads:
+                raise NotImplementedError(
+                    f"{cfg.name}: whisper on a 'model' axis above 1 takes its kv heads to be "
+                    f"its heads (multi-head attention), got {cfg.kv_heads} of {cfg.n_heads}")
+            stacked = whisper_param_specs(cfg, mesh, stacked=True)
+
+            def cut(path, value):
+                spec = stacked
+                for k in path:
+                    spec = spec[k]
+                return shard(value, spec, mesh, ("model",))
+
         gen = torch.Generator(device=device).manual_seed(seed)
-        values = init_values(self.param_defs(), gen, device)
+        values = init_values(self.param_defs(), gen, device, cut)
         self.embed = ParamTree(values["embed"])
         self.pos_dec = nn.Parameter(values["pos_dec"], requires_grad=False)
         self.enc = nn.ModuleList(ParamTree(p) for p in unstack(values.pop("enc"), cfg.enc_layers))
@@ -195,8 +410,28 @@ class WhisperModel(nn.Module):
         return out
 
     def param_shapes(self) -> Dict[str, Any]:
-        """``params()`` as meta tensors: shapes and dtypes, no storage."""
+        """``params()`` as meta tensors: shapes and dtypes, no storage (on a
+        tensor-parallel mesh, this rank's shards)."""
         return tree_map(lambda p: torch.empty_like(p, device="meta"), self.params())
+
+    @property
+    def param_specs(self):
+        """The specs of ``params()`` on the model's mesh (None without one)."""
+        return None if self.mesh is None else whisper_param_specs(self.cfg, self.mesh)
+
+    def global_param_shapes(self) -> Dict[str, Any]:
+        """The whole leaves' shapes as meta tensors (``param_shapes`` but
+        for a model built on a tensor-parallel mesh)."""
+        local = self.param_shapes()
+        if self.mesh is None:
+            return local
+        return map_specs(
+            lambda t, sp: torch.empty(global_shape(t.shape, sp, self.mesh, ("model",)),
+                                      dtype=t.dtype, device="meta"),
+            local, self.param_specs)
+
+    def _tensor_parallel(self):
+        return TransformerLM._tensor_parallel(self)
 
     def num_params(self) -> int:
         return count_params(self.param_defs())
@@ -228,7 +463,12 @@ class WhisperModel(nn.Module):
         self-attention (the flash kernel, ``causal=False``) and the MLP, each
         pre-norm residual, then ``enc_ln``. A layer norm's output takes the
         weights' dtype before its products (JAX's promotion of bfloat16
-        frames against float32 weights)."""
+        frames against float32 weights). On a tensor-parallel mesh, the
+        rank's rows of it where the frames split over the axis, else all of
+        them (``_encode_tp``)."""
+        tp = self._tensor_parallel()
+        if tp is not None:
+            return self._encode_tp(enc_embeds, tp)[0]
         cfg = self.cfg
         x = enc_embeds.to(self.device)
         B, S, D = x.shape
@@ -288,6 +528,143 @@ class WhisperModel(nn.Module):
         embedding table."""
         return (L.layer_norm(self.dec_ln, x) @ self.embed.table.t()).to(torch.bfloat16)
 
+    # -- a model axis above 1 ----------------------------------------------------------
+    def _embed_tp(self, tokens, rows, tp, pos_rows):
+        """Serving's token embeddings on a tensor-parallel mesh, of the
+        ``rows`` the rank holds (or all): vocab-parallel where the table
+        is split, else a lookup; plus ``pos_rows``' rows in bfloat16."""
+        table = self.embed
+        if table.table.shape[0] < self.cfg.vocab:
+            x = L.embed_vocab_parallel(table, tokens, tp, seq_split=rows is not None)
+        else:
+            x = L.embed(table, tokens if rows is None else tokens[:, rows])
+        return x + (pos_rows if rows is None else pos_rows[rows]).to(torch.bfloat16)
+
+    def _logits_whole(self, x, tp):
+        """``_logits`` with every vocab column on every rank."""
+        logits = self._logits(x)
+        if self.embed.table.shape[0] < self.cfg.vocab:
+            logits = SH.gather_model(logits, tp, logits.dim() - 1)
+        return logits
+
+    def _encode_tp(self, enc_embeds, tp):
+        """``encode`` on a tensor-parallel mesh: (the encoder output of the
+        rank's rows, those rows), or (all of it, None) where the frames do
+        not split over the axis. Each layer as ``_attention_prefill`` and
+        ``_mlp_part`` lay it out."""
+        cfg = self.cfg
+        x = enc_embeds.to(self.device)
+        B, S, D = x.shape
+        x = x + _sinusoid_on(S, D, x.device, x.dtype)
+        rows = seq_rows(S, tp)
+        if rows is not None:
+            x = x[:, rows]
+        spec, mlp = _attn_spec(cfg, causal=False), _mlp_spec(cfg)
+        for p in self.enc:
+            h = L.layer_norm(p["ln1"], x).to(self.dtype)
+            x = x + _attention_prefill(p["attn"], spec, h, rows, tp)[0]
+            h = L.layer_norm(p["ln2"], x).to(self.dtype)
+            x = x + _mlp_part(p["mlp"], mlp, h, rows, tp)
+        return L.layer_norm(self.enc_ln, x), rows
+
+    def _dec_block_prefill_tp(self, p, x, enc, cache_len: int, rows, tp):
+        """``dec_block_prefill`` on a tensor-parallel mesh, over the rank's
+        ``rows`` of the prompt (or all of them), ``enc`` the encoder output
+        whole. Its cache entry in the decode layout (``cache_layout``): the
+        rank's slots, or kv heads, of the whole self cache and of the
+        encoder's ek, ev, or all of them."""
+        cfg = self.cfg
+        spec = _attn_spec(cfg, causal=True)
+        h = L.layer_norm(p["ln1"], x)
+        y, k, v = _attention_prefill(p["self_attn"], spec, h, rows, tp)
+        x = x + y
+        h = L.layer_norm(p["ln2"], x)
+        pc = p["cross_attn"]
+        ek, ev = L.cross_kv(pc, spec, enc)
+        if _heads_split(pc, spec):
+            x = x + _reduce(L.cross_attention(pc, spec, _whole_in(h, rows, tp), ek, ev), rows, tp)
+            ek, ev = SH.gather_model(ek, tp, 2), SH.gather_model(ev, tp, 2)  # every head
+        else:
+            x = x + L.cross_attention(pc, spec, h, ek, ev)
+        h = L.layer_norm(p["ln3"], x)
+        x = x + _mlp_part(p["mlp"], _mlp_spec(cfg), h, rows, tp)
+        B, Sq = k.shape[:2]
+        kc = k.new_zeros((B, cache_len) + k.shape[2:])
+        vc = torch.zeros_like(kc)
+        kc[:, :Sq] = k
+        vc[:, :Sq] = v
+        own = cache_layout(cache_len, cfg.kv_heads, tp.size)
+        cross = cache_layout(ek.shape[1], cfg.kv_heads, tp.size)
+        return x, {"k": _cut_cache(kc, own, tp), "v": _cut_cache(vc, own, tp),
+                   "ek": _cut_cache(ek, cross, tp), "ev": _cut_cache(ev, cross, tp)}
+
+    def _prefill_tp(self, batch, tp):
+        """``prefill`` on a tensor-parallel mesh (see ``_encode_tp`` and
+        ``_dec_block_prefill_tp``)."""
+        tokens = batch["tokens"].to(self.device)
+        enc, enc_rows = self._encode_tp(batch["enc_embeds"], tp)
+        enc_len = batch["enc_embeds"].shape[1]
+        if enc_rows is not None:
+            enc = SH.gather_model(enc, tp, 1)
+        Sq = tokens.shape[1]
+        cache_len = batch.get("cache_len", Sq)
+        rows = seq_rows(Sq, tp)
+        x = self._embed_tp(tokens, rows, tp, self.pos_dec[:Sq])
+        entries = []
+        for p in self.dec:
+            x, entry = self._dec_block_prefill_tp(p, x, enc, cache_len, rows, tp)
+            entries.append(entry)
+        last = x[:, -1:] if rows is None else SH.gather_model(x[:, -1:], tp, 1)[:, -1:]
+        return self._logits_whole(last, tp), {"dec": entries, "enc_last": self._enc_last(enc_len)}
+
+    def _dec_block_decode_tp(self, p, x, entry, pos, enc_last, layouts, tp):
+        """``dec_block_decode`` on a tensor-parallel mesh, the token whole on
+        every rank. Self-attention context-parallel over the rank's slots
+        (``layers._decode_attention_cp``) where the self cache is split by
+        slots, else over the rank's kv heads, or all of them
+        (``layers.decode_attention_local``); cross-attention likewise
+        (``_cross_decode_cp``, ``layers.decode_cross_attention``). Each
+        part of split heads or ffn columns summed over "model" in float32
+        and cast once."""
+        cfg = self.cfg
+        spec = _attn_spec(cfg, causal=True)
+        own, cross = layouts
+        h = L.layer_norm(p["ln1"], x)
+        ps, pc = p["self_attn"], p["cross_attn"]
+        if own == "slots":
+            y, _ = L._decode_attention_cp(ps, spec, h, entry, pos, tp, tp)
+        else:
+            y, _ = L.decode_attention_local(ps, spec, h, entry, pos)
+        x = x + (_reduce(y, None, tp) if _heads_split(ps, spec) else y)
+        h = L.layer_norm(p["ln2"], x)
+        if cross == "slots":
+            y = _cross_decode_cp(pc, spec, h, entry["ek"], entry["ev"], enc_last, tp)
+        else:
+            y = L.decode_cross_attention(pc, spec, h, entry["ek"], entry["ev"], enc_last)
+        x = x + (_reduce(y, None, tp) if _heads_split(pc, spec) else y)
+        h = L.layer_norm(p["ln3"], x)
+        return x + _mlp_part(p["mlp"], _mlp_spec(cfg), h, None, tp)
+
+    def _decode_step_tp(self, cache, batch, tp):
+        """``decode_step`` on a tensor-parallel mesh. The batch's host ints
+        ``cache_len`` and ``enc_len`` are the whole self and cross caches'
+        slots, which decide their layouts (``cache_layout``): a rank's
+        cache alone does not say whether it is a share or the whole."""
+        missing = [k for k in ("cache_len", "enc_len") if k not in batch]
+        if missing:
+            raise ValueError(f"whisper's decode on a 'model' axis above 1 needs the whole "
+                             f"caches' sizes as batch[{missing}] (build_decode_step passes its "
+                             f"shape's)")
+        cfg = self.cfg
+        token = batch["token"].to(self.device)
+        pos = torch.as_tensor(batch["pos"], dtype=torch.int32, device=self.device)
+        x = self._embed_tp(token, None, tp, self.pos_dec.index_select(0, pos.reshape(1).long()))
+        layouts = (cache_layout(int(batch["cache_len"]), cfg.kv_heads, tp.size),
+                   cache_layout(int(batch["enc_len"]), cfg.kv_heads, tp.size))
+        for p, entry in zip(self.dec, cache["dec"]):
+            x = self._dec_block_decode_tp(p, x, entry, pos, cache["enc_last"], layouts, tp)
+        return self._logits_whole(x, tp), cache
+
     # -- serving ---------------------------------------------------------------------
     def cache_defs(self, batch: int, cache_len: int, enc_len: int, dtype=None) -> Dict[str, Any]:
         """The cache's declaration in the port's layout (the reference's
@@ -322,7 +699,11 @@ class WhisperModel(nn.Module):
     def prefill(self, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Encode, then run the decoder prompt. batch: tokens (B, Sq) int,
         enc_embeds (B, S_enc, d), optional cache_len (default Sq). Returns
-        (last-token logits (B, 1, V) bf16, cache)."""
+        (last-token logits (B, 1, V) bf16, cache). On a tensor-parallel
+        mesh, ``_prefill_tp``."""
+        tp = self._tensor_parallel()
+        if tp is not None:
+            return self._prefill_tp(batch, tp)
         tokens = batch["tokens"].to(self.device)
         enc_out = self.encode(batch["enc_embeds"])
         Sq = tokens.shape[1]
@@ -341,7 +722,10 @@ class WhisperModel(nn.Module):
         on the model's device, or an int): the decoder tokens already
         cached, and the row of ``pos_dec`` (read on the device). Writes the
         self-attention caches IN PLACE and returns (logits (B, 1, V) bf16,
-        cache)."""
+        cache). On a tensor-parallel mesh, ``_decode_step_tp``."""
+        tp = self._tensor_parallel()
+        if tp is not None:
+            return self._decode_step_tp(cache, batch, tp)
         token = batch["token"].to(self.device)
         pos = torch.as_tensor(batch["pos"], dtype=torch.int32, device=self.device)
         x = self._embed_dec(token, self.pos_dec.index_select(0, pos.reshape(1).long()))
@@ -363,7 +747,11 @@ class WhisperModel(nn.Module):
         ``params``, differentiable: the sinusoid added in the frames' dtype,
         then per layer ``ln1``, bidirectional plain attention, ``ln2`` and
         the MLP, each pre-norm residual, then ``enc_ln``. A layer norm's
-        output takes the weights' dtype before its products, as ``encode``."""
+        output takes the weights' dtype before its products, as ``encode``.
+        On a tensor-parallel mesh, ``_train_encode_tp``."""
+        tp = SH.tensor_parallel()
+        if tp is not None:
+            return self._train_encode_tp(params, enc_embeds, tp)
         cfg = self.cfg
         x = enc_embeds.to(self.device)
         B, S, D = x.shape
@@ -382,18 +770,24 @@ class WhisperModel(nn.Module):
             x = self._layer(layer, x, p)
         return L.layer_norm(gather_stored(params["enc_ln"]), x)
 
-    def decode_stack(self, params, tokens: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+    def decode_stack(self, params, tokens: torch.Tensor, enc_out: torch.Tensor,
+                     enc_len: Optional[int] = None) -> torch.Tensor:
         """The decoder's training forward with teacher forcing (the
         reference's ``decode_stack``) over ``params``: the tokens'
         embeddings plus ``pos_dec``'s rows 0..S-1 rounded to bfloat16, per
         layer causal self-attention, cross-attention of every row over every
         encoder frame (the encoder's keys and values with their biases,
         ``_sdpa`` with no mask) and the MLP, each pre-norm residual, then
-        ``dec_ln``."""
+        ``dec_ln``. On a tensor-parallel mesh, ``_decode_stack_tp`` (with
+        ``enc_len``, the encoder's whole length: ``enc_out`` is its rows
+        where they split)."""
+        tp = SH.tensor_parallel()
+        if tp is not None:
+            return self._decode_stack_tp(params, tokens, enc_out, enc_len, tp)
         cfg = self.cfg
         S = tokens.shape[1]
         top = gather_stored({"embed": params["embed"], "pos_dec": params["pos_dec"]})
-        x = L.embed(top["embed"], tokens) + top["pos_dec"][:S].to(torch.bfloat16)
+        x = L.embed(top["embed"], tokens) + _pos_bf16(top["pos_dec"][:S])
         x = shard_act(x, ("batch", "act_seq", "embed"))
         spec, mlp = _attn_spec(cfg, causal=True), _mlp_spec(cfg)
 
@@ -402,11 +796,7 @@ class WhisperModel(nn.Module):
             h = L.layer_norm(p["ln1"], x)
             x = x + L.apply_attention(p["self_attn"], spec, h, None)
             h = L.layer_norm(p["ln2"], x)
-            ek, ev = L.cross_kv(p["cross_attn"], spec, enc_out)
-            with L._span("sdpa"):
-                out = L._sdpa(L._cross_q(p["cross_attn"], spec, h), ek, ev, None,
-                              spec.n_heads // spec.kv_heads)
-            x = x + L._out_proj(out, p["cross_attn"]["wo"])
+            x = x + _cross_sdpa(p["cross_attn"], spec, h, enc_out)
             h = L.layer_norm(p["ln3"], x)
             return shard_act(x + L.apply_mlp(p["mlp"], mlp, h), ("batch", "act_seq", "embed"))
 
@@ -420,9 +810,113 @@ class WhisperModel(nn.Module):
         (B, S_enc, d). Returns (per_example_loss (B,) float32, {}),
         differentiable in ``params`` (a tree as ``params()`` gives): tied
         logits of a float32-accumulated product rounded to bfloat16, the CE
-        in float32 on ``tokens[:, 1:]``, averaged per example."""
+        in float32 on ``tokens[:, 1:]``, averaged per example. On a
+        tensor-parallel mesh, ``_loss_tp``."""
         tokens = batch["tokens"].to(self.device).long()
+        tp = self._tensor_parallel()
+        if tp is not None:
+            return self._loss_tp(params, tokens, batch["enc_embeds"], tp), {}
         x = self.decode_stack(params, tokens, self.train_encode(params, batch["enc_embeds"]))
         table = gather_stored(params["embed"])["table"]  # the tied table's second use
-        logits = (x[:, :-1] @ table.t()).to(torch.bfloat16)
-        return _sharded_ce(logits, tokens[:, 1:]).mean(dim=-1), {}
+        return _sharded_ce(_tied_logits(x[:, :-1], table), tokens[:, 1:]).mean(dim=-1), {}
+
+    # -- training on a model axis above 1 ---------------------------------------------
+    #
+    # A sequence that splits over the axis is held as each rank's rows (each
+    # rank's gradients its own rows' share); one that does not is whole on
+    # every rank, which computes it alike: there a leaf "model" does not
+    # split is marked to keep its gradient on rank 0 only (``_once_whole``),
+    # since the train step sums such leaves' gradients over the axis, and an
+    # input entering the ranks' parts of split heads or ffn columns takes
+    # ``SH.to_parts`` (its gradient, partial on each rank, summed).
+
+    def _train_encode_tp(self, params, enc_embeds, tp):
+        """``train_encode`` on a tensor-parallel mesh: the encoder output of
+        the rank's rows, or all of it where the frames do not split."""
+        cfg = self.cfg
+        x = enc_embeds.to(self.device)
+        B, S, D = x.shape
+        x = x + _sinusoid_on(S, D, x.device, x.dtype)
+        rows = seq_rows(S, tp)
+        if rows is not None:
+            x = x[:, rows]
+        spec, mlp, defs = _attn_spec(cfg, causal=False), _mlp_spec(cfg), _enc_layer_defs(cfg)
+        wdtype = params["embed"]["table"].dtype
+
+        def layer(x, p):
+            p = gather_stored(p)
+            if rows is None:
+                p = _once_whole(p, defs, tp)
+            h = L.layer_norm(p["ln1"], x).to(wdtype)
+            x = x + _attention_train(p["attn"], spec, h, rows, tp)
+            h = L.layer_norm(p["ln2"], x).to(wdtype)
+            return x + _mlp_part(p["mlp"], mlp, h, rows, tp)
+
+        for p in params["enc"]:
+            x = self._layer(layer, x, p)
+        return L.layer_norm(self._norm_tp(params["enc_ln"], rows, tp), x)
+
+    def _norm_tp(self, p, rows, tp):
+        """A final layer norm's leaves: gathered under fsdp, and marked
+        ``_once_whole`` where the sequence does not split."""
+        p = gather_stored(p)
+        return p if rows is not None else _once_whole(p, L.init_layernorm(self.cfg.d_model), tp)
+
+    def _decode_stack_tp(self, params, tokens, enc_out, enc_len, tp):
+        """``decode_stack`` on a tensor-parallel mesh: the decoder's output of
+        the rank's rows, or all of it where the tokens do not split."""
+        if enc_len is None:
+            raise ValueError("decode_stack on a 'model' axis above 1 needs enc_len, the "
+                             "encoder's whole length")
+        cfg = self.cfg
+        S = tokens.shape[1]
+        rows, enc_rows = seq_rows(S, tp), seq_rows(enc_len, tp)
+        top = gather_stored({"embed": params["embed"], "pos_dec": params["pos_dec"]})
+        table, pos = top["embed"], top["pos_dec"][:S]
+        if table["table"].shape[0] < cfg.vocab:
+            x = L.embed_vocab_parallel(table, tokens, tp, seq_split=rows is not None)
+        elif rows is None:
+            x = L.embed({"table": SH.once_over_model(table["table"], tp)}, tokens)
+        else:
+            x = L.embed(table, tokens[:, rows])
+        pos = SH.once_over_model(pos, tp) if rows is None else pos[rows]
+        x = x + _pos_bf16(pos)
+        spec, mlp, defs = _attn_spec(cfg, causal=True), _mlp_spec(cfg), _dec_layer_defs(cfg)
+
+        def layer(x, p):
+            p = gather_stored(p)
+            if rows is None:
+                p = _once_whole(p, defs, tp)
+            h = L.layer_norm(p["ln1"], x)
+            x = x + _attention_train(p["self_attn"], spec, h, rows, tp)
+            h = L.layer_norm(p["ln2"], x)
+            x = x + _cross_train(p["cross_attn"], spec, h, enc_out, rows, enc_rows, tp)
+            h = L.layer_norm(p["ln3"], x)
+            return x + _mlp_part(p["mlp"], mlp, h, rows, tp)
+
+        for p in params["dec"]:
+            x = self._layer(layer, x, p)
+        return L.layer_norm(self._norm_tp(params["dec_ln"], rows, tp), x)
+
+    def _loss_tp(self, params, tokens, enc_embeds, tp):
+        """``loss`` on a tensor-parallel mesh, the whole loss on every rank:
+        with the vocab split, the decoder's rows whole and the
+        vocab-parallel CE; else each rank's rows' logits against the whole
+        table and their targets one token on (across the ranks' row
+        boundaries), the NLL summed over "model"; or, where the tokens do
+        not split, every rank's alike."""
+        S = tokens.shape[1]
+        x = self.decode_stack(params, tokens, self.train_encode(params, enc_embeds),
+                              enc_len=enc_embeds.shape[1])
+        rows = seq_rows(S, tp)
+        table = gather_stored(params["embed"])["table"]  # the tied table's second use
+        if table.shape[0] < self.cfg.vocab:
+            logits = _tied_logits(_whole_in(x, rows, tp)[:, :-1], table)
+            return _vocab_parallel_ce(logits, tokens[:, 1:], tp.rank * table.shape[0],
+                                      tp).mean(dim=-1)
+        if rows is None:
+            logits = _tied_logits(x[:, :-1], SH.once_over_model(table, tp))
+            return _sharded_ce(logits, tokens[:, 1:]).mean(dim=-1)
+        tgt = tokens[:, rows.start + 1:rows.stop + 1]
+        nll = _sharded_ce(_tied_logits(x[:, :tgt.shape[1]], table), tgt)
+        return SH.sum_model(nll.sum(dim=-1), tp) / (S - 1)

@@ -113,32 +113,39 @@ class _Mesh:
 
 
 def test_unported_tensor_parallel_modes_raise():
-    """On a model axis above 1: a decode graph, whisper and non-causal
-    attention (its encoder's, the next slice) raise NotImplementedError
-    naming the next slice; every other family passes the check (zamba2's
-    Mamba2 and shared blocks and RWKV6 run: ``test_torch_tp_ssm.py``;
-    deepseek, gemma3 and qwen2-vl: ``test_torch_tp_attn.py``; the MoE
-    family's granite: ``test_torch_tp_moe.py``); a step of a model not
-    built on the mesh raises ValueError before it runs."""
+    """On a model axis above 1 what is not ported raises: a decode graph
+    (NotImplementedError), and, for the decoder-only families, a sequence
+    that does not split over the axis (ValueError: the reference keeps it
+    whole on every rank, as whisper does; ROADMAP.md queue 1). What this
+    test refused before now builds: whisper holds its rank's shards (heads,
+    ffn and vocab split over 2), and non-causal attention (an encoder's)
+    builds in a decoder-only config; every family's shards are the
+    reference's specs (the mesh paths: ``test_torch_tp*.py``,
+    ``test_torch_tp_whisper.py``). A step of a model not built on the mesh
+    raises ValueError before it runs."""
     import dataclasses
 
-    from repro_torch.configs import ARCH_IDS, SHAPES, build_model, get_config
+    from repro_torch.configs import SHAPES, build_model, get_config
     from repro_torch.launch.steps import build_decode_step, build_prefill_step
-    from repro_torch.models.transformer import check_tensor_parallel
+    from repro_torch.models.transformer import _tp_ctx
+    from repro_torch.models.sharding_hooks import activation_sharding
+    from repro_torch.roofline import fake_world
 
-    mesh = _Mesh((1, 2))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        build_model(get_config("whisper-base", reduced=True), device="cpu", mesh=mesh)
-    for arch in ARCH_IDS:
-        if arch != "whisper-base":
-            check_tensor_parallel(get_config(arch))
     cfg = get_config("internlm2-1.8b", reduced=True)
     encoder = dataclasses.replace(cfg, groups=tuple(
         dataclasses.replace(g, blocks=tuple(
             dataclasses.replace(b, attn=dataclasses.replace(b.attn, causal=False))
             if b.kind == "attn" else b for b in g.blocks)) for g in cfg.groups))
-    with pytest.raises(NotImplementedError, match="non-causal attention.*next slice"):
-        build_model(encoder, device="cpu", mesh=mesh)
+    with fake_world((1, 2)) as fmesh:
+        whisper = build_model(get_config("whisper-base", reduced=True), device="cpu", mesh=fmesh)
+        assert whisper.mesh is fmesh
+        assert whisper.params()["dec"][0]["self_attn"]["wq"].shape == (64, 2, 16)
+        assert whisper.params()["enc"][0]["mlp"]["wd"].shape == (64, 64)
+        assert whisper.params()["embed"]["table"].shape == (128, 64)
+        assert build_model(encoder, device="cpu", mesh=fmesh).mesh is fmesh
+        with activation_sharding(fmesh), pytest.raises(ValueError, match="does not split"):
+            _tp_ctx({"positions": torch.zeros((1, 9), dtype=torch.long)}, 9)
+    mesh = _Mesh((1, 2))
     model = build_model(get_config("internlm2-1.8b", reduced=True), device="cpu")
     with pytest.raises(NotImplementedError, match="decode graph"):
         build_decode_step(model, mesh, SHAPES["decode_32k"], graph=True)

@@ -171,7 +171,8 @@ def check_init(name, mesh, gaps, cfg=None):
         a.numel() < b.numel() for a, b in zip(tree_leaves(tp.params()), tree_leaves(one.params())))
 
 
-def check_train(name, mesh, gaps, cfg=None, step_cfg=None, flips=None, key=None):
+def check_train(name, mesh, gaps, cfg=None, step_cfg=None, flips=None, key=None, batch=None,
+                one_loss=None, leaf_tol=lambda leaf: tw.GRAD_LEAF_TOL, noise_lr=NOISE_LR):
     """One AdamW step on the mesh against the one-process step (the
     model-axis-1 mesh path, each data rank's rows), gathered: the bounds
     with which ``torch_tp_worker._train_case`` holds the dense LMs
@@ -180,12 +181,21 @@ def check_train(name, mesh, gaps, cfg=None, step_cfg=None, flips=None, key=None)
     ``name + "/train"``). ``flips`` (``torch_tp_ssm_worker.LogitGradients``)
     records the gradients in the bf16 logits of both float32 steps, and
     the gradients' noise rule takes their measured difference
-    (``flips.share``) as a floor of the noise beside the float64 run's."""
+    (``flips.share``) as a floor of the noise beside the float64 run's.
+    ``batch`` (by default ``train_batch``'s), ``one_loss(model, D)``, the
+    one-process loss (by default ``torch_fsdp_worker.emulated_loss``), and
+    ``leaf_tol(leaf name)``, the per-leaf bound (GRAD_LEAF_TOL; None for a
+    leaf whose exact gradient is 0, held by the first rule alone, its own
+    largest being float noise, and its parameters within 2 lr: AdamW's
+    first step moves each by lr in the direction of its noise's sign) and
+    ``noise_lr``, the bound on the elements of noise gradients (NOISE_LR),
+    serve whisper's checks (``torch_tp_whisper_worker``)."""
     cfg = cfg or config(name)
     D = psh.mesh_axis_size(mesh, "data")
     opt = adamw(LR, wd=0.1)
     step_cfg = step_cfg or step_config(name)
-    batch = train_batch(cfg, tw._tokens(256, 1, (B, S)))
+    batch = batch or train_batch(cfg, tw._tokens(256, 1, (B, S)))
+    one_loss = one_loss or fw.emulated_loss
     tp = build_model(cfg, device="cpu", seed=0, mesh=mesh).float()
     built = build_train_step(tp, mesh, ShapeSpec("t", S, B, "train"), optimizer=opt,
                              step_cfg=step_cfg)
@@ -195,7 +205,7 @@ def check_train(name, mesh, gaps, cfg=None, step_cfg=None, flips=None, key=None)
 
     def one_step(dtype):
         one = build_model(cfg, device="cpu", seed=0).to(dtype)
-        step = psh.make_train_step(fw.emulated_loss(one, D), opt,
+        step = psh.make_train_step(one_loss(one, D), opt,
                                    psh.IplsStepConfig(grad_clip=1.0,
                                                       accum_steps=step_cfg.accum_steps),
                                    num_agents=D)
@@ -221,11 +231,13 @@ def check_train(name, mesh, gaps, cfg=None, step_cfg=None, flips=None, key=None)
                                                  tree_leaves(state64.opt_state))
             if n.endswith(".m")]
     scale = max(float(b.abs().max()) for _, _, b, _ in rows)
-    for _, a, b, c in rows:
+    for n, a, b, c in rows:
         assert a.shape == b.shape
         tw._noise_bound(a / scale, b / scale, c / scale, gaps, f"{key}/gradients", floor=share)
+        if leaf_tol(n) is None:  # float noise alone: no scale of its own
+            continue
         own = max(float(b.abs().max()), 1e-30)
-        tw._note(gaps, f"{key}/gradients_of_leaf", tw._gap(a / own, b / own), tw.GRAD_LEAF_TOL)
+        tw._note(gaps, f"{key}/gradients_of_leaf", tw._gap(a / own, b / own), leaf_tol(n))
     params = psh.gather_tree(state.params, built.update_shardings, mesh, ("model", "data")) \
         if step_cfg.fsdp else gather_params(tp)
     # AdamW's first step moves an element by lr g / (|g| + eps): where the
@@ -233,15 +245,21 @@ def check_train(name, mesh, gaps, cfg=None, step_cfg=None, flips=None, key=None)
     # g near eps) any two summation orders move it by a share of the
     # learning rate (the one-process float32 step lies up to a third of it
     # from float64 there), so such elements are held to NOISE_LR of it
-    for (_, a), b, c, (_, _, g1, g64) in zip(named_leaves(params),
+    for (_, a), b, c, (n, _, g1, g64) in zip(named_leaves(params),
                                              tree_leaves(one_state.params),
                                              tree_leaves(state64.params), rows):
         d = (a.double() - b.double()).abs() - TOL * b.double().abs().clamp_min(1.0)
         noise = g64.double().abs() < tw.GRAD_LEAF_TOL * float(g64.abs().max())
+        if leaf_tol(n) is None:
+            # every element's gradient is noise, whose sign AdamW's first
+            # step follows by a whole lr g / |g|: either way
+            tw._note(gaps, f"{key}/params_of_zero_gradient_leaves_over_lr",
+                     max(float(d.max()), 0.0) / LR, 2.0)
+            continue
         beyond = max(float(torch.where(noise, 0.0, d).max()), 0.0) / LR
         tw._note(gaps, f"{key}/params_beyond_tol_over_lr", beyond, tw.PARAM_LR)
         tw._note(gaps, f"{key}/params_beyond_tol_over_lr_noise_gradients",
-                 max(float(torch.where(noise, d, 0.0).max()), 0.0) / LR, NOISE_LR)
+                 max(float(torch.where(noise, d, 0.0).max()), 0.0) / LR, noise_lr)
         gaps[f"{key}/params_noise"] = max(gaps.get(f"{key}/params_noise", 0.0), tw._gap(b, c))
 
 
