@@ -374,8 +374,9 @@ exits non-zero:
               512-slot ring (4, 4, 1, 512, 256) cut into 16 slices of 32
               at pos 4,223, merged against the whole ring call and the
               plain merge; the launches are the forms' own counters over
-              the phase (the moe_ep, mla_cp and ssm_tp phases, which run
-              after the train cells, are described with their constants);
+              the phase (the moe_ep, mla_cp, ssm_tp, whisper_tp and
+              tp_whole phases, which run after the train cells, are
+              described with their constants);
               zamba2-1.2b's shared attention at the same axis: flash
               head-parallel at 2 of its 32 heads (4, 2, 2, 4096, 64) against
               the plain version, timed beside its bound and SDPA, and
@@ -899,6 +900,26 @@ SSM_TP_STATE_TOL = 2.0 ** -8
 WHISPER_TP = dict(arch="whisper-base", M=16, batch=16, frames=1500, prompt=4, slots=144,
                   pos=100, seed=0)
 WHISPER_TP_ROW_ULPS = 4.0
+# phase tp_whole: a prompt and a cache that do not divide the production
+# model axis, whole on every rank as the reference's specs leave them, rank
+# by rank at full width (bf16, weights and inputs drawn from the seed):
+# internlm2-1.8b at M = 16, batch 4, a 4,100-token prompt (16 x 256 + 4) and
+# a 4,104-slot cache (neither divides 16; 8 kv heads do not): one attention
+# layer (each rank's one query head through the flash kernel over every row
+# against kv head r // 2, a strided slice of the whole k and v) and one MLP
+# layer (512 of 8,192 ffn columns a rank), then one decode step at pos
+# 4,100 (each rank's head through the decode kernel on kv head r // 2's
+# slice of the whole cache); phi4-mini-3.8b at M = 12 (24 heads over 8 kv
+# heads, 2 a rank): one decode layer on a whole 4,104-slot cache at pos
+# 4,100, ranks 1, 4, 7 and 10 straddling two kv heads (one call a kv head).
+# Every kernel call against its plain version (flash: the bf16 flash bound
+# of flash_attention_ref; decode: one bf16 ulp + 2e-5); the rank parts, each rounded to bf16 by its
+# output projection, summed in float32 in rank order and cast once, within
+# TP_WHOLE_ROW_ULPS bf16 ulps of each row's largest |output| (plus 1e-5) of
+# the model-axis-1 layer.
+TP_WHOLE = dict(arch="internlm2-1.8b", M=16, batch=4, prompt=4100, slots=4104, seed=0)
+TP_WHOLE_STRADDLE = dict(arch="phi4-mini-3.8b", M=12)
+TP_WHOLE_ROW_ULPS = 2.0
 # long_gemma3, long_zamba2: the long cache's slices over the 256 ranks of
 # ("data", "model") on the production mesh (16, 16): each slice's partial
 # at pos 524,287 (gemma3's 512-slot rings: 2 slots a slice), merged in
@@ -3531,7 +3552,7 @@ def phase_whisper_tp(tr, dops, dref, fops):
     8 heads and the 51,865-row table do not divide (attention and logits
     whole on every rank), d_ff does (each rank's 128 columns and rows: its
     part ``layers.apply_mlp`` of its slices, the 16 parts summed in float32
-    in rank order and cast once, as ``whisper._reduce`` sums them); the
+    in rank order and cast once, as ``sharding_hooks.reduce_parts`` sums them); the
     self cache of 144 slots is split 9 a rank (each rank's slice written
     where it owns the token's slot, ``layers._owned_slot`` and
     ``_write_owned``, and its partial through the decode kernel's partial
@@ -3746,6 +3767,235 @@ def phase_whisper_tp(tr, dops, dref, fops):
              f"whisper_tp: launches {out['launches_by_form']}, expected {want_launches}")
     del model, cache, blocks, parts_cache, kept, enc_mlp, dec_mlp, frames, fill
     torch.cuda.empty_cache()
+    return out
+
+
+@contextmanager
+def _recorded_attention(L, calls):
+    """The attention kernels' wrappers, as ``layers`` calls them, recorded
+    into ``calls`` ((kind, q, k, v, out) of every call), the wrappers
+    themselves (and their counts) untouched."""
+    fl, dl = L.flash_ops, L.decode_ops
+
+    def flash(q, k, v, **kw):
+        out = fl.attention(q, k, v, **kw)
+        calls.append(("flash", q, k, v, out))
+        return out
+
+    def decode(q, k, v, pos, **kw):
+        out = dl.decode(q, k, v, pos, **kw)
+        calls.append(("decode", q, k, v, out))
+        return out
+
+    L.flash_ops = types.SimpleNamespace(attention=flash)
+    L.decode_ops = types.SimpleNamespace(decode=decode, merge_partials=dl.merge_partials)
+    try:
+        yield
+    finally:
+        L.flash_ops, L.decode_ops = fl, dl
+
+
+def _sum_parts(parts):
+    """The ranks' bf16 parts summed in float32 in rank order, cast once."""
+    import torch
+
+    total = torch.zeros(parts[0].shape, dtype=torch.float32, device=parts[0].device)
+    for y in parts:
+        total += y.float()
+    return total.to(parts[0].dtype)
+
+
+def phase_tp_whole(tr, dops, dref, fops, fref):
+    """A prompt and a cache that do not divide the production model axis,
+    rank by rank at full width (``TP_WHOLE``, ``TP_WHOLE_STRADDLE``): the
+    functions each rank of a mesh runs (``layers._prefill_attention_tp``,
+    ``layers.apply_mlp`` on its ffn columns, ``layers.decode_attention_local``
+    on its heads over the whole cache, ``layers._whole_cache_heads`` where
+    they straddle kv heads), their collectives outside (the parts summed
+    here), against the model-axis-1 layer on the same weights and inputs
+    (``prefill_attention_whole``, ``apply_mlp``, ``decode_attention_local``).
+    Checks: every rank's kernel calls against the plain versions; the rank
+    parts summed within TP_WHOLE_ROW_ULPS row ulps of the layer; the k and v
+    every rank computes, and the whole cache every rank writes, the layer's
+    bit for bit; the launches of each form. Times: each layer and its rank
+    parts (``_rank_times``), and one rank's flash and decode calls beside
+    their bounds and SDPA."""
+    import torch
+
+    configs, L = tr["configs"], tr["layers"]
+    from repro_torch.models.param_defs import init_values
+    from repro_torch.models.sharding_hooks import TP, cache_layout
+
+    t_phase = time.perf_counter()
+    c = TP_WHOLE
+    M, B, P, T = c["M"], c["batch"], c["prompt"], c["slots"]
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+    pos = torch.tensor(P, dtype=torch.int32, device="cuda")
+    positions = torch.arange(P, device="cuda")[None].expand(B, P)
+
+    def layer_specs(arch):
+        blocks = configs.get_config(arch).groups[0].blocks
+        return (next(b.attn for b in blocks if b.kind == "attn"),
+                next(b.mlp for b in blocks if b.kind == "mlp"))
+
+    def heads_of(p, r, Hl):
+        return dict(p, wq=p["wq"][:, r * Hl:(r + 1) * Hl].contiguous(),
+                    wo=p["wo"][r * Hl:(r + 1) * Hl].contiguous())
+
+    s, ms = layer_specs(c["arch"])
+    Hl, Fl, n_rep = s.n_heads // M, ms.d_ff // M, s.n_heads // s.kv_heads
+    _require(P % M and T % M and s.n_heads % M == 0 and s.kv_heads % M and ms.d_ff % M == 0
+             and cache_layout(T, s.kv_heads, M) == "whole",
+             f"tp_whole: {c['arch']} at {M} ranks does not take the whole layout")
+    p = init_values(L.init_attention(s), gen, "cuda")
+    pm = init_values(L.init_mlp(ms), gen, "cuda")
+    x = torch.randn((B, P, s.d_model), generator=gen, device="cuda").to(bf16)
+    tok = torch.randn((B, 1, s.d_model), generator=gen, device="cuda").to(bf16)
+    ranks = [heads_of(p, r, Hl) for r in range(M)]
+    ffn = [{"wg": pm["wg"][:, r * Fl:(r + 1) * Fl].contiguous(),
+            "wu": pm["wu"][:, r * Fl:(r + 1) * Fl].contiguous(),
+            "wd": pm["wd"][r * Fl:(r + 1) * Fl].contiguous()} for r in range(M)]
+    out = {"phase": "tp_whole", "arch": c["arch"], "model_axis": M, "batch": B, "prompt": P,
+           "slots": T, "pos": P, "layouts": {"prompt_rows": "whole", "cache": "whole",
+                                            "heads": f"{Hl} a rank", "kv_heads": "whole",
+                                            "ffn": f"{Fl} a rank"}}
+    blockwise, launches, checks = {}, {}, {"flash": [], "decode": []}
+
+    def check_calls(calls, what):
+        """Every recorded kernel call against its plain version."""
+        for kind, q, k, v, got in calls:
+            if kind == "flash":
+                res = _flash_bf16_check(got, q, k, v, True, fref, what, tiled=False)
+                checks["flash"].append(max(r[1] for r in res.values()))
+            else:
+                want = dref.decode_ref(q, k, v, pos)
+                checks["decode"].append(_attn_check(got, want, bf16, what))
+
+    with torch.no_grad():
+        # the prefill's attention layer: each rank's head over every row
+        want, k, v = L.prefill_attention_whole(p, s, x, positions)
+        calls = []
+        n0 = fops.attention.LAUNCHES
+        with _recorded_attention(L, calls):
+            parts = [L._prefill_attention_tp(ranks[r], s, x, positions, TP(None, M, r))
+                     for r in range(M)]
+        launches["flash_attention_rank_head"] = fops.attention.LAUNCHES - n0
+        kv_whole = all(torch.equal(kr, k) and torch.equal(vr, v) for _, kr, vr in parts)
+        blockwise["attention_prefill"] = _row_ulp_gap(_sum_parts([y for y, _, _ in parts]), want)
+        check_calls(calls, "tp_whole flash")
+        flash_rank = _flash_times(fops, fref, *calls[0][1:4])
+        attn_times = _rank_times(
+            lambda: L.prefill_attention_whole(p, s, x, positions),
+            [lambda r=r: L._prefill_attention_tp(ranks[r], s, x, positions, TP(None, M, r))
+             for r in range(M)])
+        del parts, calls
+        # the MLP layer: each rank's ffn columns, then rows, of every row
+        want_m = L.apply_mlp(pm, ms, x)
+        blockwise["mlp"] = _row_ulp_gap(_sum_parts([L.apply_mlp(f, ms, x) for f in ffn]), want_m)
+        mlp_times = _rank_times(lambda: L.apply_mlp(pm, ms, x),
+                                [lambda f=f: L.apply_mlp(f, ms, x) for f in ffn])
+        del want_m
+        # one decode step at pos P on the whole cache of T slots, which every
+        # rank holds and writes alike (the token's k and v of whole weights)
+        kc = torch.zeros((B, T) + tuple(k.shape[2:]), dtype=bf16, device="cuda")
+        vc = torch.zeros_like(kc)
+        kc[:, :P], vc[:, :P] = k, v
+        whole = {"k": kc.clone(), "v": vc.clone()}
+        held = {"k": kc, "v": vc}
+        want_d, _ = L.decode_attention_local(p, s, tok, whole, pos)
+        calls = []
+        n0 = dops.decode.LAUNCHES
+        with _recorded_attention(L, calls):
+            parts = [L.decode_attention_local(ranks[r], s, tok, held, pos, TP(None, M, r))[0]
+                     for r in range(M)]
+        launches["decode_attention_one_kv_head"] = dops.decode.LAUNCHES - n0
+        same_cache = torch.equal(held["k"], whole["k"]) and torch.equal(held["v"], whole["v"])
+        views = all(cl[2].untyped_storage().data_ptr() == kc.untyped_storage().data_ptr()
+                    for cl in calls)
+        blockwise["attention_decode"] = _row_ulp_gap(_sum_parts(parts), want_d)
+        check_calls(calls, "tp_whole decode")
+        decode_one = _decode_times(dops, dref, *calls[0][1:4], P)
+        decode_times = _rank_times(
+            lambda: L.decode_attention_local(p, s, tok, whole, pos),
+            [lambda r=r: L.decode_attention_local(ranks[r], s, tok, held, pos, TP(None, M, r))
+             for r in range(M)])
+        del parts, calls, whole, held, kc, vc, k, v, want, x, p, pm, ranks, ffn
+        torch.cuda.empty_cache()
+
+        # phi4-mini-3.8b at M2: 2 query heads a rank over a whole cache
+        c2 = TP_WHOLE_STRADDLE
+        M2 = c2["M"]
+        s2, _ = layer_specs(c2["arch"])
+        Hl2, rep2 = s2.n_heads // M2, s2.n_heads // s2.kv_heads
+        groups = [L.whole_cache_groups(r * Hl2, Hl2, rep2) for r in range(M2)]
+        straddle = [r for r, g in enumerate(groups) if len(g) > 1]
+        _require(s2.n_heads % M2 == 0 and s2.kv_heads % M2 and straddle,
+                 f"tp_whole: {c2['arch']} at {M2} ranks straddles no kv heads")
+        p2 = init_values(L.init_attention(s2), gen, "cuda")
+        tok2 = torch.randn((B, 1, s2.d_model), generator=gen, device="cuda").to(bf16)
+        kc = torch.zeros((B, T, s2.kv_heads, s2.head_dim), dtype=bf16, device="cuda")
+        vc = torch.zeros_like(kc)
+        kc[:, :P] = torch.randn((B, P, s2.kv_heads, s2.head_dim), generator=gen,
+                                device="cuda").to(bf16)
+        vc[:, :P] = torch.randn((B, P, s2.kv_heads, s2.head_dim), generator=gen,
+                                device="cuda").to(bf16)
+        whole = {"k": kc.clone(), "v": vc.clone()}
+        held = {"k": kc, "v": vc}
+        ranks2 = [heads_of(p2, r, Hl2) for r in range(M2)]
+        want2, _ = L.decode_attention_local(p2, s2, tok2, whole, pos)
+        calls = []
+        n0 = dops.decode.LAUNCHES
+        with _recorded_attention(L, calls):
+            parts = [L.decode_attention_local(ranks2[r], s2, tok2, held, pos, TP(None, M2, r))[0]
+                     for r in range(M2)]
+        launches["decode_attention_straddle"] = dops.decode.LAUNCHES - n0
+        same_cache &= torch.equal(held["k"], whole["k"]) and torch.equal(held["v"], whole["v"])
+        views &= all(cl[2].untyped_storage().data_ptr() == kc.untyped_storage().data_ptr()
+                     for cl in calls)
+        blockwise["attention_decode_straddle"] = _row_ulp_gap(_sum_parts(parts), want2)
+        check_calls(calls, "tp_whole straddled decode")
+        # rank 1's two calls, one of them timed alone
+        r1 = straddle[0]
+        first = sum(len(groups[r]) for r in range(r1))
+        decode_straddle = _decode_times(dops, dref, *calls[first][1:4], P)
+        decode_straddle["rank_calls"] = len(groups[r1])
+        decode_straddle["rank_ms"] = _device_ms(lambda: [
+            dops.decode(*cl[1:4], pos) for cl in calls[first:first + len(groups[r1])]])["ms"]
+        straddle_times = _rank_times(
+            lambda: L.decode_attention_local(p2, s2, tok2, whole, pos),
+            [lambda r=r: L.decode_attention_local(ranks2[r], s2, tok2, held, pos,
+                                                  TP(None, M2, r)) for r in range(M2)])
+        del parts, calls, whole, held, kc, vc, p2, ranks2
+    torch.cuda.synchronize()
+    want_launches = {"flash_attention_rank_head": M, "decode_attention_one_kv_head": M,
+                     "decode_attention_straddle": sum(len(g) for g in groups)}
+    out.update(
+        straddle={"arch": c2["arch"], "model_axis": M2, "heads_a_rank": Hl2,
+                  "straddling_ranks": straddle,
+                  "calls": want_launches["decode_attention_straddle"]},
+        blockwise=blockwise, launches_by_form=launches,
+        kv_every_rank_computes_is_the_layers=kv_whole, whole_cache_written_alike=same_cache,
+        decode_reads_strided_views_of_the_cache=views,
+        calls_vs_plain={"flash_largest_share_of_bound": max(checks["flash"]),
+                        "decode_largest_max_abs_err": max(checks["decode"])},
+        times={"attention_prefill": attn_times, "mlp": mlp_times, "attention_decode": decode_times,
+               "attention_decode_straddle": straddle_times},
+        flash_attention_rank_head=flash_rank, decode_attention_one_kv_head=decode_one,
+        decode_attention_straddle=decode_straddle,
+        tolerance={"row_ulps": TP_WHOLE_ROW_ULPS, "of": "each row's largest |output|",
+                   "plus": 1e-5, "flash": "the bf16 flash bound of the plain version",
+                   "decode": "one bf16 ulp + 2e-5"},
+        phase_s=time.perf_counter() - t_phase)
+    _emit(out)
+    for name, gap in blockwise.items():
+        _require(gap["max_err_in_row_ulps"] <= TP_WHOLE_ROW_ULPS,
+                 f"tp_whole: the {name} rank parts against the layer: {gap}")
+    _require(kv_whole, "tp_whole: a rank's k and v differ from the layer's")
+    _require(same_cache, "tp_whole: the whole cache the ranks write differs from the layer's")
+    _require(views, "tp_whole: a decode call read a copy of the cache, not a view")
+    _require(launches == want_launches,
+             f"tp_whole: launches {launches}, expected {want_launches}")
     return out
 
 
@@ -5107,21 +5357,22 @@ def _by_batch(fn, q, k, v, **kw):
     return torch.cat([fn(q[b:b + 1], k[b:b + 1], v[b:b + 1], **kw) for b in range(q.shape[0])])
 
 
-def _flash_bf16_check(got, q, k, v, causal, fref, what, window=None):
-    """The bf16 flash kernel against the plain version and the plain tiled
-    version: |got - want| <= 2**-7 * attn(q, k, |v|) + one bf16 ulp of the
-    larger magnitude + 2e-5, elementwise. Returns, for each, max |d|, the
-    largest share of the bound, and the count of elements and the largest
-    number of bf16 ulps by which |d| - 2e-5 exceeds two ulps (a tighter,
-    ulp-only bound would fail there)."""
+def _flash_bf16_check(got, q, k, v, causal, fref, what, window=None, tiled=True):
+    """The bf16 flash kernel against the plain version and (``tiled``) the
+    plain tiled version: |got - want| <= 2**-7 * attn(q, k, |v|) + one bf16
+    ulp of the larger magnitude + 2e-5, elementwise. Returns, for each, max
+    |d|, the largest share of the bound, and the count of elements and the
+    largest number of bf16 ulps by which |d| - 2e-5 exceeds two ulps (a
+    tighter, ulp-only bound would fail there)."""
     import torch
 
     g = got.float()
     attn_abs = _by_batch(fref.flash_attention_ref, q.float(), k.float(), v.float().abs(),
                          causal=causal, window=window)
     out = {}
-    for name, plain in (("plain", fref.flash_attention_ref),
-                        ("tiled", fref.flash_attention_tiled_ref)):
+    versions = (("plain", fref.flash_attention_ref),
+                ("tiled", fref.flash_attention_tiled_ref))[:2 if tiled else 1]
+    for name, plain in versions:
         w = _by_batch(plain, q, k, v, causal=causal, window=window).float()
         ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
         d = (g - w).abs()
@@ -5544,16 +5795,28 @@ def _flash_bf16_check_offset(got, q, k, v, fref, q_offset, what, window=None):
 
 def _flash_timing(fops, fref, shape, window=None, causal=True):
     """The bf16 flash kernel at a served shape ((B, H, KV, S, D), or (B, H,
-    KV, Sq, Sk, D) for cross-attention), causal, over a sliding ``window``
-    or, with ``causal`` False, over every key: device and call times, the
-    plain version's time, SDPA's (causal, with the window's boolean mask,
-    or unmasked; GQA) and the bound, whose products count the (query, key)
-    pairs the mask keeps and whose bytes are q, k, v and o once."""
+    KV, Sq, Sk, D) for cross-attention): ``_flash_times`` on inputs drawn
+    from a seed."""
     import torch
-    import torch.nn.functional as F
 
     B, H, KV, Sq, Sk, D = _flash_dims(shape)
     q, k, v = _attn_inputs(B, H, KV, Sq, D, dtype=torch.bfloat16, seed=0, Sk=Sk)
+    return _flash_times(fops, fref, q, k, v, window, causal)
+
+
+def _flash_times(fops, fref, q, k, v, window=None, causal=True):
+    """The bf16 flash kernel on q (B, H, Sq, D) and k, v (B, KV, Sk, D),
+    causal, over a sliding ``window`` or, with ``causal`` False, over every
+    key: device and call times, the plain version's time, SDPA's (causal,
+    with the window's boolean mask, or unmasked; GQA) and the bound, whose
+    products count the (query, key) pairs the mask keeps and whose bytes
+    are q, k, v and o once."""
+    import torch
+    import torch.nn.functional as F
+
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    shape = (B, H, KV, Sq, D) if Sq == Sk else (B, H, KV, Sq, Sk, D)
     if not causal:
         pairs = Sq * Sk
         lib = _device_ms(lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True), 5, 3)
@@ -5971,6 +6234,8 @@ def main() -> int:
     _memory("ssm_tp")
     whisper_tp = phase_whisper_tp(tr, dops, dref, fops)
     _memory("whisper_tp")
+    tp_whole = phase_tp_whole(tr, dops, dref, fops, fref)
+    _memory("tp_whole")
     torch.distributed.destroy_process_group()  # the smoke mesh's one-process group
     served = {}
     for name, spec, n_params, bounds, kw in SERVE_PHASES:
@@ -6056,7 +6321,14 @@ def main() -> int:
           **other_shapes("flash_attention", "flash_attention"),
           # at the long_500k prefill's shapes (long_gemma3): launches by mask
           **{f"{name}_{kind}": {"path": name, **fk}
-             for name, o in longs.items() for kind, fk in o.get("flash_kernel", {}).items()}}),
+             for name, o in longs.items() for kind, fk in o.get("flash_kernel", {}).items()},
+          # a rank's query head over a whole 4,100-row prompt (tp_whole)
+          "tp_whole_rank_head": {
+              "path": "tp_whole", "launches": tp_whole["launches_by_form"][
+                  "flash_attention_rank_head"],
+              "largest_share_of_bf16_bound":
+                  tp_whole["calls_vs_plain"]["flash_largest_share_of_bound"],
+              **tp_whole["flash_attention_rank_head"]}}),
         # decode: its float32 cases (the bf16 ones within one bf16 ulp)
         ("decode_attention", "decode_attention/csrc/decode_attention.cu",
          "kernels/decode_attention/decode_attention.py:67", served["serve"],
@@ -6070,7 +6342,14 @@ def main() -> int:
                     **{k: o["decode_kernel"][k] for k in ("shape", "ms", "call_ms", "plain_ms",
                                                           "bound_ms", "bound_by", "library_ms",
                                                           "share_of_bound")}}
-             for name, o in longs.items() if "decode_kernel" in o}}),
+             for name, o in longs.items() if "decode_kernel" in o},
+          # a rank's query heads over one kv head's strided slice of a whole
+          # 4,104-slot cache, and straddled heads (tp_whole)
+          **{f"tp_whole_{form}": {
+              "path": "tp_whole", "launches": tp_whole["launches_by_form"][
+                  f"decode_attention_{form}"],
+              "largest_max_abs_err": tp_whole["calls_vs_plain"]["decode_largest_max_abs_err"],
+              **tp_whole[f"decode_attention_{form}"]} for form in ("one_kv_head", "straddle")}}),
     ]
     # the forms of a "model" axis above 1 (tp_kernels: their launches are that
     # phase's, as the model-axis-1 paths above take neither)

@@ -228,23 +228,20 @@ def _kv_seq_entries(cache_axes, cache_sh) -> set:
     return out
 
 
-def _cache_group(cache_axes, cache_sh, mesh):
+def _cache_group(cache_axes, cache_sh, mesh) -> tuple:
     """A decode step's context-parallel group: the mesh axes over which its
-    cache specs split every cache's slots (``kv_seq``: "model", or
-    ("data", "model") under the long-context rules; () where no cache
-    splits them: where the batch takes "data", or the slots do not divide,
-    the reference's specs keep the slots whole on every rank, each rank
-    holding its kv heads or all of them). Returns (axes, error): ``error``
-    the ValueError's message for caches that split their slots over
-    different axes (a full cache whose slots divide the group beside a ring
-    whose slots do not), which a decode step raises before it runs rather
-    than read whole caches as shares. Size-1 axes count as none."""
+    cache specs split the slots of the caches that split them (``kv_seq``:
+    "model", or ("data", "model") under the long-context rules; () where
+    none does). A cache whose slots do not divide the group (a window's
+    ring beside a full cache whose slots do, or the reverse), or whose
+    batch takes "data", stays whole over its slots, as the reference's
+    specs keep it: each rank holds its kv heads or all of them, and that
+    layer decodes in its own layout (``TransformerLM.decode_step``, from
+    the batch's ``cache_len``). The rules give ``kv_seq`` one set of axes,
+    so at most one group is not empty. Size-1 axes count as none."""
     entries = {tuple(a for a in e if mesh_axis_size(mesh, a) > 1)
                for e in _kv_seq_entries(cache_axes, cache_sh)}
-    if len(entries) > 1:
-        return (), (f"a cache does not split its slots over the axes the others do "
-                    f"({sorted(entries)}): its slots must be a multiple of their size")
-    return (entries.pop() if entries else ()), None
+    return next(iter(entries - {()}), ())
 
 
 def _relayout_cache(cache, cache_axes, have, want, mesh):
@@ -417,11 +414,12 @@ def build_decode_step(model, mesh, shape: ShapeSpec, extra_rules: Optional[dict]
     next call. The cache's ``arg_shapes`` are this rank's: its batch rows
     and, where the step's context-parallel group (the axes of ``kv_seq``:
     "model", or ("data", "model") past 100,000 slots) is above 1, its share
-    of the slots; there ``graph`` raises. A whisper model's caches follow
-    their specs one by one (split where their slots divide the group),
-    and its step takes the whole caches' sizes as the batch's host ints
-    ``cache_len`` and ``enc_len`` (by default the shape's ``seq_len``, as
-    the declared cache)."""
+    of the slots; there ``graph`` raises. The caches follow their specs one
+    by one (split where their slots divide the group, else by kv heads or
+    whole), and on a "model" axis or group above 1 the step takes the whole
+    caches' sizes as the batch's host ints ``cache_len`` (and whisper's
+    ``enc_len``), by default the shape's ``seq_len``, as the declared
+    cache."""
     cfg = model.cfg
     long_context = shape.seq_len > 100_000
     rules = _rules(mesh, cfg, "decode", long_context, extra_rules)
@@ -431,7 +429,7 @@ def build_decode_step(model, mesh, shape: ShapeSpec, extra_rules: Optional[dict]
     cache_sh = tree_shardings(cache_axes, cache_shapes, mesh, rules)
     whisper = isinstance(model, WhisperModel)
     # whisper's caches take their layouts one by one (models/whisper.py)
-    cp_axes, split_error = ((), None) if whisper else _cache_group(cache_axes, cache_sh, mesh)
+    cp_axes = () if whisper else _cache_group(cache_axes, cache_sh, mesh)
     cp_size = mesh_axis_size(mesh, cp_axes) if cp_axes else 1
     if graph and (model_size(mesh) > 1 or cp_size > 1):
         raise NotImplementedError(
@@ -453,11 +451,10 @@ def build_decode_step(model, mesh, shape: ShapeSpec, extra_rules: Optional[dict]
 
     def decode_step(cache, batch):
         _check_tp(model, mesh)
-        if split_error is not None:
-            raise ValueError(split_error)
         local = shard_batch(batch, batch_sh, mesh)
-        if whisper and model_size(mesh) > 1:
-            local = {"cache_len": shape.seq_len, "enc_len": shape.seq_len, **local}
+        if model_size(mesh) > 1 or cp_size > 1:  # the whole caches' slots: each layer's layout
+            local = {"cache_len": shape.seq_len, **({"enc_len": shape.seq_len} if whisper else {}),
+                     **local}
         if not graph:
             with context():
                 return model.decode_step(cache, local)

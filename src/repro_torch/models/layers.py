@@ -65,6 +65,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import sharding_hooks
 from repro_torch.models.param_defs import ParamDef
 from repro_torch.models.sharding_hooks import shard_act
+from repro_torch.tree import tree_map
 
 # ---------------------------------------------------------------------------
 # norms
@@ -494,6 +495,7 @@ def decode_attention(
     x: torch.Tensor,                  # (B, 1, D) the new token
     cache: Dict[str, torch.Tensor],   # k, v (B, T, KV, hd)
     pos: torch.Tensor,                # () int32 on x's device: tokens already cached
+    slots: Optional[int] = None,      # the whole cache's slots (None: in the step's layout)
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One new token against the KV cache. Unlike the reference, which
     returns a new cache, this writes the token's k and v into ``cache`` IN
@@ -507,37 +509,67 @@ def decode_attention(
     positions advance together). Under a decode step whose context-parallel
     group is above 1 (``sharding_hooks.context_parallel``: "model", or
     ("data", "model") under the long-context rules) the cache is that
-    rank's share of the slots (``_decode_attention_cp``)."""
+    rank's share of the slots (``_decode_attention_cp``), unless ``slots``,
+    the whole cache's, says that the rank holds all of them (a cache whose
+    slots do not divide the group, beside others that do: each layer
+    decodes in its own layout, ``decode_attention_local``)."""
     _check_spec(s)
     cp = sharding_hooks.context_parallel()
-    if cp is not None:
+    if cp is not None and (slots is None or cache["k"].shape[1] < slots):
         return _decode_attention_cp(params, s, x, cache, pos,
                                     sharding_hooks.tensor_parallel(), cp)
     return decode_attention_local(params, s, x, cache, pos)
 
 
-def decode_attention_local(params, s: AttnSpec, x, cache, pos):
+def decode_attention_local(params, s: AttnSpec, x, cache, pos, tp=None):
     """``decode_attention`` over a cache that this rank holds whole over
-    its slots, on the heads its weights hold: all of them, or on a
-    tensor-parallel mesh its own, over its own kv heads' cache or a whole
-    cache of one kv head (where the reference's specs keep the slots
-    whole: the step's batch takes "data", or the slots do not divide)."""
+    its slots (where the reference's specs keep them whole: the step's
+    batch takes "data", or the slots do not divide the axis), on the heads
+    its weights hold: all of them; or, on a tensor-parallel mesh (``tp``,
+    by default the step's "model" axis), its own, over its own kv heads'
+    cache (the kv heads split too) or over the kv heads they read of a
+    whole cache (``_whole_cache_heads``)."""
     q, k_new, v_new = _proj_qkv(params, s, x)
     q, k_new = _rope_qk(s, q, k_new, _decode_positions(s, pos, x.shape[0]))
     kc, vc = cache["k"], cache["v"]
-    n_rep = s.n_heads // s.kv_heads
-    if q.shape[2] != kc.shape[2] * n_rep and kc.shape[2] != 1:
-        raise NotImplementedError(
-            f"a decode of {q.shape[2]} query heads over a cache of {kc.shape[2]} kv heads "
-            f"(of {s.kv_heads}, {n_rep} query heads each): the rank's query heads straddle "
-            f"the whole cache's kv heads, which is not ported")
     if kc.dtype != q.dtype:
         raise ValueError(f"cache dtype {kc.dtype} != activation dtype {q.dtype}")
     slot = (pos % kc.shape[1] if s.window is not None else pos).reshape(1).long()
     kc.index_copy_(1, slot, k_new)
     vc.index_copy_(1, slot, v_new)
-    out = decode_ops.decode(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), pos)  # (B, H, hd)
+    Hl, KVc = q.shape[2], kc.shape[2]
+    if Hl == KVc * (s.n_heads // s.kv_heads) or KVc == 1:
+        out = decode_ops.decode(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), pos)  # (B, H, hd)
+    else:
+        out = _whole_cache_heads(q[:, 0], kc, vc, pos, s, tp or sharding_hooks.tensor_parallel())
     return _out_proj(out[:, None], params["wo"]), cache
+
+
+def whole_cache_groups(h0: int, Hl: int, n_rep: int):
+    """The kv heads that query heads h0..h0+Hl-1 read (kv head h // n_rep),
+    each with the slice of those query heads that read it: [(kv head,
+    slice of the Hl heads)], in head order. One entry where all of them
+    fall in one kv head; where they straddle kv heads, one per kv head
+    touched."""
+    out = []
+    for g in range(h0 // n_rep, (h0 + Hl - 1) // n_rep + 1):
+        lo, hi = max(h0, g * n_rep), min(h0 + Hl, (g + 1) * n_rep)
+        out.append((g, slice(lo - h0, hi - h0)))
+    return out
+
+
+def _whole_cache_heads(q, kc, vc, pos, s: AttnSpec, tp):
+    """A rank's query heads q (B, Hl, hd) (heads tp.rank Hl.. of
+    ``s.n_heads``) over a whole cache kc, vc (B, T, KV, hd) of several kv
+    heads: one decode call per kv head they read (``whole_cache_groups``),
+    on that kv head's slice of the cache, a strided view (no copy), its
+    GQA group the rank's heads that read it; the outputs concatenated in
+    head order (B, Hl, hd)."""
+    Hl = q.shape[1]
+    outs = [decode_ops.decode(q[:, hs], kc[:, :, g:g + 1].transpose(1, 2),
+                              vc[:, :, g:g + 1].transpose(1, 2), pos)
+            for g, hs in whole_cache_groups(tp.rank * Hl, Hl, s.n_heads // s.kv_heads)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def _owned_slot(pos: torch.Tensor, T: int, cp, ring: bool):
@@ -681,7 +713,17 @@ def prefill_mla(params, s: MLASpec, x: torch.Tensor, positions: torch.Tensor):
     where they are whole (sequence-parallel) x is the rank's rows at
     ``positions``, the latent and k_rope are gathered over the sequence and
     the causal mask sits at the rows' offset."""
-    tp = sharding_hooks.tensor_parallel()
+    return _prefill_mla(params, s, x, positions, sharding_hooks.tensor_parallel())
+
+
+def prefill_mla_whole(params, s: MLASpec, x: torch.Tensor, positions: torch.Tensor):
+    """``prefill_mla`` over every row of x and every head the weights hold,
+    whatever the mesh: a tensor-parallel rank's where the rows do not split
+    (nothing gathered)."""
+    return _prefill_mla(params, s, x, positions, None)
+
+
+def _prefill_mla(params, s: MLASpec, x, positions, tp):
     with _span("mla"):
         Sl, offset = x.shape[1], 0
         q_nope, q_rope = _mla_q(params, s, x, positions)
@@ -737,16 +779,19 @@ def mla_heads_out(params, o_lat: torch.Tensor) -> torch.Tensor:
     return _out_proj(out, params["wo"])
 
 
-def decode_mla(params, s: MLASpec, x, cache, pos):
+def decode_mla(params, s: MLASpec, x, cache, pos, slots: Optional[int] = None):
     """Absorbed-form MLA decode: the query is taken into the latent space
     (q_nope wuk) and scored against the latent cache directly, a step
     costing O(T (kv_lora + qk_rope) H) instead of re-expanding K and V.
     As ``decode_attention``, the token's latent and k_rope are written into
     ``cache`` IN PLACE at slot ``pos`` (a 0-d device tensor: no host sync).
     Under a decode step whose context-parallel group is above 1 the cache
-    is that rank's share of the slots (``_decode_mla_cp``)."""
+    is that rank's share of the slots (``_decode_mla_cp``), unless
+    ``slots``, the whole cache's, says that the rank holds all of them;
+    then, as on one process, on the heads the weights hold (a rank's: a
+    part the caller sums over "model")."""
     cp = sharding_hooks.context_parallel()
-    if cp is not None:
+    if cp is not None and (slots is None or cache["latent"].shape[1] < slots):
         return _decode_mla_cp(params, s, x, cache, pos, sharding_hooks.tensor_parallel(), cp)
     with _span("mla"):
         q_lat, q_rope, latent_new, k_rope_new = mla_decode_inputs(params, s, x, pos)
@@ -1143,7 +1188,10 @@ def _apply_moe_tp(params, s: MoESpec, x: torch.Tensor, ctx, tp, with_lb: bool,
     split over the axis) is gathered first, so every rank routes alike;
     the load-balance loss, alike on every rank, counts once in the
     gradients (``once_over_model``), then takes its mean over the data
-    ranks."""
+    ranks. Without ``seq_split`` (a decode token, or a sequence that does
+    not split over the axis) x, the same on every rank, enters the ranks'
+    parts by ``to_parts``, and where every rank computes the whole block
+    alike its leaves count once."""
     mesh, rules = ctx
     B, S, D = x.shape
     mode = moe_mode(s, rules, tp.size)
@@ -1153,7 +1201,13 @@ def _apply_moe_tp(params, s: MoESpec, x: torch.Tensor, ctx, tp, with_lb: bool,
     if p["router"].shape[1] < s.num_experts:
         p["router"] = sharding_hooks.gather_seq(p["router"], tp, dim=1)
     split_shared = s.num_shared > 0 and p["shared"]["wu"].shape[1] < s.d_shared
-    if mode == "replicated" and not split_shared:
+    alike = mode == "replicated" and not split_shared
+    if not seq_split and torch.is_grad_enabled():  # training on a sequence that does not split
+        if alike:
+            p = tree_map(lambda t: sharding_hooks.once_over_model(t, tp), p)
+        else:
+            x = sharding_hooks.to_parts(x, tp)
+    if alike:
         y, lb, _ = _moe_routed(p, s, x.reshape(1, B * S, D), C, f32_combine=True,
                                with_lb=with_lb)
         y = y.reshape(B, S, D)

@@ -354,6 +354,56 @@ def once_over_model(x: torch.Tensor, tp: TP) -> torch.Tensor:
     return _OnceOverModel.apply(x, tp)
 
 
+def cache_layout(T: int, kv_heads: Optional[int], M: int) -> str:
+    """Where a cache leaf of whole length T lies over a model axis of M, as
+    the reference's ``spec_for_leaf`` gives its ("batch", "kv_seq",
+    "kv_heads", None) axes (("batch", "kv_seq", None) for MLA's latent and
+    rope key: ``kv_heads`` None): "slots" (each rank T / M of them) where T
+    divides M, else "heads" (each rank its kv heads) where they do, else
+    "whole" on every rank."""
+    if T % M == 0:
+        return "slots"
+    return "heads" if kv_heads is not None and kv_heads % M == 0 else "whole"
+
+
+def cut_cache(t: torch.Tensor, layout: str, tp: TP) -> torch.Tensor:
+    """This rank's share of a whole cache leaf (B, T, ...) in ``layout``:
+    its slots (dim 1), its kv heads (dim 2), or all of it."""
+    if layout == "whole":
+        return t
+    d = 1 if layout == "slots" else 2
+    n = t.shape[d] // tp.size
+    return t.narrow(d, tp.rank * n, n).clone()
+
+
+def reduce_parts(y: torch.Tensor, rows, tp: TP) -> torch.Tensor:
+    """A row-parallel part (its heads' or ffn columns' share of an output
+    projection) summed over "model" in float32 and cast once: into the
+    rank's ``rows`` (a reduce-scatter), or whole (an all-reduce) where the
+    sequence does not split (``rows`` None)."""
+    out = (scatter_seq if rows is not None else sum_model)(y.float(), tp)
+    return out.to(y.dtype)
+
+
+def whole_in(h: torch.Tensor, rows, tp: TP) -> torch.Tensor:
+    """A block's input whole over the sequence, for the rank's part of its
+    heads or ffn columns: gathered where the rows split, else every rank's
+    own copy entering the parts (``to_parts``)."""
+    return gather_seq(h, tp) if rows is not None else to_parts(h, tp)
+
+
+def once_whole(tree, defs, tp: TP):
+    """The leaves of ``tree`` that "model" does not split (the shapes of
+    their ``defs``, a tree of ``ParamDef``s or tensors), each marked so that
+    only the axis's rank 0 keeps its gradient (``once_over_model``): for a
+    block that every rank computes alike on a sequence that does not split,
+    whose replicated leaves the train step's all-reduce over "model" would
+    otherwise count M times."""
+    if isinstance(tree, dict):
+        return {k: once_whole(tree[k], defs[k], tp) for k in tree}
+    return once_over_model(tree, tp) if tuple(tree.shape) == tuple(defs.shape) else tree
+
+
 def gather_stored(tree):
     """``tree`` with each leaf that the train step stores as its "data"
     shard (``stored_params``) all-gathered whole over "data" (its gradient

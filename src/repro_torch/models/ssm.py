@@ -57,6 +57,7 @@ from repro_torch.kernels.linear_scan import ref as scan_ref
 from repro_torch.models import sharding_hooks as SH
 from repro_torch.models.layers import _span, init_rmsnorm, rms_norm
 from repro_torch.models.param_defs import ParamDef
+from repro_torch.tree import tree_map
 
 # ---------------------------------------------------------------------------
 # Mamba2 (SSD: the state-space duality chunked algorithm)
@@ -549,6 +550,25 @@ def _rows(t: torch.Tensor, tp) -> torch.Tensor:
     return t[:, tp.rank * Sl:(tp.rank + 1) * Sl]
 
 
+def _whole_rows(y: torch.Tensor, partial: bool, tp) -> torch.Tensor:
+    """A block's output of every row, where the sequence does not split
+    over the axis: a part summed over "model" in float32, then cast; else
+    the output every rank computed alike."""
+    return SH.sum_model(y.float(), tp).to(y.dtype) if partial else y
+
+
+def _inputs_whole(params, x, parts: bool, tp):
+    """A block's leaves and input x on a sequence that does not split over
+    the axis, in training: x entering the ranks' ``parts`` of the output
+    (``SH.to_parts``), or, where every rank computes the block alike, every
+    leaf counting once in the gradients (``SH.once_over_model``)."""
+    if not torch.is_grad_enabled():
+        return params, x
+    if parts:
+        return params, SH.to_parts(x, tp)
+    return tree_map(lambda t: SH.once_over_model(t, tp), params), x
+
+
 def mamba2_norm_out(scale: torch.Tensor, w_out: torch.Tensor, g: torch.Tensor, ss: torch.Tensor,
                     width: int, dtype) -> torch.Tensor:
     """The gated RMS norm and the output projection of the columns ``g`` of
@@ -586,7 +606,8 @@ def _mamba2_out(params, s: Mamba2Spec, g, tp, dtype):
     return mamba2_norm_out(scale, params["w_out"], g, ss, di, dtype), wl < di
 
 
-def apply_mamba2_tp(params, s: Mamba2Spec, x: torch.Tensor, tp, with_cache: bool = False):
+def apply_mamba2_tp(params, s: Mamba2Spec, x: torch.Tensor, tp, with_cache: bool = False,
+                    whole: bool = False):
     """Mamba2 on a "model" axis above 1, differentiable: x (B, T, D) whole
     over the sequence on every rank. ``w_in`` is gathered whole (its
     columns split without regard to heads; the weight, 2 d_model N bytes,
@@ -598,13 +619,19 @@ def apply_mamba2_tp(params, s: Mamba2Spec, x: torch.Tensor, tp, with_cache: bool
     ``moe_rank_partial``'s are, one rounding after the sum. Returns (y
     (B, T/M, D), and with ``with_cache`` the final state of the rank's
     heads (B, Hl, N, P) and the convolution history (B, d_conv - 1,
-    conv_dim), whole on every rank)."""
+    conv_dim), whole on every rank). With ``whole`` (a sequence that does
+    not split over the axis) y is every row (B, T, D) (``_whole_rows``)."""
     N = 2 * s.d_inner + 2 * s.d_state + s.n_heads
     p = dict(_tree(params), w_in=_whole(params["w_in"], 1, N, tp))
     h0, Hl = _mamba2_layout(s, tp)
+    if whole:
+        p, x = _inputs_whole(p, x, params["w_out"].shape[0] < s.d_inner, tp)
     g, final, _ = mamba2_heads(p, s, x, h0, Hl)
     y, partial = _mamba2_out(p, s, g, tp, x.dtype)
-    y = SH.scatter_seq(y.float(), tp).to(x.dtype) if partial else _rows(y, tp)
+    if whole:
+        y = _whole_rows(y, partial, tp)
+    else:
+        y = SH.scatter_seq(y.float(), tp).to(x.dtype) if partial else _rows(y, tp)
     if not with_cache:
         return y
     conv_dim = s.d_inner + 2 * s.d_state
@@ -656,7 +683,8 @@ def _rwkv6_whole(params, s: RWKV6Spec, tp):
                 **{k: _whole(params[k], 1, D, tp) for k in ("wr", "wk", "wv", "wg", "w2")})
 
 
-def apply_rwkv6_time_tp(params, s: RWKV6Spec, x: torch.Tensor, tp, train: bool = False):
+def apply_rwkv6_time_tp(params, s: RWKV6Spec, x: torch.Tensor, tp, train: bool = False,
+                        whole: bool = False):
     """The time mix on a "model" axis above 1: x (B, T, D) whole over the
     sequence on every rank. Where the heads divide the axis, the rank's
     heads (``rwkv6_time_heads``; the prefill's scan kernel at (B, T, H/M,
@@ -666,16 +694,25 @@ def apply_rwkv6_time_tp(params, s: RWKV6Spec, x: torch.Tensor, tp, train: bool =
     split dim, so no reduce-scatter of a sum applies). Otherwise the leaves
     gathered whole and the block run whole, the rank's rows kept. Returns
     (y (B, T/M, D), the final state of the rank's heads (every head where
-    they do not divide), None in ``train``)."""
+    they do not divide), None in ``train``). With ``whole`` (a sequence
+    that does not split over the axis) y is every row: the ranks' columns
+    gathered (``SH.gather_alike``), or the block's own output."""
     if s.n_heads % tp.size:
         p = _rwkv6_whole(params, s, tp)
+        if whole:
+            p, x = _inputs_whole(p, x, False, tp)
+        keep = (lambda y: y) if whole else (lambda y: _rows(y, tp))
         if train:
-            return _rows(train_rwkv6_time(p, s, x), tp), None
+            return keep(train_rwkv6_time(p, s, x)), None
         y, final, _ = apply_rwkv6_time(p, s, x)
-        return _rows(y, tp), final
+        return keep(y), final
+    if whole:
+        params, x = _inputs_whole(params, x, True, tp)
     p = rwkv6_rank_params(params, tp)
     yg, final = rwkv6_time_heads(p, s, x, _token_shift(x), train=train)
     y = rwkv6_time_out(p, yg, SH.sum_parts(sum_squares(yg), tp), s.d_model)
+    if whole:
+        return SH.gather_alike(y, tp, y.dim() - 1), final
     return SH.cols_to_rows(y, tp), final
 
 
@@ -693,7 +730,8 @@ def decode_rwkv6_time_tp(params, s: RWKV6Spec, x, state, x_prev, tp) -> torch.Te
     return SH.gather_model(y, tp, y.dim() - 1)
 
 
-def apply_rwkv6_channel_tp(params, d_ff: int, x: torch.Tensor, tp, x_prev=None):
+def apply_rwkv6_channel_tp(params, d_ff: int, x: torch.Tensor, tp, x_prev=None,
+                           whole: bool = False):
     """The channel mix on a "model" axis above 1: x (B, T, D) whole over the
     sequence on every rank (its token shift reads the row before each
     rank's first). Where ``wk`` and ``wv`` are split, the rank's part is
@@ -701,12 +739,26 @@ def apply_rwkv6_channel_tp(params, d_ff: int, x: torch.Tensor, tp, x_prev=None):
     over the axis), in float32 and then cast, as ``apply_mamba2_tp``'s;
     else the whole value path, the rank's rows kept. The
     gate on the rank's rows (``wr`` replicated). Returns the rank's rows
-    (B, T/M, D), or in decode the token's whole row."""
+    (B, T/M, D), or in decode the token's whole row. With ``whole`` (a
+    sequence that does not split over the axis) every row: the value path's
+    parts summed over the axis (x entering them by ``SH.to_parts``), the
+    gate, which every rank computes alike, counting ``mu_r`` and ``wr``
+    once in the gradients."""
     xs = _token_shift(x, x_prev)
-    kv = rwkv6_channel_part(params, x, xs)
     split = params["wk"].shape[1] < d_ff
     if x_prev is not None:
+        kv = rwkv6_channel_part(params, x, xs)
         return rwkv6_channel_gate(params, x, xs,
                                   SH.sum_model(kv.float(), tp).to(x.dtype) if split else kv)
+    if whole:
+        gate, _ = _inputs_whole({k: params[k] for k in ("mu_r", "wr")}, x, False, tp)
+        if split:
+            _, xp = _inputs_whole(params, x, True, tp)
+            kv = _whole_rows(rwkv6_channel_part(params, xp, _token_shift(xp)), True, tp)
+        else:
+            value, _ = _inputs_whole(params, x, False, tp)
+            kv = rwkv6_channel_part(value, x, xs)
+        return rwkv6_channel_gate(gate, x, xs, kv)
+    kv = rwkv6_channel_part(params, x, xs)
     kv = SH.scatter_seq(kv.float(), tp).to(x.dtype) if split else _rows(kv, tp)
     return rwkv6_channel_gate(params, _rows(x, tp), _rows(xs, tp), kv)

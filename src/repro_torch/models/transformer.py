@@ -266,20 +266,19 @@ def seq_rows(S: int, tp) -> Optional[slice]:
 
 
 def _tp_ctx(ctx: dict, S: int) -> dict:
-    """Add the active "model" axis to a pass's ctx, with the rank's rows'
-    positions (and M-RoPE's positions3); a sequence that does not split
-    over it raises (the decoder-only families; whisper runs such a
-    sequence whole on every rank, ``seq_rows``: ROADMAP.md queue 1)."""
+    """Add the active "model" axis to a pass's ctx, with the rank's rows
+    (``rows``: ``seq_rows``) and their positions (and M-RoPE's
+    positions3). A sequence that does not split over the axis is whole on
+    every rank, as the reference's specs leave it: ``rows`` None, the
+    "local" positions all of them."""
     tp = SH.tensor_parallel()
     if tp is None:
         return ctx
-    if S % tp.size:
-        raise ValueError(f"a sequence of {S} does not split over a model axis of {tp.size}")
-    Sl = S // tp.size
-    rows = slice(tp.rank * Sl, (tp.rank + 1) * Sl)
-    out = dict(ctx, tp=tp, positions_local=ctx["positions"][:, rows])
+    rows = seq_rows(S, tp)
+    sl = slice(None) if rows is None else rows
+    out = dict(ctx, tp=tp, rows=rows, positions_local=ctx["positions"][:, sl])
     if "positions3" in ctx:
-        out["positions3_local"] = ctx["positions3"][:, :, rows]
+        out["positions3_local"] = ctx["positions3"][:, :, sl]
     return out
 
 
@@ -290,8 +289,10 @@ def apply_block_train(b: BlockSpec, p, x, ctx: dict):
     axis above 1 (``_gatherable``), and reduce-scatters its row-parallel
     output back; otherwise the block runs on the rank's rows, its
     attention sequence-parallel. On a model axis of 1 neither happens."""
-    h = _norm_apply(b.norm, p["norm"], x)
     tp = ctx.get("tp")
+    if tp is not None and ctx["rows"] is None:
+        return _apply_block_train_whole(b, p, x, ctx, tp)
+    h = _norm_apply(b.norm, p["norm"], x)
     gather = tp is not None and _gatherable(b, tp.size)
     if gather:
         h = SH.gather_seq(h, tp)
@@ -322,6 +323,52 @@ def apply_block_train(b: BlockSpec, p, x, ctx: dict):
     return shard_act(x + y, ("batch", "act_seq", "embed")), aux
 
 
+def _apply_block_train_whole(b: BlockSpec, p, x, ctx: dict, tp):
+    """``apply_block_train`` on a sequence that does not split over the
+    model axis: x whole on every rank. A block whose heads or ffn divide
+    the axis (``_gatherable``; the MoE and recurrent blocks too) takes its
+    normed input by ``SH.to_parts`` and runs on the rank's heads or
+    columns, its row-parallel part all-reduced in float32 and cast once
+    (``SH.reduce_parts``; the MoE and recurrent blocks sum or gather their
+    own); the others run on every row alike. What every rank computes alike
+    counts once in the gradients (``SH.once_whole``): the norm, and every
+    leaf of a block that runs alike."""
+    gather = _gatherable(b, tp.size)
+    defs = block_defs(b, x.shape[-1])
+    if gather:
+        p = dict(p, norm=SH.once_whole(p["norm"], defs["norm"], tp))
+    else:
+        p = SH.once_whole(p, defs, tp)
+    h = _norm_apply(b.norm, p["norm"], x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    pos = _attn_positions(b, ctx) if b.kind in ("attn", "mla") else None
+    if b.kind == "moe":
+        y, moe_aux = L.apply_moe(p["moe"], b.moe, h, seq_split=False)
+        aux = moe_aux["lb_loss"]
+    elif b.kind == "mamba2":
+        y = S.apply_mamba2_tp(p["mamba"], b.mamba, h, tp, whole=True)
+    elif b.kind == "rwkv6_time":
+        y = S.apply_rwkv6_time_tp(p["rwkv"], b.rwkv, h, tp, train=True, whole=True)[0]
+    elif b.kind == "rwkv6_channel":
+        y = S.apply_rwkv6_channel_tp(p["rwkv_ffn"], b.rwkv_ffn, h, tp, whole=True)
+    elif gather:
+        h = SH.to_parts(h, tp)
+        if b.kind == "attn":
+            y = L.apply_attention(p["attn"], b.attn, h, pos)
+        elif b.kind == "mla":
+            y = L.apply_mla(p["mla"], b.mla, h, pos)
+        else:
+            y = L.apply_mlp(p["mlp"], b.mlp, h)
+        y = SH.reduce_parts(y, None, tp)
+    elif b.kind == "attn":
+        y = L.attention_whole(p["attn"], b.attn, h, pos)
+    elif b.kind == "mla":
+        y = L.prefill_mla_whole(p["mla"], b.mla, h, pos)[0]
+    else:
+        y = L.apply_mlp(p["mlp"], b.mlp, h)
+    return x + y, aux
+
+
 def block_cache_defs(b: BlockSpec, batch: int, seq_len: int, dtype) -> Optional[Dict[str, Any]]:
     if b.kind == "attn":
         return L.init_attn_cache(b.attn, batch, seq_len, dtype)
@@ -343,45 +390,52 @@ def block_cache_defs(b: BlockSpec, batch: int, seq_len: int, dtype) -> Optional[
 
 def _apply_block_prefill_tp(b: BlockSpec, p, x, ctx, tp):
     """``apply_block_prefill`` on a tensor-parallel mesh: the layout of
-    ``apply_block_train``; an attention or MLA block's cache in the decode
-    layout, the rank's slots of the whole cache (a sliding-window layer's:
-    of its ring, filled first); a recurrent block's state that of the
-    rank's heads (every head where they do not divide the axis), its
-    convolution history and last input whole."""
+    ``apply_block_train`` (a sequence that does not split, whole on every
+    rank: ``_apply_block_train_whole``'s). An attention or MLA block's
+    cache takes the decode layout the reference's spec gives each leaf
+    (``SH.cache_layout``): the rank's slots of the whole cache (a
+    sliding-window layer's: of its ring, filled first) where they divide
+    the axis, else its kv heads where those do, else all of it. A
+    recurrent block's state is that of the rank's heads (every head where
+    they do not divide the axis), its convolution history and last input
+    whole."""
+    rows = ctx["rows"]
     h = _norm_apply(b.norm, p["norm"], x)
     gather = _gatherable(b, tp.size)
     if gather:
-        h = SH.gather_seq(h, tp)
-    if b.kind == "moe":  # its input gathered, its output the rank's rows
-        return x + L.apply_moe(p["moe"], b.moe, h, with_lb=False)[0], None
+        h = SH.whole_in(h, rows, tp)
+    whole = rows is None
+    if b.kind == "moe":  # its input whole, its output the rank's rows (or all)
+        return x + L.apply_moe(p["moe"], b.moe, h, with_lb=False, seq_split=not whole)[0], None
     if b.kind == "mamba2":
-        y, final, tail = S.apply_mamba2_tp(p["mamba"], b.mamba, h, tp, with_cache=True)
+        y, final, tail = S.apply_mamba2_tp(p["mamba"], b.mamba, h, tp, with_cache=True,
+                                           whole=whole)
         return x + y, {"conv": tail, "ssm": final.float()}
     if b.kind == "rwkv6_time":
-        y, final = S.apply_rwkv6_time_tp(p["rwkv"], b.rwkv, h, tp)
+        y, final = S.apply_rwkv6_time_tp(p["rwkv"], b.rwkv, h, tp, whole=whole)
         return x + y, {"state": final, "x_prev": h[:, -1:].clone()}
     if b.kind == "rwkv6_channel":
-        y = S.apply_rwkv6_channel_tp(p["rwkv_ffn"], b.rwkv_ffn, h, tp)
+        y = S.apply_rwkv6_channel_tp(p["rwkv_ffn"], b.rwkv_ffn, h, tp, whole=whole)
         return x + y, {"x_prev": h[:, -1:].clone()}
     if b.kind == "mlp":
         y, entry = L.apply_mlp(p["mlp"], b.mlp, h), None
     else:
         pos = _attn_positions(b, ctx, local=not gather)
+        split = gather or not whole  # the layer's own tensor-parallel layout
         if b.kind == "mla":
-            y, latent, k_rope = L.prefill_mla(p["mla"], b.mla, h, pos)
-            whole, T, ring = {"latent": latent, "k_rope": k_rope}, ctx["cache_len"], False
+            y, latent, k_rope = (L.prefill_mla if split else L.prefill_mla_whole)(
+                p["mla"], b.mla, h, pos)
+            cached, kv = {"latent": latent, "k_rope": k_rope}, None
+            T, ring = ctx["cache_len"], False
         else:
-            y, k, v = L.prefill_attention(p["attn"], b.attn, h, pos)
-            whole = {"k": k, "v": v}
+            y, k, v = (L.prefill_attention if split else L.prefill_attention_whole)(
+                p["attn"], b.attn, h, pos)
+            cached, kv = {"k": k, "v": v}, b.attn.kv_heads
             T, ring = L.attn_cache_len(b.attn, ctx["cache_len"]), b.attn.window is not None
-        if T % tp.size:
-            raise ValueError(f"a cache of {T} slots{' (a ring)' if ring else ''} does not "
-                             f"split over a model axis of {tp.size}")
-        Tl = T // tp.size
-        entry = {k: _cache_fill(t, T, ring)[:, tp.rank * Tl:(tp.rank + 1) * Tl].clone()
-                 for k, t in whole.items()}
+        layout = SH.cache_layout(T, kv, tp.size)
+        entry = {k: SH.cut_cache(_cache_fill(t, T, ring), layout, tp) for k, t in cached.items()}
     if gather:
-        y = SH.scatter_seq(y, tp)
+        y = SH.scatter_seq(y, tp) if rows is not None else SH.reduce_parts(y, None, tp)
     return x + y, entry
 
 
@@ -428,12 +482,17 @@ def _cache_fill(t: torch.Tensor, T: int, ring: bool = False) -> torch.Tensor:
     return c
 
 
-def apply_block_decode(b: BlockSpec, p, x, cache, pos):
+def apply_block_decode(b: BlockSpec, p, x, cache, pos, cache_len: Optional[int] = None):
     """One token through a block; attention and RWKV6 caches are updated
     in place. On a tensor-parallel mesh a block with split weights sums its
     row-parallel output over "model" (the MoE block inside ``apply_moe``,
     whose one token a row is whole on every rank; the recurrent blocks
-    inside their ``*_tp`` steps)."""
+    inside their ``*_tp`` steps). ``cache_len``, the whole caches' slots
+    (a full cache's; a window's ring holds min(cache_len, window)), lets an
+    attention or MLA block see whether the rank holds a share of its
+    cache's slots or all of them (``layers.decode_attention``'s ``slots``)."""
+    slots = None if cache_len is None or b.kind not in ("attn", "mla") else (
+        L.attn_cache_len(b.attn, cache_len) if b.kind == "attn" else cache_len)
     tp = SH.tensor_parallel()
     if tp is not None and b.kind in RECURRENT_KINDS:
         h = _norm_apply(b.norm, p["norm"], x)
@@ -451,9 +510,9 @@ def apply_block_decode(b: BlockSpec, p, x, cache, pos):
         if b.kind == "mlp":
             y = L.apply_mlp(p["mlp"], b.mlp, h)
         elif b.kind == "mla":
-            y, cache = L.decode_mla(p["mla"], b.mla, h, cache, pos)
+            y, cache = L.decode_mla(p["mla"], b.mla, h, cache, pos, slots)
         else:
-            y, cache = L.decode_attention(p["attn"], b.attn, h, cache, pos)
+            y, cache = L.decode_attention(p["attn"], b.attn, h, cache, pos, slots)
         return x + SH.sum_model(y, tp), cache
     h = _norm_apply(b.norm, p["norm"], x)
     if b.kind == "mlp":
@@ -461,7 +520,7 @@ def apply_block_decode(b: BlockSpec, p, x, cache, pos):
     if b.kind == "moe":  # on a model axis above 1 its parts summed over the axis
         return x + L.apply_moe(p["moe"], b.moe, h, with_lb=False, seq_split=False)[0], cache
     if b.kind == "mla":
-        y, cache = L.decode_mla(p["mla"], b.mla, h, cache, pos)
+        y, cache = L.decode_mla(p["mla"], b.mla, h, cache, pos, slots)
         return x + y, cache
     if b.kind == "mamba2":
         y, cache = S.decode_mamba2(p["mamba"], b.mamba, h, cache, pos)
@@ -474,7 +533,7 @@ def apply_block_decode(b: BlockSpec, p, x, cache, pos):
         y, _ = S.apply_rwkv6_channel(p["rwkv_ffn"], h, cache["x_prev"])
         cache["x_prev"].copy_(h)
         return x + y, cache
-    y, cache = L.decode_attention(p["attn"], b.attn, h, cache, pos)
+    y, cache = L.decode_attention(p["attn"], b.attn, h, cache, pos, slots)
     return x + y, cache
 
 
@@ -830,18 +889,31 @@ class TransformerLM(nn.Module):
         """``loss`` on a tensor-parallel mesh: the sequence-parallel stack,
         then, with the vocab split, the final rows gathered over the
         sequence and the vocab-parallel CE; else each rank's rows'
-        logits and CE, their sum reduced over "model". Every rank returns
-        the whole loss."""
+        logits and CE, their sum reduced over "model". On a sequence that
+        does not split (``ctx["rows"]`` None) the stack runs whole on every
+        rank (``_apply_block_train_whole``), the embedding, final norm and
+        head whole too (counted once in the gradients where "model" does
+        not split them), and, with the vocab split, the final rows enter
+        the vocab-parallel CE by ``SH.to_parts``. Every rank returns the
+        whole loss."""
         S = tokens.shape[1]
-        x = self._embed_in(tokens, self._top(params, "embed"), tp)
+        rows = ctx["rows"]
+        top = self._top(params, "embed")
+        if rows is None:
+            top = self._once_top(top, tp)
+        x = self._embed_in(tokens, top, tp, seq_split=rows is not None)
         x, aux = self._stack_apply_train(params, x, ctx)
         head = self._top(params, "final_norm", self._head_key())
+        if rows is None:
+            head = self._once_top(head, tp)
         x = _norm_apply(self.cfg.final_norm, head["final_norm"], x)
         if self._vocab_split(head):
-            x = SH.gather_seq(x, tp)
+            x = SH.whole_in(x, rows, tp)
             logits = self._logits(x[:, :-1], head)
             nll = _vocab_parallel_ce(logits, tokens[:, 1:], tp.rank * logits.shape[-1], tp)
             total = nll.mean(dim=-1)
+        elif rows is None:
+            total = _sharded_ce(self._logits(x[:, :-1], head), tokens[:, 1:]).mean(dim=-1)
         else:
             lo = tp.rank * x.shape[1]
             tgt = tokens[:, lo + 1:lo + x.shape[1] + 1]
@@ -849,6 +921,17 @@ class TransformerLM(nn.Module):
             total = SH.sum_model(nll.sum(dim=-1), tp) / (S - 1)
         per_ex = total + self.cfg.lb_loss_weight * aux / max(self.cfg.n_layers, 1)
         return per_ex, {"lb_loss": aux}
+
+    def _once_top(self, tree, tp):
+        """Top-level leaves (embedding, final norm, head) that every rank
+        uses alike on a sequence that does not split over the model axis,
+        each marked to count once in the gradients where "model" does not
+        split it (``SH.once_whole``)."""
+        d = self.cfg.d_model
+        defs = {"embed": L.init_embedding(self.cfg.vocab, d),
+                "lm_head": L.init_embedding(self.cfg.vocab, d),
+                "final_norm": _norm_init(self.cfg.final_norm, d)}
+        return SH.once_whole(tree, {k: defs[k] for k in tree}, tp)
 
     # -- serving ---------------------------------------------------------------
     def cache_defs(self, batch: int, cache_len: int, dtype=None) -> Dict[str, Any]:
@@ -884,15 +967,17 @@ class TransformerLM(nn.Module):
         tokens = batch["tokens"].to(self.device)
         ctx = self._ctx(batch, tokens, batch.get("cache_len", tokens.shape[1]))
         tp = self._tensor_parallel()
+        rows = None
         if tp is not None:
             ctx = _tp_ctx(ctx, tokens.shape[1])
-        x = self._embed_in(tokens, tp=tp)
+            rows = ctx["rows"]
+        x = self._embed_in(tokens, tp=tp, seq_split=rows is not None)
         caches: Dict[str, Any] = {}
         for gi, li, key, b, p in self._layers():
             x, c = apply_block_prefill(b, p, x, ctx)
             if c is not None:
                 self._put(caches, gi, li, key, c)
-        last = x[:, -1:] if tp is None else SH.gather_model(x[:, -1:], tp, 1)[:, -1:]
+        last = x[:, -1:] if rows is None else SH.gather_model(x[:, -1:], tp, 1)[:, -1:]
         x = _norm_apply(self.cfg.final_norm, self.final_norm, last)
         return self._logits_whole(x, tp), caches
 
@@ -904,13 +989,23 @@ class TransformerLM(nn.Module):
         the reference does). Unlike the reference, which returns a new
         cache, this writes the token's keys and values, the Mamba2 and RWKV6
         states and the last inputs into ``cache`` IN PLACE and returns it
-        with the logits (B, 1, V) bf16."""
+        with the logits (B, 1, V) bf16. Under a step whose context-parallel
+        group is above 1 the batch's host int ``cache_len`` gives the whole
+        caches' slots (``build_decode_step`` passes its shape's): each
+        layer decodes context-parallel where the rank holds a share of its
+        cache's slots, else on the cache it holds (a layout per layer)."""
         token = batch["token"].to(self.device)
         pos = torch.as_tensor(batch["pos"], dtype=torch.int32, device=self.device)
         tp = self._tensor_parallel()
+        cache_len = batch.get("cache_len")
+        if cache_len is None and SH.context_parallel() is not None:
+            raise ValueError("a decode step whose context-parallel group is above 1 needs the "
+                             "whole caches' slots as batch['cache_len'] (build_decode_step "
+                             "passes its shape's): a rank's cache alone does not say whether it "
+                             "is a share or the whole")
         x = self._embed_in(token, tp=tp, seq_split=False)
         for gi, li, key, b, p in self._layers():
             entry = cache[f"g{gi}"][li].get(key) if f"g{gi}" in cache else None
-            x, _ = apply_block_decode(b, p, x, entry, pos)
+            x, _ = apply_block_decode(b, p, x, entry, pos, cache_len)
         x = _norm_apply(self.cfg.final_norm, self.final_norm, x)
         return self._logits_whole(x, tp), cache

@@ -85,7 +85,7 @@ from repro_torch.models.param_defs import (
     unstack,
     unstack_axes,
 )
-from repro_torch.models.sharding_hooks import gather_stored, remat_context, shard_act
+from repro_torch.models.sharding_hooks import cache_layout, gather_stored, remat_context, shard_act
 from repro_torch.models.transformer import (
     TransformerLM,
     _def_map,
@@ -206,51 +206,6 @@ def whisper_param_specs(cfg: WhisperConfig, mesh, rules=None, stacked: bool = Fa
     return out
 
 
-def cache_layout(T: int, kv_heads: int, M: int) -> str:
-    """Where a (B, T, KV, hd) cache of whole length T lies over a model axis
-    of M, as the reference's ``spec_for_leaf`` gives its ("batch",
-    "kv_seq", "kv_heads", None) axes: "slots" (each rank T / M of them)
-    where T divides M, else "heads" (each rank its kv heads) where they
-    do, else "whole" on every rank."""
-    return "slots" if T % M == 0 else "heads" if kv_heads % M == 0 else "whole"
-
-
-def _cut_cache(t: torch.Tensor, layout: str, tp) -> torch.Tensor:
-    """This rank's share of a whole cache leaf (B, T, KV, hd) in ``layout``."""
-    if layout == "whole":
-        return t
-    d = 1 if layout == "slots" else 2
-    n = t.shape[d] // tp.size
-    return t.narrow(d, tp.rank * n, n).clone()
-
-
-def _reduce(y: torch.Tensor, rows, tp) -> torch.Tensor:
-    """A row-parallel part (its heads' or ffn columns' share of the output
-    projection) summed over "model" in float32 and cast once: into the
-    rank's ``rows`` (a reduce-scatter), or whole (an all-reduce) where the
-    sequence does not split."""
-    out = (SH.scatter_seq if rows is not None else SH.sum_model)(y.float(), tp)
-    return out.to(y.dtype)
-
-
-def _whole_in(h: torch.Tensor, rows, tp) -> torch.Tensor:
-    """A block's input whole over the sequence, for the rank's part of its
-    heads or ffn columns: gathered where the rows split, else every rank's
-    own copy entering the parts (``SH.to_parts``)."""
-    return SH.gather_seq(h, tp) if rows is not None else SH.to_parts(h, tp)
-
-
-def _once_whole(tree, defs, tp):
-    """The leaves of ``tree`` that "model" does not split (the shapes of
-    their ``defs``), each marked so that only the axis's rank 0 keeps its
-    gradient (``SH.once_over_model``): for a block that every rank computes
-    alike on a sequence that does not split, whose replicated leaves the
-    train step's all-reduce over "model" would otherwise count M times."""
-    if isinstance(tree, dict):
-        return {k: _once_whole(tree[k], defs[k], tp) for k in tree}
-    return SH.once_over_model(tree, tp) if tuple(tree.shape) == tuple(defs.shape) else tree
-
-
 def _heads_split(p, s: L.AttnSpec) -> bool:
     return p["wq"].shape[1] < s.n_heads
 
@@ -285,7 +240,7 @@ def _attention_train(p, s: L.AttnSpec, h, rows, tp):
     the causal mask at the rows' offset, none for the encoder), else, where
     the sequence does not split, every row on every rank alike."""
     if _heads_split(p, s):
-        return _reduce(L.apply_attention(p, s, _whole_in(h, rows, tp), None), rows, tp)
+        return SH.reduce_parts(L.apply_attention(p, s, SH.whole_in(h, rows, tp), None), rows, tp)
     if rows is not None:
         return L.apply_attention(p, s, h, None)
     return L.attention_whole(p, s, h, None)
@@ -295,8 +250,8 @@ def _attention_prefill(p, s: L.AttnSpec, h, rows, tp):
     """``_attention_train``'s layout through the flash kernel: (y, k, v),
     k and v whole (every row, every head) for the cache."""
     if _heads_split(p, s):
-        y, k, v = L.prefill_attention(p, s, _whole_in(h, rows, tp), None)
-        return _reduce(y, rows, tp), k, v
+        y, k, v = L.prefill_attention(p, s, SH.whole_in(h, rows, tp), None)
+        return SH.reduce_parts(y, rows, tp), k, v
     if rows is not None:
         return L.prefill_attention(p, s, h, None)
     return L.prefill_attention_whole(p, s, h, None)
@@ -311,8 +266,8 @@ def _cross_train(p, s: L.AttnSpec, h, enc, rows, enc_rows, tp):
     whether the ranks' uses of the whole are parts (``gather_seq``,
     ``to_parts``) or alike (``gather_alike``, none)."""
     if _heads_split(p, s):
-        y = _cross_sdpa(p, s, _whole_in(h, rows, tp), _whole_in(enc, enc_rows, tp))
-        return _reduce(y, rows, tp)
+        y = _cross_sdpa(p, s, SH.whole_in(h, rows, tp), SH.whole_in(enc, enc_rows, tp))
+        return SH.reduce_parts(y, rows, tp)
     if enc_rows is None:
         return _cross_sdpa(p, s, h, enc if rows is None else SH.to_parts(enc, tp))
     return _cross_sdpa(p, s, h, SH.gather_seq(enc, tp) if rows is not None
@@ -324,7 +279,7 @@ def _mlp_part(p, s: L.MLPSpec, h, rows, tp):
     its ffn divides the axis (h whole over the sequence, the part reduced
     in float32), else on the rows the rank holds."""
     if p["wd"].shape[0] < s.d_ff:
-        return _reduce(L.apply_mlp(p, s, _whole_in(h, rows, tp)), rows, tp)
+        return SH.reduce_parts(L.apply_mlp(p, s, SH.whole_in(h, rows, tp)), rows, tp)
     return L.apply_mlp(p, s, h)
 
 
@@ -582,7 +537,8 @@ class WhisperModel(nn.Module):
         pc = p["cross_attn"]
         ek, ev = L.cross_kv(pc, spec, enc)
         if _heads_split(pc, spec):
-            x = x + _reduce(L.cross_attention(pc, spec, _whole_in(h, rows, tp), ek, ev), rows, tp)
+            y = L.cross_attention(pc, spec, SH.whole_in(h, rows, tp), ek, ev)
+            x = x + SH.reduce_parts(y, rows, tp)
             ek, ev = SH.gather_model(ek, tp, 2), SH.gather_model(ev, tp, 2)  # every head
         else:
             x = x + L.cross_attention(pc, spec, h, ek, ev)
@@ -595,8 +551,8 @@ class WhisperModel(nn.Module):
         vc[:, :Sq] = v
         own = cache_layout(cache_len, cfg.kv_heads, tp.size)
         cross = cache_layout(ek.shape[1], cfg.kv_heads, tp.size)
-        return x, {"k": _cut_cache(kc, own, tp), "v": _cut_cache(vc, own, tp),
-                   "ek": _cut_cache(ek, cross, tp), "ev": _cut_cache(ev, cross, tp)}
+        return x, {"k": SH.cut_cache(kc, own, tp), "v": SH.cut_cache(vc, own, tp),
+                   "ek": SH.cut_cache(ek, cross, tp), "ev": SH.cut_cache(ev, cross, tp)}
 
     def _prefill_tp(self, batch, tp):
         """``prefill`` on a tensor-parallel mesh (see ``_encode_tp`` and
@@ -635,13 +591,13 @@ class WhisperModel(nn.Module):
             y, _ = L._decode_attention_cp(ps, spec, h, entry, pos, tp, tp)
         else:
             y, _ = L.decode_attention_local(ps, spec, h, entry, pos)
-        x = x + (_reduce(y, None, tp) if _heads_split(ps, spec) else y)
+        x = x + (SH.reduce_parts(y, None, tp) if _heads_split(ps, spec) else y)
         h = L.layer_norm(p["ln2"], x)
         if cross == "slots":
             y = _cross_decode_cp(pc, spec, h, entry["ek"], entry["ev"], enc_last, tp)
         else:
             y = L.decode_cross_attention(pc, spec, h, entry["ek"], entry["ev"], enc_last)
-        x = x + (_reduce(y, None, tp) if _heads_split(pc, spec) else y)
+        x = x + (SH.reduce_parts(y, None, tp) if _heads_split(pc, spec) else y)
         h = L.layer_norm(p["ln3"], x)
         return x + _mlp_part(p["mlp"], _mlp_spec(cfg), h, None, tp)
 
@@ -825,7 +781,7 @@ class WhisperModel(nn.Module):
     # A sequence that splits over the axis is held as each rank's rows (each
     # rank's gradients its own rows' share); one that does not is whole on
     # every rank, which computes it alike: there a leaf "model" does not
-    # split is marked to keep its gradient on rank 0 only (``_once_whole``),
+    # split is marked to keep its gradient on rank 0 only (``SH.once_whole``),
     # since the train step sums such leaves' gradients over the axis, and an
     # input entering the ranks' parts of split heads or ffn columns takes
     # ``SH.to_parts`` (its gradient, partial on each rank, summed).
@@ -846,7 +802,7 @@ class WhisperModel(nn.Module):
         def layer(x, p):
             p = gather_stored(p)
             if rows is None:
-                p = _once_whole(p, defs, tp)
+                p = SH.once_whole(p, defs, tp)
             h = L.layer_norm(p["ln1"], x).to(wdtype)
             x = x + _attention_train(p["attn"], spec, h, rows, tp)
             h = L.layer_norm(p["ln2"], x).to(wdtype)
@@ -858,9 +814,9 @@ class WhisperModel(nn.Module):
 
     def _norm_tp(self, p, rows, tp):
         """A final layer norm's leaves: gathered under fsdp, and marked
-        ``_once_whole`` where the sequence does not split."""
+        ``SH.once_whole`` where the sequence does not split."""
         p = gather_stored(p)
-        return p if rows is not None else _once_whole(p, L.init_layernorm(self.cfg.d_model), tp)
+        return p if rows is not None else SH.once_whole(p, L.init_layernorm(self.cfg.d_model), tp)
 
     def _decode_stack_tp(self, params, tokens, enc_out, enc_len, tp):
         """``decode_stack`` on a tensor-parallel mesh: the decoder's output of
@@ -886,7 +842,7 @@ class WhisperModel(nn.Module):
         def layer(x, p):
             p = gather_stored(p)
             if rows is None:
-                p = _once_whole(p, defs, tp)
+                p = SH.once_whole(p, defs, tp)
             h = L.layer_norm(p["ln1"], x)
             x = x + _attention_train(p["self_attn"], spec, h, rows, tp)
             h = L.layer_norm(p["ln2"], x)
@@ -911,7 +867,7 @@ class WhisperModel(nn.Module):
         rows = seq_rows(S, tp)
         table = gather_stored(params["embed"])["table"]  # the tied table's second use
         if table.shape[0] < self.cfg.vocab:
-            logits = _tied_logits(_whole_in(x, rows, tp)[:, :-1], table)
+            logits = _tied_logits(SH.whole_in(x, rows, tp)[:, :-1], table)
             return _vocab_parallel_ce(logits, tokens[:, 1:], tp.rank * table.shape[0],
                                       tp).mean(dim=-1)
         if rows is None:

@@ -26,16 +26,11 @@ import argparse
 import dataclasses
 import json
 import sys
-import time
 
-from repro_torch.configs import build_model, get_config
-from repro_torch.configs.registry import SHAPES, ShapeSpec, TensorSpec
+from repro_torch.configs import get_config
+from repro_torch.configs.registry import SHAPES, ShapeSpec
 from repro_torch.core.sharded import IplsStepConfig
-from repro_torch.launch import steps
-from repro_torch.models.whisper import WhisperConfig
-from repro_torch.roofline.analysis import model_flops_for
-from repro_torch.roofline.cost import analyze_step, count_step, fake_world
-from repro_torch.tree import tree_map
+from repro_torch.roofline.cost import count_cell_step
 
 
 def _config(arch: str, layers=None):
@@ -54,31 +49,18 @@ def _config(arch: str, layers=None):
 def count_cell(cell: dict) -> dict:
     """One cell's report row, step time and counts (see the module
     docstring for the keys)."""
-    t0 = time.perf_counter()
     cfg = _config(cell["arch"], cell.get("layers"))
     shape = ShapeSpec(cell.get("cell", "cell"), cell["seq_len"], cell["batch"], cell["kind"])
-    mesh = tuple(cell.get("mesh", (1, 1)))
-    with fake_world(mesh) as fake_mesh:
-        # on a "model" axis above 1 the model holds this rank's shards
-        model = build_model(cfg, device="cpu", mesh=fake_mesh if mesh[-1] > 1 else None)
-        kw = {"step_cfg": IplsStepConfig(fsdp=True)} if cell.get("fsdp") else {}
-        built = steps.build_step(model, fake_mesh, shape, **kw)
-        enc_len = cell.get("enc_len")
-        if isinstance(cfg, WhisperConfig) and shape.kind == "decode" and enc_len:
-            cache = tree_map(lambda d: TensorSpec(tuple(d.shape), d.dtype),
-                             model.cache_defs(shape.global_batch, shape.seq_len, enc_len))
-            built = dataclasses.replace(built, arg_shapes=(built.arg_shapes[0], cache,
-                                                           built.arg_shapes[2]))
-        mf = model_flops_for(model, shape.kind, shape.seq_len, shape.global_batch)
-        cost = count_step(built)
-        report = analyze_step(built, arch=cell["arch"], shape=shape.name, model_flops=mf,
-                              cost=cost)
+    c = count_cell_step(cfg, cell["arch"], shape, tuple(cell.get("mesh", (1, 1))),
+                        step_cfg=IplsStepConfig(fsdp=True) if cell.get("fsdp") else None,
+                        enc_len=cell.get("enc_len"))
+    report, cost = c.report, c.cost
     return {"cell": shape.name, **report.row(), "step_time_s": report.step_time_s,
             "hlo_bytes": report.hlo_bytes, "collective_bytes": report.collective_bytes,
             "kernel_calls": dict(cost.kernel_calls),
             "bytes_top_ops": dict(sorted(cost.bytes_by_op.items(), key=lambda kv: -kv[1])[:6]),
             "input_bytes": cost.input_bytes, "hw": report.hw.name,
-            "count_s": time.perf_counter() - t0}
+            "count_s": c.build_s + c.count_s}
 
 
 def main(argv=None) -> int:

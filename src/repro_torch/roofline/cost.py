@@ -42,6 +42,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import time
 import weakref
 from collections import defaultdict
 from typing import Dict, Optional, Tuple
@@ -377,3 +378,45 @@ def analyze_step(built, hw: HardwareSpec = HW, *, arch: str = "", shape: str = "
         collective_bytes=dict(cost.collective_bytes), model_flops=model_flops,
         hlo_flops_f32=cost.f32_flops * chips,
         peak_bytes_per_device=cost.peak_bytes, hw=hw)
+
+
+@dataclasses.dataclass
+class CellCount:
+    """One step counted on a fake mesh (``count_cell_step``): its report and
+    counts, and the seconds it took to build the model and the step
+    (``build_s``) and to count one call (``count_s``)."""
+    report: RooflineReport
+    cost: StepCost
+    build_s: float
+    count_s: float
+
+
+def count_cell_step(cfg, arch: str, shape, mesh_shape: Tuple[int, ...] = (1, 1),
+                    step_cfg=None, enc_len: Optional[int] = None) -> CellCount:
+    """Build ``cfg``'s model and its step for ``shape`` (a ``ShapeSpec``) in
+    ``fake_world(mesh_shape)`` (the rank's shards where the "model" axis is
+    above 1; a train step takes ``step_cfg``) and count one call. With
+    ``enc_len`` a whisper decode step's cross caches hold that many frames.
+    The one counting path of ``python -m repro_torch.roofline`` and of the
+    dry run (``launch/dryrun.py``)."""
+    from repro_torch.configs import build_model
+    from repro_torch.configs.registry import TensorSpec
+    from repro_torch.launch import steps
+    from repro_torch.models.whisper import WhisperConfig
+    from repro_torch.roofline.analysis import model_flops_for
+
+    t0 = time.perf_counter()
+    with fake_world(tuple(mesh_shape)) as mesh:
+        model = build_model(cfg, device="cpu", mesh=mesh if mesh_shape[-1] > 1 else None)
+        kw = {"step_cfg": step_cfg} if step_cfg is not None else {}
+        built = steps.build_step(model, mesh, shape, **kw)
+        if isinstance(cfg, WhisperConfig) and shape.kind == "decode" and enc_len:
+            cache = tree_map(lambda d: TensorSpec(tuple(d.shape), d.dtype),
+                             model.cache_defs(shape.global_batch, shape.seq_len, enc_len))
+            built = dataclasses.replace(built, arg_shapes=(built.arg_shapes[0], cache,
+                                                           built.arg_shapes[2]))
+        mf = model_flops_for(model, shape.kind, shape.seq_len, shape.global_batch)
+        t1 = time.perf_counter()
+        cost = count_step(built)
+        report = analyze_step(built, arch=arch, shape=shape.name, model_flops=mf, cost=cost)
+    return CellCount(report, cost, t1 - t0, time.perf_counter() - t1)

@@ -114,15 +114,16 @@ class _Mesh:
 
 def test_unported_tensor_parallel_modes_raise():
     """On a model axis above 1 what is not ported raises: a decode graph
-    (NotImplementedError), and, for the decoder-only families, a sequence
-    that does not split over the axis (ValueError: the reference keeps it
-    whole on every rank, as whisper does; ROADMAP.md queue 1). What this
-    test refused before now builds: whisper holds its rank's shards (heads,
-    ffn and vocab split over 2), and non-causal attention (an encoder's)
-    builds in a decoder-only config; every family's shards are the
-    reference's specs (the mesh paths: ``test_torch_tp*.py``,
-    ``test_torch_tp_whisper.py``). A step of a model not built on the mesh
-    raises ValueError before it runs."""
+    (NotImplementedError). What this test refused before now builds or
+    runs: whisper holds its rank's shards (heads, ffn and vocab split over
+    2), non-causal attention (an encoder's) builds in a decoder-only
+    config, and a sequence that does not split over the axis is whole on
+    every rank in the decoder-only families too (``_tp_ctx``: no rows, the
+    "local" positions all of them, as the reference's specs leave it; the
+    mesh paths: ``test_torch_tp_whole*.py``); every family's shards are the
+    reference's specs (``test_torch_tp*.py``, ``test_torch_tp_whisper.py``).
+    A step of a model not built on the mesh raises ValueError before it
+    runs."""
     import dataclasses
 
     from repro_torch.configs import SHAPES, build_model, get_config
@@ -143,8 +144,11 @@ def test_unported_tensor_parallel_modes_raise():
         assert whisper.params()["enc"][0]["mlp"]["wd"].shape == (64, 64)
         assert whisper.params()["embed"]["table"].shape == (128, 64)
         assert build_model(encoder, device="cpu", mesh=fmesh).mesh is fmesh
-        with activation_sharding(fmesh), pytest.raises(ValueError, match="does not split"):
-            _tp_ctx({"positions": torch.zeros((1, 9), dtype=torch.long)}, 9)
+        positions = torch.arange(9)[None]
+        with activation_sharding(fmesh):
+            ctx = _tp_ctx({"positions": positions}, 9)
+            assert ctx["rows"] is None and ctx["positions_local"].shape == (1, 9)
+            assert _tp_ctx({"positions": positions[:, :8]}, 8)["rows"] == slice(0, 4)
     mesh = _Mesh((1, 2))
     model = build_model(get_config("internlm2-1.8b", reduced=True), device="cpu")
     with pytest.raises(NotImplementedError, match="decode graph"):

@@ -31,31 +31,33 @@ import torch_tp_attn_worker as worker  # noqa: E402
 from test_torch_tp import _spawn, one_torch_thread  # noqa: E402,F401
 
 
-def _drawn_params(name, cfg=None, redraw=None):
+def _drawn_params(name, cfg=None, redraw=None, module=worker):
     """float32 params in the reference's layout (a numpy tree), drawn by
     the port from seed 0 (the reference's init, without its per-leaf
     compiles: deepseek-reduced's ``init`` takes 14 s on the CPU); ``cfg``
-    by default ``worker.config(name, lossless=True)``; ``redraw(model)``
+    by default ``module.config(name, lossless=True)``; ``redraw(model)``
     may overwrite leaves first."""
     from repro_torch.configs import build_model
     from repro_torch.core.sharded import IplsTrainState
     from repro_torch.models.convert import to_reference_layout
 
-    one = build_model(cfg or worker.config(name, lossless=True), device="cpu", seed=0).float()
+    one = build_model(cfg or module.config(name, lossless=True), device="cpu", seed=0).float()
     if redraw is not None:
         redraw(one)
     state = IplsTrainState(step=torch.zeros((), dtype=torch.int32), params=one.params(),
                            opt_state=(), eps=torch.ones(()))
-    return worker.tw._numpy_tree(to_reference_layout(state).params)
+    return module.tw._numpy_tree(to_reference_layout(state).params)
 
 
-def _reference(name, config=None, drawn=None, float64=False):
+def _reference(name, config=None, drawn=None, float64=False, module=worker):
     """The reference's float32 params (a numpy tree), its train step from
-    them, and its prefill's and 8 decode steps' logits; with ``float64``
-    also those logits from the params in float64 (``prefill_logits64``,
-    ``decode_logits64``). ``config(get)`` gives the config from a package's
-    ``get_config`` (by default ``worker.config(name, lossless=True)``);
-    ``drawn`` the params (by default ``_drawn_params(name)``)."""
+    them, and its prefill's and decode steps' logits (the worker
+    ``module``'s B, S, T and STEPS: by default a prompt of 12, a cache of
+    24 and 8 steps); with ``float64`` also those logits from the params in
+    float64 (``prefill_logits64``, ``decode_logits64``). ``config(get)``
+    gives the config from a package's ``get_config`` (by default
+    ``module.config(name, lossless=True)``); ``drawn`` the params (by
+    default ``_drawn_params(name)``)."""
     jax = pytest.importorskip("jax")
     jnp = jax.numpy
     from repro.configs import build_model as jax_build
@@ -63,23 +65,24 @@ def _reference(name, config=None, drawn=None, float64=False):
     from repro.core import sharded as jsh
     from repro.optim import adamw as jadamw
 
-    B, S, T, STEPS = worker.B, worker.S, worker.T, worker.STEPS
-    cfg = (config or (lambda get: worker.config(name, lossless=True, get=get)))(jax_config)
+    B, S, T, STEPS = module.B, module.S, module.T, module.STEPS
+    cfg = (config or (lambda get: module.config(name, lossless=True, get=get)))(jax_config)
     model = jax_build(cfg)
-    params = jax.tree.map(jnp.asarray, drawn if drawn is not None else _drawn_params(name))
+    params = jax.tree.map(jnp.asarray, drawn if drawn is not None
+                          else _drawn_params(name, module=module))
     rng = np.random.default_rng(11)
     tokens = rng.integers(0, 256, (B, S)).astype(np.int32)
-    opt = jadamw(worker.LR, wd=0.1)
+    opt = jadamw(module.LR, wd=0.1)
     step = jax.jit(jsh.make_train_step(
-        model.loss, opt, jsh.IplsStepConfig(grad_clip=1.0, accum_steps=worker.accum_steps(cfg)),
+        model.loss, opt, jsh.IplsStepConfig(grad_clip=1.0, accum_steps=module.accum_steps(cfg)),
         num_agents=1))
     batch = {k: jnp.asarray(v.numpy()) for k, v in
-             worker.train_batch(cfg, torch.from_numpy(tokens)).items()}
+             module.train_batch(cfg, torch.from_numpy(tokens)).items()}
     state, m = step(jsh.init_state(params, opt), batch)
     serve_tokens = rng.integers(0, 256, (B, S)).astype(np.int32)
     steps = rng.integers(0, 256, (STEPS, B, 1)).astype(np.int32)
     serve = {k: (jnp.asarray(v.numpy()) if isinstance(v, torch.Tensor) else v) for k, v in
-             worker.serve_batch(cfg, torch.from_numpy(serve_tokens)).items()}
+             module.serve_batch(cfg, torch.from_numpy(serve_tokens)).items()}
     cache_len = serve.pop("cache_len")
     prefill = jax.jit(lambda p, b: model.prefill(p, dict(b, cache_len=cache_len)))
     decode = jax.jit(model.decode_step)

@@ -180,7 +180,7 @@ class LogitGradients:
         microbatch j is the one process's call d A + j (its rows, as
         ``torch_fsdp_worker.emulated_loss`` takes them); a model rank holds
         its columns of the vocab where the table is split, else its rows of
-        the sequence."""
+        the sequence (all of them where the sequence does not split)."""
         D = psh.mesh_axis_size(mesh, "data")
         M = psh.mesh_axis_size(mesh, "model")
         d, r = mesh.get_local_rank("data"), mesh.get_local_rank("model")
@@ -193,7 +193,7 @@ class LogitGradients:
             w = want[d * A + j]
             if g.shape[-1] < w.shape[-1]:
                 w = w[..., r * g.shape[-1]:(r + 1) * g.shape[-1]]
-            else:
+            elif g.shape[1] < w.shape[1]:
                 lo = r * ((w.shape[1] + 1) // M)
                 w = w[:, lo:lo + g.shape[1]]
             assert g.shape == w.shape, (g.shape, w.shape)
