@@ -7,10 +7,20 @@ Phases, in this order, each printing one JSON line; any failure raises and
 exits non-zero:
   device    — GPU name, count, torch/CUDA versions, power limit;
   build     — compile every kernel library from csrc/ with nvcc, all at once;
-              then the flash, decode, linear-scan and aggregation libraries'
-              kernels: registers, spills and static shared memory (ptxas),
-              dynamic shared memory, and the count of HGMMA (wgmma)
+              then the flash, decode, linear-scan, aggregation and codec
+              libraries' kernels: registers, spills and static shared memory
+              (ptxas), dynamic shared memory, and the count of HGMMA (wgmma)
               instructions in the flash library's SASS, which must be > 0;
+  analysis  — the port's static analysis (python -m repro_torch.analysis)
+              over the checkout's port tree: 0 findings, and its seconds;
+              per kernel what its CUDA pack resolved from the sources
+              (__launch_bounds__ threads, static and dynamic shared memory,
+              or "unresolved" where a figure depends on a template
+              parameter) beside what nvcc built: every folded dynamic
+              figure equal to the library's exported one and every folded
+              static figure to ptxas's, static (ptxas)
+              plus dynamic shared memory within the card's opt-in maximum a
+              block, registers x launch-bounds threads within 65,536;
   agree     — the batched engine against the scalar engine on the card at a
               small config (PERFECT f32 and int8, LOSSY f32 and int8, long
               delays int8, and every churn action on LOSSY f32 one round at
@@ -6074,9 +6084,9 @@ def _decode_build_facts(dops, build):
     return {"library": so.name, "kernels": kernels}
 
 
-def _scan_agg_build_facts(sops, ops, build):
-    """The linear-scan and aggregation libraries as built: per kernel,
-    ptxas's facts."""
+def _scan_agg_build_facts(sops, ops, qops, build):
+    """The linear-scan, aggregation and codec libraries as built: per
+    kernel, ptxas's facts."""
     import re
 
     def rename(mangled):
@@ -6086,11 +6096,78 @@ def _scan_agg_build_facts(sops, ops, build):
         m = re.search(r"(ipls_aggregate_batched(?:_q)?_kernel)(?:ILi(\d+)E)?", mangled)
         if m:
             return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
-        return mangled
+        m = re.search(r"((?:de)?quantize_kernel)", mangled)
+        return m.group(1) if m else mangled
 
     return {lib: {"library": build.library_path(mod._SRC).name,
                   "kernels": _ptxas_kernels(build.library_path(mod._SRC), rename)}
-            for lib, mod in (("linear_scan", sops), ("ipls_aggregate", ops))}
+            for lib, mod in (("linear_scan", sops), ("ipls_aggregate", ops), ("quantize", qops))}
+
+
+def phase_analysis(root, built) -> dict:
+    """The port's static analysis on the checkout (``root``): its findings
+    over the port's tree, which must be none, and per kernel what the CUDA
+    pack folded from the sources beside what ``nvcc`` built (``built``:
+    library -> the build phase's facts). Requires every folded dynamic
+    shared-memory figure to equal the library's exported one and every
+    folded static figure ptxas's, static plus
+    dynamic shared memory within the card's opt-in maximum a block, and
+    registers x ``__launch_bounds__`` threads within the 65,536 registers
+    of an SM. A folded figure that disagrees with nvcc is a bug in the
+    analyzer's constant folder."""
+    import torch
+    from repro_torch.analysis import analyze_paths, default_paths
+    from repro_torch.analysis.core import CudaContext, iter_source_files
+    from repro_torch.analysis.rules_cuda import kernel_facts
+
+    t0 = time.perf_counter()
+    paths = default_paths(root)
+    findings = analyze_paths(paths)
+    seconds = time.perf_counter() - t0
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    kernels = {}
+    for lib, facts in built.items():
+        src = root / "src" / "repro_torch" / "kernels" / lib / "csrc" / f"{lib}.cu"
+        for name, folded in kernel_facts(CudaContext(str(src), src.read_text())).items():
+            threads = folded["launch_bounds_threads"]
+            dyn = folded["dynamic_smem_bytes"]
+            insts = {k: v for k, v in facts["kernels"].items()
+                     if k.split("<")[0] == name and "registers" in v}
+            _require(insts, f"analysis: {lib}'s build log has no kernel {name}")
+            rows = {}
+            for inst, b in insts.items():
+                exported = b.get("dynamic_smem_bytes")
+                for d in dyn:
+                    _require(not isinstance(d, int) or exported is None or d == exported,
+                             f"analysis: {inst}'s folded dynamic shared memory {d} != the "
+                             f"library's {exported}")
+                dyn_bytes = exported if exported is not None else (
+                    max(dyn) if all(isinstance(d, int) for d in dyn) else None)
+                if dyn_bytes is not None:
+                    _require(b["static_smem_bytes"] + dyn_bytes <= optin,
+                             f"analysis: {inst} needs {b['static_smem_bytes']} + {dyn_bytes} "
+                             f"bytes of shared memory, the card allows {optin} a block")
+                _require(isinstance(threads, int) and b["registers"] * threads <= 65536,
+                         f"analysis: {inst}: {b['registers']} registers x {threads} threads")
+                _require(folded["static_smem_bytes"] in ("unresolved", b["static_smem_bytes"]),
+                         f"analysis: {inst}'s folded static shared memory "
+                         f"{folded['static_smem_bytes']} != ptxas's {b['static_smem_bytes']}")
+                rows[inst] = {
+                    "registers": b["registers"], "registers_x_threads": b["registers"] * threads,
+                    "static_smem_bytes": b["static_smem_bytes"], "dynamic_smem_bytes": exported,
+                    "smem_checked_bytes": (None if dyn_bytes is None
+                                           else b["static_smem_bytes"] + dyn_bytes),
+                    "static_smem_agrees": (None if not isinstance(folded["static_smem_bytes"], int)
+                                           else folded["static_smem_bytes"]
+                                           == b["static_smem_bytes"]),
+                }
+            kernels[name] = {"library": lib, "folded": folded, "built": rows}
+    res = {"phase": "analysis", "findings": len(findings), "seconds": seconds,
+           "files": sum(1 for _ in iter_source_files(paths)), "smem_per_block_optin": optin,
+           "kernels": kernels, "first_findings": [f.render() for f in findings[:5]]}
+    _emit(res)
+    _require(not findings, f"analysis: {len(findings)} finding(s) on the port's tree")
+    return res
 
 
 def _memory(after: str) -> None:
@@ -6172,10 +6249,12 @@ def main() -> int:
         build_s = {k: f.result() for k, f in futs.items()}
     flash_built = _flash_build_facts(fops, _build)
     decode_built = _decode_build_facts(dops, _build)
+    others_built = _scan_agg_build_facts(sops, ops, qops, _build)
     _emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_library_s": build_s,
-           "flash_attention": flash_built, "decode_attention": decode_built,
-           **_scan_agg_build_facts(sops, ops, _build)})
+           "flash_attention": flash_built, "decode_attention": decode_built, **others_built})
     _require(flash_built["sass_hgmma"] > 0, "no HGMMA in the flash library's SASS")
+    phase_analysis(src.parent, {"flash_attention": flash_built,
+                                "decode_attention": decode_built, **others_built})
 
     # the engine phases first: the timing phases below leave cuBLAS
     # workspaces of their graph captures allocated, which would count in

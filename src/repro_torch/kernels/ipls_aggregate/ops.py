@@ -13,7 +13,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import build_library, count_launch, launch
+from repro_torch.kernels._build import build_library, count_launch, launch, plain
 from repro_torch.kernels.ipls_aggregate.ref import (
     ipls_aggregate_batched_q_ref,
     ipls_aggregate_batched_ref,
@@ -74,7 +74,7 @@ def aggregate_batched(w, deltas, mask, eps):
     which stay zero."""
     _check(w, deltas, mask, eps)
     if w.device.type == "cpu":
-        return ipls_aggregate_batched_ref(w, deltas, mask, eps)
+        return plain("ipls_aggregate_batched", ipls_aggregate_batched_ref, w, deltas, mask, eps)
     if w.device.type != "cuda":
         raise ValueError(f"unsupported device {w.device}")
     K, S = w.shape
@@ -149,7 +149,8 @@ def aggregate_batched_q(w, own, q, scales, mask, own_mask, eps):
     if K > 65535 or max(R, S) >= 2**31:
         raise ValueError(f"shape {(K, R, S)} exceeds the kernel's grid")
     if w.device.type == "cpu":
-        return ipls_aggregate_batched_q_ref(w, own, q, scales, mask, own_mask, eps)
+        return plain("ipls_aggregate_batched_q", ipls_aggregate_batched_q_ref, w, own, q,
+                     scales, mask, own_mask, eps)
     if w.device.type != "cuda":
         raise ValueError(f"unsupported device {w.device}")
     out = torch.empty_like(w)

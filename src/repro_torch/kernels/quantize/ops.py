@@ -13,7 +13,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import build_library, count_launch, launch
+from repro_torch.kernels._build import build_library, count_launch, launch, plain
 from repro_torch.kernels.quantize import ref
 from repro_torch.kernels.quantize.ref import num_blocks
 
@@ -57,7 +57,7 @@ def quantize(x: torch.Tensor, err: torch.Tensor):
     if err.shape != x.shape:
         raise ValueError(f"err must be {tuple(x.shape)}, got {tuple(err.shape)}")
     if x.device.type == "cpu":
-        return ref.quantize(x, err)
+        return plain("quantize", ref.quantize, x, err)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     lib = build()
@@ -82,7 +82,7 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
             f"scales must have {num_blocks(q.shape[0])} entries, got {scales.shape[0]}"
         )
     if q.device.type == "cpu":
-        return ref.dequantize(q, scales)
+        return plain("dequantize", ref.dequantize, q, scales)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     lib = build()

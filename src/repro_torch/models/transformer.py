@@ -154,6 +154,7 @@ def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
     """sqrt(d_model) rounded to ``dtype``, as a host float: the reference
     multiplies by ``jnp.asarray(sqrt(d), x.dtype)``. Computed once per
     dtype, so that no step reads a tensor's value on the host."""
+    # repro: noqa[CG01] a CPU tensor, read once per dtype (lru_cache): no device sync
     return float(torch.tensor(math.sqrt(d_model), dtype=dtype))
 
 
